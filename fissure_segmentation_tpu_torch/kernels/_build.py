@@ -1,0 +1,96 @@
+"""Build and load the CUDA kernels (counterpart of ops/_config.py).
+
+At first use every ``csrc/*.cu`` source is compiled by nvcc into one shared
+library with a plain C interface, which is then loaded with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
+         -shared -Xcompiler -fPIC -o _build/libfseg_kernels_<hash>.so csrc/*.cu
+
+The library name carries a hash of the sources and flags, so an edited
+source is never served from a stale build. `-fmad=false` keeps nvcc from
+contracting a*b+c into an FMA anywhere: the kernels must round every
+operation exactly like their plain PyTorch versions (see kernels/knn.py).
+No header of PyTorch is included, so a build takes seconds.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_HERE, "csrc")
+_BUILD_DIR = os.path.join(_HERE, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused the sources."""
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise KernelBuildError(
+            f"nvcc not found (looked in {cand} and on PATH)")
+    return found
+
+
+def _lib_path(srcs: list[str]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(f.read())
+    return os.path.join(_BUILD_DIR, f"libfseg_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the sources unless a build of exactly these sources exists;
+    return the library path. Raises KernelBuildError with nvcc's stderr."""
+    srcs = sources()
+    if not srcs:
+        raise KernelBuildError(f"no CUDA sources under {_CSRC}")
+    path = _lib_path(srcs)
+    if os.path.exists(path):
+        return path
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise KernelBuildError(
+            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}")
+    os.replace(tmp, path)  # atomic: concurrent builders race safely
+    return path
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            vp, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.fseg_knn_f32.restype = i32
+            lib.fseg_knn_f32.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
+            _lib = lib
+        return _lib

@@ -1,0 +1,3 @@
+from .dgcnn import DGCNNSeg, EdgeConv  # noqa: F401
+from .ensemble import build_subsets, ensemble_predict  # noqa: F401
+from .weights import load_jax_variables  # noqa: F401

@@ -1,0 +1,86 @@
+"""DGCNN point segmentation with a static kNN graph (counterpart of
+models/dgcnn.py:EdgeConv and DGCNNSeg), eval mode, float32.
+
+Static graph: one kNN over the coordinate channels without self-loop
+(`ops/knn.py:knn`, which launches K1 for CUDA tensors), shared by all three
+EdgeConvs. Edge features concat([x_j - x_i, x_i]) -> shared MLP -> max over
+k; seg head: 3x EdgeConv(64) -> 1024-d global max -> MLP(256, 256, 128, C).
+
+Not ported yet (each raises NotImplementedError): the dynamic feature-space
+graph (`dynamic=True`, the JAX default — here the default is the static
+graph the serving path uses), the spatial transformer, the image-feature
+module, approximate kNN (`knn_recall`) and bf16 compute (`dtype`).
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from ..ops.knn import knn
+from .blocks import EdgeMLP, SharedMLP
+
+
+class EdgeConv(nn.Module):
+    """EdgeConv block over a given neighbor graph."""
+
+    def __init__(self, in_features: int, features: Sequence[int],
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.EdgeMLP_0 = EdgeMLP(in_features, features[0], generator=generator)
+        for i, (fin, fout) in enumerate(zip(features[:-1], features[1:])):
+            setattr(self, f"SharedMLP_{i}",
+                    SharedMLP(fin, fout, generator=generator))
+        self.n_shared = len(features) - 1
+
+    def forward(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        e = self.EdgeMLP_0(x, idx)
+        for i in range(self.n_shared):
+            e = getattr(self, f"SharedMLP_{i}")(e)
+        return e.amax(dim=-2)  # max over neighbors -> (B, N, C')
+
+
+class DGCNNSeg(nn.Module):
+    """Point segmentation DGCNN; (B, N, in_features) -> (B, N, C) logits."""
+
+    def __init__(self, k: int, in_features: int, num_classes: int,
+                 spatial_transformer: bool = False, dynamic: bool = False,
+                 image_feat_module: bool = False, dtype=None,
+                 knn_recall: float | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        unported = {"dynamic": dynamic,
+                    "spatial_transformer": spatial_transformer,
+                    "image_feat_module": image_feat_module,
+                    "knn_recall": knn_recall is not None,
+                    "dtype": dtype not in (None, torch.float32)}
+        for name, on in unported.items():
+            if on:
+                raise NotImplementedError(f"DGCNNSeg({name}=...) is not "
+                                          "ported yet")
+        self.k = k
+        g = generator
+        self.EdgeConv_0 = EdgeConv(in_features, [64, 64], generator=g)
+        self.EdgeConv_1 = EdgeConv(64, [64], generator=g)
+        self.EdgeConv_2 = EdgeConv(64, [64], generator=g)
+        self.SharedMLP_0 = SharedMLP(192, 1024, generator=g)
+        self.SharedMLP_1 = SharedMLP(192 + 1024, 256, generator=g)
+        self.SharedMLP_2 = SharedMLP(256, 256, generator=g)
+        self.SharedMLP_3 = SharedMLP(256, 128, generator=g)
+        self.SharedMLP_4 = SharedMLP(128, num_classes, last_layer=True,
+                                     generator=g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        graph = knn(x[..., :3], self.k, self_loop=False)
+        x1 = self.EdgeConv_0(x, graph)
+        x2 = self.EdgeConv_1(x1, graph)
+        x3 = self.EdgeConv_2(x2, graph)
+        multi = torch.cat([x1, x2, x3], dim=-1)
+        g = self.SharedMLP_0(multi).amax(dim=-2, keepdim=True)
+        h = torch.cat([multi, g.expand(*multi.shape[:-1], g.shape[-1])],
+                      dim=-1)
+        h = self.SharedMLP_1(h)
+        h = self.SharedMLP_2(h)
+        h = self.SharedMLP_3(h)
+        return self.SharedMLP_4(h)
