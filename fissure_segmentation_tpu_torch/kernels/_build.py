@@ -1,10 +1,13 @@
 """Build and load the CUDA kernels (counterpart of ops/_config.py).
 
-At first use every ``csrc/*.cu`` source is compiled by nvcc into one shared
-library with a plain C interface, which is then loaded with ctypes:
+At first use every ``csrc/*.cu`` source is compiled by its own nvcc, all
+started together, and the objects are linked into one shared library with a
+plain C interface, which is then loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC -o _build/libfseg_kernels_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -c -o <tmp>/<source>.o csrc/<source>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o _build/libfseg_kernels_<hash>.so <tmp>/*.o
 
 The library name carries a hash of the sources and flags, so an edited
 source is never served from a stale build. `-fmad=false` keeps nvcc from
@@ -26,8 +29,9 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD_DIR = os.path.join(_HERE, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -71,15 +75,35 @@ def build() -> str:
     if os.path.exists(path):
         return path
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}")
-    os.replace(tmp, path)  # atomic: concurrent builders race safely
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, os.path.basename(src) + ".o")
+                for src in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                for src, obj in zip(srcs, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds]
+        try:
+            errs = [proc.communicate(timeout=600)[1] for proc in procs]
+        finally:
+            for proc in procs:  # a timeout leaves the others running
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for cmd, proc, err in zip(cmds, procs, errs):
+            if proc.returncode != 0:
+                raise KernelBuildError(f"nvcc failed ({proc.returncode}): "
+                                       f"{' '.join(cmd)}\n{err}")
+        tmp = os.path.join(tmpdir, "lib.so")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=600)
+        if res.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+                f"{res.stderr}")
+        os.replace(tmp, path)  # atomic: concurrent builders race safely
     return path
 
 
@@ -89,8 +113,17 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            vp, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.fseg_knn_f32.restype = i32
-            lib.fseg_knn_f32.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
+            vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            signatures = {
+                "fseg_knn_f32": [vp, vp, vp, i32, i32, i32, i32, vp],
+                "fseg_scatter_rows": [vp, vp, vp, vp, i64, i32, i32, vp],
+                "fseg_scatter_routed": [vp, vp, vp, vp, vp, vp, i64, i32,
+                                        i32, i32, vp],
+                "fseg_scatter_count": [vp, vp, vp, i32, i64, i32, vp],
+            }
+            for name, argtypes in signatures.items():
+                fn = getattr(lib, name)
+                fn.restype = i32
+                fn.argtypes = argtypes
             _lib = lib
         return _lib

@@ -1,0 +1,3 @@
+from .registry import get_loss_fn  # noqa: F401
+from .segmentation import (batch_recall_loss, cross_entropy,  # noqa: F401
+                           generalized_dice_loss, nnu_loss)

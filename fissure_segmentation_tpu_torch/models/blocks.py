@@ -1,14 +1,14 @@
-"""Point-wise building blocks (counterpart of models/blocks.py), eval mode.
+"""Point-wise building blocks (counterpart of models/blocks.py).
 
 Submodules and parameters carry the JAX package's module names (`Dense_0`, `BatchNorm_0`,
 `kernel`, `scale`, ...) so that models/weights.py can map a JAX variable
 tree onto them one to one. Dense layers are `nn.Linear` (weight = the JAX
 Dense kernel transposed); initialization is xavier-normal weights and zero biases,
-like the JAX package.
+like the JAX package. `.train()` / `.eval()` switch BatchNorm between batch
+and running statistics, as flax's `train` argument does.
 
-Not ported: the fused variants `FusedEdgeMLPMax` and `FusedEdgeTail`. They
-are performance rewrites with the same parameter tree, and in eval mode they
-reach no kernel.
+Not ported: `FusedEdgeTail`. It reaches no kernel and computes the same
+function as the unfused tail (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.edge import edge_mlp_pre_gather
+from ..ops.fused_edge import fused_edge_eval, fused_edge_train
 
 
 def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
@@ -25,8 +26,17 @@ def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """Running-statistics BatchNorm over the last axis, computed the way
-    the JAX package's BatchNorm does: ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+    """BatchNorm over the last axis with flax semantics.
+
+    Training: statistics in float32 over every axis but the last, fast
+    variance E[x^2] - E[x]^2 clipped at 0, normalization with that (biased)
+    batch variance, and the running update ``ra = 0.9 ra + 0.1 batch`` with
+    the same biased variance (torch's own BatchNorm would store the unbiased
+    one). Eval: the running statistics. Both compute
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` like flax.
+    """
+
+    momentum = 0.9  # flax's; torch's BatchNorm(momentum=0.1)
 
     def __init__(self, features: int, epsilon: float = 1e-5):
         super().__init__()
@@ -36,12 +46,25 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Fold batch statistics into the running ones (no gradient)."""
+        with torch.no_grad():
+            self.mean.copy_(self.momentum * self.mean
+                            + (1.0 - self.momentum) * mean)
+            self.var.copy_(self.momentum * self.var
+                           + (1.0 - self.momentum) * var)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError("training-mode BatchNorm is not ported "
-                                      "yet; call .eval() on the model")
-        mul = torch.rsqrt(self.var + self.epsilon) * self.scale
-        return (x - self.mean) * mul + self.bias
+            xf = x.to(torch.float32)
+            axes = tuple(range(x.ndim - 1))
+            mean = xf.mean(axes)
+            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            self.update_running(mean, var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        return ((x - mean) * mul + self.bias).to(x.dtype)
 
 
 def _dense(fin: int, fout: int, bias: bool,
@@ -67,9 +90,34 @@ class EdgeMLP(nn.Module):
         nn.init.xavier_normal_(self.kernel, generator=generator)
         self.BatchNorm_0 = BatchNorm(features)
 
-    def forward(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    def edge_responses(self, x: torch.Tensor,
+                       idx: torch.Tensor) -> torch.Tensor:
+        """(..., N, C), (..., N, k) -> (..., N, k, F) activated edges."""
         z = edge_mlp_pre_gather(x, idx, self.kernel)
         return leaky_relu(self.BatchNorm_0(z), self.negative_slope)
+
+
+class FusedEdgeMLPMax(EdgeMLP):
+    """Single-layer EdgeConv (EdgeMLP + max over k) through the fused core
+    (ops/fused_edge.py; backward K3 + K4). It is an EdgeMLP — the same
+    `kernel` and `BatchNorm_0` parameters and buffers — so a JAX tree loads
+    unchanged, and `edge_responses` still gives the unfused route on the
+    same weights (models/blocks.py:54-89)."""
+
+    def forward(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """(B, N, C), (B, N, k) -> (B, N, F), the max over k."""
+        c = x.shape[-1]
+        w = self.kernel
+        a = x @ w[:c]
+        cen = x @ (w[c:] - w[:c])
+        bn = self.BatchNorm_0
+        if self.training:
+            out, mean, var = fused_edge_train(a, cen, bn.scale, bn.bias, idx,
+                                              bn.epsilon, self.negative_slope)
+            bn.update_running(mean, var)
+            return out
+        return fused_edge_eval(a, cen, bn.scale, bn.bias, bn.mean, bn.var,
+                               idx, bn.epsilon, self.negative_slope)
 
 
 class SharedMLP(nn.Module):

@@ -1,10 +1,15 @@
 """DGCNN point segmentation with a static kNN graph (counterpart of
-models/dgcnn.py:EdgeConv and DGCNNSeg), eval mode, float32.
+models/dgcnn.py:EdgeConv and DGCNNSeg), float32; `.train()` for the train
+step, `.eval()` for inference.
 
 Static graph: one kNN over the coordinate channels without self-loop
 (`ops/knn.py:knn`, which launches K1 for CUDA tensors), shared by all three
 EdgeConvs. Edge features concat([x_j - x_i, x_i]) -> shared MLP -> max over
 k; seg head: 3x EdgeConv(64) -> 1024-d global max -> MLP(256, 256, 128, C).
+A single-layer EdgeConv runs the fused core (`FusedEdgeMLPMax`, backward
+K3 + K4) when `fused_edge_enabled` says so at the call; otherwise the
+gather's backward is K2. Both maxima over k and over points are `amax`,
+which splits the gradient among ties like `jnp.max`.
 
 Not ported yet (each raises NotImplementedError): the dynamic feature-space
 graph (`dynamic=True`, the JAX default — here the default is the static
@@ -19,7 +24,8 @@ import torch
 from torch import nn
 
 from ..ops.knn import knn
-from .blocks import EdgeMLP, SharedMLP
+from ..ops.fused_edge import fused_edge_enabled
+from .blocks import EdgeMLP, FusedEdgeMLPMax, SharedMLP
 
 
 class EdgeConv(nn.Module):
@@ -28,14 +34,17 @@ class EdgeConv(nn.Module):
     def __init__(self, in_features: int, features: Sequence[int],
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.EdgeMLP_0 = EdgeMLP(in_features, features[0], generator=generator)
+        mlp = FusedEdgeMLPMax if len(features) == 1 else EdgeMLP
+        self.EdgeMLP_0 = mlp(in_features, features[0], generator=generator)
         for i, (fin, fout) in enumerate(zip(features[:-1], features[1:])):
             setattr(self, f"SharedMLP_{i}",
                     SharedMLP(fin, fout, generator=generator))
         self.n_shared = len(features) - 1
 
     def forward(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        e = self.EdgeMLP_0(x, idx)
+        if self.n_shared == 0 and fused_edge_enabled(x.device):
+            return self.EdgeMLP_0(x, idx)
+        e = self.EdgeMLP_0.edge_responses(x, idx)
         for i in range(self.n_shared):
             e = getattr(self, f"SharedMLP_{i}")(e)
         return e.amax(dim=-2)  # max over neighbors -> (B, N, C')
@@ -60,6 +69,8 @@ class DGCNNSeg(nn.Module):
                 raise NotImplementedError(f"DGCNNSeg({name}=...) is not "
                                           "ported yet")
         self.k = k
+        self.config = dict(k=k, in_features=in_features,
+                           num_classes=num_classes, dynamic=False)
         g = generator
         self.EdgeConv_0 = EdgeConv(in_features, [64, 64], generator=g)
         self.EdgeConv_1 = EdgeConv(64, [64], generator=g)

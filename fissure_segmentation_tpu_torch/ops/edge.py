@@ -1,25 +1,53 @@
 """Neighbor gathering and the EdgeConv first-layer fission (counterpart of
-ops/edge.py, forward only).
+ops/edge.py).
 
 Layout is channel-last: features (..., N, C), neighbor indices (..., N, k),
-gathered neighbors (..., N, k, C).
+gathered neighbors (..., N, k, C). The gather is an autograd Function
+(`_GatherRows`, the counterpart of `_gather_rows`): its backward is the
+scatter-add K2 (kernels/scatter.py:scatter_rows), which launches the CUDA
+kernel for CUDA tensors and runs its plain version for CPU tensors.
 """
 from __future__ import annotations
 
 import torch
 
+from ..kernels.scatter import scatter_rows
+
+
+def _flat_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(B, N, C), (B, N, k) -> (B, N, k, C) as one flat row gather into the
+    (B*N, C) matrix."""
+    b, n, c = x.shape
+    k = idx.shape[-1]
+    offs = (torch.arange(b, device=x.device) * n)[:, None, None]
+    flat = (idx.to(torch.int64) + offs).reshape(-1)
+    return x.reshape(b * n, c).index_select(0, flat).reshape(b, n, k, c)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Flat neighbour gather; backward = K2 with float32 accumulation, cast
+    back to the payload dtype (ops/edge.py:64-104). idx gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        return _flat_gather(x, idx)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (idx,) = ctx.saved_tensors
+        b, n, k, c = ct.shape
+        dx = scatter_rows(idx.reshape(b, n * k).to(torch.int32).contiguous(),
+                          ct.reshape(b, n * k, c).contiguous(), n)
+        return dx.to(ct.dtype), None
+
 
 def gather_neighbors(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(..., N, C) features, (..., N, k) indices -> (..., N, k, C), issued
-    as one flat row gather into the (B*N, C) matrix."""
+    """(..., N, C) features, (..., N, k) indices -> (..., N, k, C)."""
     n, c = x.shape[-2:]
     k = idx.shape[-1]
     lead = x.shape[:-2]
-    xf = x.reshape(-1, n, c)
-    idxf = idx.reshape(-1, n, k).to(torch.int64)
-    offs = (torch.arange(xf.shape[0], device=x.device) * n)[:, None, None]
-    flat = (idxf + offs).reshape(-1)
-    out = xf.reshape(-1, c).index_select(0, flat)
+    out = _GatherRows.apply(x.reshape(-1, n, c), idx.reshape(-1, n, k))
     return out.reshape(*lead, n, k, c)
 
 

@@ -2,7 +2,7 @@
 
 Run from the repository root on the card's machine:
 
-    python scripts/prof/prof_torch_serving.py [--cases 3] [--trace PATH]
+    python scripts/prof/prof_torch_serving.py [--cases 3] [--ab 0] [--trace PATH]
 
 Prints, for the full-size chip_smoke.py case (synthetic 256^3 CT, DGCNNSeg
 k=40 with seeded weights and the bench-style class bias, segment_case
@@ -15,7 +15,13 @@ defaults):
   * a torch.profiler table of one warm case: device time per kernel, and
     the summed kernel time against the unstaged median (the device's busy
     share);
-  * K1's device time per launch at the two path shapes, from the profiler.
+  * K1's device time per launch at the two path shapes, from the profiler;
+  * with --ab N, the eval EdgeConv routings against each other
+    (FSEG_FUSED_EDGE=0: gather -> BatchNorm -> LeakyReLU -> max over k;
+    =1: fused_edge_eval, max/min over k -> pointwise tail): N pairs in
+    alternating order, each pair on the same subsets, of the ensemble
+    stage timed with CUDA events and of whole cases on the host clock,
+    plus the summed kernel time of one profiled ensemble stage per routing.
 """
 from __future__ import annotations
 
@@ -94,9 +100,60 @@ def staged_case(vol, mask, apply, seed):
     return t
 
 
+def routing_ab(vol, mask, apply, full, pairs: int, card: str) -> None:
+    """Unfused against fused eval EdgeConvs in the ensemble and the case."""
+    with torch.no_grad():
+        kpts, valid, _ = foerstner_keypoints(vol, mask, sigma=0.5, d=5,
+                                             thresh=1e-8, max_kpts=20000)
+        coords = torch.where(valid[:, None],
+                             kpts_to_grid(kpts.flip(-1).float(), vol.shape),
+                             -1.0)
+
+    def stage(seed):
+        return ensemble_predict(apply, coords,
+                                generator=torch.Generator().manual_seed(seed))
+    names = {"0": "unfused", "1": "fused"}
+    ev = {r: [] for r in names}
+    wall = {r: [] for r in names}
+    for r in names:  # warm both routings
+        os.environ["FSEG_FUSED_EDGE"] = r
+        stage(0)
+    for p in range(pairs):
+        for r in (("0", "1") if p % 2 == 0 else ("1", "0")):
+            os.environ["FSEG_FUSED_EDGE"] = r
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            stage(100 + p)
+            b.record()
+            torch.cuda.synchronize()
+            ev[r].append(a.elapsed_time(b))
+            t0 = time.perf_counter()
+            full(200 + p)
+            wall[r].append(time.perf_counter() - t0)
+    for r, name in names.items():
+        os.environ["FSEG_FUSED_EDGE"] = r
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            stage(1)
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e3
+        print(f"routing {name}: ensemble stage {statistics.median(ev[r]):.3f}"
+              f" ms (CUDA events, median of {pairs}: "
+              f"{[round(t, 3) for t in ev[r]]}), summed kernel time "
+              f"{busy:.3f} ms (profiler, one stage); whole case "
+              f"{statistics.median(wall[r]):.4f} s/case (host clock, median "
+              f"of {pairs}) on {card}", flush=True)
+    os.environ.pop("FSEG_FUSED_EDGE")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cases", type=int, default=3)
+    ap.add_argument("--ab", type=int, default=0,
+                    help="pairs of the unfused/fused eval EdgeConv A/B")
     ap.add_argument("--trace", default=None,
                     help="write the profiler's chrome trace here")
     args = ap.parse_args()
@@ -149,6 +206,8 @@ def main() -> int:
                                     row_limit=25, max_name_column_width=70))
     if args.trace:
         prof.export_chrome_trace(args.trace)
+    if args.ab:
+        routing_ab(vol, mask, apply, full, args.ab, card)
 
     g = torch.Generator().manual_seed(0)
     for name, shape, k, self_loop in (("dgcnn_graph", (5, 2048, 3), 40, False),

@@ -20,6 +20,7 @@ from fissure_segmentation_tpu.models.ensemble import (build_subsets as
 from fissure_segmentation_tpu.models.ensemble import (ensemble_predict as
                                                       jensemble_predict)
 from fissure_segmentation_tpu_torch.models import (DGCNNSeg, ensemble_predict,
+                                                   export_jax_variables,
                                                    load_jax_variables)
 from fissure_segmentation_tpu_torch.models.ensemble import build_subsets
 from fissure_segmentation_tpu_torch.ops.knn import knn
@@ -85,6 +86,26 @@ def test_load_jax_variables_is_strict():
     wrong["params"]["SharedMLP_4"]["Dense_0"]["bias"] = np.zeros(5, np.float32)
     with pytest.raises(ValueError, match="shape"):
         _port(wrong)
+
+
+def test_export_jax_variables_round_trip():
+    """JAX init -> port -> export gives the original tree back, leaf by
+    leaf and bit for bit, for both routes' module layouts."""
+    jm = JDGCNNSeg(k=6, in_features=4, num_classes=3, dynamic=False)
+    variables = jax.tree_util.tree_map(np.asarray, jm.init(
+        jax.random.PRNGKey(4), jnp.zeros((1, 32, 4), jnp.float32)))
+    tm = load_jax_variables(DGCNNSeg(k=6, in_features=4, num_classes=3),
+                            variables)
+    back = export_jax_variables(tm)
+    assert jax.tree_util.tree_structure(back) == \
+        jax.tree_util.tree_structure(variables)
+    for (path, a), b in zip(
+            jax.tree_util.tree_leaves_with_path(variables),
+            jax.tree_util.tree_leaves(back)):
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        np.testing.assert_array_equal(b, a, err_msg=str(path))
+    with pytest.raises(ValueError, match="no gradient"):
+        export_jax_variables(tm, grad=True)
 
 
 @pytest.mark.parametrize("call", [

@@ -99,7 +99,8 @@ def test_segment_case_slice_matches_jax():
 
 def test_port_runs_without_jax():
     """The port imports no jax: a fresh interpreter runs the CPU path of
-    the whole slice and jax/flax stay unloaded."""
+    the whole serving slice, imports the training entry point, trainer and
+    scatter kernels, and jax/flax stay unloaded."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -116,6 +117,9 @@ def test_port_runs_without_jax():
                            sample_points=64, n_runs_min=3, subset_batch=2,
                            grid_res=(12, 12, 12), k_normals=8)
         assert len(res.kpts) > 0 and res.labelmap.shape == img.shape
+        import fissure_segmentation_tpu_torch.kernels.scatter
+        import fissure_segmentation_tpu_torch.train.trainer
+        import fissure_segmentation_tpu_torch.train_point_seg
         bad = [m for m in ("jax", "flax") if m in sys.modules]
         assert not bad, bad
         print("OK")
