@@ -5,26 +5,36 @@ layout and names so each module's counterpart is easy to find:
 
   kernels/      hand-written CUDA kernels for Hopper (sm_90a), built with
                 nvcc at first use and bound through ctypes: K1 kNN
-                (csrc/knn.cu), K2-K4 the EdgeConv scatters (csrc/scatter.cu);
-                each kernel has a plain PyTorch version beside it, used for
-                CPU tensors
+                (csrc/knn.cu), K2-K4 the EdgeConv scatters (csrc/scatter.cu),
+                K5 farthest-point sampling (csrc/fps.cu); each kernel has a
+                plain PyTorch version beside it, used for CPU tensors
+  native/       the C++ host runtime (connected components, voxelization,
+                dilation), a copy of the JAX package's source, built with g++
+                at first use; no fallback
+  cli/          the entry points' argparse flags (copy of the JAX package's)
   data/         numpy-only synthetic CT and keypoint-cloud cases, the point
                 dataset and splits, the device store with batch sampling and
                 augmentation
-  utils/        separable filters and max-pool NMS on volumes
-  ops/          top-k, kNN, edge gather (backward K2), fused EdgeConv
-                (backward K3 + K4), normals, splatting, spectral PSR,
-                marching tetrahedra
+  utils/        coordinate conventions, separable filters, max-pool NMS
+  ops/          top-k, kNN, FPS (K5), kNN query / grouping / interpolation,
+                edge gather (backward K2), fused EdgeConv (backward K3 + K4),
+                normals, splatting, spectral PSR, marching tetrahedra
   keypoints/    Förstner detector, closed-form 3x3 eigenvalues
-  models/       DGCNNSeg (train and eval), JAX-variable loader and exporter,
-                model.pt save/load, subset ensemble
+  models/       DGCNNSeg and PointTransformerSeg (train and eval), the model
+                registry, JAX-variable loader and exporter, model.pt
+                save/load, subset ensemble
   losses/       CE, generalized Dice, nnU-Net and recall losses
-  train/        ModelTrainer (Adam + L2, schedulers, resume), cross-val
+  train/        ModelTrainer (Adam + L2, schedulers, resume), cross-val, the
+                train-step timing harness
   postprocess/  batched per-class surface fit + host mesh filter/labelmap
   serving.py    segment_case: one CT case -> keypoints, labels, meshes
-  train_point_seg.py  the training entry point (python -m ...)
+  train_point_seg.py  the training entry point (python -m ...;
+                --model DGCNN or PointTransformer)
 
-The package imports torch, numpy and scipy — never jax or its NN libraries. From the JAX
-package it uses only the jax-free modules `native` (C++ connected
-components and voxelization), `utils.coords` and `cli` (argparse flags).
+Devices: segment_case, train_point_seg and ModelTrainer run on a CUDA card
+unless the caller passes device="cpu"; without a card they raise.
+
+The package imports torch, numpy and scipy — never jax, its NN libraries or
+anything of the JAX package: what it needs of a jax-free module there
+(cli, utils/coords.py, native) it keeps as its own copy.
 """

@@ -1,8 +1,7 @@
 """Synthetic CT and keypoint-cloud cases, numpy only (copy of
 data/synthetic.py's image case and point cases).
 
-A copy, not an import: `fissure_segmentation_tpu.data` imports jax in its
-package __init__, and the machine that runs the port has no jax. The
+A copy, not an import: the port imports nothing of the JAX package. The
 functions below are line-for-line copies of data/synthetic.py:36-160,
 :203-259 and :262-269 with their constants, so a seed gives a bit-identical
 case in both packages (pinned by tests/test_torch_keypoints.py and
@@ -12,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from fissure_segmentation_tpu.utils.coords import np_grid_coords
+from ..utils.coords import np_grid_coords
 
 # (center, semi-axes) of the two lungs in normalized [0,1]^3 (x lateral,
 # y ant-post, z cranio-caudal); the subject's RIGHT lung is at small x.

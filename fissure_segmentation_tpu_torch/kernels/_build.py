@@ -116,6 +116,7 @@ def load() -> ctypes.CDLL:
             vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             signatures = {
                 "fseg_knn_f32": [vp, vp, vp, i32, i32, i32, i32, vp],
+                "fseg_fps_f32": [vp, vp, vp, i32, i32, i32, i32, vp],
                 "fseg_scatter_rows": [vp, vp, vp, vp, i64, i32, i32, vp],
                 "fseg_scatter_routed": [vp, vp, vp, vp, vp, vp, i64, i32,
                                         i32, i32, vp],

@@ -1,4 +1,6 @@
+from .access_models import get_point_seg_model_class  # noqa: F401
 from .dgcnn import DGCNNSeg, EdgeConv  # noqa: F401
 from .ensemble import build_subsets, ensemble_predict  # noqa: F401
+from .point_transformer import PointTransformerSeg  # noqa: F401
 from .weights import (export_jax_variables, load_jax_variables,  # noqa: F401
                       load_model, save_model)

@@ -2,7 +2,8 @@
 meshes (counterpart of serving.py:CaseResult and segment_case, Förstner
 mode).
 
-Device half, on the device of the input (or `device=`): Förstner keypoints,
+Device half, on a CUDA card (`case_device`: the input's, or `device=`; the
+CPU only when `device="cpu"` is passed): Förstner keypoints,
 the 50 x 2048-point subset ensemble of the point model, then per-class
 masked-normal spectral PSR and marching tetrahedra. Host half: one fetch of
 keypoints, labels, inside grids and float triangles, then the native C++
@@ -23,6 +24,7 @@ from .keypoints.foerstner import foerstner_keypoints
 from .models.ensemble import ensemble_predict
 from .postprocess.surface_fitting import (_host_mesh_filter, batched_psr_mc,
                                           mesh_to_labelmap)
+from .utils.coords import kpts_to_grid
 
 
 @dataclass
@@ -34,14 +36,18 @@ class CaseResult:
     labelmap: np.ndarray | None   # (D, H, W) uint8, if requested
 
 
-def kpts_to_grid(world_xyz: torch.Tensor, shape) -> torch.Tensor:
-    """utils/coords.py:kpts_to_grid on a tensor (align_corners=False):
-    the same float32 operations in the same order."""
-    d, h, w = shape
-    size = np.array([w, h, d], np.float32)
-    s1 = torch.from_numpy(size - 1).to(world_xyz.device)
-    ratio = torch.from_numpy((size - 1) / size).to(world_xyz.device)
-    return (world_xyz / s1 * 2 - 1) * ratio
+def case_device(vol, device=None) -> torch.device:
+    """Where segment_case's device half runs: `device` if given, else
+    `vol`'s card if `vol` is a CUDA tensor, else the first CUDA card. It is
+    the CPU only when the caller asks for it; without a card it raises."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(vol, torch.Tensor) and vol.is_cuda:
+        return vol.device
+    if not torch.cuda.is_available():
+        raise RuntimeError("segment_case: no CUDA card found; pass "
+                           "device='cpu' to run on the CPU")
+    return torch.device("cuda")
 
 
 @torch.no_grad()
@@ -86,7 +92,9 @@ def segment_case(vol, mask, model: Callable[[torch.Tensor], torch.Tensor],
     :param generator: draws the ensemble subsets (models/ensemble.py)
     :param subsets: optional (R, sample_points) subset indices to use
         instead of a draw
-    :param device: where the device half runs (default: `vol`'s device)
+    :param device: where the device half runs (default: `vol`'s card if
+        it is a CUDA tensor, else the first CUDA card; "cpu" only when
+        asked for — without a card and without `device` it raises)
     :param rights: per-fg-class right-lung flags for component selection
         (default [False, True, True][:num_fg_classes])
     :param center_x: left/right split plane in voxels
@@ -100,8 +108,7 @@ def segment_case(vol, mask, model: Callable[[torch.Tensor], torch.Tensor],
         raise NotImplementedError(f'kp_mode "{kp_mode}" is not ported yet')
     if approx_top_k:
         raise NotImplementedError("approx_top_k is not ported yet")
-    if device is None:
-        device = vol.device if isinstance(vol, torch.Tensor) else "cpu"
+    device = case_device(vol, device)
     vol_t = torch.as_tensor(vol, dtype=torch.float32, device=device)
     mask_t = torch.as_tensor(mask, dtype=torch.bool, device=device)
     grid_res = tuple(grid_res)

@@ -1,22 +1,26 @@
-"""The canonical DGCNNSeg train step on one NVIDIA card: timing harness and
+"""The canonical train steps on one NVIDIA card: timing harness and
 profile.
 
-    python -m fissure_segmentation_tpu_torch.train.profile_step
+    python -m fissure_segmentation_tpu_torch.train.profile_step [--model DGCNN|PointTransformer]
 
-The step is DGCNNSeg(k=40, static), batch 32 x 2048 points of the synthetic
-point cases, f32, NNU loss + Adam with L2 (`canonical_data`, `make_step`);
-`time_steps` times warm steps with the host clock around a sync. chip_smoke.py
-phase 7 times it through these helpers. Run as a script, for each routing
-(FSEG_FUSED_EDGE=0 and 1) it prints:
+The step is DGCNNSeg(k=40, static) or PointTransformerSeg at its full
+width, batch 32 x 2048 points of the synthetic point cases, f32, NNU loss +
+Adam with L2 (`canonical_data`, `make_step`); `time_steps` times warm steps
+with the host clock around a sync. chip_smoke.py phases 7 and 11 time them
+through these helpers. Run as a script it prints, for DGCNN in each routing
+(FSEG_FUSED_EDGE=0 and 1), for PointTransformer once:
   * ms/step (`time_steps` over 10 warm steps);
   * a torch.profiler table of 3 warm steps (device time per kernel) and the
     summed kernel time per step against the timed ms/step (the device's
     busy share);
-  * the device time per step of K1-K4 and of the sorts (the transposed
-    graph that K2 and K3 build, `_transpose`, and the batch sampler's).
+  * the device time per step of the port's kernels (K1-K4 for DGCNN, K5
+    for PointTransformer) and of the sorts (DGCNN: the transposed graph
+    that K2 and K3 build and the batch sampler's; PointTransformer: the
+    stable sorts of `knn_query` and the batch sampler's).
 """
 from __future__ import annotations
 
+import argparse
 import os
 import shutil
 import subprocess
@@ -29,12 +33,15 @@ import torch
 from ..data.dataset import PointDataset
 from ..data.synthetic import make_synthetic_dataset
 from ..losses import get_loss_fn
-from ..models import DGCNNSeg
+from ..models import DGCNNSeg, PointTransformerSeg
 from .trainer import ModelTrainer, TrainConfig
 
-KERNELS = {"K1 knn": "knn_kernel", "K2 scatter_rows": "scatter_rows_kernel",
-           "K3 scatter_routed": "scatter_routed_kernel",
-           "K4 scatter_count": "count_kernel"}
+KERNELS = {
+    "DGCNN": {"K1 knn": "knn_kernel",
+              "K2 scatter_rows": "scatter_rows_kernel",
+              "K3 scatter_routed": "scatter_routed_kernel",
+              "K4 scatter_count": "count_kernel"},
+    "PointTransformer": {"K5 fps": "fps_kernel"}}
 STEPS, BATCH, WARM = 10, 32, 2
 
 
@@ -56,14 +63,22 @@ def canonical_data(device="cuda"):
     return ds, loss_fn
 
 
-def make_step(ds, loss_fn, out_dir: str, device="cuda", batch: int = BATCH):
-    """A fresh DGCNNSeg(k=40, static) from seed 0 and its trainer; returns
-    step() -> (loss, components), one Adam step on a newly sampled batch.
-    The EdgeConv routing is FSEG_FUSED_EDGE's at each call."""
-    model = DGCNNSeg(k=40, in_features=ds.n_features,
-                     num_classes=ds.num_classes,
-                     generator=torch.Generator().manual_seed(0))
-    trainer = ModelTrainer(model, ds, loss_fn, out_dir,
+def make_step(ds, loss_fn, out_dir: str, device="cuda", batch: int = BATCH,
+              model: str = "DGCNN"):
+    """A fresh DGCNNSeg(k=40, static) or PointTransformerSeg (full width)
+    from seed 0 and its trainer; returns step() -> (loss, components), one
+    Adam step on a newly sampled batch. DGCNN's EdgeConv routing is
+    FSEG_FUSED_EDGE's at each call."""
+    gen0 = torch.Generator().manual_seed(0)
+    if model == "DGCNN":
+        net = DGCNNSeg(k=40, in_features=ds.n_features,
+                       num_classes=ds.num_classes, generator=gen0)
+    elif model == "PointTransformer":
+        net = PointTransformerSeg(in_features=ds.n_features,
+                                  num_classes=ds.num_classes, generator=gen0)
+    else:
+        raise ValueError(f"make_step: unknown model {model!r}")
+    trainer = ModelTrainer(net, ds, loss_fn, out_dir,
                            TrainConfig(batch_size=batch), device=device)
     gen = torch.Generator(device=device).manual_seed(1)
 
@@ -87,7 +102,11 @@ def time_steps(step, steps: int = STEPS):
     return ms, torch.cuda.max_memory_allocated(), losses
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="DGCNN",
+                    choices=sorted(KERNELS))
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs an NVIDIA card", file=sys.stderr)
         return 2
@@ -98,10 +117,14 @@ def main() -> int:
     card = card_line()
     ds, loss_fn = canonical_data()
     tmp = tempfile.mkdtemp()
-    for fused in ("0", "1"):
-        os.environ["FSEG_FUSED_EDGE"] = fused
-        name = "fused" if fused == "1" else "unfused"
-        step = make_step(ds, loss_fn, tmp)
+    routings = ("0", "1") if args.model == "DGCNN" else (None,)
+    for fused in routings:
+        if fused is None:
+            name = args.model
+        else:
+            os.environ["FSEG_FUSED_EDGE"] = fused
+            name = "fused" if fused == "1" else "unfused"
+        step = make_step(ds, loss_fn, tmp, model=args.model)
         for _ in range(WARM):
             step()
         ms, _, _ = time_steps(step)
@@ -116,20 +139,18 @@ def main() -> int:
         print(f"{name}: {ms:.2f} ms/step ({BATCH * 1e3 / ms:.1f} "
               f"clouds/s); kernels {busy:.2f} ms/step, busy share "
               f"{busy / ms:.3f} on {card}", flush=True)
-        for label, key in KERNELS.items():
+        for label, key in KERNELS[args.model].items():
             t = sum(e.self_device_time_total for e in avg
                     if e.device_type == DeviceType.CUDA and key in e.key)
             print(f"  {label:18s} {t / 3 / 1e3:.3f} ms/step", flush=True)
         sort = sum(e.self_device_time_total for e in avg
                    if e.device_type == DeviceType.CUDA
-                   and ("RadixSort" in e.key or "radix" in e.key.lower()
-                        or "searchsorted" in e.key.lower()))
-        print(f"  {'sorts':18s} {sort / 3 / 1e3:.3f} ms/step (radix sort + "
-              "searchsorted: the K2/K3 transposes and the batch sampler)",
-              flush=True)
+                   and "sort" in e.key.lower())
+        print(f"  {'sorts':18s} {sort / 3 / 1e3:.3f} ms/step (every kernel "
+              "named *sort*, searchsorted included)", flush=True)
         print(avg.table(sort_by="self_device_time_total", row_limit=22,
                         max_name_column_width=60), flush=True)
-    os.environ.pop("FSEG_FUSED_EDGE")
+    os.environ.pop("FSEG_FUSED_EDGE", None)
     shutil.rmtree(tmp)
     return 0
 

@@ -96,8 +96,14 @@ class ModelTrainer:
             sampled from its store on `device` (`self.batch_fn(generator,
             case_idx, train) -> (x, y)`)
         :param loss_fn: ``loss_fn(logits, y) -> (loss, components)``
+        :param device: where to train (default: the first CUDA card; the
+            CPU only when ``device="cpu"`` is passed — without a card and
+            without `device` it raises)
         """
-        self.device = torch.device("cpu" if device is None else device)
+        if device is None and not torch.cuda.is_available():
+            raise RuntimeError("ModelTrainer: no CUDA card found; pass "
+                               "device='cpu' to train on the CPU")
+        self.device = torch.device("cuda" if device is None else device)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
         self.out_dir = out_dir

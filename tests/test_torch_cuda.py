@@ -1,5 +1,5 @@
-"""The kernels on the card (K1 kNN, K2-K4 scatter) against their plain
-PyTorch versions.
+"""The kernels on the card (K1 kNN, K2-K4 scatter, K5 farthest-point
+sampling) against their plain PyTorch versions.
 
 These tests need an NVIDIA card and skip elsewhere. The repository's
 tests/conftest.py imports jax, which the card's machine does not have, so
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from fissure_segmentation_tpu_torch.kernels import scatter as ks
+from fissure_segmentation_tpu_torch.kernels.fps import fps_cuda, fps_plain
 from fissure_segmentation_tpu_torch.kernels.knn import knn_cuda, knn_plain
 
 pytestmark = pytest.mark.cuda
@@ -173,3 +174,48 @@ def test_scatter_kernels_drop_out_of_range_and_check_inputs(cuda):
     with pytest.raises(ValueError, match="different devices"):
         ks.scatter_rows(idx.cpu(), g, 64)
     assert ks.scatter_rows.launches == before
+
+
+# ---- K5 ---------------------------------------------------------------------
+
+FPS_CASES = [
+    # (B, N, C, m, valid share, maker): the PointTransformer train step's
+    # four TransitionDowns, a served ensemble group, DSEG-AE's masked shape,
+    # ragged N, ties, C = 4
+    (32, 2048, 3, 512, 1.0, _uniform),
+    (32, 512, 3, 128, 1.0, _uniform),
+    (32, 128, 3, 32, 1.0, _uniform),
+    (32, 32, 3, 8, 1.0, _uniform),
+    (5, 2048, 3, 512, 1.0, _uniform),
+    (1, 20000, 3, 1024, 0.35, _uniform),
+    (3, 1000, 3, 250, 0.8, _uniform),
+    (2, 4096, 3, 300, 1.0, _lattice),
+    (2, 700, 4, 100, 0.6, _uniform),
+]
+
+
+@pytest.mark.parametrize("b,n,c,m,share,make", FPS_CASES)
+def test_fps_kernel_equals_plain(cuda, b, n, c, m, share, make):
+    """Bit-equal indices (tolerance 0, ties included)."""
+    x = make((b, n, c), b * n + m).to(cuda)
+    valid = None
+    if share < 1.0:
+        g = torch.Generator().manual_seed(m)
+        valid = (torch.rand((b, n), generator=g) < share).to(cuda)
+    before = fps_cuda.launches
+    got = fps_cuda(x, m, valid)
+    torch.cuda.synchronize()
+    assert fps_cuda.launches == before + 1
+    want = fps_plain(x, m, valid)
+    assert got.shape == (b, m) and got.dtype == torch.int32
+    assert torch.equal(got, want)
+
+
+def test_fps_kernel_few_and_no_valid_points(cuda):
+    """Fewer valid points than m repeat; a row with none gives zeros."""
+    x = _uniform((2, 300, 3), 5).to(cuda)
+    valid = torch.zeros((2, 300), dtype=torch.bool, device=cuda)
+    valid[0, [7, 99, 250]] = True
+    got = fps_cuda(x, 10, valid)
+    assert torch.equal(got, fps_plain(x, 10, valid))
+    assert set(got[0].tolist()) == {7, 99, 250} and not got[1].any()

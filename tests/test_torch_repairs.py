@@ -1,0 +1,138 @@
+"""The port's own copies of the JAX package's jax-free modules (cli,
+utils/coords.py, the native C++ host runtime) against the originals, and the
+rule that the port's entry points run on a CUDA card unless the caller asks
+for the CPU.
+
+Tolerances: none. The copies must give equal namespaces, equal arrays and
+equal grids.
+"""
+import numpy as np
+import pytest
+import torch
+
+from fissure_segmentation_tpu import cli as jcli
+from fissure_segmentation_tpu import native as jnative
+from fissure_segmentation_tpu.utils import coords as jcoords
+from fissure_segmentation_tpu_torch import cli, native, train_point_seg
+from fissure_segmentation_tpu_torch.data import synthetic
+from fissure_segmentation_tpu_torch.data.dataset import PointDataset
+from fissure_segmentation_tpu_torch.losses import get_loss_fn
+from fissure_segmentation_tpu_torch.models import DGCNNSeg
+from fissure_segmentation_tpu_torch.serving import segment_case
+from fissure_segmentation_tpu_torch.train.trainer import ModelTrainer
+from fissure_segmentation_tpu_torch.utils import coords
+
+PARSERS = ["get_dgcnn_train_parser", "get_point_segmentation_parser",
+           "get_dpsr_train_parser", "get_seg_cnn_train_parser",
+           "get_dgcnn_ssm_train_parser", "get_pc_ae_train_parser",
+           "get_ae_reg_parser", "get_generic_parser"]
+ARGV = [[], ["--epochs", "7", "--lr", "0.01", "--batch", "3", "--output",
+             "somewhere", "--amp", "false", "--static", "--fold", "2",
+             "--gpu", "1", "--ds", "synthetic"]]
+EXTRA = {"get_ae_reg_parser": ["--seg_dir", "s", "--ae_dir", "a"],
+         "get_point_segmentation_parser": ["--model", "PointTransformer"]}
+
+
+@pytest.mark.parametrize("name", PARSERS)
+def test_cli_copy_parses_like_the_original(name):
+    args = ("point segmentation",) if name == "get_generic_parser" else ()
+    for argv in ARGV:
+        argv = argv + EXTRA.get(name, [])
+        ours = getattr(cli, name)(*args).parse_known_args(argv)
+        theirs = getattr(jcli, name)(*args).parse_known_args(argv)
+        assert ours == theirs, (name, argv)
+
+
+def test_cli_store_and_load_args_copy(tmp_path):
+    args = cli.get_point_segmentation_parser().parse_args(ARGV[1])
+    cli.store_args(args, str(tmp_path))
+    assert cli.load_args(str(tmp_path)) == jcli.load_args(str(tmp_path))
+    override = cli.get_point_segmentation_parser().parse_args(
+        ["--test_only", "--fold", "4"])
+    assert cli.load_args_for_testing(str(tmp_path), override) == \
+        jcli.load_args_for_testing(str(tmp_path), override)
+
+
+def test_coords_copy_equals_original():
+    rng = np.random.default_rng(0)
+    shape = (40, 31, 57)
+    world = rng.uniform(-2, 60, (100, 3)).astype(np.float32)
+    for align in (None, True, False):
+        g = coords.kpts_to_grid(world, shape, align)
+        np.testing.assert_array_equal(g, jcoords.kpts_to_grid(world, shape,
+                                                              align))
+        np.testing.assert_array_equal(
+            coords.kpts_to_world(g, shape, align),
+            jcoords.kpts_to_world(g, shape, align))
+        # a tensor gives the same float32 numbers
+        np.testing.assert_array_equal(
+            coords.kpts_to_grid(torch.from_numpy(world), shape, align).numpy(),
+            g)
+    np.testing.assert_array_equal(coords.np_grid_coords(world, shape),
+                                  jcoords.np_grid_coords(world, shape))
+
+
+def test_native_copy_equals_original():
+    """cc_label_3d, cc_stats, voxelize_triangles and binary_dilate_3d of
+    the port's build against the JAX package's native runtime."""
+    assert jnative.available()
+    rng = np.random.default_rng(1)
+    grid = rng.random((20, 18, 22)) < 0.3
+    labels, n = native.cc_label_3d(grid)
+    want_labels, want_n = jnative.cc_label_3d(grid)
+    assert n == want_n > 1
+    np.testing.assert_array_equal(labels, want_labels)
+    for got, want in zip(native.cc_stats(labels, n),
+                         jnative.cc_stats(want_labels, want_n)):
+        np.testing.assert_array_equal(got, want)
+    tris = rng.uniform(0, 20, (50, 3, 3)).astype(np.float32)
+    valid = rng.random(50) < 0.8
+    np.testing.assert_array_equal(
+        native.voxelize_triangles(tris, valid, (22, 21, 23), 3),
+        jnative.voxelize_triangles(tris, valid, (22, 21, 23), 3))
+    for iters in (0, 1, 3):
+        np.testing.assert_array_equal(native.binary_dilate_3d(grid, iters),
+                                      jnative.binary_dilate_3d(grid, iters))
+
+
+def test_native_build_is_cached_by_content():
+    path = native.build()
+    assert path == native.build() and "_build" in path
+    assert native.load() is native.load()
+
+
+# ---- entry points need a card unless the caller asks for the CPU -------------
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_segment_case_raises_without_card(no_card):
+    vol = np.zeros((8, 8, 8), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        segment_case(vol, np.ones(vol.shape, bool), lambda x: x)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        segment_case(torch.from_numpy(vol), np.ones(vol.shape, bool),
+                     lambda x: x)
+
+
+def test_train_point_seg_raises_without_card(no_card, tmp_path):
+    out = tmp_path / "run"
+    argv = ["--model", "PointTransformer", "--train_only", "--output",
+            str(out)]
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        train_point_seg.main(argv)
+    assert not out.exists()            # raised before writing anything
+
+
+def test_model_trainer_raises_without_card(no_card, tmp_path):
+    ds = PointDataset(synthetic.make_synthetic_dataset(3, n_points=100),
+                      sample_points=32)
+    model = DGCNNSeg(k=4, in_features=ds.n_features,
+                     num_classes=ds.num_classes)
+    loss_fn = get_loss_fn("nnunet", torch.ones(ds.num_classes))
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ModelTrainer(model, ds, loss_fn, str(tmp_path))
+    assert ModelTrainer(model, ds, loss_fn, str(tmp_path),
+                        device="cpu").device == torch.device("cpu")

@@ -82,7 +82,7 @@ def test_segment_case_slice_matches_jax():
     subsets = np.array(build_subsets(key, CFG["max_kpts"],
                                      CFG["sample_points"], CFG["n_runs_min"]))
     rt = segment_case(img, mask, tapply, subsets=torch.from_numpy(subsets),
-                      center_x=SHAPE[2] / 2, **CFG)
+                      center_x=SHAPE[2] / 2, device="cpu", **CFG)
 
     np.testing.assert_array_equal(rt.kpts, rj.kpts)
     np.testing.assert_array_equal(rt.labels, rj.labels)
@@ -97,14 +97,32 @@ def test_segment_case_slice_matches_jax():
         assert 2 * (a & b).sum() / (a.sum() + b.sum()) >= 0.9, c
 
 
+def _port_modules():
+    """Every module of the port, by dotted name."""
+    root = os.path.join(REPO, "fissure_segmentation_tpu_torch")
+    names = []
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), REPO)[:-3]
+                names.append(rel.replace(os.sep, ".").replace(".__init__",
+                                                               ""))
+    return sorted(names)
+
+
 def test_port_runs_without_jax():
-    """The port imports no jax: a fresh interpreter runs the CPU path of
-    the whole serving slice, imports the training entry point, trainer and
-    scatter kernels, and jax/flax stay unloaded."""
-    code = textwrap.dedent("""
+    """The port imports nothing of JAX or the JAX package: a fresh
+    interpreter imports every module of the port and chip_smoke (without
+    running it), runs the CPU path of the whole serving slice, and then
+    neither jax, flax nor fissure_segmentation_tpu (or any of its modules)
+    is loaded."""
+    code = textwrap.dedent(f"""
+        import importlib
         import sys
         import numpy as np
         import torch
+        for name in {_port_modules()!r} + ["chip_smoke"]:
+            importlib.import_module(name)
         from fissure_segmentation_tpu_torch.models import DGCNNSeg
         from fissure_segmentation_tpu_torch.serving import segment_case
         rng = np.random.default_rng(0)
@@ -115,12 +133,12 @@ def test_port_runs_without_jax():
         res = segment_case(img, np.ones(img.shape, bool), model,
                            torch.Generator().manual_seed(1), max_kpts=300,
                            sample_points=64, n_runs_min=3, subset_batch=2,
-                           grid_res=(12, 12, 12), k_normals=8)
+                           grid_res=(12, 12, 12), k_normals=8, device="cpu")
         assert len(res.kpts) > 0 and res.labelmap.shape == img.shape
-        import fissure_segmentation_tpu_torch.kernels.scatter
-        import fissure_segmentation_tpu_torch.train.trainer
-        import fissure_segmentation_tpu_torch.train_point_seg
-        bad = [m for m in ("jax", "flax") if m in sys.modules]
+        bad = [m for m in sys.modules
+               if m in ("jax", "flax") or m.startswith(("jax.", "flax."))
+               or m == "fissure_segmentation_tpu"
+               or m.startswith("fissure_segmentation_tpu.")]
         assert not bad, bad
         print("OK")
         """)
@@ -128,3 +146,4 @@ def test_port_runs_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip() == "OK", out.stderr
+    assert len(_port_modules()) > 40
