@@ -62,11 +62,25 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      FPS and kNN selection recorded on both sides; FPS equal; an input
      whose kNN selections differ is set aside; on the first agreeing input
      the loss, running statistics, gradients and updated parameters are
-     held as phase_pt_reference states.
+     held as phase_pt_reference states;
+ 13. K6 (the 3x3x3 depthwise convolution) against its plain version on
+     the card at the seven stride-1 depthwise layers of MobileNetASPP on a
+     256^3 CT (six shapes), bfloat16 at the widest, a ragged shape and
+     D = 1: outputs equal; median times of the kernel, the plain version
+     and cuDNN's grouped conv3d (the library yardstick), with the bound;
+ 14. the serving slice in kp_mode="cnn" at full size: segment_case runs
+     MobileNetASPP(num_classes=4) (seeded weights) on the 256^3 CT, then
+     phase 4's keypoint-to-mesh path; one warm-up and 3 timed cases with
+     phase 4's checks, K6 at least 7 launches a case; the CNN forward's
+     time and the peak device memory; then one kp_mode="enhancement" case
+     with phase 4's checks;
+ 15. CNN reference on a small input (40 x 48 x 56, full width): softmax
+     card vs CPU within CNN_SOFT_TOL, argmax and the staged keypoints
+     equal but at near-ties (phase_cnn_reference).
 
-Kernel launch counts are set to 0 before each main path (phases 4 and 10
-serving, phases 7 and 11 training) and read after it; the comparison
-launches of phases 3, 5, 6, 8, 9 and 12 are not counted. The line before
+Kernel launch counts are set to 0 before each main path (phases 4, 10 and
+14 serving, phases 7 and 11 training) and read after it; the comparison
+launches of phases 3, 5, 6, 8, 9, 12, 13 and 15 are not counted. The line before
 the last but one is a JSON object describing the kernels (with each one's
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
 67 TFLOP/s float32 rate, and the time of one PyTorch library call that
@@ -97,6 +111,8 @@ FPS_SOURCE = "fissure_segmentation_tpu_torch/kernels/csrc/fps.cu"
 FPS_REPLACES = "fissure_segmentation_tpu/ops/pallas/fps.py:83"
 KNN_REPLACES = "fissure_segmentation_tpu/ops/pallas/knn.py:158"
 SCATTER_SOURCE = "fissure_segmentation_tpu_torch/kernels/csrc/scatter.cu"
+DW_SOURCE = "fissure_segmentation_tpu_torch/kernels/csrc/depthwise.cu"
+PALLAS_DW = "fissure_segmentation_tpu/ops/pallas/depthwise.py"
 PALLAS_SCATTER = "fissure_segmentation_tpu/ops/pallas/scatter.py"
 SCATTER_REPLACES = {"scatter_rows": f"{PALLAS_SCATTER}:369",
                     "scatter_routed": f"{PALLAS_SCATTER}:260",
@@ -122,6 +138,7 @@ ADAM_UNPINNED_SHARE = 0.01  # of the parameters, at most, below it
 PT_UNPINNED_SHARE = 0.1     # PointTransformer (phase_pt_reference)
 PT_EVAL_GRAD_TOL = dict(rtol=5e-4, atol=5e-4)
 EPS32 = 2.0 ** -24
+CNN_SOFT_TOL = 5e-5  # phase_cnn_reference says why
 
 
 def median_ms(fn, reps: int = 7, inner: int = 10, warm: int = 3) -> float:
@@ -437,18 +454,23 @@ def phase_scatter(ks, knn_cuda):
 
 
 def _counts(ks, knn_cuda):
+    from fissure_segmentation_tpu_torch.kernels.depthwise import \
+        depthwise_conv3_cuda
     from fissure_segmentation_tpu_torch.kernels.fps import fps_cuda
     return {"knn": knn_cuda.launches,
             "scatter_rows": ks.scatter_rows.launches,
             "scatter_routed": ks.scatter_routed.launches,
             "scatter_count": ks.scatter_count.launches,
-            "fps": fps_cuda.launches}
+            "fps": fps_cuda.launches,
+            "depthwise_conv3": depthwise_conv3_cuda.launches}
 
 
 def _reset(ks, knn_cuda):
+    from fissure_segmentation_tpu_torch.kernels.depthwise import \
+        depthwise_conv3_cuda
     from fissure_segmentation_tpu_torch.kernels.fps import fps_cuda
     for fn in (knn_cuda, ks.scatter_rows, ks.scatter_routed,
-               ks.scatter_count, fps_cuda):
+               ks.scatter_count, fps_cuda, depthwise_conv3_cuda):
         fn.launches = 0
 
 
@@ -1088,6 +1110,261 @@ def phase_pt_reference():
                          f"kNN selections: {set_aside}")
 
 
+# ---- the CNN keypoint path (K6) ---------------------------------------------
+
+def _dw_library(x, w):
+    """cuDNN's grouped conv3d on the channels_last_3d view of NDHWC x: the
+    library yardstick for K6 (timed here, never called by the port)."""
+    c = x.shape[-1]
+    return torch.nn.functional.conv3d(
+        x.permute(0, 4, 1, 2, 3), w.permute(3, 0, 1, 2).unsqueeze(1),
+        padding=1, groups=c)
+
+
+def phase_depthwise(dw_cuda, dw_plain):
+    """K6 against its plain version at the CNN path's shapes (the seven
+    stride-1 depthwise layers of MobileNetASPP on a 256^3 CT; (128^3, 144)
+    occurs twice), bfloat16 at the widest, a ragged shape and D = 1:
+    outputs equal; median times of the kernel, the plain version and the
+    library call, and the bound. Returns (0.0, {shape: timings}, the sums
+    over one forward's seven launches)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = {
+        # name: (shape, dtype, launches per CNN forward, timed)
+        "b0_1x128x128x128x32": ((1, 128, 128, 128, 32), f32, 1, True),
+        "b1_1x128x128x128x96": ((1, 128, 128, 128, 96), f32, 1, True),
+        "b2b3_1x128x128x128x144": ((1, 128, 128, 128, 144), f32, 2, True),
+        "b4_1x128x128x128x192": ((1, 128, 128, 128, 192), f32, 1, True),
+        "b6_1x64x64x64x192": ((1, 64, 64, 64, 192), f32, 1, True),
+        "b7_1x64x64x64x384": ((1, 64, 64, 64, 384), f32, 1, True),
+        "bf16_1x128x128x128x192": ((1, 128, 128, 128, 192), bf16, 0, True),
+        "ragged_2x7x9x11x5": ((2, 7, 9, 11, 5), f32, 0, False),
+        "d1_1x1x6x10x5": ((1, 1, 6, 10, 5), f32, 0, False),
+    }
+    timings = {}
+    forward = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+               "launches": 0}
+    for name, (shape, dtype, per_fwd, timed) in cases.items():
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+        w = torch.randn((3, 3, 3, shape[-1]), generator=g, device=dev).to(dtype)
+        got = dw_cuda(x, w)
+        torch.cuda.synchronize()
+        want = dw_plain(x, w)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"K6 {name}: kernel differs from plain "
+                f"({(got != want).sum().item()} outputs, max "
+                f"{(got.float() - want.float()).abs().max().item():.3g})")
+        line = f"K6 {name}: kernel == plain (outputs)"
+        if timed:
+            t_k = median_ms(lambda: dw_cuda(x, w))
+            t_p = median_ms(lambda: dw_plain(x, w), reps=3, inner=1, warm=1)
+            t_l = median_ms(lambda: _dw_library(x, w), reps=3, inner=1,
+                            warm=1)
+            lib_err = (_dw_library(x, w).permute(0, 2, 3, 4, 1).float()
+                       - got.float()).abs().max().item()
+            # read x and w once, write y; 27 multiplies and 27 adds an output
+            bound, by = bound_ms((2 * x.numel() + w.numel()) * x.element_size(),
+                                 54 * x.numel())
+            timings[name] = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound,
+                             "bound_by": by, "library_ms": t_l,
+                             "library_max_abs_diff": lib_err}
+            for key, val in (("ms", t_k), ("plain_ms", t_p),
+                             ("bound_ms", bound), ("library_ms", t_l)):
+                forward[key] += per_fwd * val
+            forward["launches"] += per_fwd
+            line += (f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library "
+                     f"conv3d {t_l:.4f} ms (median; library differs by "
+                     f"{lib_err:.3g}), bound {bound:.4f} ms ({by})")
+        print(line, flush=True)
+        del x, w, got, want
+    torch.cuda.empty_cache()
+    print(f"K6 one CNN forward ({forward['launches']} launches): kernel "
+          f"{forward['ms']:.4f} ms, plain {forward['plain_ms']:.4f} ms, "
+          f"library {forward['library_ms']:.4f} ms, bound "
+          f"{forward['bound_ms']:.4f} ms", flush=True)
+    return 0.0, timings, forward
+
+
+def _cnn_model(seed):
+    """MobileNetASPP(num_classes=4) at full width from seeded weights, with
+    every BatchNorm offset drawn nonzero (eval-mode BatchNorm is then no
+    identity)."""
+    from fissure_segmentation_tpu_torch.models import MobileNetASPP
+    return _draw_bn_offsets(MobileNetASPP(
+        num_classes=4, generator=torch.Generator().manual_seed(seed)), seed)
+
+
+def _cnn_flops(cnn, vol) -> dict:
+    """Multiply-add operations (2 per product) of one whole-volume forward
+    of `cnn` on `vol`, by kind of convolution, counted from every conv's
+    output shape with forward hooks (one extra forward)."""
+    from fissure_segmentation_tpu_torch.models import predict_full_volume
+    from fissure_segmentation_tpu_torch.models.seg_cnn import (Conv,
+                                                               DepthwiseConv3)
+    flops = {"dense_3x3x3": 0, "1x1x1": 0, "depthwise_k6": 0,
+             "depthwise_stride2": 0}
+
+    def hook(mod, _, out):
+        if isinstance(mod, DepthwiseConv3):
+            flops["depthwise_k6"] += 2 * 27 * out.numel()
+            return
+        taps = mod.weight[0].numel()              # in / groups * kd kh kw
+        kind = ("1x1x1" if mod.kernel_size == (1, 1, 1) else
+                "depthwise_stride2" if mod.groups > 1 else "dense_3x3x3")
+        flops[kind] += 2 * taps * out.numel()
+    handles = [m.register_forward_hook(hook) for m in cnn.modules()
+               if isinstance(m, (Conv, DepthwiseConv3))]
+    try:
+        predict_full_volume(cnn, vol)
+    finally:
+        for h in handles:
+            h.remove()
+    return flops
+
+
+def phase_cnn_slice(dw_cuda, card: str):
+    """The serving slice in kp_mode="cnn" at full size: the CNN's
+    whole-volume forward on the 256^3 CT inside segment_case, then the
+    keypoints, the DGCNNSeg(k=40) ensemble with phase 4's class bias and
+    the surface fit; one warm-up and 3 timed cases with phase 4's checks.
+    K6 must launch at least 7 times a case. Then the CNN forward alone
+    (CUDA events) and one kp_mode="enhancement" case. Returns (K6
+    launches of the timed cases, timings)."""
+    from fissure_segmentation_tpu_torch.data.synthetic import \
+        make_synthetic_image_case
+    from fissure_segmentation_tpu_torch.kernels.knn import knn_cuda
+    from fissure_segmentation_tpu_torch.models import (DGCNNSeg,
+                                                       predict_full_volume)
+    from fissure_segmentation_tpu_torch.serving import segment_case
+    case = make_synthetic_image_case(0, shape=SHAPE)
+    vol = torch.from_numpy(case["image"]).cuda()
+    mask = torch.from_numpy(case["lung_mask"]).cuda()
+    model = DGCNNSeg(k=40, in_features=3, num_classes=4,
+                     generator=torch.Generator().manual_seed(0)).cuda().eval()
+    apply = biased_model(model, case, SHAPE)
+    cnn = _cnn_model(0).cuda()
+
+    def run(seed):
+        return segment_case(vol, mask, apply,
+                            torch.Generator().manual_seed(seed),
+                            kp_mode="cnn", cnn_model=cnn,
+                            center_x=SHAPE[2] / 2)
+
+    t0 = time.perf_counter()
+    check_result(run(1), SHAPE, "cnn warm-up case")
+    print(f"cnn slice: warm-up case {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    n_cases = 3
+    dw_cuda.launches = knn_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(n_cases):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(2 + i)
+        times.append(time.perf_counter() - t0)
+        check_result(res, SHAPE, f"cnn case {i}")
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"depthwise_conv3": dw_cuda.launches, "knn": knn_cuda.launches}
+    if launches["depthwise_conv3"] < 7 * n_cases:
+        raise AssertionError(f"K6 launched {launches['depthwise_conv3']} "
+                             f"times in {n_cases} cnn cases; the path needs "
+                             f">= {7 * n_cases}")
+    tri = [int(v.sum()) for _, v in res.meshes]
+    print(f"cnn slice: {len(res.kpts)} valid keypoints, labels "
+          f"{np.bincount(res.labels, minlength=4).tolist()}, valid triangles "
+          f"per class {tri}; launches in {n_cases} timed cases {launches}",
+          flush=True)
+    fwd_ms = median_ms(lambda: predict_full_volume(cnn, vol), reps=3,
+                       inner=1, warm=1)
+    flops = _cnn_flops(cnn, vol)
+    total = sum(flops.values())
+    timing = {"s_per_case": statistics.median(times),
+              "cases_s": times, "cnn_forward_ms": fwd_ms,
+              "cnn_forward_flops": flops, "peak_bytes": peak}
+    print(f"cnn slice: {timing['s_per_case']:.4f} s/case median of "
+          f"{[round(t, 4) for t in times]}; CNN forward {fwd_ms:.3f} ms "
+          f"(CUDA events, median of 3); peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB on {card}", flush=True)
+    print(f"cnn slice: the CNN forward's convolutions do {total / 1e12:.4f} "
+          f"TFLOP ({', '.join(f'{k} {v / 1e9:.1f}' for k, v in flops.items())}"
+          f" GFLOP): at least {total / F32_FLOPS * 1e3:.2f} ms at the f32 "
+          f"peak; {total / fwd_ms / 1e9:.2f} TFLOP/s achieved", flush=True)
+
+    # the enhancement mode: the synthetic CT is not in Hounsfield units
+    # (parenchyma -0.6, fissures -0.25, noise 0.05), so the intensity
+    # weighting is centred on its fissures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = segment_case(vol, mask, apply, torch.Generator().manual_seed(9),
+                       kp_mode="enhancement", fissure_mu=-0.25,
+                       fissure_sigma=0.1, center_x=SHAPE[2] / 2)
+    timing["enhancement_case_s"] = time.perf_counter() - t0
+    check_result(res, SHAPE, "enhancement case")
+    print(f"enhancement slice: {len(res.kpts)} valid keypoints, labels "
+          f"{np.bincount(res.labels, minlength=4).tolist()}, valid triangles "
+          f"per class {[int(v.sum()) for _, v in res.meshes]}; one case "
+          f"{timing['enhancement_case_s']:.4f} s (first in this mode) on "
+          f"{card}", flush=True)
+    return launches, timing
+
+
+def phase_cnn_reference():
+    """The CNN on a small input at full width, card (K6) against CPU (plain
+    versions), TF32 off: softmax volumes within CNN_SOFT_TOL (both sides
+    sum each convolution in float32 in another order: about 1e-6 relative
+    a layer over some twenty layers; 5e-5 on probabilities leaves a margin
+    of ten); argmax equal except where the CPU's top-two margin is below
+    twice that; the staged keypoints with the same injected scores equal,
+    but for the voxels whose argmax flipped (each moves at most two
+    keypoints)."""
+    from fissure_segmentation_tpu_torch.data.synthetic import \
+        make_synthetic_image_case
+    from fissure_segmentation_tpu_torch.keypoints.extraction import \
+        get_cnn_keypoints
+    from fissure_segmentation_tpu_torch.models import predict_full_volume
+    shape = (40, 48, 56)
+    case = make_synthetic_image_case(2, shape=shape)
+    cnn = _cnn_model(6)   # its argmax splits the lung into bg and fg
+    img = torch.from_numpy(case["image"])
+    mask = torch.from_numpy(case["lung_mask"])
+    soft = {"cpu": predict_full_volume(cnn, img)}
+    soft["cuda"] = predict_full_volume(copy.deepcopy(cnn).cuda(),
+                                       img.cuda()).cpu()
+    err = (soft["cuda"] - soft["cpu"]).abs().max().item()
+    if not err <= CNN_SOFT_TOL:
+        raise AssertionError(f"cnn reference: softmax differs by {err:.3g} "
+                             f"> {CNN_SOFT_TOL}")
+    top2 = soft["cpu"].topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    flipped = soft["cuda"].argmax(-1) != soft["cpu"].argmax(-1)
+    if (flipped & (margin >= 2 * CNN_SOFT_TOL)).any():
+        raise AssertionError("cnn reference: argmax differs at a voxel with "
+                             "a clear margin")
+    scores = torch.rand(img.numel(), generator=torch.Generator().manual_seed(3))
+    kp = {}
+    for dev in ("cuda", "cpu"):
+        k, v, _ = get_cnn_keypoints(soft[dev].to(dev), mask.to(dev),
+                                    max_kpts=2000, scores=scores.to(dev))
+        kp[dev] = {tuple(r) for r in k[v].cpu().tolist()}
+    n_flip = int(flipped.sum())
+    diff = len(kp["cuda"] ^ kp["cpu"])
+    if diff > 2 * n_flip or (n_flip == 0 and diff):
+        raise AssertionError(f"cnn reference: keypoints differ in {diff} "
+                             f"with {n_flip} flipped voxels")
+    classes = np.bincount(soft["cpu"].argmax(-1)[mask].numpy(), minlength=4)
+    print(f"cnn reference: {shape} card vs CPU: softmax max abs diff "
+          f"{err:.3g} (tol {CNN_SOFT_TOL}), argmax flips {n_flip} (all at "
+          f"margins < {2 * CNN_SOFT_TOL}), keypoints {len(kp['cpu'])} with "
+          f"{diff} differing; argmax per class in the lung "
+          f"{classes.tolist()}", flush=True)
+    return err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1096,6 +1373,8 @@ def main() -> int:
     from fissure_segmentation_tpu_torch import native
     from fissure_segmentation_tpu_torch.kernels import _build
     from fissure_segmentation_tpu_torch.kernels import scatter as ks
+    from fissure_segmentation_tpu_torch.kernels.depthwise import (
+        depthwise_conv3_cuda, depthwise_conv3_plain)
     from fissure_segmentation_tpu_torch.kernels.fps import fps_cuda, fps_plain
     from fissure_segmentation_tpu_torch.kernels.knn import knn_cuda, knn_plain
 
@@ -1154,12 +1433,26 @@ def main() -> int:
     # 12. PointTransformer train-step reference on a small input
     phase_pt_reference()
 
+    # 13. K6 against its plain version
+    dw_err, dw_timings, dw_forward = phase_depthwise(depthwise_conv3_cuda,
+                                                     depthwise_conv3_plain)
+
+    # 14. the serving slice in the cnn and enhancement keypoint modes
+    # (counts from 0, read after)
+    _reset(ks, knn_cuda)
+    cnn_serving, cnn_timing = phase_cnn_slice(depthwise_conv3_cuda, card)
+    print(json.dumps({"cnn_serving": cnn_timing, "k6_per_forward": dw_forward,
+                      "card": card}), flush=True)
+
+    # 15. CNN reference, card against CPU, on a small input
+    phase_cnn_reference()
+
     graph = timings["dgcnn_graph_5x2048x3_k40"]
     kernels = [{
         "name": "knn", "route": "cuda", "source": KNN_SOURCE,
         "replaces": KNN_REPLACES,
         "launches": serving_launches + counts["total"]["knn"]
-        + pt_serving["knn"] + pt_counts["knn"],
+        + pt_serving["knn"] + pt_counts["knn"] + cnn_serving["knn"],
         "max_abs_err": max_err, "ms": graph["ms"],
         "plain_ms": graph["plain_ms"], "bound_ms": graph["bound_ms"],
         "bound_by": graph["bound_by"], "library_ms": None,
@@ -1184,6 +1477,15 @@ def main() -> int:
         "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
         "bound_by": step["bound_by"], "library_ms": None,
         "shapes": fps_timings})
+    widest = dw_timings["b4_1x128x128x128x192"]
+    kernels.append({
+        "name": "depthwise_conv3", "route": "cuda", "source": DW_SOURCE,
+        "replaces": f"{PALLAS_DW}:200", "also_replaces": f"{PALLAS_DW}:171",
+        "launches": cnn_serving["depthwise_conv3"], "max_abs_err": dw_err,
+        "ms": widest["ms"], "plain_ms": widest["plain_ms"],
+        "bound_ms": widest["bound_ms"], "bound_by": widest["bound_by"],
+        "library_ms": widest["library_ms"], "per_forward": dw_forward,
+        "shapes": dw_timings})
     for row in kernels:
         if row["launches"] < 1:
             raise AssertionError(f"{row['name']} never launched on the main "

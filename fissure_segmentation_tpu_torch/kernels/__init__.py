@@ -1,4 +1,6 @@
-"""Hand-written CUDA kernels for Hopper (counterpart of ops/pallas/).
+"""Hand-written CUDA kernels for Hopper (counterpart of ops/pallas/): K1 kNN
+(knn.py), K2-K4 the EdgeConv scatters (scatter.py), K5 farthest-point
+sampling (fps.py), K6 the 3x3x3 depthwise convolution (depthwise.py).
 
 Sources live in csrc/ and are compiled by _build.py with nvcc for sm_90a at
 first use. Each kernel module holds the ctypes wrapper (which launches the

@@ -121,6 +121,8 @@ def load() -> ctypes.CDLL:
                 "fseg_scatter_routed": [vp, vp, vp, vp, vp, vp, i64, i32,
                                         i32, i32, vp],
                 "fseg_scatter_count": [vp, vp, vp, i32, i64, i32, vp],
+                "fseg_depthwise_conv3": [vp, vp, vp, i32, i32, i32, i32, i32,
+                                         i32, vp],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

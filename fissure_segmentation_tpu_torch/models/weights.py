@@ -6,8 +6,14 @@ The port's submodules carry the JAX package's module names, so a JAX tree
 
   * a Dense ``kernel`` (in, out) becomes the ``nn.Linear`` weight (out, in);
     a Dense ``bias`` the Linear bias;
+  * a Conv ``kernel`` (kd, kh, kw, in / groups, out) becomes the
+    ``nn.Conv3d`` weight (out, in / groups, kd, kh, kw) (so the stride-2
+    depthwise kernel (3, 3, 3, 1, C) becomes (C, 1, 3, 3, 3)); a stride-1
+    depthwise kernel (3, 3, 3, 1, C) becomes K6's (3, 3, 3, C)
+    (`seg_cnn.DepthwiseConv3`);
   * any other params leaf (an EdgeMLP ``kernel``, BatchNorm ``scale`` and
-    ``bias``) is copied into the parameter of the same name;
+    ``bias``, a Conv ``bias``) is copied into the parameter of the same
+    name;
   * ``batch_stats`` leaves (BatchNorm ``mean``/``var``) into the buffers of
     the same name.
 
@@ -25,17 +31,51 @@ import numpy as np
 import torch
 from torch import nn
 
+from .seg_cnn import DepthwiseConv3
+
 _COLLECTIONS = ("params", "batch_stats")
+
+
+def _to_port(kind: str | None, arr: np.ndarray) -> np.ndarray:
+    """A JAX leaf in the port's layout."""
+    if kind == "dense":
+        return arr.T
+    if kind == "conv":
+        return arr.transpose(4, 3, 0, 1, 2)
+    if kind == "depthwise":
+        return arr.reshape(3, 3, 3, arr.shape[-1])
+    return arr
+
+
+def _to_jax(kind: str | None, arr: np.ndarray) -> np.ndarray:
+    """The inverse of `_to_port`."""
+    if kind == "dense":
+        return arr.T.copy()
+    if kind == "conv":
+        return arr.transpose(2, 3, 4, 1, 0).copy()
+    if kind == "depthwise":
+        return arr.reshape(3, 3, 3, 1, arr.shape[-1])
+    return arr
+
+
+def _kind(mod: nn.Module, name: str) -> str | None:
+    """How the port's parameter `name` of `mod` is laid out against the
+    JAX leaf (None: the same)."""
+    if isinstance(mod, nn.Linear) and name == "weight":
+        return "dense"
+    if isinstance(mod, nn.Conv3d) and name == "weight":
+        return "conv"
+    if isinstance(mod, DepthwiseConv3) and name == "kernel":
+        return "depthwise"
+    return None
 
 
 def _target(mod: nn.Module, collection: str, name: str):
     if collection == "params":
-        if isinstance(mod, nn.Linear) and name == "kernel":
-            return mod.weight, True
-        if isinstance(mod, nn.Linear) and name == "bias":
-            return mod.bias, False
-        return mod._parameters.get(name), False
-    return mod._buffers.get(name), False
+        if isinstance(mod, (nn.Linear, nn.Conv3d)) and name == "kernel":
+            return mod.weight, _kind(mod, "weight")
+        return mod._parameters.get(name), _kind(mod, name)
+    return mod._buffers.get(name), None
 
 
 def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
@@ -60,13 +100,16 @@ def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
                                    f"{type(mod).__name__}")
                 walk(val, sub, collection, f"{path}{name}/")
                 continue
-            target, transpose = _target(mod, collection, name)
+            target, kind = _target(mod, collection, name)
             if target is None:
                 raise KeyError(f"{where}: no {collection} target {name!r} in "
                                f"{type(mod).__name__}")
             arr = np.asarray(val, np.float32)
-            if transpose:
-                arr = arr.T
+            if (kind in ("conv", "depthwise") and arr.ndim != 5) or \
+                    (kind == "depthwise" and arr.shape[3] != 1):
+                raise ValueError(f"{where}: shape {arr.shape} is no flax "
+                                 f"{kind} kernel")
+            arr = _to_port(kind, arr)
             if tuple(arr.shape) != tuple(target.shape):
                 raise ValueError(f"{where}: shape {arr.shape} != port "
                                  f"{tuple(target.shape)}")
@@ -85,8 +128,9 @@ def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
 
 def export_jax_variables(module: nn.Module, grad: bool = False) -> dict:
     """The JAX variable tree of `module`: ``{"params", "batch_stats"}`` as
-    nested dicts of numpy float32 arrays, Dense kernels as (in, out) — the
-    strict inverse of `load_jax_variables`.
+    nested dicts of numpy float32 arrays, Dense kernels as (in, out) and
+    Conv kernels as (kd, kh, kw, in / groups, out) — the strict inverse of
+    `load_jax_variables`.
 
     :param grad: export each parameter's ``.grad`` instead of its value (the
         ``params`` collection only); a parameter without a gradient raises
@@ -100,10 +144,9 @@ def export_jax_variables(module: nn.Module, grad: bool = False) -> dict:
             if t is None:
                 raise ValueError(f"params/{path}{name}: no gradient")
             arr = t.detach().to("cpu", torch.float32).numpy().copy()
-            if isinstance(mod, nn.Linear) and name == "weight":
-                params["kernel"] = arr.T.copy()
-            else:
-                params[name] = arr
+            kind = _kind(mod, name)
+            params["kernel" if name == "weight" and kind else name] = \
+                _to_jax(kind, arr)
         if not grad:
             for name, b in mod._buffers.items():
                 if b is not None:

@@ -1,16 +1,17 @@
 """One-call CT-case inference: keypoints -> ensemble segmentation -> fissure
-meshes (counterpart of serving.py:CaseResult and segment_case, Förstner
-mode).
+meshes (counterpart of serving.py:CaseResult and segment_case).
 
 Device half, on a CUDA card (`case_device`: the input's, or `device=`; the
-CPU only when `device="cpu"` is passed): Förstner keypoints,
-the 50 x 2048-point subset ensemble of the point model, then per-class
+CPU only when `device="cpu"` is passed): keypoints in one of three modes —
+Förstner, Hessian enhancement, or the pre-segmentation CNN (its
+whole-volume forward on the CT, or a given softmax volume) — then the
+50 x 2048-point subset ensemble of the point model, then per-class
 masked-normal spectral PSR and marching tetrahedra. Host half: one fetch of
 keypoints, labels, inside grids and float triangles, then the native C++
 component filter per class and the labelmap.
 
-Not ported yet: the enhancement and cnn keypoint modes, `approx_top_k`, the
-packed transfer encodings and the pipelined `segment_cases`.
+Not ported yet: `approx_top_k`, a bfloat16 CNN (`cnn_dtype`), the packed
+transfer encodings and the pipelined `segment_cases`.
 """
 from __future__ import annotations
 
@@ -20,8 +21,11 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .keypoints.extraction import get_cnn_keypoints, get_enhancement_keypoints
 from .keypoints.foerstner import foerstner_keypoints
+from .keypoints.hessian import hessian_fissure_enhancement
 from .models.ensemble import ensemble_predict
+from .models.seg_cnn import predict_full_volume
 from .postprocess.surface_fitting import (_host_mesh_filter, batched_psr_mc,
                                           mesh_to_labelmap)
 from .utils.coords import kpts_to_grid
@@ -50,14 +54,38 @@ def case_device(vol, device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def _keypoints(vol, mask, generator, *, kp_mode, max_kpts, fissure_mu,
+               fissure_sigma, cnn_model, cnn_dtype, kp_scores):
+    """(kpts (max_kpts, 3) int32 zyx, valid, case shape) in `kp_mode`."""
+    if kp_mode == "foerstner":
+        kpts, valid, _ = foerstner_keypoints(vol, mask, sigma=0.5, d=5,
+                                             thresh=1e-8, max_kpts=max_kpts)
+        return kpts, valid, tuple(vol.shape)
+    if kp_mode == "enhancement":
+        enh = hessian_fissure_enhancement(vol, fissure_mu=fissure_mu,
+                                          fissure_sigma=fissure_sigma)
+        kpts, valid = get_enhancement_keypoints(enh, max_kpts=max_kpts)
+        return kpts, valid, tuple(vol.shape)
+    if kp_mode == "cnn":
+        if cnn_model is not None:
+            soft = predict_full_volume(cnn_model, vol, dtype=cnn_dtype)
+        else:
+            soft = vol
+        kpts, valid, _ = get_cnn_keypoints(soft, mask, max_kpts=max_kpts,
+                                           generator=generator,
+                                           scores=kp_scores)
+        return kpts, valid, tuple(soft.shape[:-1])
+    raise ValueError(f'serving does not support kp_mode "{kp_mode}"')
+
+
 @torch.no_grad()
 def _device_case(vol, mask, model, generator, subsets, *, max_kpts,
                  sample_points, n_runs_min, subset_batch, grid_res, sig,
-                 k_normals, max_tris, num_fg_classes, class_cap):
-    kpts, valid, _ = foerstner_keypoints(vol, mask, sigma=0.5, d=5,
-                                         thresh=1e-8, max_kpts=max_kpts)
+                 k_normals, max_tris, num_fg_classes, class_cap, **kp_kw):
+    kpts, valid, shape = _keypoints(vol, mask, generator, max_kpts=max_kpts,
+                                    **kp_kw)
     world = kpts.flip(-1).to(torch.float32)           # zyx -> xyz voxel
-    coords = torch.where(valid[:, None], kpts_to_grid(world, vol.shape), -1.0)
+    coords = torch.where(valid[:, None], kpts_to_grid(world, shape), -1.0)
     probs = ensemble_predict(model, coords, sample_points=sample_points,
                              n_runs_min=n_runs_min, subset_batch=subset_batch,
                              generator=generator, subsets=subsets)
@@ -67,7 +95,7 @@ def _device_case(vol, mask, model, generator, subsets, *, max_kpts,
     inside, tris, n_tris = batched_psr_mc(
         coords.flip(-1), class_valid, grid_res, sig, k_normals, max_tris,
         class_cap)
-    return kpts, valid, pred, inside, tris, n_tris
+    return (kpts, valid, pred, inside, tris, n_tris), shape
 
 
 def segment_case(vol, mask, model: Callable[[torch.Tensor], torch.Tensor],
@@ -82,10 +110,14 @@ def segment_case(vol, mask, model: Callable[[torch.Tensor], torch.Tensor],
                  lung_mask_filter: np.ndarray | None = None,
                  mask_dilate_radius: int = 1, crop_to_bbox: bool = True,
                  make_labelmap: bool = True, approx_top_k: bool = False,
-                 class_cap: int = 8192) -> CaseResult:
+                 class_cap: int = 8192, fissure_mu: float = -313.5,
+                 fissure_sigma: float = 62.6, cnn_model=None, cnn_dtype=None,
+                 kp_scores: torch.Tensor | None = None) -> CaseResult:
     """Segment one CT case end to end.
 
-    :param vol: (D, H, W) CT volume at unit spacing (array or tensor)
+    :param vol: (D, H, W) CT volume at unit spacing (array or tensor) — or,
+        for ``kp_mode="cnn"`` without `cnn_model`, the (D, H, W, C) softmax
+        volume of the pre-segmentation CNN (models.seg_cnn)
     :param mask: (D, H, W) bool lung mask (keypoint restriction)
     :param model: point-segmentation model in eval mode,
         (B, S, 3) grid coords -> (B, S, num_classes) logits
@@ -95,6 +127,17 @@ def segment_case(vol, mask, model: Callable[[torch.Tensor], torch.Tensor],
     :param device: where the device half runs (default: `vol`'s card if
         it is a CUDA tensor, else the first CUDA card; "cpu" only when
         asked for — without a card and without `device` it raises)
+    :param kp_mode: "foerstner", "enhancement" (Hessian plateness with the
+        intensity weighting `fissure_mu`/`fissure_sigma`, in the image's
+        units) or "cnn" (a uniform random subset of the CNN's foreground
+        voxels inside `mask`)
+    :param cnn_model: for ``kp_mode="cnn"``: the pre-segmentation CNN in
+        eval mode on the case's device (models.MobileNetASPP); its
+        whole-volume forward runs on `vol` inside the device half
+    :param cnn_dtype: the CNN's compute dtype; float32 (None) only
+    :param kp_scores: for ``kp_mode="cnn"``: (D * H * W,) uniform draws
+        for the random keypoint subset instead of a draw from `generator`
+        (tests inject the JAX package's draw)
     :param rights: per-fg-class right-lung flags for component selection
         (default [False, True, True][:num_fg_classes])
     :param center_x: left/right split plane in voxels
@@ -104,23 +147,22 @@ def segment_case(vol, mask, model: Callable[[torch.Tensor], torch.Tensor],
     :return: CaseResult with keypoints, labels, per-class meshes (world xyz)
         and optionally the labelmap
     """
-    if kp_mode != "foerstner":
-        raise NotImplementedError(f'kp_mode "{kp_mode}" is not ported yet')
     if approx_top_k:
         raise NotImplementedError("approx_top_k is not ported yet")
     device = case_device(vol, device)
     vol_t = torch.as_tensor(vol, dtype=torch.float32, device=device)
     mask_t = torch.as_tensor(mask, dtype=torch.bool, device=device)
     grid_res = tuple(grid_res)
-    out = _device_case(vol_t, mask_t, model, generator, subsets,
-                       max_kpts=max_kpts, sample_points=sample_points,
-                       n_runs_min=n_runs_min, subset_batch=subset_batch,
-                       grid_res=grid_res, sig=sig, k_normals=k_normals,
-                       max_tris=max_tris, num_fg_classes=num_fg_classes,
-                       class_cap=class_cap)
+    out, shape = _device_case(
+        vol_t, mask_t, model, generator, subsets, max_kpts=max_kpts,
+        sample_points=sample_points, n_runs_min=n_runs_min,
+        subset_batch=subset_batch, grid_res=grid_res, sig=sig,
+        k_normals=k_normals, max_tris=max_tris,
+        num_fg_classes=num_fg_classes, class_cap=class_cap, kp_mode=kp_mode,
+        fissure_mu=fissure_mu, fissure_sigma=fissure_sigma,
+        cnn_model=cnn_model, cnn_dtype=cnn_dtype, kp_scores=kp_scores)
     kpts, valid, pred, inside, tris, n_tris = (t.cpu().numpy() for t in out)
 
-    shape = tuple(vol_t.shape)
     if rights is None:
         rights = ([False, True, True]
                   + [None] * num_fg_classes)[:num_fg_classes]

@@ -1,5 +1,5 @@
-"""Separable 1-D filtering, Gaussian smoothing and max-pool NMS on volumes
-(counterpart of utils/filters.py).
+"""Separable 1-D filtering, Gaussian smoothing, Gaussian-derivative kernels
+and max-pool NMS on volumes (counterpart of utils/filters.py).
 
 Volumes are ``(..., D, H, W)``; ``dim`` indexes the last three axes. The
 1-D filter is the JAX package's unrolled shifted-slice sum in tap order
@@ -11,6 +11,42 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def _np_gaussian_kernel1d(sigma: float, order: int, radius: int) -> np.ndarray:
+    """A Gaussian (or its `order`-th derivative) on [-radius, radius],
+    normalised like scipy's `_gaussian_kernel1d`: the order-0 kernel sums
+    to 1, derivatives are polynomial multiples of it, and the kernel is not
+    reversed (applied by correlation, order 1 gives the negative gradient).
+    A copy of utils/filters.py:_np_gaussian_kernel1d."""
+    if order < 0:
+        raise ValueError("order must be non-negative")
+    sigma2 = sigma * sigma
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    phi_x = np.exp(-0.5 / sigma2 * x ** 2)
+    phi_x = phi_x / phi_x.sum()
+    if order == 0:
+        return phi_x
+    # q_{n+1}(x) = q_n'(x) - x / sigma^2 q_n(x), with f = q * phi
+    exponent_range = np.arange(order + 1)
+    q = np.zeros(order + 1)
+    q[0] = 1
+    D = np.diag(exponent_range[1:], 1)          # D @ q(x) = q'(x)
+    P = np.diag(np.ones(order) / -sigma2, -1)   # P @ q(x) = q(x) * x / -sigma2
+    Q_deriv = D + P
+    for _ in range(order):
+        q = Q_deriv.dot(q)
+    q = (x[:, None] ** exponent_range).dot(q)
+    return q * phi_x
+
+
+def gaussian_kernel_1d(sigma: float, order: int = 0,
+                       truncate: float = 4.0) -> np.ndarray:
+    """Gaussian (derivative) kernel, float32 (utils/filters.py:
+    gaussian_kernel_1d)."""
+    sigma = float(sigma)
+    radius = int(truncate * sigma + 0.5)
+    return _np_gaussian_kernel1d(sigma, order, radius).astype(np.float32)
 
 
 def smoothing_kernel_1d(sigma: float) -> np.ndarray:
@@ -65,6 +101,15 @@ def smooth(img: torch.Tensor, sigma: float) -> torch.Tensor:
     for dim in range(3):
         img = filter_1d(img, w, dim)
     return img
+
+
+def gaussian_differentiation(img: torch.Tensor, sigma: float, order: int,
+                             dim: int, padding_mode: str = "replicate",
+                             truncate: float = 4.0) -> torch.Tensor:
+    """Gaussian-derivative filtering along one axis
+    (utils/filters.py:gaussian_differentiation)."""
+    return filter_1d(img, gaussian_kernel_1d(sigma, order, truncate), dim,
+                     padding_mode)
 
 
 def max_pool_same(data: torch.Tensor, kernel_size: int) -> torch.Tensor:

@@ -3,11 +3,15 @@
 Run from the repository root on the card's machine:
 
     python scripts/prof/prof_torch_serving.py [--cases 3] [--ab 0] [--trace PATH]
+        [--kp_mode foerstner|cnn|enhancement]
 
 Prints, for the full-size chip_smoke.py case (synthetic 256^3 CT, DGCNNSeg
 k=40 with seeded weights and the bench-style class bias, segment_case
-defaults):
-  * per-stage wall time with a device sync between stages (detector,
+defaults; in kp_mode "cnn" chip_smoke's seeded MobileNetASPP runs on the
+CT, in kp_mode "enhancement" the intensity weighting is chip_smoke's for
+the synthetic intensities):
+  * per-stage wall time with a device sync between stages (keypoints —
+    in cnn mode the CNN forward and the keypoint selection apart —
     ensemble, device surface fit, device->host copy, host mesh filter +
     labelmap), median over --cases warm cases;
   * the median wall time of --cases unstaged warm cases (segment_case as
@@ -39,38 +43,51 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 
-from chip_smoke import SHAPE, biased_model, card_line  # noqa: E402
+from chip_smoke import (SHAPE, _cnn_model, biased_model,  # noqa: E402
+                        card_line)
 from fissure_segmentation_tpu_torch.data.synthetic import \
     make_synthetic_image_case  # noqa: E402
 from fissure_segmentation_tpu_torch.kernels.knn import knn_cuda  # noqa: E402
 from fissure_segmentation_tpu_torch.keypoints.foerstner import \
     foerstner_keypoints  # noqa: E402
 from fissure_segmentation_tpu_torch.models import (DGCNNSeg,  # noqa: E402
-                                                   ensemble_predict)
+                                                   ensemble_predict,
+                                                   predict_full_volume)
 from fissure_segmentation_tpu_torch.postprocess.surface_fitting import (  # noqa: E402
     _host_mesh_filter, batched_psr_mc, mesh_to_labelmap)
-from fissure_segmentation_tpu_torch.serving import (kpts_to_grid,  # noqa: E402
+from fissure_segmentation_tpu_torch.serving import (_keypoints,  # noqa: E402
+                                                    kpts_to_grid,
                                                     segment_case)
 
+# chip_smoke phase 14's weighting for the synthetic CT's intensities
+ENHANCEMENT = dict(fissure_mu=-0.25, fissure_sigma=0.1)
 
-def staged_case(vol, mask, apply, seed):
+
+def staged_case(vol, mask, apply, seed, kp_mode="foerstner", cnn=None):
     """segment_case's steps with a sync after each; returns stage seconds."""
     t = {}
     sync = torch.cuda.synchronize
+    gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         sync()
         t0 = time.perf_counter()
-        kpts, valid, _ = foerstner_keypoints(vol, mask, sigma=0.5, d=5,
-                                             thresh=1e-8, max_kpts=20000)
+        kp_vol = vol
+        if kp_mode == "cnn":
+            kp_vol = predict_full_volume(cnn, vol)
+            sync()
+            t["cnn_forward"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+        kpts, valid, _ = _keypoints(kp_vol, mask, gen, kp_mode=kp_mode,
+                                    max_kpts=20000, cnn_model=None,
+                                    cnn_dtype=None, kp_scores=None,
+                                    **ENHANCEMENT)
         coords = torch.where(valid[:, None],
                              kpts_to_grid(kpts.flip(-1).float(), vol.shape),
                              -1.0)
         sync()
-        t["detector"] = time.perf_counter() - t0
+        t["keypoints"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        pred = ensemble_predict(apply, coords,
-                                generator=torch.Generator().manual_seed(seed)
-                                ).argmax(-1)
+        pred = ensemble_predict(apply, coords, generator=gen).argmax(-1)
         sync()
         t["ensemble"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -156,6 +173,8 @@ def main() -> int:
                     help="pairs of the unfused/fused eval EdgeConv A/B")
     ap.add_argument("--trace", default=None,
                     help="write the profiler's chrome trace here")
+    ap.add_argument("--kp_mode", default="foerstner",
+                    choices=("foerstner", "cnn", "enhancement"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA card", file=sys.stderr)
@@ -169,15 +188,21 @@ def main() -> int:
     model = DGCNNSeg(k=40, in_features=3, num_classes=4,
                      generator=torch.Generator().manual_seed(0)).cuda().eval()
     apply = biased_model(model, case, SHAPE)
+    cnn = _cnn_model(0).cuda() if args.kp_mode == "cnn" else None
+    kw = dict(kp_mode=args.kp_mode, cnn_model=cnn)
+    if args.kp_mode == "enhancement":
+        kw.update(ENHANCEMENT)
 
     def full(seed):
         return segment_case(vol, mask, apply,
                             torch.Generator().manual_seed(seed),
-                            center_x=SHAPE[2] / 2)
+                            center_x=SHAPE[2] / 2, **kw)
 
     full(1)  # warm-up (builds the kernels, fills the caching allocator)
-    stages = [staged_case(vol, mask, apply, 2 + i) for i in range(args.cases)]
-    print(f"stages, median of {args.cases} warm cases, on {card}:")
+    stages = [staged_case(vol, mask, apply, 2 + i, args.kp_mode, cnn)
+              for i in range(args.cases)]
+    print(f"kp_mode {args.kp_mode}: stages, median of {args.cases} warm "
+          f"cases, on {card}:")
     for k in stages[0]:
         print(f"  {k:20s} {statistics.median(s[k] for s in stages):.4f} s")
     print(f"  {'sum':20s} "

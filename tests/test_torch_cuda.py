@@ -1,5 +1,5 @@
 """The kernels on the card (K1 kNN, K2-K4 scatter, K5 farthest-point
-sampling) against their plain PyTorch versions.
+sampling, K6 depthwise convolution) against their plain PyTorch versions.
 
 These tests need an NVIDIA card and skip elsewhere. The repository's
 tests/conftest.py imports jax, which the card's machine does not have, so
@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from fissure_segmentation_tpu_torch.kernels import scatter as ks
+from fissure_segmentation_tpu_torch.kernels.depthwise import (
+    depthwise_conv3_cuda, depthwise_conv3_plain)
 from fissure_segmentation_tpu_torch.kernels.fps import fps_cuda, fps_plain
 from fissure_segmentation_tpu_torch.kernels.knn import knn_cuda, knn_plain
 
@@ -219,3 +221,51 @@ def test_fps_kernel_few_and_no_valid_points(cuda):
     got = fps_cuda(x, 10, valid)
     assert torch.equal(got, fps_plain(x, 10, valid))
     assert set(got[0].tolist()) == {7, 99, 250} and not got[1].any()
+
+
+# ---- K6 ---------------------------------------------------------------------
+
+DW_CASES = [
+    # (B, D, H, W, C, dtype): the CNN path's channel widths at a smaller
+    # volume, bfloat16, ragged (odd D, H, W; C = 5), D = 1, B > 1
+    (1, 32, 32, 32, 32, torch.float32),
+    (1, 24, 24, 24, 144, torch.float32),
+    (1, 16, 16, 16, 384, torch.float32),
+    (1, 24, 24, 24, 192, torch.bfloat16),
+    (2, 7, 9, 11, 5, torch.float32),
+    (1, 1, 6, 10, 5, torch.float32),
+    (3, 5, 4, 3, 7, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("b,d,h,w,c,dtype", DW_CASES)
+def test_depthwise_kernel_equals_plain(cuda, b, d, h, w, c, dtype):
+    """Bit-equal outputs (tolerance 0): both round every multiply and add
+    in the same (dz, dy, dx) order, without FMA contraction."""
+    g = torch.Generator().manual_seed(b * d * h * w + c)
+    x = torch.randn((b, d, h, w, c), generator=g).to(cuda, dtype)
+    wt = torch.randn((3, 3, 3, c), generator=g).to(cuda, dtype)
+    before = depthwise_conv3_cuda.launches
+    got = depthwise_conv3_cuda(x, wt)
+    torch.cuda.synchronize()
+    assert depthwise_conv3_cuda.launches == before + 1
+    want = depthwise_conv3_plain(x, wt)
+    assert got.shape == x.shape and got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+def test_depthwise_kernel_checks_input(cuda):
+    x = torch.randn((1, 4, 5, 6, 8), device=cuda)
+    w = torch.randn((3, 3, 3, 8), device=cuda)
+    before = depthwise_conv3_cuda.launches
+    with pytest.raises(ValueError, match="w must be"):
+        depthwise_conv3_cuda(x, w[..., :4].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        depthwise_conv3_cuda(x.transpose(2, 3), w)
+    with pytest.raises(ValueError, match="different devices"):
+        depthwise_conv3_cuda(x, w.cpu())
+    with pytest.raises(TypeError, match="float32"):
+        depthwise_conv3_cuda(x.half(), w.half())
+    with pytest.raises(RuntimeError, match="no gradient"):
+        depthwise_conv3_cuda(x, w.clone().requires_grad_())
+    assert depthwise_conv3_cuda.launches == before

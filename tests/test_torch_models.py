@@ -19,7 +19,8 @@ from fissure_segmentation_tpu.models.ensemble import (build_subsets as
                                                       jbuild_subsets)
 from fissure_segmentation_tpu.models.ensemble import (ensemble_predict as
                                                       jensemble_predict)
-from fissure_segmentation_tpu_torch.models import (DGCNNSeg, ensemble_predict,
+from fissure_segmentation_tpu_torch.models import (DGCNNSeg, MobileNetASPP,
+                                                   ensemble_predict,
                                                    export_jax_variables,
                                                    load_jax_variables)
 from fissure_segmentation_tpu_torch.models.ensemble import build_subsets
@@ -119,7 +120,9 @@ def test_export_jax_variables_round_trip():
                      dtype=torch.bfloat16),
     lambda: knn(torch.zeros((1, 8, 3)), 2, recall_target=0.9),
     lambda: segment_case(np.zeros((8, 8, 8), np.float32),
-                         np.ones((8, 8, 8), bool), None, kp_mode="cnn"),
+                         np.ones((8, 8, 8), bool), None, kp_mode="cnn",
+                         cnn_model=MobileNetASPP(num_classes=4),
+                         cnn_dtype=torch.bfloat16, device="cpu"),
     lambda: segment_case(np.zeros((8, 8, 8), np.float32),
                          np.ones((8, 8, 8), bool), None, approx_top_k=True),
 ], ids=["dynamic", "knn_recall", "spatial_transformer", "image_feat_module",

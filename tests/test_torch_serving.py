@@ -113,7 +113,8 @@ def _port_modules():
 def test_port_runs_without_jax():
     """The port imports nothing of JAX or the JAX package: a fresh
     interpreter imports every module of the port and chip_smoke (without
-    running it), runs the CPU path of the whole serving slice, and then
+    running it), runs the CPU path of the whole serving slice in each
+    keypoint mode, and then
     neither jax, flax nor fissure_segmentation_tpu (or any of its modules)
     is loaded."""
     code = textwrap.dedent(f"""
@@ -135,6 +136,17 @@ def test_port_runs_without_jax():
                            sample_points=64, n_runs_min=3, subset_batch=2,
                            grid_res=(12, 12, 12), k_normals=8, device="cpu")
         assert len(res.kpts) > 0 and res.labelmap.shape == img.shape
+        from fissure_segmentation_tpu_torch.models import MobileNetASPP
+        cnn = MobileNetASPP(num_classes=4,
+                            generator=torch.Generator().manual_seed(2))
+        for kw in (dict(kp_mode="cnn", cnn_model=cnn),
+                   dict(kp_mode="enhancement")):
+            res = segment_case(img, np.ones(img.shape, bool), model,
+                               torch.Generator().manual_seed(1), max_kpts=300,
+                               sample_points=64, n_runs_min=3, subset_batch=2,
+                               grid_res=(12, 12, 12), k_normals=8,
+                               device="cpu", **kw)
+            assert len(res.kpts) > 0, kw
         bad = [m for m in sys.modules
                if m in ("jax", "flax") or m.startswith(("jax.", "flax."))
                or m == "fissure_segmentation_tpu"
