@@ -17,7 +17,8 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      class), segment_case with its defaults — one warm-up, then timed
      cases; checks keypoints, per-class meshes, labelmap, finiteness, and
      that every case launched K1 at least 11 times (10 ensemble groups +
-     the normals);
+     the normals) and the gather-reduce at least 20 (10 groups x the two
+     fused EdgeConvs);
   5. reference check on a small input: the same slice at 128^3 on the card
      (kernels) and on the CPU (plain versions) must agree;
   6. K2-K4 (the EdgeConv scatter kernels) against their plain versions on
@@ -76,20 +77,46 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      with phase 4's checks;
  15. CNN reference on a small input (40 x 48 x 56, full width): softmax
      card vs CPU within CNN_SOFT_TOL, argmax and the staged keypoints
-     equal but at near-ties (phase_cnn_reference).
+     equal but at near-ties (phase_cnn_reference);
+ 16. the fused EdgeConv gather-reduce (P5's function) against its plain
+     version, equal in every output, want "max", "extrema" and "all", f32
+     and bf16: at the train step's shape (32, 2048, 40, 64) on K1's graph,
+     the serving ensemble's (5, 2048, 40, 64), an integer lattice full of
+     k-ties and indices out of range; median times of the kernel, the
+     plain version, the flat gather + reductions the port ran before, the
+     library call (embedding_bag, "max" only) and the bound;
+ 17. the bf16 DGCNN training slice at full width (--amp true): 10 timed
+     warm steps of DGCNNSeg(k=40, static, bf16) fused and unfused (ms/step,
+     clouds/s, peak memory, launches: K2 every step in both routings, the
+     gather-reduce, K3 and K4 every fused step), then the entry point with
+     --amp true trains fold 0 for 3 epochs (phase 7's checks, and the model
+     written as bf16);
+ 18. bf16 train-step reference on a small input (B=2, N=256, k=8): one
+     step on the card and on the CPU from the same weights and batch, both
+     routings, held within BF16_TOL (phase_bf16_reference says why); the
+     same step on the card with a planted fault (a wrong neighbour in the
+     backward) must miss the gradient tolerance;
+ 19. the probes of P1-P4 (prof/probes.py) at 3 repetitions, each variant
+     checked against its plain version first (stream_sum and
+     stream_sum_async within their rounding bound on the payload, equal on
+     a payload of integers, where every sum is exact, and unequal there
+     once a tile is zeroed); the stream kernels' times beside their plain
+     version, torch.sum and the bound. P5's comparison is phase 16's.
 
 Kernel launch counts are set to 0 before each main path (phases 4, 10 and
-14 serving, phases 7 and 11 training) and read after it; the comparison
-launches of phases 3, 5, 6, 8, 9, 12, 13 and 15 are not counted. The line before
-the last but one is a JSON object describing the kernels (with each one's
-bound: the larger of its bytes over 3.35 TB/s and its operations over the
-67 TFLOP/s float32 rate, and the time of one PyTorch library call that
-computes the same function, where there is one); then the card's name and
-power limit as nvidia-smi gives them; the last line is {"ok": true,
-"device": {...}}.
+14 serving, phases 7, 11 and 17 training, phase 19 the probes) and read
+after it; the comparison launches of phases 3, 5, 6, 8, 9, 12, 13, 15, 16
+and 18 and of the probes' own checks are not counted. The line before the last but one is a JSON object
+describing the kernels (with each one's bound: the larger of its bytes over
+3.35 TB/s and its operations over the 67 TFLOP/s float32 rate, and the time
+of one PyTorch library call that computes the same function, where there
+is one; the stream kernels' rows say "path": "probes"); then the card's
+name and power limit as nvidia-smi gives them; the last line is {"ok":
+true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import csv
 import json
@@ -104,6 +131,7 @@ import numpy as np
 import torch
 from torch.overrides import TorchFunctionMode
 
+from fissure_segmentation_tpu_torch.prof.probes import median_ms
 from fissure_segmentation_tpu_torch.train.profile_step import card_line
 
 KNN_SOURCE = "fissure_segmentation_tpu_torch/kernels/csrc/knn.cu"
@@ -117,10 +145,22 @@ PALLAS_SCATTER = "fissure_segmentation_tpu/ops/pallas/scatter.py"
 SCATTER_REPLACES = {"scatter_rows": f"{PALLAS_SCATTER}:369",
                     "scatter_routed": f"{PALLAS_SCATTER}:260",
                     "scatter_count": f"{PALLAS_SCATTER}:332"}
+GR_SOURCE = "fissure_segmentation_tpu_torch/kernels/csrc/gather_reduce.cu"
+GR_REPLACES = "scripts/prof/prof_fused_gather.py:64"
+STREAM_SOURCE = "fissure_segmentation_tpu_torch/kernels/csrc/stream.cu"
+STREAM_REPLACES = {
+    "stream_sum": "scripts/prof/prof_stream_bw.py:35",
+    "stream_sum_async": "scripts/prof/prof_scatter_alt.py:147"}
+STREAM_ALSO = {
+    "stream_sum": ["scripts/prof/prof_scatter_floor.py:28",
+                   "scripts/prof/prof_scatter_clean.py:65",
+                   "scripts/prof/prof_scatter_alt.py:130"],
+    "stream_sum_async": []}
 SHAPE = (256, 256, 256)
 TRAIN_ARGV = ["--ds", "synthetic", "--pts", "2048", "--k", "40", "--static",
               "--batch", "32", "--amp", "false", "--epochs", "3", "--fold",
               "0", "--train_only"]
+AMP_TRAIN_ARGV = [a if a != "false" else "true" for a in TRAIN_ARGV]
 PT_TRAIN_ARGV = ["--model", "PointTransformer", "--ds", "synthetic", "--pts",
                  "2048", "--batch", "32", "--train_only", "--fold", "0",
                  "--epochs", "3"]
@@ -139,26 +179,9 @@ PT_UNPINNED_SHARE = 0.1     # PointTransformer (phase_pt_reference)
 PT_EVAL_GRAD_TOL = dict(rtol=5e-4, atol=5e-4)
 EPS32 = 2.0 ** -24
 CNN_SOFT_TOL = 5e-5  # phase_cnn_reference says why
-
-
-def median_ms(fn, reps: int = 7, inner: int = 10, warm: int = 3) -> float:
-    """Per-call ms: median over `reps` runs of `inner` back-to-back warm
-    calls, each run timed with CUDA events (back to back, the host's launch
-    overhead overlaps the device work instead of adding to it)."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return statistics.median(times)
+# phase_bf16_reference says why
+BF16_TOL = {"logits": 3e-2, "loss": 1e-2, "grad_rel_l2": 0.12,
+            "stats_rel_l2": 2e-2}
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -255,6 +278,8 @@ def check_result(res, shape, what: str):
 def phase_slice(knn_cuda, card: str):
     from fissure_segmentation_tpu_torch.data.synthetic import \
         make_synthetic_image_case
+    from fissure_segmentation_tpu_torch.kernels.gather_reduce import \
+        gather_reduce
     from fissure_segmentation_tpu_torch.models import DGCNNSeg
     from fissure_segmentation_tpu_torch.serving import segment_case
     t0 = time.perf_counter()
@@ -276,7 +301,7 @@ def phase_slice(knn_cuda, card: str):
     print(f"slice: warm-up case {time.perf_counter() - t0:.3f} s", flush=True)
 
     n_cases = 10
-    knn_cuda.launches = 0
+    knn_cuda.launches = gather_reduce.launches = 0
     times = []
     for i in range(n_cases):
         torch.cuda.synchronize()
@@ -284,17 +309,24 @@ def phase_slice(knn_cuda, card: str):
         res = run(2 + i)
         times.append(time.perf_counter() - t0)
         check_result(res, SHAPE, f"case {i}")
-    launches = knn_cuda.launches
-    if launches < 11 * n_cases:
-        raise AssertionError(f"K1 launched {launches} times in {n_cases} "
-                             f"cases; the path needs >= {11 * n_cases}")
+    launches = {"knn": knn_cuda.launches,
+                "gather_reduce": gather_reduce.launches}
+    if launches["knn"] < 11 * n_cases:
+        raise AssertionError(f"K1 launched {launches['knn']} times in "
+                             f"{n_cases} cases; the path needs >= "
+                             f"{11 * n_cases}")
+    if launches["gather_reduce"] < 20 * n_cases:
+        raise AssertionError(f"gather_reduce launched "
+                             f"{launches['gather_reduce']} times in "
+                             f"{n_cases} cases; the path needs >= "
+                             f"{20 * n_cases}")
     tri = [int(v.sum()) for _, v in res.meshes]
     print(f"slice: {len(res.kpts)} valid keypoints, labels "
           f"{np.bincount(res.labels, minlength=4).tolist()}, valid triangles "
           f"per class {tri}, labelmap voxels per class "
           f"{np.bincount(res.labelmap.ravel(), minlength=4)[1:].tolist()}",
           flush=True)
-    print(f"slice: K1 launches in {n_cases} timed cases: {launches}",
+    print(f"slice: launches in {n_cases} timed cases: {launches}",
           flush=True)
     print(f"slice: {statistics.median(times):.4f} s/case median of "
           f"{[round(t, 4) for t in times]} on {card}", flush=True)
@@ -453,24 +485,29 @@ def phase_scatter(ks, knn_cuda):
     return out
 
 
-def _counts(ks, knn_cuda):
+def _wrappers(ks, knn_cuda) -> dict:
+    """Every kernel wrapper of the port, by the name its counts go under."""
     from fissure_segmentation_tpu_torch.kernels.depthwise import \
         depthwise_conv3_cuda
     from fissure_segmentation_tpu_torch.kernels.fps import fps_cuda
-    return {"knn": knn_cuda.launches,
-            "scatter_rows": ks.scatter_rows.launches,
-            "scatter_routed": ks.scatter_routed.launches,
-            "scatter_count": ks.scatter_count.launches,
-            "fps": fps_cuda.launches,
-            "depthwise_conv3": depthwise_conv3_cuda.launches}
+    from fissure_segmentation_tpu_torch.kernels.gather_reduce import \
+        gather_reduce
+    from fissure_segmentation_tpu_torch.kernels.stream import (
+        stream_sum, stream_sum_async)
+    return {"knn": knn_cuda, "scatter_rows": ks.scatter_rows,
+            "scatter_routed": ks.scatter_routed,
+            "scatter_count": ks.scatter_count, "fps": fps_cuda,
+            "depthwise_conv3": depthwise_conv3_cuda,
+            "gather_reduce": gather_reduce, "stream_sum": stream_sum,
+            "stream_sum_async": stream_sum_async}
+
+
+def _counts(ks, knn_cuda):
+    return {k: fn.launches for k, fn in _wrappers(ks, knn_cuda).items()}
 
 
 def _reset(ks, knn_cuda):
-    from fissure_segmentation_tpu_torch.kernels.depthwise import \
-        depthwise_conv3_cuda
-    from fissure_segmentation_tpu_torch.kernels.fps import fps_cuda
-    for fn in (knn_cuda, ks.scatter_rows, ks.scatter_routed,
-               ks.scatter_count, fps_cuda, depthwise_conv3_cuda):
+    for fn in _wrappers(ks, knn_cuda).values():
         fn.launches = 0
 
 
@@ -542,7 +579,7 @@ def phase_train(ks, knn_cuda, card: str):
     if timing["unfused"]["launches_10_steps"]["scatter_rows"] < 10 or \
             timing["fused"]["launches_10_steps"]["scatter_rows"] < 10:
         raise AssertionError("train: K2 did not launch in every step")
-    for name in ("scatter_routed", "scatter_count"):
+    for name in ("scatter_routed", "scatter_count", "gather_reduce"):
         if timing["fused"]["launches_10_steps"][name] < 10:
             raise AssertionError(f"train: {name} did not launch in every "
                                  "fused step")
@@ -571,15 +608,42 @@ class BranchRecorder(TorchFunctionMode):
     """Records the branch each decision of a forward takes: the condition
     of every three-argument torch.where (LeakyReLU, the fused core's slot
     choice and tail), the extremal mask of every amax (max over k, global
-    max-pool) and every argmax/argmin (the fused core's routed slot)."""
+    max-pool), every argmax/argmin, and the first extremal slots the fused
+    core's gather-reduce returns (its routed slots; ops/fused_edge.py's
+    `gather_reduce` is wrapped while active, and the plain version's own
+    torch calls inside it are not recorded, so the card's kernel and the
+    CPU's plain version record the same)."""
 
     def __init__(self):
         super().__init__()
         self.branches = []
+        self._inside = False
+
+    def __enter__(self):
+        from fissure_segmentation_tpu_torch.ops import fused_edge as fe
+        self._fe, self._saved = fe, fe.gather_reduce
+
+        def gather_reduce(a, idx, want):
+            self._inside = True
+            try:
+                out = self._saved(a, idx, want)
+            finally:
+                self._inside = False
+            if want == "all":
+                self.branches += [out[2].cpu(), out[3].cpu()]
+            return out
+        fe.gather_reduce = gather_reduce
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        self._fe.gather_reduce = self._saved
+        return super().__exit__(*exc)
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if self._inside:
+            return out
         name = getattr(func, "__name__", "")
         if name == "where" and len(args) == 3:
             self.branches.append(args[0].detach().cpu())
@@ -616,7 +680,7 @@ def _reference_step(dev, model0, ds, cw, cfg, x, y):
             {k: float(v) for k, v in comps.items()}, rec.branches)
 
 
-def _reference_model(seed, ds):
+def _reference_model(seed, ds, dtype=None):
     """DGCNNSeg(k=8) with seeded weights and every BatchNorm offset drawn
     from ±[0.05, 0.1]. The offsets matter to the updated parameters: the
     loss gradient of SharedMLP_0's BatchNorm offset vanishes analytically
@@ -628,7 +692,8 @@ def _reference_model(seed, ds):
     from fissure_segmentation_tpu_torch.models import DGCNNSeg
     model = DGCNNSeg(k=8, in_features=ds.n_features,
                      num_classes=ds.num_classes,
-                     generator=torch.Generator().manual_seed(seed))
+                     generator=torch.Generator().manual_seed(seed),
+                     dtype=dtype)
     return _draw_bn_offsets(model, seed)
 
 
@@ -1236,6 +1301,8 @@ def phase_cnn_slice(dw_cuda, card: str):
     launches of the timed cases, timings)."""
     from fissure_segmentation_tpu_torch.data.synthetic import \
         make_synthetic_image_case
+    from fissure_segmentation_tpu_torch.kernels.gather_reduce import \
+        gather_reduce
     from fissure_segmentation_tpu_torch.kernels.knn import knn_cuda
     from fissure_segmentation_tpu_torch.models import (DGCNNSeg,
                                                        predict_full_volume)
@@ -1259,7 +1326,7 @@ def phase_cnn_slice(dw_cuda, card: str):
     print(f"cnn slice: warm-up case {time.perf_counter() - t0:.3f} s",
           flush=True)
     n_cases = 3
-    dw_cuda.launches = knn_cuda.launches = 0
+    dw_cuda.launches = knn_cuda.launches = gather_reduce.launches = 0
     torch.cuda.reset_peak_memory_stats()
     times = []
     for i in range(n_cases):
@@ -1269,7 +1336,8 @@ def phase_cnn_slice(dw_cuda, card: str):
         times.append(time.perf_counter() - t0)
         check_result(res, SHAPE, f"cnn case {i}")
     peak = torch.cuda.max_memory_allocated()
-    launches = {"depthwise_conv3": dw_cuda.launches, "knn": knn_cuda.launches}
+    launches = {"depthwise_conv3": dw_cuda.launches, "knn": knn_cuda.launches,
+                "gather_reduce": gather_reduce.launches}
     if launches["depthwise_conv3"] < 7 * n_cases:
         raise AssertionError(f"K6 launched {launches['depthwise_conv3']} "
                              f"times in {n_cases} cnn cases; the path needs "
@@ -1365,6 +1433,349 @@ def phase_cnn_reference():
     return err
 
 
+# ---- the fused gather-reduce, the bf16 step and the probes ------------------
+
+def _old_gather_reduce(a, idx, want):
+    """What the port ran before the gather-reduce kernel: the flat gather of
+    the whole (B, N, K, C) neighbour tensor, then one reduction per output
+    (timed as the 'old' column only)."""
+    from fissure_segmentation_tpu_torch.ops.edge import _flat_gather
+    ga = _flat_gather(a, idx)
+    if want == "max":
+        return (ga.amax(dim=2),)
+    if want == "extrema":
+        return ga.amax(dim=2), ga.amin(dim=2)
+    gaf = ga.to(torch.float32)
+    return (ga.amax(dim=2), ga.amin(dim=2), ga.argmax(dim=2),
+            ga.argmin(dim=2), gaf.sum(dim=2), (gaf * gaf).sum(dim=2))
+
+
+def _gr_bytes(a, idx, want) -> int:
+    """Bytes the gather-reduce must move: a and idx read once, the outputs
+    written once."""
+    b, n, c = a.shape
+    out = {"max": a.element_size(), "extrema": 2 * a.element_size(),
+           "all": 2 * a.element_size() + 4 * 4}[want]
+    return (a.numel() * a.element_size() + idx.numel() * 4
+            + b * n * c * out)
+
+
+def phase_gather_reduce(knn_cuda):
+    """The gather-reduce against its plain version: every output equal
+    (torch.equal), for every want and dtype, at the path's shapes (the train
+    step's on K1's graph, the serving ensemble's), a lattice full of k-ties
+    and indices out of range; timings at the path's shapes. Returns (max
+    |kernel - plain| over every output and case, {shape: timings})."""
+    import torch.nn.functional as F
+    from fissure_segmentation_tpu_torch.kernels.gather_reduce import (
+        flat_rows, gather_reduce, gather_reduce_plain)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(16)
+    graphs = {}
+    for b in (32, 5):
+        pts = torch.rand((b, 2048, 3), generator=g, device=dev) * 2 - 1
+        graphs[b] = knn_cuda(pts, 40)[0].contiguous()
+    lattice_idx = torch.randint(0, 512, (4, 512, 40), generator=g,
+                                device=dev, dtype=torch.int32)
+    bad = torch.randint(0, 300, (3, 300, 24), generator=g, device=dev,
+                        dtype=torch.int32)
+    bad[:, ::7, 0] = -1                   # wraps to the last row
+    bad[:, 3::11, 5] = 300 + 17           # clamps
+    bad[1, :, 9] = -5000                  # clamps to row 0
+    cases = {
+        # name: (idx, table maker, timed)
+        "train_32x2048x40x64": (graphs[32], "normal", True),
+        "serve_5x2048x40x64": (graphs[5], "normal", True),
+        "lattice_ties_4x512x40x64": (lattice_idx, "lattice", False),
+        "out_of_range_3x300x24x40": (bad, "normal", False),
+    }
+    timings, max_err = {}, 0.0
+    for name, (idx, kind, timed) in cases.items():
+        b, n, _ = idx.shape
+        c = 40 if name.startswith("out_of_range") else 64
+        if kind == "lattice":
+            base = torch.randint(0, 3, (b, n, c), generator=g,
+                                 device=dev).float()
+        else:
+            base = torch.randn((b, n, c), generator=g, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            a = base.to(dtype)
+            for want in ("max", "extrema", "all"):
+                got = gather_reduce(a, idx, want)
+                torch.cuda.synchronize()
+                ref = gather_reduce_plain(a, idx, want)
+                max_err = max([max_err] + [
+                    (x.double() - y.double()).abs().max().item()
+                    for x, y in zip(got, ref)])
+                if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+                    raise AssertionError(
+                        f"gather_reduce {name} {dtype} {want}: kernel "
+                        f"differs from plain in "
+                        f"{[int((x != y).sum()) for x, y in zip(got, ref)]}")
+                if not timed:
+                    continue
+                key = f"{name}_{str(dtype)[6:]}_{want}"
+                t_k = median_ms(lambda: gather_reduce(a, idx, want))
+                t_p = median_ms(lambda: gather_reduce_plain(a, idx, want),
+                                reps=3, inner=1, warm=1)
+                t_o = median_ms(lambda: _old_gather_reduce(a, idx, want),
+                                reps=3, inner=3, warm=1)
+                t_l = None
+                if want == "max":
+                    table = a.view(b * n, c)
+                    bags = flat_rows(idx, n).view(b * n, -1)
+                    t_l = median_ms(lambda: F.embedding_bag(
+                        bags, table, mode="max"), reps=3, inner=3, warm=1)
+                # per (point, slot, channel): two compares, and for "all"
+                # a multiply and two adds
+                ops = idx.numel() * c * (5 if want == "all" else
+                                         2 if want == "extrema" else 1)
+                bound, by = bound_ms(_gr_bytes(a, idx, want), ops)
+                timings[key] = {"ms": t_k, "plain_ms": t_p, "old_ms": t_o,
+                                "library_ms": t_l, "bound_ms": bound,
+                                "bound_by": by}
+                print(f"gather_reduce {key}: kernel == plain (every "
+                      f"output); kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+                      f"old gather + reductions {t_o:.4f} ms, library "
+                      f"{'none' if t_l is None else f'{t_l:.4f} ms'} "
+                      f"(median), bound {bound:.4f} ms ({by})", flush=True)
+        if not timed:
+            print(f"gather_reduce {name}: kernel == plain (every output, "
+                  f"every want, f32 and bf16)", flush=True)
+    return max_err, timings
+
+
+def phase_bf16_train(ks, knn_cuda, card: str):
+    """The bf16 training slice at full width: 10 timed warm steps in each
+    routing (the harness of train/profile_step.py with dtype=bf16), then
+    the entry point with --amp true (3 epochs of fold 0). Counts are reset
+    before and read after; returns them with the timings."""
+    from fissure_segmentation_tpu_torch import train_point_seg
+    from fissure_segmentation_tpu_torch.models import (DGCNNSeg,
+                                                       export_jax_variables,
+                                                       load_model)
+    from fissure_segmentation_tpu_torch.train.profile_step import (
+        STEPS, WARM, canonical_data, make_step, time_steps)
+    timing = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _reset(ks, knn_cuda)
+        ds, loss_fn = canonical_data()
+        for fused in ("0", "1"):
+            os.environ["FSEG_FUSED_EDGE"] = fused
+            step = make_step(ds, loss_fn, tmp, dtype=torch.bfloat16)
+            for _ in range(WARM):
+                step()
+            before = _counts(ks, knn_cuda)
+            ms, peak, losses = time_steps(step)
+            after = _counts(ks, knn_cuda)
+            if not torch.isfinite(torch.stack(losses)).all():
+                raise AssertionError(f"bf16 train: non-finite loss ({fused})")
+            name = "fused" if fused == "1" else "unfused"
+            launched = {k: after[k] - before[k] for k in after}
+            timing[name] = {"ms_per_step": ms, "clouds_per_s": 32e3 / ms,
+                            "peak_bytes": peak,
+                            "launches_10_steps": launched}
+            print(f"bf16 train: {name} step {ms:.2f} ms ({32e3 / ms:.1f} "
+                  f"clouds/s), peak {peak / 2 ** 30:.2f} GiB, launches in "
+                  f"{STEPS} steps {launched} on {card}", flush=True)
+        os.environ.pop("FSEG_FUSED_EDGE")
+        for name, kernels in (("unfused", ("scatter_rows",)),
+                              ("fused", ("scatter_rows", "scatter_routed",
+                                         "scatter_count", "gather_reduce"))):
+            for k in kernels:
+                if timing[name]["launches_10_steps"][k] < STEPS:
+                    raise AssertionError(f"bf16 train: {k} did not launch "
+                                         f"in every {name} step")
+        t0 = time.perf_counter()
+        if train_point_seg.main(AMP_TRAIN_ARGV + ["--output", tmp]) != 0:
+            raise AssertionError("bf16 train: the entry point failed")
+        fold = os.path.join(tmp, "fold0")
+        hist = _read_history(os.path.join(fold, "history.csv"))
+        if len(hist) != 3 or not np.isfinite(hist).all():
+            raise AssertionError(f"bf16 train: loss history {hist}")
+        model = load_model(os.path.join(fold, "model.pt"), DGCNNSeg)
+        if model.dtype != torch.bfloat16:
+            raise AssertionError(f"bf16 train: model.pt holds a "
+                                 f"{model.dtype} model")
+        stats = export_jax_variables(model)["batch_stats"]
+        still = [name for name, leaf in _leaves(stats)
+                 if np.array_equal(leaf, np.zeros_like(leaf))
+                 or np.array_equal(leaf, np.ones_like(leaf))]
+        if still:
+            raise AssertionError(f"bf16 train: running statistics never "
+                                 f"moved: {still}")
+        print(f"bf16 train: entry point --amp true (3 epochs, fold 0) in "
+              f"{time.perf_counter() - t0:.1f} s; loss history {hist}",
+              flush=True)
+    return _counts(ks, knn_cuda), timing
+
+
+def _rel_l2(got: dict, want: dict) -> float:
+    gap = np.sqrt(sum(np.sum((got[k] - want[k]) ** 2) for k in want))
+    return float(gap / max(np.sqrt(sum(np.sum(want[k] ** 2) for k in want)),
+                           1e-30))
+
+
+@contextlib.contextmanager
+def planted_fault(route: str):
+    """A wrong neighbour in the backward, for as long as the context lasts:
+    the fused core routes each (n, c) to the slot after its extremal one,
+    the unfused route's K2 scatters each edge's cotangent to the next
+    slot's neighbour. The forward is unchanged."""
+    from fissure_segmentation_tpu_torch.ops import edge, fused_edge
+    if route == "fused":
+        mod, name = fused_edge, "gather_reduce"
+        real = fused_edge.gather_reduce
+
+        def fault(a, idx, want="max"):
+            out = real(a, idx, want)
+            if want != "all":
+                return out
+            k = idx.shape[-1]
+            return out[:2] + ((out[2] + 1) % k, (out[3] + 1) % k) + out[4:]
+    else:
+        mod, name = edge, "scatter_rows"
+        real = edge.scatter_rows
+
+        def fault(idx, g, n):
+            b, e = idx.shape
+            rolled = idx.view(b, n, e // n).roll(1, -1).reshape(b, e)
+            return real(rolled.contiguous(), g, n)
+    setattr(mod, name, fault)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+
+
+def phase_bf16_reference():
+    """One bf16 train step at B=2, N=256, k=8 on the card (kernels) and on
+    the CPU (plain versions), same weights (`_reference_model` in bf16),
+    same batch, both routings; then the eval logits of the same model.
+
+    bf16 keeps 8 bits of mantissa: each product's result is rounded to
+    2^-9 relative, and the card (cuBLAS) and the CPU sum a product's terms
+    in float32 in other orders before that rounding, so now and then an
+    element rounds to the neighbouring bf16 value on one side, and later
+    layers carry that step on. The forward is held as the CPU tests hold
+    the port's bf16 model against JAX's (tests/test_torch_bf16.py): eval
+    logits within BF16_TOL["logits"] * max|logit|, the loss and its
+    components within rtol BF16_TOL["loss"], the running statistics within
+    BF16_TOL["stats_rel_l2"] in relative L2. The backward rounds every
+    cotangent to bf16 and each train-mode BatchNorm backward subtracts two
+    batch means from it, so those steps grow layer by layer towards the
+    input: the whole gradient is held within BF16_TOL["grad_rel_l2"] in
+    relative L2, a limit between the sound step's readings and those of
+    the same step with a wrong neighbour planted in its backward
+    (`planted_fault`; PERF.md has both). That control runs on the card in
+    each routing and must miss the limit. No updated parameter is held:
+    Adam's first step turns any sign flip of a near-zero gradient into a
+    step of lr."""
+    from fissure_segmentation_tpu_torch.data.dataset import PointDataset
+    from fissure_segmentation_tpu_torch.data.store import sample_batch
+    from fissure_segmentation_tpu_torch.data.synthetic import \
+        make_synthetic_dataset
+    from fissure_segmentation_tpu_torch.models import export_jax_variables
+    from fissure_segmentation_tpu_torch.train.trainer import TrainConfig
+    ds = PointDataset(make_synthetic_dataset(3, n_points=600),
+                      sample_points=256)
+    store = ds.to_store(device="cuda")
+    cw = torch.as_tensor(ds.get_class_weights())
+    model0 = _reference_model(0, ds, dtype=torch.bfloat16)
+    x, y = sample_batch(store, torch.tensor([0, 2], device="cuda"),
+                        ds.sample_points,
+                        torch.Generator(device="cuda").manual_seed(100))
+    for fused in ("0", "1"):
+        os.environ["FSEG_FUSED_EDGE"] = fused
+        route = "fused" if fused == "1" else "unfused"
+        m_g, l_g, c_g, _ = _reference_step("cuda", model0, ds, cw,
+                                           TrainConfig(), x, y)
+        m_c, l_c, c_c, _ = _reference_step("cpu", model0, ds, cw,
+                                           TrainConfig(), x, y)
+        _close("bf16 loss", l_g, l_c, rtol=BF16_TOL["loss"], atol=0)
+        for k in c_c:
+            _close(f"bf16 {k}", c_g[k], c_c[k], rtol=BF16_TOL["loss"], atol=0)
+        g_c = dict(_leaves(export_jax_variables(m_c, grad=True)))
+        grad = _rel_l2(dict(_leaves(export_jax_variables(m_g, grad=True))),
+                       g_c)
+        grad_tol = BF16_TOL["grad_rel_l2"]
+        with planted_fault(route):
+            m_f = _reference_step("cuda", model0, ds, cw, TrainConfig(), x,
+                                  y)[0]
+        fault = _rel_l2(dict(_leaves(export_jax_variables(m_f, grad=True))),
+                        g_c)
+        if fault <= grad_tol:
+            raise AssertionError(f"bf16 reference ({route}): a planted wrong "
+                                 f"neighbour moved the gradient only "
+                                 f"{fault:.3g} (tolerance {grad_tol:.3g})")
+        v_g = dict(_leaves(export_jax_variables(m_g)["batch_stats"]))
+        v_c = dict(_leaves(export_jax_variables(m_c)["batch_stats"]))
+        stats = _rel_l2(v_g, v_c)
+        if grad > grad_tol or stats > BF16_TOL["stats_rel_l2"]:
+            raise AssertionError(f"bf16 reference ({route}): gradient "
+                                 f"{grad:.3g} (tolerance {grad_tol:.3g}), "
+                                 f"running statistics {stats:.3g} apart in "
+                                 "relative L2")
+        with torch.no_grad():
+            lg = copy.deepcopy(model0).cuda().eval()(x).float().cpu()
+            lc = copy.deepcopy(model0).eval()(x.cpu()).float()
+        gap = float((lg - lc).abs().max() / lc.abs().max())
+        if gap > BF16_TOL["logits"]:
+            raise AssertionError(f"bf16 reference ({route}): eval logits "
+                                 f"{gap:.3g} * max|logit| apart")
+        print(f"bf16 reference: {route} step card vs CPU: loss {l_g:.6f} vs "
+              f"{l_c:.6f}; gradient {grad:.4g} apart (relative L2, "
+              f"tolerance {grad_tol:.3g}; with the planted fault "
+              f"{fault:.4g}), running statistics {stats:.3g} apart; eval "
+              f"logits {gap:.3g} * max|logit| apart (tolerances {BF16_TOL})",
+              flush=True)
+    os.environ.pop("FSEG_FUSED_EDGE")
+
+
+def phase_probes(card: str):
+    """The probes of P1-P4 (prof/probes.py) at 3 repetitions, then the
+    stream kernels' headline times beside their plain version, torch.sum
+    and the bound. The path's launches are those of the probes' timed calls
+    (each row counts its own; the probes' checks are not counted). Returns
+    ({kernel: launches}, rows, {kernel: timings})."""
+    from fissure_segmentation_tpu_torch.kernels.stream import (
+        stream_sum, stream_sum_async, stream_sum_plain)
+    from fissure_segmentation_tpu_torch.prof import probes
+    idx, g = probes.payload()
+    rows = (probes.p1(idx, g, reps=3) + probes.p2_p4(g, reps=3)
+            + probes.p3(g, reps=3))
+    counts = {}
+    for row in rows:
+        for name, n in row["launches"].items():
+            counts[name] = counts.get(name, 0) + n
+    g64, g128 = g.view(-1, 64), g.view(-1, 128)
+    ring = min((r for r in rows if "stream_sum_async" in r["variant"]),
+               key=lambda r: r["ms"])
+    chunk, nbuf = (int(t[2:]) for t in ring["variant"].split()[-2:])
+    heads = {}
+    for name, view, fn, row in (
+            ("stream_sum", g64, lambda: stream_sum(g64),
+             next(r for r in rows if r["variant"].startswith("k_stream"))),
+            ("stream_sum_async", g128,
+             lambda: stream_sum_async(g128, chunk, nbuf), ring)):
+        t_p = median_ms(lambda: stream_sum_plain(view), reps=3)
+        t_l = median_ms(lambda: torch.sum(view, 0, dtype=torch.float32),
+                        reps=3)
+        # read the view once, write L f32; one add per element
+        bound, by = bound_ms(view.numel() * 2 + view.shape[1] * 4,
+                             view.numel())
+        heads[name] = {"ms": row["ms"], "plain_ms": t_p, "library_ms": t_l,
+                       "bound_ms": bound, "bound_by": by,
+                       "max_abs_err": row["max_abs_err"],
+                       "shape": list(view.shape), "variant": row["variant"],
+                       "gb_per_s": row["gb_per_s"]}
+        print(f"{name} {row['variant']}: kernel {row['ms']:.4f} ms "
+              f"({row['gb_per_s']:.1f} GB/s), plain {t_p:.4f} ms, library "
+              f"torch.sum {t_l:.4f} ms, bound {bound:.4f} ms ({by}) on "
+              f"{card}", flush=True)
+    return counts, rows, heads
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1403,7 +1814,7 @@ def main() -> int:
 
     # 4. the serving slice at full size (counts from 0, read after)
     _reset(ks, knn_cuda)
-    serving_launches = phase_slice(knn_cuda, card)
+    serving = phase_slice(knn_cuda, card)
 
     # 5. serving reference check on a small input
     phase_reference(card)
@@ -1447,11 +1858,28 @@ def main() -> int:
     # 15. CNN reference, card against CPU, on a small input
     phase_cnn_reference()
 
+    # 16. the fused gather-reduce against its plain version
+    gr_err, gr_timings = phase_gather_reduce(knn_cuda)
+
+    # 17. the bf16 training slice (counts from 0, read after)
+    bf16_counts, bf16_timing = phase_bf16_train(ks, knn_cuda, card)
+    print(json.dumps({"bf16_train": bf16_timing, "card": card}), flush=True)
+
+    # 18. bf16 train-step reference on a small input
+    phase_bf16_reference()
+
+    # 19. the probes of P1-P4 (the stream kernels' path: the launches of
+    # their timed calls)
+    probe_counts, probe_rows, stream_heads = phase_probes(card)
+    print(json.dumps({"probes": probe_rows, "card": card}), flush=True)
+
+    train_total = {k: counts["total"][k] + bf16_counts[k]
+                   for k in bf16_counts}
     graph = timings["dgcnn_graph_5x2048x3_k40"]
     kernels = [{
         "name": "knn", "route": "cuda", "source": KNN_SOURCE,
         "replaces": KNN_REPLACES,
-        "launches": serving_launches + counts["total"]["knn"]
+        "launches": serving["knn"] + train_total["knn"]
         + pt_serving["knn"] + pt_counts["knn"] + cnn_serving["knn"],
         "max_abs_err": max_err, "ms": graph["ms"],
         "plain_ms": graph["plain_ms"], "bound_ms": graph["bound_ms"],
@@ -1461,7 +1889,7 @@ def main() -> int:
         path = next(iter(shapes.values()))       # the first timed shape
         row = {"name": name, "route": "cuda", "source": SCATTER_SOURCE,
                "replaces": SCATTER_REPLACES[name],
-               "launches": counts["total"][name], "max_abs_err": err,
+               "launches": train_total[name], "max_abs_err": err,
                "ms": path["ms"], "plain_ms": path["plain_ms"],
                "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
                "library_ms": path["library_ms"], "shapes": shapes}
@@ -1486,6 +1914,22 @@ def main() -> int:
         "bound_ms": widest["bound_ms"], "bound_by": widest["bound_by"],
         "library_ms": widest["library_ms"], "per_forward": dw_forward,
         "shapes": dw_timings})
+    p5 = gr_timings["train_32x2048x40x64_bfloat16_max"]
+    kernels.append({
+        "name": "gather_reduce", "route": "cuda", "source": GR_SOURCE,
+        "replaces": GR_REPLACES,
+        "launches": serving["gather_reduce"] + train_total["gather_reduce"]
+        + cnn_serving["gather_reduce"], "max_abs_err": gr_err,
+        "ms": p5["ms"], "plain_ms": p5["plain_ms"],
+        "bound_ms": p5["bound_ms"], "bound_by": p5["bound_by"],
+        "library_ms": p5["library_ms"], "old_ms": p5["old_ms"],
+        "shapes": gr_timings})
+    for name, head in stream_heads.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": STREAM_SOURCE,
+            "replaces": STREAM_REPLACES[name],
+            "also_replaces": STREAM_ALSO[name], "path": "probes",
+            "launches": probe_counts.get(name, 0), **head})
     for row in kernels:
         if row["launches"] < 1:
             raise AssertionError(f"{row['name']} never launched on the main "

@@ -1,6 +1,9 @@
-"""Hand-written CUDA kernels for Hopper (counterpart of ops/pallas/): K1 kNN
-(knn.py), K2-K4 the EdgeConv scatters (scatter.py), K5 farthest-point
-sampling (fps.py), K6 the 3x3x3 depthwise convolution (depthwise.py).
+"""Hand-written CUDA kernels for Hopper (counterpart of ops/pallas/ and of
+the Pallas probes under scripts/prof/): K1 kNN (knn.py), K2-K4 the EdgeConv
+scatters (scatter.py), K5 farthest-point sampling (fps.py), K6 the 3x3x3
+depthwise convolution (depthwise.py), the fused EdgeConv gather-reduce
+(gather_reduce.py, P5's function) and the streaming column sums
+(stream.py, P1-P4's).
 
 Sources live in csrc/ and are compiled by _build.py with nvcc for sm_90a at
 first use. Each kernel module holds the ctypes wrapper (which launches the

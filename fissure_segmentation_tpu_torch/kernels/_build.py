@@ -123,6 +123,11 @@ def load() -> ctypes.CDLL:
                 "fseg_scatter_count": [vp, vp, vp, i32, i64, i32, vp],
                 "fseg_depthwise_conv3": [vp, vp, vp, i32, i32, i32, i32, i32,
                                          i32, vp],
+                "fseg_gather_reduce": [vp, vp, vp, vp, vp, vp, vp, vp, i32,
+                                       i32, i32, i32, i32, i32, vp],
+                "fseg_stream_sum": [vp, vp, vp, i64, i32, i32, i32, vp],
+                "fseg_stream_sum_async": [vp, vp, vp, i64, i32, i32, i32, i32,
+                                          i32, vp],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

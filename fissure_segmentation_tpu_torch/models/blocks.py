@@ -7,6 +7,12 @@ Dense kernel transposed); initialization is xavier-normal weights and zero biase
 like the JAX package. `.train()` / `.eval()` switch BatchNorm between batch
 and running statistics, as flax's `train` argument does.
 
+`dtype` (None or torch.bfloat16) is the compute dtype, as in the JAX
+package: parameters stay float32 and are cast, with the input, to the
+compute dtype before each product; BatchNorm's statistics are float32 and
+its output is in the dtype of its input, which is the compute dtype (flax
+`BatchNorm(dtype=...)`). None computes in the input's dtype.
+
 Not ported: `FusedEdgeTail`. It reaches no kernel and computes the same
 function as the unfused tail (ROADMAP Queue 1).
 """
@@ -83,17 +89,22 @@ class EdgeMLP(nn.Module):
 
     def __init__(self, in_features: int, features: int,
                  negative_slope: float = 0.2,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.negative_slope = negative_slope
+        self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(2 * in_features, features))
         nn.init.xavier_normal_(self.kernel, generator=generator)
         self.BatchNorm_0 = BatchNorm(features)
 
     def edge_responses(self, x: torch.Tensor,
                        idx: torch.Tensor) -> torch.Tensor:
-        """(..., N, C), (..., N, k) -> (..., N, k, F) activated edges."""
-        z = edge_mlp_pre_gather(x, idx, self.kernel)
+        """(..., N, C), (..., N, k) -> (..., N, k, F) activated edges, in
+        the compute dtype (the kernel is cast before it is split, as in
+        the JAX package's EdgeMLP)."""
+        dt = self.dtype or x.dtype
+        z = edge_mlp_pre_gather(x.to(dt), idx, self.kernel.to(dt))
         return leaky_relu(self.BatchNorm_0(z), self.negative_slope)
 
 
@@ -108,8 +119,10 @@ class FusedEdgeMLPMax(EdgeMLP):
         """(B, N, C), (B, N, k) -> (B, N, F), the max over k."""
         c = x.shape[-1]
         w = self.kernel
-        a = x @ w[:c]
-        cen = x @ (w[c:] - w[:c])
+        dt = self.dtype or x.dtype
+        xd = x.to(dt)
+        a = xd @ w[:c].to(dt)
+        cen = xd @ (w[c:] - w[:c]).to(dt)     # split in f32, then cast
         bn = self.BatchNorm_0
         if self.training:
             out, mean, var = fused_edge_train(a, cen, bn.scale, bn.bias, idx,
@@ -126,16 +139,21 @@ class SharedMLP(nn.Module):
 
     def __init__(self, in_features: int, features: int,
                  negative_slope: float = 0.2, last_layer: bool = False,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.negative_slope = negative_slope
         self.last_layer = last_layer
+        self.dtype = dtype
         self.Dense_0 = _dense(in_features, features, last_layer, generator)
         if not last_layer:
             self.BatchNorm_0 = BatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.linear(x, self.Dense_0.weight, self.Dense_0.bias)
+        dt = self.dtype or x.dtype
+        bias = self.Dense_0.bias
+        x = F.linear(x.to(dt), self.Dense_0.weight.to(dt),
+                     None if bias is None else bias.to(dt))
         if self.last_layer:
             return x
         return leaky_relu(self.BatchNorm_0(x), self.negative_slope)

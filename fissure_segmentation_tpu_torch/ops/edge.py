@@ -6,21 +6,27 @@ gathered neighbors (..., N, k, C). The gather is an autograd Function
 (`_GatherRows`, the counterpart of `_gather_rows`): its backward is the
 scatter-add K2 (kernels/scatter.py:scatter_rows), which launches the CUDA
 kernel for CUDA tensors and runs its plain version for CPU tensors.
+
+Out-of-range indices: the gather reads row `flat_rows(idx, N)` of the flat
+(B*N, C) matrix — b*N + idx, plus B*N once if negative, clamped into
+[0, B*N) — as the JAX package's flat gather normalises and clamps it
+(kernels/gather_reduce.py, whose kernel reads the same rows). The backward
+drops the targets K2 finds out of range, as JAX's scatter does.
 """
 from __future__ import annotations
 
 import torch
 
+from ..kernels.gather_reduce import flat_rows
 from ..kernels.scatter import scatter_rows
 
 
 def _flat_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(B, N, C), (B, N, k) -> (B, N, k, C) as one flat row gather into the
-    (B*N, C) matrix."""
+    (B*N, C) matrix (rows normalised and clamped like JAX's)."""
     b, n, c = x.shape
     k = idx.shape[-1]
-    offs = (torch.arange(b, device=x.device) * n)[:, None, None]
-    flat = (idx.to(torch.int64) + offs).reshape(-1)
+    flat = flat_rows(idx, n).reshape(-1)
     return x.reshape(b * n, c).index_select(0, flat).reshape(b, n, k, c)
 
 

@@ -13,6 +13,14 @@ terms, whose gather transpose is K3 (kernels/scatter.py:scatter_routed) and
 a degree-weighted pointwise term with the in-degree from K4
 (scatter_count). The derivation is in the JAX module's docstring.
 
+The forward's gather-reduce (per-(n, c) max, min, their first slots, and
+the f32 sum and sum of squares over k) is `kernels/gather_reduce.py`: one
+CUDA kernel for CUDA tensors (the counterpart of the Pallas probe
+scripts/prof/prof_fused_gather.py, P5), its plain version for CPU tensors;
+the (B, N, k, C) neighbour tensor is never built on the card. `a` and `cen`
+may be float32 or bfloat16 (the bf16 compute dtype); the statistics are
+float32 and the output is in a's dtype, as in the JAX package.
+
 `fused_edge_enabled` reads FSEG_FUSED_EDGE=1/0 at every EdgeConv call, like
 the JAX package. Without it the fused route is off on the CPU (as off-TPU
 in the JAX package) and, on CUDA, set by `CUDA_DEFAULT`, for training and
@@ -26,8 +34,8 @@ import os
 
 import torch
 
+from ..kernels.gather_reduce import gather_reduce
 from ..kernels.scatter import scatter_count, scatter_routed
-from .edge import _flat_gather
 
 _ENV_FLAG = "FSEG_FUSED_EDGE"
 CUDA_DEFAULT = True
@@ -43,11 +51,9 @@ def fused_edge_enabled(device) -> bool:
 
 def _gather_reduce(a: torch.Tensor, idx: torch.Tensor):
     """One pass over the gathered features -> per-(n, c) max, min, argmax,
-    argmin (first occurrence), and the f32 sum and sum of squares."""
-    ga = _flat_gather(a, idx)                       # (B, N, K, C)
-    gaf = ga.to(torch.float32)
-    return (ga.amax(dim=2), ga.amin(dim=2), ga.argmax(dim=2),
-            ga.argmin(dim=2), gaf.sum(dim=2), (gaf * gaf).sum(dim=2))
+    argmin (first occurrence, int32), and the f32 sum and sum of squares."""
+    return gather_reduce(a.contiguous(), idx.to(torch.int32).contiguous(),
+                         "all")
 
 
 def _stats(s1, s2, cen, kk: int):
@@ -77,7 +83,7 @@ class _FusedEdgeTrain(torch.autograd.Function):
         sigma = torch.sqrt(var + eps)
         pos = gamma >= 0
         sel = torch.where(pos, mx, mn)
-        kstar = torch.where(pos, am, amn).to(torch.int32)
+        kstar = torch.where(pos, am, amn)
         u, _ = _tail(sel, cen, mean, sigma, gamma, beta)
         out = torch.where(u >= 0, u, slope * u).to(a.dtype)
         ctx.save_for_backward(a, cen, gamma, beta, idx, sel, kstar, s1, mean,
@@ -141,9 +147,12 @@ def fused_edge_train(a: torch.Tensor, cen: torch.Tensor, gamma: torch.Tensor,
 def fused_edge_eval(a, cen, gamma, beta, ra_mean, ra_var, idx,
                     eps: float, slope: float) -> torch.Tensor:
     """Eval-mode fused EdgeConv core: normalize with the running statistics,
-    so the layer is the gather-reduce plus (B, N, C) pointwise math."""
-    ga = _flat_gather(a, idx)
-    sel = torch.where(gamma >= 0, ga.amax(dim=2), ga.amin(dim=2))
+    so the layer is the gather-reduce (max and min) plus (B, N, C)
+    pointwise math. No gradient: call it under torch.no_grad() (the
+    gather-reduce raises where autograd would record through it)."""
+    mx, mn = gather_reduce(a.contiguous(), idx.to(torch.int32).contiguous(),
+                           "extrema")
+    sel = torch.where(gamma >= 0, mx, mn)
     sigma = torch.sqrt(ra_var + eps)
     u = gamma * (((sel + cen).to(torch.float32) - ra_mean) / sigma) + beta
     return torch.where(u >= 0, u, slope * u).to(a.dtype)

@@ -1,20 +1,22 @@
 """The canonical train steps on one NVIDIA card: timing harness and
 profile.
 
-    python -m fissure_segmentation_tpu_torch.train.profile_step [--model DGCNN|PointTransformer]
+    python -m fissure_segmentation_tpu_torch.train.profile_step [--model DGCNN|PointTransformer] [--amp]
 
 The step is DGCNNSeg(k=40, static) or PointTransformerSeg at its full
-width, batch 32 x 2048 points of the synthetic point cases, f32, NNU loss +
-Adam with L2 (`canonical_data`, `make_step`); `time_steps` times warm steps
-with the host clock around a sync. chip_smoke.py phases 7 and 11 time them
+width, batch 32 x 2048 points of the synthetic point cases, f32 (DGCNN with
+`--amp`: the bf16 compute dtype), NNU loss + Adam with L2
+(`canonical_data`, `make_step`); `time_steps` times warm steps with the
+host clock around a sync. chip_smoke.py phases 7, 11 and 17 time them
 through these helpers. Run as a script it prints, for DGCNN in each routing
 (FSEG_FUSED_EDGE=0 and 1), for PointTransformer once:
   * ms/step (`time_steps` over 10 warm steps);
   * a torch.profiler table of 3 warm steps (device time per kernel) and the
     summed kernel time per step against the timed ms/step (the device's
     busy share);
-  * the device time per step of the port's kernels (K1-K4 for DGCNN, K5
-    for PointTransformer) and of the sorts (DGCNN: the transposed graph
+  * the device time per step of the port's kernels (K1-K4 and the fused
+    EdgeConv's gather-reduce for DGCNN, K5 for PointTransformer) and of the
+    sorts (DGCNN: the transposed graph
     that K2 and K3 build and the batch sampler's; PointTransformer: the
     stable sorts of `knn_query` and the batch sampler's).
 """
@@ -40,7 +42,8 @@ KERNELS = {
     "DGCNN": {"K1 knn": "knn_kernel",
               "K2 scatter_rows": "scatter_rows_kernel",
               "K3 scatter_routed": "scatter_routed_kernel",
-              "K4 scatter_count": "count_kernel"},
+              "K4 scatter_count": "count_kernel",
+              "gather_reduce": "gather_reduce_kernel"},
     "PointTransformer": {"K5 fps": "fps_kernel"}}
 STEPS, BATCH, WARM = 10, 32, 2
 
@@ -64,15 +67,16 @@ def canonical_data(device="cuda"):
 
 
 def make_step(ds, loss_fn, out_dir: str, device="cuda", batch: int = BATCH,
-              model: str = "DGCNN"):
-    """A fresh DGCNNSeg(k=40, static) or PointTransformerSeg (full width)
-    from seed 0 and its trainer; returns step() -> (loss, components), one
-    Adam step on a newly sampled batch. DGCNN's EdgeConv routing is
-    FSEG_FUSED_EDGE's at each call."""
+              model: str = "DGCNN", dtype: torch.dtype | None = None):
+    """A fresh DGCNNSeg(k=40, static, `dtype`) or PointTransformerSeg (full
+    width, f32) from seed 0 and its trainer; returns step() -> (loss,
+    components), one Adam step on a newly sampled batch. DGCNN's EdgeConv
+    routing is FSEG_FUSED_EDGE's at each call."""
     gen0 = torch.Generator().manual_seed(0)
     if model == "DGCNN":
         net = DGCNNSeg(k=40, in_features=ds.n_features,
-                       num_classes=ds.num_classes, generator=gen0)
+                       num_classes=ds.num_classes, generator=gen0,
+                       dtype=dtype)
     elif model == "PointTransformer":
         net = PointTransformerSeg(in_features=ds.n_features,
                                   num_classes=ds.num_classes, generator=gen0)
@@ -106,7 +110,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="DGCNN",
                     choices=sorted(KERNELS))
+    ap.add_argument("--amp", action="store_true",
+                    help="DGCNN in the bf16 compute dtype (--amp true)")
     args = ap.parse_args(argv)
+    dtype = torch.bfloat16 if args.amp and args.model == "DGCNN" else None
     if not torch.cuda.is_available():
         print("needs an NVIDIA card", file=sys.stderr)
         return 2
@@ -124,7 +131,9 @@ def main(argv=None) -> int:
         else:
             os.environ["FSEG_FUSED_EDGE"] = fused
             name = "fused" if fused == "1" else "unfused"
-        step = make_step(ds, loss_fn, tmp, model=args.model)
+            if dtype is not None:
+                name += " bf16"
+        step = make_step(ds, loss_fn, tmp, model=args.model, dtype=dtype)
         for _ in range(WARM):
             step()
         ms, _, _ = time_steps(step)

@@ -3,7 +3,7 @@ cross-validation (counterpart of the training half of
 train_point_seg.py:34-190).
 
     python -m fissure_segmentation_tpu_torch.train_point_seg \\
-        --ds synthetic --pts 2048 --k 40 --static --batch 32 --amp false \\
+        --ds synthetic --pts 2048 --k 40 --static --batch 32 [--amp false] \\
         --epochs 3 --fold 0 --train_only --output results/torch_run
     python -m fissure_segmentation_tpu_torch.train_point_seg \\
         --model PointTransformer --ds synthetic --pts 2048 --batch 32 \\
@@ -14,15 +14,18 @@ CUDA card `--gpu`; without a card it raises, unless the caller of `run` or
 `main` passes ``device="cpu"`` (as the tests do). Each fold writes
 `model.pt` (models/weights.py:save_model), history.csv and train_time.csv.
 
+`--amp true` (the CLI default) trains DGCNN with the bf16 compute dtype
+(`DGCNNSeg(dtype=torch.bfloat16)`: float32 parameters, Adam and loss, bf16
+products), as the JAX entry does; `--amp false` trains it in float32.
 PointTransformer trains in float32 whatever `--amp` says (as in the JAX
 package, which keeps it out of bf16), and `--k`, `--static`,
 `--transformer`, `--img_feat_extractor` and `--knn_recall` do not apply to
-it. Not ported yet, each raising NotImplementedError: for DGCNN `--amp
-true` (the CLI default, bf16), the dynamic graph (every run without
-`--static`), `--transformer`, `--img_feat_extractor`, `--knn_recall`; for
-every model `--dp`, `--visualize`, `--speed`, `--copd`, PointNet, and
-testing — every run without `--train_only` (train/evaluation.py:
-test_pipeline, metrics.py). The op_count.csv artifact is not written.
+it. Not ported yet, each raising NotImplementedError: for DGCNN the
+dynamic graph (every run without `--static`), `--transformer`,
+`--img_feat_extractor`, `--knn_recall`; for every model `--dp`,
+`--visualize`, `--speed`, `--copd`, PointNet, and testing — every run
+without `--train_only` (train/evaluation.py: test_pipeline, metrics.py).
+The op_count.csv artifact is not written.
 """
 from __future__ import annotations
 
@@ -44,7 +47,6 @@ def check_supported(args) -> None:
     """Raise NotImplementedError for every option this port does not take."""
     dgcnn = args.model == "DGCNN"
     unported = {
-        "--amp true (bf16; pass --amp false)": dgcnn and args.amp,
         "the dynamic graph (pass --static)": dgcnn and not args.static,
         "--transformer": dgcnn and args.transformer,
         "--img_feat_extractor": dgcnn and args.img_feat_extractor,
@@ -73,12 +75,15 @@ def build_dataset(args) -> PointDataset:
 
 
 def build_model(args, ds: PointDataset, generator: torch.Generator):
-    """The JAX build_model's arguments (train_point_seg.py:70-87), float32."""
+    """The JAX build_model's arguments (train_point_seg.py:70-87): DGCNN in
+    bf16 under --amp, PointTransformer in float32."""
     cls = get_point_seg_model_class(args.model)
     kwargs = dict(in_features=ds.n_features, num_classes=ds.num_classes,
                   generator=generator)
     if args.model == "DGCNN":
         kwargs.update(k=args.k)
+        if args.amp:
+            kwargs.update(dtype=torch.bfloat16)
     return cls(**kwargs)
 
 

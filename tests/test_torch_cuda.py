@@ -1,5 +1,6 @@
 """The kernels on the card (K1 kNN, K2-K4 scatter, K5 farthest-point
-sampling, K6 depthwise convolution) against their plain PyTorch versions.
+sampling, K6 depthwise convolution, the fused EdgeConv gather-reduce, the
+streaming column sums) against their plain PyTorch versions.
 
 These tests need an NVIDIA card and skip elsewhere. The repository's
 tests/conftest.py imports jax, which the card's machine does not have, so
@@ -16,7 +17,12 @@ from fissure_segmentation_tpu_torch.kernels import scatter as ks
 from fissure_segmentation_tpu_torch.kernels.depthwise import (
     depthwise_conv3_cuda, depthwise_conv3_plain)
 from fissure_segmentation_tpu_torch.kernels.fps import fps_cuda, fps_plain
+from fissure_segmentation_tpu_torch.kernels.gather_reduce import (
+    gather_reduce, gather_reduce_plain)
 from fissure_segmentation_tpu_torch.kernels.knn import knn_cuda, knn_plain
+from fissure_segmentation_tpu_torch.kernels.stream import (
+    exact_payload, rounding_bound, stream_sum, stream_sum_async,
+    stream_sum_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -269,3 +275,122 @@ def test_depthwise_kernel_checks_input(cuda):
     with pytest.raises(RuntimeError, match="no gradient"):
         depthwise_conv3_cuda(x, w.clone().requires_grad_())
     assert depthwise_conv3_cuda.launches == before
+
+
+# ---- the fused EdgeConv gather-reduce ----------------------------------------
+
+GR_CASES = [
+    # (B, N, K, C): the DGCNN train step, the served ensemble group, more
+    # than 32 slots with C = 8, ragged C (scalar loads), the widest C
+    (32, 2048, 40, 64),
+    (5, 2048, 40, 64),
+    (2, 64, 70, 8),
+    (2, 100, 37, 33),
+    (3, 50, 5, 256),
+]
+
+
+@pytest.mark.parametrize("b,n,k,c", GR_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("want", ["max", "extrema", "all"])
+def test_gather_reduce_kernel_equals_plain(cuda, b, n, k, c, dtype, want):
+    """Every output bit-equal (tolerance 0), indices out of range included:
+    the same comparisons, and float32 sums in k order without FMA."""
+    g = torch.Generator().manual_seed(b * n + k + c)
+    a = torch.randn((b, n, c), generator=g).to(cuda, dtype)
+    idx = torch.randint(0, n, (b, n, k), generator=g, dtype=torch.int32)
+    idx[0, 0, 0], idx[-1, -1, -1], idx[0, 1, k // 2] = -1, n + 5, -10 * n
+    idx = idx.to(cuda)
+    before = gather_reduce.launches
+    got = gather_reduce(a, idx, want)
+    torch.cuda.synchronize()
+    assert gather_reduce.launches == before + 1
+    want_ = gather_reduce_plain(a, idx, want)
+    assert len(got) == len(want_)
+    for x, y in zip(got, want_):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def test_gather_reduce_kernel_on_ties(cuda):
+    """An integer lattice: every max and min ties between slots; the slots
+    must be the first ones on both sides."""
+    g = torch.Generator().manual_seed(3)
+    a = torch.randint(0, 3, (4, 300, 64), generator=g).float().to(cuda)
+    idx = torch.randint(0, 300, (4, 300, 40), generator=g,
+                        dtype=torch.int32).to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = gather_reduce(a.to(dtype), idx, "all")
+        for x, y in zip(got, gather_reduce_plain(a.to(dtype), idx, "all")):
+            assert torch.equal(x, y)
+
+
+def test_gather_reduce_kernel_checks_input(cuda):
+    a = torch.randn((2, 16, 8), device=cuda)
+    idx = torch.zeros((2, 16, 4), dtype=torch.int32, device=cuda)
+    before = gather_reduce.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_reduce(a.transpose(0, 1).contiguous().transpose(0, 1), idx)
+    with pytest.raises(ValueError, match="different devices"):
+        gather_reduce(a, idx.cpu())
+    with pytest.raises(TypeError, match="int32"):
+        gather_reduce(a, idx.long())
+    with pytest.raises(RuntimeError, match="no gradient"):
+        gather_reduce(a.clone().requires_grad_(), idx)
+    assert gather_reduce.launches == before
+
+
+# ---- the streaming column sums -----------------------------------------------
+
+STREAM_CASES = [(81920, 64, torch.bfloat16), (10240, 1024, torch.bfloat16),
+                (40000, 64, torch.float32), (1001, 8, torch.bfloat16),
+                (7, 4, torch.float32)]
+
+
+@pytest.mark.parametrize("rows,lanes,dtype", STREAM_CASES)
+def test_stream_sums_match_plain(cuda, rows, lanes, dtype):
+    """Both kernels within their rounding bound (the depth of their sums;
+    about 1e-4 of a column sum here, the payload being drawn around 1) of
+    the plain column sums, the exact sums rounded once; two launches
+    bit-equal."""
+    g = (torch.randn((rows, lanes), generator=torch.Generator().manual_seed(
+        rows)) + 1).to(cuda, dtype)
+    want = stream_sum_plain(g).double()
+    before = (stream_sum.launches, stream_sum_async.launches)
+    for got, again, bound in (
+            (stream_sum(g), stream_sum(g), rounding_bound(g)),
+            (stream_sum_async(g, 16, 3), stream_sum_async(g, 16, 3),
+             rounding_bound(g, 16, 3))):
+        torch.cuda.synchronize()
+        assert got.shape == (lanes,) and got.dtype == torch.float32
+        assert torch.equal(got, again)
+        assert ((got.double() - want).abs() <= bound).all()
+        if rows > 1000:
+            assert (bound < 1e-3 * want.abs()).all()
+    assert (stream_sum.launches, stream_sum_async.launches) == \
+        (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.parametrize("rows,lanes,dtype", STREAM_CASES)
+def test_stream_sums_exact_on_integers_and_see_a_zeroed_tile(cuda, rows,
+                                                             lanes, dtype):
+    """On integers 1..4 every partial sum is exact, so both kernels equal
+    the plain version; with one tile of rows zeroed (a planted skipped
+    tile) neither does."""
+    ints = exact_payload(torch.empty((rows, lanes), dtype=dtype,
+                                     device=cuda), seed=rows)
+    want = stream_sum_plain(ints)
+    bad = ints.clone()
+    bad[rows // 2:rows // 2 + 16] = 0
+    for fn in (stream_sum, lambda v: stream_sum_async(v, 16, 3)):
+        assert torch.equal(fn(ints), want)
+        assert not torch.equal(fn(bad), want)
+
+
+def test_stream_sums_check_input(cuda):
+    g = torch.randn((64, 64), device=cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        stream_sum(g[:, :6].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        stream_sum(g.t())
+    with pytest.raises(ValueError, match="ring"):
+        stream_sum_async(g, 1024, 8)

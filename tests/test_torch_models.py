@@ -20,6 +20,7 @@ from fissure_segmentation_tpu.models.ensemble import (build_subsets as
 from fissure_segmentation_tpu.models.ensemble import (ensemble_predict as
                                                       jensemble_predict)
 from fissure_segmentation_tpu_torch.models import (DGCNNSeg, MobileNetASPP,
+                                                   PointTransformerSeg,
                                                    ensemble_predict,
                                                    export_jax_variables,
                                                    load_jax_variables)
@@ -116,8 +117,8 @@ def test_export_jax_variables_round_trip():
                      spatial_transformer=True),
     lambda: DGCNNSeg(k=4, in_features=3, num_classes=4,
                      image_feat_module=True),
-    lambda: DGCNNSeg(k=4, in_features=3, num_classes=4,
-                     dtype=torch.bfloat16),
+    lambda: PointTransformerSeg(in_features=3, num_classes=4,
+                                dtype=torch.bfloat16),
     lambda: knn(torch.zeros((1, 8, 3)), 2, recall_target=0.9),
     lambda: segment_case(np.zeros((8, 8, 8), np.float32),
                          np.ones((8, 8, 8), bool), None, kp_mode="cnn",

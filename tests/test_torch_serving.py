@@ -116,7 +116,11 @@ def test_port_runs_without_jax():
     running it), runs the CPU path of the whole serving slice in each
     keypoint mode, and then
     neither jax, flax nor fissure_segmentation_tpu (or any of its modules)
-    is loaded."""
+    is loaded. The modules include the kernel wrappers and the probe entry
+    point."""
+    for name in ("kernels.gather_reduce", "kernels.stream", "prof.probes",
+                 "kernels.scatter", "kernels.depthwise"):
+        assert f"fissure_segmentation_tpu_torch.{name}" in _port_modules()
     code = textwrap.dedent(f"""
         import importlib
         import sys

@@ -537,7 +537,6 @@ ENTRY = ["--static", "--amp", "false", "--train_only", "--fold", "0"]
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--amp", "true"], "amp"),
     (["--static", ""], "dynamic"),      # placeholder, replaced below
     (["--transformer"], "transformer"),
     (["--img_feat_extractor"], "img_feat_extractor"),
@@ -549,7 +548,7 @@ ENTRY = ["--static", "--amp", "false", "--train_only", "--fold", "0"]
     (["--test_only"], "test_only"),
     (["--train_only", ""], "testing"),  # placeholder, replaced below
     (["--model", "PointNet"], "PointNet"),
-], ids=["amp", "dynamic", "transformer", "img_feat_extractor", "knn_recall",
+], ids=["dynamic", "transformer", "img_feat_extractor", "knn_recall",
         "dp", "visualize", "speed", "copd", "test_only", "testing",
         "pointnet"])
 def test_entry_point_raises_for_unported_options(tmp_path, extra, match):
@@ -561,6 +560,36 @@ def test_entry_point_raises_for_unported_options(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         train_point_seg.main(argv)
     assert not os.listdir(tmp_path)     # raised before writing anything
+
+
+def test_entry_point_trains_a_fold_with_amp(tmp_path, monkeypatch):
+    """`--amp true` (the CLI default) trains DGCNN with the bf16 compute
+    dtype, as the JAX entry does: `main(argv, device="cpu")` trains one
+    epoch of fold 0; the model it built is DGCNNSeg(dtype=bf16) with float32
+    parameters, its EdgeConvs returned bf16 in every training forward, and
+    model.pt keeps the dtype."""
+    built, seen = [], []
+    build = train_point_seg.build_model
+
+    def build_and_watch(*args, **kwargs):
+        model = build(*args, **kwargs)
+        model.EdgeConv_1.register_forward_hook(
+            lambda m, i, o: seen.append((m.training, o.dtype)))
+        built.append(model)
+        return model
+    monkeypatch.setattr(train_point_seg, "build_model", build_and_watch)
+    argv = ["--static", "--amp", "true", "--train_only", "--fold", "0",
+            "--ds", "synthetic", "--pts", "48", "--k", "4", "--batch", "2",
+            "--epochs", "1", "--output", str(tmp_path)]
+    assert train_point_seg.main(argv, device="cpu") == 0
+    (model,) = built
+    assert model.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert (True, torch.bfloat16) in seen
+    assert {dtype for _, dtype in seen} == {torch.bfloat16}
+    loaded = load_model(str(tmp_path / "fold0" / "model.pt"), DGCNNSeg)
+    assert loaded.dtype == torch.bfloat16
+    assert loaded.config["dtype"] == "bfloat16"
 
 
 def test_entry_point_trains_a_fold_without_jax(tmp_path):
