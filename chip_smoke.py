@@ -8,9 +8,12 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
   1. card and settings: CUDA present, card name and power limit, TF32 off,
      the native C++ host runtime built from native/src with g++;
   2. build every kernel from kernels/csrc with nvcc (timed);
-  3. K1 (kNN) against its plain PyTorch version on the card, at the two
-     shapes the serving path gives it, a ragged N and a lattice full of
-     ties: indices and distances must be equal; median times of both;
+  3. K1 (kNN) against its plain PyTorch version on the card, at the three
+     shapes the serving and training paths give it, a ragged N, a lattice
+     full of ties, and the selection's hard cases (every key an insert,
+     only ties, the masked normals' cloud, kk at the list's row edges,
+     N = kk, a cloud larger than the kernel stages whole): indices and
+     distances must be equal; median times of both at the path shapes;
   4. the serving slice at full size: a synthetic 256^3 CT, DGCNNSeg(k=40)
      with seeded random weights and a coordinate-keyed class bias added
      after the full forward (untrained weights put every keypoint in one
@@ -48,8 +51,9 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
   9. K5 (farthest-point sampling) against its plain PyTorch version on the
      card at the PointTransformer path's shapes (the train step's first two
      TransitionDowns, a served ensemble group), DSEG-AE's masked shape, a
-     ragged N, a lattice full of ties and C = 4: indices equal; median
-     times of both;
+     ragged N, a lattice full of ties, C = 4, and the hard cases (only
+     ties, N = 1, m above the valid count, N off every block width,
+     N = 32768, C = 1 and C = 8): indices equal; median times of both;
  10. the serving slice with PointTransformerSeg at full width (seeded
      weights, the same class bias): one warm-up and 3 timed full-size
      cases with phase 4's checks; K5 must launch at least 40 times a case
@@ -167,9 +171,10 @@ PT_TRAIN_ARGV = ["--model", "PointTransformer", "--ds", "synthetic", "--pts",
 TRAIN_TOL = dict(rtol=2e-4, atol=2e-4)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12           # float32 outside the tensor cores
-# least cycles of one dependent FPS step: a block-wide argmax needs two
-# 5-level shuffle trees (~25 cycles a level), a shared-memory store and
-# load (~30 each) and a barrier (~20): an estimate, not a measurement
+# least cycles of one dependent FPS step: the distance pass and a thread's
+# running argmax (~80), two warp reductions (redux.sync + ballot, ~50
+# each), a shared-memory store and two loads (~30 each) and a barrier
+# (~30): an estimate, not a measurement
 FPS_STEP_CYCLES = 330
 REF_SEEDS = 10      # inputs the train-step reference may try
 REF_MAX_FLIPS = 8   # more forward branches than this differing: a fault
@@ -192,20 +197,43 @@ def bound_ms(n_bytes: float, n_ops: float):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+def _line(shape):
+    """Points on a line, descending with the index: for the last point
+    every key's distance falls with its index (each key enters its list)."""
+    line = torch.linspace(1.0, -1.0, shape[1])[None, :, None]
+    return (line * torch.ones(shape)).contiguous()
+
+
 def phase_kernels(knn_cuda, knn_plain):
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=g) * 2 - 1
     lattice = torch.randint(0, 6, (3, 4096, 3), generator=g).float()
     lattice[:, :800] = -1.0
+    masked = uniform(3, 8192, 3)
+    masked[torch.rand((3, 8192), generator=g) < 1 / 3] = 1e6
     cases = {
         # name: (x, k, self_loop, timed)
-        "dgcnn_graph_5x2048x3_k40": (
-            torch.rand((5, 2048, 3), generator=g) * 2 - 1, 40, False, True),
-        "psr_normals_3x8192x3_k30": (
-            torch.rand((3, 8192, 3), generator=g) * 2 - 1, 30, True, True),
-        "ragged_2x1000x3_k16": (
-            torch.rand((2, 1000, 3), generator=g) * 2 - 1, 16, False, False),
+        "dgcnn_graph_5x2048x3_k40": (uniform(5, 2048, 3), 40, False, True),
+        "dgcnn_train_32x2048x3_k40": (uniform(32, 2048, 3), 40, False,
+                                      True),
+        "psr_normals_3x8192x3_k30": (uniform(3, 8192, 3), 30, True, True),
+        "ragged_2x1000x3_k16": (uniform(2, 1000, 3), 16, False, False),
         "lattice_ties_3x4096x3_k30": (lattice, 30, True, False),
+        # the selection's hard cases
+        "descending_2x2048x3_k40": (_line((2, 2048, 3)), 40, False, False),
+        "all_equal_2x2048x3_k40": (torch.full((2, 2048, 3), 0.25), 40,
+                                   False, False),
+        "masked_normals_3x8192x3_k30": (masked, 30, True, False),
+        "kk1_2x300x3": (uniform(2, 300, 3), 1, True, False),
+        "kk32_2x300x3": (uniform(2, 300, 3), 32, True, False),
+        "kk33_2x300x3": (uniform(2, 300, 3), 33, True, False),
+        "kk64_2x300x3": (uniform(2, 300, 3), 64, True, False),
+        "kk128_1x700x3": (uniform(1, 700, 3), 128, True, False),
+        "n_eq_kk_2x41x3_k40": (uniform(2, 41, 3), 40, False, False),
+        "tiled_1x20000x3_k16": (uniform(1, 20000, 3), 16, False, False),
     }
     max_err, timings = 0.0, {}
     for name, (x, k, self_loop, timed) in cases.items():
@@ -856,8 +884,19 @@ def phase_fps(fps_cuda, fps_plain):
         "ragged_3x1000x3_m250": (uniform(3, 1000, 3), 250, 0.8, False),
         "lattice_ties_2x4096x3_m300": (lattice, 300, 1.0, False),
         "c4_2x700x4_m100": (uniform(2, 700, 4), 100, 0.6, False),
+        # the hard cases
+        "all_equal_2x1000x3_m100": (torch.full((2, 1000, 3), 0.25), 100,
+                                    1.0, False),
+        "n1_3x1x3_m4": (uniform(3, 1, 3), 4, 1.0, False),
+        "m_above_valid_2x500x3_m300": (uniform(2, 500, 3), 300, 0.3, False),
+        "ragged_2x2047x3_m64": (uniform(2, 2047, 3), 64, 1.0, False),
+        "ragged_1x1025x3_m100": (uniform(1, 1025, 3), 100, 0.9, False),
+        "n32768_2x32768x3_m256": (uniform(2, 32768, 3), 256, 0.9, False),
+        "c1_2x3000x1_m200": (uniform(2, 3000, 1), 200, 1.0, False),
+        "c8_2x3000x8_m200": (uniform(2, 3000, 8), 200, 0.7, False),
+        "c8_1x32768x8_m64": (uniform(1, 32768, 8), 64, 1.0, False),
     }
-    timings = {}
+    max_err, timings = 0, {}
     for name, (x, m, share, timed) in cases.items():
         x = x.to(dev)
         valid = None
@@ -867,6 +906,7 @@ def phase_fps(fps_cuda, fps_plain):
         torch.cuda.synchronize()
         want = fps_plain(x, m, valid)
         torch.cuda.synchronize()
+        max_err = max(max_err, (got.long() - want.long()).abs().max().item())
         if not torch.equal(got, want):
             raise AssertionError(f"K5 {name}: kernel differs from plain "
                                  f"({(got != want).sum().item()} indices)")
@@ -888,7 +928,7 @@ def phase_fps(fps_cuda, fps_plain):
                      f"{latency:.4f} ms; {m - 1} dependent steps: "
                      f"{t_k / (m - 1) * 1e3:.3f} us a step")
         print(line, flush=True)
-    return 0.0, timings
+    return max_err, timings
 
 
 def phase_pt_slice(card: str):
@@ -1191,8 +1231,8 @@ def phase_depthwise(dw_cuda, dw_plain):
     stride-1 depthwise layers of MobileNetASPP on a 256^3 CT; (128^3, 144)
     occurs twice), bfloat16 at the widest, a ragged shape and D = 1:
     outputs equal; median times of the kernel, the plain version and the
-    library call, and the bound. Returns (0.0, {shape: timings}, the sums
-    over one forward's seven launches)."""
+    library call, and the bound. Returns (max |kernel - plain|, {shape:
+    timings}, the sums over one forward's seven launches)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(13)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1208,7 +1248,7 @@ def phase_depthwise(dw_cuda, dw_plain):
         "ragged_2x7x9x11x5": ((2, 7, 9, 11, 5), f32, 0, False),
         "d1_1x1x6x10x5": ((1, 1, 6, 10, 5), f32, 0, False),
     }
-    timings = {}
+    max_err, timings = 0.0, {}
     forward = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
                "launches": 0}
     for name, (shape, dtype, per_fwd, timed) in cases.items():
@@ -1218,6 +1258,8 @@ def phase_depthwise(dw_cuda, dw_plain):
         torch.cuda.synchronize()
         want = dw_plain(x, w)
         torch.cuda.synchronize()
+        max_err = max(max_err,
+                      (got.float() - want.float()).abs().max().item())
         if not torch.equal(got, want):
             raise AssertionError(
                 f"K6 {name}: kernel differs from plain "
@@ -1251,7 +1293,7 @@ def phase_depthwise(dw_cuda, dw_plain):
           f"{forward['ms']:.4f} ms, plain {forward['plain_ms']:.4f} ms, "
           f"library {forward['library_ms']:.4f} ms, bound "
           f"{forward['bound_ms']:.4f} ms", flush=True)
-    return 0.0, timings, forward
+    return max_err, timings, forward
 
 
 def _cnn_model(seed):

@@ -1,5 +1,5 @@
-// K5: masked farthest-point sampling, one thread block per cloud, for
-// Hopper (sm_90a).
+// K5: masked farthest-point sampling for Hopper (sm_90a): one thread block,
+// or one cluster of up to 8 blocks, per cloud.
 //
 // Replaces fissure_segmentation_tpu/ops/pallas/fps.py:fps_pallas (kernel
 // body _fps_kernel). Same contract: for points (B, N, C) float32, C <= 8,
@@ -13,193 +13,287 @@
 // (kernels/fps.py:fps_plain) and to both JAX versions.
 //
 // What bounds it: the m - 1 steps depend on each other (step i needs the
-// point chosen at step i - 1), and each step ends in a block-wide argmax.
-// Bytes (N * (C * 4 + 1) read, m * 4 written) and flops (3 C N per step)
-// are tiny at the path's shapes, so the kernel is bound by the latency of
-// m - 1 dependent block reductions, each a few hundred cycles: about m
-// times (the per-thread distance pass + 5 warp shuffles + one
-// __syncthreads + a read of the warp results).
+// point chosen at step i - 1), and each step ends in an argmax over the
+// whole cloud. Bytes (N * (C * 4 + 1) read, m * 4 written) and flops (3 C N
+// per step) are tiny at the path's shapes, so the kernel is bound by the
+// latency of one step times m - 1, and by the instructions a step issues
+// on one SM.
 //
-// Design: one block per cloud (the TPU kernel's grid over B), so B blocks
-// run side by side on B SMs. Thread t owns the points t, t + T, t + 2T, ...
-// (ITEMS of them; ITEMS is a compile-time bucket so the per-point running
-// minimum and validity stay in registers). The coordinates are staged
-// channel-major in shared memory when they fit in 46 KB, otherwise read
-// from global memory, where they stay L1/L2-resident. Per step every thread
-// reads the last point's coordinates (a broadcast), updates its points and
-// keeps its own (score, index) best, scanning its points in ascending index
-// order with a strict '>' so the first index wins a tie; a butterfly of warp
-// shuffles gives every lane its warp's best; lane 0 writes it to one of two
-// shared buffers (alternating by step), one __syncthreads, and every warp
-// then reduces the warp results itself, so all threads know the next point
-// without a second barrier. The comparator is (v > v') || (v == v' && i <
-// i'), which is the first-occurrence argmax over the whole cloud. The
-// double buffer makes the single barrier enough: a warp can write step
-// i + 1's buffer only after every warp has passed step i's barrier, and it
-// writes step i + 2's (the same buffer as step i's) only after every warp
-// has passed step i + 1's barrier, i.e. has finished reading step i's.
+// Design (the earlier kernel, with the points in shared memory and two
+// (float, int) shuffle trees a step, spent 2.5 us a step, 83 % of it in the
+// distance pass; PERF.md has the split of its step):
+//   * Registers. Thread t of cluster rank r owns the ITEMS consecutive
+//     points r * T * ITEMS + t * ITEMS + [0, ITEMS): their coordinates and
+//     running minima are loaded into registers once, so the distance pass
+//     touches no memory. Invalid points and the padding past N carry a
+//     running minimum of -inf, which fminf keeps, so the score is the
+//     minimum itself: no validity test in the loop.
+//   * Keys. A score is -inf or >= 0 (a sum of squares, never -0.0), so its
+//     float bits compared as signed ints order it exactly. Points are
+//     owned in index order (thread, then warp, then cluster rank), so the
+//     first-occurrence argmax is: each thread's best with a strict '>' in
+//     ascending order, then per warp one __reduce_max_sync of the keys and
+//     the lowest lane holding the maximum (__ballot_sync, __ffs).
+//   * Winner record. The winning lane writes (key, index, coordinates) into
+//     a double-buffered shared slot (every block of the cluster gets it,
+//     through distributed shared memory). After the one barrier a step
+//     (__syncthreads, or barrier.cluster for a cluster), every warp reduces
+//     the slots the same way (slot order is index order) and reads the next
+//     point's coordinates from the winning slot: no dependent load of the
+//     point from the cloud.
+//   * The double buffer makes one barrier a step enough: a warp writes step
+//     i + 2's buffer (step i's) only after every thread has passed step
+//     i + 1's barrier, i.e. has finished reading step i's slots.
+//   * Clusters hold clouds too large for one block's registers (up to 8
+//     blocks on 8 SMs). They do not pay for a cloud one block holds: the
+//     cluster barrier and the remote slot stores cost about 0.6 us a step
+//     more (measured, PERF.md).
 //
 // Rounding: explicit round-to-nearest intrinsics, and the library is built
 // with -fmad=false, so d is rounded exactly like the plain version's.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 #define FPS_MAX_C 8
 #define FPS_MAX_THREADS 1024
-#define FPS_MAX_WARPS (FPS_MAX_THREADS / 32)
-// dynamic shared memory for the staged coordinates; the static buffers
-// (512 B) and the rest stay within the 48 KB a launch gets by default
-#define FPS_SMEM_LIMIT (46 * 1024)
-#define FPS_NO_INDEX 0x7fffffff  // loses every tie to a real index
+#define FPS_MAX_CLUSTER 8
+#define FPS_MAX_SLOTS (FPS_MAX_CLUSTER * FPS_MAX_THREADS / 32)
+#define FPS_FULL 0xffffffffu
 
-struct Best {
-    float v;
-    int i;
+// Threads a block may have for (C, ITEMS): 1024 while the points' registers
+// (ITEMS * (C + 1)) leave room within 64 a thread, else 512.
+template <int C, int ITEMS>
+struct FpsShape {
+    static constexpr int max_threads =
+        ITEMS * (C + 1) <= 32 ? FPS_MAX_THREADS : FPS_MAX_THREADS / 2;
 };
 
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-    return v > bv || (v == bv && i < bi);
-}
+template <int C>
+struct Slots {
+    int key[2][FPS_MAX_SLOTS];
+    int idx[2][FPS_MAX_SLOTS];
+    float pt[2][FPS_MAX_SLOTS][C];
+};
 
-__device__ __forceinline__ Best warp_best(Best b) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, b.v, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, b.i, off);
-        if (better(ov, oi, b.v, b.i)) {
-            b.v = ov;
-            b.i = oi;
-        }
-    }
-    return b;
-}
-
-// Block-wide first-occurrence argmax of the threads' (v, i) pairs; every
-// thread returns the winner's index. `buf` alternates between calls.
-__device__ __forceinline__ int block_argmax(Best b, float* wv, int* wi,
-                                            int nwarps) {
+// One selection: every thread passes its best (key, index, coordinates);
+// every thread returns the cloud's first-occurrence maximum's index and
+// coordinates.
+template <int C>
+__device__ __forceinline__ int fps_select(Slots<C>& sl, int key, int idx,
+                                          const float (&pt)[C],
+                                          float (&win)[C], int buf, int rank,
+                                          int cs) {
     const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    b = warp_best(b);
-    if (lane == 0) {
-        wv[warp] = b.v;
-        wi[warp] = b.i;
-    }
-    __syncthreads();
-    Best r = {-INFINITY, FPS_NO_INDEX};
-    if (lane < nwarps) {
-        r.v = wv[lane];
-        r.i = wi[lane];
-    }
-    return warp_best(r).i;
-}
-
-template <int ITEMS>
-__global__ void __launch_bounds__(FPS_MAX_THREADS)
-fps_kernel(const float* __restrict__ x, const uint8_t* __restrict__ valid,
-           int32_t* __restrict__ out, int n, int c, int m, int use_smem) {
-    extern __shared__ float smem_pts[];  // (c, n) channel-major, if used
-    __shared__ float wv[2][FPS_MAX_WARPS];
-    __shared__ int wi[2][FPS_MAX_WARPS];
-    const int b = blockIdx.x;
-    const int t = threadIdx.x;
-    const int nthreads = blockDim.x;
-    const int nwarps = (nthreads + 31) >> 5;
-    const float* xb = x + (size_t)b * n * c;
-    const uint8_t* vb = valid + (size_t)b * n;
-
-    // where point j's channel ch lives: pts[j * sp + ch * sc]
-    const float* pts = xb;
-    int sp = c, sc = 1;
-    if (use_smem) {
-        for (int e = t; e < n * c; e += nthreads)
-            smem_pts[(e % c) * n + e / c] = xb[e];
-        pts = smem_pts;
-        sp = 1;
-        sc = n;
-    }
-
-    static_assert(ITEMS <= 32, "validity bits are one uint32_t");
-    uint32_t ok = 0;  // bit it: point t + it * nthreads is valid
-    float min_d[ITEMS];
-    Best own = {-INFINITY, FPS_NO_INDEX};
+    const int nwarps = blockDim.x >> 5;
+    const int mk = __reduce_max_sync(FPS_FULL, key);
+    const int wl = __ffs(__ballot_sync(FPS_FULL, key == mk)) - 1;
+    const int slot = rank * nwarps + (threadIdx.x >> 5);
+    if (lane == wl) {
+        if (cs == 1) {
+            sl.key[buf][slot] = mk;
+            sl.idx[buf][slot] = idx;
 #pragma unroll
-    for (int it = 0; it < ITEMS; ++it) {
-        const int j = t + it * nthreads;
-        const bool v = j < n && vb[j] != 0;
-        ok |= (uint32_t)v << it;
-        min_d[it] = INFINITY;
-        // first valid point: argmax of valid (0/1), first occurrence
-        if (j < n && better(v ? 1.0f : 0.0f, j, own.v, own.i)) {
-            own.v = v ? 1.0f : 0.0f;
-            own.i = j;
-        }
-    }
-    int last = block_argmax(own, wv[0], wi[0], nwarps);  // syncs smem_pts too
-    if (t == 0) out[(size_t)b * m] = last;
-
-    for (int step = 1; step < m; ++step) {
-        float lp[FPS_MAX_C];
+            for (int ch = 0; ch < C; ++ch) sl.pt[buf][slot][ch] = pt[ch];
+        } else {
+            cg::cluster_group cl = cg::this_cluster();
+            for (int r = 0; r < cs; ++r) {
+                Slots<C>* rs = cl.map_shared_rank(&sl, r);
+                rs->key[buf][slot] = mk;
+                rs->idx[buf][slot] = idx;
 #pragma unroll
-        for (int ch = 0; ch < FPS_MAX_C; ++ch)
-            lp[ch] = ch < c ? pts[(size_t)last * sp + (size_t)ch * sc] : 0.0f;
-        Best best = {-INFINITY, FPS_NO_INDEX};
-#pragma unroll
-        for (int it = 0; it < ITEMS; ++it) {
-            const int j = t + it * nthreads;
-            if (j < n) {
-                float d = 0.0f;
-#pragma unroll
-                for (int ch = 0; ch < FPS_MAX_C; ++ch) {
-                    if (ch < c) {
-                        const float diff = __fsub_rn(
-                            pts[(size_t)j * sp + (size_t)ch * sc], lp[ch]);
-                        d = __fadd_rn(d, __fmul_rn(diff, diff));
-                    }
-                }
-                min_d[it] = fminf(min_d[it], d);
-                const float score = (ok >> it) & 1u ? min_d[it] : -INFINITY;
-                if (better(score, j, best.v, best.i)) {
-                    best.v = score;
-                    best.i = j;
-                }
+                for (int ch = 0; ch < C; ++ch) rs->pt[buf][slot][ch] = pt[ch];
             }
         }
-        last = block_argmax(best, wv[step & 1], wi[step & 1], nwarps);
-        if (t == 0) out[(size_t)b * m + step] = last;
+    }
+    if (cs == 1)
+        __syncthreads();
+    else
+        cg::this_cluster().sync();
+    // lane l reduces the slots [l * per, (l + 1) * per) in ascending order
+    const int nslots = cs * nwarps;
+    const int per = (nslots + 31) >> 5;
+    const int s0 = lane * per, s1 = min(s0 + per, nslots);
+    int lk = INT_MIN, ls = 0;
+    for (int s = s0; s < s1; ++s) {
+        const int k = sl.key[buf][s];
+        if (k > lk) {
+            lk = k;
+            ls = s;
+        }
+    }
+    const int gk = __reduce_max_sync(FPS_FULL, lk);
+    const int gl = __ffs(__ballot_sync(FPS_FULL, lk == gk)) - 1;
+    const int ws = __shfl_sync(FPS_FULL, ls, gl);
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) win[ch] = sl.pt[buf][ws][ch];
+    return sl.idx[buf][ws];
+}
+
+template <int C, int ITEMS>
+__global__ void __launch_bounds__(FpsShape<C, ITEMS>::max_threads)
+fps_kernel(const float* __restrict__ x, const uint8_t* __restrict__ valid,
+           int32_t* __restrict__ out, int n, int m, int cs) {
+    __shared__ Slots<C> sl;
+    const int rank = cs == 1 ? 0 : (int)cg::this_cluster().block_rank();
+    const int b = blockIdx.x / cs;
+    const float* xb = x + (size_t)b * n * C;
+    const uint8_t* vb = valid + (size_t)b * n;
+    const int base = (rank * blockDim.x + threadIdx.x) * ITEMS;
+
+    float p[ITEMS][C];
+    float md[ITEMS];
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) {
+        const int j = base + it;
+        const bool in = j < n;
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch)
+            p[it][ch] = in ? xb[(size_t)j * C + ch] : 0.0f;
+        md[it] = in && vb[j] ? INFINITY : -INFINITY;
+    }
+    if (cs > 1) cg::this_cluster().sync();  // every block has started
+
+    // the first valid point: the first maximum of md (+inf valid, -inf not)
+    float lp[C];
+    int bi = base;
+    float bv = md[0];
+    float bc[C];
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) bc[ch] = p[0][ch];
+#pragma unroll
+    for (int it = 1; it < ITEMS; ++it) {
+        if (md[it] > bv) {
+            bv = md[it];
+            bi = base + it;
+#pragma unroll
+            for (int ch = 0; ch < C; ++ch) bc[ch] = p[it][ch];
+        }
+    }
+    int last =
+        fps_select<C>(sl, __float_as_int(bv), bi, bc, lp, 0, rank, cs);
+    const bool writer = rank == 0 && threadIdx.x == 0;
+    if (writer) out[(size_t)b * m] = last;
+
+    for (int step = 1; step < m; ++step) {
+#pragma unroll
+        for (int it = 0; it < ITEMS; ++it) {
+            float d = 0.0f;
+#pragma unroll
+            for (int ch = 0; ch < C; ++ch) {
+                const float diff = __fsub_rn(p[it][ch], lp[ch]);
+                d = __fadd_rn(d, __fmul_rn(diff, diff));
+            }
+            md[it] = fminf(md[it], d);
+        }
+        bv = md[0];
+        bi = base;
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch) bc[ch] = p[0][ch];
+#pragma unroll
+        for (int it = 1; it < ITEMS; ++it) {
+            if (md[it] > bv) {
+                bv = md[it];
+                bi = base + it;
+#pragma unroll
+                for (int ch = 0; ch < C; ++ch) bc[ch] = p[it][ch];
+            }
+        }
+        last = fps_select<C>(sl, __float_as_int(bv), bi, bc, lp, step & 1,
+                             rank, cs);
+        if (writer) out[(size_t)b * m + step] = last;
     }
 }
 
-template <int ITEMS>
-static void launch(const float* x, const uint8_t* v, int32_t* out, int b,
-                   int n, int c, int m, cudaStream_t stream) {
-    int threads = (n + ITEMS - 1) / ITEMS;
-    threads = ((threads + 31) / 32) * 32;
-    const size_t bytes = (size_t)n * c * sizeof(float);
-    const int use_smem = bytes <= FPS_SMEM_LIMIT;
-    fps_kernel<ITEMS><<<b, threads, use_smem ? bytes : 0, stream>>>(
-        x, v, out, n, c, m, use_smem);
+template <int C, int ITEMS>
+static int launch(const float* x, const uint8_t* v, int32_t* out, int b,
+                  int n, int m, int threads, int cs, cudaStream_t stream) {
+    if (cs == 1) {
+        fps_kernel<C, ITEMS><<<b, threads, 0, stream>>>(x, v, out, n, m, 1);
+        return (int)cudaGetLastError();
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(b * cs);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cs;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err =
+        cudaLaunchKernelEx(&cfg, fps_kernel<C, ITEMS>, x, v, out, n, m, cs);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+}
+
+template <int C>
+static int launch_items(const float* x, const uint8_t* v, int32_t* out,
+                        int b, int n, int m, int threads, int items, int cs,
+                        cudaStream_t stream) {
+    switch (items) {
+        case 2: return launch<C, 2>(x, v, out, b, n, m, threads, cs, stream);
+        case 4: return launch<C, 4>(x, v, out, b, n, m, threads, cs, stream);
+        case 8: return launch<C, 8>(x, v, out, b, n, m, threads, cs, stream);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+static int max_threads(int c, int items) {
+    return items * (c + 1) <= 32 ? FPS_MAX_THREADS : FPS_MAX_THREADS / 2;
+}
+
+// The launch shape for a cloud of n points (the fastest of every shape
+// that covers the path's clouds, measured on the card; PERF.md): one block
+// while its registers hold the cloud, else a cluster of blocks of about
+// 2048 points each (up to 8); then the most points a thread that still
+// leave 256 threads a block (8 warps), else 2. The shape never exceeds
+// FpsShape's thread limit and always covers n <= 8 * 8 * 512 points.
+static void pick(int n, int c, int* threads, int* items, int* cs) {
+    const int cap = 8 * max_threads(c, 8);
+    *cs = n <= cap ? 1 : min(FPS_MAX_CLUSTER, (n + 2047) / 2048);
+    const int chunk = (n + *cs - 1) / *cs;
+    *items = 2;
+    for (int it = 8; it > 2; it /= 2) {
+        if ((chunk + it - 1) / it >= 256) {
+            *items = it;
+            break;
+        }
+    }
+    *threads = ((chunk + *items - 1) / *items + 31) / 32 * 32;
 }
 
 // x: (b, n, c) float32, valid: (b, n) uint8 (0/1), out: (b, m) int32, all
 // contiguous device memory; launches on `stream`, does not synchronise.
-// Returns the cudaError_t of the launch (0 on success).
+// n up to 32768 (a cluster of 8 blocks of 512 threads x 8 points). Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int fseg_fps_f32(const void* x, const void* valid, void* out,
                             int b, int n, int c, int m, void* stream) {
-    if (b < 1 || n < 1 || n > 32 * FPS_MAX_THREADS || c < 1 ||
-        c > FPS_MAX_C || m < 1)
+    if (b < 1 || n < 1 || c < 1 || c > FPS_MAX_C || m < 1)
+        return (int)cudaErrorInvalidValue;
+    int t, it, cs;
+    pick(n, c, &t, &it, &cs);
+    if ((long long)t * it * cs < n || (long long)b * cs > 0x7fffffff)
         return (int)cudaErrorInvalidValue;
     const float* xp = (const float*)x;
     const uint8_t* vp = (const uint8_t*)valid;
     int32_t* op = (int32_t*)out;
     cudaStream_t s = (cudaStream_t)stream;
-    // about 8 points a thread up to 8192 points, then wider buckets
-    if (n <= 8 * FPS_MAX_THREADS)
-        launch<8>(xp, vp, op, b, n, c, m, s);
-    else if (n <= 16 * FPS_MAX_THREADS)
-        launch<16>(xp, vp, op, b, n, c, m, s);
-    else
-        launch<32>(xp, vp, op, b, n, c, m, s);
-    return (int)cudaGetLastError();
+    switch (c) {
+        case 1: return launch_items<1>(xp, vp, op, b, n, m, t, it, cs, s);
+        case 2: return launch_items<2>(xp, vp, op, b, n, m, t, it, cs, s);
+        case 3: return launch_items<3>(xp, vp, op, b, n, m, t, it, cs, s);
+        case 4: return launch_items<4>(xp, vp, op, b, n, m, t, it, cs, s);
+        case 5: return launch_items<5>(xp, vp, op, b, n, m, t, it, cs, s);
+        case 6: return launch_items<6>(xp, vp, op, b, n, m, t, it, cs, s);
+        case 7: return launch_items<7>(xp, vp, op, b, n, m, t, it, cs, s);
+        default: return launch_items<8>(xp, vp, op, b, n, m, t, it, cs, s);
+    }
 }

@@ -8,28 +8,38 @@
 // device memory. self_loop handling (drop column 0) is the wrapper's.
 //
 // What bounds it: at the path's shapes (5 x 2048 x 3, kk=41 for the DGCNN
-// graph; 3 x 8192 x 3, kk=30 for the PSR normals) it reads a few hundred KB
-// and does B*N^2*C*3 flops plus the per-query selection, so it is bound by
-// instruction issue, not bytes — and the selection, not the distances,
-// dominates: while a query's list is still filling, almost every key is an
-// insert, and a warp pays for an insert whenever any of its 32 queries
-// makes one.
+// serving graph; 32 x 2048 x 3 for the training step's; 3 x 8192 x 3,
+// kk=30 for the PSR normals) it reads a few hundred KB and does
+// B*N^2*C*3 flops plus the per-query selection, so it is bound by
+// instruction issue, not bytes, and the selection, not the distances, is
+// what costs (PERF.md).
 //
-// Design: S adjacent lanes of a warp share one query (S = 1, 2, 4 or 8,
-// chosen on the host so the launch has enough warps to hide latency); keys
-// stream through shared memory in tiles that every thread of the block
-// reads, and lane s of a query scans the keys j = s, s+S, s+2S, ... Each
-// lane keeps a sorted (distance, index) list of KK >= kk entries in
-// REGISTERS: KK is a compile-time bucket (32/48/64/128) and the insert is a
-// fully unrolled, branch-free compare-and-shift, so no list entry is ever
-// addressed with a runtime index (which would put the list in local
-// memory; the first version did that and ran ~10x slower than the plain
-// version). A lane sees its keys in ascending index order, so rejecting an
-// equal distance and inserting after equal entries keeps its list in
-// lexicographic (distance, index) order. The S lists are then merged with
-// warp shuffles: kk times, the lexicographic minimum of the S list heads is
-// emitted and its lane pops it. Keeping the KK >= kk smallest per lane and
-// merging is exact, ties included.
+// Design: threshold-filtered warp selection (after FAISS's WarpSelect,
+// Johnson, Douze and Jegou, "Billion-scale similarity search with GPUs").
+//   * One warp a query. The block's queries share the cloud, staged in
+//     shared memory channel-major (conflict-free for any C): the whole
+//     cloud when it fits KNN_SMEM_CLOUD (no barrier after the load), else
+//     tiles of that size in turn.
+//   * Keys. (d, j) packs into one 64-bit key, d's float bits high (d >= 0,
+//     never -0.0, so its bits order it) and j low: one unsigned compare is
+//     the lexicographic (d, j) order, so the result is exact with ties and
+//     does not depend on the order keys are seen in.
+//   * The warp keeps the kk smallest keys so far as one sorted list of
+//     32 * L entries, entry e in register e / 32 of lane e % 32. A round is
+//     32 keys, one a lane; every lane tests its key against the threshold,
+//     the kk-th entry, in one compare, and __ballot_sync counts the
+//     survivors. Many survivors (early in the scan, KNN_MERGE_MIN or more)
+//     are merged at once: a bitonic sort of the round over shuffles, then a
+//     bitonic merge with the list that keeps its 32 * L smallest. A few
+//     (later, where the threshold has fallen) are inserted one at a time:
+//     each entry compares itself with the key and takes the key, its left
+//     neighbour (one shuffle) or stays. Either way the threshold is
+//     refreshed at once, so a warp pays for a key only when it enters the
+//     list.
+//   * Whole-cloud scans start at the block's first query (rounded down to
+//     32) and wrap, so a cloud stored in spatial order fills the list with
+//     near keys first and the threshold falls fast; the order of the scan
+//     does not change the result.
 //
 // Rounding: every operation is an explicit round-to-nearest intrinsic and
 // the library is also built with -fmad=false, so no a*b+c is contracted to
@@ -41,135 +51,211 @@
 
 #define KNN_MAX_C 8
 #define KNN_MAX_KK 128
-#define KNN_THREADS 128
-#define KNN_TILE 512  // keys per shared-memory tile: 512 * 8 * 4 B = 16 KB
+#define KNN_SMEM_CLOUD (192 * 1024)  // bytes of cloud a block stages
+#define KNN_BATCH 4                  // keys a lane computes before testing
+// survivors of a round from which they are merged, not inserted one by
+// one (the fastest of 2 to 12 at the path's shapes on the card; PERF.md)
+#define KNN_MERGE_MIN 8
+#define KNN_FULL 0xffffffffu
 
-// Insert (d, j) into the sorted list; j exceeds every index in the list.
-// Entry i takes entry i-1 if that one is greater than d, else d itself if
-// entry i is greater than d, else stays; entries equal to d stay ahead.
-template <int KK>
-__device__ __forceinline__ void insert_sorted(float (&bd)[KK], int (&bi)[KK],
-                                              float d, int j) {
+typedef unsigned long long u64;
+
+__device__ __forceinline__ u64 shfl64(u64 v, int src) {
+    const unsigned lo = __shfl_sync(KNN_FULL, (unsigned)v, src);
+    const unsigned hi = __shfl_sync(KNN_FULL, (unsigned)(v >> 32), src);
+    return ((u64)hi << 32) | lo;
+}
+
+__device__ __forceinline__ u64 shfl_xor64(u64 v, int mask) {
+    const unsigned lo = __shfl_xor_sync(KNN_FULL, (unsigned)v, mask);
+    const unsigned hi = __shfl_xor_sync(KNN_FULL, (unsigned)(v >> 32), mask);
+    return ((u64)hi << 32) | lo;
+}
+
+__device__ __forceinline__ u64 umin64(u64 a, u64 b) { return a < b ? a : b; }
+__device__ __forceinline__ u64 umax64(u64 a, u64 b) { return a < b ? b : a; }
+
+// Bitonic sort of the warp's 32 keys (one a lane), ascending by lane.
+__device__ __forceinline__ u64 sort32(u64 v, int lane) {
 #pragma unroll
-    for (int i = KK - 1; i > 0; --i) {
-        const bool shift = bd[i - 1] > d;
-        const bool place = !shift && bd[i] > d;
-        bd[i] = shift ? bd[i - 1] : (place ? d : bd[i]);
-        bi[i] = shift ? bi[i - 1] : (place ? j : bi[i]);
+    for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+        for (int j = k >> 1; j > 0; j >>= 1) {
+            const u64 o = shfl_xor64(v, j);
+            const bool keep_min = ((lane & j) == 0) == ((lane & k) == 0);
+            v = keep_min ? umin64(v, o) : umax64(v, o);
+        }
     }
-    if (bd[0] > d) {
-        bd[0] = d;
-        bi[0] = j;
+    return v;
+}
+
+// Merge 32 sorted keys (one a lane) into the sorted list, keeping its
+// 32 * L smallest: the list's last row against the keys reversed gives a
+// bitonic sequence holding them (min(A[i], B[31 - i])), which a bitonic
+// merge sorts; L is a power of two.
+template <int L>
+__device__ __forceinline__ void merge(u64 (&list)[L], u64 sorted, int lane) {
+    list[L - 1] = umin64(list[L - 1], shfl64(sorted, 31 - lane));
+#pragma unroll
+    for (int jr = L / 2; jr > 0; jr >>= 1) {  // partners in another row
+#pragma unroll
+        for (int r = 0; r < L; ++r) {
+            if ((r & jr) == 0) {
+                const u64 a = list[r], b = list[r + jr];
+                list[r] = umin64(a, b);
+                list[r + jr] = umax64(a, b);
+            }
+        }
+    }
+#pragma unroll
+    for (int j = 16; j > 0; j >>= 1) {  // partners in another lane
+#pragma unroll
+        for (int r = 0; r < L; ++r) {
+            const u64 o = shfl_xor64(list[r], j);
+            list[r] = (lane & j) == 0 ? umin64(list[r], o)
+                                      : umax64(list[r], o);
+        }
     }
 }
 
-template <int KK, int S>
-__global__ void __launch_bounds__(KNN_THREADS)
-knn_kernel(const float* __restrict__ x, int32_t* __restrict__ out_idx,
-           float* __restrict__ out_dist, int n, int c, int kk) {
-    constexpr int QPB = KNN_THREADS / S;  // queries per block
-    __shared__ float tile[KNN_TILE * KNN_MAX_C];
-    const int b = blockIdx.y;
-    const int sub = threadIdx.x % S;
-    const int q = blockIdx.x * QPB + threadIdx.x / S;
-    const bool active = q < n;  // ragged last block: load tiles, emit nothing
-    const float* xb = x + (size_t)b * n * c;
-
-    float qv[KNN_MAX_C];
+// Insert `key` (not in the list) into the sorted list: entry p keeps its
+// value if it is below the key, else takes the key if entry p - 1 is below
+// it (or p == 0), else takes entry p - 1.
+template <int L>
+__device__ __forceinline__ void insert(u64 (&list)[L], u64 key, int lane) {
+    u64 left[L];  // entry p - 1 of every entry p (lane 0: the row above)
 #pragma unroll
-    for (int ch = 0; ch < KNN_MAX_C; ++ch)
-        qv[ch] = (active && ch < c) ? xb[(size_t)q * c + ch] : 0.0f;
-
-    float bd[KK];
-    int bi[KK];
+    for (int r = 0; r < L; ++r) left[r] = shfl64(list[r], (lane + 31) & 31);
 #pragma unroll
-    for (int i = 0; i < KK; ++i) {
-        bd[i] = INFINITY;
-        bi[i] = 0;
+    for (int r = L - 1; r >= 0; --r) {
+        const u64 prev = lane == 0 ? left[r > 0 ? r - 1 : 0] : left[r];
+        const bool first = lane == 0 && r == 0;
+        if (list[r] > key) list[r] = (first || prev < key) ? key : prev;
     }
+}
 
-    for (int t0 = 0; t0 < n; t0 += KNN_TILE) {
-        const int tn = min(KNN_TILE, n - t0);
-        __syncthreads();  // previous tile fully consumed
-        for (int e = threadIdx.x; e < tn * c; e += KNN_THREADS)
-            tile[e] = xb[(size_t)t0 * c + e];
+// The list's entry kk - 1 (row kr, lane kl), on every lane.
+template <int L>
+__device__ __forceinline__ u64 kth(const u64 (&list)[L], int kr, int kl) {
+    u64 v = list[0];
+#pragma unroll
+    for (int r = 1; r < L; ++r) v = kr == r ? list[r] : v;
+    return shfl64(v, kl);
+}
+
+template <int C, int L>
+__global__ void __launch_bounds__(1024)
+knn_kernel(const float* __restrict__ x, int32_t* __restrict__ out_idx,
+           float* __restrict__ out_dist, int n, int kk, int tile) {
+    extern __shared__ float xs[];  // (C, tile) channel-major
+    const int lane = threadIdx.x & 31;
+    const int q0 = blockIdx.x * (blockDim.x >> 5);
+    const int q = q0 + (threadIdx.x >> 5);
+    const int b = blockIdx.y;
+    const bool active = q < n;  // ragged last block: load tiles, emit nothing
+    const float* xb = x + (size_t)b * n * C;
+
+    float qv[C];
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch)
+        qv[ch] = active ? xb[(size_t)q * C + ch] : 0.0f;
+    u64 list[L];
+#pragma unroll
+    for (int r = 0; r < L; ++r) list[r] = ~0ull;
+    u64 th = ~0ull;
+    const int kr = (kk - 1) >> 5, kl = (kk - 1) & 31;
+
+    for (int t0 = 0; t0 < n; t0 += tile) {
+        const int tn = min(tile, n - t0);
+        if (t0 > 0) __syncthreads();  // the previous tile fully scanned
+        for (int e = threadIdx.x; e < tn * C; e += blockDim.x) {
+            const int j = e / C;
+            xs[(e - j * C) * tn + j] = xb[(size_t)t0 * C + e];
+        }
         __syncthreads();
         if (!active) continue;
-        for (int j = sub; j < tn; j += S) {
-            const float* kp = tile + j * c;
-            float d = 0.0f;
+        const int rot = tn == n ? (q0 & ~31) : 0;
+        for (int e0 = 0; e0 < tn; e0 += 32 * KNN_BATCH) {
+            u64 kv[KNN_BATCH];
 #pragma unroll
-            for (int ch = 0; ch < KNN_MAX_C; ++ch) {
-                if (ch < c) {
-                    const float diff = __fsub_rn(qv[ch], kp[ch]);
-                    d = __fadd_rn(d, __fmul_rn(diff, diff));
+            for (int u = 0; u < KNN_BATCH; ++u) {
+                const int e = e0 + u * 32 + lane;
+                kv[u] = ~0ull;
+                if (e < tn) {
+                    int jl = e + rot;
+                    if (jl >= tn) jl -= tn;
+                    float d = 0.0f;
+#pragma unroll
+                    for (int ch = 0; ch < C; ++ch) {
+                        const float diff = __fsub_rn(qv[ch], xs[ch * tn + jl]);
+                        d = __fadd_rn(d, __fmul_rn(diff, diff));
+                    }
+                    kv[u] = ((u64)__float_as_uint(d) << 32) |
+                            (unsigned)(t0 + jl);
                 }
             }
-            if (d < bd[KK - 1]) insert_sorted<KK>(bd, bi, d, t0 + j);
+#pragma unroll
+            for (int u = 0; u < KNN_BATCH; ++u) {
+                unsigned pend = __ballot_sync(KNN_FULL, kv[u] < th);
+                if (__popc(pend) >= KNN_MERGE_MIN) {
+                    merge<L>(list, sort32(kv[u] < th ? kv[u] : ~0ull, lane),
+                             lane);
+                    th = kth<L>(list, kr, kl);
+                    continue;
+                }
+                while (pend) {
+                    const int src = __ffs(pend) - 1;
+                    insert<L>(list, shfl64(kv[u], src), lane);
+                    th = kth<L>(list, kr, kl);
+                    pend &= ~(1u << src) & __ballot_sync(KNN_FULL, kv[u] < th);
+                }
+            }
         }
     }
+    if (!active) return;
     const size_t row = ((size_t)b * n + q) * kk;
-    if (S == 1) {
-        if (!active) return;
 #pragma unroll
-        for (int i = 0; i < KK; ++i) {
-            if (i < kk) {
-                out_idx[row + i] = bi[i];
-                out_dist[row + i] = bd[i];
-            }
-        }
-        return;
-    }
-    // merge: every lane of the warp takes part in the shuffles (inactive
-    // lanes hold all-INFINITY lists); key indices are unique across the S
-    // lists, so exactly one lane holds the winning head
-    for (int i = 0; i < kk; ++i) {
-        float md = bd[0];
-        int mi = bi[0];
-#pragma unroll
-        for (int off = 1; off < S; off <<= 1) {
-            const float od = __shfl_xor_sync(0xffffffffu, md, off);
-            const int oi = __shfl_xor_sync(0xffffffffu, mi, off);
-            if (od < md || (od == md && oi < mi)) {
-                md = od;
-                mi = oi;
-            }
-        }
-        const bool pop = bd[0] == md && bi[0] == mi;
-#pragma unroll
-        for (int e = 0; e < KK - 1; ++e) {
-            bd[e] = pop ? bd[e + 1] : bd[e];
-            bi[e] = pop ? bi[e + 1] : bi[e];
-        }
-        if (pop) bd[KK - 1] = INFINITY;
-        if (active && sub == 0) {
-            out_idx[row + i] = mi;
-            out_dist[row + i] = md;
+    for (int r = 0; r < L; ++r) {
+        const int p = r * 32 + lane;
+        if (p < kk) {
+            out_idx[row + p] = (int32_t)(unsigned)list[r];
+            out_dist[row + p] = __uint_as_float((unsigned)(list[r] >> 32));
         }
     }
 }
 
-template <int KK>
-static void launch(const float* x, int32_t* idx, float* dist, int b, int n,
-                   int c, int kk, int split, cudaStream_t stream) {
-    const int qpb = KNN_THREADS / split;
+template <int C, int L>
+static int launch(const float* x, int32_t* idx, float* dist, int b, int n,
+                  int kk, cudaStream_t stream) {
+    const size_t cloud = (size_t)n * C * sizeof(float);
+    const int tile = cloud <= KNN_SMEM_CLOUD
+                         ? n
+                         : (int)(KNN_SMEM_CLOUD / (C * sizeof(float)));
+    const size_t smem = (size_t)tile * C * sizeof(float);
+    // enough warps a block that the blocks an SM holds by shared memory
+    // still bring at least 32 warps
+    const int threads = smem <= 112 * 1024 ? 512 : 1024;
+    static bool opted_in = false;
+    if (!opted_in) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            knn_kernel<C, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            KNN_SMEM_CLOUD);
+        if (err != cudaSuccess) return (int)err;
+        opted_in = true;
+    }
+    const int qpb = threads / 32;
     const dim3 grid((n + qpb - 1) / qpb, b);
-    switch (split) {
-        case 1: knn_kernel<KK, 1><<<grid, KNN_THREADS, 0, stream>>>(x, idx, dist, n, c, kk); break;
-        case 2: knn_kernel<KK, 2><<<grid, KNN_THREADS, 0, stream>>>(x, idx, dist, n, c, kk); break;
-        case 4: knn_kernel<KK, 4><<<grid, KNN_THREADS, 0, stream>>>(x, idx, dist, n, c, kk); break;
-        default: knn_kernel<KK, 8><<<grid, KNN_THREADS, 0, stream>>>(x, idx, dist, n, c, kk); break;
-    }
+    knn_kernel<C, L><<<grid, threads, smem, stream>>>(x, idx, dist, n, kk,
+                                                      tile);
+    return (int)cudaGetLastError();
 }
 
-// Lanes per query: double while the launch has fewer than 2^16 threads and
-// every lane still sees at least kk keys.
-static int pick_split(int b, int n, int kk) {
-    int split = 1;
-    while (split < 8 && (long long)b * n * split < 65536 &&
-           n / (2 * split) >= kk)
-        split *= 2;
-    return split;
+template <int C>
+static int launch_rows(const float* x, int32_t* idx, float* dist, int b,
+                       int n, int kk, cudaStream_t stream) {
+    if (kk <= 32) return launch<C, 1>(x, idx, dist, b, n, kk, stream);
+    if (kk <= 64) return launch<C, 2>(x, idx, dist, b, n, kk, stream);
+    return launch<C, 4>(x, idx, dist, b, n, kk, stream);
 }
 
 // x: (b, n, c) float32, idx: (b, n, kk) int32, dist: (b, n, kk) float32, all
@@ -184,14 +270,14 @@ extern "C" int fseg_knn_f32(const void* x, void* idx, void* dist, int b,
     int32_t* ip = (int32_t*)idx;
     float* dp = (float*)dist;
     cudaStream_t s = (cudaStream_t)stream;
-    const int split = pick_split(b, n, kk);
-    if (kk <= 32)
-        launch<32>(xp, ip, dp, b, n, c, kk, split, s);
-    else if (kk <= 48)
-        launch<48>(xp, ip, dp, b, n, c, kk, split, s);
-    else if (kk <= 64)
-        launch<64>(xp, ip, dp, b, n, c, kk, split, s);
-    else
-        launch<KNN_MAX_KK>(xp, ip, dp, b, n, c, kk, split, s);
-    return (int)cudaGetLastError();
+    switch (c) {
+        case 1: return launch_rows<1>(xp, ip, dp, b, n, kk, s);
+        case 2: return launch_rows<2>(xp, ip, dp, b, n, kk, s);
+        case 3: return launch_rows<3>(xp, ip, dp, b, n, kk, s);
+        case 4: return launch_rows<4>(xp, ip, dp, b, n, kk, s);
+        case 5: return launch_rows<5>(xp, ip, dp, b, n, kk, s);
+        case 6: return launch_rows<6>(xp, ip, dp, b, n, kk, s);
+        case 7: return launch_rows<7>(xp, ip, dp, b, n, kk, s);
+        default: return launch_rows<8>(xp, ip, dp, b, n, kk, s);
+    }
 }

@@ -22,7 +22,7 @@ import ctypes
 import torch
 
 MAX_C = 8              # csrc/fps.cu FPS_MAX_C
-MAX_N = 32 * 1024      # csrc/fps.cu: 32 points a thread, 1024 threads
+MAX_N = 32 * 1024      # csrc/fps.cu: a cluster of 8 blocks holds 32768
 
 
 def fps_plain(points: torch.Tensor, m: int,

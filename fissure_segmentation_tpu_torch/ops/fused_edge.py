@@ -36,6 +36,7 @@ import torch
 
 from ..kernels.gather_reduce import gather_reduce
 from ..kernels.scatter import scatter_count, scatter_routed
+from .edge import _flat_gather
 
 _ENV_FLAG = "FSEG_FUSED_EDGE"
 CUDA_DEFAULT = True
@@ -148,10 +149,19 @@ def fused_edge_eval(a, cen, gamma, beta, ra_mean, ra_var, idx,
                     eps: float, slope: float) -> torch.Tensor:
     """Eval-mode fused EdgeConv core: normalize with the running statistics,
     so the layer is the gather-reduce (max and min) plus (B, N, C)
-    pointwise math. No gradient: call it under torch.no_grad() (the
-    gather-reduce raises where autograd would record through it)."""
-    mx, mn = gather_reduce(a.contiguous(), idx.to(torch.int32).contiguous(),
-                           "extrema")
+    pointwise math. Where autograd records (grad enabled and an input that
+    requires grad) the max and min come from the standard path instead, as
+    in the JAX package: the flat gather (ops/edge.py:_flat_gather) and
+    amax/amin over k, differentiable by autograd. Otherwise the
+    gather-reduce, which has no gradient, computes them (on the card, the
+    kernel: serving runs under torch.no_grad())."""
+    ins = (a, cen, gamma, beta, ra_mean, ra_var)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        ga = _flat_gather(a, idx)
+        mx, mn = ga.amax(2), ga.amin(2)
+    else:
+        mx, mn = gather_reduce(a.contiguous(),
+                               idx.to(torch.int32).contiguous(), "extrema")
     sel = torch.where(gamma >= 0, mx, mn)
     sigma = torch.sqrt(ra_var + eps)
     u = gamma * (((sel + cen).to(torch.float32) - ra_mean) / sigma) + beta

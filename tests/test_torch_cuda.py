@@ -1,6 +1,7 @@
 """The kernels on the card (K1 kNN, K2-K4 scatter, K5 farthest-point
 sampling, K6 depthwise convolution, the fused EdgeConv gather-reduce, the
-streaming column sums) against their plain PyTorch versions.
+streaming column sums) against their plain PyTorch versions, and the DGCNN
+eval forward with grad enabled against the no_grad one.
 
 These tests need an NVIDIA card and skip elsewhere. The repository's
 tests/conftest.py imports jax, which the card's machine does not have, so
@@ -47,14 +48,51 @@ def _lattice(shape, seed):
     return x
 
 
+def _equal(shape, seed):
+    """Every point the same: every distance 0, only ties."""
+    return torch.full(shape, 0.25)
+
+
+def _descending(shape, seed):
+    """Points on a line, ordered so that for the last point every key's
+    distance falls with its index (each key enters its list)."""
+    b, n, c = shape
+    line = torch.linspace(1.0, -1.0, n)[None, :, None]
+    return (line * torch.ones(shape)).contiguous()
+
+
+def _masked(shape, seed):
+    """The PSR normals' input: a third of the points pushed to 1e6."""
+    g = torch.Generator().manual_seed(seed)
+    x = _uniform(shape, seed)
+    x[torch.rand(shape[:2], generator=g) < 1 / 3] = 1e6
+    return x
+
+
 CASES = [
-    # (B, N, C, k, self_loop, maker): the two path shapes, ragged N, ties,
-    # the widest C and kk the kernel takes
+    # (B, N, C, k, self_loop, maker): the three path shapes, ragged N,
+    # ties, the widest C and kk the kernel takes; the hard cases: every key
+    # an insert, only ties, the masked normals' cloud, kk at the list's
+    # row edges (1, 32, 33, 64, 128), N = kk, and a cloud larger than the
+    # kernel stages whole in shared memory (tiles)
     (5, 2048, 3, 40, False, _uniform),
+    (32, 2048, 3, 40, False, _uniform),
     (3, 8192, 3, 30, True, _uniform),
     (2, 1000, 3, 17, False, _uniform),
     (3, 4096, 3, 30, True, _lattice),
     (1, 700, 8, 127, False, _uniform),
+    (2, 2048, 3, 40, False, _descending),
+    (2, 2048, 3, 40, False, _equal),
+    (3, 8192, 3, 30, True, _masked),
+    (2, 300, 3, 1, True, _uniform),
+    (2, 300, 3, 32, True, _uniform),
+    (2, 300, 3, 33, True, _uniform),
+    (2, 300, 3, 64, True, _uniform),
+    (1, 700, 3, 128, True, _uniform),
+    (2, 41, 3, 40, False, _uniform),
+    (1, 128, 5, 128, True, _lattice),
+    (1, 20000, 3, 16, False, _uniform),
+    (1, 9000, 8, 20, True, _masked),
 ]
 
 
@@ -199,6 +237,17 @@ FPS_CASES = [
     (3, 1000, 3, 250, 0.8, _uniform),
     (2, 4096, 3, 300, 1.0, _lattice),
     (2, 700, 4, 100, 0.6, _uniform),
+    # the hard cases: only ties, N = 1, m above the valid count, N off
+    # every block width, N = 32768 (a cluster of blocks), C = 1 and C = 8
+    (2, 1000, 3, 100, 1.0, _equal),
+    (3, 1, 3, 4, 1.0, _uniform),
+    (2, 500, 3, 300, 0.3, _uniform),
+    (2, 2047, 3, 64, 1.0, _uniform),
+    (1, 1025, 3, 100, 0.9, _uniform),
+    (2, 32768, 3, 256, 0.9, _uniform),
+    (2, 3000, 1, 200, 1.0, _uniform),
+    (2, 3000, 8, 200, 0.7, _uniform),
+    (1, 32768, 8, 64, 1.0, _uniform),
 ]
 
 
@@ -394,3 +443,26 @@ def test_stream_sums_check_input(cuda):
         stream_sum(g.t())
     with pytest.raises(ValueError, match="ring"):
         stream_sum_async(g, 1024, 8)
+
+
+# ---- the DGCNN eval forward with grad enabled -------------------------------
+
+def test_dgcnn_eval_forward_with_grad_equals_no_grad(cuda, monkeypatch):
+    """With grad enabled the fused eval core takes the standard path (flat
+    gather, amax/amin) and autograd records it; under no_grad it launches
+    the gather-reduce kernel. The two forwards are equal, and the gradient
+    reaches the input."""
+    from fissure_segmentation_tpu_torch.models import DGCNNSeg
+    monkeypatch.setenv("FSEG_FUSED_EDGE", "1")
+    torch.manual_seed(0)
+    model = DGCNNSeg(k=8, in_features=3, num_classes=4).to(cuda).eval()
+    x = _uniform((2, 256, 3), 3).to(cuda).requires_grad_(True)
+    before = gather_reduce.launches
+    out = model(x)
+    assert gather_reduce.launches == before
+    out.square().sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+    with torch.no_grad():
+        want = model(x)
+    assert gather_reduce.launches > before
+    assert torch.equal(out.detach(), want)

@@ -33,6 +33,33 @@ def _mask(rng, shape, keep=0.6):
     return rng.random(shape) < keep
 
 
+def _line(rng, shape):
+    """Dyadic points on a line, descending with the index: every step's
+    farthest point is at an end, every distance exact."""
+    n = shape[-2]
+    line = ((n - 1 - np.arange(n)) / 16.0).astype(np.float32)
+    return np.broadcast_to(line[:, None], shape).copy()
+
+
+def _equal(rng, shape):
+    """Every point the same: every distance 0, only ties."""
+    return np.full(shape, 0.25, np.float32)
+
+
+def _far_masked(rng, shape):
+    """The PSR normals' masking: every third point pushed to 1e6 (and
+    invalid, `_every_third_invalid`), the rest dyadic."""
+    pts = (rng.integers(-16, 17, shape) / 16.0).astype(np.float32)
+    pts[..., ::3, :] = 1e6
+    return pts
+
+
+def _every_third_invalid(rng, shape):
+    mask = np.ones(shape, bool)
+    mask[..., ::3] = False
+    return mask
+
+
 def _few_valid(rng, shape):
     """Row 0 holds 3 valid points (fewer than m), row 1 none."""
     mask = np.zeros(shape, bool)
@@ -51,6 +78,12 @@ CASES = {
     "lattice_ties_masked_2x150x3": (_lattice, (2, 150, 3), 16, _mask),
     "few_and_no_valid_2x140x3": (_normal, (2, 140, 3), 9, _few_valid),
     "m1_2x140x3": (_normal, (2, 140, 3), 1, _mask),
+    # the card's hard cases at small size: distances falling with the
+    # index, only ties, points pushed to 1e6 and masked
+    "descending_line_2x150x3": (_line, (2, 150, 3), 16, None),
+    "all_equal_2x130x3": (_equal, (2, 130, 3), 12, None),
+    "far_masked_2x150x3": (_far_masked, (2, 150, 3), 16,
+                           _every_third_invalid),
 }
 
 

@@ -34,6 +34,21 @@ def _lattice_with_duplicates(rng, b, n):
     return x
 
 
+def _line(b, n):
+    """Dyadic points on a line, descending with the index: for the last
+    point every key's distance falls with its index."""
+    line = ((n - 1 - np.arange(n)) / 16.0).astype(np.float32)
+    return np.broadcast_to(line[None, :, None], (b, n, 3)).copy()
+
+
+def _far_masked(rng, shape):
+    """The PSR normals' input: a third of the points pushed to 1e6 (more
+    than k of them, and more than k left), the rest dyadic."""
+    x = _dyadic(rng, shape)
+    x[rng.random(shape[:-1]) < 1 / 3] = 1e6
+    return x
+
+
 CASES = [
     # (name, cloud maker, k, Pallas tile sizes)
     ("single_tile_ragged", lambda r: _dyadic(r, (2, 150, 3)), 7, {}),
@@ -44,6 +59,13 @@ CASES = [
     ("lattice_ties_single", lambda r: _lattice_with_duplicates(r, 1, 130), 12,
      {}),
     ("channels_5", lambda r: _dyadic(r, (1, 100, 5), denom=8.0), 6,
+     dict(tq=64, tk=64)),
+    # the card's hard cases at small size: every key an insert, only ties,
+    # the masked normals' cloud
+    ("descending", lambda r: _line(2, 150), 10, dict(tq=64, tk=64)),
+    ("all_equal", lambda r: np.full((2, 130, 3), 0.25, np.float32), 12,
+     dict(tq=64, tk=64)),
+    ("far_masked_1e6", lambda r: _far_masked(r, (2, 200, 3)), 10,
      dict(tq=64, tk=64)),
 ]
 

@@ -234,6 +234,68 @@ def test_edgeconv_module_train_matches_jax(routing, fused):
                         **TOL)
 
 
+# ---- the eval model with grad enabled ---------------------------------------
+
+def _eval_variables(jm, rng, in_features):
+    """JAX DGCNNSeg variables with numpy-randomized BatchNorm scale, bias
+    and running statistics (as tests/test_torch_models.py draws them), so
+    both signs of the scale take the max and the min route."""
+    variables = jax.tree_util.tree_map(np.asarray, jm.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 32, in_features), jnp.float32)))
+
+    def randomize(path, leaf):
+        name = jax.tree_util.keystr(path)
+        if "BatchNorm" not in name:
+            return leaf
+        if "var" in name:
+            return rng.uniform(0.5, 2.0, leaf.shape).astype(np.float32)
+        return rng.normal(0, 0.3, leaf.shape).astype(np.float32) + \
+            (1.0 if "scale" in name else 0.0)
+    return jax.tree_util.tree_map_with_path(randomize, variables)
+
+
+def test_dgcnn_eval_with_grad_matches_jax(routing):
+    """DGCNNSeg.eval() with grad enabled on the fused EdgeConv route: the
+    logits and the input and parameter gradients against jax.grad of the
+    JAX eval model (fused route too) and against the port's unfused route,
+    within the eval-parity tolerance (2e-4, tests/test_torch_models.py)."""
+    rng = np.random.default_rng(21)
+    k, b, n, f = 6, 2, 64, 3
+    jm = JDGCNNSeg(k=k, in_features=f, num_classes=4, dynamic=False)
+    variables = _eval_variables(jm, rng, f)
+    x = _dyadic_cloud(rng, (b, n, f))
+    w = rng.normal(size=(b, n, 4)).astype(np.float32)
+
+    def jloss(params, xx):
+        out = jm.apply({**variables, "params": params}, xx, train=False)
+        return jnp.sum(out * w), out
+
+    routing(True)
+    with jax.default_matmul_precision("float32"):
+        (_, out_j), (gp_j, gx_j) = jax.value_and_grad(
+            jloss, argnums=(0, 1), has_aux=True)(variables["params"],
+                                                 jnp.asarray(x))
+
+    def port(fused: bool):
+        routing(fused)
+        tm = load_jax_variables(DGCNNSeg(k=k, in_features=f, num_classes=4),
+                                variables).eval()
+        xt = _t(x).requires_grad_(True)
+        out = tm(xt)
+        (out * _t(w)).sum().backward()
+        return (out.detach().numpy(), xt.grad.numpy(),
+                export_jax_variables(tm, grad=True)["params"])
+
+    out_f, gx_f, gp_f = port(True)
+    np.testing.assert_allclose(out_f, out_j, **TOL)
+    np.testing.assert_allclose(gx_f, gx_j, **TOL)
+    _assert_trees_close(gp_f, gp_j, **TOL)
+    out_u, gx_u, gp_u = port(False)
+    np.testing.assert_allclose(out_f, out_u, **TOL)
+    np.testing.assert_allclose(gx_f, gx_u, **TOL)
+    _assert_trees_close(gp_f, gp_u, **TOL)
+
+
 # ---- one Adam step of the whole model --------------------------------------
 
 def _small_dataset(n_cases=4, n_points=300, sample_points=64):
