@@ -24,12 +24,17 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      fused EdgeConvs);
   5. reference check on a small input: the same slice at 128^3 on the card
      (kernels) and on the CPU (plain versions) must agree;
-  6. K2-K4 (the EdgeConv scatter kernels) against their plain versions on
-     the card, at the train step's shapes (B=32, N=2048, k=40, C=64, the
-     graph from K1) and a ragged shape with dropped targets, K2 with f32 and
-     bf16 payloads: K4 equal, K2/K3 within twice the worst-case float32
-     rounding of a sequential sum (both sides sum the same values in
-     different orders), two launches bit-equal; median times of both;
+  6. the graph transpose and K2-K4 (the EdgeConv scatter kernels) against
+     their plain versions on the card, at the train step's shapes (B=32,
+     N=2048, k=40, C=64, the graph from K1) and a ragged shape with dropped
+     targets, K2 with f32 and bf16 payloads: the transpose's (order, ptr)
+     equal (also at its hard cases: a hub row of in-degree 1250, every
+     edge into one row, empty rows, targets dropped on both sides,
+     n_rows = 1, no edges, 60 000 rows), K4 equal, K2/K3 within twice the
+     worst-case float32 rounding of a sequential sum (both sides sum the
+     same values in different orders), two launches bit-equal and a shared
+     transpose changing nothing; median times of both, the transpose
+     alone, and K2 and K3 with their own transpose and with a shared one;
   7. the training slice at full width: the port's entry point
      (train_point_seg.main, synthetic data, DGCNNSeg(k=40, static), batch
      32 x 2048, f32, NNU loss + Adam) trains fold 0 for 3 epochs; checks a
@@ -37,7 +42,7 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      timed warm steps unfused and fused (FSEG_FUSED_EDGE=0/1, the harness
      of train/profile_step.py): ms/step, clouds/s, peak device memory,
      kernel launches. K2 must launch in both routings, K3 and K4 in the
-     fused one;
+     fused one, and the graph transpose exactly once a step (shared);
   8. train-step reference on a small input (B=2, N=256, k=8): one step on
      the card (kernels) and on the CPU (plain versions) from the same
      weights and batch, in both routings: loss within rtol 1e-5, running
@@ -70,9 +75,13 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      held as phase_pt_reference states;
  13. K6 (the 3x3x3 depthwise convolution) against its plain version on
      the card at the seven stride-1 depthwise layers of MobileNetASPP on a
-     256^3 CT (six shapes), bfloat16 at the widest, a ragged shape and
-     D = 1: outputs equal; median times of the kernel, the plain version
-     and cuDNN's grouped conv3d (the library yardstick), with the bound;
+     256^3 CT (six shapes), bfloat16 at the widest, and the hard cases
+     (ragged shapes, H and W off the tile, C = 5, 33, 36, 96, 144, 384 and
+     bfloat16 C = 12, 40, 64, 144, 192, D = 1 and 2, B = 2): outputs equal;
+     median times of the kernel, the plain version and cuDNN's grouped
+     conv3d (the library yardstick), with the bound; then block 5's
+     stride-2 depthwise layer (cuDNN, not a port kernel) timed alone at
+     (1, 128^3, 192) with its bound;
  14. the serving slice in kp_mode="cnn" at full size: segment_case runs
      MobileNetASPP(num_classes=4) (seeded weights) on the 256^3 CT, then
      phase 4's keypoint-to-mesh path; one warm-up and 3 timed cases with
@@ -92,7 +101,8 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
  17. the bf16 DGCNN training slice at full width (--amp true): 10 timed
      warm steps of DGCNNSeg(k=40, static, bf16) fused and unfused (ms/step,
      clouds/s, peak memory, launches: K2 every step in both routings, the
-     gather-reduce, K3 and K4 every fused step), then the entry point with
+     gather-reduce, K3 and K4 every fused step, the transpose once a
+     step), then the entry point with
      --amp true trains fold 0 for 3 epochs (phase 7's checks, and the model
      written as bf16);
  18. bf16 train-step reference on a small input (B=2, N=256, k=8): one
@@ -114,7 +124,9 @@ and 18 and of the probes' own checks are not counted. The line before the last b
 describing the kernels (with each one's bound: the larger of its bytes over
 3.35 TB/s and its operations over the 67 TFLOP/s float32 rate, and the time
 of one PyTorch library call that computes the same function, where there
-is one; the stream kernels' rows say "path": "probes"); then the card's
+is one; the stream kernels' rows say "path": "probes"; K2's and K3's rows
+add their time with a shared transpose and the transpose's time and bound);
+then the card's
 name and power limit as nvidia-smi gives them; the last line is {"ok":
 true, "device": {...}}.
 """
@@ -146,7 +158,8 @@ SCATTER_SOURCE = "fissure_segmentation_tpu_torch/kernels/csrc/scatter.cu"
 DW_SOURCE = "fissure_segmentation_tpu_torch/kernels/csrc/depthwise.cu"
 PALLAS_DW = "fissure_segmentation_tpu/ops/pallas/depthwise.py"
 PALLAS_SCATTER = "fissure_segmentation_tpu/ops/pallas/scatter.py"
-SCATTER_REPLACES = {"scatter_rows": f"{PALLAS_SCATTER}:369",
+SCATTER_REPLACES = {"transpose": f"{PALLAS_SCATTER}:369",
+                    "scatter_rows": f"{PALLAS_SCATTER}:369",
                     "scatter_routed": f"{PALLAS_SCATTER}:260",
                     "scatter_count": f"{PALLAS_SCATTER}:332"}
 GR_SOURCE = "fissure_segmentation_tpu_torch/kernels/csrc/gather_reduce.cu"
@@ -422,9 +435,30 @@ def _check_scatter(name, got, again, want, bound=None):
     return err.max().item()
 
 
+def _transpose_cases(dev, g):
+    """The transpose's hard cases: {name: ((B, E) int32 targets, n_rows)}."""
+    def draw(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+    hub = draw(0, 2000, (2, 5000))
+    hub[:, ::4] = 7                                 # in-degree 1250
+    dropped = draw(-40, 1040, (2, 7000))            # below 0 and past 999
+    return {"hub_2x5000_rows2000": (hub, 2000),
+            "one_row_3x4000": (torch.full((3, 4000), 5, dtype=torch.int32,
+                                          device=dev), 10),
+            "empty_rows_2x3000_rows4096": (draw(0, 50, (2, 3000)), 4096),
+            "dropped_2x7000_rows1000": (dropped, 1000),
+            "n_rows_1_4x999": (draw(-1, 2, (4, 999)), 1),
+            # counters too many for shared memory: kept in device memory
+            "many_rows_2x5000_rows60000": (draw(-5, 60005, (2, 5000)), 60000),
+            "no_edges_2x0": (draw(0, 1, (2, 0)), 10)}
+
+
 def phase_scatter(ks, knn_cuda):
-    """K2-K4 against their plain versions at the train step's shapes and a
-    ragged shape; returns {kernel: (max_abs_err, {shape: timings})}."""
+    """The graph transpose, K2-K4 against their plain versions at the train
+    step's shapes and a ragged shape (the transpose also at its hard
+    cases); K2 and K3 with their own transpose and with a shared one.
+    Returns {kernel: (max_abs_err, {shape: timings})}."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     b, n, k, c = 32, 2048, 40, 64
@@ -436,34 +470,57 @@ def phase_scatter(ks, knn_cuda):
     ragged[:, ::17, 0] = 1007                         # dropped targets
     ragged[:, 3::19, 1] = -2
     ragged[:, :, 2] = 0                               # a hub row
-    out = {"scatter_rows": [0.0, {}], "scatter_routed": [0.0, {}],
-           "scatter_count": [0.0, {}]}
+    out = {"transpose": [0.0, {}], "scatter_rows": [0.0, {}],
+           "scatter_routed": [0.0, {}], "scatter_count": [0.0, {}]}
 
-    def record(kernel, shape, err, fn_k, fn_p, work=None, fn_lib=None):
+    def record(kernel, shape, err, fn_k, fn_p, work=None, fn_lib=None,
+               fn_shared=None):
         """`work`: (bytes, operations) of the function, for its bound;
-        `fn_lib`: one PyTorch library call computing it, or None."""
+        `fn_lib`: one PyTorch library call computing it, or None;
+        `fn_shared`: the kernel given the caller's transpose."""
         out[kernel][0] = max(out[kernel][0], err)
         line = f"{kernel} {shape}: max |kernel - plain| {err:.3g}"
         if fn_k is not None:
             t_k, t_p = median_ms(fn_k), median_ms(fn_p)
             t_l = None if fn_lib is None else median_ms(fn_lib)
             bound, by = bound_ms(*work)
-            out[kernel][1][shape] = {"ms": t_k, "plain_ms": t_p,
-                                     "bound_ms": bound, "bound_by": by,
-                                     "library_ms": t_l}
+            row = out[kernel][1][shape] = {
+                "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
+                "bound_by": by, "library_ms": t_l}
             line += (f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library "
                      f"{'none' if t_l is None else f'{t_l:.4f} ms'} "
                      f"(median), bound {bound:.4f} ms ({by})")
+            if fn_shared is not None:
+                row["shared_ms"] = median_ms(fn_shared)
+                line += (f"; with the shared transpose {row['shared_ms']:.4f}"
+                         " ms")
         print(line, flush=True)
 
+    for name, (idx2, nn_) in _transpose_cases(dev, g).items():
+        got = ks.transpose(idx2, nn_)
+        want = ks.transpose_plain(idx2, nn_)
+        if not all(torch.equal(a, w) for a, w in zip(got, want)):
+            raise AssertionError(f"transpose {name}: kernel != plain")
+        print(f"transpose {name}: kernel == plain (order, ptr)", flush=True)
     for tag, idx3, timed in (("path", graph, True), ("ragged", ragged, False)):
         bb, nn_, kk = idx3.shape
         idx2 = idx3.reshape(bb, nn_ * kk)
+        tr = ks.transpose(idx2, nn_)
+        want = ks.transpose_plain(idx2, nn_)
+        if not all(torch.equal(a, w) for a, w in zip(tr, want)):
+            raise AssertionError(f"transpose {tag}: kernel != plain")
+        record("transpose", f"{tag}_{bb}x{nn_ * kk}_rows{nn_}", 0.0,
+               (lambda: ks.transpose(idx2, nn_)) if timed else None,
+               lambda: ks.transpose_plain(idx2, nn_),
+               # read idx, write order and ptr (int32); no arithmetic
+               (idx2.numel() * 8 + (bb * nn_ + 1) * 4, 0))
         for dtype in (torch.float32, torch.bfloat16):
             pay = torch.randn((bb, nn_ * kk, c), generator=g,
                               device=dev).to(dtype)
             got = ks.scatter_rows(idx2, pay, nn_)
             again = ks.scatter_rows(idx2, pay, nn_)
+            if not torch.equal(ks.scatter_rows(idx2, pay, nn_, tr), got):
+                raise AssertionError("K2: the shared transpose changes it")
             want = ks.scatter_rows_plain(idx2, pay, nn_)
             err = _check_scatter("K2", got, again, want,
                                  _bound(ks, idx2, pay.float().abs(), nn_))
@@ -478,13 +535,17 @@ def phase_scatter(ks, knn_cuda):
                    # add per payload element
                    (idx2.numel() * 4 + pay.numel() * pay.element_size()
                     + bb * nn_ * c * 4, pay.numel()),
-                   lambda: acc.index_add_(0, flat, pay2))
+                   lambda: acc.index_add_(0, flat, pay2),
+                   lambda: ks.scatter_rows(idx2, pay, nn_, tr))
         kstar = torch.randint(0, kk, (bb, nn_, c), generator=g, device=dev,
                               dtype=torch.int32)
         s = torch.randn((bb, nn_, c), generator=g, device=dev)
         p = torch.randn((bb, nn_, c), generator=g, device=dev)
         got = ks.scatter_routed(idx3, kstar, s, p, nn_)
         again = ks.scatter_routed(idx3, kstar, s, p, nn_)
+        if not torch.equal(ks.scatter_routed(idx3, kstar, s, p, nn_, tr),
+                           got):
+            raise AssertionError("K3: the shared transpose changes it")
         want = ks.scatter_routed_plain(idx3, kstar, s, p, nn_)
         deg = ks.scatter_count_plain(idx2, nn_)[..., None]
         bound = 2 * deg * EPS32 * ks.scatter_routed_plain(
@@ -497,7 +558,9 @@ def phase_scatter(ks, knn_cuda):
                # read idx, kstar, s, p; write (B, rows, 2C) f32; per edge
                # and channel two adds
                (idx3.numel() * 4 + 3 * bb * nn_ * c * 4 + bb * nn_ * 2 * c
-                * 4, 2 * idx3.numel() * c))
+                * 4, 2 * idx3.numel() * c),
+               fn_shared=lambda: ks.scatter_routed(idx3, kstar, s, p, nn_,
+                                                   tr))
         got = ks.scatter_count(idx2, nn_)
         again = ks.scatter_count(idx2, nn_)
         err = _check_scatter("K4", got, again,
@@ -522,7 +585,8 @@ def _wrappers(ks, knn_cuda) -> dict:
         gather_reduce
     from fissure_segmentation_tpu_torch.kernels.stream import (
         stream_sum, stream_sum_async)
-    return {"knn": knn_cuda, "scatter_rows": ks.scatter_rows,
+    return {"knn": knn_cuda, "transpose": ks.transpose,
+            "scatter_rows": ks.scatter_rows,
             "scatter_routed": ks.scatter_routed,
             "scatter_count": ks.scatter_count, "fps": fps_cuda,
             "depthwise_conv3": depthwise_conv3_cuda,
@@ -607,6 +671,9 @@ def phase_train(ks, knn_cuda, card: str):
     if timing["unfused"]["launches_10_steps"]["scatter_rows"] < 10 or \
             timing["fused"]["launches_10_steps"]["scatter_rows"] < 10:
         raise AssertionError("train: K2 did not launch in every step")
+    for name in ("unfused", "fused"):  # one transpose a step, shared
+        if timing[name]["launches_10_steps"]["transpose"] != 10:
+            raise AssertionError(f"train: {name}: not one transpose a step")
     for name in ("scatter_routed", "scatter_count", "gather_reduce"):
         if timing["fused"]["launches_10_steps"][name] < 10:
             raise AssertionError(f"train: {name} did not launch in every "
@@ -1247,6 +1314,21 @@ def phase_depthwise(dw_cuda, dw_plain):
         "bf16_1x128x128x128x192": ((1, 128, 128, 128, 192), bf16, 0, True),
         "ragged_2x7x9x11x5": ((2, 7, 9, 11, 5), f32, 0, False),
         "d1_1x1x6x10x5": ((1, 1, 6, 10, 5), f32, 0, False),
+        # the tiled kernel's hard cases: H and W off the tile, a channel
+        # slice cut short, C off the 16-byte copies, D = 1 and 2, B = 2
+        "tile_edges_1x9x13x21x32": ((1, 9, 13, 21, 32), f32, 0, False),
+        "c33_1x6x7x9x33": ((1, 6, 7, 9, 33), f32, 0, False),
+        "c36_1x5x11x18x36": ((1, 5, 11, 18, 36), f32, 0, False),
+        "c96_1x5x10x19x96": ((1, 5, 10, 19, 96), f32, 0, False),
+        "c144_2x3x17x9x144": ((2, 3, 17, 9, 144), f32, 0, False),
+        "c384_1x4x9x18x384": ((1, 4, 9, 18, 384), f32, 0, False),
+        "d1_1x1x12x20x96": ((1, 1, 12, 20, 96), f32, 0, False),
+        "d2_1x2x8x16x144": ((1, 2, 8, 16, 144), f32, 0, False),
+        "bf16_2x3x10x11x64": ((2, 3, 10, 11, 64), bf16, 0, False),
+        "bf16_1x4x9x9x144": ((1, 4, 9, 9, 144), bf16, 0, False),
+        "bf16_1x3x7x10x40": ((1, 3, 7, 10, 40), bf16, 0, False),
+        "bf16_1x2x5x6x12": ((1, 2, 5, 6, 12), bf16, 0, False),
+        "bf16_d1_1x1x9x17x192": ((1, 1, 9, 17, 192), bf16, 0, False),
     }
     max_err, timings = 0.0, {}
     forward = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
@@ -1293,7 +1375,24 @@ def phase_depthwise(dw_cuda, dw_plain):
           f"{forward['ms']:.4f} ms, plain {forward['plain_ms']:.4f} ms, "
           f"library {forward['library_ms']:.4f} ms, bound "
           f"{forward['bound_ms']:.4f} ms", flush=True)
-    return max_err, timings, forward
+    # block 5's stride-2 depthwise layer: cuDNN through the model's Conv,
+    # timed alone (not a kernel of the port), with its bound
+    from fissure_segmentation_tpu_torch.models.seg_cnn import Conv
+    conv = Conv(192, 192, 3, stride=2, padding=1, groups=192).to(dev).eval()
+    x = torch.randn((1, 128, 128, 128, 192), generator=g, device=dev)
+    with torch.no_grad():
+        y = conv(x)
+        t = median_ms(lambda: conv(x), reps=3, inner=3, warm=1)
+    bound, by = bound_ms((x.numel() + y.numel() + conv.weight.numel()) * 4,
+                         54 * y.numel())
+    stride2 = {"shape": "1x128x128x128x192 -> 1x64x64x64x192 float32",
+               "ms": t, "bound_ms": bound, "bound_by": by}
+    print(f"stride-2 depthwise (block 5, cuDNN grouped conv3d, not a port "
+          f"kernel) {stride2['shape']}: {t:.4f} ms (median), bound "
+          f"{bound:.4f} ms ({by})", flush=True)
+    del conv, x, y
+    torch.cuda.empty_cache()
+    return max_err, timings, forward, stride2
 
 
 def _cnn_model(seed):
@@ -1628,6 +1727,9 @@ def phase_bf16_train(ks, knn_cuda, card: str):
                 if timing[name]["launches_10_steps"][k] < STEPS:
                     raise AssertionError(f"bf16 train: {k} did not launch "
                                          f"in every {name} step")
+            if timing[name]["launches_10_steps"]["transpose"] != STEPS:
+                raise AssertionError(f"bf16 train: {name}: not one "
+                                     "transpose a step")
         t0 = time.perf_counter()
         if train_point_seg.main(AMP_TRAIN_ARGV + ["--output", tmp]) != 0:
             raise AssertionError("bf16 train: the entry point failed")
@@ -1679,7 +1781,9 @@ def planted_fault(route: str):
         mod, name = edge, "scatter_rows"
         real = edge.scatter_rows
 
-        def fault(idx, g, n):
+        def fault(idx, g, n, transposed=None):
+            # the caller's transpose is of the true graph: build the
+            # rolled one's instead
             b, e = idx.shape
             rolled = idx.view(b, n, e // n).roll(1, -1).reshape(b, e)
             return real(rolled.contiguous(), g, n)
@@ -1887,15 +1991,16 @@ def main() -> int:
     phase_pt_reference()
 
     # 13. K6 against its plain version
-    dw_err, dw_timings, dw_forward = phase_depthwise(depthwise_conv3_cuda,
-                                                     depthwise_conv3_plain)
+    dw_err, dw_timings, dw_forward, dw_stride2 = phase_depthwise(
+        depthwise_conv3_cuda, depthwise_conv3_plain)
 
     # 14. the serving slice in the cnn and enhancement keypoint modes
     # (counts from 0, read after)
     _reset(ks, knn_cuda)
     cnn_serving, cnn_timing = phase_cnn_slice(depthwise_conv3_cuda, card)
     print(json.dumps({"cnn_serving": cnn_timing, "k6_per_forward": dw_forward,
-                      "card": card}), flush=True)
+                      "stride2_depthwise_cudnn": dw_stride2, "card": card}),
+          flush=True)
 
     # 15. CNN reference, card against CPU, on a small input
     phase_cnn_reference()
@@ -1927,6 +2032,7 @@ def main() -> int:
         "plain_ms": graph["plain_ms"], "bound_ms": graph["bound_ms"],
         "bound_by": graph["bound_by"], "library_ms": None,
         "shapes": timings}]
+    tr_path = next(iter(scatter["transpose"][1].values()))
     for name, (err, shapes) in scatter.items():
         path = next(iter(shapes.values()))       # the first timed shape
         row = {"name": name, "route": "cuda", "source": SCATTER_SOURCE,
@@ -1935,8 +2041,15 @@ def main() -> int:
                "ms": path["ms"], "plain_ms": path["plain_ms"],
                "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
                "library_ms": path["library_ms"], "shapes": shapes}
-        if name == "scatter_rows":
-            row["also_replaces"] = f"{PALLAS_SCATTER}:133"
+        if name in ("transpose", "scatter_rows"):
+            row["also_replaces"] = [f"{PALLAS_SCATTER}:133"]
+        if name == "transpose":   # built for K2 and K3 alike
+            row["also_replaces"].append(SCATTER_REPLACES["scatter_routed"])
+        if name in ("scatter_rows", "scatter_routed"):
+            # "ms" builds its own transpose; "shared_ms" is given one
+            row.update(shared_ms=path["shared_ms"],
+                       transpose_ms=tr_path["ms"],
+                       transpose_bound_ms=tr_path["bound_ms"])
         kernels.append(row)
     step = fps_timings["pt_step_32x2048x3_m512"]
     kernels.append({

@@ -121,6 +121,8 @@ def load() -> ctypes.CDLL:
                 "fseg_scatter_routed": [vp, vp, vp, vp, vp, vp, i64, i32,
                                         i32, i32, vp],
                 "fseg_scatter_count": [vp, vp, vp, i32, i64, i32, vp],
+                "fseg_graph_transpose": [vp, vp, vp, vp, vp, i32, i64, i32,
+                                         vp],
                 "fseg_depthwise_conv3": [vp, vp, vp, i32, i32, i32, i32, i32,
                                          i32, vp],
                 "fseg_gather_reduce": [vp, vp, vp, vp, vp, vp, vp, vp, i32,
@@ -133,5 +135,7 @@ def load() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.restype = i32
                 fn.argtypes = argtypes
+            lib.fseg_transpose_scratch.restype = i64
+            lib.fseg_transpose_scratch.argtypes = [i32, i64, i32]
             _lib = lib
         return _lib

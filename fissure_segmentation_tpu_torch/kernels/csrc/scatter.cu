@@ -1,4 +1,5 @@
-// K2-K4: the EdgeConv scatter kernels (gather backward), for Hopper (sm_90a).
+// K2-K4: the EdgeConv scatter kernels (gather backward), and the graph
+// transpose that K2 and K3 walk, for Hopper (sm_90a).
 //
 // Replaces fissure_segmentation_tpu/ops/pallas/scatter.py:
 //   K2a scatter_add_mm2 and K2b scatter_add_mm -> scatter_rows_kernel
@@ -15,15 +16,13 @@
 // and XLA's scatter serialised); the two-level n_lo/n_hi split, the hi/lo
 // bf16 split of f32 payloads and the k-major tile order are all workarounds
 // for the MXU and VMEM. None of it carries over. Here the scatter is a
-// gather over the TRANSPOSED graph: the wrapper (kernels/scatter.py) sorts
-// the edge ids by target row with a stable sort, so every row's incoming
-// edges lie contiguously in ascending edge order (`order`, with row r's
-// range [ptr[r], ptr[r+1])), and then
+// gather over the TRANSPOSED graph (order, ptr): every row's incoming edges
+// lie contiguously in ascending edge order in `order`, row r's range being
+// [ptr[r], ptr[r+1]); dropped edges follow the last row. Then
 //
-//   * K2/K3: one warp per target row walks its incoming edges and sums the
-//     payload rows into registers, lane l owning channels l, l+32, ...; each
-//     output element is summed by one thread in ascending edge order, so the
-//     result is deterministic (no float atomics) and the same on every run;
+//   * K2/K3: each output row is summed by one group of lanes in ascending
+//     edge order, one thread per output element, so the result is
+//     deterministic (no float atomics) and the same on every run;
 //   * K3 builds each edge's payload from the node fields on the fly: edge
 //     e = (n, k) contributes s[n, c] to channel c only where kstar[n, c] == k,
 //     and p[n, c] to channel C + c always, so the (B, N, K, 2C) routed
@@ -31,18 +30,58 @@
 //   * K4 is an integer histogram (integer atomics are exact and order-free),
 //     converted to float32 (exact below 2^24).
 //
+// The transpose is a stable counting sort in four launches. The edges of
+// each batch element are cut into J chunks of consecutive edges; one warp
+// owns a chunk and a row of counters cnt[chunk][0..n_rows] (n_rows counts
+// the dropped edges), kept in shared memory while it walks.
+//   (1) count: the warp counts its chunk's targets (integer atomics on its
+//       counters: a count needs no order);
+//   (2) columns: per (b, target), the J chunks' counts become exclusive
+//       prefixes, and their total the row's in-degree;
+//   (3) scan: one block a batch element turns its in-degrees into row
+//       offsets (batch b's rows start at b * E minus the dropped edges of
+//       the batches before it) and places its dropped edges after the last
+//       row;
+//   (4) fill: the warp adds each target's offset to its counters and walks
+//       its chunk 32 edges at a time; __match_any_sync finds the lanes with
+//       the same target; each writes its edge id at counter + (the lanes
+//       below it with the same target), and the highest of them advances
+//       the counter by their number.
+// Edges reach each row in ascending id: chunk by chunk, step by step, lane
+// by lane. No sort and no float atomic is involved; (order, ptr) equal a
+// stable sort's (kernels/scatter.py:transpose_plain). The fill is a chain
+// of dependent counter updates (a match, a load and a store every 32
+// edges), so it is latency-bound: the counters sit in shared memory (in
+// device memory where n_rows + 1 of them do not fit), the targets of 8
+// steps are loaded at once, and J is large enough for several warps an SM.
+//
 // What bounds them: K2 reads every payload row once (671 MB of f32 at the
 // DGCNN train step, B=32, E=81 920, C=64) in 256-byte rows at random row
-// addresses, so it is bound by device-memory bandwidth; K3 reads three
-// (B, N, C) node fields, K times each, mostly from L2, and writes (B, N, 2C);
-// K4 is bound by atomic throughput on B * n_rows counters.
+// addresses, so it is bound by device-memory bandwidth. A group of lanes
+// owns a row of the output, each lane a 16-byte vector of channels (4 f32
+// or 8 bf16); the group loads up to one edge id per lane with one coalesced
+// load, hands them out by shuffle, and keeps SCATTER_INFLIGHT payload rows
+// in flight before it adds them, in edge order, so the walk is not one
+// dependent load at a time. Payloads whose rows are not 16-byte multiples
+// (C = 33, say) take one channel a lane. K3 reads three (B, N, C) node
+// fields, K times each, mostly from L2, and writes (B, N, 2C); K4 is bound
+// by atomic throughput on B * n_rows counters.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#define SCATTER_WARPS 8     // rows per block: one warp each
-#define SCATTER_MAX_C 256   // channels a lane set covers: 8 per lane
+#define SCATTER_WARPS 8       // K3: rows per block, one warp each
+#define SCATTER_THREADS 256   // K2: threads per block
+#define SCATTER_INFLIGHT 4    // K2: payload rows a group loads before adding
+#define SCATTER_MAX_C 256
 #define COUNT_THREADS 256
+#define TR_CHUNK 2048         // transpose: edges a warp walks (at most)
+#define TR_WARPS 4            // transpose: chunks (warps) a block, at most
+#define TR_SMEM (200 * 1024)  // transpose: shared memory for counters
+#define TR_CNT_CAP (1LL << 24)  // transpose: counters, at most (64 MB)
+#define TR_UNROLL 8           // transpose: steps whose targets load together
+#define SCAN_THREADS 512
+#define SCAN_ITEMS 4
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
@@ -53,34 +92,290 @@ __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
     return __bfloat162float(v);
 }
 
-// out[r, :] = sum over j in [ptr[r], ptr[r+1]) of g[order[j], :], j ascending
-template <typename T, int CPL>
-__global__ void __launch_bounds__(SCATTER_WARPS * 32)
-scatter_rows_kernel(const T* __restrict__ g, const int64_t* __restrict__ order,
-                    const int64_t* __restrict__ ptr, float* __restrict__ out,
+// ---- the transpose ------------------------------------------------------
+
+// Chunks per batch element: ceil(e / TR_CHUNK), cut so that the counters
+// (b * J * (n_rows + 1) int32) stay under TR_CNT_CAP, and at least one.
+static long long tr_chunks(int b, long long e, int n_rows) {
+    long long j = (e + TR_CHUNK - 1) / TR_CHUNK;
+    const long long cap = TR_CNT_CAP / ((long long)b * (n_rows + 1));
+    if (j > cap) j = cap;
+    return j < 1 ? 1 : j;
+}
+
+// One warp a chunk, its counters in shared memory where they fit (in_smem;
+// else in place in cnt). FILL = false: count targets into the chunk's row
+// of cnt. FILL = true: that row holds the chunk's exclusive prefix per
+// target, to which the walk first adds the target's offset (offs); it then
+// walks the chunk in order and writes each edge id at counter + rank.
+template <bool FILL>
+__global__ void __launch_bounds__(TR_WARPS * 32)
+transpose_walk(const int32_t* __restrict__ idx, int32_t* cnt,
+               const int32_t* __restrict__ offs, int32_t* __restrict__ order,
+               int b, long long e, int n_rows, long long nj, int in_smem) {
+    extern __shared__ int32_t run_s[];
+    const int wib = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const long long w = (long long)blockIdx.x * (blockDim.x / 32) + wib;
+    if (w >= b * nj) return;                // warp-uniform; no block barrier
+    const int bb = (int)(w / nj);
+    const long long width = n_rows + 1;
+    int32_t* row = cnt + w * width;
+    int32_t* run = in_smem ? run_s + wib * width : row;
+    for (long long k = lane; k < width; k += 32) {
+        if (FILL)   // the target's offset: its row's, or bb's dropped edges'
+            run[k] = row[k] + offs[k < n_rows ? (long long)bb * n_rows + k
+                                              : (long long)b * n_rows + bb];
+        else if (in_smem)
+            run[k] = 0;
+    }
+    __syncwarp();
+    const long long ch = (e + nj - 1) / nj;
+    const long long e0 = (w % nj) * ch;
+    const long long e1 = e0 + ch < e ? e0 + ch : e;
+    const int32_t* src = idx + (long long)bb * e;
+    if constexpr (!FILL) {  // counting needs no order: integer atomics
+#pragma unroll 8
+        for (long long ei = e0 + lane; ei < e1; ei += 32) {
+            const int t = src[ei];
+            atomicAdd(run + (t >= 0 && t < n_rows ? t : n_rows), 1);
+        }
+        __syncwarp();
+        if (in_smem)
+            for (long long k = lane; k < width; k += 32) row[k] = run[k];
+        return;
+    }
+    const unsigned below = (1u << lane) - 1;
+    for (long long s0 = e0; s0 < e1; s0 += 32 * TR_UNROLL) {
+        int key[TR_UNROLL];  // the next TR_UNROLL steps' targets, loaded
+#pragma unroll               // together: off the counters' dependent chain
+        for (int u = 0; u < TR_UNROLL; ++u) {
+            const long long ei = s0 + 32 * u + lane;
+            key[u] = -1;                    // inactive lanes match each other
+            if (ei < e1) {
+                const int t = src[ei];
+                key[u] = t >= 0 && t < n_rows ? t : n_rows;
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < TR_UNROLL; ++u) {
+            const long long ei = s0 + 32 * u + lane;
+            const bool act = ei < e1;
+            const unsigned peers = __match_any_sync(0xffffffffu, key[u]);
+            const int cur = act ? run[key[u]] : 0;
+            if (act)
+                order[cur + __popc(peers & below)] =
+                    (int32_t)((long long)bb * e + ei);
+            __syncwarp();
+            if (act && lane == 31 - __clz(peers))
+                run[key[u]] = cur + __popc(peers);
+            __syncwarp();
+        }
+    }
+}
+
+// Per (bb, key): the J chunks' counts -> exclusive prefixes in place; the
+// total goes to deg[bb * n_rows + key], or for the dropped key to
+// deg[b * n_rows + bb].
+__global__ void __launch_bounds__(COUNT_THREADS)
+transpose_columns(int32_t* __restrict__ cnt, int32_t* __restrict__ deg, int b,
+                  int n_rows, long long nj) {
+    const long long t = (long long)blockIdx.x * COUNT_THREADS + threadIdx.x;
+    const long long width = n_rows + 1;
+    if (t >= b * width) return;
+    const long long bb = t / width;
+    const int key = (int)(t - bb * width);
+    int32_t* col = cnt + bb * nj * width + key;
+    int s = 0;
+    for (long long j0 = 0; j0 < nj; j0 += 8) {  // 8 loads in flight
+        int v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+            v[u] = j0 + u < nj ? col[(j0 + u) * width] : 0;
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+            if (j0 + u < nj) {
+                col[(j0 + u) * width] = s;
+                s += v[u];
+            }
+    }
+    deg[key < n_rows ? bb * n_rows + key : (long long)b * n_rows + bb] = s;
+}
+
+// The exclusive prefix of x over the block's threads in thread order, and
+// the block's total. Every thread of the block calls it.
+__device__ __forceinline__ int block_scan(int x, int* total) {
+    __shared__ int ws[SCAN_THREADS / 32 + 1];
+    const int lane = threadIdx.x % 32, wid = threadIdx.x / 32;
+    int incl = x;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += u;
+    }
+    if (lane == 31) ws[wid] = incl;
+    __syncthreads();
+    if (wid == 0) {
+        const int v = lane < SCAN_THREADS / 32 ? ws[lane] : 0;
+        int wi = v;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int u = __shfl_up_sync(0xffffffffu, wi, o);
+            if (lane >= o) wi += u;
+        }
+        if (lane < SCAN_THREADS / 32) ws[lane] = wi - v;
+        if (lane == 31) ws[SCAN_THREADS / 32] = wi;
+    }
+    __syncthreads();
+    const int r = ws[wid] + incl - x;
+    *total = ws[SCAN_THREADS / 32];
+    __syncthreads();                        // ws is reused by the next call
+    return r;
+}
+
+// One block a batch element bb: the offsets of its rows and of its dropped
+// edges. Batch bb's rows start after the valid edges of the batches before
+// it, bb * e minus their dropped ones; the dropped edges all follow the
+// last row, batch by batch. deg: the b * n_rows in-degrees, then the b
+// dropped counts; ptr: b * n_rows row offsets, b dropped offsets, b * e.
+__global__ void __launch_bounds__(SCAN_THREADS)
+transpose_scan(const int32_t* __restrict__ deg, int32_t* __restrict__ ptr,
+               int b, long long e, int n_rows) {
+    const int bb = blockIdx.x, tid = threadIdx.x;
+    const long long rows = (long long)b * n_rows;
+    int drop_before = 0, drop_all = 0;
+    for (int i = tid; i < b; i += SCAN_THREADS) {
+        const int v = deg[rows + i];
+        drop_all += v;
+        if (i < bb) drop_before += v;
+    }
+    int before, all;
+    block_scan(drop_before, &before);
+    block_scan(drop_all, &all);
+    if (tid == 0) {
+        ptr[rows + bb] = (int)(b * e - all + before);
+        if (bb == b - 1) ptr[rows + b] = (int)(b * e);
+    }
+    int carry = (int)(bb * e - before);
+    const int32_t* in = deg + (long long)bb * n_rows;
+    int32_t* out = ptr + (long long)bb * n_rows;
+    for (int base = 0; base < n_rows; base += SCAN_THREADS * SCAN_ITEMS) {
+        const int i0 = base + tid * SCAN_ITEMS;
+        int v[SCAN_ITEMS], tsum = 0;
+#pragma unroll
+        for (int i = 0; i < SCAN_ITEMS; ++i) {
+            v[i] = i0 + i < n_rows ? in[i0 + i] : 0;
+            tsum += v[i];
+        }
+        int tile;
+        int run = carry + block_scan(tsum, &tile);
+#pragma unroll
+        for (int i = 0; i < SCAN_ITEMS; ++i) {
+            if (i0 + i < n_rows) out[i0 + i] = run;
+            run += v[i];
+        }
+        carry += tile;
+    }
+}
+
+// ---- K2 -----------------------------------------------------------------
+
+// VEC payload elements as one load: 16 bytes (4 f32, 8 bf16) or 1 element.
+template <typename T, int VEC> struct Vec;
+template <typename T> struct Vec<T, 1> {
+    T v;
+    __device__ __forceinline__ void load(const T* p) { v = __ldg(p); }
+    __device__ __forceinline__ void add_to(float* acc) const {
+        acc[0] = __fadd_rn(acc[0], to_f32<T>(v));
+    }
+};
+template <> struct Vec<float, 4> {
+    float4 v;
+    __device__ __forceinline__ void load(const float* p) {
+        v = __ldg(reinterpret_cast<const float4*>(p));
+    }
+    __device__ __forceinline__ void add_to(float* acc) const {
+        acc[0] = __fadd_rn(acc[0], v.x);
+        acc[1] = __fadd_rn(acc[1], v.y);
+        acc[2] = __fadd_rn(acc[2], v.z);
+        acc[3] = __fadd_rn(acc[3], v.w);
+    }
+};
+template <> struct Vec<__nv_bfloat16, 8> {
+    uint4 v;
+    __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+        v = __ldg(reinterpret_cast<const uint4*>(p));
+    }
+    __device__ __forceinline__ void add_to(float* acc) const {
+        const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {  // bf16 -> f32 is a 16-bit shift
+            acc[2 * i] = __fadd_rn(acc[2 * i], __uint_as_float(u[i] << 16));
+            acc[2 * i + 1] =
+                __fadd_rn(acc[2 * i + 1], __uint_as_float(u[i] & 0xffff0000u));
+        }
+    }
+};
+
+// out[r, :] = sum over j in [ptr[r], ptr[r+1]) of g[order[j], :], j
+// ascending. A group of L lanes owns row r; lane gl owns the VEC-element
+// vectors q = v * L + gl (v < V) of the row.
+template <typename T, int VEC, int L, int V>
+__global__ void __launch_bounds__(SCATTER_THREADS)
+scatter_rows_kernel(const T* __restrict__ g, const int32_t* __restrict__ order,
+                    const int32_t* __restrict__ ptr, float* __restrict__ out,
                     long long rows, int c) {
     const long long r =
-        (long long)blockIdx.x * SCATTER_WARPS + threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
-    if (r >= rows) return;
-    float acc[CPL];
+        ((long long)blockIdx.x * SCATTER_THREADS + threadIdx.x) / L;
+    if (r >= rows) return;                  // the whole group returns
+    const int lane = threadIdx.x % 32, gl = lane % L;
+    const unsigned gmask =
+        L == 32 ? 0xffffffffu : ((1u << L) - 1) << (lane & ~(L - 1));
+    float acc[V][VEC];
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) acc[i] = 0.0f;
-    const int64_t j1 = ptr[r + 1];
-#pragma unroll 4
-    for (int64_t j = ptr[r]; j < j1; ++j) {
-        const T* src = g + order[j] * (int64_t)c;
+    for (int v = 0; v < V; ++v)
 #pragma unroll
-        for (int i = 0; i < CPL; ++i) {
-            const int ch = lane + 32 * i;
-            if (ch < c) acc[i] = __fadd_rn(acc[i], to_f32<T>(src[ch]));
+        for (int i = 0; i < VEC; ++i) acc[v][i] = 0.0f;
+    const int j1 = ptr[r + 1];
+    for (int base = ptr[r]; base < j1; base += L) {
+        const int m = j1 - base < L ? j1 - base : L;
+        const int mine = gl < m ? order[base + gl] : 0;
+        for (int t = 0; t < m; t += SCATTER_INFLIGHT) {
+            Vec<T, VEC> val[SCATTER_INFLIGHT][V];
+#pragma unroll
+            for (int u = 0; u < SCATTER_INFLIGHT; ++u) {
+                const int src = __shfl_sync(gmask, mine, t + u, L);
+                if (t + u < m) {
+                    const T* row = g + (long long)src * c;
+#pragma unroll
+                    for (int v = 0; v < V; ++v) {
+                        const int ch = (v * L + gl) * VEC;
+                        if (ch < c) val[u][v].load(row + ch);
+                    }
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < SCATTER_INFLIGHT; ++u) {
+                if (t + u < m) {
+#pragma unroll
+                    for (int v = 0; v < V; ++v)
+                        if ((v * L + gl) * VEC < c) val[u][v].add_to(acc[v]);
+                }
+            }
         }
     }
     float* dst = out + r * (long long)c;
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-        const int ch = lane + 32 * i;
-        if (ch < c) dst[ch] = acc[i];
+    for (int v = 0; v < V; ++v) {
+        const int ch = (v * L + gl) * VEC;
+        if (ch >= c) continue;
+        if constexpr (VEC == 1) {
+            dst[ch] = acc[v][0];
+        } else {
+#pragma unroll
+            for (int i = 0; i < VEC; i += 4)
+                *reinterpret_cast<float4*>(dst + ch + i) = make_float4(
+                    acc[v][i], acc[v][i + 1], acc[v][i + 2], acc[v][i + 3]);
+        }
     }
 }
 
@@ -91,8 +386,8 @@ template <typename T, int CPL>
 __global__ void __launch_bounds__(SCATTER_WARPS * 32)
 scatter_routed_kernel(const int32_t* __restrict__ kstar,
                       const T* __restrict__ s, const T* __restrict__ p,
-                      const int64_t* __restrict__ order,
-                      const int64_t* __restrict__ ptr, float* __restrict__ out,
+                      const int32_t* __restrict__ order,
+                      const int32_t* __restrict__ ptr, float* __restrict__ out,
                       long long rows, int kk, int c) {
     const long long r =
         (long long)blockIdx.x * SCATTER_WARPS + threadIdx.x / 32;
@@ -104,9 +399,9 @@ scatter_routed_kernel(const int32_t* __restrict__ kstar,
         as[i] = 0.0f;
         ap[i] = 0.0f;
     }
-    const int64_t j1 = ptr[r + 1];
+    const int j1 = ptr[r + 1];
 #pragma unroll 2
-    for (int64_t j = ptr[r]; j < j1; ++j) {
+    for (int j = ptr[r]; j < j1; ++j) {
         const int64_t fe = order[j];
         const int64_t node = fe / kk;
         const int slot = (int)(fe - node * kk);
@@ -152,24 +447,61 @@ static unsigned int row_blocks(long long rows) {
     return (unsigned int)((rows + SCATTER_WARPS - 1) / SCATTER_WARPS);
 }
 
-template <typename T>
-static void launch_rows(const void* g, const int64_t* order, const int64_t* ptr,
-                        float* out, long long rows, int c, cudaStream_t st) {
-    const dim3 grid(row_blocks(rows)), block(SCATTER_WARPS * 32);
-    const T* gp = (const T*)g;
-    if (c <= 32)
-        scatter_rows_kernel<T, 1><<<grid, block, 0, st>>>(gp, order, ptr, out, rows, c);
-    else if (c <= 64)
-        scatter_rows_kernel<T, 2><<<grid, block, 0, st>>>(gp, order, ptr, out, rows, c);
-    else if (c <= 128)
-        scatter_rows_kernel<T, 4><<<grid, block, 0, st>>>(gp, order, ptr, out, rows, c);
+template <typename T, int VEC, int L, int V>
+static void launch_rows_lv(const T* g, const int32_t* order,
+                           const int32_t* ptr, float* out, long long rows,
+                           int c, cudaStream_t st) {
+    const long long blocks = (rows * L + SCATTER_THREADS - 1) / SCATTER_THREADS;
+    scatter_rows_kernel<T, VEC, L, V><<<(unsigned)blocks, SCATTER_THREADS, 0,
+                                        st>>>(g, order, ptr, out, rows, c);
+}
+
+// L lanes a row, the smallest power of two that covers the row's vectors,
+// at most 32; V vectors a lane.
+template <typename T, int VEC, int V>
+static void launch_rows_v(const T* g, const int32_t* order,
+                          const int32_t* ptr, float* out, long long rows,
+                          int c, int nvec, cudaStream_t st) {
+    if (nvec <= 1)
+        launch_rows_lv<T, VEC, 1, V>(g, order, ptr, out, rows, c, st);
+    else if (nvec <= 2)
+        launch_rows_lv<T, VEC, 2, V>(g, order, ptr, out, rows, c, st);
+    else if (nvec <= 4)
+        launch_rows_lv<T, VEC, 4, V>(g, order, ptr, out, rows, c, st);
+    else if (nvec <= 8)
+        launch_rows_lv<T, VEC, 8, V>(g, order, ptr, out, rows, c, st);
+    else if (nvec <= 16)
+        launch_rows_lv<T, VEC, 16, V>(g, order, ptr, out, rows, c, st);
     else
-        scatter_rows_kernel<T, 8><<<grid, block, 0, st>>>(gp, order, ptr, out, rows, c);
+        launch_rows_lv<T, VEC, 32, V>(g, order, ptr, out, rows, c, st);
+}
+
+template <typename T>
+static void launch_rows(const void* gv, const int32_t* order,
+                        const int32_t* ptr, float* out, long long rows, int c,
+                        cudaStream_t st) {
+    const T* g = (const T*)gv;
+    constexpr int VEC = 16 / sizeof(T);
+    if ((c * sizeof(T)) % 16 == 0 && ((uintptr_t)gv % 16) == 0) {
+        const int nvec = c / VEC;           // f32: <= 64, bf16: <= 32
+        if (nvec <= 32)
+            launch_rows_v<T, VEC, 1>(g, order, ptr, out, rows, c, nvec, st);
+        else
+            launch_rows_lv<T, VEC, 32, 2>(g, order, ptr, out, rows, c, st);
+    } else if (c <= 32) {                   // one channel a lane
+        launch_rows_v<T, 1, 1>(g, order, ptr, out, rows, c, c, st);
+    } else if (c <= 64) {
+        launch_rows_lv<T, 1, 32, 2>(g, order, ptr, out, rows, c, st);
+    } else if (c <= 128) {
+        launch_rows_lv<T, 1, 32, 4>(g, order, ptr, out, rows, c, st);
+    } else {
+        launch_rows_lv<T, 1, 32, 8>(g, order, ptr, out, rows, c, st);
+    }
 }
 
 template <typename T>
 static void launch_routed(const int32_t* kstar, const void* s, const void* p,
-                          const int64_t* order, const int64_t* ptr, float* out,
+                          const int32_t* order, const int32_t* ptr, float* out,
                           long long rows, int kk, int c, cudaStream_t st) {
     const dim3 grid(row_blocks(rows)), block(SCATTER_WARPS * 32);
     const T* sp = (const T*)s;
@@ -188,17 +520,74 @@ static bool bad_rows(long long rows) {
     return rows < 1 || row_blocks(rows) > 0x7fffffffu;
 }
 
+// The int32 counters the transpose of (b, e) targets over n_rows rows needs
+// as scratch (`cnt` of fseg_graph_transpose).
+extern "C" long long fseg_transpose_scratch(int b, long long e, int n_rows) {
+    if (b < 1 || e < 0 || n_rows < 1) return -1;
+    return (long long)b * tr_chunks(b, e, n_rows) * (n_rows + 1);
+}
+
+// The graph's transpose. idx: (b, e) int32 targets; cnt: the scratch of
+// fseg_transpose_scratch; deg: (b * n_rows + b) int32 scratch; ptr: (b *
+// n_rows + b + 1) int32, of which the first b * n_rows + 1 are the row
+// offsets into `order`; order: (b * e) int32 flat edge ids sorted by
+// target row, ties in ascending id, dropped edges last. b * e and b *
+// n_rows + b must stay below 2^31 (the wrapper checks).
+extern "C" int fseg_graph_transpose(const void* idx, void* cnt, void* deg,
+                                    void* ptr, void* order, int b, long long e,
+                                    int n_rows, void* stream) {
+    if (b < 1 || e < 0 || n_rows < 1) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const long long nj = tr_chunks(b, e, n_rows);
+    const long long width = n_rows + 1;
+    // warps a block: up to TR_WARPS whose counters fit in TR_SMEM; above
+    // 51 199 rows none fits, and the counters stay in cnt
+    const long long fit = TR_SMEM / (width * 4);
+    const int in_smem = fit >= 1;
+    const int wpb = !in_smem ? TR_WARPS : fit < TR_WARPS ? (int)fit : TR_WARPS;
+    const int smem = in_smem ? (int)(wpb * width * 4) : 0;
+    cudaError_t err;
+    if (!in_smem) {
+        err = cudaMemsetAsync(cnt, 0, b * nj * width * 4, st);
+        if (err != cudaSuccess) return (int)err;
+    }
+    err = cudaFuncSetAttribute(transpose_walk<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               TR_SMEM);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(transpose_walk<true>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   TR_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned walk_blocks = (unsigned)((b * nj + wpb - 1) / wpb);
+    const int32_t* ip = (const int32_t*)idx;
+    int32_t* cp = (int32_t*)cnt;
+    int32_t* dp = (int32_t*)deg;
+    int32_t* pp = (int32_t*)ptr;
+    int32_t* op = (int32_t*)order;
+    transpose_walk<false><<<walk_blocks, wpb * 32, smem, st>>>(
+        ip, cp, pp, op, b, e, n_rows, nj, in_smem);
+    transpose_columns<<<(unsigned)((b * width + COUNT_THREADS - 1) /
+                                   COUNT_THREADS), COUNT_THREADS, 0, st>>>(
+        cp, dp, b, n_rows, nj);
+    transpose_scan<<<b, SCAN_THREADS, 0, st>>>(dp, pp, b, e, n_rows);
+    transpose_walk<true><<<walk_blocks, wpb * 32, smem, st>>>(
+        ip, cp, pp, op, b, e, n_rows, nj, in_smem);
+    return (int)cudaGetLastError();
+}
+
 // K2. g: (rows_in, c) payload rows (float32 if bf16 == 0, bfloat16 if 1);
-// order: int64 edge ids sorted by target row; ptr: (rows + 1) int64 row
+// order: int32 edge ids sorted by target row; ptr: (rows + 1) int32 row
 // offsets into order; out: (rows, c) float32. All contiguous device memory;
 // launches on `stream`, does not synchronise. Returns the cudaError_t.
 extern "C" int fseg_scatter_rows(const void* g, const void* order,
                                  const void* ptr, void* out, long long rows,
                                  int c, int bf16, void* stream) {
-    if (bad_rows(rows) || c < 1 || c > SCATTER_MAX_C)
+    if (rows < 1 || rows * 32 / SCATTER_THREADS > 0x7fffffffLL || c < 1 ||
+        c > SCATTER_MAX_C)
         return (int)cudaErrorInvalidValue;
-    const int64_t* op = (const int64_t*)order;
-    const int64_t* pp = (const int64_t*)ptr;
+    const int32_t* op = (const int32_t*)order;
+    const int32_t* pp = (const int32_t*)ptr;
     cudaStream_t st = (cudaStream_t)stream;
     if (bf16)
         launch_rows<__nv_bfloat16>(g, op, pp, (float*)out, rows, c, st);
@@ -208,7 +597,8 @@ extern "C" int fseg_scatter_rows(const void* g, const void* order,
 }
 
 // K3. kstar: (nodes, c) int32; s, p: (nodes, c) float32 or bfloat16; edge
-// ids in `order` are node * kk + slot; out: (rows, 2c) float32.
+// ids in `order` (int32, as for K2) are node * kk + slot; out: (rows, 2c)
+// float32.
 extern "C" int fseg_scatter_routed(const void* kstar, const void* s,
                                    const void* p, const void* order,
                                    const void* ptr, void* out, long long rows,
@@ -216,8 +606,8 @@ extern "C" int fseg_scatter_routed(const void* kstar, const void* s,
     if (bad_rows(rows) || kk < 1 || c < 1 || c > SCATTER_MAX_C)
         return (int)cudaErrorInvalidValue;
     const int32_t* kp = (const int32_t*)kstar;
-    const int64_t* op = (const int64_t*)order;
-    const int64_t* pp = (const int64_t*)ptr;
+    const int32_t* op = (const int32_t*)order;
+    const int32_t* pp = (const int32_t*)ptr;
     cudaStream_t st = (cudaStream_t)stream;
     if (bf16)
         launch_routed<__nv_bfloat16>(kp, s, p, op, pp, (float*)out, rows, kk, c, st);

@@ -13,12 +13,19 @@ their plain PyTorch versions.
 Targets outside [0, n_rows) are dropped, as JAX's scatter drops them; the
 wrappers mask them without a synchronisation. Each wrapper launches its
 kernel for a CUDA tensor and runs the plain version for a CPU tensor; there
-is no fallback from one to the other. K2 and K3 first build the transposed
-graph with a stable sort (`_transpose`): the kernels then sum every output
-row's incoming edges in ascending edge order, one thread per output
-element, so they are deterministic. The plain versions are `index_add_`
-(K2, K3 after materialising the routed payload) and `bincount` (K4); on the
-card `index_add_` sums in another order, so kernel and plain version agree
+is no fallback from one to the other.
+
+K2 and K3 walk the transposed graph (`transpose`: int32 (order, ptr), the
+edge ids sorted by target row with ties in ascending id, built on the card
+by a counting-sort kernel and equal to the stable sort of
+`transpose_plain`); they then sum every output row's incoming edges in
+ascending edge order, one thread per output element, so they are
+deterministic. A caller that scatters over one graph several times (the
+DGCNN train step: EdgeConv_0's gather backward, the fused EdgeConvs' K3)
+builds the transpose once and passes it as `transposed`; without it each
+wrapper builds its own. The plain versions are `index_add_` (K2, K3 after
+materialising the routed payload) and `bincount` (K4); on the card
+`index_add_` sums in another order, so kernel and plain version agree
 within float32 rounding, not bit for bit (K4 is exact on both).
 """
 from __future__ import annotations
@@ -41,15 +48,71 @@ def _flat_targets(idx: torch.Tensor, n_rows: int) -> torch.Tensor:
     return torch.where(valid, t + offs * n_rows, b * n_rows).reshape(-1)
 
 
-def _transpose(idx: torch.Tensor, n_rows: int):
-    """The graph's transpose as (order, ptr): flat edge ids sorted by target
-    row, ties in ascending edge order, and the (B * n_rows + 1) offsets of
-    each row's range in `order`. Dropped targets sort past the last row."""
+def transpose_plain(idx: torch.Tensor, n_rows: int):
+    """Plain transpose: a stable sort of the flat targets and a
+    searchsorted of the row ids, cast to int32."""
     key = _flat_targets(idx, n_rows)
     skey, order = torch.sort(key, stable=True)
     rows = torch.arange(idx.shape[0] * n_rows + 1, device=idx.device,
                         dtype=torch.int64)
-    return order, torch.searchsorted(skey, rows)
+    return (order.to(torch.int32),
+            torch.searchsorted(skey, rows).to(torch.int32))
+
+
+def transpose(idx: torch.Tensor, n_rows: int):
+    """The graph's transpose as int32 (order, ptr): the B * E flat edge ids
+    b * E + e sorted by target row b * n_rows + idx[b, e], ties in ascending
+    edge id, dropped targets after the last row, and the B * n_rows + 1
+    offsets of each row's range in `order`. The counting-sort kernel for a
+    CUDA tensor (each launch adds one to ``transpose.launches``),
+    `transpose_plain` for a CPU tensor.
+
+    :param idx: (B, E) int32 targets
+    """
+    what = "transpose"
+    _check_idx(idx, 2, what)
+    if not _on_device((idx,), what):
+        return transpose_plain(idx, n_rows)
+    b, e = idx.shape
+    if n_rows < 1 or b * e >= 2 ** 31 or b * n_rows + b >= 2 ** 31:
+        raise ValueError(f"{what}: B={b}, E={e}, n_rows={n_rows} outside "
+                         "the int32 transpose (1 <= n_rows, B * E and "
+                         "B * (n_rows + 1) below 2^31)")
+    from ._build import load
+    lib = load()
+    dev = idx.device
+    i32 = torch.int32
+    cnt = torch.empty(lib.fseg_transpose_scratch(b, e, n_rows), dtype=i32,
+                      device=dev)
+    deg = torch.empty(b * n_rows + b, dtype=i32, device=dev)
+    ptr = torch.empty(b * n_rows + b + 1, dtype=i32, device=dev)
+    order = torch.empty(b * e, dtype=i32, device=dev)
+    with torch.cuda.device(dev):
+        _launch(what, lib.fseg_graph_transpose, idx.data_ptr(),
+                cnt.data_ptr(), deg.data_ptr(), ptr.data_ptr(),
+                order.data_ptr(), b, e, n_rows, _stream(dev))
+    transpose.launches += 1
+    return order, ptr[:b * n_rows + 1]
+
+
+transpose.launches = 0
+
+
+def _check_transposed(transposed, idx: torch.Tensor, n_rows: int,
+                      what: str) -> None:
+    """A caller's (order, ptr) must have the shapes and dtype of
+    `transpose(idx, n_rows)` and lie on idx's device."""
+    order, ptr = transposed
+    b, e = idx.shape[0], idx.shape[1:].numel()
+    if (order.dtype != torch.int32 or ptr.dtype != torch.int32
+            or tuple(order.shape) != (b * e,)
+            or tuple(ptr.shape) != (b * n_rows + 1,)):
+        raise ValueError(f"{what}: transposed must be int32 order ({b * e},) "
+                         f"and ptr ({b * n_rows + 1},), got {order.dtype} "
+                         f"{tuple(order.shape)}, {ptr.dtype} "
+                         f"{tuple(ptr.shape)}")
+    if order.device != idx.device or ptr.device != idx.device:
+        raise ValueError(f"{what}: transposed not on idx's device")
 
 
 def _check_idx(idx: torch.Tensor, ndim: int, what: str,
@@ -113,18 +176,22 @@ def scatter_rows_plain(idx: torch.Tensor, g: torch.Tensor,
     return out[:-1].reshape(b, n_rows, c)
 
 
-def scatter_rows(idx: torch.Tensor, g: torch.Tensor,
-                 n_rows: int) -> torch.Tensor:
+def scatter_rows(idx: torch.Tensor, g: torch.Tensor, n_rows: int,
+                 transposed=None) -> torch.Tensor:
     """K2 on the inputs' device. Each kernel launch adds one to
     ``scatter_rows.launches``.
 
     :param idx: (B, E) int32 target rows
     :param g: (B, E, C) float32 or bfloat16 payload rows, C <= 256
+    :param transposed: `transpose(idx, n_rows)`, if the caller has it (the
+        plain version does not need it)
     :return: (B, n_rows, C) float32
     """
     what = "scatter_rows"
     _check_idx(idx, 2, what)
     _check_payload(g, (*idx.shape, g.shape[-1]), what, "g")
+    if transposed is not None:
+        _check_transposed(transposed, idx, n_rows, what)
     if not _on_device((idx, g), what):
         return scatter_rows_plain(idx, g, n_rows)
     from ._build import load
@@ -133,7 +200,8 @@ def scatter_rows(idx: torch.Tensor, g: torch.Tensor,
     out = torch.empty((b, n_rows, c), dtype=torch.float32, device=g.device)
     if out.numel() == 0:
         return out
-    order, ptr = _transpose(idx, n_rows)
+    order, ptr = (transposed if transposed is not None
+                  else transpose(idx, n_rows))
     with torch.cuda.device(g.device):
         _launch(what, load().fseg_scatter_rows, g.data_ptr(),
                 order.data_ptr(), ptr.data_ptr(), out.data_ptr(), b * n_rows,
@@ -163,7 +231,8 @@ def scatter_routed_plain(idx: torch.Tensor, kstar: torch.Tensor,
 
 
 def scatter_routed(idx: torch.Tensor, kstar: torch.Tensor, s: torch.Tensor,
-                   p: torch.Tensor, n_rows: int) -> torch.Tensor:
+                   p: torch.Tensor, n_rows: int,
+                   transposed=None) -> torch.Tensor:
     """K3 on the inputs' device. Each kernel launch adds one to
     ``scatter_routed.launches``.
 
@@ -171,6 +240,8 @@ def scatter_routed(idx: torch.Tensor, kstar: torch.Tensor, s: torch.Tensor,
     :param kstar: (B, N, C) int32 routing slot in [0, K) per (node, channel)
     :param s: (B, N, C) sparse payload, float32 or bfloat16
     :param p: (B, N, C) dense (k-replicated) payload, the dtype of s
+    :param transposed: `transpose(idx.reshape(B, N * K), n_rows)`, if the
+        caller has it (the plain version does not need it)
     :return: (B, n_rows, 2C) float32 — [..., :C] sparse, [..., C:] dense
     """
     what = "scatter_routed"
@@ -185,6 +256,8 @@ def scatter_routed(idx: torch.Tensor, kstar: torch.Tensor, s: torch.Tensor,
     if tuple(kstar.shape) != (b, n, c):
         raise ValueError(f"{what}: kstar shape {tuple(kstar.shape)} != "
                          f"{(b, n, c)}")
+    if transposed is not None:
+        _check_transposed(transposed, idx, n_rows, what)
     if not _on_device((idx, kstar, s, p), what):
         return scatter_routed_plain(idx, kstar, s, p, n_rows)
     from ._build import load
@@ -192,7 +265,8 @@ def scatter_routed(idx: torch.Tensor, kstar: torch.Tensor, s: torch.Tensor,
                       device=s.device)
     if out.numel() == 0:
         return out
-    order, ptr = _transpose(idx.reshape(b, n * kk), n_rows)
+    order, ptr = (transposed if transposed is not None
+                  else transpose(idx.reshape(b, n * kk), n_rows))
     with torch.cuda.device(s.device):
         _launch(what, load().fseg_scatter_routed, kstar.data_ptr(),
                 s.data_ptr(), p.data_ptr(), order.data_ptr(), ptr.data_ptr(),

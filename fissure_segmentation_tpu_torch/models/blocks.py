@@ -98,13 +98,15 @@ class EdgeMLP(nn.Module):
         nn.init.xavier_normal_(self.kernel, generator=generator)
         self.BatchNorm_0 = BatchNorm(features)
 
-    def edge_responses(self, x: torch.Tensor,
-                       idx: torch.Tensor) -> torch.Tensor:
+    def edge_responses(self, x: torch.Tensor, idx: torch.Tensor,
+                       transposed=None) -> torch.Tensor:
         """(..., N, C), (..., N, k) -> (..., N, k, F) activated edges, in
         the compute dtype (the kernel is cast before it is split, as in
-        the JAX package's EdgeMLP)."""
+        the JAX package's EdgeMLP). `transposed`: the graph's transpose
+        for the gather's backward (ops/edge.py)."""
         dt = self.dtype or x.dtype
-        z = edge_mlp_pre_gather(x.to(dt), idx, self.kernel.to(dt))
+        z = edge_mlp_pre_gather(x.to(dt), idx, self.kernel.to(dt),
+                                transposed)
         return leaky_relu(self.BatchNorm_0(z), self.negative_slope)
 
 
@@ -115,8 +117,10 @@ class FusedEdgeMLPMax(EdgeMLP):
     unchanged, and `edge_responses` still gives the unfused route on the
     same weights (models/blocks.py:54-89)."""
 
-    def forward(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        """(B, N, C), (B, N, k) -> (B, N, F), the max over k."""
+    def forward(self, x: torch.Tensor, idx: torch.Tensor,
+                transposed=None) -> torch.Tensor:
+        """(B, N, C), (B, N, k) -> (B, N, F), the max over k. `transposed`:
+        the graph's transpose for K3 in the train-mode backward."""
         c = x.shape[-1]
         w = self.kernel
         dt = self.dtype or x.dtype
@@ -126,7 +130,8 @@ class FusedEdgeMLPMax(EdgeMLP):
         bn = self.BatchNorm_0
         if self.training:
             out, mean, var = fused_edge_train(a, cen, bn.scale, bn.bias, idx,
-                                              bn.epsilon, self.negative_slope)
+                                              bn.epsilon, self.negative_slope,
+                                              transposed)
             bn.update_running(mean, var)
             return out
         return fused_edge_eval(a, cen, bn.scale, bn.bias, bn.mean, bn.var,

@@ -4,8 +4,11 @@ models/dgcnn.py:EdgeConv and DGCNNSeg); `.train()` for the train step,
 
 Static graph: one kNN over the coordinate channels without self-loop
 (`ops/knn.py:knn`, which launches K1 for CUDA tensors), shared by all three
-EdgeConvs. Edge features concat([x_j - x_i, x_i]) -> shared MLP -> max over
-k; seg head: 3x EdgeConv(64) -> 1024-d global max -> MLP(256, 256, 128, C).
+EdgeConvs. In a train-mode forward on the card whose gradient is recorded,
+the graph's transpose (`kernels/scatter.py:transpose`) is built once there
+too and shared by the three EdgeConvs' backward scatters (K2, K3). Edge
+features concat([x_j - x_i, x_i]) -> shared MLP -> max over k; seg head:
+3x EdgeConv(64) -> 1024-d global max -> MLP(256, 256, 128, C).
 A single-layer EdgeConv runs the fused core (`FusedEdgeMLPMax`, backward
 K3 + K4) when `fused_edge_enabled` says so at the call; otherwise the
 gather's backward is K2. Both maxima over k and over points are `amax`,
@@ -30,6 +33,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..kernels.scatter import transpose
 from ..ops.knn import knn
 from ..ops.fused_edge import fused_edge_enabled
 from .blocks import EdgeMLP, FusedEdgeMLPMax, SharedMLP
@@ -51,12 +55,15 @@ class EdgeConv(nn.Module):
                     SharedMLP(fin, fout, generator=generator, dtype=dtype))
         self.n_shared = len(features) - 1
 
-    def forward(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, idx: torch.Tensor,
+                transposed=None) -> torch.Tensor:
+        """`transposed`: the graph's transpose, shared by the backward
+        scatters (kernels/scatter.py:transpose), or None."""
         if self.dtype is not None:
             x = x.to(self.dtype)
         if self.n_shared == 0 and fused_edge_enabled(x.device):
-            return self.EdgeMLP_0(x, idx)
-        e = self.EdgeMLP_0.edge_responses(x, idx)
+            return self.EdgeMLP_0(x, idx, transposed)
+        e = self.EdgeMLP_0.edge_responses(x, idx, transposed)
         for i in range(self.n_shared):
             e = getattr(self, f"SharedMLP_{i}")(e)
         return e.amax(dim=-2)  # max over neighbors -> (B, N, C')
@@ -104,9 +111,14 @@ class DGCNNSeg(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         graph = knn(x[..., :3], self.k, self_loop=False)
-        x1 = self.EdgeConv_0(x, graph)
-        x2 = self.EdgeConv_1(x1, graph)
-        x3 = self.EdgeConv_2(x2, graph)
+        tr = None
+        if self.training and graph.is_cuda and torch.is_grad_enabled():
+            b, n, k = graph.shape
+            tr = transpose(graph.reshape(b, n * k).to(torch.int32)
+                           .contiguous(), n)
+        x1 = self.EdgeConv_0(x, graph, tr)
+        x2 = self.EdgeConv_1(x1, graph, tr)
+        x3 = self.EdgeConv_2(x2, graph, tr)
         multi = torch.cat([x1, x2, x3], dim=-1)
         g = self.SharedMLP_0(multi).amax(dim=-2, keepdim=True)
         h = torch.cat([multi, g.expand(*multi.shape[:-1], g.shape[-1])],

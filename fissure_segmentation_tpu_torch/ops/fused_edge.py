@@ -11,7 +11,9 @@ per (n, c) — the FIRST extremal slot (`torch.argmax`/`argmin` return the
 first occurrence, like `jnp.argmax`) — plus two dense per-channel BatchNorm
 terms, whose gather transpose is K3 (kernels/scatter.py:scatter_routed) and
 a degree-weighted pointwise term with the in-degree from K4
-(scatter_count). The derivation is in the JAX module's docstring.
+(scatter_count). The derivation is in the JAX module's docstring. K3 walks
+the graph's transpose: the caller's, when it passes one (`transposed`),
+else its own.
 
 The forward's gather-reduce (per-(n, c) max, min, their first slots, and
 the f32 sum and sum of squares over k) is `kernels/gather_reduce.py`: one
@@ -77,7 +79,7 @@ def _tail(sel, cen, mean, sigma, gamma, beta):
 
 class _FusedEdgeTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, cen, gamma, beta, idx, eps, slope):
+    def forward(ctx, a, cen, gamma, beta, idx, eps, slope, transposed):
         kk = idx.shape[-1]
         mx, mn, am, amn, s1, s2 = _gather_reduce(a, idx)
         mean, var = _stats(s1, s2, cen, kk)
@@ -90,6 +92,7 @@ class _FusedEdgeTrain(torch.autograd.Function):
         ctx.save_for_backward(a, cen, gamma, beta, idx, sel, kstar, s1, mean,
                               sigma)
         ctx.slope = slope
+        ctx.transposed = transposed
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
 
@@ -117,7 +120,7 @@ class _FusedEdgeTrain(torch.autograd.Function):
         idx32 = idx.to(torch.int32).contiguous()
         routed = scatter_routed(idx32, kstar.contiguous(),
                                 s_payload.contiguous(),
-                                p_payload.contiguous(), n)
+                                p_payload.contiguous(), n, ctx.transposed)
         deg = scatter_count(idx32.reshape(b, n * kk), n)
         da = (routed[..., :c] + routed[..., c:]
               - (mean_dxh_xh / (sigma * sigma)) * deg[..., None]
@@ -126,23 +129,26 @@ class _FusedEdgeTrain(torch.autograd.Function):
         sum_xh_k = (s1 + kk * (cenf - mean)) / sigma
         dcen = (gamma * du - kk * mean_dxh - mean_dxh_xh * sum_xh_k) / sigma
         return (da.to(a.dtype), dcen.to(cen.dtype), dgamma.to(gamma.dtype),
-                dbeta.to(beta.dtype), None, None, None)
+                dbeta.to(beta.dtype), None, None, None, None)
 
 
 def fused_edge_train(a: torch.Tensor, cen: torch.Tensor, gamma: torch.Tensor,
                      beta: torch.Tensor, idx: torch.Tensor, eps: float,
-                     slope: float):
+                     slope: float, transposed=None):
     """Train-mode fused EdgeConv core.
 
     :param a: (B, N, C) neighbor-projected features (``x @ w_d``)
     :param cen: (B, N, C) center-projected features (``x @ (w_c - w_d)``)
     :param gamma: (C,) BatchNorm scale; :param beta: (C,) BatchNorm bias
     :param idx: (B, N, K) int neighbor indices (no gradient)
+    :param transposed: `kernels/scatter.py:transpose` of idx as (B, N * K),
+        for K3 in the backward; built there when None
     :return: (out (B, N, C) in a.dtype, batch mean (C,) f32, batch var (C,)
         f32) — mean and var feed the running-statistics update and take no
         gradient
     """
-    return _FusedEdgeTrain.apply(a, cen, gamma, beta, idx, eps, slope)
+    return _FusedEdgeTrain.apply(a, cen, gamma, beta, idx, eps, slope,
+                                 transposed)
 
 
 def fused_edge_eval(a, cen, gamma, beta, ra_mean, ra_var, idx,

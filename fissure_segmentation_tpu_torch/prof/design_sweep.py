@@ -1,0 +1,336 @@
+"""Design sweeps and splits of K6 (the 3x3x3 depthwise convolution) and of
+K2's graph transpose on the card, from scratch builds of edited sources.
+Run from the repository root:
+
+    python fissure_segmentation_tpu_torch/prof/design_sweep.py \
+        [--parts split,dw,tr] [--build DIR]
+
+Each variant is a copy of kernels/csrc/depthwise.cu or scatter.cu with one
+constant or launch shape edited, built alone by nvcc into DIR (default: a
+temporary directory) and called through ctypes; the package keeps no knob
+for any of them. Every variant is checked against the plain version first
+(K6 bit-equal, the transpose equal). Parts:
+
+  split  what holds the simple K6 kernel back (`depthwise_simple`, the one
+         the CNN ran before the tiled kernel, now the path of channel rows
+         that are not 16-byte multiples), forced onto the path shapes: as
+         it is, without its loads (taps made from registers), with loads
+         and adds but no products, and a plain copy of x to y; and K2's
+         wrapper at the train step's (32, 81 920, 64) split into the plain
+         transpose's parts (the flat targets, the stable sort, the
+         searchsorted), the transpose kernel and the row-sum kernel;
+  dw     the tiled K6 kernel's launch shape (slice, tile, run, stages, the
+         D-split target) at the CNN's seven stride-1 layers and bf16;
+  tr     the transpose's constants (chunk, warps a block, steps loaded
+         together, counters in shared or device memory, lanes matched by
+         ballots instead of __match_any_sync), each stage timed.
+
+Prints one JSON line ({part: {variant: {shape: median ms}}}), then the
+card's name and power limit. Raises without a card or nvcc.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
+
+from fissure_segmentation_tpu_torch.kernels import _build  # noqa: E402
+from fissure_segmentation_tpu_torch.kernels import scatter as ks  # noqa: E402
+from fissure_segmentation_tpu_torch.kernels.depthwise import (  # noqa: E402
+    depthwise_conv3_plain)
+from fissure_segmentation_tpu_torch.prof.probes import median_ms  # noqa: E402
+
+CSRC = os.path.join(os.path.dirname(HERE), "kernels", "csrc")
+F32_TILE = "launch_tiled<float, 32, 8, 16, 4, 3>("
+BF16_TILE = "launch_tiled<__nv_bfloat16, 32, 8, 16, 4, 3>("
+SPLIT_TARGET = "#define DW_TARGET_BLOCKS 1056"
+
+
+def _tiles(cfg: str) -> dict:
+    """Both dtypes' tiled launch in shape `cfg` (CS, TH, TW, RW, ST)."""
+    return {F32_TILE: f"launch_tiled<float, {cfg}>(",
+            BF16_TILE: f"launch_tiled<__nv_bfloat16, {cfg}>("}
+
+
+# the simple kernel forced onto every shape, and three ablations of it
+_SIMPLE_ONLY = {"    if (aligned && dtype == 0)": "    if (false)",
+                "    if (aligned)\n": "    if (false)\n"}
+_NO_LOADS = {"? to_f32(row[(size_t)xv * c]) : 0.0f;":
+             "? __int_as_float(0x3f800000 ^ (int)((g + j * 7 + dz * 3 + dy)"
+             " & 0x7fff)) : 0.0f;"}
+_NO_PRODUCTS = {"acc[t] = __fadd_rn(acc[t], __fmul_rn(v[t + dx], wt));":
+                "acc[t] = __fadd_rn(acc[t], v[t + dx]);"}
+_COPY = {"    if (dtype == 0)\n        depthwise_simple<float>":
+         "    if (dtype >= 0) {\n        const long long n16 = (long long)b"
+         " * d * h * wd * c * (dtype ? 2 : 4) / 16;\n        copy16<<<132 *"
+         " 16, 256, 0, s>>>((const uint4*)x, (uint4*)y, n16);\n        "
+         "return (int)cudaGetLastError();\n    }\n    if (dtype == 0)\n"
+         "        depthwise_simple<float>",
+         "// ---- the tiled kernel": "__global__ void copy16(const uint4* x, "
+         "uint4* y, long long n) {\n    for (long long i = blockIdx.x * "
+         "(long long)blockDim.x + threadIdx.x; i < n; i += (long long)"
+         "gridDim.x * blockDim.x) y[i] = x[i];\n}\n\n// ---- the tiled kernel"}
+
+VARIANTS = {
+    "split": {
+        "simple": _SIMPLE_ONLY,
+        "simple_no_loads": {**_SIMPLE_ONLY, **_NO_LOADS},
+        "simple_loads_adds_only": {**_SIMPLE_ONLY, **_NO_PRODUCTS},
+        "copy_x_to_y": {**_SIMPLE_ONLY, **_COPY},
+    },
+    "dw": {
+        "default": {},
+        "stages_2": _tiles("32, 8, 16, 4, 2"),
+        "stages_4": _tiles("32, 8, 16, 4, 4"),
+        "tile_8x8": _tiles("32, 8, 8, 4, 3"),
+        "tile_4x16_run2": _tiles("32, 4, 16, 2, 3"),
+        "slice_16_tile_16x16": _tiles("16, 16, 16, 4, 3"),
+        "slice_16_tile_8x16": _tiles("16, 8, 16, 4, 3"),
+        "slice_64_tile_8x8": _tiles("64, 8, 8, 4, 3"),
+        "no_d_split": {SPLIT_TARGET: "#define DW_TARGET_BLOCKS 1"},
+        "d_split_528": {SPLIT_TARGET: "#define DW_TARGET_BLOCKS 528"},
+        "d_split_2112": {SPLIT_TARGET: "#define DW_TARGET_BLOCKS 2112"},
+    },
+    "tr": {
+        "default": {},
+        "warps_2": {"#define TR_WARPS 4 ": "#define TR_WARPS 2 "},
+        "warps_8": {"#define TR_WARPS 4 ": "#define TR_WARPS 8 "},
+        "chunk_1024": {"#define TR_CHUNK 2048": "#define TR_CHUNK 1024"},
+        "chunk_4096": {"#define TR_CHUNK 2048": "#define TR_CHUNK 4096"},
+        "unroll_4": {"#define TR_UNROLL 8 ": "#define TR_UNROLL 4 "},
+        "ballot_match": {  # one ballot a key bit for __match_any_sync
+            "const unsigned peers = __match_any_sync(0xffffffffu, key[u]);":
+            "unsigned peers = 0xffffffffu;\n            for (int i = 0; i <"
+            " 32 - __clz(n_rows + 1); ++i) {\n                const bool "
+            "bit = (key[u] + 1) >> i & 1;\n                const unsigned "
+            "on = __ballot_sync(0xffffffffu, bit);\n                peers &="
+            " bit ? on : ~on;\n            }"},
+        "counters_in_device_memory": {"#define TR_SMEM (200 * 1024)":
+                                      "#define TR_SMEM 0"},
+    },
+}
+
+# the transpose once more, with an event between its launches
+_STAGES = r"""
+extern "C" int tr_stages(const void* idx, void* cnt, void* deg, void* ptr,
+                         void* order, int b, long long e, int n_rows,
+                         float* ms) {
+    const long long nj = tr_chunks(b, e, n_rows);
+    const long long width = n_rows + 1;
+    const long long fit = TR_SMEM / (width * 4);
+    const int in_smem = fit >= 1;
+    const int wpb = !in_smem ? TR_WARPS : fit < TR_WARPS ? (int)fit : TR_WARPS;
+    const int smem = in_smem ? (int)(wpb * width * 4) : 0;
+    cudaFuncSetAttribute(transpose_walk<false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, TR_SMEM);
+    cudaFuncSetAttribute(transpose_walk<true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, TR_SMEM);
+    cudaEvent_t ev[6];
+    for (int i = 0; i < 6; ++i) cudaEventCreate(&ev[i]);
+    const unsigned nb = (unsigned)((b * nj + wpb - 1) / wpb);
+    const int32_t* ip = (const int32_t*)idx;
+    int32_t *cp = (int32_t*)cnt, *dp = (int32_t*)deg, *pp = (int32_t*)ptr,
+            *op = (int32_t*)order;
+    cudaEventRecord(ev[0]);
+    if (!in_smem) cudaMemsetAsync(cnt, 0, b * nj * width * 4);
+    cudaEventRecord(ev[1]);
+    transpose_walk<false><<<nb, wpb * 32, smem>>>(ip, cp, pp, op, b, e,
+                                                  n_rows, nj, in_smem);
+    cudaEventRecord(ev[2]);
+    transpose_columns<<<(unsigned)((b * width + COUNT_THREADS - 1) /
+                                   COUNT_THREADS), COUNT_THREADS>>>(
+        cp, dp, b, n_rows, nj);
+    cudaEventRecord(ev[3]);
+    transpose_scan<<<b, SCAN_THREADS>>>(dp, pp, b, e, n_rows);
+    cudaEventRecord(ev[4]);
+    transpose_walk<true><<<nb, wpb * 32, smem>>>(ip, cp, pp, op, b, e,
+                                                 n_rows, nj, in_smem);
+    cudaEventRecord(ev[5]);
+    cudaEventSynchronize(ev[5]);
+    for (int i = 0; i < 5; ++i) cudaEventElapsedTime(&ms[i], ev[i], ev[i + 1]);
+    for (int i = 0; i < 6; ++i) cudaEventDestroy(ev[i]);
+    return (int)cudaGetLastError();
+}
+"""
+STAGE_NAMES = ("memset", "count", "columns", "scan", "fill")
+
+DW_SHAPES = (("b0", (1, 128, 128, 128, 32), torch.float32),
+             ("b1", (1, 128, 128, 128, 96), torch.float32),
+             ("b2b3", (1, 128, 128, 128, 144), torch.float32),
+             ("b4", (1, 128, 128, 128, 192), torch.float32),
+             ("b6", (1, 64, 64, 64, 192), torch.float32),
+             ("b7", (1, 64, 64, 64, 384), torch.float32),
+             ("b4_bf16", (1, 128, 128, 128, 192), torch.bfloat16))
+STEP = (32, 2048, 40, 64)   # the DGCNN train step: B, N, k, C
+VP, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def build(variants: dict, out_dir: str) -> dict:
+    """{name: (source, edits)} -> {name: loaded library}; all nvcc runs
+    start together. An edit whose text is not in the source raises."""
+    nvcc = _build._nvcc()
+    procs = {}
+    for name, (source, edits) in variants.items():
+        with open(os.path.join(CSRC, source)) as f:
+            src = f.read()
+        for old, new in edits.items():
+            if old not in src:
+                raise ValueError(f"{name}: {old!r} not in {source}")
+            src = src.replace(old, new)
+        if source == "scatter.cu":
+            src += _STAGES
+        path = os.path.join(out_dir, f"{name}.cu")
+        with open(path, "w") as f:
+            f.write(src)
+        procs[name] = subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
+             os.path.join(out_dir, f"{name}.so"), path],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        _, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise _build.KernelBuildError(f"{name}: {err[-3000:]}")
+        libs[name] = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
+    return libs
+
+
+def time_depthwise(lib, inputs) -> dict:
+    lib.fseg_depthwise_conv3.argtypes = [VP, VP, VP] + [I32] * 6 + [VP]
+    row = {}
+    for tag, x, w, want, check in inputs:
+        y = torch.empty_like(x)
+
+        def fn():
+            return lib.fseg_depthwise_conv3(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), *x.shape,
+                int(x.dtype == torch.bfloat16), _stream())
+
+        if fn() != 0:
+            raise RuntimeError(f"{tag}: launch failed")
+        torch.cuda.synchronize()
+        if check and not torch.equal(y, want):
+            raise AssertionError(f"{tag}: differs from plain")
+        row[tag] = median_ms(fn)
+    return row
+
+
+def time_transpose(lib, idx, n) -> dict:
+    b, e = idx.shape
+    lib.fseg_transpose_scratch.restype = I64
+    lib.fseg_transpose_scratch.argtypes = [I32, I64, I32]
+    lib.fseg_graph_transpose.argtypes = [VP] * 5 + [I32, I64, I32, VP]
+    lib.tr_stages.argtypes = [VP] * 5 + [I32, I64, I32, VP]
+    dev = idx.device
+    bufs = [torch.empty(lib.fseg_transpose_scratch(b, e, n),
+                        dtype=torch.int32, device=dev),
+            torch.empty(b * n + b, dtype=torch.int32, device=dev),
+            torch.empty(b * n + b + 1, dtype=torch.int32, device=dev),
+            torch.empty(b * e, dtype=torch.int32, device=dev)]
+    ptrs = [t.data_ptr() for t in (idx, *bufs)]
+
+    def fn():
+        return lib.fseg_graph_transpose(*ptrs, b, e, n, _stream())
+
+    if fn() != 0:
+        raise RuntimeError("transpose: launch failed")
+    order, ptr = ks.transpose_plain(idx, n)
+    if not (torch.equal(bufs[3], order)
+            and torch.equal(bufs[2][:b * n + 1], ptr)):
+        raise AssertionError("transpose differs from plain")
+    ms = (ctypes.c_float * 5)()
+    runs = []
+    for _ in range(7):
+        lib.tr_stages(*ptrs, b, e, n, ctypes.cast(ms, VP))
+        runs.append(list(ms))
+    return {"transpose": median_ms(fn),
+            **{s: statistics.median(r[i] for r in runs)
+               for i, s in enumerate(STAGE_NAMES)}}
+
+
+def split_k2(idx, n, c) -> dict:
+    """K2's parts at the train step: the plain transpose's (the stable sort
+    the wrapper ran before the transpose kernel), the kernel, the rows."""
+    b = idx.shape[0]
+    key = ks._flat_targets(idx, n)
+    skey, _ = torch.sort(key, stable=True)
+    rows = torch.arange(b * n + 1, device=idx.device, dtype=torch.int64)
+    tr = ks.transpose(idx, n)
+    out = {"plain_transpose": median_ms(lambda: ks.transpose_plain(idx, n)),
+           "flat_targets": median_ms(lambda: ks._flat_targets(idx, n)),
+           "stable_sort": median_ms(lambda: torch.sort(key, stable=True)),
+           "searchsorted": median_ms(lambda: torch.searchsorted(skey, rows)),
+           "transpose_kernel": median_ms(lambda: ks.transpose(idx, n))}
+    gen = torch.Generator(device=idx.device).manual_seed(1)
+    for dt in (torch.float32, torch.bfloat16):
+        g = torch.randn((b, idx.shape[1], c), generator=gen,
+                        device=idx.device).to(dt)
+        name = str(dt).removeprefix("torch.")
+        out[f"K2_{name}_own_transpose"] = median_ms(
+            lambda: ks.scatter_rows(idx, g, n))
+        out[f"K2_{name}_rows_only"] = median_ms(
+            lambda: ks.scatter_rows(idx, g, n, tr))
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parts", default="split,dw,tr")
+    ap.add_argument("--build", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise RuntimeError("design_sweep runs only on an NVIDIA card")
+    parts = args.parts.split(",")
+    out_dir = args.build or tempfile.mkdtemp()
+    os.makedirs(out_dir, exist_ok=True)
+    todo = {f"{part}_{name}": ("scatter.cu" if part == "tr"
+                               else "depthwise.cu", edits)
+            for part in parts for name, edits in VARIANTS[part].items()}
+    libs = build(todo, out_dir)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    inputs = []
+    if {"split", "dw"} & set(parts):
+        for tag, shape, dt in DW_SHAPES:
+            x = torch.randn(shape, generator=gen, device=dev).to(dt)
+            w = torch.randn((3, 3, 3, shape[-1]), generator=gen,
+                            device=dev).to(dt)
+            inputs.append((tag, x, w, depthwise_conv3_plain(x, w)))
+    b, n, k, c = STEP
+    idx = torch.randint(0, n, (b, n * k), generator=gen, device=dev,
+                        dtype=torch.int32)
+    res = {part: {} for part in parts}
+    for full, lib in libs.items():
+        part, name = full.split("_", 1)
+        if part == "tr":
+            res[part][name] = time_transpose(lib, idx, n)
+        else:   # the ablations compute something else: not checked
+            check = part == "dw" or name == "simple"
+            res[part][name] = time_depthwise(
+                lib, [(*inp, check) for inp in inputs])
+        print(full, json.dumps(res[part][name]), flush=True)
+    if "split" in parts:
+        res["split"]["K2"] = split_k2(idx, n, c)
+    print(json.dumps(res), flush=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60)
+    print(card.stdout.strip().splitlines()[0], flush=True)
+
+
+if __name__ == "__main__":
+    main()

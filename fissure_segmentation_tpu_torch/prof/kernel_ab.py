@@ -1,17 +1,24 @@
-"""K1 (kNN) and K5 (farthest-point sampling) of one checkout of this
-repository, timed on the card at their path shapes, so that two commits
-can be compared in one call on one card. Run it with the checkout's root:
+"""K1 (kNN), K5 (farthest-point sampling), K6 (the depthwise convolution)
+and K2/K3 (the EdgeConv scatters, with the graph transpose they build) of
+one checkout of this repository, timed on the card at their path shapes,
+so that two commits can be compared in one call on one card. Run it with
+the checkout's root:
 
     python fissure_segmentation_tpu_torch/prof/kernel_ab.py ROOT [--tag NAME]
 
 The script imports the kernels and `prof.probes.median_ms` from ROOT, not
-from its own location, so one copy times any checkout whose kernels/knn.py
-and kernels/fps.py have `knn_cuda`/`knn_plain` and `fps_cuda`/`fps_plain`;
-run it on the two roots in turns (A, B, B, A). Every input is drawn from
-one seeded generator in a fixed order, so both sides time the same inputs;
-each kernel is checked bit-equal to its plain version first. Prints one
-JSON line (per shape the median ms of CUDA-event runs), then the card's
-name and power limit. Raises without a card.
+from its own location, so one copy times any checkout whose kernels/knn.py,
+fps.py, depthwise.py and scatter.py have `knn_cuda`/`knn_plain`,
+`fps_cuda`/`fps_plain`, `depthwise_conv3_cuda`/`depthwise_conv3_plain`
+and `scatter_rows`/`scatter_routed` (with `transpose`, or the older
+sorting `_transpose`); run it on the two roots in turns (A, B, B, A).
+Every input is drawn from one seeded generator in a fixed order, so both
+sides time the same inputs; K1, K5 and K6 are checked bit-equal to their
+plain versions first, K2 within its rounding bound of plain. K2 and K3 are
+timed as the wrapper runs them, building their own transpose, and the
+transpose alone. Prints one JSON line (per shape the median ms of
+CUDA-event runs), then the card's name and power limit. Raises without a
+card.
 """
 from __future__ import annotations
 
@@ -36,6 +43,17 @@ FPS_SHAPES = (("pt_step_32x2048x3_m512", (32, 2048, 3), 512, 1.0),
               ("pt_step_32x512x3_m128", (32, 512, 3), 128, 1.0),
               ("pt_serve_5x2048x3_m512", (5, 2048, 3), 512, 1.0),
               ("dseg_masked_1x20000x3_m1024", (1, 20000, 3), 1024, 0.35))
+# (name, shape, dtype): chip_smoke.py phase 13's, MobileNetASPP's stride-1
+# depthwise layers on a 256^3 CT (b2 and b3 share a shape) and bf16
+DW_SHAPES = (("b0_1x128x128x128x32", (1, 128, 128, 128, 32), "float32"),
+             ("b1_1x128x128x128x96", (1, 128, 128, 128, 96), "float32"),
+             ("b2b3_1x128x128x128x144", (1, 128, 128, 128, 144), "float32"),
+             ("b4_1x128x128x128x192", (1, 128, 128, 128, 192), "float32"),
+             ("b6_1x64x64x64x192", (1, 64, 64, 64, 192), "float32"),
+             ("b7_1x64x64x64x384", (1, 64, 64, 64, 384), "float32"),
+             ("bf16_1x128x128x128x192", (1, 128, 128, 128, 192), "bfloat16"))
+# the DGCNN train step's scatters: B, N, k, C
+STEP = (32, 2048, 40, 64)
 
 
 def main() -> None:
@@ -47,14 +65,16 @@ def main() -> None:
         raise RuntimeError("kernel_ab runs only on an NVIDIA card")
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
-    from fissure_segmentation_tpu_torch.kernels import fps, knn
+    from fissure_segmentation_tpu_torch.kernels import (depthwise, fps, knn,
+                                                        scatter)
     from fissure_segmentation_tpu_torch.prof.probes import median_ms
-    for mod in (fps, knn):
+    for mod in (fps, knn, depthwise, scatter):
         if not os.path.abspath(mod.__file__).startswith(root + os.sep):
             raise RuntimeError(f"{mod.__name__} imported from "
                                f"{mod.__file__}, not from {root}")
     gen = torch.Generator().manual_seed(0)
-    out = {"root": root, "tag": args.tag, "knn": {}, "fps": {}}
+    out = {"root": root, "tag": args.tag, "knn": {}, "fps": {},
+           "depthwise": {}, "scatter": {}}
     for name, shape, k, self_loop in KNN_SHAPES:
         x = (torch.rand(shape, generator=gen) * 2 - 1).cuda()
         i_k, d_k = knn.knn_cuda(x, k, self_loop)
@@ -71,6 +91,43 @@ def main() -> None:
                            fps.fps_plain(x, m, valid)):
             raise AssertionError(f"K5 {name}: kernel differs from plain")
         out["fps"][name] = median_ms(lambda: fps.fps_cuda(x, m, valid))
+    for name, shape, dt in DW_SHAPES:
+        dtype = getattr(torch, dt)
+        x = torch.randn(shape, generator=gen).to("cuda", dtype)
+        w = torch.randn((3, 3, 3, shape[-1]), generator=gen).to("cuda", dtype)
+        if not torch.equal(depthwise.depthwise_conv3_cuda(x, w),
+                           depthwise.depthwise_conv3_plain(x, w)):
+            raise AssertionError(f"K6 {name}: kernel differs from plain")
+        out["depthwise"][name] = median_ms(
+            lambda: depthwise.depthwise_conv3_cuda(x, w))
+        del x, w
+    torch.cuda.empty_cache()
+    b, n, k, c = STEP
+    idx = knn.knn_cuda((torch.rand((b, n, 3), generator=gen) * 2 - 1)
+                       .cuda(), k)[0].contiguous()
+    idx2 = idx.reshape(b, n * k)
+    build = getattr(scatter, "transpose", None) or scatter._transpose
+    out["scatter"]["transpose_32x81920_rows2048"] = median_ms(
+        lambda: build(idx2, n))
+    for dt in ("float32", "bfloat16"):
+        g = torch.randn((b, n * k, c), generator=gen).to("cuda",
+                                                         getattr(torch, dt))
+        got = scatter.scatter_rows(idx2, g, n)
+        want = scatter.scatter_rows_plain(idx2, g, n)
+        deg = scatter.scatter_count_plain(idx2, n)[..., None]
+        bound = 2 * deg * 2.0 ** -24 * scatter.scatter_rows_plain(
+            idx2, g.float().abs(), n)
+        if not bool(((got - want).abs() <= bound).all()):
+            raise AssertionError(f"K2 {dt}: kernel off its bound of plain")
+        out["scatter"][f"K2_32x81920x64_{dt}"] = median_ms(
+            lambda: scatter.scatter_rows(idx2, g, n))
+        del g
+    kstar = torch.randint(0, k, (b, n, c), generator=gen,
+                          dtype=torch.int32).cuda()
+    sp = torch.randn((b, n, c), generator=gen).cuda()
+    pp = torch.randn((b, n, c), generator=gen).cuda()
+    out["scatter"]["K3_32x2048x40x64_float32"] = median_ms(
+        lambda: scatter.scatter_routed(idx, kstar, sp, pp, n))
     print(json.dumps(out), flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

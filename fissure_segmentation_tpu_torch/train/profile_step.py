@@ -14,11 +14,12 @@ through these helpers. Run as a script it prints, for DGCNN in each routing
   * a torch.profiler table of 3 warm steps (device time per kernel) and the
     summed kernel time per step against the timed ms/step (the device's
     busy share);
-  * the device time per step of the port's kernels (K1-K4 and the fused
-    EdgeConv's gather-reduce for DGCNN, K5 for PointTransformer) and of the
-    sorts (DGCNN: the transposed graph
-    that K2 and K3 build and the batch sampler's; PointTransformer: the
-    stable sorts of `knn_query` and the batch sampler's).
+  * the device time per step of the port's kernels (K1-K4, the graph
+    transpose's four kernels and the fused EdgeConv's gather-reduce for
+    DGCNN, K5 for PointTransformer) and of the
+    sorts (DGCNN: the batch sampler's, the graph transpose being a kernel
+    of its own; PointTransformer: the stable sorts of `knn_query` and the
+    batch sampler's).
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ from .trainer import ModelTrainer, TrainConfig
 
 KERNELS = {
     "DGCNN": {"K1 knn": "knn_kernel",
+              "graph transpose": "transpose_",
               "K2 scatter_rows": "scatter_rows_kernel",
               "K3 scatter_routed": "scatter_routed_kernel",
               "K4 scatter_count": "count_kernel",

@@ -1,4 +1,4 @@
-"""The kernels on the card (K1 kNN, K2-K4 scatter, K5 farthest-point
+"""The kernels on the card (K1 kNN, the graph transpose, K2-K4 scatter, K5 farthest-point
 sampling, K6 depthwise convolution, the fused EdgeConv gather-reduce, the
 streaming column sums) against their plain PyTorch versions, and the DGCNN
 eval forward with grad enabled against the no_grad one.
@@ -204,6 +204,70 @@ def test_scatter_count_kernel_equals_plain(cuda, b, e, n):
     assert torch.equal(got, ks.scatter_count_plain(idx, n))
 
 
+def _transpose_case(name, seed):
+    """(B, E) int32 targets and n_rows: the transpose's hard cases."""
+    g = torch.Generator().manual_seed(seed)
+    if name == "hub":                      # row 7 takes 1250 of 5000 edges
+        idx = torch.randint(0, 2000, (2, 5000), generator=g)
+        idx[:, ::4] = 7
+        return idx.int(), 2000
+    if name == "one_row":                  # every edge into one row
+        return torch.full((3, 9000), 5, dtype=torch.int32), 10
+    if name == "empty_rows":
+        return torch.randint(0, 50, (2, 3000), generator=g).int(), 4096
+    if name == "dropped":                  # below 0 and past the last row
+        return torch.randint(-40, 1040, (2, 7000), generator=g).int(), 1000
+    if name == "n_rows_1":
+        return torch.randint(-1, 2, (4, 999), generator=g).int(), 1
+    if name == "no_edges":
+        return torch.zeros((2, 0), dtype=torch.int32), 10
+    if name == "many_rows":                # counters too many for shared
+        return torch.randint(-5, 60005, (2, 5000), generator=g).int(), 60000
+    return _targets(32, 2048 * 40, 2048, seed), 2048   # the train step's
+
+
+@pytest.mark.parametrize("name", ["hub", "one_row", "empty_rows", "dropped",
+                                  "n_rows_1", "no_edges", "many_rows",
+                                  "train_step"])
+def test_transpose_kernel_equals_plain(cuda, name):
+    """(order, ptr) equal to the stable sort's, int32, one launch."""
+    idx, n_rows = _transpose_case(name, 5)
+    idx = idx.to(cuda)
+    before = ks.transpose.launches
+    order, ptr = ks.transpose(idx, n_rows)
+    torch.cuda.synchronize()
+    assert ks.transpose.launches == before + 1
+    want_order, want_ptr = ks.transpose_plain(idx, n_rows)
+    assert order.dtype == ptr.dtype == torch.int32
+    assert torch.equal(order, want_order) and torch.equal(ptr, want_ptr)
+
+
+@pytest.mark.parametrize("c", [1, 33, 64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shared", [False, True], ids=["own", "shared"])
+def test_scatter_rows_kernel_by_width(cuda, c, dtype, shared):
+    """K2 at channel widths off and on the 16-byte vectors, with its own
+    transpose and with the caller's: two runs equal, within the rounding
+    bound of plain, and a shared transpose changes nothing."""
+    b, n, e = 3, 700, 9000
+    idx = _targets(b, e, n, c).to(cuda)
+    idx[:, ::13] = n + 2                     # dropped
+    idx[:, :500] = 3                         # a hub row
+    g = torch.randn((b, e, c), generator=torch.Generator().manual_seed(c)
+                    ).to(dtype).to(cuda)
+    tr = ks.transpose(idx, n) if shared else None
+    before = ks.transpose.launches
+    got = ks.scatter_rows(idx, g, n, tr)
+    again = ks.scatter_rows(idx, g, n, tr)
+    torch.cuda.synchronize()
+    assert ks.transpose.launches == before + (0 if shared else 2)
+    want = ks.scatter_rows_plain(idx, g, n)
+    assert torch.equal(got, again)
+    assert ((got - want).abs() <= _bound(idx, g.float().abs(), n)).all()
+    if shared:
+        assert torch.equal(got, ks.scatter_rows(idx, g, n))
+
+
 def test_scatter_kernels_drop_out_of_range_and_check_inputs(cuda):
     idx = _targets(2, 500, 64, 9).to(cuda)
     idx[:, ::7] = 64
@@ -290,6 +354,21 @@ DW_CASES = [
     (2, 7, 9, 11, 5, torch.float32),
     (1, 1, 6, 10, 5, torch.float32),
     (3, 5, 4, 3, 7, torch.bfloat16),
+    # the tiled kernel's hard cases: H and W off the tile, C off the
+    # channel slice and off the 16-byte copies, D = 1 and 2, B = 2, bf16
+    (1, 9, 13, 21, 32, torch.float32),
+    (1, 6, 7, 9, 33, torch.float32),
+    (2, 5, 10, 19, 96, torch.float32),
+    (2, 3, 17, 9, 144, torch.float32),
+    (1, 4, 9, 18, 384, torch.float32),
+    (1, 1, 12, 20, 96, torch.float32),
+    (1, 2, 8, 16, 144, torch.float32),
+    (1, 5, 11, 18, 36, torch.float32),
+    (2, 3, 10, 11, 64, torch.bfloat16),
+    (1, 4, 9, 9, 144, torch.bfloat16),
+    (1, 2, 7, 10, 40, torch.bfloat16),
+    (1, 1, 9, 17, 384, torch.bfloat16),
+    (2, 2, 5, 6, 12, torch.bfloat16),
 ]
 
 

@@ -1,6 +1,8 @@
 """Port parity: the scatter kernels' plain versions (K2-K4,
-kernels/scatter.py) against the JAX package's Pallas kernels, and the
-gather backward (`_GatherRows`) against jax.grad.
+kernels/scatter.py) against the JAX package's Pallas kernels, the gather
+backward (`_GatherRows`) and the fused EdgeConv's train backward against
+jax.grad, with and without a shared graph transpose, and the transpose's
+plain version against numpy's stable argsort.
 
 On the CPU the Pallas kernels run in interpret mode (ops/_config.py) and the
 port's wrappers run their plain versions. Inputs are made from a numpy seed
@@ -23,6 +25,8 @@ import pytest
 import torch
 
 from fissure_segmentation_tpu.ops.edge import gather_neighbors as jgather
+from fissure_segmentation_tpu.ops.fused_edge import \
+    fused_edge_train as jfused_edge_train
 from fissure_segmentation_tpu.ops.pallas.scatter import (scatter_add_mm,
                                                          scatter_add_mm2,
                                                          scatter_add_routed,
@@ -30,6 +34,7 @@ from fissure_segmentation_tpu.ops.pallas.scatter import (scatter_add_mm,
                                                          jscatter_count)
 from fissure_segmentation_tpu_torch.kernels import scatter as ks
 from fissure_segmentation_tpu_torch.ops.edge import gather_neighbors
+from fissure_segmentation_tpu_torch.ops.fused_edge import fused_edge_train
 
 B, N, K, C = 2, 96, 5, 16
 E = N * K + 37               # ragged: no multiple of 128 / 256 / 1024
@@ -171,3 +176,120 @@ def test_wrappers_check_inputs():
     ks.scatter_rows(idx, torch.zeros((1, 4, 3)), 2)
     assert (ks.scatter_rows.launches, ks.scatter_routed.launches,
             ks.scatter_count.launches) == before   # CPU: plain versions
+
+
+def _transpose_case(name):
+    """(B, E) int32 targets and n_rows: the transpose's hard cases."""
+    rng = np.random.default_rng(len(name))
+    if name == "hub":                      # row 7 takes 1250 of 5000 edges
+        idx = rng.integers(0, 2000, (2, 5000))
+        idx[:, ::4] = 7
+        return idx.astype(np.int32), 2000
+    if name == "one_row":
+        return np.full((3, 400), 5, np.int32), 10
+    if name == "empty_rows":
+        return rng.integers(0, 50, (2, 300)).astype(np.int32), 4096
+    if name == "dropped":                  # below 0 and past the last row
+        return rng.integers(-40, 1040, (2, 700)).astype(np.int32), 1000
+    if name == "n_rows_1":
+        return rng.integers(-1, 2, (4, 99)).astype(np.int32), 1
+    return np.zeros((2, 0), np.int32), 10  # no edges
+
+
+@pytest.mark.parametrize("name", ["hub", "one_row", "empty_rows", "dropped",
+                                  "n_rows_1", "no_edges"])
+def test_transpose_plain_matches_numpy_stable_argsort(name):
+    """order: the flat edge ids by target row (b * n_rows + idx, dropped
+    targets after the last row), ties in ascending id, as numpy's stable
+    argsort orders them; ptr: each row's first position. int32, and the
+    CPU wrapper is the plain version (no launch)."""
+    idx, n_rows = _transpose_case(name)
+    b, e = idx.shape
+    key = np.where((idx >= 0) & (idx < n_rows),
+                   idx + n_rows * np.arange(b)[:, None], b * n_rows)
+    key = key.reshape(-1)
+    want_order = np.argsort(key, kind="stable")
+    want_ptr = np.searchsorted(key[want_order], np.arange(b * n_rows + 1))
+    before = ks.transpose.launches
+    order, ptr = ks.transpose(torch.from_numpy(idx), n_rows)
+    assert ks.transpose.launches == before
+    assert order.dtype == ptr.dtype == torch.int32
+    np.testing.assert_array_equal(order.numpy(), want_order)
+    np.testing.assert_array_equal(ptr.numpy(), want_ptr)
+    order_p, ptr_p = ks.transpose_plain(torch.from_numpy(idx), n_rows)
+    assert torch.equal(order, order_p) and torch.equal(ptr, ptr_p)
+
+
+def test_gather_rows_backward_with_shared_transpose_matches_jax_grad():
+    """The gradient of gather_neighbors given the graph's transpose (what
+    DGCNNSeg's train forward shares between its EdgeConvs) equals jax.grad,
+    as without it (test_gather_rows_backward_matches_jax_grad)."""
+    rng = np.random.default_rng(4)
+    b, n, k, c = 2, 64, 6, 12
+    x = rng.standard_normal((b, n, c)).astype(np.float32)
+    idx = _targets(rng, b, n * k, n).reshape(b, n, k)
+    w = rng.standard_normal((b, n, k, c)).astype(np.float32)
+
+    def jloss(x):
+        return jnp.sum(jgather(x, jnp.asarray(idx)) * w)
+
+    want = np.asarray(jax.grad(jloss)(jnp.asarray(x)))
+    tr = ks.transpose(torch.from_numpy(idx).reshape(b, n * k), n)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = gather_neighbors(xt, torch.from_numpy(idx), tr)
+    (out * torch.from_numpy(w)).sum().backward()
+    _close(xt.grad.numpy(), want, 1e-6)
+
+
+def test_fused_edge_train_with_shared_transpose_matches_jax(monkeypatch):
+    """fused_edge_train given the graph's transpose: forward and the four
+    gradients against the JAX function, with test_torch_train.py's
+    tolerances (the JAX backward splits f32 payloads into hi + lo bf16
+    halves: 2e-4 for the gradients, 1e-5 for the forward)."""
+    monkeypatch.setenv("FSEG_FUSED_EDGE", "1")
+    monkeypatch.delenv("FSEG_FUSED_EDGE_TAIL", raising=False)
+    rng = np.random.default_rng(6)
+    b, n, kk, c = 2, 64, 7, 24
+    a = rng.normal(size=(b, n, c)).astype(np.float32)
+    cen = rng.normal(size=(b, n, c)).astype(np.float32)
+    gamma = (rng.normal(size=c) + 0.3).astype(np.float32)   # some < 0
+    beta = (rng.normal(size=c) * 0.2).astype(np.float32)
+    idx = _targets(rng, b, n * kk, n).reshape(b, n, kk)
+    w = rng.normal(size=a.shape).astype(np.float32)
+
+    def jloss(a, cen, gamma, beta):
+        out, _, _ = jfused_edge_train(a, cen, gamma, beta, jnp.asarray(idx),
+                                      1e-5, 0.2)
+        return jnp.sum(out * w), out
+
+    (_, out_j), grads_j = jax.value_and_grad(
+        jloss, argnums=(0, 1, 2, 3), has_aux=True)(a, cen, gamma, beta)
+    ins = [torch.from_numpy(v).requires_grad_(True)
+           for v in (a, cen, gamma, beta)]
+    tr = ks.transpose(torch.from_numpy(idx).reshape(b, n * kk), n)
+    out, _, _ = fused_edge_train(*ins, torch.from_numpy(idx), 1e-5, 0.2, tr)
+    (out * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), out_j, rtol=1e-5,
+                               atol=1e-5)
+    for t, g, name in zip(ins, grads_j, ("a", "cen", "gamma", "beta")):
+        np.testing.assert_allclose(t.grad.numpy(), g, rtol=2e-4, atol=2e-4,
+                                   err_msg=name)
+
+
+def test_shared_transpose_is_checked():
+    """A transpose of another graph size or dtype is refused, on the CPU
+    too, before anything runs."""
+    idx = torch.zeros((2, 6), dtype=torch.int32)
+    g = torch.zeros((2, 6, 3))
+    order, ptr = ks.transpose(idx, 4)
+    with pytest.raises(ValueError, match="transposed"):
+        ks.scatter_rows(idx, g, 5, (order, ptr))
+    with pytest.raises(ValueError, match="transposed"):
+        ks.scatter_rows(idx, g, 4, (order.long(), ptr))
+    with pytest.raises(ValueError, match="transposed"):
+        ks.scatter_routed(idx.reshape(2, 3, 2),
+                          torch.zeros((2, 3, 3), dtype=torch.int32),
+                          torch.zeros((2, 3, 3)), torch.zeros((2, 3, 3)), 3,
+                          (order, ptr))
+    assert torch.equal(ks.scatter_rows(idx, g, 4, (order, ptr)),
+                       ks.scatter_rows(idx, g, 4))
