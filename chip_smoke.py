@@ -33,8 +33,12 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      n_rows = 1, no edges, 60 000 rows), K4 equal, K2/K3 within twice the
      worst-case float32 rounding of a sequential sum (both sides sum the
      same values in different orders), two launches bit-equal and a shared
-     transpose changing nothing; median times of both, the transpose
-     alone, and K2 and K3 with their own transpose and with a shared one;
+     transpose changing nothing; K3 with f32 and bf16 payloads and at its
+     hard cases (C = 33, 36, 40, 200, 256; N where the staged slices just
+     fit in shared memory and just do not, and K = 300, both the unstaged
+     kernel; a hub row of in-degree 1250; kstar only at 0 and K - 1);
+     median times of both, the transpose alone, and K2 and K3 with their
+     own transpose and with a shared one;
   7. the training slice at full width: the port's entry point
      (train_point_seg.main, synthetic data, DGCNNSeg(k=40, static), batch
      32 x 2048, f32, NNU loss + Adam) trains fold 0 for 3 epochs; checks a
@@ -94,10 +98,13 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
  16. the fused EdgeConv gather-reduce (P5's function) against its plain
      version, equal in every output, want "max", "extrema" and "all", f32
      and bf16: at the train step's shape (32, 2048, 40, 64) on K1's graph,
-     the serving ensemble's (5, 2048, 40, 64), an integer lattice full of
-     k-ties and indices out of range; median times of the kernel, the
-     plain version, the flat gather + reductions the port ran before, the
-     library call (embedding_bag, "max" only) and the bound;
+     the serving ensemble's (5, 2048, 40, 64; the unstaged kernel), an integer
+     lattice full of k-ties, indices out of range, C = 33, 36, 40, 200,
+     256, K = 70, points split among blocks, and N where the staged slice
+     just fits and just does not (the unstaged kernel), each with the path it
+     took; median times of the kernel, the plain version, the flat gather
+     + reductions the port ran before, the library call (embedding_bag,
+     "max" only) and the bound at each path call;
  17. the bf16 DGCNN training slice at full width (--amp true): 10 timed
      warm steps of DGCNNSeg(k=40, static, bf16) fused and unfused (ms/step,
      clouds/s, peak memory, launches: K2 every step in both routings, the
@@ -125,7 +132,10 @@ describing the kernels (with each one's bound: the larger of its bytes over
 3.35 TB/s and its operations over the 67 TFLOP/s float32 rate, and the time
 of one PyTorch library call that computes the same function, where there
 is one; the stream kernels' rows say "path": "probes"; K2's and K3's rows
-add their time with a shared transpose and the transpose's time and bound);
+add their time with a shared transpose and the transpose's time and bound;
+the gather-reduce's row gives the numbers of its most launched call and
+"by_call": each (want, dtype, shape) call's main-path launches, time, bound
+and launches x (ms - bound ms));
 then the card's
 name and power limit as nvidia-smi gives them; the last line is {"ok":
 true, "device": {...}}.
@@ -343,6 +353,7 @@ def phase_slice(knn_cuda, card: str):
 
     n_cases = 10
     knn_cuda.launches = gather_reduce.launches = 0
+    gather_reduce.calls.clear()
     times = []
     for i in range(n_cases):
         torch.cuda.synchronize()
@@ -539,28 +550,22 @@ def phase_scatter(ks, knn_cuda):
                    lambda: ks.scatter_rows(idx2, pay, nn_, tr))
         kstar = torch.randint(0, kk, (bb, nn_, c), generator=g, device=dev,
                               dtype=torch.int32)
-        s = torch.randn((bb, nn_, c), generator=g, device=dev)
-        p = torch.randn((bb, nn_, c), generator=g, device=dev)
-        got = ks.scatter_routed(idx3, kstar, s, p, nn_)
-        again = ks.scatter_routed(idx3, kstar, s, p, nn_)
-        if not torch.equal(ks.scatter_routed(idx3, kstar, s, p, nn_, tr),
-                           got):
-            raise AssertionError("K3: the shared transpose changes it")
-        want = ks.scatter_routed_plain(idx3, kstar, s, p, nn_)
-        deg = ks.scatter_count_plain(idx2, nn_)[..., None]
-        bound = 2 * deg * EPS32 * ks.scatter_routed_plain(
-            idx3, kstar, s.abs(), p.abs(), nn_)
-        err = _check_scatter("K3", got, again, want, bound)
-        record("scatter_routed", f"{tag}_{bb}x{nn_}x{kk}x{c}", err,
-               (lambda: ks.scatter_routed(idx3, kstar, s, p, nn_))
-               if timed else None,
-               lambda: ks.scatter_routed_plain(idx3, kstar, s, p, nn_),
-               # read idx, kstar, s, p; write (B, rows, 2C) f32; per edge
-               # and channel two adds
-               (idx3.numel() * 4 + 3 * bb * nn_ * c * 4 + bb * nn_ * 2 * c
-                * 4, 2 * idx3.numel() * c),
-               fn_shared=lambda: ks.scatter_routed(idx3, kstar, s, p, nn_,
-                                                   tr))
+        for dtype in (torch.float32, torch.bfloat16):
+            s = torch.randn((bb, nn_, c), generator=g, device=dev).to(dtype)
+            p = torch.randn((bb, nn_, c), generator=g, device=dev).to(dtype)
+            err = _check_routed(ks, idx3, kstar, s, p, nn_, tr)
+            record("scatter_routed",
+                   f"{tag}_{bb}x{nn_}x{kk}x{c}_{str(dtype)[6:]}", err,
+                   (lambda: ks.scatter_routed(idx3, kstar, s, p, nn_))
+                   if timed else None,
+                   lambda: ks.scatter_routed_plain(idx3, kstar, s, p, nn_),
+                   # read idx, kstar, s, p; write (B, rows, 2C) f32; per
+                   # edge and channel two adds
+                   (idx3.numel() * 4 + bb * nn_ * c * 4
+                    + 2 * s.numel() * s.element_size() + bb * nn_ * 2 * c
+                    * 4, 2 * idx3.numel() * c),
+                   fn_shared=lambda: ks.scatter_routed(idx3, kstar, s, p,
+                                                       nn_, tr))
         got = ks.scatter_count(idx2, nn_)
         again = ks.scatter_count(idx2, nn_)
         err = _check_scatter("K4", got, again,
@@ -572,8 +577,68 @@ def phase_scatter(ks, knn_cuda):
                # read idx, write (B, rows) f32; one add per edge
                (idx2.numel() * 4 + bb * nn_ * 4, idx2.numel()),
                lambda: torch.bincount(flat, minlength=bb * nn_ + 1))
+    for name, (idx3, c, dtype, kmode) in _routed_cases(ks, dev, g).items():
+        bb, nn_, kk = idx3.shape
+        kstar = torch.randint(0, kk, (bb, nn_, c), generator=g, device=dev,
+                              dtype=torch.int32)
+        if kmode == "edges":          # only the first and the last slot
+            kstar = torch.where(kstar % 2 == 0, 0, kk - 1).to(torch.int32)
+        s = torch.randn((bb, nn_, c), generator=g, device=dev).to(dtype)
+        p = torch.randn((bb, nn_, c), generator=g, device=dev).to(dtype)
+        tr = ks.transpose(idx3.reshape(bb, nn_ * kk), nn_)
+        err = _check_routed(ks, idx3, kstar, s, p, nn_, tr)
+        out["scatter_routed"][0] = max(out["scatter_routed"][0], err)
+        print(f"scatter_routed {name} {bb}x{nn_}x{kk}x{c} "
+              f"{str(dtype)[6:]}: max |kernel - plain| {err:.3g}",
+              flush=True)
     torch.cuda.synchronize()
     return out
+
+
+def _check_routed(ks, idx3, kstar, s, p, n_rows, tr) -> float:
+    """K3 within its rounding bound of plain, two launches bit-equal, and
+    the caller's transpose changing nothing; returns max |kernel - plain|."""
+    bb, nn_, kk = idx3.shape
+    got = ks.scatter_routed(idx3, kstar, s, p, n_rows)
+    again = ks.scatter_routed(idx3, kstar, s, p, n_rows)
+    if not torch.equal(ks.scatter_routed(idx3, kstar, s, p, n_rows, tr),
+                       got):
+        raise AssertionError("K3: the shared transpose changes it")
+    want = ks.scatter_routed_plain(idx3, kstar, s, p, n_rows)
+    deg = ks.scatter_count_plain(idx3.reshape(bb, nn_ * kk), n_rows)[..., None]
+    bound = 2 * deg * EPS32 * ks.scatter_routed_plain(
+        idx3, kstar, s.float().abs(), p.float().abs(), n_rows)
+    return _check_scatter("K3", got, again, want, bound)
+
+
+def _routed_cases(ks, dev, g):
+    """K3's hard cases: {name: ((B, N, K) int32 graph, C, payload dtype,
+    kstar "random" or "edges")}. C off the staged slice; N where the staged
+    slices just fit in shared memory and just do not, and K above 255 (both
+    the kernel that reads device memory); a hub row; kstar at 0 and K - 1."""
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def draw(b, n, k):
+        return torch.randint(0, n, (b, n, k), generator=g, device=dev,
+                             dtype=torch.int32)
+    hub = draw(2, 2000, 40)
+    hub.view(2, -1)[:, ::64] = 7                 # in-degree 1250
+    nf, nb = (ks.ROUTED_STAGED_MAX_N[t] for t in (f32, bf16))
+    return {"c33": (draw(2, 500, 40), 33, f32, "random"),
+            "c40_bf16": (draw(2, 500, 40), 40, bf16, "random"),
+            "c36_bf16": (draw(2, 500, 40), 36, bf16, "random"),
+            "c200": (draw(2, 500, 40), 200, f32, "random"),
+            "c256_bf16": (draw(2, 500, 40), 256, bf16, "random"),
+            "fits_f32": (draw(1, nf, 40), 64, f32, "random"),
+            "spills_f32": (draw(1, nf + 1, 40), 64, f32, "random"),
+            "fits_bf16": (draw(1, nb, 40), 64, bf16, "random"),
+            "spills_bf16": (draw(1, nb + 1, 40), 64, bf16, "random"),
+            "k300": (draw(2, 400, ks.ROUTED_STAGED_MAX_K + 45), 16, f32,
+                     "random"),
+            "hub": (hub, 64, f32, "random"),
+            "hub_bf16": (hub, 64, bf16, "random"),
+            "kstar_0_and_last": (draw(2, 700, 40), 64, f32, "edges"),
+            "kstar_0_and_last_bf16": (draw(2, 700, 40), 64, bf16, "edges")}
 
 
 def _wrappers(ks, knn_cuda) -> dict:
@@ -601,6 +666,12 @@ def _counts(ks, knn_cuda):
 def _reset(ks, knn_cuda):
     for fn in _wrappers(ks, knn_cuda).values():
         fn.launches = 0
+    _wrappers(ks, knn_cuda)["gather_reduce"].calls.clear()
+
+
+def _gr_calls(ks, knn_cuda) -> dict:
+    """The gather-reduce's launches by call since the last reset."""
+    return dict(_wrappers(ks, knn_cuda)["gather_reduce"].calls)
 
 
 def _read_history(path):
@@ -1468,6 +1539,7 @@ def phase_cnn_slice(dw_cuda, card: str):
           flush=True)
     n_cases = 3
     dw_cuda.launches = knn_cuda.launches = gather_reduce.launches = 0
+    gather_reduce.calls.clear()
     torch.cuda.reset_peak_memory_stats()
     times = []
     for i in range(n_cases):
@@ -1479,6 +1551,9 @@ def phase_cnn_slice(dw_cuda, card: str):
     peak = torch.cuda.max_memory_allocated()
     launches = {"depthwise_conv3": dw_cuda.launches, "knn": knn_cuda.launches,
                 "gather_reduce": gather_reduce.launches}
+    # the timed cases' gather-reduce calls (the enhancement case below is
+    # not counted, like its launches)
+    phase_cnn_slice.gr_calls = dict(gather_reduce.calls)
     if launches["depthwise_conv3"] < 7 * n_cases:
         raise AssertionError(f"K6 launched {launches['depthwise_conv3']} "
                              f"times in {n_cases} cnn cases; the path needs "
@@ -1604,36 +1679,51 @@ def _gr_bytes(a, idx, want) -> int:
 def phase_gather_reduce(knn_cuda):
     """The gather-reduce against its plain version: every output equal
     (torch.equal), for every want and dtype, at the path's shapes (the train
-    step's on K1's graph, the serving ensemble's), a lattice full of k-ties
-    and indices out of range; timings at the path's shapes. Returns (max
-    |kernel - plain| over every output and case, {shape: timings})."""
+    step's on K1's graph; the serving ensemble's, whose 5 clouds x 4 slices
+    take the unstaged kernel), a lattice full of k-ties, indices out of range
+    (rows in other clouds), C off the staged slice (33, 36, 40, 200, 256),
+    more than 32 slots, points split among blocks, and N where the slice
+    just fits in shared memory and just does not (the kernel that reads
+    device memory); timings at the path's shapes. Returns
+    (max |kernel - plain| over every output and case, {call: timings}),
+    keyed by `gather_reduce.call_key`."""
     import torch.nn.functional as F
     from fissure_segmentation_tpu_torch.kernels.gather_reduce import (
-        flat_rows, gather_reduce, gather_reduce_plain)
+        STAGED_MAX_N, call_key, flat_rows, gather_reduce,
+        gather_reduce_plain, staged_parts)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(16)
     graphs = {}
     for b in (32, 5):
         pts = torch.rand((b, 2048, 3), generator=g, device=dev) * 2 - 1
         graphs[b] = knn_cuda(pts, 40)[0].contiguous()
-    lattice_idx = torch.randint(0, 512, (4, 512, 40), generator=g,
-                                device=dev, dtype=torch.int32)
-    bad = torch.randint(0, 300, (3, 300, 24), generator=g, device=dev,
-                        dtype=torch.int32)
+
+    def draw(b, n, k):
+        return torch.randint(0, n, (b, n, k), generator=g, device=dev,
+                             dtype=torch.int32)
+    bad = draw(3, 300, 24)
     bad[:, ::7, 0] = -1                   # wraps to the last row
     bad[:, 3::11, 5] = 300 + 17           # clamps
     bad[1, :, 9] = -5000                  # clamps to row 0
     cases = {
-        # name: (idx, table maker, timed)
-        "train_32x2048x40x64": (graphs[32], "normal", True),
-        "serve_5x2048x40x64": (graphs[5], "normal", True),
-        "lattice_ties_4x512x40x64": (lattice_idx, "lattice", False),
-        "out_of_range_3x300x24x40": (bad, "normal", False),
+        # name: (idx, table maker, C, timed)
+        "train": (graphs[32], "normal", 64, True),
+        "serve": (graphs[5], "normal", 64, True),
+        "lattice_ties": (draw(4, 512, 40), "lattice", 64, False),
+        "out_of_range": (bad, "normal", 40, False),
+        "c33": (draw(17, 500, 40), "normal", 33, False),
+        "c36": (draw(17, 500, 40), "normal", 36, False),
+        "c200": (draw(12, 500, 40), "normal", 200, False),
+        "c256": (draw(3, 500, 40), "normal", 256, False),
+        "k70_c8": (draw(2, 64, 70), "normal", 8, False),
+        "split_points": (draw(11, 2048, 40), "normal", 64, False),
+        "slice_fits": (draw(16, STAGED_MAX_N, 24), "normal", 64, False),
+        "slice_spills": (draw(16, STAGED_MAX_N + 1, 24), "normal", 64,
+                         False),
     }
     timings, max_err = {}, 0.0
-    for name, (idx, kind, timed) in cases.items():
-        b, n, _ = idx.shape
-        c = 40 if name.startswith("out_of_range") else 64
+    for name, (idx, kind, c, timed) in cases.items():
+        b, n, k = idx.shape
         if kind == "lattice":
             base = torch.randint(0, 3, (b, n, c), generator=g,
                                  device=dev).float()
@@ -1650,12 +1740,12 @@ def phase_gather_reduce(knn_cuda):
                     for x, y in zip(got, ref)])
                 if not all(torch.equal(x, y) for x, y in zip(got, ref)):
                     raise AssertionError(
-                        f"gather_reduce {name} {dtype} {want}: kernel "
-                        f"differs from plain in "
+                        f"gather_reduce {name} {b}x{n}x{k}x{c} {dtype} "
+                        f"{want}: kernel differs from plain in "
                         f"{[int((x != y).sum()) for x, y in zip(got, ref)]}")
                 if not timed:
                     continue
-                key = f"{name}_{str(dtype)[6:]}_{want}"
+                key = call_key(a, idx, want)
                 t_k = median_ms(lambda: gather_reduce(a, idx, want))
                 t_p = median_ms(lambda: gather_reduce_plain(a, idx, want),
                                 reps=3, inner=1, warm=1)
@@ -1680,10 +1770,59 @@ def phase_gather_reduce(knn_cuda):
                       f"old gather + reductions {t_o:.4f} ms, library "
                       f"{'none' if t_l is None else f'{t_l:.4f} ms'} "
                       f"(median), bound {bound:.4f} ms ({by})", flush=True)
-        if not timed:
-            print(f"gather_reduce {name}: kernel == plain (every output, "
-                  f"every want, f32 and bf16)", flush=True)
+        paths = [staged_parts(b, n, c, t) for t in (torch.float32,
+                                                    torch.bfloat16)]
+        print(f"gather_reduce {name} {b}x{n}x{k}x{c}: kernel == plain "
+              f"(every output, every want, f32 and bf16); staged blocks a "
+              f"slice f32 / bf16 {paths} (0: the unstaged kernel)", flush=True)
     return max_err, timings
+
+
+def _time_gr_call(key: str) -> dict:
+    """A main-path call phase 16 does not time (say the entry point's
+    evaluation of a few clouds), timed on a random graph of its shape:
+    kernel equal to plain first."""
+    from fissure_segmentation_tpu_torch.kernels.gather_reduce import (
+        gather_reduce, gather_reduce_plain)
+    want, dt, shape = key.split("_")
+    b, n, k, c = (int(v) for v in shape.split("x"))
+    g = torch.Generator(device="cuda").manual_seed(b * n + k + c)
+    idx = torch.randint(0, n, (b, n, k), generator=g, device="cuda",
+                        dtype=torch.int32)
+    a = torch.randn((b, n, c), generator=g, device="cuda").to(
+        getattr(torch, dt))
+    if not all(torch.equal(x, y) for x, y in zip(
+            gather_reduce(a, idx, want), gather_reduce_plain(a, idx, want))):
+        raise AssertionError(f"gather_reduce {key}: kernel differs from "
+                             "plain")
+    ops = idx.numel() * c * (5 if want == "all" else
+                             2 if want == "extrema" else 1)
+    bound, by = bound_ms(_gr_bytes(a, idx, want), ops)
+    t = {"ms": median_ms(lambda: gather_reduce(a, idx, want)),
+         "plain_ms": median_ms(lambda: gather_reduce_plain(a, idx, want),
+                               reps=3, inner=1, warm=1),
+         "library_ms": None, "bound_ms": bound, "bound_by": by,
+         "graph": "random"}
+    print(f"gather_reduce {key} (random graph): kernel == plain; kernel "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+          f"{bound:.4f} ms ({by})", flush=True)
+    return t
+
+
+def gr_by_call(calls: dict, timings: dict) -> dict:
+    """The gather-reduce's main-path launches priced by call: each call's
+    launches with its own time and bound (phase 16's, or for a call it
+    does not time, `_time_gr_call`'s, added to `timings`), and launches x
+    (ms - bound ms)."""
+    out = {}
+    for key, n in sorted(calls.items()):
+        if key not in timings:
+            timings[key] = _time_gr_call(key)
+        t = timings[key]
+        out[key] = {"launches": n, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                    "bound_ms": t["bound_ms"], "library_ms": t["library_ms"],
+                    "gap_ms": n * (t["ms"] - t["bound_ms"])}
+    return out
 
 
 def phase_bf16_train(ks, knn_cuda, card: str):
@@ -1961,6 +2100,7 @@ def main() -> int:
     # 4. the serving slice at full size (counts from 0, read after)
     _reset(ks, knn_cuda)
     serving = phase_slice(knn_cuda, card)
+    gr_calls = [_gr_calls(ks, knn_cuda)]
 
     # 5. serving reference check on a small input
     phase_reference(card)
@@ -1970,6 +2110,7 @@ def main() -> int:
 
     # 7. the training slice at full width (counts from 0, read after)
     counts, train_timing = phase_train(ks, knn_cuda, card)
+    gr_calls.append(_gr_calls(ks, knn_cuda))
     print(json.dumps({"train": train_timing, "card": card}), flush=True)
 
     # 8. train-step reference on a small input
@@ -1998,6 +2139,7 @@ def main() -> int:
     # (counts from 0, read after)
     _reset(ks, knn_cuda)
     cnn_serving, cnn_timing = phase_cnn_slice(depthwise_conv3_cuda, card)
+    gr_calls.append(phase_cnn_slice.gr_calls)
     print(json.dumps({"cnn_serving": cnn_timing, "k6_per_forward": dw_forward,
                       "stride2_depthwise_cudnn": dw_stride2, "card": card}),
           flush=True)
@@ -2010,6 +2152,7 @@ def main() -> int:
 
     # 17. the bf16 training slice (counts from 0, read after)
     bf16_counts, bf16_timing = phase_bf16_train(ks, knn_cuda, card)
+    gr_calls.append(_gr_calls(ks, knn_cuda))
     print(json.dumps({"bf16_train": bf16_timing, "card": card}), flush=True)
 
     # 18. bf16 train-step reference on a small input
@@ -2069,15 +2212,29 @@ def main() -> int:
         "bound_ms": widest["bound_ms"], "bound_by": widest["bound_by"],
         "library_ms": widest["library_ms"], "per_forward": dw_forward,
         "shapes": dw_timings})
-    p5 = gr_timings["train_32x2048x40x64_bfloat16_max"]
+    # the gather-reduce priced by call: the main path's launches of each
+    # (want, dtype, shape) at that call's own time and bound; the top-level
+    # numbers are those of the call with the most launches
+    calls = {}
+    for part in gr_calls:
+        for key, n in part.items():
+            calls[key] = calls.get(key, 0) + n
+    by_call = gr_by_call(calls, gr_timings)
+    top = gr_timings[max(calls, key=calls.get)]
+    print(json.dumps({"gather_reduce_by_call": by_call}), flush=True)
+    gr_launches = (serving["gather_reduce"] + train_total["gather_reduce"]
+                   + cnn_serving["gather_reduce"])
+    if sum(calls.values()) != gr_launches:
+        raise AssertionError(f"gather_reduce: {gr_launches} launches but "
+                             f"{calls} by call")
     kernels.append({
         "name": "gather_reduce", "route": "cuda", "source": GR_SOURCE,
-        "replaces": GR_REPLACES,
-        "launches": serving["gather_reduce"] + train_total["gather_reduce"]
-        + cnn_serving["gather_reduce"], "max_abs_err": gr_err,
-        "ms": p5["ms"], "plain_ms": p5["plain_ms"],
-        "bound_ms": p5["bound_ms"], "bound_by": p5["bound_by"],
-        "library_ms": p5["library_ms"], "old_ms": p5["old_ms"],
+        "replaces": GR_REPLACES, "launches": gr_launches,
+        "max_abs_err": gr_err, "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": top["library_ms"], "old_ms": top.get("old_ms"),
+        "by_call": by_call,
+        "gap_ms": sum(r["gap_ms"] for r in by_call.values()),
         "shapes": gr_timings})
     for name, head in stream_heads.items():
         kernels.append({

@@ -118,8 +118,8 @@ def load() -> ctypes.CDLL:
                 "fseg_knn_f32": [vp, vp, vp, i32, i32, i32, i32, vp],
                 "fseg_fps_f32": [vp, vp, vp, i32, i32, i32, i32, vp],
                 "fseg_scatter_rows": [vp, vp, vp, vp, i64, i32, i32, vp],
-                "fseg_scatter_routed": [vp, vp, vp, vp, vp, vp, i64, i32,
-                                        i32, i32, vp],
+                "fseg_scatter_routed": [vp, vp, vp, vp, vp, vp, i32, i32,
+                                        i32, i32, i32, i32, vp],
                 "fseg_scatter_count": [vp, vp, vp, i32, i64, i32, vp],
                 "fseg_graph_transpose": [vp, vp, vp, vp, vp, i32, i64, i32,
                                          vp],
@@ -127,6 +127,7 @@ def load() -> ctypes.CDLL:
                                          i32, vp],
                 "fseg_gather_reduce": [vp, vp, vp, vp, vp, vp, vp, vp, i32,
                                        i32, i32, i32, i32, i32, vp],
+                "fseg_gather_reduce_parts": [i32, i32, i32, i32],
                 "fseg_stream_sum": [vp, vp, vp, i64, i32, i32, i32, vp],
                 "fseg_stream_sum_async": [vp, vp, vp, i64, i32, i32, i32, i32,
                                           i32, vp],

@@ -63,9 +63,27 @@
 // load, hands them out by shuffle, and keeps SCATTER_INFLIGHT payload rows
 // in flight before it adds them, in edge order, so the walk is not one
 // dependent load at a time. Payloads whose rows are not 16-byte multiples
-// (C = 33, say) take one channel a lane. K3 reads three (B, N, C) node
-// fields, K times each, mostly from L2, and writes (B, N, 2C); K4 is bound
-// by atomic throughput on B * n_rows counters.
+// (C = 33, say) take one channel a lane. K4 is bound by atomic throughput
+// on B * n_rows counters.
+//
+// K3 reads three (B, N, C) node fields K times each. Its unique bytes are
+// few (0.03 ms at the train step), but the unstaged kernel (scatter_routed_
+// kernel, one warp a row, one edge at a time) fetched for every edge the
+// source's whole int32 kstar row and its p row from L2: its routing half
+// alone took 0.287 of 0.318 ms, its dense half alone 0.164 (PERF.md, the
+// split). The staged kernel (scatter_routed_staged) takes those re-reads
+// out of L2: a block owns a batch element and a channel slice (8 f32 or 16
+// bf16 channels) and copies the slices of p and s (cp.async) and of kstar
+// as uint8 of all the cloud's nodes into shared memory (144 KB in f32 at N
+// = 2048), then walks its rows' edges over the shared transpose, two lanes
+// a row. Each row's range is loaded a row ahead and its edge ids a batch
+// of 8 ahead (branch-free, clamped); a batch's (node, slot) pairs are
+// shuffled out first and all its p and kstar reads issued together before
+// any add. What bounds it then is the latency of that chain with one block
+// an SM (24 or 20 warps, as the registers allow) and the rows' uneven
+// in-degrees within a warp; shared-memory bandwidth is not (every edge
+// reading one node saves a fifth). Clouds whose slices do not fit, or K >
+// 255 (uint8 slots), keep the unstaged kernel.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -427,6 +445,306 @@ scatter_routed_kernel(const int32_t* __restrict__ kstar,
     }
 }
 
+// ---- K3, staged --------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(gmem), "r"(src_bytes) : "memory");
+}
+
+// 16, 8 or 4 bytes of shared memory at a 32-bit shared-window address
+__device__ __forceinline__ uint4 lds16(unsigned addr) {
+    uint4 v;
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr));
+    return v;
+}
+__device__ __forceinline__ uint2 lds8(unsigned addr) {
+    uint2 v;
+    asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+                 : "=r"(v.x), "=r"(v.y) : "r"(addr));
+    return v;
+}
+__device__ __forceinline__ uint32_t lds4(unsigned addr) {
+    uint32_t v;
+    asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+    return v;
+}
+
+// the VEC = 16 / sizeof(T) payload values of a 16-byte vector as float32
+__device__ __forceinline__ void unpack16(const uint4 q, float* w, float) {
+    w[0] = __uint_as_float(q.x);
+    w[1] = __uint_as_float(q.y);
+    w[2] = __uint_as_float(q.z);
+    w[3] = __uint_as_float(q.w);
+}
+__device__ __forceinline__ void unpack16(const uint4 q, float* w,
+                                         __nv_bfloat16) {
+    const uint32_t u[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {   // bf16 -> f32 is a 16-bit shift
+        w[2 * i] = __uint_as_float(u[i] << 16);
+        w[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    }
+}
+
+// The routing bytes of a lane's VEC channels: 4 (float32) or 8 (bfloat16)
+// uint8 slots, and the lanes among them equal to `slot` as byte masks.
+template <int VEC> struct Route;
+template <> struct Route<4> {
+    uint32_t v;
+    __device__ __forceinline__ void load(unsigned addr) { v = lds4(addr); }
+    __device__ __forceinline__ uint32_t hits(uint32_t rep, int) const {
+        return __vcmpeq4(v, rep);
+    }
+};
+template <> struct Route<8> {
+    uint2 v;
+    __device__ __forceinline__ void load(unsigned addr) { v = lds8(addr); }
+    __device__ __forceinline__ uint32_t hits(uint32_t rep, int half) const {
+        return __vcmpeq4(half ? v.y : v.x, rep);
+    }
+};
+
+// One block: batch element b, the channel slice [c0, c0 + SC) (SC = 8
+// float32 or 16 bfloat16 channels: 32-byte rows of p and s), output rows
+// [r0, r1) of b. The slices of p and s and kstar as uint8 (255 where it is
+// no slot) of all of b's nodes are copied into shared memory once. A row's
+// incoming edges all come from b's nodes, so the walk then reads only
+// shared memory and the edge ids. Two lanes own a row, each a 16-byte
+// vector of VEC channels; they load RS_IDS edge ids each at once
+// (coalesced), turn each into (node, slot) once, hand them out by shuffle,
+// and read the 2 * RS_IDS edges' vectors before adding any, in edge order.
+#define RS_SROW 32                   // bytes of a staged p (and s) row
+#define RS_LPR 2                     // lanes a row: 2 x 16 bytes = RS_SROW
+// warps a block: as many as each dtype's registers allow with one block an
+// SM (float32 payloads take 77 a thread, bfloat16 93)
+#define RS_WARPS(T) (sizeof(T) == 4 ? 24 : 20)
+#define RS_ROWS(T) (RS_WARPS(T) * 32 / RS_LPR)   // rows a block takes at once
+#define RS_IDS 4                     // edge ids a lane loads at once
+#define RS_SMEM_MAX (220 * 1024)     // N * (2 * RS_SROW + SC) at most
+
+// Edge ids order[j + u * RS_LPR + gl] (u < RS_IDS) of a row ending at j1,
+// reads past j1 clamped to its last edge: no branch between the loads.
+__device__ __forceinline__ void fetch_ids(const int32_t* __restrict__ order,
+                                          int j, int j1, int gl, int* v) {
+#pragma unroll
+    for (int u = 0; u < RS_IDS; ++u)
+        v[u] = __ldg(order + min(j + u * RS_LPR + gl, j1 - 1));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(RS_WARPS(T) * 32)
+scatter_routed_staged(const int32_t* __restrict__ kstar,
+                      const T* __restrict__ s, const T* __restrict__ p,
+                      const int32_t* __restrict__ order,
+                      const int32_t* __restrict__ ptr, float* __restrict__ out,
+                      int n, int n_rows, int kk, int c, int nslice, int parts,
+                      bool vec) {
+    constexpr int VEC = 16 / sizeof(T);      // channels a lane
+    constexpr int SC = RS_SROW / sizeof(T);  // channels a slice
+    extern __shared__ __align__(16) unsigned char rs_smem[];
+    T* sp = reinterpret_cast<T*>(rs_smem);
+    T* ss = sp + (size_t)n * SC;
+    uint8_t* sk = reinterpret_cast<uint8_t*>(ss + (size_t)n * SC);
+    const int part = blockIdx.x % parts;
+    const int cs = (blockIdx.x / parts) % nslice;
+    const int b = blockIdx.x / (parts * nslice);
+    const int c0 = cs * SC;
+    const long long node0 = (long long)b * n;   // b's first flat node
+
+    for (int q = threadIdx.x; q < n * RS_LPR; q += RS_WARPS(T) * 32) {
+        const int nd = q / RS_LPR, off = (q % RS_LPR) * VEC, ch = c0 + off;
+        const long long g = (node0 + nd) * c + ch;
+        T* dp = sp + nd * SC + off;
+        T* ds = ss + nd * SC + off;
+        if (vec) {
+            cp_async16(dp, ch < c ? p + g : p, ch < c ? 16 : 0);
+            cp_async16(ds, ch < c ? s + g : s, ch < c ? 16 : 0);
+        } else {
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) {
+                dp[i] = ch + i < c ? p[g + i] : T(0.0f);
+                ds[i] = ch + i < c ? s[g + i] : T(0.0f);
+            }
+        }
+    }
+    for (int q = threadIdx.x; q < n * SC; q += RS_WARPS(T) * 32) {
+        const int nd = q / SC, ch = c0 + q % SC;
+        const int v = ch < c ? kstar[(node0 + nd) * c + ch] : -1;
+        sk[q] = v >= 0 && v < kk ? (uint8_t)v : (uint8_t)255;
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+
+    const int lane = threadIdx.x % 32, gl = lane % RS_LPR;
+    const unsigned gmask = ((1u << RS_LPR) - 1) << (lane - gl);
+    const int off = gl * VEC, c1 = c0 + off;   // the lane's channels
+    // the lane's p vector and kstar bytes of node 0, shared window
+    const unsigned p_s = (unsigned)__cvta_generic_to_shared(sp) + gl * 16;
+    const unsigned k_s = (unsigned)__cvta_generic_to_shared(sk) + off;
+    const int fe0 = (int)(node0 * kk);         // b's first edge id
+    const float inv_k = 1.0f / (float)kk;
+    const int per = (n_rows + parts - 1) / parts;
+    const int r0 = part * per, r1 = min(n_rows, r0 + per);
+    const int32_t* bptr = ptr + (long long)b * n_rows;
+    // the next row's range is loaded a row ahead, the next RS_LPR *
+    // RS_IDS edge ids a batch ahead (clamped reads, no branch), so that
+    // their latency hides behind the current batch
+    int rr = r0 + threadIdx.x / RS_LPR;
+    int ja = 0, jb = 0;
+    if (rr < r1) {
+        ja = bptr[rr];
+        jb = bptr[rr + 1];
+    }
+    for (; rr < r1; rr += RS_ROWS(T)) {
+        const long long row = (long long)b * n_rows + rr;
+        const int j0 = ja, j1 = jb;
+        if (rr + RS_ROWS(T) < r1) {
+            ja = bptr[rr + RS_ROWS(T)];
+            jb = bptr[rr + RS_ROWS(T) + 1];
+        }
+        float as[VEC], ap[VEC];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) as[i] = ap[i] = 0.0f;
+        int ids[RS_IDS];
+        if (j0 < j1) fetch_ids(order, j0, j1, gl, ids);
+        for (int base = j0; base < j1; base += RS_LPR * RS_IDS) {
+            const int m = min(RS_LPR * RS_IDS, j1 - base);
+            int raw[RS_IDS];
+#pragma unroll
+            for (int u = 0; u < RS_IDS; ++u) raw[u] = ids[u];
+            if (base + RS_LPR * RS_IDS < j1)
+                fetch_ids(order, base + RS_LPR * RS_IDS, j1, gl, ids);
+            // edge id -> node * 256 + slot: the quotient by kk from a float
+            // product (the local id is below 2^20), corrected by one
+            uint32_t mine[RS_IDS];
+#pragma unroll
+            for (int u = 0; u < RS_IDS; ++u) {
+                const int fl = raw[u] - fe0;
+                int nd = __float2int_rz(__int2float_rn(fl) * inv_k);
+                int sl = fl - nd * kk;
+                if (sl < 0) {
+                    --nd;
+                    sl += kk;
+                } else if (sl >= kk) {
+                    ++nd;
+                    sl -= kk;
+                }
+                mine[u] = (uint32_t)nd << 8 | (uint32_t)sl;
+            }
+            // all the batch's (node, slot) first, then all its reads (an
+            // edge past m reads edge 0's node and is not added): the reads
+            // go out together instead of one shuffle and load at a time
+            uint32_t ns[RS_LPR * RS_IDS];
+#pragma unroll
+            for (int e = 0; e < RS_LPR * RS_IDS; ++e)
+                ns[e] = __shfl_sync(gmask, mine[e / RS_LPR], e % RS_LPR,
+                                    RS_LPR);
+            uint4 pv[RS_LPR * RS_IDS];
+            Route<VEC> kb[RS_LPR * RS_IDS];
+#pragma unroll
+            for (int e = 0; e < RS_LPR * RS_IDS; ++e) {
+                const int nd = (int)((e < m ? ns[e] : ns[0]) >> 8);
+                pv[e] = lds16(p_s + nd * RS_SROW);
+                kb[e].load(k_s + nd * SC);
+            }
+            asm volatile("" ::: "memory");   // the reads stay ahead
+#pragma unroll
+            for (int e = 0; e < RS_LPR * RS_IDS; ++e) {
+                if (e >= m) break;
+                float w[VEC];
+                unpack16(pv[e], w, T());
+#pragma unroll
+                for (int i = 0; i < VEC; ++i) ap[i] = __fadd_rn(ap[i], w[i]);
+                const uint32_t rep = (ns[e] & 255u) * 0x01010101u;
+                const int nd = (int)(ns[e] >> 8);
+#pragma unroll
+                for (int h = 0; h < VEC / 4; ++h) {
+                    const uint32_t hit = kb[e].hits(rep, h);
+                    if (hit == 0) continue;
+#pragma unroll
+                    for (int i = 0; i < 4; ++i)
+                        if (hit >> (8 * i) & 1u)
+                            as[4 * h + i] = __fadd_rn(
+                                as[4 * h + i],
+                                to_f32<T>(ss[nd * SC + off + 4 * h + i]));
+                }
+            }
+        }
+        if (c1 >= c) continue;
+        float* dst = out + row * 2LL * c;
+        if (c % 4 == 0 && c1 + VEC <= c) {   // whole 16-byte vectors
+#pragma unroll
+            for (int i = 0; i < VEC; i += 4) {
+                *reinterpret_cast<float4*>(dst + c1 + i) =
+                    make_float4(as[i], as[i + 1], as[i + 2], as[i + 3]);
+                *reinterpret_cast<float4*>(dst + c + c1 + i) =
+                    make_float4(ap[i], ap[i + 1], ap[i + 2], ap[i + 3]);
+            }
+        } else {
+#pragma unroll
+            for (int i = 0; i < VEC; ++i)
+                if (c1 + i < c) {
+                    dst[c1 + i] = as[i];
+                    dst[c + c1 + i] = ap[i];
+                }
+        }
+    }
+}
+
+// bytes of shared memory the staged K3 needs for clouds of n nodes
+template <typename T>
+static long long routed_smem(int n) {
+    return (long long)n * (2 * RS_SROW + RS_SROW / (int)sizeof(T));
+}
+
+template <typename T>
+static int launch_routed_staged(const int32_t* kstar, const void* s,
+                                const void* p, const int32_t* order,
+                                const int32_t* ptr, float* out, int b, int n,
+                                int n_rows, int kk, int c, cudaStream_t st) {
+    constexpr int SC = RS_SROW / sizeof(T);
+    const int smem = (int)routed_smem<T>(n);
+    // the most this kernel takes, allowed once a device; the SMs, once
+    static unsigned long long allowed = 0;   // a bit a device
+    static int sm_counts[64] = {0};
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess && (dev >= 64 || !(allowed >> dev & 1ull))) {
+        err = cudaFuncSetAttribute(scatter_routed_staged<T>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   RS_SMEM_MAX);
+        if (err == cudaSuccess && dev < 64) allowed |= 1ull << dev;
+    }
+    if (err == cudaSuccess && dev < 64 && sm_counts[dev] > 0) {
+        sms = sm_counts[dev];
+    } else if (err == cudaSuccess) {
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+        if (err == cudaSuccess && dev < 64) sm_counts[dev] = sms;
+    }
+    if (err != cudaSuccess) return (int)err;
+    const int nslice = (c + SC - 1) / SC;
+    // one block an SM fits: where batch x slices leave SMs idle, each block
+    // also takes a share of the rows, at least one pass of its lanes
+    const long long groups = (long long)b * nslice;
+    long long parts = sms / groups;
+    const long long most = (n_rows + RS_ROWS(T) - 1) / RS_ROWS(T);
+    if (parts > most) parts = most;
+    if (parts < 1) parts = 1;
+    if (groups * parts > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const bool vec = c % (16 / (int)sizeof(T)) == 0 &&
+                     ((uintptr_t)s | (uintptr_t)p) % 16 == 0;
+    scatter_routed_staged<T><<<(unsigned)(groups * parts), RS_WARPS(T) * 32,
+                               smem, st>>>(
+        kstar, (const T*)s, (const T*)p, order, ptr, out, n, n_rows, kk, c,
+        nslice, (int)parts, vec);
+    return (int)cudaGetLastError();
+}
+
 __global__ void __launch_bounds__(COUNT_THREADS)
 count_kernel(const int32_t* __restrict__ idx, int32_t* __restrict__ cnt,
              long long total, long long e, int n_rows) {
@@ -596,19 +914,32 @@ extern "C" int fseg_scatter_rows(const void* g, const void* order,
     return (int)cudaGetLastError();
 }
 
-// K3. kstar: (nodes, c) int32; s, p: (nodes, c) float32 or bfloat16; edge
-// ids in `order` (int32, as for K2) are node * kk + slot; out: (rows, 2c)
-// float32.
+// K3. kstar: (b * n, c) int32; s, p: (b * n, c) float32 or bfloat16; edge
+// ids in `order` (int32, as for K2) are node * kk + slot, node = b' * n +
+// n' the flat source, and every edge into a row of batch element b' comes
+// from one of b''s nodes; ptr: (b * n_rows + 1); out: (b * n_rows, 2c)
+// float32. Clouds whose slices fit in shared memory, with kk <= 255, take
+// the staged kernel; the others the one that reads device memory.
 extern "C" int fseg_scatter_routed(const void* kstar, const void* s,
                                    const void* p, const void* order,
-                                   const void* ptr, void* out, long long rows,
-                                   int kk, int c, int bf16, void* stream) {
-    if (bad_rows(rows) || kk < 1 || c < 1 || c > SCATTER_MAX_C)
+                                   const void* ptr, void* out, int b, int n,
+                                   int n_rows, int kk, int c, int bf16,
+                                   void* stream) {
+    const long long rows = (long long)b * n_rows;
+    if (b < 1 || n < 1 || bad_rows(rows) || kk < 1 || c < 1 ||
+        c > SCATTER_MAX_C || (long long)b * n * kk >= (1LL << 31))
         return (int)cudaErrorInvalidValue;
     const int32_t* kp = (const int32_t*)kstar;
     const int32_t* op = (const int32_t*)order;
     const int32_t* pp = (const int32_t*)ptr;
     cudaStream_t st = (cudaStream_t)stream;
+    if (kk <= 255 && bf16 &&
+        routed_smem<__nv_bfloat16>(n) <= RS_SMEM_MAX)
+        return launch_routed_staged<__nv_bfloat16>(
+            kp, s, p, op, pp, (float*)out, b, n, n_rows, kk, c, st);
+    if (kk <= 255 && !bf16 && routed_smem<float>(n) <= RS_SMEM_MAX)
+        return launch_routed_staged<float>(kp, s, p, op, pp, (float*)out, b,
+                                           n, n_rows, kk, c, st);
     if (bf16)
         launch_routed<__nv_bfloat16>(kp, s, p, op, pp, (float*)out, rows, kk, c, st);
     else

@@ -27,7 +27,11 @@ does (`flat_rows`). ops/edge.py's gather uses the same rows.
 `gather_reduce` launches the kernel for a CUDA tensor and runs
 `gather_reduce_plain` for a CPU tensor; there is no fallback from one to
 the other. Both compare and round identically (no FMA contraction on
-either side), so they agree bit for bit in every output. There is no
+either side), so they agree bit for bit in every output. Clouds of up to
+`STAGED_MAX_N` points whose clouds x channel slices keep the SMs busy
+take the kernel that stages a channel slice of the cloud in shared
+memory (`staged_parts`), the others the kernel that reads device memory;
+both add in k order. There is no
 gradient: the fused EdgeConv's backward is K3 + K4 (ops/fused_edge.py), and
 the wrapper raises when autograd would record through it. Why the kernel is
 shaped as it is, and what bounds it: see the head of csrc/gather_reduce.cu.
@@ -39,6 +43,10 @@ import ctypes
 import torch
 
 MAX_C = 256   # csrc/gather_reduce.cu GR_MAX_C
+# csrc/gather_reduce.cu GS_MAX_N: clouds of up to this many points take the
+# kernel that stages a channel slice of the cloud in shared memory; larger
+# ones the kernel that reads every neighbour row from device memory
+STAGED_MAX_N = 3200
 WANTS = ("max", "extrema", "all")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -125,7 +133,9 @@ def gather_reduce(a: torch.Tensor, idx: torch.Tensor,
                   want: str = "all") -> tuple:
     """The gather-reduce on the inputs' device: the CUDA kernel for CUDA
     tensors, `gather_reduce_plain` for CPU tensors. Each kernel launch adds
-    one to ``gather_reduce.launches``.
+    one to ``gather_reduce.launches`` and to ``gather_reduce.calls`` under
+    its call, "{want}_{dtype}_{B}x{N}x{K}x{C}" (a shape's time prices only
+    its own launches).
 
     :param a: (B, N, C) float32 or bfloat16, contiguous, C <= 256
     :param idx: (B, N, K) int32, contiguous
@@ -164,7 +174,30 @@ def gather_reduce(a: torch.Tensor, idx: torch.Tensor,
         raise RuntimeError(f"gather_reduce kernel launch failed: "
                            f"cudaError_t {err}")
     gather_reduce.launches += 1
+    key = call_key(a, idx, want)
+    gather_reduce.calls[key] = gather_reduce.calls.get(key, 0) + 1
     return {0: (mx,), 1: (mx, mn), 2: (mx, mn, am, amn, s1, s2)}[mode]
 
 
+def staged_parts(b: int, n: int, c: int, dtype: torch.dtype) -> int:
+    """On the card: the blocks each cloud slice of a (b, n, c) table is
+    split into by the kernel that stages the slice in shared memory, 0
+    where the kernel that reads device memory runs instead (csrc/
+    gather_reduce.cu fseg_gather_reduce_parts). Raises without a card."""
+    from ._build import load
+    parts = load().fseg_gather_reduce_parts(b, n, c, _DTYPES[dtype])
+    if parts < 0:
+        raise RuntimeError(f"gather_reduce: device query failed: "
+                           f"cudaError_t {-parts}")
+    return parts
+
+
+def call_key(a: torch.Tensor, idx: torch.Tensor, want: str) -> str:
+    """The name a call's launches are counted under in
+    ``gather_reduce.calls``: "{want}_{dtype}_{B}x{N}x{K}x{C}"."""
+    b, n, c = a.shape
+    return f"{want}_{str(a.dtype)[6:]}_{b}x{n}x{idx.shape[-1]}x{c}"
+
+
 gather_reduce.launches = 0
+gather_reduce.calls = {}

@@ -23,7 +23,10 @@ ascending edge order, one thread per output element, so they are
 deterministic. A caller that scatters over one graph several times (the
 DGCNN train step: EdgeConv_0's gather backward, the fused EdgeConvs' K3)
 builds the transpose once and passes it as `transposed`; without it each
-wrapper builds its own. The plain versions are `index_add_` (K2, K3 after
+wrapper builds its own. K3 reads its node fields from shared memory
+where a cloud's channel slices fit (`ROUTED_STAGED_MAX_N`, K <= 255) and
+from device memory otherwise; both kernels sum in the same order, so
+they agree bit for bit. The plain versions are `index_add_` (K2, K3 after
 materialising the routed payload) and `bincount` (K4); on the card
 `index_add_` sums in another order, so kernel and plain version agree
 within float32 rounding, not bit for bit (K4 is exact on both).
@@ -35,6 +38,12 @@ import ctypes
 import torch
 
 MAX_C = 256  # csrc/scatter.cu SCATTER_MAX_C
+# csrc/scatter.cu: K3 stages a channel slice of a cloud's p, s and kstar in
+# shared memory where n * (64 + SC) <= RS_SMEM_MAX (SC = 8 float32 or 16
+# bfloat16 channels) and K <= 255; the largest such n by payload dtype
+ROUTED_STAGED_MAX_N = {torch.float32: 220 * 1024 // 72,
+                       torch.bfloat16: 220 * 1024 // 80}
+ROUTED_STAGED_MAX_K = 255
 _PAYLOAD = (torch.float32, torch.bfloat16)
 
 
@@ -270,7 +279,7 @@ def scatter_routed(idx: torch.Tensor, kstar: torch.Tensor, s: torch.Tensor,
     with torch.cuda.device(s.device):
         _launch(what, load().fseg_scatter_routed, kstar.data_ptr(),
                 s.data_ptr(), p.data_ptr(), order.data_ptr(), ptr.data_ptr(),
-                out.data_ptr(), b * n_rows, kk, c,
+                out.data_ptr(), b, n, n_rows, kk, c,
                 int(s.dtype == torch.bfloat16), _stream(s.device))
     scatter_routed.launches += 1
     return out

@@ -1,29 +1,39 @@
-"""Design sweeps and splits of K6 (the 3x3x3 depthwise convolution) and of
-K2's graph transpose on the card, from scratch builds of edited sources.
-Run from the repository root:
+"""Design sweeps and splits of K6 (the 3x3x3 depthwise convolution), of
+K2's graph transpose, of the fused EdgeConv gather-reduce and of K3 on the
+card, from scratch builds of edited sources. Run from the repository root:
 
     python fissure_segmentation_tpu_torch/prof/design_sweep.py \
-        [--parts split,dw,tr] [--build DIR]
+        [--parts split,dw,tr,gr,grb,k3] [--build DIR]
 
-Each variant is a copy of kernels/csrc/depthwise.cu or scatter.cu with one
-constant or launch shape edited, built alone by nvcc into DIR (default: a
-temporary directory) and called through ctypes; the package keeps no knob
-for any of them. Every variant is checked against the plain version first
-(K6 bit-equal, the transpose equal). Parts:
+Each variant is a copy of kernels/csrc/depthwise.cu, scatter.cu or
+gather_reduce.cu with one constant, launch shape or path edited, built
+alone by nvcc into DIR (default: a temporary directory) and called through
+ctypes; the package keeps no knob for any of them. Every variant that
+computes the kernel's function is checked first (K6 and the gather-reduce
+bit-equal to plain, the transpose equal, K3 equal to the package's kernel).
+Parts:
 
-  split  what holds the simple K6 kernel back (`depthwise_simple`, the one
-         the CNN ran before the tiled kernel, now the path of channel rows
-         that are not 16-byte multiples), forced onto the path shapes: as
-         it is, without its loads (taps made from registers), with loads
-         and adds but no products, and a plain copy of x to y; and K2's
-         wrapper at the train step's (32, 81 920, 64) split into the plain
-         transpose's parts (the flat targets, the stable sort, the
-         searchsorted), the transpose kernel and the row-sum kernel;
+  split  what holds a kernel back, at the path shapes: the simple K6 kernel
+         (`depthwise_simple`, now the path of channel rows that are not
+         16-byte multiples) as it is, without its loads, with loads and
+         adds but no products, and a plain copy of x to y; K2's wrapper at
+         (32, 81 920, 64) by its parts (the plain transpose's flat targets,
+         stable sort and searchsorted, the transpose kernel, the row sums);
+         the gather-reduce, staged and the unstaged kernel forced, as it is and
+         with its loads alone, and a copy of its bytes through L2; K3,
+         staged and the unstaged kernel forced, as it is, its dense half alone
+         and its routing half alone;
   dw     the tiled K6 kernel's launch shape (slice, tile, run, stages, the
          D-split target) at the CNN's seven stride-1 layers and bf16;
   tr     the transpose's constants (chunk, warps a block, steps loaded
          together, counters in shared or device memory, lanes matched by
-         ballots instead of __match_any_sync), each stage timed.
+         ballots instead of __match_any_sync), each stage timed;
+  gr     the staged gather-reduce's warps a block, unroll, NaN-free
+         comparisons, and every slot reading one row (no bank conflicts);
+  grb    the staged and the unstaged gather-reduce by batch size, f32 at (B,
+         2048, 40, 64), B = 5 ... 32 (the source of `staged_parts`' model);
+  k3     the staged K3's warps a block, edge ids a lane, and every edge
+         reading one node.
 
 Prints one JSON line ({part: {variant: {shape: median ms}}}), then the
 card's name and power limit. Raises without a card or nvcc.
@@ -48,6 +58,7 @@ from fissure_segmentation_tpu_torch.kernels import _build  # noqa: E402
 from fissure_segmentation_tpu_torch.kernels import scatter as ks  # noqa: E402
 from fissure_segmentation_tpu_torch.kernels.depthwise import (  # noqa: E402
     depthwise_conv3_plain)
+from fissure_segmentation_tpu_torch.kernels.knn import knn_cuda  # noqa: E402
 from fissure_segmentation_tpu_torch.prof.probes import median_ms  # noqa: E402
 
 CSRC = os.path.join(os.path.dirname(HERE), "kernels", "csrc")
@@ -81,14 +92,66 @@ _COPY = {"    if (dtype == 0)\n        depthwise_simple<float>":
          "(long long)blockDim.x + threadIdx.x; i < n; i += (long long)"
          "gridDim.x * blockDim.x) y[i] = x[i];\n}\n\n// ---- the tiled kernel"}
 
+# the gather-reduce's split: the staged kernel and the unstaged kernel (kept as
+# the path of clouds whose slice does not fit in shared memory) forced onto
+# the path shapes, each as it is and with its loads alone (each value
+# folded into the max by one XOR instead of the reductions); and a copy
+# that reads the table K times through L2 and writes the outputs' bytes
+_GR_SIMPLE = {"    const int parts = fseg_gather_reduce_parts(b, n, c, bf16);":
+              "    const int parts = 0 * fseg_gather_reduce_parts(b, n, c, "
+              "bf16);"}
+# the staged kernel wherever the slice fits, whatever the split
+_GR_STAGED = {"    return best <= GS_MAX_PARTS ? (int)best : 0;":
+              "    return (int)best;"}
+
+
+def _gr_loads_only(var: str, indent: int) -> dict:
+    line = f"{' ' * indent}const float x = {var}[u][i];\n"
+    indent = line[:len(line) - len(line.lstrip())]
+    return {line: f"{line}{indent}if (true) {{\n{indent}    mx[i] = "
+                  f"__int_as_float(__float_as_int(mx[i]) ^ __float_as_int(x))"
+                  f";\n{indent}    continue;\n{indent}}}\n"}
+
+
+# K3's split: the staged kernel and the unstaged kernel (kept as the path of
+# clouds whose slices do not fit, or K > 255) forced onto the path shape,
+# each as it is, with its dense half alone (no routing) and with its
+# routing half alone (kstar and s, no p)
+_K3_SIMPLE = {"    if (kk <= 255 && bf16 &&": "    if (false && bf16 &&",
+              "    if (kk <= 255 && !bf16 &&": "    if (false && !bf16 &&"}
+_K3_DENSE_ONLY = {
+    "                    const uint32_t hit = kb[e].hits(rep, h);\n":
+    "                    const uint32_t hit = 0u * rep;\n",
+    "                if (kstar[base + ch] == slot)\n                    as[i] = "
+    "__fadd_rn(as[i], to_f32<T>(s[base + ch]));\n": ""}
+_K3_ROUTING_ONLY = {
+    "                for (int i = 0; i < VEC; ++i) ap[i] = __fadd_rn(ap[i], "
+    "w[i]);\n": "",
+    "                ap[i] = __fadd_rn(ap[i], to_f32<T>(p[base + ch]));\n": ""}
+
 VARIANTS = {
     "split": {
-        "simple": _SIMPLE_ONLY,
-        "simple_no_loads": {**_SIMPLE_ONLY, **_NO_LOADS},
-        "simple_loads_adds_only": {**_SIMPLE_ONLY, **_NO_PRODUCTS},
-        "copy_x_to_y": {**_SIMPLE_ONLY, **_COPY},
+        "simple": ("depthwise.cu", _SIMPLE_ONLY),
+        "simple_no_loads": ("depthwise.cu", {**_SIMPLE_ONLY, **_NO_LOADS}),
+        "simple_loads_adds_only": ("depthwise.cu",
+                                   {**_SIMPLE_ONLY, **_NO_PRODUCTS}),
+        "copy_x_to_y": ("depthwise.cu", {**_SIMPLE_ONLY, **_COPY}),
+        "gr": ("gather_reduce.cu", _GR_STAGED),
+        "gr_loads_only": ("gather_reduce.cu",
+                          {**_GR_STAGED, **_gr_loads_only("w", 16)}),
+        "gr_simple": ("gather_reduce.cu", _GR_SIMPLE),
+        "gr_simple_loads_only": ("gather_reduce.cu",
+                                 {**_GR_SIMPLE, **_gr_loads_only("v", 20)}),
+        "k3": ("scatter.cu", {}),
+        "k3_dense_only": ("scatter.cu", _K3_DENSE_ONLY),
+        "k3_routing_only": ("scatter.cu", _K3_ROUTING_ONLY),
+        "k3_simple": ("scatter.cu", _K3_SIMPLE),
+        "k3_simple_dense_only": ("scatter.cu",
+                                 {**_K3_SIMPLE, **_K3_DENSE_ONLY}),
+        "k3_simple_routing_only": ("scatter.cu",
+                                   {**_K3_SIMPLE, **_K3_ROUTING_ONLY}),
     },
-    "dw": {
+    "dw": {name: ("depthwise.cu", edits) for name, edits in {
         "default": {},
         "stages_2": _tiles("32, 8, 16, 4, 2"),
         "stages_4": _tiles("32, 8, 16, 4, 4"),
@@ -100,8 +163,37 @@ VARIANTS = {
         "no_d_split": {SPLIT_TARGET: "#define DW_TARGET_BLOCKS 1"},
         "d_split_528": {SPLIT_TARGET: "#define DW_TARGET_BLOCKS 528"},
         "d_split_2112": {SPLIT_TARGET: "#define DW_TARGET_BLOCKS 2112"},
-    },
-    "tr": {
+    }.items()},
+    "gr": {name: ("gather_reduce.cu", {**_GR_STAGED, **edits})
+           for name, edits in {
+        "default": {},
+        "warps_16": {"    return WANT == 0 || (WANT == 1 && sizeof(T) == 4) ? 32":
+                     "    return 16;\n    return WANT == 0 || (WANT == 1 && "
+                     "sizeof(T) == 4) ? 32"},
+        # the comparisons that propagate NaN on every step
+        "nan_checks": {"        if (act && !far && !nan)\n":
+                       "        if (act && !far && !nan && false)\n"},
+        "unroll_8": {"#define GS_UNROLL 4 ": "#define GS_UNROLL 8 "},
+        # every slot reads row 0: shared-memory reads without conflicts
+        "abl_one_row": {"            const int r = rs[u];\n":
+                        "            const int r = 0 * rs[u];\n"},
+    }.items()},
+    # the staged and the unstaged gather-reduce by batch size (clouds x slices
+    # against the SMs), f32 "extrema" and "all" at (B, 2048, 40, 64)
+    "grb": {"staged": ("gather_reduce.cu", _GR_STAGED),
+            "simple": ("gather_reduce.cu", _GR_SIMPLE)},
+    "k3": {name: ("scatter.cu", edits) for name, edits in {
+        "default": {},
+        "warps_16": {"#define RS_WARPS(T) (sizeof(T) == 4 ? 24 : 20)":
+                     "#define RS_WARPS(T) 16"},
+        "ids_2": {"#define RS_IDS 4 ": "#define RS_IDS 2 "},
+        "ids_8": {"#define RS_IDS 4 ": "#define RS_IDS 8 "},
+        # every edge reads node 0: shared-memory reads without conflicts
+        "abl_one_node": {
+            "                const int nd = (int)((e < m ? ns[e] : ns[0]) >> 8);\n":
+            "                const int nd = 0 * (int)ns[e];\n"},
+    }.items()},
+    "tr": {name: ("scatter.cu", edits) for name, edits in {
         "default": {},
         "warps_2": {"#define TR_WARPS 4 ": "#define TR_WARPS 2 "},
         "warps_8": {"#define TR_WARPS 4 ": "#define TR_WARPS 8 "},
@@ -117,8 +209,33 @@ VARIANTS = {
             " bit ? on : ~on;\n            }"},
         "counters_in_device_memory": {"#define TR_SMEM (200 * 1024)":
                                       "#define TR_SMEM 0"},
-    },
+    }.items()},
 }
+
+# a copy of the gather-reduce's bytes: the table read `reps` times through
+# L2 (16-byte loads, coalesced), then `out16` 16-byte vectors written
+_GR_COPY = r"""
+__global__ void gr_copy_kernel(const uint4* __restrict__ a,
+                               uint4* __restrict__ o, long long n16, int reps,
+                               long long out16) {
+    const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    const long long st = (long long)gridDim.x * blockDim.x;
+    uint4 acc = make_uint4(0, 0, 0, 0);
+    for (int r = 0; r < reps; ++r)
+        for (long long i = t0; i < n16; i += st) {
+            const uint4 v = __ldcg(a + i);
+            acc.x ^= v.x; acc.y ^= v.y; acc.z ^= v.z; acc.w ^= v.w;
+        }
+    for (long long i = t0; i < out16; i += st) o[i] = acc;
+}
+
+extern "C" int gr_copy(const void* a, void* o, long long n16, int reps,
+                       long long out16, void* stream) {
+    gr_copy_kernel<<<132 * 8, 256, 0, (cudaStream_t)stream>>>(
+        (const uint4*)a, (uint4*)o, n16, reps, out16);
+    return (int)cudaGetLastError();
+}
+"""
 
 # the transpose once more, with an event between its launches
 _STAGES = r"""
@@ -191,8 +308,8 @@ def build(variants: dict, out_dir: str) -> dict:
             if old not in src:
                 raise ValueError(f"{name}: {old!r} not in {source}")
             src = src.replace(old, new)
-        if source == "scatter.cu":
-            src += _STAGES
+        src += {"scatter.cu": _STAGES, "gather_reduce.cu": _GR_COPY}.get(
+            source, "")
         path = os.path.join(out_dir, f"{name}.cu")
         with open(path, "w") as f:
             f.write(src)
@@ -287,9 +404,124 @@ def split_k2(idx, n, c) -> dict:
     return out
 
 
+def gr_cases(knn_cuda) -> list:
+    """The gather-reduce's path calls: (tag, a, idx, want) — the train
+    step's "all" in f32 and bf16 and P5's bf16 "max" on K1's graph at (32,
+    2048, 40, 64), the served ensemble group's f32 "extrema" at (5, 2048,
+    40, 64)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = []
+    for b, calls in ((32, (("float32", "all"), ("bfloat16", "all"),
+                           ("bfloat16", "max"))),
+                     (5, (("float32", "extrema"),))):
+        n, k, c = STEP[1:]
+        pts = torch.rand((b, n, 3), generator=gen, device=dev) * 2 - 1
+        idx = knn_cuda(pts, k)[0].contiguous()
+        a = torch.randn((b, n, c), generator=gen, device=dev)
+        for dt, want in calls:
+            out.append((f"{b}x{n}x{k}x{c}_{dt}_{want}",
+                        a.to(getattr(torch, dt)), idx, want))
+    return out
+
+
+def gr_batch_cases() -> list:
+    """(tag, a, idx, want) at (B, 2048, 40, 64) f32 for B = 5 ... 32, random
+    graphs: where the staged kernel's blocks split the points of a cloud
+    slice (B x 4 slices < the SMs) against where they do not."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    n, k, c = STEP[1:]
+    out = []
+    for b in (5, 8, 11, 16, 22, 32):
+        idx = torch.randint(0, n, (b, n, k), generator=gen, device=dev,
+                            dtype=torch.int32)
+        a = torch.randn((b, n, c), generator=gen, device=dev)
+        out += [(f"{b}x{n}x{k}x{c}_float32_{want}", a, idx, want)
+                for want in ("extrema", "all")]
+    return out
+
+
+def time_gr(lib, cases, check: bool, copy: bool = False) -> dict:
+    """Each case through the library's fseg_gather_reduce (checked equal to
+    the plain version where `check`), and, where `copy`, the copy of the
+    same bytes."""
+    from fissure_segmentation_tpu_torch.kernels.gather_reduce import (
+        WANTS, gather_reduce_plain)
+    lib.fseg_gather_reduce.argtypes = [VP] * 8 + [I32] * 6 + [VP]
+    lib.gr_copy.argtypes = [VP, VP, I64, I32, I64, VP]
+    row = {}
+    for tag, a, idx, want in cases:
+        b, n, c = a.shape
+        k = idx.shape[-1]
+        mode = WANTS.index(want)
+        outs = [torch.empty_like(a)] + [torch.empty_like(a)] * (mode >= 1)
+        if mode == 2:
+            outs += [torch.empty((b, n, c), dtype=torch.int32,
+                                 device=a.device) for _ in range(2)]
+            outs += [torch.empty((b, n, c), device=a.device)
+                     for _ in range(2)]
+        ptrs = [t.data_ptr() for t in outs] + [None] * (6 - len(outs))
+
+        def fn():
+            return lib.fseg_gather_reduce(
+                a.data_ptr(), idx.data_ptr(), *ptrs, b, n, k, c, mode,
+                int(a.dtype == torch.bfloat16), _stream())
+
+        if fn() != 0:
+            raise RuntimeError(f"{tag}: launch failed")
+        torch.cuda.synchronize()
+        if check and not all(torch.equal(x, y) for x, y in zip(
+                outs, gather_reduce_plain(a, idx, want))):
+            raise AssertionError(f"gather_reduce {tag}: differs from plain")
+        row[tag] = median_ms(fn)
+        if not copy:
+            continue
+        out_bytes = sum(t.numel() * t.element_size() for t in outs)
+        sink = torch.empty(out_bytes // 16 * 16, dtype=torch.uint8,
+                           device=a.device)
+        row[f"{tag}_copy"] = median_ms(lambda: lib.gr_copy(
+            a.data_ptr(), sink.data_ptr(), a.numel() * a.element_size() // 16,
+            k, out_bytes // 16, _stream()))
+    return row
+
+
+def time_k3(lib, idx, check: bool) -> dict:
+    """K3 through the library's fseg_scatter_routed at the train step, f32
+    and bf16 payloads, given the step's shared transpose (checked equal to
+    the package's kernel where `check`)."""
+    lib.fseg_scatter_routed.argtypes = [VP] * 6 + [I32] * 6 + [VP]
+    b, n, k, c = STEP
+    idx3 = idx.reshape(b, n, k)
+    order, ptr = ks.transpose(idx, n)
+    gen = torch.Generator(device=idx.device).manual_seed(3)
+    kstar = torch.randint(0, k, (b, n, c), generator=gen, device=idx.device,
+                          dtype=torch.int32)
+    row = {}
+    for dt in (torch.float32, torch.bfloat16):
+        s = torch.randn((b, n, c), generator=gen, device=idx.device).to(dt)
+        p = torch.randn((b, n, c), generator=gen, device=idx.device).to(dt)
+        out = torch.empty((b, n, 2 * c), device=idx.device)
+
+        def fn():
+            return lib.fseg_scatter_routed(
+                kstar.data_ptr(), s.data_ptr(), p.data_ptr(),
+                order.data_ptr(), ptr.data_ptr(), out.data_ptr(), b, n, n, k,
+                c, int(dt == torch.bfloat16), _stream())
+
+        if fn() != 0:
+            raise RuntimeError("K3: launch failed")
+        torch.cuda.synchronize()
+        if check and not torch.equal(
+                out, ks.scatter_routed(idx3, kstar, s, p, n, (order, ptr))):
+            raise AssertionError("K3 differs from the package's kernel")
+        row[f"K3_{b}x{n}x{k}x{c}_{str(dt)[6:]}"] = median_ms(fn)
+    return row
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parts", default="split,dw,tr")
+    ap.add_argument("--parts", default="split,dw,tr,gr,grb,k3")
     ap.add_argument("--build", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -297,9 +529,8 @@ def main() -> None:
     parts = args.parts.split(",")
     out_dir = args.build or tempfile.mkdtemp()
     os.makedirs(out_dir, exist_ok=True)
-    todo = {f"{part}_{name}": ("scatter.cu" if part == "tr"
-                               else "depthwise.cu", edits)
-            for part in parts for name, edits in VARIANTS[part].items()}
+    todo = {f"{part}_{name}": variant for part in parts
+            for name, variant in VARIANTS[part].items()}
     libs = build(todo, out_dir)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -313,11 +544,25 @@ def main() -> None:
     b, n, k, c = STEP
     idx = torch.randint(0, n, (b, n * k), generator=gen, device=dev,
                         dtype=torch.int32)
+    grs = gr_cases(knn_cuda) if {"split", "gr"} & set(parts) else []
     res = {part: {} for part in parts}
     for full, lib in libs.items():
         part, name = full.split("_", 1)
+        source = VARIANTS[part][name][0]
+        # the split's ablations and the abl_ variants compute something
+        # else: not checked
+        whole = (part != "split" or name in ("gr", "gr_simple", "k3",
+                                             "k3_simple")) \
+            and not name.startswith("abl_")
         if part == "tr":
             res[part][name] = time_transpose(lib, idx, n)
+        elif part == "grb":
+            res[part][name] = time_gr(lib, gr_batch_cases(), True)
+        elif source == "gather_reduce.cu":
+            res[part][name] = time_gr(lib, grs, whole,
+                                      copy=part == "split" and name == "gr")
+        elif source == "scatter.cu":
+            res[part][name] = time_k3(lib, idx, whole)
         else:   # the ablations compute something else: not checked
             check = part == "dw" or name == "simple"
             res[part][name] = time_depthwise(

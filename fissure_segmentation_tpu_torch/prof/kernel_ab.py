@@ -1,24 +1,29 @@
-"""K1 (kNN), K5 (farthest-point sampling), K6 (the depthwise convolution)
-and K2/K3 (the EdgeConv scatters, with the graph transpose they build) of
-one checkout of this repository, timed on the card at their path shapes,
-so that two commits can be compared in one call on one card. Run it with
-the checkout's root:
+"""K1 (kNN), K5 (farthest-point sampling), K6 (the depthwise convolution),
+K2/K3 (the EdgeConv scatters, with the graph transpose they build) and the
+fused EdgeConv gather-reduce of one checkout of this repository, timed on
+the card at their path shapes, so that two commits can be compared in one
+call on one card. Run it with the checkout's root:
 
     python fissure_segmentation_tpu_torch/prof/kernel_ab.py ROOT [--tag NAME]
 
 The script imports the kernels and `prof.probes.median_ms` from ROOT, not
 from its own location, so one copy times any checkout whose kernels/knn.py,
-fps.py, depthwise.py and scatter.py have `knn_cuda`/`knn_plain`,
-`fps_cuda`/`fps_plain`, `depthwise_conv3_cuda`/`depthwise_conv3_plain`
-and `scatter_rows`/`scatter_routed` (with `transpose`, or the older
-sorting `_transpose`); run it on the two roots in turns (A, B, B, A).
-Every input is drawn from one seeded generator in a fixed order, so both
-sides time the same inputs; K1, K5 and K6 are checked bit-equal to their
-plain versions first, K2 within its rounding bound of plain. K2 and K3 are
-timed as the wrapper runs them, building their own transpose, and the
-transpose alone. Prints one JSON line (per shape the median ms of
-CUDA-event runs), then the card's name and power limit. Raises without a
-card.
+fps.py, depthwise.py, scatter.py and gather_reduce.py have
+`knn_cuda`/`knn_plain`, `fps_cuda`/`fps_plain`,
+`depthwise_conv3_cuda`/`depthwise_conv3_plain`,
+`scatter_rows`/`scatter_routed` (with `transpose`, or the older sorting
+`_transpose`) and `gather_reduce`/`gather_reduce_plain`; run it on the two
+roots in turns (A, B, B, A). Every input is drawn from one seeded
+generator in a fixed order, so both sides time the same inputs; K1, K5,
+K6 and the gather-reduce are checked bit-equal to their plain versions
+first, K2 and K3 within their rounding bound of plain. K2 and K3 are timed
+as the wrapper runs them, building their own transpose, and K3 also given
+the train step's shared transpose (f32 and bf16 payloads), and the
+transpose alone. The gather-reduce is timed at its path calls: the train
+step's "all" in f32 and bf16 and P5's bf16 "max" at (32, 2048, 40, 64),
+the served ensemble group's f32 "extrema" at (5, 2048, 40, 64), each on
+K1's graph. Prints one JSON line (per shape the median ms of CUDA-event
+runs), then the card's name and power limit. Raises without a card.
 """
 from __future__ import annotations
 
@@ -54,6 +59,11 @@ DW_SHAPES = (("b0_1x128x128x128x32", (1, 128, 128, 128, 32), "float32"),
              ("bf16_1x128x128x128x192", (1, 128, 128, 128, 192), "bfloat16"))
 # the DGCNN train step's scatters: B, N, k, C
 STEP = (32, 2048, 40, 64)
+# the gather-reduce's path calls: (name, B, dtype, want), N, k, C of STEP
+GR_CALLS = (("all_32x2048x40x64_float32", 32, "float32", "all"),
+            ("all_32x2048x40x64_bfloat16", 32, "bfloat16", "all"),
+            ("max_32x2048x40x64_bfloat16", 32, "bfloat16", "max"),
+            ("extrema_5x2048x40x64_float32", 5, "float32", "extrema"))
 
 
 def main() -> None:
@@ -65,16 +75,16 @@ def main() -> None:
         raise RuntimeError("kernel_ab runs only on an NVIDIA card")
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
-    from fissure_segmentation_tpu_torch.kernels import (depthwise, fps, knn,
-                                                        scatter)
+    from fissure_segmentation_tpu_torch.kernels import (
+        depthwise, fps, gather_reduce, knn, scatter)
     from fissure_segmentation_tpu_torch.prof.probes import median_ms
-    for mod in (fps, knn, depthwise, scatter):
+    for mod in (fps, knn, depthwise, scatter, gather_reduce):
         if not os.path.abspath(mod.__file__).startswith(root + os.sep):
             raise RuntimeError(f"{mod.__name__} imported from "
                                f"{mod.__file__}, not from {root}")
     gen = torch.Generator().manual_seed(0)
     out = {"root": root, "tag": args.tag, "knn": {}, "fps": {},
-           "depthwise": {}, "scatter": {}}
+           "depthwise": {}, "scatter": {}, "gather_reduce": {}}
     for name, shape, k, self_loop in KNN_SHAPES:
         x = (torch.rand(shape, generator=gen) * 2 - 1).cuda()
         i_k, d_k = knn.knn_cuda(x, k, self_loop)
@@ -128,6 +138,35 @@ def main() -> None:
     pp = torch.randn((b, n, c), generator=gen).cuda()
     out["scatter"]["K3_32x2048x40x64_float32"] = median_ms(
         lambda: scatter.scatter_routed(idx, kstar, sp, pp, n))
+    tr = build(idx2, n)
+    deg = scatter.scatter_count_plain(idx2, n)[..., None]
+    for dt in ("float32", "bfloat16"):
+        s_, p_ = sp.to(getattr(torch, dt)), pp.to(getattr(torch, dt))
+        got = scatter.scatter_routed(idx, kstar, s_, p_, n, tr)
+        want = scatter.scatter_routed_plain(idx, kstar, s_, p_, n)
+        bound = 2 * deg * 2.0 ** -24 * scatter.scatter_routed_plain(
+            idx, kstar, s_.float().abs(), p_.float().abs(), n)
+        if not bool(((got - want).abs() <= bound).all()):
+            raise AssertionError(f"K3 {dt}: kernel off its bound of plain")
+        out["scatter"][f"K3_32x2048x40x64_{dt}_shared"] = median_ms(
+            lambda: scatter.scatter_routed(idx, kstar, s_, p_, n, tr))
+    del sp, pp, kstar, tr
+    graphs = {}
+    for name, bb, dt, want in GR_CALLS:
+        if bb not in graphs:
+            graphs[bb] = knn.knn_cuda(
+                (torch.rand((bb, n, 3), generator=gen) * 2 - 1).cuda(),
+                k)[0].contiguous()
+        a = torch.randn((bb, n, c), generator=gen).to("cuda",
+                                                      getattr(torch, dt))
+        gi = graphs[bb]
+        got = gather_reduce.gather_reduce(a, gi, want)
+        ref = gather_reduce.gather_reduce_plain(a, gi, want)
+        if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+            raise AssertionError(f"gather_reduce {name}: kernel differs "
+                                 "from plain")
+        out["gather_reduce"][name] = median_ms(
+            lambda: gather_reduce.gather_reduce(a, gi, want))
     print(json.dumps(out), flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

@@ -19,7 +19,7 @@ from fissure_segmentation_tpu_torch.kernels.depthwise import (
     depthwise_conv3_cuda, depthwise_conv3_plain)
 from fissure_segmentation_tpu_torch.kernels.fps import fps_cuda, fps_plain
 from fissure_segmentation_tpu_torch.kernels.gather_reduce import (
-    gather_reduce, gather_reduce_plain)
+    STAGED_MAX_N, call_key, gather_reduce, gather_reduce_plain, staged_parts)
 from fissure_segmentation_tpu_torch.kernels.knn import knn_cuda, knn_plain
 from fissure_segmentation_tpu_torch.kernels.stream import (
     exact_payload, rounding_bound, stream_sum, stream_sum_async,
@@ -190,6 +190,79 @@ def test_scatter_routed_kernel_matches_plain(cuda, b, n, k, c):
     bound = 2 * deg * EPS32 * ks.scatter_routed_plain(idx, kstar, s.abs(),
                                                       p.abs(), n)
     assert ((got - want).abs() <= bound).all()
+
+
+def _routed_check(cuda, idx, kstar, s, p, n_rows):
+    """K3 twice with its own transpose and once with the caller's: equal
+    to each other and within the rounding bound of plain."""
+    b, n, k = idx.shape
+    tr = ks.transpose(idx.reshape(b, n * k), n_rows)
+    before = ks.scatter_routed.launches
+    got = ks.scatter_routed(idx, kstar, s, p, n_rows)
+    again = ks.scatter_routed(idx, kstar, s, p, n_rows)
+    shared = ks.scatter_routed(idx, kstar, s, p, n_rows, tr)
+    torch.cuda.synchronize()
+    assert ks.scatter_routed.launches == before + 3
+    assert torch.equal(got, again) and torch.equal(got, shared)
+    want = ks.scatter_routed_plain(idx, kstar, s, p, n_rows)
+    deg = ks.scatter_count_plain(idx.reshape(b, n * k), n_rows)[..., None]
+    bound = 2 * deg * EPS32 * ks.scatter_routed_plain(
+        idx, kstar, s.float().abs(), p.float().abs(), n_rows)
+    assert ((got - want).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("b,n,k,c", SCATTER_SHAPES)
+def test_scatter_routed_kernel_matches_plain_bf16(cuda, b, n, k, c):
+    """K3 with bfloat16 payloads (the bf16 train step's)."""
+    gen = torch.Generator().manual_seed(12)
+    idx = _targets(b, n * k, n, b + k + 1).reshape(b, n, k).to(cuda)
+    kstar = torch.randint(0, k, (b, n, c), generator=gen,
+                          dtype=torch.int32).to(cuda)
+    s = torch.randn((b, n, c), generator=gen).to(cuda, torch.bfloat16)
+    p = torch.randn((b, n, c), generator=gen).to(cuda, torch.bfloat16)
+    _routed_check(cuda, idx, kstar, s, p, n)
+
+
+ROUTED_CASES = [
+    # (name, B, N, K, C, dtype): C off the staged slice (8 float32 or 16
+    # bfloat16 channels) and off 16-byte vectors; N where the staged slices
+    # just fit in shared memory and just do not, and K above 255 (the
+    # kernel that reads device memory); a hub row of in-degree 1250; kstar
+    # only at 0 and K - 1
+    ("c33", 2, 500, 40, 33, torch.float32),
+    ("c40", 2, 500, 40, 40, torch.bfloat16),
+    ("c36", 2, 500, 40, 36, torch.bfloat16),
+    ("c200", 2, 500, 40, 200, torch.float32),
+    ("c256", 2, 500, 40, 256, torch.bfloat16),
+    ("fits", 1, ks.ROUTED_STAGED_MAX_N[torch.float32], 40, 64,
+     torch.float32),
+    ("spills", 1, ks.ROUTED_STAGED_MAX_N[torch.float32] + 1, 40, 64,
+     torch.float32),
+    ("fits", 1, ks.ROUTED_STAGED_MAX_N[torch.bfloat16], 40, 64,
+     torch.bfloat16),
+    ("spills", 1, ks.ROUTED_STAGED_MAX_N[torch.bfloat16] + 1, 40, 64,
+     torch.bfloat16),
+    ("k300", 2, 400, ks.ROUTED_STAGED_MAX_K + 45, 16, torch.float32),
+    ("hub", 2, 2000, 40, 64, torch.float32),
+    ("hub", 2, 2000, 40, 64, torch.bfloat16),
+    ("kstar_0_and_last", 2, 700, 40, 64, torch.float32),
+    ("kstar_0_and_last", 2, 700, 40, 64, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("name,b,n,k,c,dtype", ROUTED_CASES)
+def test_scatter_routed_kernel_hard_cases(cuda, name, b, n, k, c, dtype):
+    gen = torch.Generator().manual_seed(n + k + c)
+    idx = torch.randint(0, n, (b, n, k), generator=gen, dtype=torch.int32)
+    if name == "hub":
+        idx.view(b, -1)[:, ::64] = 7                 # in-degree 1250
+    kstar = torch.randint(0, k, (b, n, c), generator=gen, dtype=torch.int32)
+    if name == "kstar_0_and_last":
+        kstar = torch.where(kstar % 2 == 0, 0, k - 1).to(torch.int32)
+    s = torch.randn((b, n, c), generator=gen).to(dtype)
+    p = torch.randn((b, n, c), generator=gen).to(dtype)
+    _routed_check(cuda, idx.to(cuda), kstar.to(cuda), s.to(cuda),
+                  p.to(cuda), n)
 
 
 @pytest.mark.parametrize("b,e,n", [(32, 2048 * 40, 2048), (3, 12345, 1000)])
@@ -409,12 +482,33 @@ def test_depthwise_kernel_checks_input(cuda):
 
 GR_CASES = [
     # (B, N, K, C): the DGCNN train step, the served ensemble group, more
-    # than 32 slots with C = 8, ragged C (scalar loads), the widest C
+    # than 32 slots with C = 8, ragged C (scalar loads), the widest C; C
+    # off the staged slice (16 float32 or 32 bfloat16 channels), one cloud
+    # split among many blocks, N where the slice just fits in shared memory
+    # and just does not (the kernel that reads device memory)
     (32, 2048, 40, 64),
     (5, 2048, 40, 64),
     (2, 64, 70, 8),
     (2, 100, 37, 33),
     (3, 50, 5, 256),
+]
+
+GR_PATH_CASES = [
+    # (B, N, K, C, staged in f32, staged in bf16) on an H100 (132 SMs): the
+    # train step; the served ensemble group (5 clouds x 4 slices, too few
+    # for the SMs: the unstaged kernel); C off the staged slice (16 float32 or
+    # 32 bfloat16 channels) and off 16-byte vectors; points split among
+    # blocks; N where the slice just fits in shared memory and just does
+    # not (the unstaged kernel)
+    (32, 2048, 40, 64, True, True),
+    (5, 2048, 40, 64, False, False),
+    (17, 500, 40, 33, True, True),
+    (17, 500, 40, 36, True, True),
+    (17, 500, 40, 40, True, True),
+    (12, 500, 40, 200, True, True),
+    (11, 2048, 40, 64, True, False),
+    (16, STAGED_MAX_N, 24, 64, True, True),
+    (16, STAGED_MAX_N + 1, 24, 64, False, False),
 ]
 
 
@@ -430,13 +524,38 @@ def test_gather_reduce_kernel_equals_plain(cuda, b, n, k, c, dtype, want):
     idx[0, 0, 0], idx[-1, -1, -1], idx[0, 1, k // 2] = -1, n + 5, -10 * n
     idx = idx.to(cuda)
     before = gather_reduce.launches
+    key = call_key(a, idx, want)
+    calls = gather_reduce.calls.get(key, 0)
     got = gather_reduce(a, idx, want)
     torch.cuda.synchronize()
     assert gather_reduce.launches == before + 1
+    assert gather_reduce.calls[key] == calls + 1
     want_ = gather_reduce_plain(a, idx, want)
     assert len(got) == len(want_)
     for x, y in zip(got, want_):
         assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.mark.parametrize("b,n,k,c,f32_staged,bf16_staged", GR_PATH_CASES)
+@pytest.mark.parametrize("want", ["max", "extrema", "all"])
+def test_gather_reduce_kernel_paths(cuda, b, n, k, c, f32_staged,
+                                    bf16_staged, want):
+    """Both kernels bit-equal to plain where the shape sends the call, and
+    on an H100 the shape sends it where the batch sweep found it faster."""
+    g = torch.Generator().manual_seed(b * n + k + c)
+    base = torch.randn((b, n, c), generator=g)
+    idx = torch.randint(0, n, (b, n, k), generator=g, dtype=torch.int32)
+    idx[0, 0, 0], idx[-1, -1, -1] = -1, n + 5
+    idx = idx.to(cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for dtype, staged in ((torch.float32, f32_staged),
+                          (torch.bfloat16, bf16_staged)):
+        if sms == 132:
+            assert (staged_parts(b, n, c, dtype) > 0) == staged
+        a = base.to(cuda, dtype)
+        got = gather_reduce(a, idx, want)
+        for x, y in zip(got, gather_reduce_plain(a, idx, want)):
+            assert x.dtype == y.dtype and torch.equal(x, y)
 
 
 def test_gather_reduce_kernel_on_ties(cuda):

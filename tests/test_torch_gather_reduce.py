@@ -209,3 +209,43 @@ def test_gather_reduce_checks_input():
     with torch.no_grad():
         assert len(gather_reduce(a, idx, "extrema")) == 2
     assert gather_reduce_plain(a.detach(), idx, "max")[0].shape == (2, 8, 4)
+
+
+def _define(source: str, name: str) -> int:
+    """The integer value of `#define name <int>` in a kernel source."""
+    import os
+    import re
+    import fissure_segmentation_tpu_torch.kernels as kernels
+    path = os.path.join(os.path.dirname(kernels.__file__), "csrc", source)
+    with open(path) as f:
+        m = re.search(rf"^#define {name} \(?(\d+)", f.read(), re.M)
+    return int(m.group(1))
+
+
+def test_staged_threshold_matches_the_kernel_source():
+    """STAGED_MAX_N is csrc/gather_reduce.cu's GS_MAX_N, and the staged
+    kernel's shared memory at that N (the slice's 64-byte rows and the
+    staged slots of the most warps a block takes) fits the 232 448 bytes a
+    Hopper block may take."""
+    from fissure_segmentation_tpu_torch.kernels.gather_reduce import \
+        STAGED_MAX_N
+    assert STAGED_MAX_N == _define("gather_reduce.cu", "GS_MAX_N")
+    row = _define("gather_reduce.cu", "GS_ROW")
+    slots = (_define("gather_reduce.cu", "GS_MAX_WARPS")
+             * _define("gather_reduce.cu", "GS_PPW")
+             * _define("gather_reduce.cu", "GS_IDX_PITCH") * 4)
+    assert _define("gather_reduce.cu", "GS_IDX_PITCH") >= \
+        _define("gather_reduce.cu", "GS_SLOTS")
+    assert STAGED_MAX_N * row + slots <= 232448
+
+
+def test_cpu_calls_are_not_counted_as_launches():
+    """On the CPU the wrapper runs the plain version: no launch and no call
+    is counted; call_key names a call by want, dtype and shape."""
+    from fissure_segmentation_tpu_torch.kernels.gather_reduce import call_key
+    a, idx = _case(7)
+    a, idx = torch.from_numpy(a), torch.from_numpy(idx)
+    before, calls = gather_reduce.launches, dict(gather_reduce.calls)
+    gather_reduce(a, idx, "all")
+    assert gather_reduce.launches == before and gather_reduce.calls == calls
+    assert call_key(a.bfloat16(), idx, "max") == f"max_bfloat16_{B}x{N}x{K}x{C}"

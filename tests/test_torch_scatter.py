@@ -293,3 +293,44 @@ def test_shared_transpose_is_checked():
                           (order, ptr))
     assert torch.equal(ks.scatter_rows(idx, g, 4, (order, ptr)),
                        ks.scatter_rows(idx, g, 4))
+
+
+def _define(name: str) -> int:
+    """The integer value of `#define name <int>` in csrc/scatter.cu."""
+    import os
+    import re
+    path = os.path.join(os.path.dirname(ks.__file__), "csrc", "scatter.cu")
+    with open(path) as f:
+        m = re.search(rf"^#define {name} \(?(\d+)( \* (\d+))?", f.read(), re.M)
+    return int(m.group(1)) * int(m.group(3) or 1)
+
+
+def test_routed_staged_thresholds_match_the_kernel_source():
+    """ROUTED_STAGED_MAX_N: the largest N whose staged p, s (32-byte rows)
+    and uint8 kstar slices fit RS_SMEM_MAX in csrc/scatter.cu, which fits
+    the 232 448 bytes a Hopper block may take."""
+    smem, row = _define("RS_SMEM_MAX"), _define("RS_SROW")
+    assert smem <= 232448
+    for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+        n = ks.ROUTED_STAGED_MAX_N[dtype]
+        per_node = 2 * row + row // size
+        assert n * per_node <= smem < (n + 1) * per_node
+
+
+@pytest.mark.parametrize("kk", [1, 2, 3, 5, 7, 40, 41, 64, 127, 128, 200,
+                                254, 255])
+def test_routed_edge_quotient_from_a_float_product(kk):
+    """The staged K3 turns a cloud-local edge id fl = node * kk + slot into
+    (node, slot) by a float32 product with 1 / kk, truncated, corrected by
+    one: numpy's float32 does the same roundings (round to nearest, the
+    reciprocal correctly rounded); every id of the largest staged cloud
+    comes out as divmod."""
+    n = max(ks.ROUTED_STAGED_MAX_N.values())
+    fl = np.arange(n * kk, dtype=np.int64)
+    inv_k = np.float32(1.0) / np.float32(kk)
+    q = np.trunc(fl.astype(np.float32) * inv_k).astype(np.int64)
+    r = fl - q * kk
+    q = np.where(r < 0, q - 1, np.where(r >= kk, q + 1, q))
+    r = np.where(r < 0, r + kk, np.where(r >= kk, r - kk, r))
+    assert np.array_equal(q, fl // kk) and np.array_equal(r, fl % kk)
+    assert q.max() < 2 ** 24 and r.max() < 256       # node << 8 | slot
