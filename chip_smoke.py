@@ -30,15 +30,24 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      targets, K2 with f32 and bf16 payloads: the transpose's (order, ptr)
      equal (also at its hard cases: a hub row of in-degree 1250, every
      edge into one row, empty rows, targets dropped on both sides,
-     n_rows = 1, no edges, 60 000 rows), K4 equal, K2/K3 within twice the
-     worst-case float32 rounding of a sequential sum (both sides sum the
-     same values in different orders), two launches bit-equal and a shared
-     transpose changing nothing; K3 with f32 and bf16 payloads and at its
+     n_rows = 1, no edges, 60 000 rows), both K4 kernels (the histogram of
+     idx, the in-degrees from the transpose's row offsets) equal, also at
+     P1's 512 rows and at their hard cases (targets dropped on both sides,
+     a hub, n_rows = 1, B = 1 and 22, E off 16-byte loads, idx off a
+     16-byte boundary, 60 000 rows: the counters in device memory), K2/K3
+     within twice the worst-case float32 rounding of a sequential sum (both
+     sides sum the same values in different orders), two launches
+     bit-equal and a shared transpose changing nothing; K3 with f32 and
+     bf16 payloads and at its
      hard cases (C = 33, 36, 40, 200, 256; N where the staged slices just
      fit in shared memory and just do not, and K = 300, both the unstaged
      kernel; a hub row of in-degree 1250; kstar only at 0 and K - 1);
-     median times of both, the transpose alone, and K2 and K3 with their
-     own transpose and with a shared one;
+     median times of both, the transpose alone, K2 and K3 with their own
+     transpose and with a shared one, and K4 by call (the histogram at
+     2048 and 512 rows, the in-degrees from the step's transpose; its ms
+     through the wrapper back to back like every row's, and beside it
+     "device_ms", its work on the card alone from CUDA-graph replays, its
+     launch being shorter than the wrapper's host time);
   7. the training slice at full width: the port's entry point
      (train_point_seg.main, synthetic data, DGCNNSeg(k=40, static), batch
      32 x 2048, f32, NNU loss + Adam) trains fold 0 for 3 epochs; checks a
@@ -46,7 +55,8 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      timed warm steps unfused and fused (FSEG_FUSED_EDGE=0/1, the harness
      of train/profile_step.py): ms/step, clouds/s, peak device memory,
      kernel launches. K2 must launch in both routings, K3 and K4 in the
-     fused one, and the graph transpose exactly once a step (shared);
+     fused one, and the graph transpose exactly once a step (shared); K4
+     only from the transpose, never the histogram;
   8. train-step reference on a small input (B=2, N=256, k=8): one step on
      the card (kernels) and on the CPU (plain versions) from the same
      weights and batch, in both routings: loss within rtol 1e-5, running
@@ -109,7 +119,7 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      warm steps of DGCNNSeg(k=40, static, bf16) fused and unfused (ms/step,
      clouds/s, peak memory, launches: K2 every step in both routings, the
      gather-reduce, K3 and K4 every fused step, the transpose once a
-     step), then the entry point with
+     step, K4 only from the transpose), then the entry point with
      --amp true trains fold 0 for 3 epochs (phase 7's checks, and the model
      written as bf16);
  18. bf16 train-step reference on a small input (B=2, N=256, k=8): one
@@ -122,7 +132,8 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      stream_sum_async within their rounding bound on the payload, equal on
      a payload of integers, where every sum is exact, and unequal there
      once a tile is zeroed); the stream kernels' times beside their plain
-     version, torch.sum and the bound. P5's comparison is phase 16's.
+     version, torch.sum and the bound. P5's comparison is phase 16's. P1's
+     k_onehot is the path of K4's histogram (at 512 rows).
 
 Kernel launch counts are set to 0 before each main path (phases 4, 10 and
 14 serving, phases 7, 11 and 17 training, phase 19 the probes) and read
@@ -135,7 +146,11 @@ is one; the stream kernels' rows say "path": "probes"; K2's and K3's rows
 add their time with a shared transpose and the transpose's time and bound;
 the gather-reduce's row gives the numbers of its most launched call and
 "by_call": each (want, dtype, shape) call's main-path launches, time, bound
-and launches x (ms - bound ms));
+and launches x (ms - bound ms); K4's row likewise, by the wrapper's call
+names, each call with "device_ms" (its work on the card alone) and the
+path that launches it: "train" for the
+in-degrees from the transpose, "probes" for the histogram at 512 rows,
+none for the histogram at 2048 rows, which no path runs now);
 then the card's
 name and power limit as nvidia-smi gives them; the last line is {"ok":
 true, "device": {...}}.
@@ -157,7 +172,7 @@ import numpy as np
 import torch
 from torch.overrides import TorchFunctionMode
 
-from fissure_segmentation_tpu_torch.prof.probes import median_ms
+from fissure_segmentation_tpu_torch.prof.timing import graph_ms, median_ms
 from fissure_segmentation_tpu_torch.train.profile_step import card_line
 
 KNN_SOURCE = "fissure_segmentation_tpu_torch/kernels/csrc/knn.cu"
@@ -172,6 +187,8 @@ SCATTER_REPLACES = {"transpose": f"{PALLAS_SCATTER}:369",
                     "scatter_rows": f"{PALLAS_SCATTER}:369",
                     "scatter_routed": f"{PALLAS_SCATTER}:260",
                     "scatter_count": f"{PALLAS_SCATTER}:332"}
+# K4's call on the probe path: P1's k_onehot, idx mod 512 of (32, 81 920)
+PROBE_K4_CALL = "hist_32x81920_rows512"
 GR_SOURCE = "fissure_segmentation_tpu_torch/kernels/csrc/gather_reduce.cu"
 GR_REPLACES = "scripts/prof/prof_fused_gather.py:64"
 STREAM_SOURCE = "fissure_segmentation_tpu_torch/kernels/csrc/stream.cu"
@@ -491,6 +508,7 @@ def phase_scatter(ks, knn_cuda):
         `fn_shared`: the kernel given the caller's transpose."""
         out[kernel][0] = max(out[kernel][0], err)
         line = f"{kernel} {shape}: max |kernel - plain| {err:.3g}"
+        row = None
         if fn_k is not None:
             t_k, t_p = median_ms(fn_k), median_ms(fn_p)
             t_l = None if fn_lib is None else median_ms(fn_lib)
@@ -506,6 +524,7 @@ def phase_scatter(ks, knn_cuda):
                 line += (f"; with the shared transpose {row['shared_ms']:.4f}"
                          " ms")
         print(line, flush=True)
+        return row
 
     for name, (idx2, nn_) in _transpose_cases(dev, g).items():
         got = ks.transpose(idx2, nn_)
@@ -566,17 +585,20 @@ def phase_scatter(ks, knn_cuda):
                     * 4, 2 * idx3.numel() * c),
                    fn_shared=lambda: ks.scatter_routed(idx3, kstar, s, p,
                                                        nn_, tr))
-        got = ks.scatter_count(idx2, nn_)
-        again = ks.scatter_count(idx2, nn_)
-        err = _check_scatter("K4", got, again,
-                             ks.scatter_count_plain(idx2, nn_))
-        flat = ks._flat_targets(idx2, nn_)
-        record("scatter_count", f"{tag}_{bb}x{nn_ * kk}", err,
-               (lambda: ks.scatter_count(idx2, nn_)) if timed else None,
-               lambda: ks.scatter_count_plain(idx2, nn_),
-               # read idx, write (B, rows) f32; one add per edge
-               (idx2.numel() * 4 + bb * nn_ * 4, idx2.numel()),
-               lambda: torch.bincount(flat, minlength=bb * nn_ + 1))
+        err = _check_count(ks, idx2, nn_, tr)
+        if timed:
+            _record_count(ks, record, idx2, nn_, tr, err)
+    # K4's histogram at P1's 512 rows (idx mod 512: in-degree 160), then
+    # both K4 kernels at their hard cases
+    lo = torch.randint(0, n, (b, n * k), generator=g, device=dev,
+                       dtype=torch.int32) % 512
+    err = _check_count(ks, lo, 512, ks.transpose(lo, 512))
+    _record_count(ks, record, lo, 512, None, err)
+    for name, (idx2, nn_) in _count_cases(dev, g).items():
+        err = _check_count(ks, idx2, nn_, ks.transpose(idx2, nn_))
+        out["scatter_count"][0] = max(out["scatter_count"][0], err)
+        print(f"scatter_count {name} {tuple(idx2.shape)} rows {nn_}: "
+              "histogram == plain, from the transpose == plain", flush=True)
     for name, (idx3, c, dtype, kmode) in _routed_cases(ks, dev, g).items():
         bb, nn_, kk = idx3.shape
         kstar = torch.randint(0, kk, (bb, nn_, c), generator=g, device=dev,
@@ -592,6 +614,108 @@ def phase_scatter(ks, knn_cuda):
               f"{str(dtype)[6:]}: max |kernel - plain| {err:.3g}",
               flush=True)
     torch.cuda.synchronize()
+    return out
+
+
+def _check_count(ks, idx2, n_rows, tr) -> float:
+    """Both K4 kernels (the histogram of idx; the in-degrees from the
+    transpose's row offsets) equal to plain, two launches of each
+    bit-equal; returns max |kernel - plain| (0)."""
+    want = ks.scatter_count_plain(idx2, n_rows)
+    err = 0.0
+    for name, t in (("K4 histogram", None), ("K4 from the transpose", tr)):
+        got = ks.scatter_count(idx2, n_rows, t)
+        again = ks.scatter_count(idx2, n_rows, t)
+        err = max(err, _check_scatter(name, got, again, want))
+    return err
+
+
+def _record_count(ks, record, idx2, n_rows, tr, err) -> None:
+    """K4 timed by call under the wrapper's call names: the histogram
+    ("hist_{B}x{E}_rows{n_rows}", against bincount) and, given `tr`, the
+    in-degrees from its row offsets ("ptr_{B}x{n_rows}", against
+    torch.diff, whose int32 differences are the same counts)."""
+    bb, e = idx2.shape
+    flat = ks._flat_targets(idx2, n_rows)
+    calls = [(f"hist_{bb}x{e}_rows{n_rows}",
+              lambda: ks.scatter_count(idx2, n_rows),
+              lambda: ks.scatter_count_plain(idx2, n_rows),
+              # read idx, write (B, rows) f32; one add per edge
+              (idx2.numel() * 4 + bb * n_rows * 4, idx2.numel()),
+              lambda: torch.bincount(flat, minlength=bb * n_rows + 1))]
+    if tr is not None:
+        ptr = tr[1]
+        calls.append((f"ptr_{bb}x{n_rows}",
+                      lambda: ks.scatter_count(idx2, n_rows, tr),
+                      lambda: ks.count_from_ptr_plain(ptr, bb, n_rows),
+                      # read ptr, write (B, rows) f32; one subtraction a row
+                      (bb * n_rows * 8 + 4, bb * n_rows),
+                      lambda: torch.diff(ptr)))
+    for key, fn_k, fn_p, work, fn_lib in calls:
+        row = record("scatter_count", key, err, fn_k, fn_p, work, fn_lib)
+        # K4's launch is shorter than its wrapper's host time: "ms" is the
+        # wrapper back to back, as every row times its kernel, and
+        # "device_ms" its work on the card alone (CUDA-graph replays)
+        row["device_ms"] = graph_ms(fn_k)
+        print(f"scatter_count {key}: on the card {row['device_ms']:.4f} ms "
+              "(CUDA-graph replays)", flush=True)
+
+
+def _count_cases(dev, g):
+    """K4's hard cases: {name: ((B, E) int32 targets, n_rows)}. Targets
+    dropped on both sides, a hub, n_rows = 1, B = 1 (one cluster of 8
+    blocks), B = 22 (clusters of 6), B = 132 (clusters of one block), E no
+    multiple of 4, idx off a 16-byte boundary, 51 200 rows (the most
+    counters shared memory holds: clusters of 8 blocks of 200 KB), 60 000
+    rows (the counters in device memory)."""
+    def draw(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+    hub = draw(0, 2000, (2, 5000))
+    hub[:, ::4] = 7                                 # in-degree 1250
+    return {"dropped_2x7001_rows1000": (draw(-40, 1040, (2, 7001)), 1000),
+            "hub_2x5000_rows2000": (hub, 2000),
+            "n_rows_1_4x999": (draw(-1, 2, (4, 999)), 1),
+            "b_1_1x81920_rows2048": (draw(0, 2048, (1, 81920)), 2048),
+            "b_22_22x4097_rows700": (draw(-3, 703, (22, 4097)), 700),
+            "b_132_132x4097_rows700": (draw(-3, 703, (132, 4097)), 700),
+            "unaligned_5x4003_rows700":
+                (draw(-3, 703, (5 * 4003 + 1,))[1:].view(5, 4003), 700),
+            "smem_rows_2x60000_rows51200": (draw(-5, 51205, (2, 60000)),
+                                            51200),
+            "many_rows_2x5000_rows60000": (draw(-5, 60005, (2, 5000)),
+                                           60000)}
+
+
+def _check_k4_route(ks, what: str) -> dict:
+    """The DGCNN train path since the last reset ran K4 only from the
+    shared transpose (count_from_ptr), never the histogram; returns its
+    calls."""
+    calls = dict(ks.scatter_count.calls)
+    if not any(k.startswith("ptr_") for k in calls) or any(
+            k.startswith("hist_") for k in calls):
+        raise AssertionError(f"{what}: K4 not only from the transpose: "
+                             f"{calls}")
+    return calls
+
+
+def k4_by_call(calls: dict, timings: dict, paths: dict) -> dict:
+    """K4's launches priced by call: every timed call with its main-path
+    launches (0 where no path runs it), its own time and bound, and
+    launches x (ms - bound ms). A main-path call that phase 6 did not time
+    is a fault."""
+    untimed = set(calls) - set(timings)
+    if untimed:
+        raise AssertionError(f"scatter_count: calls {untimed} not timed")
+    out = {}
+    for key, t in sorted(timings.items()):
+        n = calls.get(key, 0)
+        out[key] = {"launches": n, "path": paths.get(key),
+                    "ms": t["ms"], "device_ms": t["device_ms"],
+                    "plain_ms": t["plain_ms"],
+                    "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                    "library_ms": t["library_ms"],
+                    "gap_ms": n * (t["ms"] - t["bound_ms"])}
     return out
 
 
@@ -667,6 +791,7 @@ def _reset(ks, knn_cuda):
     for fn in _wrappers(ks, knn_cuda).values():
         fn.launches = 0
     _wrappers(ks, knn_cuda)["gather_reduce"].calls.clear()
+    ks.scatter_count.calls.clear()
 
 
 def _gr_calls(ks, knn_cuda) -> dict:
@@ -749,6 +874,7 @@ def phase_train(ks, knn_cuda, card: str):
         if timing["fused"]["launches_10_steps"][name] < 10:
             raise AssertionError(f"train: {name} did not launch in every "
                                  "fused step")
+    counts["k4_calls"] = _check_k4_route(ks, "train")
     faster = min(timing, key=lambda r: timing[r]["ms_per_step"])
     print(f"train: faster routing on this card: {faster} (CUDA default in "
           f"ops/fused_edge.py: {'fused' if CUDA_DEFAULT else 'unfused'})",
@@ -1890,7 +2016,8 @@ def phase_bf16_train(ks, knn_cuda, card: str):
         print(f"bf16 train: entry point --amp true (3 epochs, fold 0) in "
               f"{time.perf_counter() - t0:.1f} s; loss history {hist}",
               flush=True)
-    return _counts(ks, knn_cuda), timing
+    return {**_counts(ks, knn_cuda),
+            "k4_calls": _check_k4_route(ks, "bf16 train")}, timing
 
 
 def _rel_l2(got: dict, want: dict) -> float:
@@ -2158,13 +2285,35 @@ def main() -> int:
     # 18. bf16 train-step reference on a small input
     phase_bf16_reference()
 
-    # 19. the probes of P1-P4 (the stream kernels' path: the launches of
-    # their timed calls)
+    # 19. the probes of P1-P4 (the stream kernels' path, and K4's
+    # histogram's: the launches of their timed calls)
+    ks.scatter_count.calls.clear()
     probe_counts, probe_rows, stream_heads = phase_probes(card)
+    if set(ks.scatter_count.calls) != {PROBE_K4_CALL}:
+        raise AssertionError(f"probes: K4 calls {ks.scatter_count.calls}, "
+                             f"not only {PROBE_K4_CALL}")
     print(json.dumps({"probes": probe_rows, "card": card}), flush=True)
 
     train_total = {k: counts["total"][k] + bf16_counts[k]
-                   for k in bf16_counts}
+                   for k in counts["total"]}
+    # K4 by call: the train paths' count_from_ptr, the probes' histogram at
+    # 512 rows (the launches of their timed calls)
+    k4_calls, k4_paths = {}, {}
+    for part in (counts["k4_calls"], bf16_counts["k4_calls"]):
+        for key, n in part.items():
+            k4_calls[key] = k4_calls.get(key, 0) + n
+            k4_paths[key] = "train"
+    if probe_counts.get("scatter_count", 0) < 1:
+        raise AssertionError("scatter_count: the probes never launched "
+                             "the histogram")
+    k4_calls[PROBE_K4_CALL] = probe_counts["scatter_count"]
+    k4_paths[PROBE_K4_CALL] = "probes"
+    if sum(k4_calls.values()) != (train_total["scatter_count"]
+                                  + probe_counts["scatter_count"]):
+        raise AssertionError(f"scatter_count: {k4_calls} by call against "
+                             f"{train_total['scatter_count']} train and "
+                             f"{probe_counts['scatter_count']} probe "
+                             "launches")
     graph = timings["dgcnn_graph_5x2048x3_k40"]
     kernels = [{
         "name": "knn", "route": "cuda", "source": KNN_SOURCE,
@@ -2193,6 +2342,17 @@ def main() -> int:
             row.update(shared_ms=path["shared_ms"],
                        transpose_ms=tr_path["ms"],
                        transpose_bound_ms=tr_path["bound_ms"])
+        if name == "scatter_count":
+            # priced by call; the top-level numbers are the most launched
+            # call's (the train step's count_from_ptr)
+            by_call = k4_by_call(k4_calls, shapes, k4_paths)
+            print(json.dumps({"scatter_count_by_call": by_call}), flush=True)
+            top = by_call[max(k4_calls, key=k4_calls.get)]
+            row.update({k: top[k] for k in ("ms", "device_ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "library_ms")},
+                       launches=sum(k4_calls.values()), by_call=by_call,
+                       gap_ms=sum(r["gap_ms"] for r in by_call.values()))
         kernels.append(row)
     step = fps_timings["pt_step_32x2048x3_m512"]
     kernels.append({

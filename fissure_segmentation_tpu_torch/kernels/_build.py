@@ -121,6 +121,7 @@ def load() -> ctypes.CDLL:
                 "fseg_scatter_routed": [vp, vp, vp, vp, vp, vp, i32, i32,
                                         i32, i32, i32, i32, vp],
                 "fseg_scatter_count": [vp, vp, vp, i32, i64, i32, vp],
+                "fseg_count_from_ptr": [vp, vp, i64, vp],
                 "fseg_graph_transpose": [vp, vp, vp, vp, vp, i32, i64, i32,
                                          vp],
                 "fseg_depthwise_conv3": [vp, vp, vp, i32, i32, i32, i32, i32,

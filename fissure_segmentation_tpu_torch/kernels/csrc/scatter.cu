@@ -7,8 +7,8 @@
 //   K3  scatter_add_routed                      -> scatter_routed_kernel
 //       out[b, idx[b, n, kstar[b, n, c]], c]   += s[b, n, c]
 //       out[b, idx[b, n, k], C + c] (every k)  += p[b, n, c]
-//   K4  scatter_count                           -> count_kernel
-//       out[b, m] = #{e : idx[b, e] == m}
+//   K4  scatter_count                           -> count_hist,
+//       out[b, m] = #{e : idx[b, e] == m}           count_from_ptr
 // All outputs are float32. A target outside [0, n_rows) is dropped, as JAX's
 // scatter drops it.
 //
@@ -28,7 +28,21 @@
 //     and p[n, c] to channel C + c always, so the (B, N, K, 2C) routed
 //     payload never exists in device memory;
 //   * K4 is an integer histogram (integer atomics are exact and order-free),
-//     converted to float32 (exact below 2^24).
+//     converted to float32 (exact below 2^24). Where the caller holds the
+//     transpose, the in-degrees are already there: row r's is ptr[r + 1] -
+//     ptr[r] (a batch's last row ends where the next batch's rows start,
+//     the last batch's at the first dropped edge), and count_from_ptr
+//     writes their differences, 4 rows a thread in 16-byte stores, without
+//     reading idx. Otherwise count_hist histograms idx in one launch: a
+//     cluster of P blocks a batch element (P <= 8, so that B * P blocks
+//     fill the SMs about once) streams the batch's edges in 16-byte loads,
+//     each block counting its 1/P of them into its own n_rows counters in
+//     shared memory; after a cluster barrier block r sums the P blocks'
+//     counters of its 1/P of the rows through distributed shared memory
+//     and stores them as float32. No memset, no float pass, no atomic in
+//     device memory. Where n_rows counters do not fit in a block's shared
+//     memory (HIST_SMEM_MAX, 51 200 rows), count_kernel adds into int32
+//     counters in device memory (a memset first, a float pass after).
 //
 // The transpose is a stable counting sort in four launches. The edges of
 // each batch element are cut into J chunks of consecutive edges; one warp
@@ -64,7 +78,9 @@
 // in flight before it adds them, in edge order, so the walk is not one
 // dependent load at a time. Payloads whose rows are not 16-byte multiples
 // (C = 33, say) take one channel a lane. K4 is bound by atomic throughput
-// on B * n_rows counters.
+// on B * n_rows counters in count_kernel; count_hist reads 10.5 MB of
+// targets at the train step (32, 81 920) and is bound by that stream and
+// one launch, count_from_ptr (0.52 MB) by its launch.
 //
 // K3 reads three (B, N, C) node fields K times each. Its unique bytes are
 // few (0.03 ms at the train step), but the unstaged kernel (scatter_routed_
@@ -84,15 +100,22 @@
 // in-degrees within a warp; shared-memory bandwidth is not (every edge
 // reading one node saves a fifth). Clouds whose slices do not fit, or K >
 // 255 (uint8 slots), keep the unstaged kernel.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 #define SCATTER_WARPS 8       // K3: rows per block, one warp each
 #define SCATTER_THREADS 256   // K2: threads per block
 #define SCATTER_INFLIGHT 4    // K2: payload rows a group loads before adding
 #define SCATTER_MAX_C 256
 #define COUNT_THREADS 256
+#define HIST_THREADS 512      // K4 histogram: threads a block
+#define HIST_MAX_CLUSTER 8    // K4 histogram: blocks a batch element, at most
+#define HIST_SMEM_MAX (200 * 1024)  // K4 histogram: counters' bytes, at most
+#define HIST_UNROLL 4         // K4 histogram: 16-byte loads in flight a thread
 #define TR_CHUNK 2048         // transpose: edges a warp walks (at most)
 #define TR_WARPS 4            // transpose: chunks (warps) a block, at most
 #define TR_SMEM (200 * 1024)  // transpose: shared memory for counters
@@ -696,6 +719,37 @@ scatter_routed_staged(const int32_t* __restrict__ kstar,
 }
 
 // bytes of shared memory the staged K3 needs for clouds of n nodes
+// The current device's SMs, asked once a device.
+static cudaError_t sm_count(int* sms) {
+    static int counts[64] = {0};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 64 && counts[dev] > 0) {
+        *sms = counts[dev];
+        return cudaSuccess;
+    }
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess && dev < 64) counts[dev] = *sms;
+    return err;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory on the current
+// device, once a device (a bit of *allowed each).
+template <typename F>
+static cudaError_t allow_smem(F* kernel, int bytes,
+                              unsigned long long* allowed) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess || (dev < 64 && (*allowed >> dev & 1ull)))
+        return err;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err == cudaSuccess && dev < 64) *allowed |= 1ull << dev;
+    return err;
+}
+
 template <typename T>
 static long long routed_smem(int n) {
     return (long long)n * (2 * RS_SROW + RS_SROW / (int)sizeof(T));
@@ -708,24 +762,11 @@ static int launch_routed_staged(const int32_t* kstar, const void* s,
                                 int n_rows, int kk, int c, cudaStream_t st) {
     constexpr int SC = RS_SROW / sizeof(T);
     const int smem = (int)routed_smem<T>(n);
-    // the most this kernel takes, allowed once a device; the SMs, once
     static unsigned long long allowed = 0;   // a bit a device
-    static int sm_counts[64] = {0};
-    int dev = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess && (dev >= 64 || !(allowed >> dev & 1ull))) {
-        err = cudaFuncSetAttribute(scatter_routed_staged<T>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   RS_SMEM_MAX);
-        if (err == cudaSuccess && dev < 64) allowed |= 1ull << dev;
-    }
-    if (err == cudaSuccess && dev < 64 && sm_counts[dev] > 0) {
-        sms = sm_counts[dev];
-    } else if (err == cudaSuccess) {
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                     dev);
-        if (err == cudaSuccess && dev < 64) sm_counts[dev] = sms;
-    }
+    int sms = 0;
+    cudaError_t err = allow_smem(scatter_routed_staged<T>, RS_SMEM_MAX,
+                                 &allowed);
+    if (err == cudaSuccess) err = sm_count(&sms);
     if (err != cudaSuccess) return (int)err;
     const int nslice = (c + SC - 1) / SC;
     // one block an SM fits: where batch x slices leave SMs idle, each block
@@ -759,6 +800,127 @@ to_float_kernel(const int32_t* __restrict__ cnt, float* __restrict__ out,
                 long long n) {
     const long long t = (long long)blockIdx.x * COUNT_THREADS + threadIdx.x;
     if (t < n) out[t] = (float)cnt[t];
+}
+
+__device__ __forceinline__ void hist_add(int32_t* h, int t, int n_rows) {
+    if ((unsigned)t < (unsigned)n_rows) atomicAdd(h + t, 1);
+}
+
+__device__ __forceinline__ void hist_add4(int32_t* h, int4 q, int n_rows) {
+    hist_add(h, q.x, n_rows);
+    hist_add(h, q.y, n_rows);
+    hist_add(h, q.z, n_rows);
+    hist_add(h, q.w, n_rows);
+}
+
+// K4 in one launch. A cluster of `parts` blocks a batch element bb (rank
+// r = blockIdx.x % parts; one block where parts = 1); each block counts its
+// 1/parts of the batch's 16-byte vectors of targets into n_rows int32
+// counters in shared memory (the last rank also the < 4 targets before the
+// first 16-byte boundary and after the last whole vector), then, after the
+// cluster barrier, writes rows [n_rows * r / parts, n_rows * (r + 1) /
+// parts) of out as the sums of the parts' counters, read through
+// distributed shared memory. A second barrier keeps every block's counters
+// alive until the others have read them.
+__global__ void __launch_bounds__(HIST_THREADS)
+count_hist(const int32_t* __restrict__ idx, float* __restrict__ out,
+           long long e, int n_rows, int parts) {
+    extern __shared__ int32_t hist_s[];
+    const int tid = threadIdx.x;
+    cg::cluster_group cl = cg::this_cluster();
+    const int rank = (int)cl.block_rank();
+    const long long bb = blockIdx.x / parts;
+    for (int i = tid; i < n_rows; i += HIST_THREADS) hist_s[i] = 0;
+    __syncthreads();
+    const int32_t* src = idx + bb * e;
+    long long head = (long long)((16 - ((uintptr_t)src & 15)) & 15) / 4;
+    if (head > e) head = e;
+    const long long nv = (e - head) / 4;
+    const int4* vec = reinterpret_cast<const int4*>(src + head);
+    const long long v1 = nv * (rank + 1) / parts;
+    long long v = nv * rank / parts + tid;
+    for (; v + (HIST_UNROLL - 1) * HIST_THREADS < v1;
+         v += HIST_UNROLL * HIST_THREADS) {
+        int4 q[HIST_UNROLL];   // the loads first, all in flight together
+#pragma unroll
+        for (int u = 0; u < HIST_UNROLL; ++u)
+            q[u] = __ldg(vec + v + u * HIST_THREADS);
+#pragma unroll
+        for (int u = 0; u < HIST_UNROLL; ++u) hist_add4(hist_s, q[u], n_rows);
+    }
+    for (; v < v1; v += HIST_THREADS) hist_add4(hist_s, __ldg(vec + v), n_rows);
+    if (rank == parts - 1) {
+        const long long tail = head + nv * 4;
+        if (tid < head) hist_add(hist_s, src[tid], n_rows);
+        if (tid < e - tail) hist_add(hist_s, src[tail + tid], n_rows);
+    }
+    cl.sync();
+    const int r1 = (int)((long long)n_rows * (rank + 1) / parts);
+    float* dst = out + bb * n_rows;
+    for (int i = (int)((long long)n_rows * rank / parts) + tid; i < r1;
+         i += HIST_THREADS) {
+        int sum = 0;
+        for (int q = 0; q < parts; ++q) sum += cl.map_shared_rank(hist_s, q)[i];
+        dst[i] = (float)sum;
+    }
+    cl.sync();
+}
+
+// K4 from the transpose's row offsets: out[i] = ptr[i + 1] - ptr[i] for
+// the rows flat rows, 4 a thread; 16-byte loads and stores where `vec`
+// (ptr and out 16-byte aligned).
+__global__ void __launch_bounds__(COUNT_THREADS)
+count_from_ptr(const int32_t* __restrict__ ptr, float* __restrict__ out,
+               long long rows, int vec) {
+    const long long i0 =
+        ((long long)blockIdx.x * COUNT_THREADS + threadIdx.x) * 4;
+    if (i0 >= rows) return;
+    if (vec && i0 + 4 <= rows) {
+        const int4 p = __ldg(reinterpret_cast<const int4*>(ptr + i0));
+        const int p4 = __ldg(ptr + i0 + 4);
+        *reinterpret_cast<float4*>(out + i0) =
+            make_float4((float)(p.y - p.x), (float)(p.z - p.y),
+                        (float)(p.w - p.z), (float)(p4 - p.w));
+        return;
+    }
+    for (long long i = i0; i < i0 + 4 && i < rows; ++i)
+        out[i] = (float)(ptr[i + 1] - ptr[i]);
+}
+
+// Blocks a batch element for count_hist: B * P about the SMs, 1 <= P <=
+// HIST_MAX_CLUSTER. Measured (prof/design_sweep.py --parts k4): within
+// 0.6 us of the best forced P at B = 1 ... 32, and 0.8-3.5 us faster than
+// one block a batch element.
+static int hist_parts(int b, int sms) {
+    const int p = sms / b;
+    return p < 1 ? 1 : p > HIST_MAX_CLUSTER ? HIST_MAX_CLUSTER : p;
+}
+
+static int launch_hist(const int32_t* idx, float* out, int b, long long e,
+                       int n_rows, cudaStream_t st) {
+    static unsigned long long allowed = 0;
+    int sms = 0;
+    cudaError_t err = allow_smem(count_hist, HIST_SMEM_MAX, &allowed);
+    if (err == cudaSuccess) err = sm_count(&sms);
+    if (err != cudaSuccess) return (int)err;
+    const int parts = hist_parts(b, sms);
+    const int smem = n_rows * (int)sizeof(int32_t);
+    if ((long long)b * parts > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(b * parts));
+    cfg.blockDim = dim3(HIST_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = parts;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, count_hist, idx, out, e, n_rows, parts);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
 }
 
 static unsigned int row_blocks(long long rows) {
@@ -947,13 +1109,18 @@ extern "C" int fseg_scatter_routed(const void* kstar, const void* s,
     return (int)cudaGetLastError();
 }
 
-// K4. idx: (b, e) int32; cnt: (b, n_rows) int32 scratch; out: (b, n_rows)
-// float32.
+// K4. idx: (b, e) int32; out: (b, n_rows) float32. Where n_rows int32
+// counters fit in HIST_SMEM_MAX, count_hist in one launch (cnt unused,
+// may be null); above, cnt: (b, n_rows) int32 scratch for count_kernel.
 extern "C" int fseg_scatter_count(const void* idx, void* cnt, void* out,
                                   int b, long long e, int n_rows,
                                   void* stream) {
     if (b < 1 || e < 1 || n_rows < 1) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
+    if ((long long)n_rows * (long long)sizeof(int32_t) <= HIST_SMEM_MAX)
+        return launch_hist((const int32_t*)idx, (float*)out, b, e, n_rows,
+                           st);
+    if (cnt == nullptr) return (int)cudaErrorInvalidValue;
     const long long cells = (long long)b * n_rows;
     cudaError_t err = cudaMemsetAsync(cnt, 0, cells * sizeof(int32_t), st);
     if (err != cudaSuccess) return (int)err;
@@ -966,5 +1133,19 @@ extern "C" int fseg_scatter_count(const void* idx, void* cnt, void* out,
     to_float_kernel<<<(unsigned int)((cells + COUNT_THREADS - 1) / COUNT_THREADS),
                       COUNT_THREADS, 0, st>>>((const int32_t*)cnt,
                                               (float*)out, cells);
+    return (int)cudaGetLastError();
+}
+
+// K4 from the transpose. ptr: (rows + 1) int32 row offsets (the `ptr` of
+// fseg_graph_transpose, rows = b * n_rows); out: (rows) float32 in-degrees.
+extern "C" int fseg_count_from_ptr(const void* ptr, void* out,
+                                   long long rows, void* stream) {
+    const long long blocks = (rows + 4LL * COUNT_THREADS - 1) /
+                             (4LL * COUNT_THREADS);
+    if (rows < 1 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const int vec = (((uintptr_t)ptr | (uintptr_t)out) & 15) == 0;
+    count_from_ptr<<<(unsigned)blocks, COUNT_THREADS, 0,
+                     (cudaStream_t)stream>>>((const int32_t*)ptr, (float*)out,
+                                             rows, vec);
     return (int)cudaGetLastError();
 }

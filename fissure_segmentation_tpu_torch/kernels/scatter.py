@@ -8,7 +8,10 @@ their plain PyTorch versions.
        out[b, idx[b, n, k], C + c] += p[b, n, c] for every k; replaces
        scatter_add_routed;
   K4 `scatter_count`   out[b, m] = #{e : idx[b, e] == m}; replaces
-       scatter_count.
+       scatter_count. Given the transpose, the differences of its row
+       offsets (`count_from_ptr`); without it, a one-launch histogram of idx
+       in shared memory (the counters in device memory above
+       `HIST_MAX_ROWS` rows).
 
 Targets outside [0, n_rows) are dropped, as JAX's scatter drops them; the
 wrappers mask them without a synchronisation. Each wrapper launches its
@@ -27,7 +30,8 @@ wrapper builds its own. K3 reads its node fields from shared memory
 where a cloud's channel slices fit (`ROUTED_STAGED_MAX_N`, K <= 255) and
 from device memory otherwise; both kernels sum in the same order, so
 they agree bit for bit. The plain versions are `index_add_` (K2, K3 after
-materialising the routed payload) and `bincount` (K4); on the card
+materialising the routed payload) and `bincount` (K4; given the transpose,
+the difference of its row offsets); on the card
 `index_add_` sums in another order, so kernel and plain version agree
 within float32 rounding, not bit for bit (K4 is exact on both).
 """
@@ -44,6 +48,9 @@ MAX_C = 256  # csrc/scatter.cu SCATTER_MAX_C
 ROUTED_STAGED_MAX_N = {torch.float32: 220 * 1024 // 72,
                        torch.bfloat16: 220 * 1024 // 80}
 ROUTED_STAGED_MAX_K = 255
+# csrc/scatter.cu: K4's histogram keeps n_rows int32 counters in shared
+# memory up to HIST_SMEM_MAX bytes, in device memory above
+HIST_MAX_ROWS = 200 * 1024 // 4
 _PAYLOAD = (torch.float32, torch.bfloat16)
 
 
@@ -297,31 +304,60 @@ def scatter_count_plain(idx: torch.Tensor, n_rows: int) -> torch.Tensor:
     return cnt[:b * n_rows].to(torch.float32).reshape(b, n_rows)
 
 
-def scatter_count(idx: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """K4 on idx's device: the in-degree of every row. Each kernel launch
-    adds one to ``scatter_count.launches``.
+def count_from_ptr_plain(ptr: torch.Tensor, b: int,
+                         n_rows: int) -> torch.Tensor:
+    """Plain K4 from the transpose: row r's in-degree is ptr[r + 1] -
+    ptr[r] (a batch's last row ends where the next batch's rows start, the
+    last batch's at its first dropped edge)."""
+    return (ptr[1:] - ptr[:-1]).to(torch.float32).reshape(b, n_rows)
+
+
+def scatter_count(idx: torch.Tensor, n_rows: int,
+                  transposed=None) -> torch.Tensor:
+    """K4 on idx's device: the in-degree of every row. Given `transposed`
+    it reads the in-degrees from its row offsets (`count_from_ptr`, idx is
+    not read); without it it histograms idx. Each kernel launch adds one to
+    ``scatter_count.launches`` and to ``scatter_count.calls`` under its
+    call, "ptr_{B}x{n_rows}" or "hist_{B}x{E}_rows{n_rows}".
 
     :param idx: (B, E) int32 targets
+    :param transposed: `transpose(idx, n_rows)`, if the caller has it
     :return: (B, n_rows) float32 counts
     """
     what = "scatter_count"
     _check_idx(idx, 2, what)
-    if not _on_device((idx,), what):
-        return scatter_count_plain(idx, n_rows)
-    from ._build import load
     b, e = idx.shape
+    if transposed is not None:
+        _check_transposed(transposed, idx, n_rows, what)
+    ptr = None if transposed is None else transposed[1]
+    if not _on_device((idx,) if ptr is None else (idx, ptr), what):
+        if ptr is None:
+            return scatter_count_plain(idx, n_rows)
+        return count_from_ptr_plain(ptr, b, n_rows)
+    from ._build import load
     out = torch.empty((b, n_rows), dtype=torch.float32, device=idx.device)
     if out.numel() == 0:
         return out
-    if e == 0:
-        return out.zero_()
-    cnt = torch.empty((b, n_rows), dtype=torch.int32, device=idx.device)
+    lib = load()
     with torch.cuda.device(idx.device):
-        _launch(what, load().fseg_scatter_count, idx.data_ptr(),
-                cnt.data_ptr(), out.data_ptr(), b, e, n_rows,
-                _stream(idx.device))
+        if ptr is not None:
+            _launch(what, lib.fseg_count_from_ptr, ptr.data_ptr(),
+                    out.data_ptr(), b * n_rows, _stream(idx.device))
+            key = f"ptr_{b}x{n_rows}"
+        elif e == 0:
+            return out.zero_()
+        else:   # int32 counters in device memory only above HIST_MAX_ROWS
+            cnt = (torch.empty((b, n_rows), dtype=torch.int32,
+                               device=idx.device)
+                   if n_rows > HIST_MAX_ROWS else None)
+            _launch(what, lib.fseg_scatter_count, idx.data_ptr(),
+                    None if cnt is None else cnt.data_ptr(), out.data_ptr(),
+                    b, e, n_rows, _stream(idx.device))
+            key = f"hist_{b}x{e}_rows{n_rows}"
     scatter_count.launches += 1
+    scatter_count.calls[key] = scatter_count.calls.get(key, 0) + 1
     return out
 
 
 scatter_count.launches = 0
+scatter_count.calls = {}

@@ -12,8 +12,9 @@ first occurrence, like `jnp.argmax`) — plus two dense per-channel BatchNorm
 terms, whose gather transpose is K3 (kernels/scatter.py:scatter_routed) and
 a degree-weighted pointwise term with the in-degree from K4
 (scatter_count). The derivation is in the JAX module's docstring. K3 walks
-the graph's transpose: the caller's, when it passes one (`transposed`),
-else its own.
+the graph's transpose and K4 reads the in-degrees from its row offsets:
+the caller's transpose, when it passes one (`transposed`), else one the
+backward builds for both.
 
 The forward's gather-reduce (per-(n, c) max, min, their first slots, and
 the f32 sum and sum of squares over k) is `kernels/gather_reduce.py`: one
@@ -37,7 +38,7 @@ import os
 import torch
 
 from ..kernels.gather_reduce import gather_reduce
-from ..kernels.scatter import scatter_count, scatter_routed
+from ..kernels.scatter import scatter_count, scatter_routed, transpose
 from .edge import _flat_gather
 
 _ENV_FLAG = "FSEG_FUSED_EDGE"
@@ -117,11 +118,14 @@ class _FusedEdgeTrain(torch.autograd.Function):
         s_payload = (gamma * du / sigma).to(a.dtype)
         p_payload = (-mean_dxh / sigma - (mean_dxh_xh / (sigma * sigma))
                      * (cenf - mean)).to(a.dtype)
-        idx32 = idx.to(torch.int32).contiguous()
-        routed = scatter_routed(idx32, kstar.contiguous(),
+        idx2 = idx.to(torch.int32).reshape(b, n * kk).contiguous()
+        tr = ctx.transposed
+        if tr is None:
+            tr = transpose(idx2, n)
+        routed = scatter_routed(idx2.reshape(b, n, kk), kstar.contiguous(),
                                 s_payload.contiguous(),
-                                p_payload.contiguous(), n, ctx.transposed)
-        deg = scatter_count(idx32.reshape(b, n * kk), n)
+                                p_payload.contiguous(), n, tr)
+        deg = scatter_count(idx2, n, tr)
         da = (routed[..., :c] + routed[..., c:]
               - (mean_dxh_xh / (sigma * sigma)) * deg[..., None]
               * a.to(torch.float32))
@@ -142,7 +146,7 @@ def fused_edge_train(a: torch.Tensor, cen: torch.Tensor, gamma: torch.Tensor,
     :param gamma: (C,) BatchNorm scale; :param beta: (C,) BatchNorm bias
     :param idx: (B, N, K) int neighbor indices (no gradient)
     :param transposed: `kernels/scatter.py:transpose` of idx as (B, N * K),
-        for K3 in the backward; built there when None
+        for K3 and K4 in the backward; built there, once for both, when None
     :return: (out (B, N, C) in a.dtype, batch mean (C,) f32, batch var (C,)
         f32) — mean and var feed the running-statistics update and take no
         gradient

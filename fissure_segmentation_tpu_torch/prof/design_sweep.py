@@ -1,9 +1,10 @@
 """Design sweeps and splits of K6 (the 3x3x3 depthwise convolution), of
-K2's graph transpose, of the fused EdgeConv gather-reduce and of K3 on the
-card, from scratch builds of edited sources. Run from the repository root:
+K2's graph transpose, of the fused EdgeConv gather-reduce, of K3 and of
+K4's histogram on the card, from scratch builds of edited sources. Run
+from the repository root:
 
     python fissure_segmentation_tpu_torch/prof/design_sweep.py \
-        [--parts split,dw,tr,gr,grb,k3] [--build DIR]
+        [--parts split,dw,tr,gr,grb,k3,k4] [--build DIR]
 
 Each variant is a copy of kernels/csrc/depthwise.cu, scatter.cu or
 gather_reduce.cu with one constant, launch shape or path edited, built
@@ -33,7 +34,16 @@ Parts:
   grb    the staged and the unstaged gather-reduce by batch size, f32 at (B,
          2048, 40, 64), B = 5 ... 32 (the source of `staged_parts`' model);
   k3     the staged K3's warps a block, edge ids a lane, and every edge
-         reading one node.
+         reading one node;
+  k4     K4's histogram (`count_hist`): an empty launch (the floor of a
+         cluster launch), the loads alone (each target compared, none
+         counted), the cluster of P blocks a batch element against one
+         block of 512 or 1024 threads, P forced to 1, 2, 4, 8, threads and
+         loads in flight; at (32, 81 920) to 2048 and 512 rows, and by
+         batch size at 2048 rows (B = 1 ... 32, E = 81 920); the checked
+         variants also time `count_from_ptr` at each case. K4's times are
+         CUDA-graph replays (`prof.timing.graph_ms`): one launch is shorter
+         than a ctypes call.
 
 Prints one JSON line ({part: {variant: {shape: median ms}}}), then the
 card's name and power limit. Raises without a card or nvcc.
@@ -59,7 +69,8 @@ from fissure_segmentation_tpu_torch.kernels import scatter as ks  # noqa: E402
 from fissure_segmentation_tpu_torch.kernels.depthwise import (  # noqa: E402
     depthwise_conv3_plain)
 from fissure_segmentation_tpu_torch.kernels.knn import knn_cuda  # noqa: E402
-from fissure_segmentation_tpu_torch.prof.probes import median_ms  # noqa: E402
+from fissure_segmentation_tpu_torch.prof.timing import (  # noqa: E402
+    graph_ms, median_ms)
 
 CSRC = os.path.join(os.path.dirname(HERE), "kernels", "csrc")
 F32_TILE = "launch_tiled<float, 32, 8, 16, 4, 3>("
@@ -129,6 +140,22 @@ _K3_ROUTING_ONLY = {
     "w[i]);\n": "",
     "                ap[i] = __fadd_rn(ap[i], to_f32<T>(p[base + ch]));\n": ""}
 
+# K4's histogram: P forced (the sweep's model of hist_parts is B * P about
+# the SMs); an empty kernel; the loads alone
+_HIST_P = "    const int p = sms / b;\n"
+
+
+def _hist_p(p: int) -> dict:
+    return {_HIST_P: f"    const int p = {p} + 0 * sms / b;\n"}
+
+
+_HIST_THREADS = "#define HIST_THREADS 512 "
+_HIST_EMPTY = {"    extern __shared__ int32_t hist_s[];\n":
+               "    extern __shared__ int32_t hist_s[];\n    if (e >= 0) "
+               "return;\n"}
+_HIST_LOADS_ONLY = {"    if ((unsigned)t < (unsigned)n_rows) atomicAdd(h + t, "
+                    "1);": "    if (t == 0x7fffffff) atomicAdd(h, n_rows);"}
+
 VARIANTS = {
     "split": {
         "simple": ("depthwise.cu", _SIMPLE_ONLY),
@@ -192,6 +219,21 @@ VARIANTS = {
         "abl_one_node": {
             "                const int nd = (int)((e < m ? ns[e] : ns[0]) >> 8);\n":
             "                const int nd = 0 * (int)ns[e];\n"},
+    }.items()},
+    "k4": {name: ("scatter.cu", edits) for name, edits in {
+        "default": {},
+        "abl_empty": _HIST_EMPTY,
+        "abl_loads_only": _HIST_LOADS_ONLY,
+        "one_block_512": _hist_p(1),
+        "one_block_1024": {**_hist_p(1),
+                           _HIST_THREADS: "#define HIST_THREADS 1024 "},
+        "p_2": _hist_p(2),
+        "p_4": _hist_p(4),
+        "p_8": _hist_p(8),
+        "threads_256": {_HIST_THREADS: "#define HIST_THREADS 256 "},
+        "threads_1024": {_HIST_THREADS: "#define HIST_THREADS 1024 "},
+        "unroll_2": {"#define HIST_UNROLL 4 ": "#define HIST_UNROLL 2 "},
+        "unroll_8": {"#define HIST_UNROLL 4 ": "#define HIST_UNROLL 8 "},
     }.items()},
     "tr": {name: ("scatter.cu", edits) for name, edits in {
         "default": {},
@@ -519,9 +561,65 @@ def time_k3(lib, idx, check: bool) -> dict:
     return row
 
 
+def k4_cases() -> list:
+    """(tag, idx, n_rows): the train step's graph size at 2048 rows, P1's
+    512 rows (idx mod 512), and 2048 rows at B = 1 ... 16, E = 81 920, on
+    uniform targets."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    e = STEP[1] * STEP[2]
+    out = []
+    for b in (32, 16, 8, 4, 1):
+        idx = torch.randint(0, 2048, (b, e), generator=gen, device=dev,
+                            dtype=torch.int32)
+        out.append((f"{b}x{e}_rows2048", idx, 2048))
+        if b == 32:
+            out.append((f"{b}x{e}_rows512", idx % 512, 512))
+    return out
+
+
+def time_k4(lib, cases, check: bool) -> dict:
+    """K4's histogram through the library's fseg_scatter_count (checked
+    equal to plain where `check`), its work on the card (`graph_ms`: one
+    launch is shorter than a ctypes call); with `check`, also the
+    in-degrees from the transpose (fseg_count_from_ptr) at each case."""
+    lib.fseg_scatter_count.argtypes = [VP, VP, VP, I32, I64, I32, VP]
+    lib.fseg_count_from_ptr.argtypes = [VP, VP, I64, VP]
+    row = {}
+    for tag, idx, n in cases:
+        b, e = idx.shape
+        out = torch.empty((b, n), device=idx.device)
+
+        def fn():
+            if lib.fseg_scatter_count(idx.data_ptr(), None, out.data_ptr(),
+                                      b, e, n, _stream()) != 0:
+                raise RuntimeError(f"K4 {tag}: launch failed")
+
+        fn()
+        torch.cuda.synchronize()
+        if check and not torch.equal(out, ks.scatter_count_plain(idx, n)):
+            raise AssertionError(f"K4 {tag}: differs from plain")
+        row[tag] = graph_ms(fn)
+        if not check:
+            continue
+        ptr = ks.transpose(idx, n)[1]
+
+        def from_ptr():
+            if lib.fseg_count_from_ptr(ptr.data_ptr(), out.data_ptr(), b * n,
+                                       _stream()) != 0:
+                raise RuntimeError(f"K4 {tag}: launch failed")
+
+        from_ptr()
+        torch.cuda.synchronize()
+        if not torch.equal(out, ks.scatter_count_plain(idx, n)):
+            raise AssertionError(f"K4 from ptr {tag}: differs from plain")
+        row[f"{tag}_from_ptr"] = graph_ms(from_ptr)
+    return row
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parts", default="split,dw,tr,gr,grb,k3")
+    ap.add_argument("--parts", default="split,dw,tr,gr,grb,k3,k4")
     ap.add_argument("--build", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -545,6 +643,7 @@ def main() -> None:
     idx = torch.randint(0, n, (b, n * k), generator=gen, device=dev,
                         dtype=torch.int32)
     grs = gr_cases(knn_cuda) if {"split", "gr"} & set(parts) else []
+    k4s = k4_cases() if "k4" in parts else []
     res = {part: {} for part in parts}
     for full, lib in libs.items():
         part, name = full.split("_", 1)
@@ -556,6 +655,8 @@ def main() -> None:
             and not name.startswith("abl_")
         if part == "tr":
             res[part][name] = time_transpose(lib, idx, n)
+        elif part == "k4":
+            res[part][name] = time_k4(lib, k4s, whole)
         elif part == "grb":
             res[part][name] = time_gr(lib, gr_batch_cases(), True)
         elif source == "gather_reduce.cu":

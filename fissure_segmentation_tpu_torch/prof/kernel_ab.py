@@ -1,14 +1,15 @@
 """K1 (kNN), K5 (farthest-point sampling), K6 (the depthwise convolution),
-K2/K3 (the EdgeConv scatters, with the graph transpose they build) and the
-fused EdgeConv gather-reduce of one checkout of this repository, timed on
-the card at their path shapes, so that two commits can be compared in one
-call on one card. Run it with the checkout's root:
+K2-K4 (the EdgeConv scatters, with the graph transpose they build), the
+fused EdgeConv gather-reduce and P1's k_onehot of one checkout of this
+repository, timed on the card at their path shapes, so that two commits
+can be compared in one call on one card. Run it with the checkout's root:
 
     python fissure_segmentation_tpu_torch/prof/kernel_ab.py ROOT [--tag NAME]
 
-The script imports the kernels and `prof.probes.median_ms` from ROOT, not
-from its own location, so one copy times any checkout whose kernels/knn.py,
-fps.py, depthwise.py, scatter.py and gather_reduce.py have
+The script imports the kernels from ROOT, not from its own location, and
+times both roots with its own copy's prof/timing.py, so one copy times any
+checkout whose kernels/knn.py, fps.py, depthwise.py, scatter.py and
+gather_reduce.py have
 `knn_cuda`/`knn_plain`, `fps_cuda`/`fps_plain`,
 `depthwise_conv3_cuda`/`depthwise_conv3_plain`,
 `scatter_rows`/`scatter_routed` (with `transpose`, or the older sorting
@@ -22,12 +23,22 @@ the train step's shared transpose (f32 and bf16 payloads), and the
 transpose alone. The gather-reduce is timed at its path calls: the train
 step's "all" in f32 and bf16 and P5's bf16 "max" at (32, 2048, 40, 64),
 the served ensemble group's f32 "extrema" at (5, 2048, 40, 64), each on
-K1's graph. Prints one JSON line (per shape the median ms of CUDA-event
-runs), then the card's name and power limit. Raises without a card.
+K1's graph. K4 is timed as its histogram at the train step's (32, 81 920)
+to 2048 rows and at P1's 512 rows (idx mod 512), and as the fused
+backward calls it: given the step's transpose where the checkout's
+`scatter_count` takes one (`transposed`), else the histogram; each result
+equal to plain, each timed by `graph_ms` (its work on the card: K4's
+launches are shorter than the wrapper's host time) and by `median_ms`
+("_host_included"). P1's k_onehot (K4 at 512 rows + `stream_sum`) is the
+checkout's `prof.probes.p1` row. Prints one JSON line (per shape the median
+ms of CUDA-event runs), then the card's name and power limit. Raises
+without a card.
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -66,6 +77,17 @@ GR_CALLS = (("all_32x2048x40x64_float32", 32, "float32", "all"),
             ("extrema_5x2048x40x64_float32", 5, "float32", "extrema"))
 
 
+def _timing():
+    """This copy's prof/timing.py (torch only), loaded by its path: both
+    roots are timed by the same helpers."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "timing.py")
+    spec = importlib.util.spec_from_file_location("kernel_ab_timing", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root")
@@ -73,11 +95,12 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_ab runs only on an NVIDIA card")
+    timing = _timing()
+    graph_ms, median_ms = timing.graph_ms, timing.median_ms
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     from fissure_segmentation_tpu_torch.kernels import (
         depthwise, fps, gather_reduce, knn, scatter)
-    from fissure_segmentation_tpu_torch.prof.probes import median_ms
     for mod in (fps, knn, depthwise, scatter, gather_reduce):
         if not os.path.abspath(mod.__file__).startswith(root + os.sep):
             raise RuntimeError(f"{mod.__name__} imported from "
@@ -150,7 +173,26 @@ def main() -> None:
             raise AssertionError(f"K3 {dt}: kernel off its bound of plain")
         out["scatter"][f"K3_32x2048x40x64_{dt}_shared"] = median_ms(
             lambda: scatter.scatter_routed(idx, kstar, s_, p_, n, tr))
-    del sp, pp, kstar, tr
+    del sp, pp, kstar
+    # K4: its device work (graph_ms) and, host included, back to back
+    from_ptr = "transposed" in inspect.signature(
+        scatter.scatter_count).parameters
+    for tag, args, want in (
+            ("hist_32x81920_rows2048", (idx2, n), n),
+            ("hist_32x81920_rows512", (idx2 % 512, 512), 512),
+            # as the fused backward calls it
+            ("fused_backward_32x2048", (idx2, n, tr) if from_ptr
+             else (idx2, n), n)):
+        if not torch.equal(scatter.scatter_count(*args),
+                           scatter.scatter_count_plain(args[0], want)):
+            raise AssertionError(f"K4 {tag}: kernel differs from plain")
+        out["scatter"][f"K4_{tag}"] = graph_ms(
+            lambda: scatter.scatter_count(*args))
+        out["scatter"][f"K4_{tag}_host_included"] = median_ms(
+            lambda: scatter.scatter_count(*args))
+    out["scatter"]["K4_fused_backward_from"] = ("transpose" if from_ptr
+                                                else "histogram")
+    del tr
     graphs = {}
     for name, bb, dt, want in GR_CALLS:
         if bb not in graphs:
@@ -167,6 +209,13 @@ def main() -> None:
                                  "from plain")
         out["gather_reduce"][name] = median_ms(
             lambda: gather_reduce.gather_reduce(a, gi, want))
+    del a, gi, graphs
+    torch.cuda.empty_cache()
+    from fissure_segmentation_tpu_torch.prof import probes
+    pidx, pg = probes.payload()
+    row = next(r for r in probes.p1(pidx, pg)
+               if r["variant"].startswith("k_onehot"))
+    out["probes"] = {"P1_k_onehot": row["ms"]}
     print(json.dumps(out), flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

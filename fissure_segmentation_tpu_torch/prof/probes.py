@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import sys
 
 import torch
@@ -53,6 +52,7 @@ from ..kernels.gather_reduce import (flat_rows, gather_reduce,
 from ..kernels.stream import (exact_payload, rounding_bound, stream_sum,
                               stream_sum_async, stream_sum_plain)
 from ..ops.edge import _flat_gather
+from .timing import median_ms
 
 B, E, C = 32, 81920, 64          # the scatter payload of P1-P4
 N, K = 2048, 40                  # P5 (E = N * K)
@@ -60,26 +60,6 @@ N_LO = 512                       # P1's one-hot width
 LANES = (64, 128, 256, 512, 1024)
 ASYNC_GRID = ((32, 2), (64, 2), (64, 4), (128, 4), (256, 2))
 EPS32 = 2.0 ** -24
-
-
-def median_ms(fn, reps: int = 7, inner: int = 10, warm: int = 3) -> float:
-    """Per-call ms: median over `reps` runs of `inner` back-to-back warm
-    calls, each run timed with CUDA events (back to back, the host's launch
-    overhead overlaps the device work instead of adding to it)."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return statistics.median(times)
 
 
 def payload(device="cuda", seed: int = 0):

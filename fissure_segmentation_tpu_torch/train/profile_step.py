@@ -44,7 +44,7 @@ KERNELS = {
               "graph transpose": "transpose_",
               "K2 scatter_rows": "scatter_rows_kernel",
               "K3 scatter_routed": "scatter_routed_",
-              "K4 scatter_count": "count_kernel",
+              "K4 scatter_count": "count_",
               "gather_reduce": "gather_reduce_"},
     "PointTransformer": {"K5 fps": "fps_kernel"}}
 STEPS, BATCH, WARM = 10, 32, 2

@@ -277,6 +277,113 @@ def test_scatter_count_kernel_equals_plain(cuda, b, e, n):
     assert torch.equal(got, ks.scatter_count_plain(idx, n))
 
 
+def _count_case(name):
+    """(B, E) int32 targets and n_rows: K4's hard cases on the card."""
+    g = torch.Generator().manual_seed(len(name))
+    if name == "dropped":                  # above n_rows and negative
+        return torch.randint(-40, 1040, (2, 7001), generator=g).int(), 1000
+    if name == "hub":                      # row 7 takes 1250 of 5000 edges
+        idx = torch.randint(0, 2000, (2, 5000), generator=g)
+        idx[:, ::4] = 7
+        return idx.int(), 2000
+    if name == "n_rows_1":
+        return torch.randint(-1, 2, (4, 999), generator=g).int(), 1
+    if name == "b_1":                      # one cluster of 8 blocks
+        return _targets(1, 2048 * 40, 2048, 3), 2048
+    if name == "ragged_e":                 # E no multiple of 4
+        return _targets(3, 12345, 1000, 4), 1000
+    if name == "b_22":                     # clusters of 6 blocks
+        return _targets(22, 4097, 700, 5), 700
+    if name == "b_132":                    # clusters of one block
+        return _targets(132, 4097, 700, 7), 700
+    if name == "p1_rows_512":              # P1's k_onehot: in-degree 160
+        return torch.randint(0, 2048, (32, 2048 * 40), generator=g
+                             ).int() % 512, 512
+    if name == "smem_rows":                # 8 blocks of 200 KB a cluster
+        return torch.randint(-5, 51205, (2, 60000), generator=g).int(), 51200
+    if name == "many_rows":                # counters in device memory
+        return torch.randint(-5, 60005, (2, 5000), generator=g).int(), 60000
+    return _targets(32, 2048 * 40, 2048, 6), 2048   # the train step's
+
+
+COUNT_CASES = ["dropped", "hub", "n_rows_1", "b_1", "ragged_e", "b_22",
+               "b_132", "p1_rows_512", "smem_rows", "many_rows",
+               "train_step"]
+
+
+@pytest.mark.parametrize("name", COUNT_CASES)
+@pytest.mark.parametrize("from_ptr", [False, True], ids=["hist", "ptr"])
+def test_scatter_count_kernels_on_hard_cases(cuda, name, from_ptr):
+    """Both K4 kernels (the histogram of idx; the in-degrees from the
+    transpose's row offsets) equal to plain on K4's hard cases, two
+    launches bit-equal, each counted under its own call."""
+    idx, n = _count_case(name)
+    idx = idx.to(cuda)
+    tr = ks.transpose(idx, n) if from_ptr else None
+    b, e = idx.shape
+    key = f"ptr_{b}x{n}" if from_ptr else f"hist_{b}x{e}_rows{n}"
+    before, calls = ks.scatter_count.launches, ks.scatter_count.calls.get(
+        key, 0)
+    got = ks.scatter_count(idx, n, tr)
+    again = ks.scatter_count(idx, n, tr)
+    torch.cuda.synchronize()
+    assert ks.scatter_count.launches == before + 2
+    assert ks.scatter_count.calls[key] == calls + 2
+    assert got.dtype == torch.float32 and got.shape == (b, n)
+    assert torch.equal(got, again)
+    assert torch.equal(got, ks.scatter_count_plain(idx, n))
+
+
+def test_scatter_count_histogram_off_16_byte_boundaries(cuda):
+    """idx starting 4 bytes past a 16-byte boundary, rows of E = 4k + 3
+    targets: every row's head and tail outside the 16-byte loads."""
+    g = torch.Generator().manual_seed(8)
+    flat = torch.randint(-3, 703, (5 * 4003 + 1,), generator=g).int()
+    idx = flat.to(cuda)[1:].view(5, 4003)
+    assert idx.is_contiguous() and idx.data_ptr() % 16 == 4
+    got = ks.scatter_count(idx, 700)
+    assert torch.equal(got, ks.scatter_count_plain(idx, 700))
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["own", "shared"])
+def test_fused_backward_counts_from_one_transpose(cuda, shared):
+    """The fused EdgeConv backward runs K3 once and K4 once from the
+    transpose's row offsets, never the histogram; with transposed=None it
+    builds exactly one transpose for both. Its gradients equal those given
+    the caller's transpose."""
+    from fissure_segmentation_tpu_torch.ops.fused_edge import \
+        fused_edge_train
+    gen = torch.Generator().manual_seed(9)
+    b, n, kk, c = 4, 512, 20, 32
+    idx = torch.randint(0, n, (b, n, kk), generator=gen,
+                        dtype=torch.int32).to(cuda)
+    ins = [torch.randn(shape, generator=gen).to(cuda)
+           for shape in ((b, n, c), (b, n, c), (c,), (c,))]
+    w = torch.randn((b, n, c), generator=gen).to(cuda)
+    tr = ks.transpose(idx.reshape(b, n * kk), n)
+
+    def grads(given):
+        xs = [t.clone().requires_grad_(True) for t in ins]
+        out, _, _ = fused_edge_train(*xs, idx, 1e-5, 0.2, given)
+        before = (ks.transpose.launches, ks.scatter_routed.launches,
+                  ks.scatter_count.launches, dict(ks.scatter_count.calls))
+        (out * w).sum().backward()
+        torch.cuda.synchronize()
+        launched = (ks.transpose.launches - before[0],
+                    ks.scatter_routed.launches - before[1],
+                    ks.scatter_count.launches - before[2])
+        new = {k: v - before[3].get(k, 0)
+               for k, v in ks.scatter_count.calls.items()
+               if v > before[3].get(k, 0)}
+        return [x.grad for x in xs], launched, new
+
+    got, launched, new = grads(tr if shared else None)
+    assert launched == ((0, 1, 1) if shared else (1, 1, 1))
+    assert new == {f"ptr_{b}x{n}": 1}
+    want, _, _ = grads(tr)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
 def _transpose_case(name, seed):
     """(B, E) int32 targets and n_rows: the transpose's hard cases."""
     g = torch.Generator().manual_seed(seed)

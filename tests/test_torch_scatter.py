@@ -1,8 +1,9 @@
-"""Port parity: the scatter kernels' plain versions (K2-K4,
-kernels/scatter.py) against the JAX package's Pallas kernels, the gather
-backward (`_GatherRows`) and the fused EdgeConv's train backward against
-jax.grad, with and without a shared graph transpose, and the transpose's
-plain version against numpy's stable argsort.
+"""Port parity: the scatter kernels' plain versions (K2-K4, K4 also from the
+transpose's row offsets; kernels/scatter.py) against the JAX package's
+Pallas kernels, the gather backward (`_GatherRows`) and the fused
+EdgeConv's train backward against jax.grad, with and without a shared
+graph transpose, and the transpose's plain version against numpy's
+stable argsort.
 
 On the CPU the Pallas kernels run in interpret mode (ops/_config.py) and the
 port's wrappers run their plain versions. Inputs are made from a numpy seed
@@ -131,6 +132,67 @@ def test_scatter_count_equals_pallas(e, n):
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), want)
     assert got[:, 0].min() > e / 4 and not got[:, n - 8:].any()
+
+
+def _count_case(name):
+    """(B, E) int32 targets and n_rows: K4's hard cases."""
+    rng = np.random.default_rng(len(name) + 11)
+    if name == "dropped":                  # above n_rows and negative
+        return rng.integers(-40, 1040, (2, 7001)).astype(np.int32), 1000
+    if name == "hub":                      # row 7 takes 1250 of 5000 edges
+        idx = rng.integers(0, 2000, (2, 5000))
+        idx[:, ::4] = 7
+        return idx.astype(np.int32), 2000
+    if name == "n_rows_1":
+        return rng.integers(-1, 2, (4, 999)).astype(np.int32), 1
+    if name == "b_1":
+        return _targets(rng, 1, N * K, N), N
+    return _targets(rng, B, 4 * 97 + 3, N), N   # E no multiple of 4
+
+
+@pytest.mark.parametrize("name", ["dropped", "hub", "n_rows_1", "b_1",
+                                  "ragged_e"])
+def test_scatter_count_from_transpose_equals_pallas(name):
+    """K4 given the transpose (the differences of its row offsets) equals
+    JAX's K4 in interpret mode and the plain histogram, exactly; the CPU
+    wrapper launches nothing."""
+    idx, n_rows = _count_case(name)
+    want = np.asarray(jscatter_count(jnp.asarray(idx), n_rows))
+    it = torch.from_numpy(idx)
+    tr = ks.transpose_plain(it, n_rows)
+    before = ks.scatter_count.launches
+    got = ks.scatter_count(it, n_rows, tr)
+    assert ks.scatter_count.launches == before
+    assert got.dtype == torch.float32 and got.shape == idx.shape[:1] + (
+        n_rows,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, ks.scatter_count_plain(it, n_rows))
+    assert torch.equal(got, ks.count_from_ptr_plain(tr[1], idx.shape[0],
+                                                    n_rows))
+    if name == "hub":
+        assert (got[:, 7] >= 1250).all()
+
+
+def test_scatter_count_checks_the_transpose():
+    """A transpose of another graph size or dtype is refused before
+    anything runs."""
+    idx = torch.zeros((2, 6), dtype=torch.int32)
+    order, ptr = ks.transpose(idx, 4)
+    for bad, n_rows in (((order, ptr), 5), ((order.long(), ptr), 4),
+                        ((order, ptr.long()), 4), ((order[:-1], ptr), 4)):
+        with pytest.raises(ValueError, match="transposed"):
+            ks.scatter_count(idx, n_rows, bad)
+    with pytest.raises(ValueError, match="transposed"):
+        ks.scatter_count(idx.reshape(3, 4), 4, (order, ptr))
+
+
+def test_hist_max_rows_matches_the_kernel_source():
+    """HIST_MAX_ROWS: the most n_rows whose int32 counters fit
+    HIST_SMEM_MAX in csrc/scatter.cu, which fits a Hopper block's 232 448
+    bytes of shared memory."""
+    smem = _define("HIST_SMEM_MAX")
+    assert smem <= 232448
+    assert ks.HIST_MAX_ROWS * 4 <= smem < (ks.HIST_MAX_ROWS + 1) * 4
 
 
 def test_gather_rows_backward_matches_jax_grad():
@@ -274,6 +336,30 @@ def test_fused_edge_train_with_shared_transpose_matches_jax(monkeypatch):
     for t, g, name in zip(ins, grads_j, ("a", "cen", "gamma", "beta")):
         np.testing.assert_allclose(t.grad.numpy(), g, rtol=2e-4, atol=2e-4,
                                    err_msg=name)
+
+
+def test_fused_edge_train_without_transpose_equals_with_it(monkeypatch):
+    """fused_edge_train's backward called with transposed=None builds the
+    transpose itself, once for K3 and K4: the same forward and the same
+    four gradients as given the caller's transpose."""
+    monkeypatch.setenv("FSEG_FUSED_EDGE", "1")
+    rng = np.random.default_rng(7)
+    b, n, kk, c = 2, 64, 7, 24
+    a = rng.normal(size=(b, n, c)).astype(np.float32)
+    cen = rng.normal(size=(b, n, c)).astype(np.float32)
+    gamma = (rng.normal(size=c) + 0.3).astype(np.float32)   # some < 0
+    beta = (rng.normal(size=c) * 0.2).astype(np.float32)
+    idx = torch.from_numpy(_targets(rng, b, n * kk, n).reshape(b, n, kk))
+    w = torch.from_numpy(rng.normal(size=a.shape).astype(np.float32))
+    runs = []
+    for tr in (None, ks.transpose(idx.reshape(b, n * kk), n)):
+        ins = [torch.from_numpy(v).requires_grad_(True)
+               for v in (a, cen, gamma, beta)]
+        out, _, _ = fused_edge_train(*ins, idx, 1e-5, 0.2, tr)
+        (out * w).sum().backward()
+        runs.append([out.detach()] + [t.grad for t in ins])
+    for x, y, name in zip(*runs, ("out", "a", "cen", "gamma", "beta")):
+        assert torch.equal(x, y), name
 
 
 def test_shared_transpose_is_checked():
