@@ -133,12 +133,31 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      a payload of integers, where every sum is exact, and unequal there
      once a tile is zeroed); the stream kernels' times beside their plain
      version, torch.sum and the bound. P5's comparison is phase 16's. P1's
-     k_onehot is the path of K4's histogram (at 512 rows).
+     k_onehot is the path of K4's histogram (at 512 rows);
+ 20. the default run of the entry point at full width (no --static, no
+     --train_only: DGCNNSeg(k=40, dynamic, bf16), 32 x 2048, 3 epochs of
+     fold 0, then fold 0's test), then --test_only, --speed and --copd on
+     the same output: model.pt dynamic and bf16, the JAX package's CSV
+     layout with finite Dice and a finite ASSD for every fissure that is
+     not missing, the OBJ/NIfTI artifacts, cv_results.csv; the test half's
+     inference and post-processing s/case from inference_time.csv, the
+     --speed ms; then 10 timed warm dynamic bf16 steps (ms/step, clouds/s,
+     peak memory, launches: three graph transposes a step, K1, K2, K3, K4,
+     the gather-reduce) and the feature graph alone at (32, 2048, 64) bf16
+     k=40;
+ 21. the default run's path card against CPU on a small input
+     (phase_dynamic_reference): a dynamic DGCNNSeg's f32 step (its feature
+     graphs, loss, gradient, eval logits; a wrong neighbour planted in the
+     feature graph must miss), its bf16 step (held against the CPU's own
+     bf16 error) and test_pipeline on one case with the same injected
+     draws (predictions, Dice, ASSD family; shifted surface samples must
+     miss).
 
 Kernel launch counts are set to 0 before each main path (phases 4, 10 and
-14 serving, phases 7, 11 and 17 training, phase 19 the probes) and read
-after it; the comparison launches of phases 3, 5, 6, 8, 9, 12, 13, 15, 16
-and 18 and of the probes' own checks are not counted. The line before the last but one is a JSON object
+14 serving, phases 7, 11 and 17 training, phase 19 the probes, phase 20
+the default entry run) and read after it; the comparison launches of
+phases 3, 5, 6, 8, 9, 12, 13, 15, 16, 18 and 21 and of the probes' own
+checks are not counted. The line before the last but one is a JSON object
 describing the kernels (with each one's bound: the larger of its bytes over
 3.35 TB/s and its operations over the 67 TFLOP/s float32 rate, and the time
 of one PyTorch library call that computes the same function, where there
@@ -205,6 +224,10 @@ TRAIN_ARGV = ["--ds", "synthetic", "--pts", "2048", "--k", "40", "--static",
               "--batch", "32", "--amp", "false", "--epochs", "3", "--fold",
               "0", "--train_only"]
 AMP_TRAIN_ARGV = [a if a != "false" else "true" for a in TRAIN_ARGV]
+# the default run of the entry point: no --static, no --train_only, --amp
+# true (bf16)
+DEFAULT_ARGV = ["--ds", "synthetic", "--fold", "0", "--epochs", "3", "--pts",
+                "2048", "--k", "40", "--batch", "32"]
 PT_TRAIN_ARGV = ["--model", "PointTransformer", "--ds", "synthetic", "--pts",
                  "2048", "--batch", "32", "--train_only", "--fold", "0",
                  "--epochs", "3"]
@@ -354,7 +377,7 @@ def phase_slice(knn_cuda, card: str):
     case = make_synthetic_image_case(0, shape=SHAPE)
     vol = torch.from_numpy(case["image"]).cuda()
     mask = torch.from_numpy(case["lung_mask"]).cuda()
-    model = DGCNNSeg(k=40, in_features=3, num_classes=4,
+    model = DGCNNSeg(k=40, in_features=3, num_classes=4, dynamic=False,
                      generator=torch.Generator().manual_seed(0)).cuda().eval()
     apply = biased_model(model, case, SHAPE)
     print(f"slice: synthetic {SHAPE} case made in "
@@ -411,7 +434,7 @@ def phase_reference(card: str):
     from fissure_segmentation_tpu_torch.serving import segment_case
     shape = (128, 128, 128)
     case = make_synthetic_image_case(1, shape=shape)
-    model = DGCNNSeg(k=40, in_features=3, num_classes=4,
+    model = DGCNNSeg(k=40, in_features=3, num_classes=4, dynamic=False,
                      generator=torch.Generator().manual_seed(3)).eval()
     cfg = dict(max_kpts=4000, sample_points=512, n_runs_min=8,
                subset_batch=2, grid_res=(32, 32, 32), center_x=shape[2] / 2)
@@ -972,8 +995,8 @@ def _reference_step(dev, model0, ds, cw, cfg, x, y):
             {k: float(v) for k, v in comps.items()}, rec.branches)
 
 
-def _reference_model(seed, ds, dtype=None):
-    """DGCNNSeg(k=8) with seeded weights and every BatchNorm offset drawn
+def _reference_model(seed, ds, dtype=None, dynamic=False):
+    """DGCNNSeg(k=8, `dynamic`) with seeded weights and every BatchNorm offset drawn
     from ±[0.05, 0.1]. The offsets matter to the updated parameters: the
     loss gradient of SharedMLP_0's BatchNorm offset vanishes analytically
     (the global max passes its shift on to SharedMLP_1, whose BatchNorm
@@ -983,7 +1006,7 @@ def _reference_model(seed, ds, dtype=None):
     sign of wd * p on both sides."""
     from fissure_segmentation_tpu_torch.models import DGCNNSeg
     model = DGCNNSeg(k=8, in_features=ds.n_features,
-                     num_classes=ds.num_classes,
+                     num_classes=ds.num_classes, dynamic=dynamic,
                      generator=torch.Generator().manual_seed(seed),
                      dtype=dtype)
     return _draw_bn_offsets(model, seed)
@@ -1648,7 +1671,7 @@ def phase_cnn_slice(dw_cuda, card: str):
     case = make_synthetic_image_case(0, shape=SHAPE)
     vol = torch.from_numpy(case["image"]).cuda()
     mask = torch.from_numpy(case["lung_mask"]).cuda()
-    model = DGCNNSeg(k=40, in_features=3, num_classes=4,
+    model = DGCNNSeg(k=40, in_features=3, num_classes=4, dynamic=False,
                      generator=torch.Generator().manual_seed(0)).cuda().eval()
     apply = biased_model(model, case, SHAPE)
     cnn = _cnn_model(0).cuda()
@@ -2188,6 +2211,406 @@ def phase_probes(card: str):
     return counts, rows, heads
 
 
+# ---- the default run of train_point_seg (phases 20 and 21) --------------
+
+RESULT_ROWS = ["Class", "Mean Dice", "StdDev Dice", None, "Fissure",
+               "Mean ASSD", "StdDev ASSD", "Mean SDSD", "StdDev SDSD",
+               "Mean HD", "StdDev HD", "Mean HD95", "StdDev HD95",
+               "proportion missing"]
+SPEED_HEADER = ["Inference", "Inference_std", "Post-Processing",
+                "Post-Processing_std", "Total", "Total_std"]
+# phase_dynamic_reference says why
+DYN_TOL = {"loss": 1e-4, "grad_rel_l2": 1e-3, "logits": 1e-3,
+           "graph_share": 0.99}
+DYN_BF16_TOL = {"logits": 0.15, "loss": 5e-2, "slack": 1.3}
+PIPE_TOL = {"pred_share": 0.98, "dice": 0.02, "mesh_rtol": 0.15}
+
+
+def _csv(path):
+    with open(path) as f:
+        return list(csv.reader(f))
+
+
+def _check_test_outputs(test_dir: str, suffix: str, what: str):
+    """The JAX package's CSV layout, finite Dice, a finite ASSD for every
+    fissure that is not missing; returns (inference s/case, post-processing
+    s/case) from inference_time{suffix}.csv."""
+    rows = _csv(os.path.join(test_dir, f"test_results{suffix}.csv"))
+    if [r[0] if r else None for r in rows] != RESULT_ROWS:
+        raise AssertionError(f"{what}: test_results{suffix}.csv layout "
+                             f"{[r[:1] for r in rows]}")
+    if not np.isfinite(np.asarray(rows[1][1:], float)).all():
+        raise AssertionError(f"{what}: Dice {rows[1]}")
+    per = {}
+    for name in ("dice", "assd"):
+        per[name] = _csv(os.path.join(test_dir,
+                                      f"{name}_per_instance{suffix}.csv"))
+        if per[name][0] != ["ID", "fissure 1", "fissure 2", "fissure 3",
+                            "mean"] or len(per[name]) < 2:
+            raise AssertionError(f"{what}: {name}_per_instance layout")
+    missing = np.asarray(rows[-1][1:-1], float)
+    assd = np.asarray([r[1:4] for r in per["assd"][1:]], float)
+    n_cases = assd.shape[0]
+    if not np.array_equal(np.isfinite(assd).sum(0),
+                          np.round(n_cases * (1 - missing)).astype(int)):
+        raise AssertionError(f"{what}: ASSD {assd.tolist()} against the "
+                             f"missing shares {missing.tolist()}")
+    speed = _csv(os.path.join(test_dir, f"inference_time{suffix}.csv"))
+    if speed[0] != SPEED_HEADER or not all(
+            np.isfinite(float(v)) for v in speed[1]):
+        raise AssertionError(f"{what}: inference_time{suffix}.csv {speed}")
+    return float(speed[1][0]), float(speed[1][2])
+
+
+def phase_default_run(ks, knn_cuda, card: str):
+    """The default run of the entry point at full width: train_point_seg
+    .main with no --static and no --train_only (DGCNNSeg(k=40, dynamic,
+    bf16), batch 32 x 2048, 3 epochs of fold 0, then fold 0's test), then
+    --test_only, --speed and --copd on the same output; then 10 timed warm
+    dynamic bf16 steps and the feature graph alone. Counts are reset before
+    and read after; returns (counts, timing, gather-reduce calls, K4
+    calls)."""
+    from fissure_segmentation_tpu_torch import train_point_seg
+    from fissure_segmentation_tpu_torch.models import (DGCNNSeg,
+                                                       export_jax_variables,
+                                                       load_model)
+    from fissure_segmentation_tpu_torch.ops.knn import feature_knn
+    from fissure_segmentation_tpu_torch.train.profile_step import (
+        STEPS, WARM, canonical_data, make_step, time_steps)
+    os.environ.pop("FSEG_FUSED_EDGE", None)
+    timing = {}
+    _reset(ks, knn_cuda)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        if train_point_seg.main(DEFAULT_ARGV + ["--output", tmp]) != 0:
+            raise AssertionError("default run: the entry point failed")
+        timing["train_and_test_s"] = time.perf_counter() - t0
+        fold = os.path.join(tmp, "fold0")
+        hist = _read_history(os.path.join(fold, "history.csv"))
+        if len(hist) != 3 or not np.isfinite(hist).all():
+            raise AssertionError(f"default run: loss history {hist}")
+        model = load_model(os.path.join(fold, "model.pt"), DGCNNSeg)
+        if not model.dynamic or model.dtype != torch.bfloat16:
+            raise AssertionError(f"default run: model.pt holds {model.config}")
+        stats = export_jax_variables(model)["batch_stats"]
+        if any(np.array_equal(leaf, np.zeros_like(leaf))
+               or np.array_equal(leaf, np.ones_like(leaf))
+               for _, leaf in _leaves(stats)):
+            raise AssertionError("default run: running statistics never "
+                                 "moved")
+        test_dir = os.path.join(fold, "test")
+        inf, post = _check_test_outputs(test_dir, "", "default run")
+        pred = os.path.join(test_dir, "test_predictions")
+        objs = os.listdir(os.path.join(pred, "meshes"))
+        niftis = os.listdir(os.path.join(pred, "labelmaps"))
+        if not objs or len(niftis) != 4 or not os.path.exists(
+                os.path.join(tmp, "cv_results.csv")):
+            raise AssertionError(f"default run: artifacts {objs} {niftis}")
+        timing.update(inference_s_per_case=inf, post_s_per_case=post,
+                      loss_history=hist, objs=len(objs))
+        print(f"default run: trained and tested fold 0 in "
+              f"{timing['train_and_test_s']:.1f} s; loss history {hist}; "
+              f"test: {inf:.4f} s/case inference, {post:.4f} s/case "
+              f"post-processing; {len(objs)} OBJ, {len(niftis)} NIfTI "
+              f"on {card}", flush=True)
+        for extra in (["--test_only", "--fold", "0"], ["--speed"],
+                      ["--copd", "--fold", "0"]):
+            t0 = time.perf_counter()
+            if train_point_seg.main(["--output", tmp] + extra) != 0:
+                raise AssertionError(f"default run: {extra[0]} failed")
+            name = extra[0].lstrip("-")
+            timing[f"{name}_s"] = time.perf_counter() - t0
+            if name == "test_only":
+                timing["test_only"] = _check_test_outputs(
+                    test_dir, "", "--test_only")
+            elif name == "copd":
+                timing["copd"] = _check_test_outputs(test_dir, "_copd",
+                                                     "--copd")
+                if not os.path.exists(os.path.join(tmp,
+                                                   "cv_results_copd.csv")):
+                    raise AssertionError("--copd: no cv_results_copd.csv")
+            else:
+                speed = _csv(os.path.join(tmp, "inference_time.csv"))
+                if speed[0] != SPEED_HEADER:
+                    raise AssertionError(f"--speed: {speed}")
+                timing["speed_ms"] = float(speed[1][0]) * 1e3
+                timing["speed_std_ms"] = float(speed[1][1]) * 1e3
+            print(f"default run: {extra[0]} in {timing[name + '_s']:.1f} s "
+                  f"({timing.get(name, timing.get('speed_ms'))})",
+                  flush=True)
+
+        ds, loss_fn = canonical_data()
+        step = make_step(ds, loss_fn, tmp, dtype=torch.bfloat16,
+                         dynamic=True)
+        for _ in range(WARM):
+            step()
+        before = _counts(ks, knn_cuda)
+        ms, peak, losses = time_steps(step)
+        after = _counts(ks, knn_cuda)
+    if not torch.isfinite(torch.stack(losses)).all():
+        raise AssertionError("default run: non-finite loss in the timed "
+                             "steps")
+    launched = {k: after[k] - before[k] for k in after}
+    if launched["transpose"] != 3 * STEPS:
+        raise AssertionError(f"default run: {launched['transpose']} graph "
+                             f"transposes in {STEPS} steps, not three a step")
+    for k, n in (("knn", 1), ("scatter_rows", 1), ("scatter_routed", 2),
+                 ("scatter_count", 2), ("gather_reduce", 2)):
+        if launched[k] < n * STEPS:
+            raise AssertionError(f"default run: {k} launched "
+                                 f"{launched[k]} times in {STEPS} steps")
+    feats = torch.randn((32, 2048, 64), device="cuda").to(torch.bfloat16)
+    graph_ms = median_ms(lambda: feature_knn(feats, 40), reps=5, inner=3)
+    timing.update(ms_per_step=ms, clouds_per_s=32e3 / ms, peak_bytes=peak,
+                  launches_10_steps=launched,
+                  feature_graph_ms_per_call=graph_ms,
+                  feature_graph_ms_per_step=2 * graph_ms)
+    print(f"default run: dynamic bf16 step {ms:.2f} ms ({32e3 / ms:.1f} "
+          f"clouds/s), peak {peak / 2 ** 30:.2f} GiB, launches in {STEPS} "
+          f"steps {launched}; the feature graph (32, 2048, 64) bf16 k=40 "
+          f"{graph_ms:.3f} ms a call, {2 * graph_ms:.3f} ms a step, on "
+          f"{card}", flush=True)
+    counts = _counts(ks, knn_cuda)
+    for k in ("knn", "transpose", "scatter_rows", "scatter_routed",
+              "scatter_count", "gather_reduce"):
+        if counts[k] < 1:
+            raise AssertionError(f"default run: {k} never launched")
+    return (counts, timing, _gr_calls(ks, knn_cuda),
+            _check_k4_route(ks, "default run"))
+
+
+@contextlib.contextmanager
+def planted_graph_fault():
+    """A wrong neighbour in every feature graph, for as long as the context
+    lasts: slot 1 of each point takes the slot-1 neighbour of the next
+    point."""
+    from fissure_segmentation_tpu_torch.ops import knn as knn_mod
+    real = knn_mod.feature_knn
+
+    def fault(x, kk):
+        idx, dist = real(x, kk)
+        idx = idx.clone()
+        idx[..., 1] = idx[..., 1].roll(1, dims=-1)
+        return idx, dist
+    knn_mod.feature_knn = fault
+    try:
+        yield
+    finally:
+        knn_mod.feature_knn = real
+
+
+class GraphRecorder:
+    """Records every feature graph the model builds (ops/knn.py:
+    feature_knn) while the context lasts."""
+
+    def __enter__(self):
+        from fissure_segmentation_tpu_torch.ops import knn as knn_mod
+        self.mod, self.real, self.graphs = knn_mod, knn_mod.feature_knn, []
+
+        def record(x, kk):
+            out = self.real(x, kk)
+            self.graphs.append(out[0].cpu())
+            return out
+        knn_mod.feature_knn = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.feature_knn = self.real
+
+
+def _same_sets(a, b) -> float:
+    return float((a.sort(-1).values == b.sort(-1).values).all(-1)
+                 .float().mean())
+
+
+def _gt_bias(case, scale: float, device):
+    """A class bias of `scale` on the GT label of the case point that each
+    input point equals (the ensemble feeds case points)."""
+    pts = torch.as_tensor(case["coords"], device=device)
+    onehot = torch.nn.functional.one_hot(
+        torch.as_tensor(case["labels"], device=device).long(), 4).float()
+
+    def bias(x):
+        d = ((x[..., None, :3] - pts) ** 2).sum(-1)
+        return onehot[d.argmin(-1)] * scale
+    return bias
+
+
+def phase_dynamic_reference(card: str):
+    """Card against CPU on the default run's new path, at a small size.
+
+    1. A dynamic DGCNNSeg(k=8) from seeded weights (B=2, N=256): one float32
+       step on the card and on the CPU from the same weights and batch.
+       With TF32 off both build the same feature graphs but for near-ties:
+       at least DYN_TOL["graph_share"] of the neighbour sets agree; the
+       loss within rtol DYN_TOL["loss"], the whole gradient within
+       DYN_TOL["grad_rel_l2"] relative L2, the eval logits within
+       DYN_TOL["logits"] * max|logit|. The same step on the card with a
+       wrong neighbour planted in every feature graph
+       (`planted_graph_fault`) must miss the gradient limit. First
+       readings (NVIDIA H100 80GB HBM3, 700 W): share 1.0, loss 5.3e-7,
+       gradient 3.6e-4 (the planted fault 1.09), logits 9.1e-7.
+    2. The same weights in bf16: the graph is computed from bf16 features,
+       where the card's and the CPU's products round differently and move
+       neighbours (tests/test_torch_dynamic.py), so the bf16 step is held
+       as the CPU tests hold it against JAX: the card's bf16 loss within
+       rtol DYN_BF16_TOL["loss"] of the CPU's bf16 loss, its gradient no
+       further from the CPU's float32 gradient than the CPU's bf16 gradient
+       is (x DYN_BF16_TOL["slack"]), its eval logits within
+       DYN_BF16_TOL["logits"] * max|logit| of the CPU's bf16 logits (this
+       runs the fused eval route in bf16, "extrema", on the card). First
+       readings: loss 3.4e-3, gradient 0.742 against the CPU's 0.729,
+       logits 0.021.
+    3. test_pipeline on one case of 3000 points (512-point subsets, 8
+       runs, 64^3) with the bf16 weights plus a GT-keyed class bias (0.3:
+       on the CPU the prediction follows the GT at all but 2 points, the
+       model at those; at 0.25 class 0 takes whole fissures), the same
+       injected draws on both sides: the per-point predictions agree on at
+       least PIPE_TOL["pred_share"], Dice within PIPE_TOL["dice"], the
+       ASSD family within PIPE_TOL["mesh_rtol"] where both are finite (a
+       handful of points predicted otherwise move the fitted mesh: first
+       readings 3 of 3000 points, Dice 0.0043, ASSD 0.069, SDSD 0.051, HD
+       0.023, HD95 0.039 apart); the card's run with every surface sample
+       shifted by one voxel must miss that limit (first reading: ASSD
+       0.45)."""
+    from fissure_segmentation_tpu_torch.data.dataset import PointDataset
+    from fissure_segmentation_tpu_torch.data.store import sample_batch
+    from fissure_segmentation_tpu_torch.data.synthetic import \
+        make_synthetic_dataset
+    from fissure_segmentation_tpu_torch.models import export_jax_variables
+    from fissure_segmentation_tpu_torch.models.ensemble import build_subsets
+    from fissure_segmentation_tpu_torch.train import evaluation
+    from fissure_segmentation_tpu_torch.train.trainer import TrainConfig
+    ds = PointDataset(make_synthetic_dataset(3, n_points=600),
+                      sample_points=256)
+    store = ds.to_store(device="cuda")
+    cw = torch.as_tensor(ds.get_class_weights())
+    x, y = sample_batch(store, torch.tensor([0, 2], device="cuda"),
+                        ds.sample_points,
+                        torch.Generator(device="cuda").manual_seed(100))
+    out = {}
+
+    def grads(m):
+        return dict(_leaves(export_jax_variables(m, grad=True)))
+
+    # 1. float32
+    model0 = _reference_model(0, ds, dynamic=True)
+    with GraphRecorder() as rec_g:
+        m_g, l_g, _, _ = _reference_step("cuda", model0, ds, cw,
+                                         TrainConfig(), x, y)
+    with GraphRecorder() as rec_c:
+        m_c, l_c, _, _ = _reference_step("cpu", model0, ds, cw,
+                                         TrainConfig(), x, y)
+    share = min(_same_sets(a, b) for a, b in zip(rec_g.graphs,
+                                                 rec_c.graphs))
+    g_c = grads(m_c)
+    grad = _rel_l2(grads(m_g), g_c)
+    with planted_graph_fault():
+        m_f = _reference_step("cuda", model0, ds, cw, TrainConfig(), x, y)[0]
+    fault = _rel_l2(grads(m_f), g_c)
+    with torch.no_grad():
+        lg = copy.deepcopy(model0).cuda().eval()(x).cpu()
+        lc = copy.deepcopy(model0).eval()(x.cpu())
+    logits = float((lg - lc).abs().max() / lc.abs().max())
+    loss = abs(l_g - l_c) / abs(l_c)
+    out["f32"] = dict(graph_share=share, loss_rel=loss, grad_rel_l2=grad,
+                      planted_fault_grad_rel_l2=fault, logits=logits)
+    if (share < DYN_TOL["graph_share"] or loss > DYN_TOL["loss"]
+            or grad > DYN_TOL["grad_rel_l2"] or logits > DYN_TOL["logits"]):
+        raise AssertionError(f"dynamic reference (f32): {out['f32']} "
+                             f"against {DYN_TOL}")
+    if fault <= DYN_TOL["grad_rel_l2"]:
+        raise AssertionError(f"dynamic reference: a planted wrong neighbour "
+                             f"moved the gradient only {fault:.3g}")
+    print(f"dynamic reference: f32 step card vs CPU {out['f32']} "
+          f"(limits {DYN_TOL})", flush=True)
+
+    # 2. bf16
+    model_b = _reference_model(0, ds, dtype=torch.bfloat16, dynamic=True)
+    m_gb, l_gb, _, _ = _reference_step("cuda", model_b, ds, cw,
+                                       TrainConfig(), x, y)
+    m_cb, l_cb, _, _ = _reference_step("cpu", model_b, ds, cw,
+                                       TrainConfig(), x, y)
+    ours, own = _rel_l2(grads(m_gb), g_c), _rel_l2(grads(m_cb), g_c)
+    with torch.no_grad():
+        lgb = copy.deepcopy(model_b).cuda().eval()(x).float().cpu()
+        lcb = copy.deepcopy(model_b).eval()(x.cpu()).float()
+    logits_b = float((lgb - lcb).abs().max() / lcb.abs().max())
+    loss_b = abs(l_gb - l_cb) / abs(l_cb)
+    out["bf16"] = dict(loss_rel=loss_b, grad_vs_cpu_f32=ours,
+                       cpu_bf16_vs_cpu_f32=own, logits=logits_b)
+    if (loss_b > DYN_BF16_TOL["loss"] or logits_b > DYN_BF16_TOL["logits"]
+            or ours > DYN_BF16_TOL["slack"] * own):
+        raise AssertionError(f"dynamic reference (bf16): {out['bf16']} "
+                             f"against {DYN_BF16_TOL}")
+    print(f"dynamic reference: bf16 step card vs CPU {out['bf16']} "
+          f"(limits {DYN_BF16_TOL})", flush=True)
+
+    # 3. test_pipeline
+    case = make_synthetic_dataset(1, n_points=3000, gt_surfaces=True,
+                                  seed=5)[0]
+    tds = PointDataset([case], sample_points=512)
+    g = torch.Generator().manual_seed(9)
+    draws = [{"subsets": build_subsets(3000, 512, 8, g),
+              "surface": {c: (torch.rand(4000, generator=g),
+                              torch.rand((4000, 2), generator=g))
+                          for c in (1, 2, 3)}}]
+    runs = {}
+    real_eval = evaluation.evaluate_case
+    real_sample = evaluation.sample_points_on_triangles
+    for name, dev in (("card", "cuda"), ("cpu", "cpu"), ("fault", "cuda")):
+        net = copy.deepcopy(model_b).to(dev).eval()
+        bias = _gt_bias(case, 0.3, dev)
+        preds = []
+
+        def record(pred, *a, **k):
+            preds.append(np.asarray(pred))
+            return real_eval(pred, *a, **k)
+
+        def shifted(*a, **k):
+            return real_sample(*a, **k) + 1.0
+        evaluation.evaluate_case = record
+        if name == "fault":
+            evaluation.sample_points_on_triangles = shifted
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                res = evaluation.test_pipeline(
+                    tds, lambda v, net=net, bias=bias: net(v) + bias(v), tmp,
+                    sample_points=512, n_runs_min=8, device=dev,
+                    draws=draws)
+        finally:
+            evaluation.evaluate_case = real_eval
+            evaluation.sample_points_on_triangles = real_sample
+        runs[name] = (preds[0], res)
+    (p_g, r_g), (p_c, r_c), (_, r_f) = runs["card"], runs["cpu"], \
+        runs["fault"]
+
+    def mesh_gaps(a, b):
+        both = np.isfinite(a["assd"]) & np.isfinite(b["assd"])
+        return {k: float((np.abs(a[k] - b[k]) / np.abs(b[k]))[both].max())
+                for k in ("assd", "sdsd", "hd", "hd95")}, int(both.sum())
+    pred_share = float((p_g == p_c).mean())
+    dice = float(np.abs(r_g["dice"] - r_c["dice"]).max())
+    gaps, n_fitted = mesh_gaps(r_g, r_c)
+    fault_gaps = mesh_gaps(r_f, r_c)[0]
+    mesh, fault_mesh = max(gaps.values()), max(fault_gaps.values())
+    out["pipeline"] = dict(pred_share=pred_share, dice_gap=dice,
+                           mesh_rel_gaps=gaps, fissures_fitted=n_fitted,
+                           classes=np.bincount(p_c, minlength=4).tolist(),
+                           dice=r_c["dice"].tolist(),
+                           shifted_sample_mesh_rel_gaps=fault_gaps)
+    if (pred_share < PIPE_TOL["pred_share"] or dice > PIPE_TOL["dice"]
+            or n_fitted < 2 or mesh > PIPE_TOL["mesh_rtol"]):
+        raise AssertionError(f"dynamic reference (test_pipeline): "
+                             f"{out['pipeline']} against {PIPE_TOL}")
+    if fault_mesh <= PIPE_TOL["mesh_rtol"]:
+        raise AssertionError(f"dynamic reference: shifted surface samples "
+                             f"moved the ASSD family only {fault_mesh:.3g}")
+    print(f"dynamic reference: test_pipeline card vs CPU {out['pipeline']} "
+          f"(limits {PIPE_TOL}) on {card}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2294,12 +2717,24 @@ def main() -> int:
                              f"not only {PROBE_K4_CALL}")
     print(json.dumps({"probes": probe_rows, "card": card}), flush=True)
 
-    train_total = {k: counts["total"][k] + bf16_counts[k]
+    # 20. the default run of the entry point: dynamic bf16 training and
+    # the test half (counts from 0, read after)
+    default_counts, default_timing, default_gr, default_k4 = \
+        phase_default_run(ks, knn_cuda, card)
+    gr_calls.append(default_gr)
+    print(json.dumps({"default_run": default_timing, "card": card}),
+          flush=True)
+
+    # 21. card against CPU on the default run's path, small input
+    print(json.dumps({"dynamic_reference": phase_dynamic_reference(card),
+                      "card": card}), flush=True)
+
+    train_total = {k: counts["total"][k] + bf16_counts[k] + default_counts[k]
                    for k in counts["total"]}
     # K4 by call: the train paths' count_from_ptr, the probes' histogram at
     # 512 rows (the launches of their timed calls)
     k4_calls, k4_paths = {}, {}
-    for part in (counts["k4_calls"], bf16_counts["k4_calls"]):
+    for part in (counts["k4_calls"], bf16_counts["k4_calls"], default_k4):
         for key, n in part.items():
             k4_calls[key] = k4_calls.get(key, 0) + n
             k4_paths[key] = "train"

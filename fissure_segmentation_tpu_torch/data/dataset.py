@@ -75,7 +75,8 @@ class PointDataset:
 
     def __init__(self, cases: list[dict], sample_points: int = 2048,
                  exclude_rhf: bool = False, lobes: bool = False,
-                 binary: bool = False, do_augmentation: bool = True):
+                 binary: bool = False, do_augmentation: bool = True,
+                 copd: bool = False):
         if lobes and binary:
             raise NotImplementedError("binary + lobes not supported")
         self.cases = cases
@@ -84,6 +85,7 @@ class PointDataset:
         self.lobes = lobes
         self.binary = binary
         self.do_augmentation = do_augmentation
+        self.copd = copd
         for c in self.cases:
             if lobes:
                 if "lobes" not in c:
@@ -100,7 +102,13 @@ class PointDataset:
         files = sorted(glob(os.path.join(folder, "*_points_*.npz")))
         if not files:
             raise FileNotFoundError(f"no *_points_*.npz cases in {folder}")
-        return cls([load_case_npz(f) for f in files], **kwargs)
+        cases = [load_case_npz(f) for f in files]
+        if kwargs.get("copd"):
+            # the COPD transfer-validation set: the cases whose id says so
+            cases = [c for c in cases if "COPD" in str(c["case_id"])]
+            if not cases:
+                raise FileNotFoundError(f"no COPD cases in {folder}")
+        return cls(cases, **kwargs)
 
     def __len__(self):
         return len(self.cases)
@@ -133,11 +141,25 @@ class PointDataset:
                 :self.num_classes]
         return compute_class_weights(freq)
 
+    def get_full_pointcloud(self, i: int):
+        """(N, 3+F) inputs and (N,) labels of case i."""
+        c = self.cases[i]
+        x = c["coords"]
+        if c.get("features") is not None:
+            x = np.concatenate([x, c["features"]], axis=1)
+        lbl = np.asarray(c["labels"])
+        if self.binary:
+            lbl = (lbl != 0).astype(np.int32)
+        return x, lbl
+
     def to_store(self, device=None):
         return build_store(self.cases, device=device)
 
-    def split_data_set(self, split: dict):
-        """(train_ds, val_ds) by case id lists."""
+    def split_data_set(self, split: dict, fold_nr: int | None = None):
+        """(train_ds, val_ds) by case id lists. A COPD dataset is the
+        validation set of every fold: (None, self)."""
+        if self.copd:
+            return None, self
         tr_ids = {tuple(x) if isinstance(x, (list, tuple)) else (x, None)
                   for x in split["train"]}
         vl_ids = {tuple(x) if isinstance(x, (list, tuple)) else (x, None)

@@ -12,6 +12,7 @@ NativeBuildError.
 Public API (all NumPy in / NumPy out):
     cc_label_3d(grid)           -> (labels int32 zyx, n_components)
     cc_stats(labels, n)         -> (sizes int64, x_sums float64) per label
+    point_mesh_distance(verts, tris, queries) -> (nq,) float32
     voxelize_triangles(tris, valid, shape, label, out=None) -> uint8 zyx
     binary_dilate_3d(grid, iters) -> uint8 zyx
 """
@@ -89,6 +90,9 @@ def load() -> ctypes.CDLL:
             lib.fseg_cc_stats.argtypes = [i32p, i64, i64, i64, i32,
                                           ctypes.POINTER(ctypes.c_int64),
                                           ctypes.POINTER(ctypes.c_double)]
+            lib.fseg_point_mesh_dist.restype = None
+            lib.fseg_point_mesh_dist.argtypes = [f32p, i64, i32p, i64, f32p,
+                                                 i64, f32p]
             lib.fseg_voxelize_tris.restype = None
             lib.fseg_voxelize_tris.argtypes = [f32p, u8p, i64, i64, i64, i64,
                                                ctypes.c_uint8, u8p]
@@ -133,6 +137,30 @@ def cc_stats(labels: np.ndarray, n: int):
                       _ptr(sizes, ctypes.c_int64),
                       _ptr(xsum, ctypes.c_double))
     return sizes, xsum
+
+
+def point_mesh_distance(verts: np.ndarray, tris: np.ndarray,
+                        queries: np.ndarray) -> np.ndarray:
+    """Unsigned distance from each query point to a triangle mesh (exact,
+    through a bounding-volume hierarchy); inf for a mesh without faces.
+
+    :param verts: (V, 3) float; :param tris: (T, 3) int faces;
+    :param queries: (Q, 3) float
+    :return: (Q,) float32
+    """
+    verts = np.ascontiguousarray(verts, np.float32).reshape(-1, 3)
+    tris = np.ascontiguousarray(tris, np.int32).reshape(-1, 3)
+    queries = np.ascontiguousarray(queries, np.float32).reshape(-1, 3)
+    if tris.size and (tris.min() < 0 or tris.max() >= len(verts)):
+        raise ValueError("point_mesh_distance: a face indexes no vertex")
+    lib = load()
+    out = np.empty(queries.shape[0], np.float32)
+    lib.fseg_point_mesh_dist(
+        _ptr(verts, ctypes.c_float), verts.shape[0],
+        _ptr(tris, ctypes.c_int32), tris.shape[0],
+        _ptr(queries, ctypes.c_float), queries.shape[0],
+        _ptr(out, ctypes.c_float))
+    return out
 
 
 def voxelize_triangles(tris: np.ndarray, valid: np.ndarray | None, shape,

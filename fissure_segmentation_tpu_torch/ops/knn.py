@@ -3,10 +3,16 @@
 Dispatch follows the JAX package (ops/knn.py:96-99): coordinate-like clouds
 (C <= 8, kk <= 128) go to K1 (kernels/knn.py), which launches the CUDA
 kernel for a CUDA tensor and runs its plain PyTorch version for a CPU
-tensor; wider graphs keep a plain torch path, where the JAX package uses
-XLA. Semantics: squared euclidean distances, `self_loop=True` keeps the
-point itself as its first neighbor, `self_loop=False` computes k+1 and drops
-the first column.
+tensor. Wider clouds (DGCNN's feature-space graph, C = 64) take the JAX
+package's XLA formula, where it also leaves Pallas: |x|^2 - 2 x.y + |y|^2
+with the diagonal zeroed, in the input's dtype (bf16 features give a bf16
+graph, as in JAX), one `torch.matmul` and a stable ascending sort (ties to
+the lower index, what `lax.top_k(-d, kk)` selects). That path builds the
+graph on a detached input: the indices carry no gradient, and the (B, N, N)
+distances and the sort's indices are freed at once instead of living until
+the backward. Semantics: squared euclidean distances, `self_loop=True`
+keeps the point itself as its first neighbor, `self_loop=False` computes
+k+1 and drops the first column.
 
 Not ported yet: `query_chunk` and the approximate `recall_target` path.
 """
@@ -36,11 +42,28 @@ def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor | None = None
     return d
 
 
+def feature_knn(x: torch.Tensor, kk: int):
+    """The kk nearest points of each point by the JAX formula, ascending,
+    ties to the lower index, in x's dtype, without autograd.
+
+    :param x: (B, N, C)
+    :return: (idx (B, N, kk) int32, dist (B, N, kk) in x's dtype)
+    """
+    if kk > x.shape[-2]:
+        raise ValueError(f"knn: kk={kk} exceeds N={x.shape[-2]}")
+    # the profiler's "feature_graph" range (train/profile_step.py)
+    with torch.no_grad(), torch.profiler.record_function("feature_graph"):
+        dist, idx = torch.sort(pairwise_sqdist(x.detach()), dim=-1,
+                               stable=True)
+        return idx[..., :kk].to(torch.int32), dist[..., :kk]
+
+
 def knn(x: torch.Tensor, k: int, self_loop: bool = False,
         return_dist: bool = False, recall_target: float | None = None):
     """k nearest neighbors of every point within its own cloud.
 
-    :param x: (..., N, C) float32 point clouds, channel-last
+    :param x: (..., N, C) point clouds, channel-last; float32 for the K1
+        route (C <= 8), float32 or bfloat16 for the feature route
     :return: (..., N, k) int32 indices [, (..., N, k) squared distances]
     """
     if recall_target is not None:
@@ -50,11 +73,10 @@ def knn(x: torch.Tensor, k: int, self_loop: bool = False,
     kk = k if self_loop else k + 1
     lead = x.shape[:-2]
     x3 = x.reshape(-1, n, c)
-    if c <= MAX_C and kk <= MAX_KK and kk <= n:
+    if c <= MAX_C and kk <= MAX_KK:      # K1 raises for kk > N
         idx, dist = knn_cuda(x3.contiguous(), k, self_loop)
     else:
-        dist, idx = torch.sort(pairwise_sqdist(x3), dim=-1, stable=True)
-        idx, dist = idx[..., :kk].to(torch.int32), dist[..., :kk]
+        idx, dist = feature_knn(x3, kk)
         if not self_loop:
             idx, dist = idx[..., 1:], dist[..., 1:]
     idx = idx.reshape(*lead, n, k)

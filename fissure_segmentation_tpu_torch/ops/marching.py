@@ -1,7 +1,9 @@
 """Iso-surface extraction by marching tetrahedra (counterpart of
 ops/marching.py: the tetrahedra table, `_cell_tri_counts`,
 `_tet_slot_bits`, `_rank_to_slot`, `_marching_candidates`,
-`_gather_triangles` and `marching_tetrahedra` with `cell_mask`).
+`_gather_triangles` and `marching_tetrahedra` with `cell_mask`), and the
+surface sampling of the evaluation (`sample_points_on_triangles`,
+`triangles_to_mesh`).
 
 Each grid cell is split into 6 tetrahedra and triangles come from a
 16-case table derived in code. Output is a fixed budget of `max_tris`
@@ -189,3 +191,41 @@ def marching_tetrahedra(phi: torch.Tensor, max_tris: int = 200_000,
     out = _gather_triangles(phi, idx_buf, iso, phi.shape[1] - 1,
                             phi.shape[2] - 1)
     return torch.where(tvalid[:, None, None], out, 0.0), tvalid, n_tris
+
+
+def triangles_to_mesh(tris: torch.Tensor):
+    """(T, 3, 3) triangle soup -> (verts (3T, 3), faces (T, 3) int32)."""
+    verts = tris.reshape(-1, 3)
+    faces = torch.arange(verts.shape[0], dtype=torch.int32,
+                         device=tris.device).reshape(-1, 3)
+    return verts, faces
+
+
+def sample_points_on_triangles(tris: torch.Tensor, valid: torch.Tensor,
+                               n_samples: int,
+                               generator: torch.Generator | None = None,
+                               draws=None) -> torch.Tensor:
+    """Area-weighted uniform samples on a (padded) triangle soup: a
+    triangle by inverse CDF over the cumulated areas (searchsorted, right
+    side, clipped to the last triangle), a point in it by the square-root
+    barycentric map.
+
+    :param tris: (T, 3, 3); :param valid: (T,) bool
+    :param generator: CPU generator of the two uniform draws (the
+        triangles' (n_samples,), then the barycentric (n_samples, 2))
+    :param draws: (u (n_samples,), uv (n_samples, 2)) uniforms in [0, 1) to
+        use instead (tests inject the JAX package's)
+    :return: (n_samples, 3)
+    """
+    a, b, c = tris[:, 0], tris[:, 1], tris[:, 2]
+    area = 0.5 * torch.linalg.norm(torch.linalg.cross(b - a, c - a), dim=-1)
+    area = torch.where(valid, area, 0.0)
+    if draws is None:
+        draws = (torch.rand(n_samples, generator=generator),
+                 torch.rand((n_samples, 2), generator=generator))
+    u, uv = (d.to(device=tris.device, dtype=tris.dtype) for d in draws)
+    cdf = torch.cumsum(area.detach(), 0)
+    idx = torch.searchsorted(cdf, u * cdf[-1], right=True).clamp(
+        0, area.shape[0] - 1)
+    u_, v_ = torch.sqrt(uv[:, :1]), uv[:, 1:]
+    return (1 - u_) * a[idx] + u_ * (1 - v_) * b[idx] + u_ * v_ * c[idx]

@@ -1,6 +1,9 @@
 """Per-class surface fitting: keypoint classes -> fissure meshes
 (counterpart of postprocess/surface_fitting.py).
 
+`pointcloud_surface_fitting` fits one cloud (the evaluation's per-class
+fit); the serving path fits all classes at once.
+
 Device half (`batched_psr_mc`, the unpacked `_batched_psr_mc` of the JAX
 package): each class's points are compacted to a fixed `class_cap` prefix,
 all classes get masked kNN-PCA normals (one K1 launch for the batch) and a
@@ -91,6 +94,46 @@ def batched_psr_mc(points_grid: torch.Tensor, valids: torch.Tensor,
     tris = torch.stack([p[0] for p in per_class])
     n_tris = torch.stack([p[2] for p in per_class]).clamp(max=max_tris)
     return phis < 0, tris, n_tris
+
+
+def pointcloud_surface_fitting(points_world: np.ndarray, shape,
+                               mask: np.ndarray | None = None,
+                               mask_dilate_radius: int = 1,
+                               grid_res=(64, 64, 64), sig: float = 4.0,
+                               k_normals: int = 30, max_tris: int = 100_000,
+                               right: bool | None = None,
+                               center_x: float | None = None,
+                               crop_to_bbox: bool = True, device=None):
+    """Fit a surface to one fissure point cloud: kNN-PCA normals (K1 at
+    `k_normals` with a self-loop), the spectral PSR grid, marching
+    tetrahedra inside the points' bbox on `device` (default: the CPU), then
+    the host filter.
+
+    :param points_world: (N, 3) xyz voxel coordinates in a (D, H, W) volume
+    :param mask: optional (D, H, W) boolean lung mask
+    :return: (tris (T, 3, 3) world xyz float32, valid (T,) bool), numpy
+    :raises ValueError: fewer than 4 points, or fewer than `k_normals`
+        (K1's kk > N; the caller's NaN row, as in the JAX package)
+    """
+    points_world = np.asarray(points_world, np.float32)
+    if points_world.size == 0 or points_world.shape[0] < 4:
+        raise ValueError(
+            f"Tried reconstructing mesh from {points_world.shape[0]} points. "
+            "Requires at least 4.")
+    grid_res = tuple(grid_res)
+    pts_grid = torch.from_numpy(np.ascontiguousarray(
+        kpts_to_grid(points_world, shape)[:, ::-1])).to(device)
+    valid = torch.ones((1, pts_grid.shape[0]), dtype=torch.bool,
+                       device=pts_grid.device)
+    phi = _psr_grid(pts_grid[None], valid, grid_res, sig, k_normals)[0]
+    cell_mask = (_bbox_cell_mask(pts_grid[None], valid, grid_res)[0]
+                 if crop_to_bbox else None)
+    tris, tvalid, _ = marching_tetrahedra(phi, max_tris=max_tris,
+                                          cell_mask=cell_mask)
+    return _host_mesh_filter((phi < 0).cpu().numpy(), tris.cpu().numpy(),
+                             tvalid.cpu().numpy(), points_world, shape,
+                             grid_res, mask, mask_dilate_radius, right,
+                             center_x, crop_to_bbox)
 
 
 # ------------------------------------------------------------------ host half

@@ -2,7 +2,8 @@
 
 Per fold: split the dataset, call `train_fn` (which builds a fresh model
 for the fold) and `test_fn`, then aggregate the per-fold metric dicts into
-cv_results.csv.
+cv_results{suffix}.csv. A COPD dataset splits into no training set: every
+fold only tests.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ def cross_val_training(ds: PointDataset, split: list[dict], out_dir: str,
     """Run k-fold CV.
 
     :param train_fn: ``train_fn(train_ds, fold_dir, fold)`` — trains and
-        saves the fold's model; skipped when `test_only`
+        saves the fold's model; skipped when `test_only` or when the split
+        gives no training set (COPD transfer validation)
     :param test_fn: ``test_fn(val_ds, fold_dir, fold)`` — returns a dict of
         per-class metric arrays; mean and std over folds go to
         ``cv_results{suffix}.csv``
@@ -41,9 +43,9 @@ def cross_val_training(ds: PointDataset, split: list[dict], out_dir: str,
     for fold in (range(len(split)) if folds is None else folds):
         print(f"------------ FOLD {fold} ----------------------")
         fold_dir = os.path.join(out_dir, f"fold{fold}")
-        train_ds, val_ds = ds.split_data_set(split[fold])
+        train_ds, val_ds = ds.split_data_set(split[fold], fold_nr=fold)
 
-        if train_fn is not None and not test_only:
+        if train_fn is not None and not test_only and train_ds is not None:
             train_fn(train_ds, fold_dir, fold)
 
         if test_fn is not None and not train_only:

@@ -1,11 +1,12 @@
 """The canonical train steps on one NVIDIA card: timing harness and
 profile.
 
-    python -m fissure_segmentation_tpu_torch.train.profile_step [--model DGCNN|PointTransformer] [--amp]
+    python -m fissure_segmentation_tpu_torch.train.profile_step [--model DGCNN|PointTransformer] [--amp] [--dynamic]
 
-The step is DGCNNSeg(k=40, static) or PointTransformerSeg at its full
-width, batch 32 x 2048 points of the synthetic point cases, f32 (DGCNN with
-`--amp`: the bf16 compute dtype), NNU loss + Adam with L2
+The step is DGCNNSeg(k=40, static; `--dynamic`: the dynamic graph, the
+default run's) or PointTransformerSeg at its full width, batch 32 x 2048
+points of the synthetic point cases, f32 (DGCNN with `--amp`: the bf16
+compute dtype), NNU loss + Adam with L2
 (`canonical_data`, `make_step`); `time_steps` times warm steps with the
 host clock around a sync. chip_smoke.py phases 7, 11 and 17 time them
 through these helpers. Run as a script it prints, for DGCNN in each routing
@@ -17,9 +18,12 @@ through these helpers. Run as a script it prints, for DGCNN in each routing
   * the device time per step of the port's kernels (K1-K4, the graph
     transpose's four kernels and the fused EdgeConv's gather-reduce for
     DGCNN, K5 for PointTransformer) and of the
-    sorts (DGCNN: the batch sampler's, the graph transpose being a kernel
-    of its own; PointTransformer: the stable sorts of `knn_query` and the
-    batch sampler's).
+    sorts (DGCNN: the batch sampler's and, with `--dynamic`, the feature
+    graphs', the graph transpose being a kernel of its own;
+    PointTransformer: the stable sorts of `knn_query` and the batch
+    sampler's); with `--dynamic`, the device time of the two feature-space
+    graphs (`ops/knn.py:feature_knn`'s "feature_graph" range: the matmul,
+    the elementwise passes and the stable sort).
 """
 from __future__ import annotations
 
@@ -69,8 +73,9 @@ def canonical_data(device="cuda"):
 
 
 def make_step(ds, loss_fn, out_dir: str, device="cuda", batch: int = BATCH,
-              model: str = "DGCNN", dtype: torch.dtype | None = None):
-    """A fresh DGCNNSeg(k=40, static, `dtype`) or PointTransformerSeg (full
+              model: str = "DGCNN", dtype: torch.dtype | None = None,
+              dynamic: bool = False):
+    """A fresh DGCNNSeg(k=40, `dynamic`, `dtype`) or PointTransformerSeg (full
     width, f32) from seed 0 and its trainer; returns step() -> (loss,
     components), one Adam step on a newly sampled batch. DGCNN's EdgeConv
     routing is FSEG_FUSED_EDGE's at each call."""
@@ -78,7 +83,7 @@ def make_step(ds, loss_fn, out_dir: str, device="cuda", batch: int = BATCH,
     if model == "DGCNN":
         net = DGCNNSeg(k=40, in_features=ds.n_features,
                        num_classes=ds.num_classes, generator=gen0,
-                       dtype=dtype)
+                       dtype=dtype, dynamic=dynamic)
     elif model == "PointTransformer":
         net = PointTransformerSeg(in_features=ds.n_features,
                                   num_classes=ds.num_classes, generator=gen0)
@@ -114,6 +119,8 @@ def main(argv=None) -> int:
                     choices=sorted(KERNELS))
     ap.add_argument("--amp", action="store_true",
                     help="DGCNN in the bf16 compute dtype (--amp true)")
+    ap.add_argument("--dynamic", action="store_true",
+                    help="DGCNN with the dynamic graph (the default run's)")
     args = ap.parse_args(argv)
     dtype = torch.bfloat16 if args.amp and args.model == "DGCNN" else None
     if not torch.cuda.is_available():
@@ -135,7 +142,10 @@ def main(argv=None) -> int:
             name = "fused" if fused == "1" else "unfused"
             if dtype is not None:
                 name += " bf16"
-        step = make_step(ds, loss_fn, tmp, model=args.model, dtype=dtype)
+            if args.dynamic:
+                name += " dynamic"
+        step = make_step(ds, loss_fn, tmp, model=args.model, dtype=dtype,
+                         dynamic=args.dynamic)
         for _ in range(WARM):
             step()
         ms, _, _ = time_steps(step)
@@ -145,8 +155,10 @@ def main(argv=None) -> int:
                 step()
             torch.cuda.synchronize()
         avg = prof.key_averages()
+        # the "feature_graph" range carries its kernels' time again
         busy = sum(e.self_device_time_total for e in avg
-                   if e.device_type == DeviceType.CUDA) / 3 / 1e3
+                   if e.device_type == DeviceType.CUDA
+                   and e.key != "feature_graph") / 3 / 1e3
         print(f"{name}: {ms:.2f} ms/step ({BATCH * 1e3 / ms:.1f} "
               f"clouds/s); kernels {busy:.2f} ms/step, busy share "
               f"{busy / ms:.3f} on {card}", flush=True)
@@ -159,6 +171,11 @@ def main(argv=None) -> int:
                    and "sort" in e.key.lower())
         print(f"  {'sorts':18s} {sort / 3 / 1e3:.3f} ms/step (every kernel "
               "named *sort*, searchsorted included)", flush=True)
+        if args.dynamic:
+            graph = sum(e.self_device_time_total for e in avg
+                        if e.key == "feature_graph")
+            print(f"  {'feature graphs':18s} {graph / 3 / 1e3:.3f} ms/step "
+                  "(device time under ops/knn.py:feature_knn)", flush=True)
         print(avg.table(sort_by="self_device_time_total", row_limit=22,
                         max_name_column_width=60), flush=True)
     os.environ.pop("FSEG_FUSED_EDGE", None)

@@ -1,44 +1,57 @@
-"""Train point segmentation (DGCNN or PointTransformer) with
-cross-validation (counterpart of the training half of
-train_point_seg.py:34-190).
+"""Train and test point segmentation (DGCNN or PointTransformer) with
+cross-validation (counterpart of train_point_seg.py).
 
     python -m fissure_segmentation_tpu_torch.train_point_seg \\
-        --ds synthetic --pts 2048 --k 40 --static --batch 32 [--amp false] \\
-        --epochs 3 --fold 0 --train_only --output results/torch_run
+        --ds synthetic --fold 0 --epochs 3 --pts 2048 --k 40 --output OUT
+    python -m fissure_segmentation_tpu_torch.train_point_seg --output OUT \\
+        --test_only | --speed | --copd
     python -m fissure_segmentation_tpu_torch.train_point_seg \\
         --model PointTransformer --ds synthetic --pts 2048 --batch 32 \\
-        --epochs 3 --fold 0 --train_only --output results/torch_pt_run
+        --epochs 3 --fold 0 --output results/torch_pt_run
 
-The flags are the JAX entry's (the port's copy in `cli/`). Training runs on
-CUDA card `--gpu`; without a card it raises, unless the caller of `run` or
-`main` passes ``device="cpu"`` (as the tests do). Each fold writes
-`model.pt` (models/weights.py:save_model), history.csv and train_time.csv.
+The flags are the JAX entry's (the port's copy in `cli/`). The default run
+trains each fold (`model.pt`, history.csv, train_time.csv) and then tests
+it (`train/evaluation.py:test_pipeline` on the fold's validation cases:
+fold*/test/test_results.csv, dice_ and assd_per_instance.csv,
+inference_time.csv and the per-case artifacts, then cv_results.csv).
+`--train_only` skips the test, `--test_only` the training; `--speed` times
+10 ensembles of case 0 with fold 0's model (inference_time.csv in the
+output directory); `--copd` tests the trained folds on the COPD cohort
+(the synthetic one: 6 cases, seed 777, ids COPD00...) and forces
+test_only. The three test modes take the trained run's arguments from its
+commandline_args.json. Everything runs on CUDA card `--gpu`; without a
+card it raises, unless the caller of `run` or `main` passes
+``device="cpu"`` (as the tests do).
 
-`--amp true` (the CLI default) trains DGCNN with the bf16 compute dtype
+DGCNN builds its graphs dynamically (the JAX default; `--static`: one
+coordinate graph shared by the three EdgeConvs). `--amp true` (the CLI
+default) trains DGCNN with the bf16 compute dtype
 (`DGCNNSeg(dtype=torch.bfloat16)`: float32 parameters, Adam and loss, bf16
 products), as the JAX entry does; `--amp false` trains it in float32.
 PointTransformer trains in float32 whatever `--amp` says (as in the JAX
 package, which keeps it out of bf16), and `--k`, `--static`,
 `--transformer`, `--img_feat_extractor` and `--knn_recall` do not apply to
-it. Not ported yet, each raising NotImplementedError: for DGCNN the
-dynamic graph (every run without `--static`), `--transformer`,
-`--img_feat_extractor`, `--knn_recall`; for every model `--dp`,
-`--visualize`, `--speed`, `--copd`, PointNet, and testing — every run
-without `--train_only` (train/evaluation.py: test_pipeline, metrics.py).
-The op_count.csv artifact is not written.
+it. Not ported yet, each raising NotImplementedError: for DGCNN
+`--transformer`, `--img_feat_extractor`, `--knn_recall`; for every model
+`--dp`, `--visualize`, PointNet. The op_count.csv artifact is not written,
+and the test modes read the port's `model.pt`, not a JAX `.fst` file.
 """
 from __future__ import annotations
 
 import os
 import sys
+import time
 
+import numpy as np
 import torch
 
-from .cli import get_point_segmentation_parser, store_args
-from .data.dataset import (PointDataset, create_split, load_split_file)
+from .cli import (get_point_segmentation_parser, load_args_for_testing,
+                  store_args)
+from .data.dataset import PointDataset, create_split, load_split_file
 from .data.synthetic import make_synthetic_dataset
 from .losses import get_loss_fn
-from .models import get_point_seg_model_class
+from .models import ensemble_predict, get_point_seg_model_class, load_model
+from .train import evaluation
 from .train.cross_val import cross_val_training
 from .train.trainer import ModelTrainer, TrainConfig
 
@@ -47,16 +60,11 @@ def check_supported(args) -> None:
     """Raise NotImplementedError for every option this port does not take."""
     dgcnn = args.model == "DGCNN"
     unported = {
-        "the dynamic graph (pass --static)": dgcnn and not args.static,
         "--transformer": dgcnn and args.transformer,
         "--img_feat_extractor": dgcnn and args.img_feat_extractor,
         "--knn_recall": dgcnn and args.knn_recall is not None,
         "--dp": args.dp,
         "--visualize": args.visualize is not None,
-        "--speed": args.speed,
-        "--copd": args.copd,
-        "--test_only": args.test_only,
-        "testing (pass --train_only)": not args.train_only,
         f"--model {args.model}": args.model not in ("DGCNN",
                                                     "PointTransformer"),
     }
@@ -66,9 +74,18 @@ def check_supported(args) -> None:
 
 
 def build_dataset(args) -> PointDataset:
+    copd = bool(args.copd)
     kwargs = dict(sample_points=args.pts, exclude_rhf=args.exclude_rhf,
-                  lobes=args.data == "lobes", binary=args.binary)
+                  lobes=args.data == "lobes", binary=args.binary, copd=copd)
     if args.ds == "synthetic" or args.data_dir is None:
+        if copd:
+            # a cohort of its own stands in for the COPD transfer-validation
+            # data: the validation set of every fold
+            cases = make_synthetic_dataset(6, n_points=8000, gt_surfaces=True,
+                                           seed=777)
+            for i, c in enumerate(cases):
+                c["case_id"] = f"COPD{i:02d}"
+            return PointDataset(cases, **kwargs)
         cases = make_synthetic_dataset(20, n_points=8000, gt_surfaces=True)
         return PointDataset(cases, **kwargs)
     return PointDataset.from_folder(args.data_dir, **kwargs)
@@ -81,7 +98,7 @@ def build_model(args, ds: PointDataset, generator: torch.Generator):
     kwargs = dict(in_features=ds.n_features, num_classes=ds.num_classes,
                   generator=generator)
     if args.model == "DGCNN":
-        kwargs.update(k=args.k)
+        kwargs.update(k=args.k, dynamic=not args.static)
         if args.amp:
             kwargs.update(dtype=torch.bfloat16)
     return cls(**kwargs)
@@ -97,14 +114,57 @@ def default_device(args) -> torch.device:
     return torch.device("cuda", args.gpu)
 
 
+def speed_test(ds: PointDataset, model, out_dir: str, sample_points: int,
+               device, n_runs_min: int = 50, repeats: int = 10) -> list:
+    """Inference timing: `repeats` ensembles of case 0's full cloud after a
+    warm-up, each ending in a sync (the subset draw is timed, as in the JAX
+    entry, where it runs on the device); inference_time.csv in `out_dir`.
+    Returns the times in seconds."""
+    x, _ = ds.get_full_pointcloud(0)
+    pc = torch.as_tensor(np.asarray(x, np.float32), device=device)
+    gen = torch.Generator().manual_seed(42)
+
+    def once():
+        ensemble_predict(model, pc, sample_points, n_runs_min, generator=gen)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    once()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        once()
+        times.append(time.perf_counter() - t0)
+    evaluation.write_speed_results(out_dir, times)
+    print(f"inference: {np.mean(times) * 1e3:.1f} +- "
+          f"{np.std(times) * 1e3:.1f} ms")
+    return times
+
+
 def run(args, device=None) -> dict:
-    """Train the folds `args` asks for; returns {fold: trained model} (the
-    best snapshot, the one written as model.pt)."""
+    """Train and/or test the folds `args` asks for; returns {fold: trained
+    model} (the best snapshot, the one written as model.pt)."""
     check_supported(args)
     device = default_device(args) if device is None else torch.device(device)
     os.makedirs(args.output, exist_ok=True)
-    store_args(args, args.output)
+    if args.test_only or args.copd or args.speed:
+        # the trained run's arguments, with the test-time overrides
+        args = load_args_for_testing(args.output, args)
+        check_supported(args)
+    else:
+        store_args(args, args.output)
+    if args.copd:
+        print("Validating with COPD dataset")
+        args.test_only = True
+        args.speed = False
     ds = build_dataset(args)
+    model_cls = get_point_seg_model_class(args.model)
+
+    if args.speed:
+        model = load_model(os.path.join(args.output, "fold0", "model.pt"),
+                           model_cls).to(device)
+        speed_test(ds, model, args.output, args.pts, device)
+        return {}
+
     class_weights = torch.as_tensor(ds.get_class_weights(), device=device)
     loss_fn = get_loss_fn(args.loss, class_weights)
     split = load_split_file(args.split) if args.split else \
@@ -122,9 +182,18 @@ def run(args, device=None) -> dict:
                                device=device)
         models[fold] = trainer.run()
 
-    cross_val_training(ds, split, args.output, train_fn, None,
-                       train_only=True,
-                       folds=None if args.fold is None else [args.fold])
+    def test_fn(val_ds, fold_dir, fold):
+        model = load_model(os.path.join(fold_dir, "model.pt"),
+                           model_cls).to(device)
+        val_ds.do_augmentation = False
+        return evaluation.test_pipeline(
+            val_ds, model, os.path.join(fold_dir, "test"),
+            sample_points=args.pts, copd=args.copd, device=device)
+
+    cross_val_training(ds, split, args.output, train_fn, test_fn,
+                       test_only=args.test_only, train_only=args.train_only,
+                       folds=None if args.fold is None else [args.fold],
+                       results_suffix="_copd" if args.copd else "")
     return models
 
 

@@ -1,0 +1,76 @@
+"""The test pipeline's point-cloud plot (a copy of `plot_point_cloud` and its
+helpers from the JAX package's utils/visualization.py, held equal to the
+original by tests/test_torch_repairs.py).
+
+matplotlib is imported at the call, never with the module: a machine
+without it (`matplotlib_available()` is False) runs everything else, and the
+caller skips the plots.
+"""
+from __future__ import annotations
+
+import importlib.util
+import os
+
+import numpy as np
+
+_FISSURE_COLORS = {1: "tab:red", 2: "tab:blue", 3: "tab:green",
+                   4: "tab:orange", 5: "tab:purple"}
+
+
+def matplotlib_available() -> bool:
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def _plt():
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    return plt
+
+
+def color_for_label(lbl: int) -> str:
+    return _FISSURE_COLORS.get(int(lbl), "tab:gray")
+
+
+def point_cloud_on_axis(ax, pc: np.ndarray, c=None, label: str = "",
+                        alpha: float = 1.0, s: float = 1.0, cmap=None,
+                        title: str = ""):
+    """pc: (N, 3) xyz."""
+    pc = np.asarray(pc)
+    ax.scatter(pc[:, 0], pc[:, 1], pc[:, 2], c=c, label=label, alpha=alpha,
+               s=s, cmap=cmap)
+    if title:
+        ax.set_title(title)
+    if label:
+        ax.legend()
+
+
+def plot_point_cloud(pc: np.ndarray, labels: np.ndarray | None = None,
+                     path: str | None = None, show: bool = False,
+                     title: str = ""):
+    """Labeled keypoint cloud scatter (per-fissure colors)."""
+    plt = _plt()
+    fig = plt.figure()
+    ax = fig.add_subplot(111, projection="3d")
+    pc = np.asarray(pc)
+    if labels is None:
+        point_cloud_on_axis(ax, pc, c="tab:gray")
+    else:
+        labels = np.asarray(labels)
+        for lbl in np.unique(labels):
+            mask = labels == lbl
+            point_cloud_on_axis(ax, pc[mask],
+                                c=color_for_label(lbl) if lbl else "lightgray",
+                                label=f"label {lbl}", alpha=0.6 if lbl else 0.1)
+    ax.set_title(title)
+    _finish(fig, path, show)
+
+
+def _finish(fig, path, show):
+    plt = _plt()
+    if path:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        fig.savefig(path, dpi=120, bbox_inches="tight")
+    if show:  # pragma: no cover - interactive
+        plt.show()
+    plt.close(fig)

@@ -185,7 +185,7 @@ def main() -> int:
     case = make_synthetic_image_case(0, shape=SHAPE)
     vol = torch.from_numpy(case["image"]).cuda()
     mask = torch.from_numpy(case["lung_mask"]).cuda()
-    model = DGCNNSeg(k=40, in_features=3, num_classes=4,
+    model = DGCNNSeg(k=40, in_features=3, num_classes=4, dynamic=False,
                      generator=torch.Generator().manual_seed(0)).cuda().eval()
     apply = biased_model(model, case, SHAPE)
     cnn = _cnn_model(0).cuda() if args.kp_mode == "cnn" else None

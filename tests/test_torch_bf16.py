@@ -125,7 +125,7 @@ def _models(seed=1, k=6, in_features=4, num_classes=4):
         jax.random.PRNGKey(seed), jnp.zeros((1, 32, in_features),
                                             jnp.float32)))
     tm = load_jax_variables(DGCNNSeg(k=k, in_features=in_features,
-                                     num_classes=num_classes,
+                                     num_classes=num_classes, dynamic=False,
                                      dtype=torch.bfloat16), variables)
     return jm, variables, tm
 

@@ -67,7 +67,8 @@ def point_models():
         return jm.apply(v, x, train=train) + 50.0 * jax.nn.one_hot(
             _band_class(x, jnp), 4)
 
-    tm = load_jax_variables(DGCNNSeg(k=8, in_features=3, num_classes=4),
+    tm = load_jax_variables(DGCNNSeg(k=8, in_features=3, num_classes=4,
+                                     dynamic=False),
                             jax.tree_util.tree_map(np.asarray, variables))
     tm.eval()
 

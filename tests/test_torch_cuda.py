@@ -1,7 +1,10 @@
 """The kernels on the card (K1 kNN, the graph transpose, K2-K4 scatter, K5 farthest-point
 sampling, K6 depthwise convolution, the fused EdgeConv gather-reduce, the
-streaming column sums) against their plain PyTorch versions, and the DGCNN
-eval forward with grad enabled against the no_grad one.
+streaming column sums) against their plain PyTorch versions, the DGCNN
+eval forward with grad enabled against the no_grad one, and the default
+run's path: the feature graph card against CPU, the dynamic step with its
+three transposes against the same step given none, test_pipeline card
+against CPU.
 
 These tests need an NVIDIA card and skip elsewhere. The repository's
 tests/conftest.py imports jax, which the card's machine does not have, so
@@ -760,7 +763,8 @@ def test_dgcnn_eval_forward_with_grad_equals_no_grad(cuda, monkeypatch):
     from fissure_segmentation_tpu_torch.models import DGCNNSeg
     monkeypatch.setenv("FSEG_FUSED_EDGE", "1")
     torch.manual_seed(0)
-    model = DGCNNSeg(k=8, in_features=3, num_classes=4).to(cuda).eval()
+    model = DGCNNSeg(k=8, in_features=3, num_classes=4,
+                     dynamic=False).to(cuda).eval()
     x = _uniform((2, 256, 3), 3).to(cuda).requires_grad_(True)
     before = gather_reduce.launches
     out = model(x)
@@ -771,3 +775,98 @@ def test_dgcnn_eval_forward_with_grad_equals_no_grad(cuda, monkeypatch):
         want = model(x)
     assert gather_reduce.launches > before
     assert torch.equal(out.detach(), want)
+
+
+# ---- the dynamic graph and the test half --------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_feature_graph_on_card_equals_cpu(cuda, dtype):
+    """The feature-space graph (matmul + stable sort, TF32 off): on dyadic
+    features every distance is exact on both sides, so the indices, ties
+    included, and the distances are equal; on generic float32 features the
+    neighbour sets agree but for near-ties (at least 99 %)."""
+    from fissure_segmentation_tpu_torch.ops.knn import feature_knn
+    g = torch.Generator().manual_seed(11)
+    x = (torch.randint(-16, 17, (3, 700, 64), generator=g) / 16.0).to(dtype)
+    i_g, d_g = feature_knn(x.to(cuda), 41)
+    i_c, d_c = feature_knn(x, 41)
+    assert torch.equal(i_g.cpu(), i_c) and torch.equal(d_g.cpu(), d_c)
+    if dtype == torch.float32:
+        x = torch.randn((3, 700, 64), generator=g)
+        i_g = feature_knn(x.to(cuda), 40)[0].cpu().sort(-1).values
+        i_c = feature_knn(x, 40)[0].sort(-1).values
+        assert (i_g == i_c).all(-1).float().mean() >= 0.99
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dynamic_step_with_transposes_equals_step_without(cuda, dtype,
+                                                          monkeypatch):
+    """The dynamic train step builds one transpose per graph (three) and
+    hands each to the backward scatters of its EdgeConv; the same step
+    given none (each scatter building its own) gives the same loss and
+    bit-equal gradients, fused and unfused."""
+    from fissure_segmentation_tpu_torch.models import DGCNNSeg
+    from fissure_segmentation_tpu_torch.models import dgcnn
+    x = _uniform((2, 256, 4), 5).to(cuda)
+    shared = dgcnn.DGCNNSeg._transpose
+    for fused in ("0", "1"):
+        monkeypatch.setenv("FSEG_FUSED_EDGE", fused)
+        grads, built = [], []
+        for share in (True, False):
+            monkeypatch.setattr(dgcnn.DGCNNSeg, "_transpose", shared if share
+                                else lambda self, graph: None)
+            model = DGCNNSeg(k=8, in_features=4, num_classes=4, dtype=dtype,
+                             generator=torch.Generator().manual_seed(0)
+                             ).to(cuda).train()
+            before = ks.transpose.launches
+            out = model(x)
+            built.append(ks.transpose.launches - before)
+            out.square().sum().backward()
+            grads.append([p.grad.clone() for p in model.parameters()])
+        assert built == [3, 0]
+        for a, b in zip(*grads):
+            assert torch.equal(a, b)
+
+
+def test_test_pipeline_on_card_matches_cpu(cuda, tmp_path):
+    """One small case through test_pipeline with a static f32 model (no
+    near-tie in a feature graph can differ) and the same injected draws on
+    the card and on the CPU: the same predictions and Dice; the ASSD family
+    within 1e-2 relative: the surface fit's sums (PSR's FFT, the normals)
+    round in other orders, and HD95 steps between samples (reading on an
+    H100: 3.8e-3 at HD95, within 1e-4 elsewhere)."""
+    import numpy as np
+    from fissure_segmentation_tpu_torch.data.dataset import PointDataset
+    from fissure_segmentation_tpu_torch.data.synthetic import \
+        make_synthetic_dataset
+    from fissure_segmentation_tpu_torch.models import DGCNNSeg
+    from fissure_segmentation_tpu_torch.models.ensemble import build_subsets
+    from fissure_segmentation_tpu_torch.train import evaluation
+    case = make_synthetic_dataset(1, n_points=1500, gt_surfaces=True)[0]
+    ds = PointDataset([case], sample_points=256)
+    g = torch.Generator().manual_seed(3)
+    draws = [{"subsets": build_subsets(1500, 256, 6, g),
+              "surface": {c: (torch.rand(4000, generator=g),
+                              torch.rand((4000, 2), generator=g))
+                          for c in (1, 2, 3)}}]
+    onehot = torch.nn.functional.one_hot(
+        torch.as_tensor(case["labels"]).long(), 4).float()
+    pts = torch.as_tensor(case["coords"])
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = DGCNNSeg(k=8, in_features=4, num_classes=4, dynamic=False,
+                         generator=torch.Generator().manual_seed(1)
+                         ).to(dev).eval()
+        table, lab = pts.to(dev), onehot.to(dev)
+
+        def biased(v, model=model, table=table, lab=lab):
+            d = ((v[..., None, :3] - table) ** 2).sum(-1)
+            return model(v) + lab[d.argmin(-1)]
+        res[dev] = evaluation.test_pipeline(
+            ds, biased, str(tmp_path / dev), sample_points=256,
+            n_runs_min=6, grid_res=(32, 32, 32), device=dev, draws=draws)
+    np.testing.assert_array_equal(res["cuda"]["dice"], res["cpu"]["dice"])
+    for k in ("assd", "sdsd", "hd", "hd95"):
+        assert np.isfinite(res["cpu"][k]).all(), k
+        np.testing.assert_allclose(res["cuda"][k], res["cpu"][k], rtol=1e-2,
+                                   err_msg=k)

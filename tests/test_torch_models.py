@@ -56,7 +56,8 @@ def _jax_model(rng, k=6, in_features=3, num_classes=4):
 
 
 def _port(variables, k=6, in_features=3, num_classes=4):
-    tm = DGCNNSeg(k=k, in_features=in_features, num_classes=num_classes)
+    tm = DGCNNSeg(k=k, in_features=in_features, num_classes=num_classes,
+                  dynamic=False)
     return load_jax_variables(tm, variables).eval()
 
 
@@ -96,7 +97,8 @@ def test_export_jax_variables_round_trip():
     jm = JDGCNNSeg(k=6, in_features=4, num_classes=3, dynamic=False)
     variables = jax.tree_util.tree_map(np.asarray, jm.init(
         jax.random.PRNGKey(4), jnp.zeros((1, 32, 4), jnp.float32)))
-    tm = load_jax_variables(DGCNNSeg(k=6, in_features=4, num_classes=3),
+    tm = load_jax_variables(DGCNNSeg(k=6, in_features=4, num_classes=3,
+                                     dynamic=False),
                             variables)
     back = export_jax_variables(tm)
     assert jax.tree_util.tree_structure(back) == \
@@ -111,7 +113,6 @@ def test_export_jax_variables_round_trip():
 
 
 @pytest.mark.parametrize("call", [
-    lambda: DGCNNSeg(k=4, in_features=3, num_classes=4, dynamic=True),
     lambda: DGCNNSeg(k=4, in_features=3, num_classes=4, knn_recall=0.9),
     lambda: DGCNNSeg(k=4, in_features=3, num_classes=4,
                      spatial_transformer=True),
@@ -126,7 +127,7 @@ def test_export_jax_variables_round_trip():
                          cnn_dtype=torch.bfloat16, device="cpu"),
     lambda: segment_case(np.zeros((8, 8, 8), np.float32),
                          np.ones((8, 8, 8), bool), None, approx_top_k=True),
-], ids=["dynamic", "knn_recall", "spatial_transformer", "image_feat_module",
+], ids=["knn_recall", "spatial_transformer", "image_feat_module",
         "bf16", "knn_recall_target", "kp_mode_cnn", "approx_top_k"])
 def test_unported_options_raise(call):
     with pytest.raises(NotImplementedError):

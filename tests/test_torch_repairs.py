@@ -1,5 +1,6 @@
 """The port's own copies of the JAX package's jax-free modules (cli,
-utils/coords.py, the native C++ host runtime) against the originals, and the
+utils/coords.py, utils/{nifti,objio,mesh_viewer,visualization}.py, the
+native C++ host runtime) against the originals, and the
 rule that the port's entry points run on a CUDA card unless the caller asks
 for the CPU.
 
@@ -13,6 +14,10 @@ import torch
 from fissure_segmentation_tpu import cli as jcli
 from fissure_segmentation_tpu import native as jnative
 from fissure_segmentation_tpu.utils import coords as jcoords
+from fissure_segmentation_tpu.utils import mesh_viewer as jmesh_viewer
+from fissure_segmentation_tpu.utils import nifti as jnifti
+from fissure_segmentation_tpu.utils import objio as jobjio
+from fissure_segmentation_tpu.utils import visualization as jvisualization
 from fissure_segmentation_tpu_torch import cli, native, train_point_seg
 from fissure_segmentation_tpu_torch.data import synthetic
 from fissure_segmentation_tpu_torch.data.dataset import PointDataset
@@ -20,7 +25,8 @@ from fissure_segmentation_tpu_torch.losses import get_loss_fn
 from fissure_segmentation_tpu_torch.models import DGCNNSeg
 from fissure_segmentation_tpu_torch.serving import segment_case
 from fissure_segmentation_tpu_torch.train.trainer import ModelTrainer
-from fissure_segmentation_tpu_torch.utils import coords
+from fissure_segmentation_tpu_torch.utils import (coords, mesh_viewer, nifti,
+                                                  objio, visualization)
 
 PARSERS = ["get_dgcnn_train_parser", "get_point_segmentation_parser",
            "get_dpsr_train_parser", "get_seg_cnn_train_parser",
@@ -93,6 +99,60 @@ def test_native_copy_equals_original():
     for iters in (0, 1, 3):
         np.testing.assert_array_equal(native.binary_dilate_3d(grid, iters),
                                       jnative.binary_dilate_3d(grid, iters))
+
+
+COPIES = {"nifti": (nifti, jnifti), "objio": (objio, jobjio),
+          "mesh_viewer": (mesh_viewer, jmesh_viewer)}
+
+
+@pytest.mark.parametrize("name", sorted(COPIES))
+def test_host_utils_copy_is_the_original(name):
+    """utils/{nifti,objio,mesh_viewer}.py are the JAX package's modules
+    but for the lines of the docstring that say they are copies."""
+    import inspect
+    mine = inspect.getsource(COPIES[name][0]).splitlines()
+    theirs = inspect.getsource(COPIES[name][1]).splitlines()
+    extra = [ln for ln in mine if ln not in theirs]
+    assert len(extra) <= 4, extra
+    assert [ln for ln in theirs if ln not in mine] in (
+        [], ["    from fissure_segmentation_tpu.utils.mesh_viewer import "
+             "export_mesh_viewer"])
+
+
+def test_host_utils_copies_write_what_the_originals_write(tmp_path):
+    """save_nifti, save_obj, export_mesh_viewer and plot_point_cloud of the
+    port and of the JAX package write the same bytes (the PNGs: both
+    exist and decode to the same image size)."""
+    rng = np.random.default_rng(3)
+    vol = rng.integers(0, 4, (6, 7, 8)).astype(np.uint8)
+    tris = rng.uniform(0, 10, (20, 3, 3)).astype(np.float32)
+    valid = rng.random(20) < 0.7
+    pts = rng.uniform(0, 10, (50, 3)).astype(np.float32)
+    labels = rng.integers(0, 4, 50)
+    for mods, d in (((nifti, objio, mesh_viewer, visualization),
+                     tmp_path / "port"),
+                    ((jnifti, jobjio, jmesh_viewer, jvisualization),
+                     tmp_path / "jax")):
+        d.mkdir()
+        nii, obj, viewer, vis = mods
+        nii.save_nifti(str(d / "a.nii.gz"), vol, spacing=(1.5, 1, 2))
+        obj.save_obj(str(d / "a.obj"), tris.reshape(-1, 3),
+                     np.arange(60).reshape(-1, 3))
+        viewer.export_mesh_viewer(
+            [(tris, valid), (tris[:0], valid[:0])], str(d / "a.html"),
+            points=pts, point_labels=labels, title="t")
+        vis.plot_point_cloud(pts, labels, path=str(d / "a.png"), title="t")
+    for f in ("a.obj", "a.html"):
+        assert (tmp_path / "port" / f).read_bytes() == \
+            (tmp_path / "jax" / f).read_bytes(), f
+    back = nifti.load_nifti(str(tmp_path / "port" / "a.nii.gz"))
+    want = jnifti.load_nifti(str(tmp_path / "jax" / "a.nii.gz"))
+    np.testing.assert_array_equal(back.array, want.array)
+    assert back.spacing == want.spacing
+    import matplotlib.image as mpimg
+    assert mpimg.imread(tmp_path / "port" / "a.png").shape == \
+        mpimg.imread(tmp_path / "jax" / "a.png").shape
+    assert visualization.matplotlib_available()
 
 
 def test_native_build_is_cached_by_content():

@@ -67,7 +67,8 @@ def test_segment_case_slice_matches_jax():
         return jm.apply(v, x, train=train) + 50.0 * jax.nn.one_hot(
             _band_class(x, jnp), 4)
 
-    tm = load_jax_variables(DGCNNSeg(k=8, in_features=3, num_classes=4),
+    tm = load_jax_variables(DGCNNSeg(k=8, in_features=3, num_classes=4,
+                                     dynamic=False),
                             jax.tree_util.tree_map(np.asarray, variables))
     tm.eval()
 
@@ -119,7 +120,9 @@ def test_port_runs_without_jax():
     is loaded. The modules include the kernel wrappers and the probe entry
     point."""
     for name in ("kernels.gather_reduce", "kernels.stream", "prof.probes",
-                 "kernels.scatter", "kernels.depthwise"):
+                 "kernels.scatter", "kernels.depthwise", "metrics",
+                 "train.evaluation", "utils.nifti", "utils.objio",
+                 "utils.mesh_viewer", "utils.visualization"):
         assert f"fissure_segmentation_tpu_torch.{name}" in _port_modules()
     code = textwrap.dedent(f"""
         import importlib
@@ -133,7 +136,7 @@ def test_port_runs_without_jax():
         rng = np.random.default_rng(0)
         img = rng.normal(-700, 80, (24, 24, 24)).astype(np.float32)
         img[10:12] = -300.0
-        model = DGCNNSeg(k=4, in_features=3, num_classes=4,
+        model = DGCNNSeg(k=4, in_features=3, num_classes=4, dynamic=False,
                          generator=torch.Generator().manual_seed(0)).eval()
         res = segment_case(img, np.ones(img.shape, bool), model,
                            torch.Generator().manual_seed(1), max_kpts=300,

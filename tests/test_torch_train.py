@@ -278,7 +278,8 @@ def test_dgcnn_eval_with_grad_matches_jax(routing):
 
     def port(fused: bool):
         routing(fused)
-        tm = load_jax_variables(DGCNNSeg(k=k, in_features=f, num_classes=4),
+        tm = load_jax_variables(DGCNNSeg(k=k, in_features=f, num_classes=4,
+                                         dynamic=False),
                                 variables).eval()
         xt = _t(x).requires_grad_(True)
         out = tm(xt)
@@ -332,7 +333,8 @@ def test_dgcnn_adam_step_matches_jax(routing, tmp_path, fused):
                                variables["params"])
         params_j = optax.apply_updates(variables["params"], updates)
 
-    model = load_jax_variables(DGCNNSeg(k=6, in_features=4, num_classes=4),
+    model = load_jax_variables(DGCNNSeg(k=6, in_features=4, num_classes=4,
+                                        dynamic=False),
                                variables)
     trainer = ModelTrainer(model, _small_dataset(), get_loss_fn(
         "nnunet", _t(cw)), str(tmp_path), TrainConfig(lr=LR, weight_decay=WD),
@@ -557,6 +559,7 @@ def test_augmentation_matches_jax():
 def _train(out_dir, epochs, checkpoint_every=None, resume=False):
     ds = _small_dataset(n_cases=5, n_points=200, sample_points=48)
     model = DGCNNSeg(k=4, in_features=4, num_classes=ds.num_classes,
+                     dynamic=False,
                      generator=torch.Generator().manual_seed(0))
     trainer = ModelTrainer(
         model, ds, get_loss_fn("nnunet", _t(ds.get_class_weights())),
@@ -599,26 +602,16 @@ ENTRY = ["--static", "--amp", "false", "--train_only", "--fold", "0"]
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--static", ""], "dynamic"),      # placeholder, replaced below
     (["--transformer"], "transformer"),
     (["--img_feat_extractor"], "img_feat_extractor"),
     (["--knn_recall", "0.9"], "knn_recall"),
     (["--dp"], "dp"),
     (["--visualize", "2"], "visualize"),
-    (["--speed"], "speed"),
-    (["--copd"], "copd"),
-    (["--test_only"], "test_only"),
-    (["--train_only", ""], "testing"),  # placeholder, replaced below
     (["--model", "PointNet"], "PointNet"),
-], ids=["dynamic", "transformer", "img_feat_extractor", "knn_recall",
-        "dp", "visualize", "speed", "copd", "test_only", "testing",
-        "pointnet"])
+], ids=["transformer", "img_feat_extractor", "knn_recall", "dp",
+        "visualize", "pointnet"])
 def test_entry_point_raises_for_unported_options(tmp_path, extra, match):
-    argv = list(ENTRY)
-    if extra[-1] == "":            # drop the flag instead of adding one
-        argv.remove(extra[0])
-        extra = []
-    argv += extra + ["--output", str(tmp_path)]
+    argv = list(ENTRY) + extra + ["--output", str(tmp_path)]
     with pytest.raises(NotImplementedError, match=match):
         train_point_seg.main(argv)
     assert not os.listdir(tmp_path)     # raised before writing anything
