@@ -12,8 +12,11 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      shapes the serving and training paths give it, a ragged N, a lattice
      full of ties, and the selection's hard cases (every key an insert,
      only ties, the masked normals' cloud, kk at the list's row edges,
-     N = kk, a cloud larger than the kernel stages whole): indices and
-     distances must be equal; median times of both at the path shapes;
+     N = kk, a cloud larger than the kernel stages whole; DSEG-AE's
+     padding graph, kk = 2 on a case whose invalid points sit at 1e6, one
+     class valid and 30 points valid): indices and distances must be
+     equal; median times of both at the path shapes (also the PC-AE's
+     (32, 1024, 3) kk = 20 and DSEG-AE's dynamic (5, 2048, 3) kk = 40);
   4. the serving slice at full size: a synthetic 256^3 CT, DGCNNSeg(k=40)
      with seeded random weights and a coordinate-keyed class bias added
      after the full forward (untrained weights put every keypoint in one
@@ -42,6 +45,9 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      hard cases (C = 33, 36, 40, 200, 256; N where the staged slices just
      fit in shared memory and just do not, and K = 300, both the unstaged
      kernel; a hub row of in-degree 1250; kstar only at 0 and K - 1);
+     K2 at the PC-AE encoder's gather backward, (32, 1024 x 20, C) f32 on
+     its K1 graph for C = 64, 128, 256, within the same bound, timed with
+     index_add_ beside it;
      median times of both, the transpose alone, K2 and K3 with their own
      transpose and with a shared one, and K4 by call (the histogram at
      2048 and 512 rows, the in-degrees from the step's transpose; its ms
@@ -72,7 +78,9 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      TransitionDowns, a served ensemble group), DSEG-AE's masked shape, a
      ragged N, a lattice full of ties, C = 4, and the hard cases (only
      ties, N = 1, m above the valid count, N off every block width,
-     N = 32768, C = 1 and C = 8): indices equal; median times of both;
+     N = 32768, C = 1 and C = 8): indices equal; median times of both,
+     also at one fissure class of a synthetic case, (1, 8000, 3) m = 1024
+     with 11.7 % valid;
  10. the serving slice with PointTransformerSeg at full width (seeded
      weights, the same class bias): one warm-up and 3 timed full-size
      cases with phase 4's checks; K5 must launch at least 40 times a case
@@ -151,13 +159,38 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      feature graph must miss), its bf16 step (held against the CPU's own
      bf16 error) and test_pipeline on one case with the same injected
      draws (predictions, Dice, ASSD family; shifted surface samples must
-     miss).
+     miss);
+ 22. the PC-AE entry at full width (train_pc_ae.main: k = 20, 1024
+     points, latent 512, plane, batch 32, f32): --mesh trains fold 0 for 3
+     epochs and tests it, the point target for 1 epoch: finite losses,
+     model.pt, reconstruction_chamfer.csv; then 10 timed warm steps of the
+     dynamic mesh, dynamic point and static mesh steps (ms/step, clouds/s,
+     peak memory, launches: a dynamic step K1 once, the transpose and K2
+     4 times each);
+ 23. the PC-AE step card against CPU on a small input
+     (phase_pcae_reference): loss, gradient and eval vertices, a wrong
+     neighbour planted in the feature graphs must miss;
+ 24. DSEG-AE on the card (dseg_ae_regularization.run) with a DGCNNSeg
+     fold trained here (the default run's model, 40 epochs) and phase 22's
+     --mesh fold: farthest sampling with padding from model.pt, the same
+     from both folds re-written as model.fst by the port's writer (equal
+     outputs), and accumulate; every case reconstructs a fissure, finite
+     Chamfer distances, K1, K5 and the gather-reduce launched; s/case;
+ 25. DSEG-AE on one case card against CPU with injected draws
+     (phase_dseg_reference): labels, padded points, decoded vertices and
+     codes; K5's selections shifted by one point must miss.
 
 Kernel launch counts are set to 0 before each main path (phases 4, 10 and
 14 serving, phases 7, 11 and 17 training, phase 19 the probes, phase 20
-the default entry run) and read after it; the comparison launches of
-phases 3, 5, 6, 8, 9, 12, 13, 15, 16, 18 and 21 and of the probes' own
-checks are not counted. The line before the last but one is a JSON object
+the default entry run, phase 22 the PC-AE, phase 24 DSEG-AE after its seg
+fold is trained) and read after it; the comparison launches of
+phases 3, 5, 6, 8, 9, 12, 13, 15, 16, 18, 21, 23 and 25 and of the
+probes' own checks are not counted. K1's, K2's, the transpose's, K5's and
+the gather-reduce's rows add "slice": the PC-AE's and DSEG-AE's launches
+by path, and for K1, K2 and K5 by call (the wrapper's call key), each
+call with its time, plain time, bound and library time (index_add_ for
+K2): phase 3's, 6's or 9's where they time that call, else timed on
+random inputs of its shape. The line before the last but one is a JSON object
 describing the kernels (with each one's bound: the larger of its bytes over
 3.35 TB/s and its operations over the 67 TFLOP/s float32 rate, and the time
 of one PyTorch library call that computes the same function, where there
@@ -277,6 +310,13 @@ def phase_kernels(knn_cuda, knn_plain):
     lattice[:, :800] = -1.0
     masked = uniform(3, 8192, 3)
     masked[torch.rand((3, 8192), generator=g) < 1 / 3] = 1e6
+    # DSEG-AE's padding graph: one fissure class of a case valid (about
+    # 1/8 of the points), every other point moved to 1e6 (random_extend_
+    # points); and a class of 30 points
+    extend = uniform(1, 8000, 3)
+    extend[torch.rand((1, 8000), generator=g) >= 0.117] = 1e6
+    few = uniform(1, 8000, 3)
+    few[:, 30:] = 1e6
     cases = {
         # name: (x, k, self_loop, timed)
         "dgcnn_graph_5x2048x3_k40": (uniform(5, 2048, 3), 40, False, True),
@@ -297,6 +337,12 @@ def phase_kernels(knn_cuda, knn_plain):
         "kk128_1x700x3": (uniform(1, 700, 3), 128, True, False),
         "n_eq_kk_2x41x3_k40": (uniform(2, 41, 3), 40, False, False),
         "tiled_1x20000x3_k16": (uniform(1, 20000, 3), 16, False, False),
+        # the PC-AE's and DSEG-AE's calls (timed under the wrapper's call
+        # key too, for the kernels line's by-call rows)
+        "pcae_32x1024x3_k20": (uniform(32, 1024, 3), 20, True, True),
+        "dseg_dynamic_5x2048x3_k40": (uniform(5, 2048, 3), 40, True, True),
+        "extend_1e6_1x8000x3_k1": (extend, 1, False, True),
+        "extend_1e6_30valid_1x8000x3_k1": (few, 1, False, False),
     }
     max_err, timings = 0.0, {}
     for name, (x, k, self_loop, timed) in cases.items():
@@ -320,7 +366,8 @@ def phase_kernels(knn_cuda, knn_plain):
             bound, by = bound_ms(x.numel() * 4 + b * n * kk * 8,
                                  3 * c * b * n * n)
             timings[name] = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound,
-                             "bound_by": by}
+                             "bound_by": by, "library_ms": None,
+                             "call": f"{b}x{n}x{c}_kk{kk}"}
             line += (f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median), "
                      f"bound {bound:.4f} ms ({by})")
         print(line, flush=True)
@@ -611,6 +658,38 @@ def phase_scatter(ks, knn_cuda):
         err = _check_count(ks, idx2, nn_, tr)
         if timed:
             _record_count(ks, record, idx2, nn_, tr, err)
+    # the PC-AE encoder's gather backward: K2 on its K1 graph (32, 1024,
+    # k = 20, self-loop) at every layer's width, f32 payloads
+    pc_graph, _ = knn_cuda(torch.rand((32, 1024, 3), generator=g,
+                                      device=dev) * 2 - 1, 20, True)
+    idx2 = pc_graph.reshape(32, 1024 * 20).contiguous()
+    tr = ks.transpose(idx2, 1024)
+    if not all(torch.equal(a, w) for a, w in
+               zip(tr, ks.transpose_plain(idx2, 1024))):
+        raise AssertionError("transpose pcae: kernel != plain")
+    record("transpose", "pcae_32x20480_rows1024", 0.0,
+           lambda: ks.transpose(idx2, 1024),
+           lambda: ks.transpose_plain(idx2, 1024),
+           (idx2.numel() * 8 + (32 * 1024 + 1) * 4, 0))
+    flat = ks._flat_targets(idx2, 1024)
+    for c_ in (64, 128, 256):
+        pay = torch.randn((32, 1024 * 20, c_), generator=g, device=dev)
+        got = ks.scatter_rows(idx2, pay, 1024, tr)
+        err = _check_scatter("K2 pcae", got,
+                             ks.scatter_rows(idx2, pay, 1024, tr),
+                             ks.scatter_rows_plain(idx2, pay, 1024),
+                             _bound(ks, idx2, pay.abs(), 1024))
+        acc = torch.zeros((32 * 1024 + 1, c_), device=dev)
+        pay2 = pay.reshape(-1, c_)
+        row = record(
+            "scatter_rows", f"32x20480x{c_}_rows1024_float32", err,
+            lambda: ks.scatter_rows(idx2, pay, 1024),
+            lambda: ks.scatter_rows_plain(idx2, pay, 1024),
+            (idx2.numel() * 4 + pay.numel() * 4 + 32 * 1024 * c_ * 4,
+             pay.numel()),
+            lambda: acc.index_add_(0, flat, pay2),
+            lambda: ks.scatter_rows(idx2, pay, 1024, tr))
+        row["call"] = f"32x20480x{c_}_rows1024_float32"
     # K4's histogram at P1's 512 rows (idx mod 512: in-degree 160), then
     # both K4 kernels at their hard cases
     lo = torch.randint(0, n, (b, n * k), generator=g, device=dev,
@@ -811,10 +890,12 @@ def _counts(ks, knn_cuda):
 
 
 def _reset(ks, knn_cuda):
-    for fn in _wrappers(ks, knn_cuda).values():
+    wrappers = _wrappers(ks, knn_cuda)
+    for fn in wrappers.values():
         fn.launches = 0
-    _wrappers(ks, knn_cuda)["gather_reduce"].calls.clear()
-    ks.scatter_count.calls.clear()
+    for name in ("gather_reduce", "scatter_count", "knn", "scatter_rows",
+                 "fps"):
+        wrappers[name].calls.clear()
 
 
 def _gr_calls(ks, knn_cuda) -> dict:
@@ -1168,6 +1249,9 @@ def phase_fps(fps_cuda, fps_plain):
         "pt_serve_5x2048x3_m512": (uniform(5, 2048, 3), 512, 1.0, True),
         "dseg_masked_1x20000x3_m1024": (uniform(1, 20000, 3), 1024, 0.35,
                                         True),
+        # one fissure class of a synthetic case (8000 points, 11.7 %)
+        "dseg_class_1x8000x3_m1024": (uniform(1, 8000, 3), 1024, 0.117,
+                                      True),
         "ragged_3x1000x3_m250": (uniform(3, 1000, 3), 250, 0.8, False),
         "lattice_ties_2x4096x3_m300": (lattice, 300, 1.0, False),
         "c4_2x700x4_m100": (uniform(2, 700, 4), 100, 0.6, False),
@@ -1209,7 +1293,8 @@ def phase_fps(fps_cuda, fps_plain):
                                  (m - 1) * b * n * (3 * c + 1))
             latency = (m - 1) * step_s * 1e3
             timings[name] = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound,
-                             "bound_by": by, "latency_estimate_ms": latency}
+                             "bound_by": by, "latency_estimate_ms": latency,
+                             "library_ms": None, "call": f"{b}x{n}x{c}_m{m}"}
             line += (f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median), "
                      f"bound {bound:.4f} ms ({by}), latency estimate "
                      f"{latency:.4f} ms; {m - 1} dependent steps: "
@@ -2611,6 +2696,476 @@ def phase_dynamic_reference(card: str):
     return out
 
 
+# ---- the PC-AE and DSEG-AE (phases 22-25) -------------------------------
+
+# the JAX entry's defaults: k = 20, 1024 points, latent 512, plane, batch 32
+PCAE_ARGV = ["--ds", "synthetic", "--fold", "0", "--batch", "32", "--pts",
+             "1024", "--k", "20", "--latent", "512", "--shape", "plane"]
+# the DGCNNSeg fold DSEG-AE composes: the default run (dynamic, bf16) with
+# --train_only, trained long enough that every validation case yields a
+# reconstructed fissure (phase_dseg checks it)
+SEG_ARGV = ["--ds", "synthetic", "--fold", "0", "--epochs", "40", "--pts",
+            "2048", "--k", "40", "--batch", "32", "--train_only"]
+# phase_pcae_reference and phase_dseg_reference say why
+PCAE_TOL = {"loss": 1e-4, "grad_rel_l2": 1e-3, "eval": 1e-4,
+            "graph_share": 0.99}
+DSEG_TOL = {"label_share": 0.98, "graph_share": 0.95, "rel_l2": 1e-3,
+            "padded": 1e-5}
+
+
+def _check_reconstruction(out: str, what: str) -> float:
+    rows = _csv(os.path.join(out, "fold0", "test",
+                             "reconstruction_chamfer.csv"))
+    if rows[0] != ["mean_chamfer", "std_chamfer"] or not np.isfinite(
+            np.asarray(rows[1], float)).all():
+        raise AssertionError(f"{what}: reconstruction_chamfer.csv {rows}")
+    cv = _csv(os.path.join(out, "cv_results.csv"))
+    if cv[0] != ["fold", "chamfer"] or cv[-1][0] != "mean":
+        raise AssertionError(f"{what}: cv_results.csv {cv}")
+    return float(rows[1][0])
+
+
+def _slice_calls(ks, knn_cuda) -> dict:
+    """K1's, K2's and K5's launches by call since the last reset."""
+    from fissure_segmentation_tpu_torch.kernels.fps import fps_cuda
+    return {"knn": dict(knn_cuda.calls),
+            "scatter_rows": dict(ks.scatter_rows.calls),
+            "fps": dict(fps_cuda.calls)}
+
+
+def phase_pcae(ks, knn_cuda, card: str, out_dir: str):
+    """The PC-AE entry at full width (PCAE_ARGV): --mesh trains fold 0 for
+    3 epochs, the point target for 1, each then tested; finite losses,
+    model.pt (a DGCNNFoldingNet, the class recorded), reconstruction_
+    chamfer.csv and cv_results.csv. Then 10 timed warm steps each of the
+    dynamic mesh, dynamic point and static mesh steps (train_pc_ae.
+    make_step): ms/step, clouds/s, peak memory and launches (a dynamic
+    step: K1 once, the transpose 4 times, K2 4 times; a static step: K1
+    and the transpose once, K2 4 times). Counts are reset before and read
+    after; returns (counts, timing, calls by kernel)."""
+    from fissure_segmentation_tpu_torch import train_pc_ae
+    from fissure_segmentation_tpu_torch.cli import get_pc_ae_train_parser
+    from fissure_segmentation_tpu_torch.models import (DGCNNFoldingNet,
+                                                       load_model)
+    from fissure_segmentation_tpu_torch.train.profile_step import (
+        STEPS, WARM, time_steps)
+    timing = {}
+    _reset(ks, knn_cuda)
+    for name, extra, epochs in (("mesh", ["--mesh"], 3), ("points", [], 1)):
+        out = os.path.join(out_dir, f"ae_{name}")
+        t0 = time.perf_counter()
+        if train_pc_ae.main(PCAE_ARGV + extra + ["--epochs", str(epochs),
+                                                 "--output", out]) != 0:
+            raise AssertionError(f"pcae ({name}): the entry point failed")
+        took = time.perf_counter() - t0
+        hist = _read_history(os.path.join(out, "fold0", "history.csv"))
+        if len(hist) != epochs or not np.isfinite(hist).all():
+            raise AssertionError(f"pcae ({name}): loss history {hist}")
+        model = load_model(os.path.join(out, "fold0", "model.pt"))
+        if not isinstance(model, DGCNNFoldingNet) or \
+                model.decode_mesh != (name == "mesh"):
+            raise AssertionError(f"pcae ({name}): model.pt holds "
+                                 f"{type(model).__name__} {model.config}")
+        chamfer = _check_reconstruction(out, f"pcae ({name})")
+        timing[name] = {"train_and_test_s": took, "loss_history": hist,
+                        "reconstruction_chamfer": chamfer}
+        print(f"pcae: {name} target, {epochs} epoch(s) of fold 0 trained "
+              f"and tested in {took:.1f} s; loss history {hist}; "
+              f"reconstruction chamfer {chamfer:.5f}", flush=True)
+    parser = get_pc_ae_train_parser()
+    expect = {"dynamic": {"knn": 1, "transpose": 4, "scatter_rows": 4},
+              "static": {"knn": 1, "transpose": 1, "scatter_rows": 4}}
+    for name, extra in (("mesh_dynamic", ["--mesh"]),
+                        ("points_dynamic", []),
+                        ("mesh_static", ["--mesh", "--static"])):
+        step = train_pc_ae.make_step(parser.parse_args(PCAE_ARGV + extra),
+                                     out_dir, "cuda")
+        for _ in range(WARM):
+            step()
+        before = _counts(ks, knn_cuda)
+        ms, peak, losses = time_steps(step)
+        after = _counts(ks, knn_cuda)
+        if not torch.isfinite(torch.stack(losses)).all():
+            raise AssertionError(f"pcae: non-finite loss ({name})")
+        launched = {k: after[k] - before[k] for k in after}
+        for k, n in expect[name.split("_")[1]].items():
+            if launched[k] != n * STEPS:
+                raise AssertionError(f"pcae {name}: {k} launched "
+                                     f"{launched[k]} times in {STEPS} "
+                                     f"steps, not {n} a step")
+        timing[f"{name}_step"] = {
+            "ms_per_step": ms, "clouds_per_s": 32e3 / ms,
+            "peak_bytes": peak, "launches_10_steps": launched}
+        print(f"pcae: {name} step {ms:.2f} ms ({32e3 / ms:.1f} clouds/s), "
+              f"peak {peak / 2 ** 30:.2f} GiB, launches in {STEPS} steps "
+              f"{launched} on {card}", flush=True)
+    return _counts(ks, knn_cuda), timing, _slice_calls(ks, knn_cuda)
+
+
+def _grads(model) -> dict:
+    from fissure_segmentation_tpu_torch.models import export_jax_variables
+    return dict(_leaves(export_jax_variables(model, grad=True)))
+
+
+def phase_pcae_reference(card: str):
+    """The PC-AE step card against CPU at full width on a small input
+    (B = 2, N = 256 dyadic points so m = 256, k = 20, latent 512, --mesh,
+    the mesh loss with its fixed draws against 1024 target points): one
+    forward and backward on each device from the same weights. With TF32
+    off the coordinate graph is exact on both; the feature graphs of
+    layers 1-3 (C = 64, 64, 128) are built from float32 features whose
+    products round differently on the two devices, so at least
+    PCAE_TOL["graph_share"] of their neighbour sets must agree; the loss
+    within rtol PCAE_TOL["loss"], the whole gradient within
+    PCAE_TOL["grad_rel_l2"] relative L2 (its Chamfer minima may break a
+    near-tie either way), the eval vertices within PCAE_TOL["eval"] x
+    max|v|. The same step on the card with a wrong neighbour planted in
+    every feature graph must miss the gradient limit."""
+    from fissure_segmentation_tpu_torch import train_pc_ae
+    from fissure_segmentation_tpu_torch.cli import get_pc_ae_train_parser
+    args = get_pc_ae_train_parser().parse_args(
+        ["--pts", "256", "--k", "20", "--latent", "512", "--mesh"])
+    g = torch.Generator().manual_seed(23)
+    model0 = train_pc_ae.build_model(args, g)
+    x = torch.randint(-32, 33, (2, 256, 3), generator=g) / 32.0
+    y = torch.rand((2, 1024, 3), generator=g) * 2 - 1
+    loss_fn = train_pc_ae.make_loss(args, model0)
+
+    def step(dev):
+        m = copy.deepcopy(model0).to(dev).train()
+        loss, _ = loss_fn(m(x.to(dev)), y.to(dev))
+        loss.backward()
+        return m, float(loss)
+    with GraphRecorder() as rec_g:
+        m_g, l_g = step("cuda")
+    with GraphRecorder() as rec_c:
+        m_c, l_c = step("cpu")
+    share = min(_same_sets(a, b) for a, b in zip(rec_g.graphs,
+                                                 rec_c.graphs))
+    g_c = _grads(m_c)
+    grad = _rel_l2(_grads(m_g), g_c)
+    with planted_graph_fault():
+        fault = _rel_l2(_grads(step("cuda")[0]), g_c)
+    with torch.no_grad():
+        vg = copy.deepcopy(model0).cuda().eval()(x.cuda())[0].cpu()
+        vc = copy.deepcopy(model0).eval()(x)[0]
+    ev = float((vg - vc).abs().max() / vc.abs().max())
+    out = dict(graph_share=share, graphs=len(rec_g.graphs),
+               loss_rel=abs(l_g - l_c) / abs(l_c), grad_rel_l2=grad,
+               planted_fault_grad_rel_l2=fault, eval=ev)
+    if (len(rec_g.graphs) != 3 or share < PCAE_TOL["graph_share"]
+            or out["loss_rel"] > PCAE_TOL["loss"]
+            or grad > PCAE_TOL["grad_rel_l2"] or ev > PCAE_TOL["eval"]):
+        raise AssertionError(f"pcae reference: {out} against {PCAE_TOL}")
+    if fault <= PCAE_TOL["grad_rel_l2"]:
+        raise AssertionError(f"pcae reference: a planted wrong neighbour "
+                             f"moved the gradient only {fault:.3g}")
+    print(f"pcae reference: step card vs CPU {out} (limits {PCAE_TOL}) on "
+          f"{card}", flush=True)
+    return out
+
+
+def _copy_fold_as_fst(src: str, dst: str) -> None:
+    """A fold directory's model re-written as model.fst through the port's
+    writer (with its run's commandline_args.json and split), read back
+    equal."""
+    import shutil
+    from fissure_segmentation_tpu_torch.models import (export_jax_variables,
+                                                       load_fold_model,
+                                                       save_fst)
+    os.makedirs(os.path.join(dst, "fold0"))
+    for name in ("commandline_args.json", "cross_val_split.json"):
+        if os.path.exists(os.path.join(src, name)):
+            shutil.copy(os.path.join(src, name), dst)
+    model = load_fold_model(os.path.join(src, "fold0"))
+    save_fst(model, os.path.join(dst, "fold0", "model.fst"))
+    back = load_fold_model(os.path.join(dst, "fold0"))
+    a, b = (dict(_leaves(export_jax_variables(m))) for m in (model, back))
+    if back.config != model.config or a.keys() != b.keys() or not all(
+            np.array_equal(a[k], b[k]) for k in a):
+        raise AssertionError(f"dseg: {src} read back from .fst differs")
+
+
+@contextlib.contextmanager
+def _cached_synthetic(module):
+    """The entry's synthetic dataset generated once for the phase's runs
+    (a copy for each run)."""
+    real, memo = module.make_synthetic_dataset, {}
+
+    def cached(*args, **kwargs):
+        key = repr((args, sorted(kwargs.items())))
+        if key not in memo:
+            memo[key] = real(*args, **kwargs)
+        return copy.deepcopy(memo[key])
+    module.make_synthetic_dataset = cached
+    try:
+        yield
+    finally:
+        module.make_synthetic_dataset = real
+
+
+def phase_dseg(ks, knn_cuda, card: str, ae_dir: str, out_dir: str):
+    """DSEG-AE on the card (dseg_ae_regularization.run): the seg fold is
+    trained here (SEG_ARGV: the default run's DGCNNSeg, dynamic bf16, 40
+    epochs of fold 0), the AE is phase 22's --mesh fold. Three runs on fold
+    0's 4 validation cases: --sampling farthest --pad_with_random_offsets
+    from the model.pt folds, the same from both folds re-written as
+    model.fst by the port's writer (equal outputs), and --sampling
+    accumulate. Every case must yield at least one reconstructed fissure,
+    every Chamfer distance be finite, and K1, K5 and the gather-reduce
+    launch. Counts are reset after the seg training and read after the
+    runs; returns (counts, timing, gather-reduce calls, calls by
+    kernel)."""
+    from fissure_segmentation_tpu_torch import (dseg_ae_regularization,
+                                                train_point_seg)
+    from fissure_segmentation_tpu_torch.cli import get_ae_reg_parser
+    seg_dir = os.path.join(out_dir, "seg")
+    timing = {}
+    with _cached_synthetic(train_point_seg), \
+            _cached_synthetic(dseg_ae_regularization):
+        t0 = time.perf_counter()
+        if train_point_seg.main(SEG_ARGV + ["--output", seg_dir]) != 0:
+            raise AssertionError("dseg: training the seg fold failed")
+        timing["seg_train_s"] = time.perf_counter() - t0
+        seg_fst, ae_fst = (os.path.join(out_dir, f"{n}_fst")
+                           for n in ("seg", "ae"))
+        _copy_fold_as_fst(seg_dir, seg_fst)
+        _copy_fold_as_fst(ae_dir, ae_fst)
+        _reset(ks, knn_cuda)
+        runs = {}
+        for name, (sd, ad, extra) in {
+                "farthest": (seg_dir, ae_dir, ["--sampling", "farthest",
+                                               "--pad_with_random_offsets"]),
+                "farthest_fst": (seg_fst, ae_fst,
+                                 ["--sampling", "farthest",
+                                  "--pad_with_random_offsets"]),
+                "accumulate": (seg_dir, ae_dir,
+                               ["--sampling", "accumulate"])}.items():
+            before = _counts(ks, knn_cuda)
+            (m,) = dseg_ae_regularization.run(get_ae_reg_parser().parse_args(
+                ["--ds", "synthetic", "--seg_dir", sd, "--ae_dir", ad,
+                 "--output", os.path.join(out_dir, f"reg_{name}")] + extra))
+            after = _counts(ks, knn_cuda)
+            launched = {k: after[k] - before[k] for k in after
+                        if after[k] > before[k]}
+            if min(m["reconstructed"]) < 1 or not m["chamfers"] or not \
+                    np.isfinite(m["chamfers"]).all():
+                raise AssertionError(f"dseg {name}: reconstructed per case "
+                                     f"{m['reconstructed']}, chamfers "
+                                     f"{m['chamfers']}")
+            for k in ("knn", "gather_reduce") + (
+                    ("fps",) if name != "accumulate" else ()):
+                if launched.get(k, 0) < 1:
+                    raise AssertionError(f"dseg {name}: {k} never launched")
+            runs[name] = {"chamfer": m["chamfer"], "chamfers": m["chamfers"],
+                          "reconstructed": m["reconstructed"],
+                          "s_per_case": m["times"],
+                          "mean_s_per_case": float(np.mean(m["times"])),
+                          "launches": launched}
+            print(f"dseg {name}: chamfer {m['chamfer']:.5f}, reconstructed "
+                  f"fissures per case {m['reconstructed']}, s/case "
+                  f"{['%.4f' % t for t in m['times']]}, launches {launched}"
+                  f" on {card}", flush=True)
+    a, b = runs["farthest"]["chamfers"], runs["farthest_fst"]["chamfers"]
+    if len(a) != len(b) or not np.allclose(a, b, rtol=1e-5, atol=0):
+        raise AssertionError(f"dseg: .fst folds give {b}, model.pt {a}")
+    timing.update(runs=runs, fst_equal_bits=a == b)
+    return (_counts(ks, knn_cuda), timing, _gr_calls(ks, knn_cuda),
+            _slice_calls(ks, knn_cuda))
+
+
+def phase_dseg_reference(card: str, seg_dir: str, ae_dir: str):
+    """DSEG-AE on one synthetic case (8000 points, seed 7), card against
+    CPU with the same injected draws (10 ensemble subsets, per class the
+    padding's and the accumulation's uniforms and normals). The seg fold is
+    bf16 and dynamic, whose feature graphs round differently on the two
+    devices: at least DSEG_TOL["label_share"] of the labels agree. Then
+    both reconstruct from the CPU's labels: K1's padding graph and K5's
+    masked selections are exact, so the padded points agree within
+    DSEG_TOL["padded"]. The AE's feature graphs (layers 1-3, f32) are
+    built from features whose products round differently on the two
+    devices, and a near-tie swapped there moves a latent code by a step
+    (a first reading: codes 2.9e-4 apart at their largest entry, where
+    another card run's were 6e-7): in every graph at least
+    DSEG_TOL["graph_share"] of the neighbour sets agree (readings, the
+    least graph of each mode: 0.996 of 9 graphs farthest, 0.986 of 90
+    accumulate; a wrong neighbour in every row gives 0), and over all
+    classes the decoded vertices
+    (farthest and accumulate) and the farthest run's latent codes lie
+    within DSEG_TOL["rel_l2"] relative L2 of the CPU's, as phases 21 and
+    23 hold gradients. The card's farthest run with every K5 selection
+    moved to the next point must move the codes past that limit (the
+    codes, since a briefly trained decoder may map different codes to
+    nearly the same mesh)."""
+    from fissure_segmentation_tpu_torch.data.synthetic import \
+        make_synthetic_dataset
+    from fissure_segmentation_tpu_torch.models import (build_subsets,
+                                                       load_fold_model)
+    from fissure_segmentation_tpu_torch.models import dseg_ae
+    case = make_synthetic_dataset(1, n_points=8000, seed=7)[0]
+    pc = torch.as_tensor(np.concatenate([case["coords"], case["features"]],
+                                        1))
+    n = pc.shape[0]
+    g = torch.Generator().manual_seed(25)
+    subsets = build_subsets(n, 2048, 10, g)
+    draws = [{"extend": (torch.rand((1, n), generator=g),
+                         torch.randn((1, n, 3), generator=g),
+                         torch.randn((1, n, 1), generator=g)),
+              "accumulate": [torch.rand((1, n), generator=g)
+                             for _ in range(dseg_ae.N_ACCUMULATE)]}
+             for _ in range(3)]
+    seg0 = load_fold_model(os.path.join(seg_dir, "fold0"))
+    ae0 = load_fold_model(os.path.join(ae_dir, "fold0"))
+    models = {dev: {mode: dseg_ae.RegularizedSegDGCNN(
+        copy.deepcopy(seg0).to(dev), copy.deepcopy(ae0).to(dev), 2048, 1024,
+        mode, random_extend=True) for mode in ("farthest", "accumulate")}
+        for dev in ("cuda", "cpu")}
+    labels = {dev: models[dev]["farthest"].segment(pc.to(dev),
+                                                   subsets=subsets).cpu()
+              for dev in ("cuda", "cpu")}
+    share = float((labels["cuda"] == labels["cpu"]).float().mean())
+    lab = labels["cpu"]
+    sizes = np.bincount(lab.numpy(), minlength=4)[1:]
+    if not (sizes >= 20).any():
+        raise AssertionError(f"dseg reference: class sizes {sizes}")
+    obj = 1 + int(np.argmin(np.where(sizes >= 20, sizes, n + 1)))
+    mask = (lab == obj)[None]
+    padded = [dseg_ae.random_extend_points(
+        pc[None, :, :3].contiguous().to(dev), mask.to(dev), 1024,
+        draws=draws[obj - 1]["extend"])[0].cpu() for dev in ("cuda", "cpu")]
+    pad_gap = float((padded[0] - padded[1]).abs().max())
+
+    def gap(a, b, part):
+        """Relative L2 over the classes of the vertices (part 0) or, with
+        return_hidden, the latent codes (part 1)."""
+        def pick(o):
+            return o[0][0] if part == 0 and isinstance(o[0], tuple) \
+                else o[part]
+        pairs = [(pick(x).cpu(), pick(y)) for x, y in zip(a, b)
+                 if y is not None]
+        if [x is None for x in a] != [y is None for y in b] or not pairs:
+            raise AssertionError("dseg reference: reconstructed classes "
+                                 f"differ or none: {sizes}")
+        return float(torch.sqrt(sum(((x - y) ** 2).sum() for x, y in pairs)
+                                / sum((y ** 2).sum() for _, y in pairs)))
+    out = {"label_share": share, "class_sizes": sizes.tolist(),
+           "padded_class": obj, "padded_gap": pad_gap}
+    for mode in ("farthest", "accumulate"):
+        res, recs = {}, {}
+        for dev in ("cuda", "cpu"):
+            with GraphRecorder() as recs[dev]:
+                res[dev] = models[dev][mode].reconstruct(
+                    pc.to(dev), lab.to(dev), return_hidden=True,
+                    draws=draws)
+        out[f"{mode}_graph_share"] = min(_same_sets(x, y) for x, y in zip(
+            recs["cuda"].graphs, recs["cpu"].graphs))
+        out[f"{mode}_verts"] = gap(res["cuda"], res["cpu"], 0)
+        if mode == "farthest":
+            res_c = res["cpu"]
+            out["farthest_codes"] = gap(res["cuda"], res_c, 1)
+    real = dseg_ae.farthest_point_sampling
+    dseg_ae.farthest_point_sampling = lambda p, m, mask=None: (
+        real(p, m, mask=mask) + 1) % p.shape[1]
+    try:
+        res_f = models["cuda"]["farthest"].reconstruct(
+            pc.cuda(), lab.cuda(), return_hidden=True, draws=draws)
+    finally:
+        dseg_ae.farthest_point_sampling = real
+    out["planted_fault_codes"] = gap(res_f, res_c, 1)
+    if (share < DSEG_TOL["label_share"]
+            or not pad_gap <= DSEG_TOL["padded"]
+            or min(out["farthest_graph_share"],
+                   out["accumulate_graph_share"]) < DSEG_TOL["graph_share"]
+            or max(out["farthest_verts"], out["farthest_codes"],
+                   out["accumulate_verts"]) > DSEG_TOL["rel_l2"]):
+        raise AssertionError(f"dseg reference: {out} against {DSEG_TOL}")
+    if out["planted_fault_codes"] <= DSEG_TOL["rel_l2"]:
+        raise AssertionError("dseg reference: shifted FPS selections moved"
+                             f" the codes only {out['planted_fault_codes']}")
+    print(f"dseg reference: card vs CPU {out} (limits {DSEG_TOL}) on {card}",
+          flush=True)
+    return out
+
+
+def _time_slice_call(kind: str, key: str) -> dict:
+    """A main-path call of K1, K2 or K5 that phases 3, 6 and 9 do not time,
+    timed on random inputs of its shape (K5 with every point valid):
+    kernel equal to plain first."""
+    from fissure_segmentation_tpu_torch.kernels import scatter as ks
+    from fissure_segmentation_tpu_torch.kernels.fps import (fps_cuda,
+                                                            fps_plain)
+    from fissure_segmentation_tpu_torch.kernels.knn import (knn_cuda,
+                                                            knn_plain)
+    g = torch.Generator(device="cuda").manual_seed(len(key))
+    shape, rest = key.split("_", 1)
+    b, n, c = (int(v) for v in shape.split("x"))
+    lib = None
+    if kind == "knn":
+        kk = int(rest[2:])
+        x = torch.rand((b, n, c), generator=g, device="cuda") * 2 - 1
+        run, plain = (lambda: knn_cuda(x, kk, True)), \
+            (lambda: knn_plain(x, kk, True))
+        work = (x.numel() * 4 + b * n * kk * 8, 3 * c * b * n * n)
+    elif kind == "fps":
+        m = int(rest[1:])
+        x = torch.rand((b, n, c), generator=g, device="cuda") * 2 - 1
+        run, plain = (lambda: fps_cuda(x, m)), (lambda: fps_plain(x, m))
+        work = (x.numel() * 4 + b * n + b * m * 4,
+                (m - 1) * b * n * (3 * c + 1))
+    else:
+        rows, dt = rest.split("_")
+        rows = int(rows[4:])
+        idx = torch.randint(0, rows, (b, n), generator=g, device="cuda",
+                            dtype=torch.int32)
+        pay = torch.randn((b, n, c), generator=g, device="cuda").to(
+            getattr(torch, dt))
+        run, plain = (lambda: ks.scatter_rows(idx, pay, rows)), \
+            (lambda: ks.scatter_rows_plain(idx, pay, rows))
+        flat = ks._flat_targets(idx, rows)
+        acc = torch.zeros((b * rows + 1, c), device="cuda")
+        pay2 = pay.reshape(-1, c).float()
+
+        def lib():
+            acc.index_add_(0, flat, pay2)
+        work = (idx.numel() * 4 + pay.numel() * pay.element_size()
+                + b * rows * c * 4, pay.numel())
+    got, want = run(), plain()
+    for a_, w_ in zip(got if isinstance(got, tuple) else (got,),
+                      want if isinstance(want, tuple) else (want,)):
+        same = torch.equal(a_, w_) if kind != "scatter_rows" else \
+            bool(torch.allclose(a_, w_, rtol=1e-5, atol=1e-5))
+        if not same:
+            raise AssertionError(f"{kind} {key}: kernel differs from plain")
+    bound, by = bound_ms(*work)
+    t = {"ms": median_ms(run), "plain_ms": median_ms(plain, reps=3, inner=1,
+                                                     warm=1),
+         "library_ms": None if lib is None else median_ms(lib),
+         "bound_ms": bound, "bound_by": by, "inputs": "random"}
+    print(f"{kind} {key} (random inputs): kernel == plain; kernel "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+          f"{bound:.4f} ms ({by})", flush=True)
+    return t
+
+
+def slice_by_call(kind: str, paths: dict, timings: dict) -> dict:
+    """The PC-AE's and DSEG-AE's launches of one kernel priced by call:
+    {path: {call: launches, ms, plain_ms, bound_ms, library_ms}} from the
+    timings phases 3, 6 and 9 keyed by the wrapper's call key, or for a
+    call they do not time, `_time_slice_call`'s."""
+    timed = {t["call"]: t for t in timings.values() if "call" in t}
+    out = {}
+    for path, calls in paths.items():
+        out[path] = {}
+        for key, n in sorted(calls.get(kind, {}).items()):
+            if key not in timed:
+                timed[key] = _time_slice_call(kind, key)
+            t = timed[key]
+            out[path][key] = {"launches": n, **{
+                f: t.get(f) for f in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2729,6 +3284,38 @@ def main() -> int:
     print(json.dumps({"dynamic_reference": phase_dynamic_reference(card),
                       "card": card}), flush=True)
 
+    with tempfile.TemporaryDirectory() as slice_dir:
+        # 22. the PC-AE entry at full width (counts from 0, read after)
+        pcae_counts, pcae_timing, pcae_calls = phase_pcae(ks, knn_cuda, card,
+                                                          slice_dir)
+        print(json.dumps({"pcae": pcae_timing, "card": card}), flush=True)
+
+        # 23. the PC-AE step, card against CPU, small input
+        print(json.dumps({"pcae_reference": phase_pcae_reference(card),
+                          "card": card}), flush=True)
+
+        # 24. DSEG-AE on the card (counts from 0 after the seg fold's
+        # training, read after its three runs)
+        ae_dir = os.path.join(slice_dir, "ae_mesh")
+        dseg_counts, dseg_timing, dseg_gr, dseg_calls = phase_dseg(
+            ks, knn_cuda, card, ae_dir, slice_dir)
+        gr_calls.append(dseg_gr)
+        print(json.dumps({"dseg": dseg_timing, "card": card}), flush=True)
+
+        # 25. DSEG-AE on one case, card against CPU
+        print(json.dumps({"dseg_reference": phase_dseg_reference(
+            card, os.path.join(slice_dir, "seg"), ae_dir), "card": card}),
+            flush=True)
+    slice_paths = {"pcae": pcae_calls, "dseg_ae": dseg_calls}
+
+    def slice_row(name, timed):
+        """The slice's launches of a kernel, by path and by call."""
+        launches = {"pcae": pcae_counts[name], "dseg_ae": dseg_counts[name]}
+        row = {"launches": launches}
+        if name in ("knn", "scatter_rows", "fps"):
+            row["by_call"] = slice_by_call(name, slice_paths, timed)
+        return row
+
     train_total = {k: counts["total"][k] + bf16_counts[k] + default_counts[k]
                    for k in counts["total"]}
     # K4 by call: the train paths' count_from_ptr, the probes' histogram at
@@ -2754,17 +3341,19 @@ def main() -> int:
         "name": "knn", "route": "cuda", "source": KNN_SOURCE,
         "replaces": KNN_REPLACES,
         "launches": serving["knn"] + train_total["knn"]
-        + pt_serving["knn"] + pt_counts["knn"] + cnn_serving["knn"],
+        + pt_serving["knn"] + pt_counts["knn"] + cnn_serving["knn"]
+        + pcae_counts["knn"] + dseg_counts["knn"],
         "max_abs_err": max_err, "ms": graph["ms"],
         "plain_ms": graph["plain_ms"], "bound_ms": graph["bound_ms"],
         "bound_by": graph["bound_by"], "library_ms": None,
-        "shapes": timings}]
+        "slice": slice_row("knn", timings), "shapes": timings}]
     tr_path = next(iter(scatter["transpose"][1].values()))
     for name, (err, shapes) in scatter.items():
         path = next(iter(shapes.values()))       # the first timed shape
         row = {"name": name, "route": "cuda", "source": SCATTER_SOURCE,
                "replaces": SCATTER_REPLACES[name],
-               "launches": train_total[name], "max_abs_err": err,
+               "launches": train_total[name] + pcae_counts[name]
+               + dseg_counts[name], "max_abs_err": err,
                "ms": path["ms"], "plain_ms": path["plain_ms"],
                "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
                "library_ms": path["library_ms"], "shapes": shapes}
@@ -2772,6 +3361,8 @@ def main() -> int:
             row["also_replaces"] = [f"{PALLAS_SCATTER}:133"]
         if name == "transpose":   # built for K2 and K3 alike
             row["also_replaces"].append(SCATTER_REPLACES["scatter_routed"])
+        if name in ("transpose", "scatter_rows"):
+            row["slice"] = slice_row(name, shapes)
         if name in ("scatter_rows", "scatter_routed"):
             # "ms" builds its own transpose; "shared_ms" is given one
             row.update(shared_ms=path["shared_ms"],
@@ -2793,11 +3384,11 @@ def main() -> int:
     kernels.append({
         "name": "fps", "route": "cuda", "source": FPS_SOURCE,
         "replaces": FPS_REPLACES,
-        "launches": pt_serving["fps"] + pt_counts["fps"],
+        "launches": pt_serving["fps"] + pt_counts["fps"] + dseg_counts["fps"],
         "max_abs_err": fps_err, "ms": step["ms"],
         "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
         "bound_by": step["bound_by"], "library_ms": None,
-        "shapes": fps_timings})
+        "slice": slice_row("fps", fps_timings), "shapes": fps_timings})
     widest = dw_timings["b4_1x128x128x128x192"]
     kernels.append({
         "name": "depthwise_conv3", "route": "cuda", "source": DW_SOURCE,
@@ -2818,7 +3409,8 @@ def main() -> int:
     top = gr_timings[max(calls, key=calls.get)]
     print(json.dumps({"gather_reduce_by_call": by_call}), flush=True)
     gr_launches = (serving["gather_reduce"] + train_total["gather_reduce"]
-                   + cnn_serving["gather_reduce"])
+                   + cnn_serving["gather_reduce"]
+                   + dseg_counts["gather_reduce"])
     if sum(calls.values()) != gr_launches:
         raise AssertionError(f"gather_reduce: {gr_launches} launches but "
                              f"{calls} by call")
@@ -2828,7 +3420,7 @@ def main() -> int:
         "max_abs_err": gr_err, "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": top["library_ms"], "old_ms": top.get("old_ms"),
-        "by_call": by_call,
+        "by_call": by_call, "slice": slice_row("gather_reduce", {}),
         "gap_ms": sum(r["gap_ms"] for r in by_call.values()),
         "shapes": gr_timings})
     for name, head in stream_heads.items():

@@ -3,9 +3,10 @@ data/synthetic.py's image case and point cases).
 
 A copy, not an import: the port imports nothing of the JAX package. The
 functions below are line-for-line copies of data/synthetic.py:36-160,
-:203-259 and :262-269 with their constants, so a seed gives a bit-identical
-case in both packages (pinned by tests/test_torch_keypoints.py and
-tests/test_torch_train.py).
+:164-200, :203-259 and :262-269 with their constants, so a seed gives a
+bit-identical case in both packages (pinned by
+tests/test_torch_keypoints.py, tests/test_torch_train.py and, for the
+meshes, tests/test_torch_repairs.py).
 """
 from __future__ import annotations
 
@@ -151,6 +152,45 @@ def attach_gt_surfaces(case: dict, n: int = 4000, seed: int = 0) -> dict:
         for lbl in _FISSURES
     }
     return case
+
+
+def make_synthetic_meshes(case: dict, grid_n: int = 24) -> list[np.ndarray]:
+    """Triangle-soup meshes (world xyz) of the case's three fissure
+    surfaces — synthetic stand-ins for the reference's ground-truth
+    `{case}_mesh_{seq}/*.obj` files (data.py:699-716)."""
+    d, h, w = case["shape"]
+    scale = np.array([w, h, d], np.float32) - 1
+    soups = []
+    for lbl, (lung, _, _) in _FISSURES.items():
+        c, ax = _LUNGS[lung]
+        p = case["surface_params"][lbl]
+        xs = np.linspace(c[0] - ax[0], c[0] + ax[0], grid_n)
+        ys = np.linspace(c[1] - ax[1], c[1] + ax[1], grid_n)
+        xg, yg = np.meshgrid(xs, ys, indexing="ij")
+        zg = _surface_z(p, xg, yg, c[0])
+        verts = np.stack([xg, yg, zg], -1)              # (n, n, 3) in [0,1]^3
+        inside = _in_lung(verts.reshape(-1, 3), lung, margin=0.85).reshape(grid_n, grid_n)
+        tris = []
+        for i in range(grid_n - 1):
+            for j in range(grid_n - 1):
+                if inside[i:i + 2, j:j + 2].all():
+                    q = verts[i:i + 2, j:j + 2].reshape(4, 3)
+                    tris.append([q[0], q[1], q[2]])
+                    tris.append([q[1], q[3], q[2]])
+        soup = np.asarray(tris, np.float32) * scale
+        soups.append(soup)
+    return soups
+
+
+def make_synthetic_mesh_dataset(n_cases: int = 8, grid_n: int = 24,
+                                seed: int = 0, **kwargs):
+    """(cases, meshes, world sizes) triple for the mesh datasets."""
+    cases = make_synthetic_dataset(n_cases, seed=seed, **kwargs)
+    meshes = [make_synthetic_meshes(c, grid_n) for c in cases]
+    # unit spacing => world extent equals the voxel shape; xyz order (the
+    # mesh datasets' img_sizes_world convention, like sitk GetSize())
+    sizes = [np.asarray(c["shape"][::-1], np.float32) for c in cases]
+    return cases, meshes, sizes
 
 
 def make_synthetic_dataset(n_cases: int = 20, n_points: int = 8000,

@@ -81,7 +81,8 @@ def fps_cuda(points: torch.Tensor, m: int,
              valid: torch.Tensor | None = None) -> torch.Tensor:
     """K5 on the points' device: the CUDA kernel for a CUDA tensor,
     `fps_plain` for a CPU tensor. Each kernel launch adds one to
-    ``fps_cuda.launches``.
+    ``fps_cuda.launches`` and to ``fps_cuda.calls`` under
+    "{B}x{N}x{C}_m{m}".
 
     :param points: (B, N, C) float32, contiguous, C <= 8, N <= 32768
     :param valid: optional (B, N) bool
@@ -107,7 +108,10 @@ def fps_cuda(points: torch.Tensor, m: int,
     if err != 0:
         raise RuntimeError(f"fps kernel launch failed: cudaError_t {err}")
     fps_cuda.launches += 1
+    key = f"{b}x{n}x{c}_m{m}"
+    fps_cuda.calls[key] = fps_cuda.calls.get(key, 0) + 1
     return out
 
 
 fps_cuda.launches = 0
+fps_cuda.calls = {}

@@ -69,7 +69,8 @@ def _check(x: torch.Tensor, kk: int) -> None:
 
 def knn_cuda(x: torch.Tensor, k: int, self_loop: bool = False):
     """K1 on x's device: the CUDA kernel for a CUDA tensor, `knn_plain` for
-    a CPU tensor. Each kernel launch adds one to ``knn_cuda.launches``.
+    a CPU tensor. Each kernel launch adds one to ``knn_cuda.launches`` and
+    to ``knn_cuda.calls`` under "{B}x{N}x{C}_kk{kk}".
 
     :param x: (B, N, C) float32, contiguous, C <= 8, kk <= 128
     :return: (idx (B, N, k) int32, dist (B, N, k) float32)
@@ -92,7 +93,10 @@ def knn_cuda(x: torch.Tensor, k: int, self_loop: bool = False):
     if err != 0:
         raise RuntimeError(f"knn kernel launch failed: cudaError_t {err}")
     knn_cuda.launches += 1
+    key = f"{b}x{n}x{c}_kk{kk}"
+    knn_cuda.calls[key] = knn_cuda.calls.get(key, 0) + 1
     return _finish(idx, dist, self_loop)
 
 
 knn_cuda.launches = 0
+knn_cuda.calls = {}

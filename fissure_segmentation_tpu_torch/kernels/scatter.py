@@ -195,7 +195,8 @@ def scatter_rows_plain(idx: torch.Tensor, g: torch.Tensor,
 def scatter_rows(idx: torch.Tensor, g: torch.Tensor, n_rows: int,
                  transposed=None) -> torch.Tensor:
     """K2 on the inputs' device. Each kernel launch adds one to
-    ``scatter_rows.launches``.
+    ``scatter_rows.launches`` and to ``scatter_rows.calls`` under
+    "{B}x{E}x{C}_rows{n_rows}_{dtype}".
 
     :param idx: (B, E) int32 target rows
     :param g: (B, E, C) float32 or bfloat16 payload rows, C <= 256
@@ -223,10 +224,13 @@ def scatter_rows(idx: torch.Tensor, g: torch.Tensor, n_rows: int,
                 order.data_ptr(), ptr.data_ptr(), out.data_ptr(), b * n_rows,
                 c, int(g.dtype == torch.bfloat16), _stream(g.device))
     scatter_rows.launches += 1
+    key = f"{b}x{e}x{c}_rows{n_rows}_{str(g.dtype)[6:]}"
+    scatter_rows.calls[key] = scatter_rows.calls.get(key, 0) + 1
     return out
 
 
 scatter_rows.launches = 0
+scatter_rows.calls = {}
 
 
 # ---- K3 -------------------------------------------------------------------

@@ -1,19 +1,20 @@
 """Loss registry (counterpart of losses/registry.py): `get_loss_fn` returns
 ``loss(prediction, target) -> (scalar, components_dict)``.
 
-Ported: nnunet, ce, recall. The others raise NotImplementedError naming the
-module still to port.
+Ported: nnunet, ce, recall, chamfer and mesh (the mesh loss takes its 4
+`term_weights`: chamfer, edge length, normal consistency, Laplacian). The
+others raise NotImplementedError naming the module still to port.
 """
 from __future__ import annotations
 
 import functools
 from typing import Sequence
 
+from .chamfer import chamfer_loss
 from .segmentation import batch_recall_loss, cross_entropy, nnu_loss
 
 LOSSES = ("nnunet", "ce", "recall", "ssm", "chamfer", "mesh", "dpsr")
-_UNPORTED = {"ssm": "losses/dgssm.py", "chamfer": "losses/chamfer.py",
-             "mesh": "losses/mesh.py", "dpsr": "losses/dpsr.py"}
+_UNPORTED = {"ssm": "losses/dgssm.py", "dpsr": "losses/dpsr.py"}
 
 
 def get_loss_fn(loss: str, class_weights=None,
@@ -24,6 +25,17 @@ def get_loss_fn(loss: str, class_weights=None,
         return functools.partial(cross_entropy, class_weights=class_weights)
     if loss == "recall":
         return batch_recall_loss
+    if loss == "chamfer":
+        return chamfer_loss
+    if loss == "mesh":
+        from .mesh import make_regularized_mesh_loss
+        if term_weights is not None:
+            assert len(term_weights) == 4
+            return make_regularized_mesh_loss(
+                w_chamfer=term_weights[0], w_edge_length=term_weights[1],
+                w_normal_consistency=term_weights[2],
+                w_laplacian=term_weights[3])
+        return make_regularized_mesh_loss()
     if loss in _UNPORTED:
         raise NotImplementedError(f'loss "{loss}" is not ported yet '
                                   f"({_UNPORTED[loss]})")

@@ -34,7 +34,8 @@ def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
 class BatchNorm(nn.Module):
     """BatchNorm over the last axis with flax semantics.
 
-    Training: statistics in float32 over every axis but the last, fast
+    Training: statistics in float32 (float64 for a float64 input, as
+    flax promotes) over every axis but the last, fast
     variance E[x^2] - E[x]^2 clipped at 0, normalization with that (biased)
     batch variance, and the running update ``ra = 0.9 ra + 0.1 batch`` with
     the same biased variance (torch's own BatchNorm would store the unbiased
@@ -62,7 +63,7 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            xf = x.to(torch.float32)
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
             axes = tuple(range(x.ndim - 1))
             mean = xf.mean(axes)
             var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)

@@ -19,12 +19,21 @@ The port's submodules carry the JAX package's module names, so a JAX tree
 
 Strict both ways: a leaf that finds no target, a shape that differs, or a
 port parameter or buffer left unset raises. `export_jax_variables` is the
-exact inverse. Reading and writing `.fst` msgpack files is not ported yet
-(it needs flax's serializer); `save_model` writes `model.pt` instead.
+exact inverse. Leaves may be numpy arrays or torch tensors (a `.fst`
+file's bfloat16 arrays are read as tensors, models/io.py).
+
+`save_model` writes `model.pt`: the flattened tree, the constructor config
+and the class name (`model_class`), so `load_model(path)` rebuilds a
+DGCNNSeg, PointTransformerSeg or DGCNNFoldingNet without being told which;
+a `model.pt` written before the class was recorded loads when the class is
+passed in. `load_fold_model` reads a fold directory written by either
+package: its `model.pt`, or the JAX package's `model.fst` where only that
+exists.
 """
 from __future__ import annotations
 
 import json
+import os
 from collections.abc import Mapping
 
 import numpy as np
@@ -104,7 +113,9 @@ def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
             if target is None:
                 raise KeyError(f"{where}: no {collection} target {name!r} in "
                                f"{type(mod).__name__}")
-            arr = np.asarray(val, np.float32)
+            arr = (val.detach().to("cpu", torch.float32).numpy()
+                   if isinstance(val, torch.Tensor)
+                   else np.asarray(val, np.float32))
             if (kind in ("conv", "depthwise") and arr.ndim != 5) or \
                     (kind == "depthwise" and arr.shape[3] != 1):
                 raise ValueError(f"{where}: shape {arr.shape} is no flax "
@@ -186,20 +197,65 @@ def _unflatten(flat: Mapping) -> dict:
     return tree
 
 
+def model_class(name: str):
+    """The port's model class of that name (a `model.pt`'s or a `.fst`
+    header's `model_class`)."""
+    from .dgcnn import DGCNNSeg
+    from .folding_net import DGCNNFoldingNet
+    from .point_transformer import PointTransformerSeg
+    classes = {c.__name__: c for c in (DGCNNSeg, PointTransformerSeg,
+                                       DGCNNFoldingNet)}
+    if name not in classes:
+        raise KeyError(f"model class {name!r} is not ported; known: "
+                       f"{sorted(classes)}")
+    return classes[name]
+
+
+def resolve_model_class(name: str | None, model_cls, path: str):
+    """The class a file records, checked against the caller's; a file that
+    records none takes the caller's."""
+    if name is None:
+        if model_cls is None:
+            raise KeyError(f"{path} records no model class; pass one")
+        return model_cls
+    if model_cls is not None and model_cls.__name__ != name:
+        raise ValueError(f"{path} holds a {name}, not a "
+                         f"{model_cls.__name__}")
+    return model_class(name)
+
+
 def save_model(module: nn.Module, path: str) -> None:
     """Write `module` as ``model.pt``: its JAX variable tree flattened to
-    ``"collection/Module_0/.../leaf"`` tensors, plus the constructor config
-    (``module.config``) as JSON."""
+    ``"collection/Module_0/.../leaf"`` tensors, the constructor config
+    (``module.config``) as JSON and the class name."""
     flat = _flatten(export_jax_variables(module))
     torch.save({"config": json.dumps(module.config),
+                "model_class": type(module).__name__,
                 "variables": {k: torch.from_numpy(v) for k, v in flat.items()}},
                path)
 
 
-def load_model(path: str, model_cls) -> nn.Module:
+def load_model(path: str, model_cls=None) -> nn.Module:
     """Rebuild a module written by `save_model`: ``model_cls(**config)``
-    with its variables loaded (eval mode, on the CPU)."""
+    with its variables loaded (eval mode, on the CPU), `model_cls` being
+    the class the file records (a given one must match it) or, for a file
+    that records none, the given one."""
     state = torch.load(path, map_location="cpu", weights_only=True)
+    model_cls = resolve_model_class(state.get("model_class"), model_cls,
+                                    path)
     module = model_cls(**json.loads(state["config"]))
     tree = _unflatten({k: v.numpy() for k, v in state["variables"].items()})
     return load_jax_variables(module, tree).eval()
+
+
+def load_fold_model(fold_dir: str, model_cls=None) -> nn.Module:
+    """The model of a fold directory: its `model.pt`, or the JAX package's
+    `model.fst` where only that exists (models/io.py)."""
+    pt = os.path.join(fold_dir, "model.pt")
+    if os.path.exists(pt):
+        return load_model(pt, model_cls)
+    fst = os.path.join(fold_dir, "model.fst")
+    if os.path.exists(fst):
+        from .io import load_fst
+        return load_fst(fst, model_cls)
+    raise FileNotFoundError(f"neither model.pt nor model.fst in {fold_dir}")

@@ -7,7 +7,13 @@ tensor. Wider clouds (DGCNN's feature-space graph, C = 64) take the JAX
 package's XLA formula, where it also leaves Pallas: |x|^2 - 2 x.y + |y|^2
 with the diagonal zeroed, in the input's dtype (bf16 features give a bf16
 graph, as in JAX), one `torch.matmul` and a stable ascending sort (ties to
-the lower index, what `lax.top_k(-d, kk)` selects). That path builds the
+the lower index, what `lax.top_k(-d, kk)` selects). In bf16 the terms
+round as the jitted JAX graph rounds them (its optimized HLO on the CPU):
+each squared norm is the float32 sum of the exact float32 squares of the
+bf16 values, rounded once to bf16 (XLA fuses the convert into the
+product, so the squares are never rounded to bf16); the product and the
+combination round to bf16 operation by operation, and the sort compares
+bf16 keys. That path builds the
 graph on a detached input: the indices carry no gradient, and the (B, N, N)
 distances and the sort's indices are freed at once instead of living until
 the backward. Semantics: squared euclidean distances, `self_loop=True`
@@ -23,6 +29,14 @@ import torch
 from ..kernels.knn import MAX_C, MAX_KK, knn_cuda
 
 
+def _sqnorm(x: torch.Tensor) -> torch.Tensor:
+    """|x|^2 over the last axis, (..., N, 1): the float32 sum of the exact
+    float32 squares, rounded once to x's dtype (the jitted JAX graph's
+    rounding in bf16; for float32 the same operations as x * x summed)."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    return (xf * xf).sum(-1, keepdim=True).to(x.dtype)
+
+
 def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor | None = None
                     ) -> torch.Tensor:
     """Squared euclidean distance matrix |x|^2 - 2 x.y + |y|^2.
@@ -34,8 +48,7 @@ def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor | None = None
     self_dist = y is None
     if y is None:
         y = x
-    xx = (x * x).sum(-1, keepdim=True)
-    yy = (y * y).sum(-1, keepdim=True)
+    xx, yy = _sqnorm(x), _sqnorm(y)
     d = xx - 2.0 * torch.matmul(x, y.transpose(-1, -2)) + yy.transpose(-1, -2)
     if self_dist:
         d.diagonal(dim1=-2, dim2=-1).zero_()

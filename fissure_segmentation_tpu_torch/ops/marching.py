@@ -210,22 +210,34 @@ def sample_points_on_triangles(tris: torch.Tensor, valid: torch.Tensor,
     side, clipped to the last triangle), a point in it by the square-root
     barycentric map.
 
-    :param tris: (T, 3, 3); :param valid: (T,) bool
-    :param generator: CPU generator of the two uniform draws (the
-        triangles' (n_samples,), then the barycentric (n_samples, 2))
-    :param draws: (u (n_samples,), uv (n_samples, 2)) uniforms in [0, 1) to
-        use instead (tests inject the JAX package's)
-    :return: (n_samples, 3)
+    :param tris: (..., T, 3, 3); :param valid: (..., T) bool — leading
+        axes are soups sampled each with its own draws
+    :param generator: generator of the two uniform draws (the triangles'
+        (..., n_samples), then the barycentric (..., n_samples, 2)), drawn
+        on its own device
+    :param draws: (u (..., n_samples), uv (..., n_samples, 2)) uniforms in
+        [0, 1) to use instead (tests inject the JAX package's); leading
+        axes broadcast against the soups'
+    :return: (..., n_samples, 3), differentiable in `tris`
     """
-    a, b, c = tris[:, 0], tris[:, 1], tris[:, 2]
+    lead = tris.shape[:-3]
+    a, b, c = tris[..., 0, :], tris[..., 1, :], tris[..., 2, :]
     area = 0.5 * torch.linalg.norm(torch.linalg.cross(b - a, c - a), dim=-1)
     area = torch.where(valid, area, 0.0)
     if draws is None:
-        draws = (torch.rand(n_samples, generator=generator),
-                 torch.rand((n_samples, 2), generator=generator))
+        dev = None if generator is None else generator.device
+        draws = (torch.rand((*lead, n_samples), generator=generator,
+                            device=dev),
+                 torch.rand((*lead, n_samples, 2), generator=generator,
+                            device=dev))
     u, uv = (d.to(device=tris.device, dtype=tris.dtype) for d in draws)
-    cdf = torch.cumsum(area.detach(), 0)
-    idx = torch.searchsorted(cdf, u * cdf[-1], right=True).clamp(
-        0, area.shape[0] - 1)
-    u_, v_ = torch.sqrt(uv[:, :1]), uv[:, 1:]
-    return (1 - u_) * a[idx] + u_ * (1 - v_) * b[idx] + u_ * v_ * c[idx]
+    u = u.expand(*lead, n_samples)
+    cdf = torch.cumsum(area.detach(), -1)
+    idx = torch.searchsorted(cdf, (u * cdf[..., -1:]).contiguous(),
+                             right=True).clamp(0, area.shape[-1] - 1)
+    u_, v_ = torch.sqrt(uv[..., :1]), uv[..., 1:]
+
+    def corner(p):                       # (..., T, 3) -> (..., S, 3)
+        return torch.gather(p, -2, idx[..., None].expand(*idx.shape, 3))
+    return (1 - u_) * corner(a) + u_ * (1 - v_) * corner(b) \
+        + u_ * v_ * corner(c)

@@ -30,9 +30,11 @@ backward calls it: given the step's transpose where the checkout's
 equal to plain, each timed by `graph_ms` (its work on the card: K4's
 launches are shorter than the wrapper's host time) and by `median_ms`
 ("_host_included"). P1's k_onehot (K4 at 512 rows + `stream_sum`) is the
-checkout's `prof.probes.p1` row. Prints one JSON line (per shape the median
-ms of CUDA-event runs), then the card's name and power limit. Raises
-without a card.
+checkout's `prof.probes.p1` row. The dynamic graph's feature-space kNN
+(`ops/knn.py:feature_knn`, no kernel of its own: a matmul and a stable
+sort) is timed at the default run's (32, 2048, 64) bf16, k = 40. Prints
+one JSON line (per shape the median ms of CUDA-event runs), then the
+card's name and power limit. Raises without a card.
 """
 from __future__ import annotations
 
@@ -211,6 +213,12 @@ def main() -> None:
             lambda: gather_reduce.gather_reduce(a, gi, want))
     del a, gi, graphs
     torch.cuda.empty_cache()
+    from fissure_segmentation_tpu_torch.ops import knn as ops_knn
+    feats = torch.randn((32, 2048, 64), generator=gen).to("cuda",
+                                                         torch.bfloat16)
+    out["feature_graph"] = {"32x2048x64_bfloat16_k40": median_ms(
+        lambda: ops_knn.feature_knn(feats, 40), reps=5, inner=3)}
+    del feats
     from fissure_segmentation_tpu_torch.prof import probes
     pidx, pg = probes.payload()
     row = next(r for r in probes.p1(pidx, pg)

@@ -1,13 +1,16 @@
 """The canonical train steps on one NVIDIA card: timing harness and
 profile.
 
-    python -m fissure_segmentation_tpu_torch.train.profile_step [--model DGCNN|PointTransformer] [--amp] [--dynamic]
+    python -m fissure_segmentation_tpu_torch.train.profile_step [--model DGCNN|PointTransformer|PCAE] [--amp] [--dynamic]
 
 The step is DGCNNSeg(k=40, static; `--dynamic`: the dynamic graph, the
 default run's) or PointTransformerSeg at its full width, batch 32 x 2048
 points of the synthetic point cases, f32 (DGCNN with `--amp`: the bf16
 compute dtype), NNU loss + Adam with L2
-(`canonical_data`, `make_step`); `time_steps` times warm steps with the
+(`canonical_data`, `make_step`); `--model PCAE` is the PC-AE's step at
+the JAX entry's defaults with `--mesh` (train_pc_ae.make_step: 32 x 1024
+points of the synthetic meshes, k = 20, latent 512, f32, dynamic graph,
+the regularized mesh loss); `time_steps` times warm steps with the
 host clock around a sync. chip_smoke.py phases 7, 11 and 17 time them
 through these helpers. Run as a script it prints, for DGCNN in each routing
 (FSEG_FUSED_EDGE=0 and 1), for PointTransformer once:
@@ -50,7 +53,10 @@ KERNELS = {
               "K3 scatter_routed": "scatter_routed_",
               "K4 scatter_count": "count_",
               "gather_reduce": "gather_reduce_"},
-    "PointTransformer": {"K5 fps": "fps_kernel"}}
+    "PointTransformer": {"K5 fps": "fps_kernel"},
+    "PCAE": {"K1 knn": "knn_kernel",
+             "graph transpose": "transpose_",
+             "K2 scatter_rows": "scatter_rows_kernel"}}
 STEPS, BATCH, WARM = 10, 32, 2
 
 
@@ -131,7 +137,13 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    ds, loss_fn = canonical_data()
+    if args.model == "PCAE":
+        from .. import train_pc_ae
+        from ..cli import get_pc_ae_train_parser
+        pc_args = get_pc_ae_train_parser().parse_args(["--ds", "synthetic",
+                                                       "--mesh"])
+    else:
+        ds, loss_fn = canonical_data()
     tmp = tempfile.mkdtemp()
     routings = ("0", "1") if args.model == "DGCNN" else (None,)
     for fused in routings:
@@ -144,8 +156,10 @@ def main(argv=None) -> int:
                 name += " bf16"
             if args.dynamic:
                 name += " dynamic"
-        step = make_step(ds, loss_fn, tmp, model=args.model, dtype=dtype,
-                         dynamic=args.dynamic)
+        step = (train_pc_ae.make_step(pc_args, tmp)
+                if args.model == "PCAE" else
+                make_step(ds, loss_fn, tmp, model=args.model, dtype=dtype,
+                          dynamic=args.dynamic))
         for _ in range(WARM):
             step()
         ms, _, _ = time_steps(step)
@@ -171,7 +185,7 @@ def main(argv=None) -> int:
                    and "sort" in e.key.lower())
         print(f"  {'sorts':18s} {sort / 3 / 1e3:.3f} ms/step (every kernel "
               "named *sort*, searchsorted included)", flush=True)
-        if args.dynamic:
+        if args.dynamic or args.model == "PCAE":
             graph = sum(e.self_device_time_total for e in avg
                         if e.key == "feature_graph")
             print(f"  {'feature graphs':18s} {graph / 3 / 1e3:.3f} ms/step "

@@ -89,12 +89,14 @@ class PlateauScheduler:
 class ModelTrainer:
     def __init__(self, model: torch.nn.Module, ds, loss_fn: Callable,
                  out_dir: str, config: TrainConfig = TrainConfig(),
-                 device=None):
+                 device=None, batch_fn: Callable | None = None):
         """
         :param model: initialized module; moved to `device`
-        :param ds: PointDataset of the fold's training cases; batches are
-            sampled from its store on `device` (`self.batch_fn(generator,
-            case_idx, train) -> (x, y)`)
+        :param ds: the fold's training set; by default (a PointDataset)
+            batches are sampled from its store on `device`
+        :param batch_fn: ``batch_fn(generator, case_idx, train) -> (x, y)``
+            to draw batches otherwise (the PC-AE samples its meshes), with
+            a generator and indices on `device`
         :param loss_fn: ``loss_fn(logits, y) -> (loss, components)``
         :param device: where to train (default: the first CUDA card; the
             CPU only when ``device="cpu"`` is passed — without a card and
@@ -116,12 +118,14 @@ class ModelTrainer:
         self.val_indices = perm[:n_val].tolist()
         self.train_indices = perm[n_val:].tolist()
 
-        store = ds.to_store(device=self.device)
+        if batch_fn is None:
+            store = ds.to_store(device=self.device)
 
-        def batch_fn(generator, case_idx, train):
-            return sample_batch(store, case_idx, ds.sample_points, generator,
-                                augment=train and ds.do_augmentation,
-                                binary=ds.binary)
+            def batch_fn(generator, case_idx, train):
+                return sample_batch(store, case_idx, ds.sample_points,
+                                    generator,
+                                    augment=train and ds.do_augmentation,
+                                    binary=ds.binary)
         self.batch_fn = batch_fn
 
         n_train = len(self.train_indices)

@@ -870,3 +870,105 @@ def test_test_pipeline_on_card_matches_cpu(cuda, tmp_path):
         assert np.isfinite(res["cpu"][k]).all(), k
         np.testing.assert_allclose(res["cuda"][k], res["cpu"][k], rtol=1e-2,
                                    err_msg=k)
+
+
+# ---- the PC-AE and DSEG-AE ----------------------------------------------------
+
+def test_knn_padding_graph_with_far_points(cuda):
+    """DSEG-AE's padding graph: kk = 2 on a cloud whose invalid points all
+    sit at 1e6 (distances about 3e12 to the valid ones, 0 among
+    themselves, ties to the lower index), a class of 12 % and of 30
+    points valid: indices and distances equal to plain."""
+    for n_valid in (None, 30):
+        x = _uniform((1, 5000, 3), 40)
+        if n_valid is None:
+            x[torch.rand((1, 5000), generator=torch.Generator().manual_seed(
+                41)) >= 0.12] = 1e6
+        else:
+            x[:, n_valid:] = 1e6
+        got = knn_cuda(x.to(cuda), 1, False)
+        want = knn_plain(x.to(cuda), 1, False)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("c", [128, 256])
+def test_scatter_rows_at_the_pcae_widths(cuda, c):
+    """K2 at the PC-AE encoder's gather backward (K1 graph, k = 20,
+    self-loop) for C = 128 and 256, f32: within the rounding bound of the
+    plain version, with its own and a shared transpose."""
+    x = _uniform((4, 1024, 3), 42).to(cuda)
+    idx = knn_cuda(x, 20, True)[0].reshape(4, 1024 * 20).contiguous()
+    g = torch.randn((4, 1024 * 20, c), generator=torch.Generator(
+        device=cuda).manual_seed(43), device=cuda)
+    want = ks.scatter_rows_plain(idx, g, 1024)
+    for tr in (None, ks.transpose(idx, 1024)):
+        got = ks.scatter_rows(idx, g, 1024, tr)
+        assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("static", [False, True])
+def test_pcae_step_with_transposes_equals_step_without(cuda, static,
+                                                       monkeypatch):
+    """The PC-AE's train step builds one transpose per graph (four
+    dynamic, one static) and hands it to K2; the same step given none
+    gives the same loss and bit-equal gradients."""
+    from fissure_segmentation_tpu_torch.models import folding_net
+    from fissure_segmentation_tpu_torch.losses import chamfer_loss
+    model0 = folding_net.DGCNNFoldingNet(
+        k=10, n_embedding=64, shape_type="plane", n_input_points=256,
+        decode_mesh=False, static=static,
+        generator=torch.Generator().manual_seed(5)).to(cuda).train()
+    x = _uniform((3, 256, 3), 44).to(cuda)
+    import copy
+
+    def step():
+        m = copy.deepcopy(model0)
+        loss, _ = chamfer_loss(m(x), x)
+        loss.backward()
+        return loss, [p.grad for p in m.parameters()]
+    before = ks.transpose.launches
+    l1, g1 = step()
+    assert ks.transpose.launches - before == (1 if static else 4)
+    monkeypatch.setattr(folding_net, "_graph_transpose", lambda *a: None)
+    l2, g2 = step()
+    assert torch.equal(l1, l2)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+def test_dseg_reconstruct_on_card_equals_cpu(cuda):
+    """DSEG-AE's reconstruct from the same labels and draws: the padded
+    cloud (K1 at kk = 2 with 1e6 points), the masked FPS (K5) and the AE
+    forward on the card give the CPU's vertices within 1e-4 of their
+    scale."""
+    import numpy as np
+    from fissure_segmentation_tpu_torch.data.synthetic import \
+        make_synthetic_dataset
+    from fissure_segmentation_tpu_torch.models import (DGCNNFoldingNet,
+                                                       DGCNNSeg, dseg_ae)
+    case = make_synthetic_dataset(1, n_points=3000, seed=2)[0]
+    pc = torch.as_tensor(np.concatenate([case["coords"], case["features"]],
+                                        1))
+    labels = torch.as_tensor(case["labels"]).long()
+    g = torch.Generator().manual_seed(6)
+    seg = DGCNNSeg(k=8, in_features=4, num_classes=4, generator=g).eval()
+    ae = DGCNNFoldingNet(k=10, n_embedding=64, shape_type="plane",
+                         n_input_points=400, generator=g).eval()
+    draws = [{"extend": (torch.rand((1, 3000), generator=g),
+                         torch.randn((1, 3000, 3), generator=g),
+                         torch.randn((1, 3000, 1), generator=g))}
+             for _ in range(3)]
+    out = {}
+    for dev in ("cpu", cuda):
+        m = dseg_ae.RegularizedSegDGCNN(copy_to(seg, dev), copy_to(ae, dev),
+                                        256, 400, "farthest",
+                                        random_extend=True)
+        out[str(dev)] = m.reconstruct(pc.to(dev), labels.to(dev),
+                                      draws=draws)
+    for a, b in zip(out[str(cuda)], out["cpu"]):
+        va, vb = a[0].cpu(), b[0]
+        assert (va - vb).abs().max() <= 1e-4 * vb.abs().max()
+
+
+def copy_to(model, dev):
+    import copy
+    return copy.deepcopy(model).to(dev)

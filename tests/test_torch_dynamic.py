@@ -13,13 +13,16 @@ Tolerances:
     parameters are held to rtol = atol = 2e-4, as the static model's
     (tests/test_torch_train.py);
   * bf16 features tie often (8 bits of mantissa): given the same bf16
-    features the port's distances equal JAX's operation by operation (bit
-    for bit but for a rare bf16 step), and 98 % of the neighbour sets agree with JAX's jitted graph
-    (BF16_SET_SHARE; test_feature_knn_bf16_matches_jax says why not all);
+    features the port's distances equal those of JAX's jitted graph (bit
+    for bit but for a rare bf16 step), and every neighbour set agrees with
+    JAX's jitted graph (BF16_SET_SHARE; test_feature_knn_bf16_matches_jax
+    says how the port rounds as the compiled graph does);
     but each side rounds some EdgeConv outputs to the
     neighbouring bf16 value (tests/test_torch_bf16.py says why), and in
-    bf16 feature space that moves neighbours: 68-88 % of the feature
-    graphs' neighbour sets agree between the packages (NEIGHBOUR_SHARE).
+    bf16 feature space that moves neighbours: 63-92 % of the feature
+    graphs' neighbour sets agree between the packages (NEIGHBOUR_SHARE;
+    68-88 % before the port's bf16 norms were repaired, so the least
+    reading did not rise and the limit stays).
     So the bf16 model is held functionally, against JAX's own bf16 error:
     its logits and its gradient must be no further from JAX's float32
     ones than JAX's bf16 ones are, within BF16_SLACK, and its logits
@@ -54,7 +57,7 @@ LR, WD = 1e-3, 1e-5
 NEIGHBOUR_SHARE = 0.6
 BF16_LOGIT_TOL = 0.15
 BF16_SLACK = 1.3
-BF16_SET_SHARE = 0.95
+BF16_SET_SHARE = 0.999
 
 
 def _t(a):
@@ -106,28 +109,37 @@ def test_feature_knn_matches_jax_f32(self_loop):
 
 
 def test_feature_knn_bf16_matches_jax():
-    """In bf16 the graph is computed in bf16 (each operation rounded, as
-    JAX's operations are one by one): the distances equal JAX's
-    pairwise_sqdist op by op, bit for bit but for one bf16 step on at most
-    1e-4 of them (reading: 1 of 524 288), and the selection is their
-    stable sort. JAX's jitted knn lets XLA keep the fused elementwise
-    combination in float32 before its top_k (excess precision), so from the
-    same bf16 features it orders a few near-equal distances otherwise: at
-    least BF16_SET_SHARE of the neighbour sets agree (readings 0.980 at
-    N = 128 and 0.982 at N = 512)."""
+    """In bf16 the graph is computed as JAX's jitted knn computes it. Its
+    optimized HLO on the CPU (`knn.lower(x_bf16, 6, self_loop=True)
+    .compile().as_text()`) converts x to float32 before the squares, sums
+    the exact float32 squares in float32 and rounds each norm once to
+    bf16; the dot (float32 on the converted inputs), the doubling, the
+    subtraction and the addition each round to bf16, the diagonal is set
+    to 0 and a stable sort compares the negated distances as bf16 keys.
+    Only the norms differ from op-by-op JAX, which rounds each square to
+    bf16 first: that difference alone made 1.8-2 % of the neighbour sets
+    disagree (readings 0.980 at N = 128, 0.982 at N = 512, 0.982 at
+    N = 2048) before the port summed float32 squares. Now the distances
+    equal the jitted pairwise_sqdist's bit for bit but for one bf16 step
+    on at most 1e-4 of them (readings: 0 of 32 768, 1 of 524 288: the
+    float32 sums add in another order), the selection is their stable
+    sort, and every neighbour set agrees (readings 1.000 at N = 128, 512
+    and 2048; BF16_SET_SHARE = 0.999 leaves a margin of 1e-3 for such a
+    step)."""
     rng = np.random.default_rng(1)
     for n in (128, 512):
         xj = jnp.asarray(rng.normal(size=(2, n, 64)).astype(np.float32)
                          ).astype(jnp.bfloat16)
         xt = _t(np.asarray(xj.astype(jnp.float32))).to(torch.bfloat16)
         with jax.default_matmul_precision("float32"):
-            dj = jpairwise(xj)
+            dj = jax.jit(jpairwise)(xj)
             ij = jknn(xj, 6, self_loop=True)
         dt = pairwise_sqdist(xt)
         assert dt.dtype == torch.bfloat16
         got, want = dt.float().numpy(), np.asarray(dj.astype(jnp.float32))
-        # the dot's float32 sum rounds to bf16 once on each side, after
-        # sums in other orders: one bf16 step apart now and then
+        # the dot's and the norms' float32 sums round to bf16 once on
+        # each side, after sums in other orders: one bf16 step apart now
+        # and then
         np.testing.assert_allclose(got, want, rtol=2.0 ** -7, atol=0)
         assert (got != want).mean() <= 1e-4
         it, dist = knn(xt, 6, self_loop=True, return_dist=True)

@@ -259,3 +259,43 @@ def test_jax_trained_model_tested_by_both_entries(tmp_path, monkeypatch):
             np.testing.assert_allclose(np.asarray(g[1:], float),
                                        np.asarray(w[1:], float),
                                        rtol=MESH_RTOL, err_msg=g[0])
+
+
+def test_canonical_cv_flags_and_comparison(tmp_path):
+    """train/canonical_cv.py parses the committed JAX run's flags into the
+    namespace that run recorded (but for the output and the split), and
+    its comparison of the reference with itself passes with every gap 0;
+    one class moved past twice its fold std fails; the port's committed
+    run (results/torch_h100_canonical_cv5) passes."""
+    import json
+    import shutil
+    from fissure_segmentation_tpu_torch.cli import \
+        get_point_segmentation_parser
+    from fissure_segmentation_tpu_torch.train import canonical_cv
+    ref = os.path.join(REPO, canonical_cv.REFERENCE)
+    with open(os.path.join(ref, "commandline_args.json")) as f:
+        recorded = json.load(f)
+    args = vars(get_point_segmentation_parser().parse_args(
+        canonical_cv.reference_argv(recorded)))
+    for key, value in recorded.items():
+        if key not in ("output", "split"):
+            assert args[key] == value, key
+    same = canonical_cv.compare(ref, ref, 5)
+    assert same["pass"] and all(r["gap"] == 0 for r in same["comparisons"])
+    assert json.loads(json.dumps(same)) == same
+    assert same["paired_dice"]["cases"] == 20
+    moved = tmp_path / "moved"
+    shutil.copytree(ref, moved)
+    rows = _read(moved / "cv_results.csv")
+    for r in rows:
+        if r[0] == "mean_assd":
+            r[2] = str(float(r[2]) + 0.05)       # std 0.0176: 2.8 stds
+    with open(moved / "cv_results.csv", "w", newline="") as f:
+        csv.writer(f).writerows(rows)
+    out = canonical_cv.compare(str(moved), ref, 5)
+    assert not out["pass"]
+    assert [(r["metric"], r["class"]) for r in out["comparisons"]
+            if not r["within"]] == [("assd", 2)]
+    # the port's committed H100 run passes the bound
+    port = os.path.join(REPO, "results", "torch_h100_canonical_cv5")
+    assert canonical_cv.compare(port, ref, 5)["pass"]

@@ -78,6 +78,32 @@ def test_coords_copy_equals_original():
                                   jcoords.np_grid_coords(world, shape))
 
 
+def test_synthetic_mesh_copy_equals_original():
+    """data/synthetic.py's mesh generators (make_synthetic_meshes,
+    make_synthetic_mesh_dataset): the same cases, triangle soups and world
+    sizes as the JAX package's."""
+    from fissure_segmentation_tpu.data import synthetic as jsynthetic
+    got = synthetic.make_synthetic_mesh_dataset(n_cases=3, grid_n=12,
+                                                n_points=150, seed=2,
+                                                with_feature=False)
+    want = jsynthetic.make_synthetic_mesh_dataset(n_cases=3, grid_n=12,
+                                                  n_points=150, seed=2,
+                                                  with_feature=False)
+    for g, w in zip(got[0], want[0]):
+        np.testing.assert_array_equal(g["coords"], w["coords"])
+    for gs, ws in zip(got[1], want[1]):
+        assert len(gs) == len(ws) == 3
+        for g, w in zip(gs, ws):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+    for g, w in zip(got[2], want[2]):
+        np.testing.assert_array_equal(g, w)
+    case = synthetic.make_synthetic_dataset(1, n_points=100)[0]
+    for g, w in zip(synthetic.make_synthetic_meshes(case, 9),
+                    jsynthetic.make_synthetic_meshes(case, 9)):
+        np.testing.assert_array_equal(g, w)
+
+
 def test_native_copy_equals_original():
     """cc_label_3d, cc_stats, voxelize_triangles and binary_dilate_3d of
     the port's build against the JAX package's native runtime."""

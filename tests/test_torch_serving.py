@@ -122,7 +122,11 @@ def test_port_runs_without_jax():
     for name in ("kernels.gather_reduce", "kernels.stream", "prof.probes",
                  "kernels.scatter", "kernels.depthwise", "metrics",
                  "train.evaluation", "utils.nifti", "utils.objio",
-                 "utils.mesh_viewer", "utils.visualization"):
+                 "utils.mesh_viewer", "utils.visualization",
+                 "losses.chamfer", "losses.mesh", "data.mesh_dataset",
+                 "models.folding_net", "models.io", "models.dseg_ae",
+                 "train_pc_ae", "dseg_ae_regularization",
+                 "train.canonical_cv"):
         assert f"fissure_segmentation_tpu_torch.{name}" in _port_modules()
     code = textwrap.dedent(f"""
         import importlib

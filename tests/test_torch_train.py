@@ -448,9 +448,12 @@ def test_loss_registry():
     assert set(get_loss_fn("nnunet", cw)(logits, y)[1]) == {"CE", "GDL"}
     assert set(get_loss_fn("ce", cw)(logits, y)[1]) == {"CE"}
     assert set(get_loss_fn("recall")(logits, y)[1]) == {"Recall-CE"}
-    for name in ("ssm", "chamfer", "mesh", "dpsr"):
+    for name in ("ssm", "dpsr"):
         with pytest.raises(NotImplementedError, match="not ported"):
             get_loss_fn(name)
+    pts = torch.zeros((1, 5, 3))
+    assert set(get_loss_fn("chamfer")(pts, pts)[1]) == {"Chamfer"}
+    assert callable(get_loss_fn("mesh", term_weights=[1.0, 1.0, 0.1, 0.1]))
     with pytest.raises(ValueError, match="No loss"):
         get_loss_fn("nope")
 
