@@ -178,14 +178,37 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      Chamfer distances, K1, K5 and the gather-reduce launched; s/case;
  25. DSEG-AE on one case card against CPU with injected draws
      (phase_dseg_reference): labels, padded points, decoded vertices and
-     codes; K5's selections shifted by one point must miss.
+     codes; K5's selections shifted by one point must miss;
+ 26. K6's backward (phase_wgrad): the wgrad kernel against the float64
+     plain version within gamma_depth * sum |x dy| (its depth from the
+     launch plan) and equal from launch to launch, the dgrad (K6 with the
+     taps flipped) equal to its plain version, at every K6 layer of
+     train_seg_cnn's step (v1: (32, 48^3, C) for C = 32, 96, 144, 192 and
+     (32, 24^3, C) for C = 192, 384; v3's widths) and the hard cases (C
+     off the 32-channel groups, D = 1, W = 1); a dw with its centre tap
+     taken one voxel off must miss the bound; median times of the wgrad
+     kernel, its plain version, cuDNN's conv3d_weight and the bound, of
+     the dgrad, its plain version and conv3d_input, summed over one v1
+     step;
+ 27. the train_seg_cnn entry at full width (phase_cnn_train: 32 patches
+     of 96^3 at 1.5 mm, nnunet, f32): v1 trains fold 0 for 2 epochs and
+     tests it, then --test_only; v3 trains 1 epoch and tests it (the JAX
+     entry's files, finite Dice, K6's launches by role and its wgrad's);
+     10 timed warm steps of each (ms/step, patches/s, peak memory) and
+     the device time of 3 by kind of kernel;
+ 28. one train step of each CNN at full width on 2 patches of 32^3, card
+     against CPU with the same weights, crops, augmentation draws and
+     dropout mask (phase_cnn_train_reference); the v1 step with the
+     planted wgrad fault must miss the gradient tolerance.
 
 Kernel launch counts are set to 0 before each main path (phases 4, 10 and
 14 serving, phases 7, 11 and 17 training, phase 19 the probes, phase 20
 the default entry run, phase 22 the PC-AE, phase 24 DSEG-AE after its seg
-fold is trained) and read after it; the comparison launches of
-phases 3, 5, 6, 8, 9, 12, 13, 15, 16, 18, 21, 23 and 25 and of the
-probes' own checks are not counted. K1's, K2's, the transpose's, K5's and
+fold is trained, phase 27 each train_seg_cnn run) and read after it; the
+comparison launches of phases 3, 5, 6, 8, 9, 12, 13, 15, 16, 18, 21, 23,
+25, 26 and 28 and of the probes' own checks are not counted. K6's row
+gives its launches by path and role ("forward", a checkpoint's
+recomputation included, and "dgrad"), the wgrad kernel's row its own. K1's, K2's, the transpose's, K5's and
 the gather-reduce's rows add "slice": the PC-AE's and DSEG-AE's launches
 by path, and for K1, K2 and K5 by call (the wrapper's call key), each
 call with its time, plain time, bound and library time (index_add_ for
@@ -876,11 +899,14 @@ def _wrappers(ks, knn_cuda) -> dict:
         gather_reduce
     from fissure_segmentation_tpu_torch.kernels.stream import (
         stream_sum, stream_sum_async)
+    from fissure_segmentation_tpu_torch.kernels.depthwise import \
+        depthwise_conv3_wgrad_cuda
     return {"knn": knn_cuda, "transpose": ks.transpose,
             "scatter_rows": ks.scatter_rows,
             "scatter_routed": ks.scatter_routed,
             "scatter_count": ks.scatter_count, "fps": fps_cuda,
             "depthwise_conv3": depthwise_conv3_cuda,
+            "depthwise_wgrad": depthwise_conv3_wgrad_cuda,
             "gather_reduce": gather_reduce, "stream_sum": stream_sum,
             "stream_sum_async": stream_sum_async}
 
@@ -893,6 +919,8 @@ def _reset(ks, knn_cuda):
     wrappers = _wrappers(ks, knn_cuda)
     for fn in wrappers.values():
         fn.launches = 0
+    for role in wrappers["depthwise_conv3"].roles:
+        wrappers["depthwise_conv3"].roles[role] = 0
     for name in ("gather_reduce", "scatter_count", "knn", "scatter_rows",
                  "fps"):
         wrappers[name].calls.clear()
@@ -3087,6 +3115,426 @@ def phase_dseg_reference(card: str, seg_dir: str, ae_dir: str):
     return out
 
 
+# ---- the CNN's training half: K6's backward, train_seg_cnn -----------------
+
+CNN_ARGV = ["--ds", "synthetic", "--fold", "0"]   # patch 96, 1.5 mm, batch 32
+# K6's layers in a train step at the defaults (32 patches of 96^3), by
+# name: (shape, launches of each role a step; v3's timed once)
+WG_PATH = {
+    "v1_b0_32x48x48x48x32": ((32, 48, 48, 48, 32), 1),
+    "v1_b1_32x48x48x48x96": ((32, 48, 48, 48, 96), 1),
+    "v1_b2b3_32x48x48x48x144": ((32, 48, 48, 48, 144), 2),
+    "v1_b4_32x48x48x48x192": ((32, 48, 48, 48, 192), 1),
+    "v1_b6_32x24x24x24x192": ((32, 24, 24, 24, 192), 1),
+    "v1_b7_32x24x24x24x384": ((32, 24, 24, 24, 384), 1),
+    "v3_r0_32x48x48x48x16": ((32, 48, 48, 48, 16), 0),
+    "v3_r2_32x24x24x24x72": ((32, 24, 24, 24, 72), 0),
+    "v3_r7_32x6x6x6x200": ((32, 6, 6, 6, 200), 0),
+    "v3_r11_32x6x6x6x672": ((32, 6, 6, 6, 672), 0),
+}
+# the wgrad kernel's hard cases: C below, off and across the 32-channel
+# groups, D = 1, one voxel along W, rows not a multiple of the thread rows
+WG_HARD = {"c8_2x5x6x7x8": (2, 5, 6, 7, 8), "c33_1x3x9x11x33": (1, 3, 9, 11, 33),
+           "c144_2x7x5x40x144": (2, 7, 5, 40, 144),
+           "d1_1x1x4x4x5": (1, 1, 4, 4, 5), "w1_3x2x3x1x64": (3, 2, 3, 1, 64)}
+CNN_STEP_TOL = {"loss": 1e-4, "grad_rel_l2": 3e-2, "stats": 1e-3,
+                "param": 2e-4}
+
+
+def wgrad_bound(x, gy):
+    """(float64 plain wgrad, the kernel's rounding bound gamma_depth *
+    sum |x gy| per tap and channel, depth)."""
+    from fissure_segmentation_tpu_torch.kernels.depthwise import (
+        depthwise_conv3_wgrad_plain, gamma, wgrad_plan)
+    want = depthwise_conv3_wgrad_plain(x.double(), gy.double())
+    absw = depthwise_conv3_wgrad_plain(x.double().abs(), gy.double().abs())
+    depth = wgrad_plan(tuple(x.shape))[2]
+    return want, gamma(depth) * absw, depth
+
+
+def over_bound(err, bound) -> float:
+    """max err / bound; a tap whose bound is 0 (every term padding) must
+    be exact."""
+    inf = torch.full_like(err, float("inf"))
+    return torch.where(bound > 0, err / bound,
+                       torch.where(err > 0, inf, 0 * err)).max().item()
+
+
+def planted_wgrad(x, gy, wgrad=None):
+    """The wgrad kernel's (`wgrad`'s) dw with one tap (the centre) taken
+    from x moved by one voxel along W: a fault the bound must see."""
+    if wgrad is None:
+        from fissure_segmentation_tpu_torch.kernels.depthwise import \
+            depthwise_conv3_wgrad_cuda as wgrad
+    dw = wgrad(x, gy).clone()
+    dw[1, 1, 1] = wgrad(torch.roll(x, 1, dims=3).contiguous(), gy)[1, 1, 1]
+    return dw
+
+
+def phase_wgrad():
+    """K6's backward on the card: the wgrad kernel against the float64
+    plain version within gamma_depth * sum |x dy| (depth from its launch
+    plan), the dgrad (K6 with flipped taps) equal to the plain version,
+    at every K6 layer of train_seg_cnn's step (v1 and v3 at the defaults)
+    and at the wgrad kernel's hard cases; the planted fault (one tap one
+    voxel off) must miss the bound. Median times of the wgrad kernel, its
+    plain version, cuDNN's conv3d_weight (the library call) and the bound;
+    of the dgrad, its plain version and cuDNN's conv3d_input. Returns (max
+    |wgrad - float64|, max err / bound, timings, sums over one v1 step)."""
+    from fissure_segmentation_tpu_torch.kernels.depthwise import (
+        depthwise_conv3_dgrad, depthwise_conv3_plain,
+        depthwise_conv3_wgrad_cuda, depthwise_conv3_wgrad_plain)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(26)
+    max_err, max_ratio, timings = 0.0, 0.0, {}
+    step = {k: 0.0 for k in ("wgrad_ms", "wgrad_plain_ms", "wgrad_bound_ms",
+                             "wgrad_library_ms", "dgrad_ms", "dgrad_plain_ms",
+                             "dgrad_bound_ms", "dgrad_library_ms")}
+    step["launches"] = 0
+    cases = {**{k: v for k, v in WG_PATH.items()},
+             **{k: (v, 0) for k, v in WG_HARD.items()}}
+    for name, (shape, per_step) in cases.items():
+        c = shape[-1]
+        x = torch.randn(shape, generator=g, device=dev)
+        gy = torch.randn(shape, generator=g, device=dev)
+        w = torch.randn((3, 3, 3, c), generator=g, device=dev)
+        got = depthwise_conv3_wgrad_cuda(x, gy)
+        torch.cuda.synchronize()
+        want, bound, depth = wgrad_bound(x, gy)
+        err = (got.double() - want).abs()
+        ratio = over_bound(err, bound)
+        max_err, max_ratio = max(max_err, err.max().item()), max(max_ratio,
+                                                                 ratio)
+        if not ratio <= 1:
+            raise AssertionError(f"wgrad {name}: {ratio:.3g} x its bound "
+                                 f"gamma_{depth} sum|x dy|")
+        if not torch.equal(depthwise_conv3_wgrad_cuda(x, gy), got):
+            raise AssertionError(f"wgrad {name}: two launches differ")
+        # (with W = 1 the voxel one off along W is the voxel itself)
+        planted = over_bound((planted_wgrad(x, gy).double() - want).abs(),
+                             bound) if shape[3] > 1 else float("inf")
+        if planted <= 1:
+            raise AssertionError(f"wgrad {name}: the planted fault stays "
+                                 f"within the bound ({planted:.3g})")
+        wf = w.flip((0, 1, 2)).contiguous()
+        dx = depthwise_conv3_dgrad(gy, w)
+        torch.cuda.synchronize()
+        if not torch.equal(dx, depthwise_conv3_plain(gy, wf)):
+            raise AssertionError(f"dgrad {name}: kernel differs from plain")
+        line = (f"K6 backward {name}: wgrad within {ratio:.3g} of its bound "
+                f"(depth {depth}, max err {err.max().item():.3g}; the "
+                f"planted fault {planted:.3g} x), dgrad == plain")
+        if shape[0] == 32:
+            n = x.numel()
+            xc, gc = x.permute(0, 4, 1, 2, 3), gy.permute(0, 4, 1, 2, 3)
+            wshape = (c, 1, 3, 3, 3)
+            t = {"wgrad_ms": median_ms(lambda: depthwise_conv3_wgrad_cuda(
+                     x, gy), reps=5, inner=3),
+                 "wgrad_plain_ms": median_ms(
+                     lambda: depthwise_conv3_wgrad_plain(x, gy), reps=3,
+                     inner=1, warm=1),
+                 "wgrad_library_ms": median_ms(
+                     lambda: torch.nn.grad.conv3d_weight(
+                         xc, wshape, gc, padding=1, groups=c), reps=3,
+                     inner=1, warm=1),
+                 "dgrad_ms": median_ms(lambda: depthwise_conv3_dgrad(gy, w),
+                                       reps=5, inner=3),
+                 "dgrad_plain_ms": median_ms(
+                     lambda: depthwise_conv3_plain(gy, wf), reps=3, inner=1,
+                     warm=1),
+                 "dgrad_library_ms": median_ms(
+                     lambda: torch.nn.grad.conv3d_input(
+                         xc.shape, w.permute(3, 0, 1, 2).unsqueeze(1), gc,
+                         padding=1, groups=c), reps=3, inner=1, warm=1)}
+            # wgrad reads x and dy once and writes 27 C; dgrad as K6
+            t["wgrad_bound_ms"], t["wgrad_bound_by"] = bound_ms(
+                (2 * n + 27 * c) * 4, 54 * n)
+            t["dgrad_bound_ms"], t["dgrad_bound_by"] = bound_ms(
+                (2 * n + 27 * c) * 4, 54 * n)
+            t.update(max_abs_err=err.max().item(), err_over_bound=ratio,
+                     depth=depth, launches_per_v1_step=per_step)
+            timings[name] = t
+            for k in step:
+                if k != "launches":
+                    step[k] += per_step * t[k]
+            step["launches"] += per_step
+            line += (f"; wgrad {t['wgrad_ms']:.4f} ms, plain "
+                     f"{t['wgrad_plain_ms']:.4f}, conv3d_weight "
+                     f"{t['wgrad_library_ms']:.4f}, bound "
+                     f"{t['wgrad_bound_ms']:.4f} ({t['wgrad_bound_by']}); "
+                     f"dgrad {t['dgrad_ms']:.4f} ms, plain "
+                     f"{t['dgrad_plain_ms']:.4f}, conv3d_input "
+                     f"{t['dgrad_library_ms']:.4f}")
+        print(line, flush=True)
+        del x, gy, w, got, want, bound, dx
+        torch.cuda.empty_cache()
+    print(f"K6 backward, one v1 step ({step['launches']} launches each): "
+          f"wgrad {step['wgrad_ms']:.3f} ms (bound "
+          f"{step['wgrad_bound_ms']:.3f}, conv3d_weight "
+          f"{step['wgrad_library_ms']:.3f}); dgrad {step['dgrad_ms']:.3f} ms "
+          f"(conv3d_input {step['dgrad_library_ms']:.3f})", flush=True)
+    return max_err, max_ratio, timings, step
+
+
+def _check_cnn_run(out: str, model_cls, what: str) -> dict:
+    """The JAX entry's files of a train_seg_cnn run, finite Dice in
+    [0, 1], the fold's model.fst of `model_cls`."""
+    from fissure_segmentation_tpu_torch.models import load_fold_model
+    for f in ("op_count.csv", "cross_val_split.json", "commandline_args.json",
+              "cv_results.csv", "fold0/train_time.csv", "fold0/model.fst",
+              "fold0/test/test_dice.csv"):
+        if not os.path.exists(os.path.join(out, f)):
+            raise AssertionError(f"{what}: no {f}")
+    rows = _csv(os.path.join(out, "fold0", "test", "test_dice.csv"))
+    dice = [float(v) for v in rows[1]]
+    if rows[0] != [f"class{i}" for i in range(len(dice))] or \
+            not all(0 <= d <= 1 for d in dice):
+        raise AssertionError(f"{what}: test_dice.csv {rows}")
+    ops = _csv(os.path.join(out, "op_count.csv"))
+    model = load_fold_model(os.path.join(out, "fold0"))
+    if ops[0] != ["flops", "bytes_accessed", "params"] or \
+            int(ops[1][2]) != sum(p.numel() for p in model.parameters()) \
+            or not isinstance(model, model_cls):
+        raise AssertionError(f"{what}: op_count.csv {ops}, model "
+                             f"{type(model).__name__}")
+    cv = _csv(os.path.join(out, "cv_results.csv"))
+    return {"dice": dice, "cv": cv[1], "op_count": ops[1]}
+
+
+def phase_cnn_train(ks, knn_cuda, card: str, out_dir: str):
+    """The train_seg_cnn entry at full width (its defaults: 32 patches of
+    96^3 at 1.5 mm, nnunet, f32, the 8 synthetic 64^3 cases): v1 trains
+    fold 0 for 2 epochs and tests it, then --test_only on the same output;
+    v3 trains 1 epoch and tests it (each run: the JAX entry's files,
+    finite Dice, the launches of K6 by role and of its wgrad, counts reset
+    before and read after each run; every step of the backward: 7 dgrad
+    and 7 wgrad launches). Then the test half of v1's fold again, warm
+    (s/case), and 10 timed warm steps of each
+    (train_seg_cnn.make_step: ms/step, patches/s, peak memory) and a
+    profile of 3 (device time by kind, profile_step.cnn_device_time).
+    Returns (launches by path, timing)."""
+    from fissure_segmentation_tpu_torch import train_seg_cnn
+    from fissure_segmentation_tpu_torch.cli import get_seg_cnn_train_parser
+    from fissure_segmentation_tpu_torch.data.dataset import load_split_file
+    from fissure_segmentation_tpu_torch.kernels.depthwise import (
+        depthwise_conv3_cuda, depthwise_conv3_wgrad_cuda)
+    from fissure_segmentation_tpu_torch.models import (LRASPPMobileNetV33D,
+                                                       MobileNetASPP,
+                                                       load_fold_model)
+    from fissure_segmentation_tpu_torch.train.profile_step import (
+        STEPS, WARM, cnn_device_time, time_steps)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    paths, timing = {}, {}
+    runs = (("v1", 2, MobileNetASPP, []), ("v1_test_only", 0, MobileNetASPP,
+                                           ["--test_only"]),
+            ("v3", 1, LRASPPMobileNetV33D, []))
+    for name, epochs, cls, extra in runs:
+        out = os.path.join(out_dir, f"cnn_{name[:2]}")
+        argv = CNN_ARGV + ["--model", name[:2], "--output", out] + extra
+        if epochs:
+            argv += ["--epochs", str(epochs)]
+        _reset(ks, knn_cuda)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if train_seg_cnn.main(argv) != 0:
+            raise AssertionError(f"train_seg_cnn {name}: failed")
+        took = time.perf_counter() - t0
+        res = _check_cnn_run(out, cls, f"train_seg_cnn {name}")
+        launches = {"forward": depthwise_conv3_cuda.roles["forward"],
+                    "dgrad": depthwise_conv3_cuda.roles["dgrad"],
+                    "wgrad": depthwise_conv3_wgrad_cuda.launches}
+        back = launches["dgrad"]
+        if launches["forward"] < 7 or back != launches["wgrad"] or \
+                back % 7 or back < 7 * epochs or (back and not epochs):
+            raise AssertionError(f"train_seg_cnn {name}: K6 launches "
+                                 f"{launches} in {epochs} epochs")
+        paths[f"train_seg_cnn_{name}"] = launches
+        timing[name] = {"s": took, "peak_bytes":
+                        torch.cuda.max_memory_allocated(), **res}
+        print(f"train_seg_cnn {name}: {epochs} epoch(s) of fold 0 and the "
+              f"test in {took:.1f} s, test Dice {res['dice']}, peak "
+              f"{timing[name]['peak_bytes'] / 2 ** 30:.2f} GiB, launches "
+              f"{launches} on {card}", flush=True)
+    parser = get_seg_cnn_train_parser()
+    # the test half alone: v1's fold 0 on its validation cases, warm
+    out = os.path.join(out_dir, "cnn_v1")
+    args = parser.parse_args(CNN_ARGV + ["--model", "v1"])
+    _, val = train_seg_cnn.build_dataset(args).split_data_set(
+        load_split_file(os.path.join(out, "cross_val_split.json"))[0])
+    model = load_fold_model(os.path.join(out, "fold0"))
+    test_dir = os.path.join(out_dir, "test_again")
+    train_seg_cnn.test_cnn(val, model, test_dir, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_seg_cnn.test_cnn(val, model, test_dir, "cuda")
+    torch.cuda.synchronize()
+    timing["v1_test_s_per_case"] = (time.perf_counter() - t0) / len(val)
+    print(f"train_seg_cnn v1 test half: "
+          f"{timing['v1_test_s_per_case']:.4f} s/case over {len(val)} "
+          f"cases of {val[0][0].shape} (warm) on {card}", flush=True)
+    for name in ("v1", "v3"):
+        args = parser.parse_args(CNN_ARGV + ["--model", name])
+        step = train_seg_cnn.make_step(args, out_dir, "cuda")
+        for _ in range(WARM):
+            step()
+        ms, peak, losses = time_steps(step)
+        if not torch.isfinite(torch.stack(losses)).all():
+            raise AssertionError(f"cnn {name} step: non-finite loss")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+        avg = prof.key_averages()
+        kinds = cnn_device_time(avg, 3)
+        top = sorted(((e.self_device_time_total / 3e3, e.key) for e in avg
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0), reverse=True)[:12]
+        timing[f"{name}_step"] = {
+            "ms_per_step": ms, "patches_per_s": args.batch * 1e3 / ms,
+            "peak_bytes": peak, "device_ms_by_kind": kinds,
+            "busy_share": kinds["total"] / ms,
+            "top_kernels_ms": [[round(t, 4), k[:90]] for t, k in top]}
+        print(f"cnn {name} step: {ms:.2f} ms/step ({args.batch * 1e3 / ms:.2f} "
+              f"patches/s), peak {peak / 2 ** 30:.2f} GiB; device ms a step "
+              f"by kind {kinds} (busy {kinds['total'] / ms:.3f}) on {card}",
+              flush=True)
+        print(avg.table(sort_by="self_device_time_total", row_limit=16,
+                        max_name_column_width=70), flush=True)
+        del step
+        torch.cuda.empty_cache()
+    return paths, timing
+
+
+def _cnn_step_state(trainer) -> dict:
+    from fissure_segmentation_tpu_torch.models import export_jax_variables
+    out = dict(_leaves(export_jax_variables(trainer.model)))
+    out.update({f"grad/{k}": v for k, v in _leaves(
+        export_jax_variables(trainer.model, grad=True))})
+    return out
+
+
+def phase_cnn_train_reference(card: str):
+    """One train step of each CNN at full width on a small batch (2
+    patches of 32^3 with augmentation), card (K6 and its backward, cuDNN,
+    TF32 off) against CPU (plain versions) from the same weights, crops,
+    augmentation draws and dropout mask: the loss within 1e-4 relative,
+    the whole gradient within 3e-2 relative L2 (train-mode BatchNorm over
+    few voxels amplifies summation-order rounding; tests/test_torch_cnn_
+    train.py reads 7.8e-3 against JAX), running statistics within 1e-3,
+    each parameter within 2e-4 of the move Adam's first step makes from
+    each side's gradient. The v1 step again with the planted wgrad fault
+    (the centre tap from x one voxel off) must miss the gradient
+    tolerance on the K6 layers' kernels."""
+    from fissure_segmentation_tpu_torch.data.image_dataset import (
+        ImageDataset, draw_augmentation)
+    from fissure_segmentation_tpu_torch.data.synthetic import \
+        make_synthetic_image_case
+    from fissure_segmentation_tpu_torch.kernels import depthwise
+    from fissure_segmentation_tpu_torch.losses import get_loss_fn
+    from fissure_segmentation_tpu_torch.models import (LRASPPMobileNetV33D,
+                                                       MobileNetASPP)
+    from fissure_segmentation_tpu_torch.train.image_trainer import \
+        ImageTrainer
+    from fissure_segmentation_tpu_torch.train.trainer import TrainConfig
+    cases = [make_synthetic_image_case(i, shape=(40, 40, 40))
+             for i in range(2)]
+    ds = ImageDataset([c["image"] * 3 for c in cases],
+                      [c["labels"] for c in cases],
+                      [(c["case_id"], c["sequence"]) for c in cases],
+                      patch_size=(32, 32, 32), preprocessed=True)
+    weights = torch.as_tensor(ds.get_class_weights(), dtype=torch.float32)
+    imgs, lbls = ds.crop_batch(np.random.default_rng(0), [0, 1])
+    draws = draw_augmentation(torch.Generator().manual_seed(1), imgs.shape)
+    out = {}
+    for name, cls in (("v1", MobileNetASPP), ("v3", LRASPPMobileNetV33D)):
+        model0 = cls(num_classes=ds.num_classes, patch_size=(32,) * 3,
+                     generator=torch.Generator().manual_seed(2))
+        keep = (torch.rand((2, 8, 8, 8, 128), generator=torch.Generator()
+                           .manual_seed(3)) < 0.5) if name == "v1" else None
+        states = {}
+
+        def run(dev, model0=model0, keep=keep):
+            trainer = ImageTrainer(
+                copy.deepcopy(model0), ds,
+                get_loss_fn("nnunet", weights.to(dev)), tempfile.mkdtemp(),
+                TrainConfig(batch_size=2, seed=0), device=dev)
+            loss, _ = trainer.train_step(
+                imgs.to(dev), lbls.to(dev),
+                draws={k: v.to(dev) for k, v in draws.items()},
+                keep=None if keep is None else keep.to(dev))
+            return float(loss), _cnn_step_state(trainer)
+        for dev in ("cpu", "cuda"):
+            states[dev] = run(dev)
+        res = _cnn_step_compare(states["cuda"], states["cpu"],
+                                _leaves_of(model0))
+        if name == "v1":
+            good = depthwise.depthwise_conv3_wgrad_cuda
+
+            def faulty_wgrad(x, gy):
+                return planted_wgrad(x, gy, good)
+            faulty_wgrad.launches = 0     # the wrapper counts under its name
+            depthwise.depthwise_conv3_wgrad_cuda = faulty_wgrad
+            try:
+                faulty = run("cuda")
+            finally:
+                depthwise.depthwise_conv3_wgrad_cuda = good
+            res["planted_k6_grad_rel_l2"] = _k6_grad_rel(faulty[1],
+                                                         states["cpu"][1])
+            res["k6_grad_rel_l2"] = _k6_grad_rel(states["cuda"][1],
+                                                 states["cpu"][1])
+            if res["planted_k6_grad_rel_l2"] <= CNN_STEP_TOL["grad_rel_l2"]:
+                raise AssertionError(f"cnn reference: the planted wgrad "
+                                     f"fault is missed ({res})")
+        out[name] = res
+        print(f"cnn train reference {name}: card vs CPU {res} (limits "
+              f"{CNN_STEP_TOL}) on {card}", flush=True)
+    return out
+
+
+def _leaves_of(model) -> dict:
+    from fissure_segmentation_tpu_torch.models import export_jax_variables
+    return dict(_leaves(export_jax_variables(model)))
+
+
+def _k6_grad_rel(got: dict, want: dict) -> float:
+    """The largest relative L2 difference of a K6 layer's kernel gradient
+    (the leaves of shape (3, 3, 3, 1, C))."""
+    keys = [k for k in want if k.startswith("grad/")
+            and want[k].ndim == 5 and want[k].shape[:4] == (3, 3, 3, 1)]
+    return max(float(np.linalg.norm(got[k] - want[k])
+                     / np.linalg.norm(want[k])) for k in keys)
+
+
+def _cnn_step_compare(card, cpu, init) -> dict:
+    (loss_g, got), (loss_w, want) = card, cpu
+    res = {"loss_rel": abs(loss_g - loss_w) / abs(loss_w)}
+    grads = [k for k in want if k.startswith("grad/")]
+    res["grad_rel_l2"] = float(np.sqrt(
+        sum(((got[k] - want[k]).astype(np.float64) ** 2).sum() for k in grads)
+        / sum((want[k].astype(np.float64) ** 2).sum() for k in grads)))
+    res["stats_max_abs"] = max(float(np.abs(got[k] - want[k]).max())
+                               for k in want if k.startswith("batch_stats"))
+    excess = 0.0
+    for k in want:
+        if not k.startswith("params/"):
+            continue
+        g = {d: v["grad/" + k] + 1e-5 * init[k] for d, v in
+             (("card", got), ("cpu", want))}
+        moves = [1e-3 * v / (np.abs(v) + 1e-8) for v in g.values()]
+        allowed = np.abs(moves[0] - moves[1]) + CNN_STEP_TOL["param"]
+        excess = max(excess, float((np.abs(got[k] - want[k]) - allowed)
+                                   .max()))
+    res["param_excess"] = excess
+    if not (res["loss_rel"] <= CNN_STEP_TOL["loss"]
+            and res["grad_rel_l2"] <= CNN_STEP_TOL["grad_rel_l2"]
+            and res["stats_max_abs"] <= CNN_STEP_TOL["stats"]
+            and excess <= 0):
+        raise AssertionError(f"cnn reference: card vs CPU {res}")
+    return res
+
+
 def _time_slice_call(kind: str, key: str) -> dict:
     """A main-path call of K1, K2 or K5 that phases 3, 6 and 9 do not time,
     timed on random inputs of its shape (K5 with every point valid):
@@ -3308,6 +3756,21 @@ def main() -> int:
             flush=True)
     slice_paths = {"pcae": pcae_calls, "dseg_ae": dseg_calls}
 
+    # 26. K6's backward: the wgrad kernel and the dgrad against plain
+    wg_err, wg_ratio, wg_timings, wg_step = phase_wgrad()
+
+    # 27. the train_seg_cnn entry at full width (counts from 0 before each
+    # run, read after it)
+    with tempfile.TemporaryDirectory() as cnn_dir:
+        cnn_paths, cnn_timing = phase_cnn_train(ks, knn_cuda, card, cnn_dir)
+    print(json.dumps({"cnn_train": cnn_timing,
+                      "k6_backward_per_v1_step": wg_step, "card": card}),
+          flush=True)
+
+    # 28. one train step of each CNN, card against CPU; the planted fault
+    print(json.dumps({"cnn_train_reference": phase_cnn_train_reference(card),
+                      "card": card}), flush=True)
+
     def slice_row(name, timed):
         """The slice's launches of a kernel, by path and by call."""
         launches = {"pcae": pcae_counts[name], "dseg_ae": dseg_counts[name]}
@@ -3390,14 +3853,37 @@ def main() -> int:
         "bound_by": step["bound_by"], "library_ms": None,
         "slice": slice_row("fps", fps_timings), "shapes": fps_timings})
     widest = dw_timings["b4_1x128x128x128x192"]
+    train_widest = wg_timings["v1_b4_32x48x48x48x192"]
+    k6_paths = {"serving_cnn": {"forward": cnn_serving["depthwise_conv3"],
+                                "dgrad": 0},
+                **{p: {"forward": v["forward"], "dgrad": v["dgrad"]}
+                   for p, v in cnn_paths.items()}}
     kernels.append({
         "name": "depthwise_conv3", "route": "cuda", "source": DW_SOURCE,
         "replaces": f"{PALLAS_DW}:200", "also_replaces": f"{PALLAS_DW}:171",
-        "launches": cnn_serving["depthwise_conv3"], "max_abs_err": dw_err,
+        "launches": sum(v["forward"] + v["dgrad"] for v in k6_paths.values()),
+        "by_path": k6_paths, "max_abs_err": dw_err,
         "ms": widest["ms"], "plain_ms": widest["plain_ms"],
         "bound_ms": widest["bound_ms"], "bound_by": widest["bound_by"],
         "library_ms": widest["library_ms"], "per_forward": dw_forward,
+        "dgrad_at_v1_b4_32x48x48x48x192": {
+            k: train_widest[f"dgrad_{k}"] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "shapes": dw_timings})
+    kernels.append({
+        "name": "depthwise_wgrad", "route": "cuda", "source": DW_SOURCE,
+        # no TPU kernel: the JAX package trains these layers with XLA's
+        # gradient of its grouped convolution
+        "replaces": "fissure_segmentation_tpu/models/seg_cnn.py:53",
+        "launches": sum(v["wgrad"] for v in cnn_paths.values()),
+        "by_path": {p: v["wgrad"] for p, v in cnn_paths.items()},
+        "max_abs_err": wg_err, "max_err_over_bound": wg_ratio,
+        "ms": train_widest["wgrad_ms"],
+        "plain_ms": train_widest["wgrad_plain_ms"],
+        "bound_ms": train_widest["wgrad_bound_ms"],
+        "bound_by": train_widest["wgrad_bound_by"],
+        "library_ms": train_widest["wgrad_library_ms"],
+        "per_v1_step": wg_step, "shapes": wg_timings})
     # the gather-reduce priced by call: the main path's launches of each
     # (want, dtype, shape) at that call's own time and bound; the top-level
     # numbers are those of the call with the most launches

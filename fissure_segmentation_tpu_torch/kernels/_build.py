@@ -126,6 +126,8 @@ def load() -> ctypes.CDLL:
                                          vp],
                 "fseg_depthwise_conv3": [vp, vp, vp, i32, i32, i32, i32, i32,
                                          i32, vp],
+                "fseg_depthwise_wgrad": [vp, vp, vp, vp, i32, i32, i32, i32,
+                                         i32, i64, i32, vp],
                 "fseg_gather_reduce": [vp, vp, vp, vp, vp, vp, vp, vp, i32,
                                        i32, i32, i32, i32, i32, vp],
                 "fseg_gather_reduce_parts": [i32, i32, i32, i32],

@@ -337,6 +337,150 @@ static int launch_tiled(const T* x, const T* w, T* y, int b, int d, int h,
     return (int)cudaGetLastError();
 }
 
+// ---- the weight gradient (the backward's wgrad) ---------------------------
+//
+// dw[dz, dy, dx, c] = sum over (b, z, y, x) of
+//                     x[b, z + dz - 1, y + dy - 1, x + dx - 1, c] * g[b, z, y, x, c]
+// for x and the output gradient g (B, D, H, W, C) float32, with taps outside
+// the volume read as zero: the training step's gradient of K6's taps. It
+// replaces no TPU kernel: the JAX package trains these layers with XLA's
+// grouped convolution and has no Pallas backward (ops/pallas/depthwise.py:
+// 1-26); the result is held against XLA's gradient in the CPU tests and
+// against the float64 plain version on the card.
+//
+// What bounds it: every voxel of x and of g is read at least once, 8 bytes a
+// voxel and channel, and each takes 27 multiply-adds (54 operations): 6.75
+// operations a byte, under the float32 ridge of 20, so device memory bounds
+// it: 2 x 4 x B D H W C bytes over 3.35 TB/s, 1.6 ms at (32, 48^3, 192).
+//
+// Design (simple and deterministic). Pass 1: a block owns WG_CH = 32
+// channels (threadIdx.x, one a thread, so a warp reads 128 contiguous bytes
+// of a voxel) and a run of `rows_per_block` rows (b, z, y) of the volume,
+// which its WG_ROWS = 8 thread rows take in turn (thread row t takes rows
+// r0 + t, r0 + t + 8, ...: neighbouring rows at once, which share 2 of
+// their 3 input rows in L1). A thread keeps the 27 partial sums of its
+// channel in registers and marches along W with a three-column window of
+// the 9 input rows its output row reads, so each step loads 9 inputs and
+// one g, and does 27 fused multiply-adds (one rounding each). The block
+// then sums its 8 thread rows in a fixed order through shared memory and
+// writes 27 x 32 partials to the workspace, row blockIdx.y. Pass 2: one
+// thread a (tap, channel) sums the partials of every block row in order.
+// No float atomics: the result is the same from run to run. A term passes
+// through at most rows_per_thread x W + WG_ROWS + n_parts - 1 additions
+// (`depth` in kernels/depthwise.py), which bounds the rounding: gamma_depth
+// x sum |x g| of the exact sum.
+#define WG_CH 32
+#define WG_ROWS 8
+
+__global__ void __launch_bounds__(WG_CH * WG_ROWS)
+depthwise_wgrad_partial(const float* __restrict__ x,
+                        const float* __restrict__ g,
+                        float* __restrict__ part, int d, int h, int wd, int c,
+                        long long rows, long long rows_per_block) {
+    __shared__ float red[27][WG_ROWS][WG_CH];
+    const int tx = threadIdx.x, ty = threadIdx.y;
+    const int ch = blockIdx.x * WG_CH + tx;
+    const long long r0 = (long long)blockIdx.y * rows_per_block;
+    const long long r1 =
+        r0 + rows_per_block < rows ? r0 + rows_per_block : rows;
+    const long long sw = c, sh = (long long)wd * c, sd = (long long)h * sh;
+
+    float acc[27];
+#pragma unroll
+    for (int k = 0; k < 27; ++k) acc[k] = 0.0f;
+    if (ch < c) {
+        for (long long r = r0 + ty; r < r1; r += WG_ROWS) {
+            const int yy = (int)(r % h);
+            const long long bz = r / h;           // b * d + z
+            const int zz = (int)(bz % d);
+            const float* grow = g + bz * sd + (long long)yy * sh + ch;
+            const float* xrow[9];
+            bool rin[9];
+#pragma unroll
+            for (int k = 0; k < 9; ++k) {
+                const int z = zz + k / 3 - 1, y = yy + k % 3 - 1;
+                rin[k] = z >= 0 && z < d && y >= 0 && y < h;
+                xrow[k] = x + (rin[k] ? (bz + k / 3 - 1) * sd +
+                                            (long long)y * sh + ch
+                                      : 0);
+            }
+            // win[k][j]: input row k at columns xx - 1 + j
+            float win[9][3];
+#pragma unroll
+            for (int k = 0; k < 9; ++k) {
+                win[k][0] = 0.0f;
+                win[k][1] = rin[k] ? __ldg(xrow[k]) : 0.0f;
+            }
+            for (int xx = 0; xx < wd; ++xx) {
+                const bool right = xx + 1 < wd;
+#pragma unroll
+                for (int k = 0; k < 9; ++k)
+                    win[k][2] = rin[k] && right
+                                    ? __ldg(xrow[k] + (xx + 1) * sw) : 0.0f;
+                const float gv = __ldg(grow + xx * sw);
+#pragma unroll
+                for (int k = 0; k < 9; ++k)
+#pragma unroll
+                    for (int j = 0; j < 3; ++j)
+                        acc[3 * k + j] = __fmaf_rn(win[k][j], gv, acc[3 * k + j]);
+#pragma unroll
+                for (int k = 0; k < 9; ++k) {
+                    win[k][0] = win[k][1];
+                    win[k][1] = win[k][2];
+                }
+            }
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < 27; ++k) red[k][ty][tx] = acc[k];
+    __syncthreads();
+    for (int o = ty * WG_CH + tx; o < 27 * WG_CH; o += WG_CH * WG_ROWS) {
+        const int k = o / WG_CH, lane = o % WG_CH;
+        const int gc = blockIdx.x * WG_CH + lane;
+        float s = 0.0f;
+#pragma unroll
+        for (int t = 0; t < WG_ROWS; ++t) s = __fadd_rn(s, red[k][t][lane]);
+        if (gc < c) part[((long long)blockIdx.y * 27 + k) * c + gc] = s;
+    }
+}
+
+__global__ void depthwise_wgrad_reduce(const float* __restrict__ part,
+                                       float* __restrict__ dw, int n,
+                                       int n_parts) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    float s = 0.0f;
+    for (int p = 0; p < n_parts; ++p) s = __fadd_rn(s, part[(long long)p * n + i]);
+    dw[i] = s;
+}
+
+// x, g: (b, d, h, wd, c) float32; dw: (27, c) float32; part: a workspace of
+// n_parts x 27 x c floats, n_parts = ceil(b d h / rows_per_block), which the
+// caller sizes (kernels/depthwise.py:wgrad_plan). Launches the two passes on
+// `stream`, does not synchronise; returns the first launch's cudaError_t.
+extern "C" int fseg_depthwise_wgrad(const void* x, const void* g, void* dw,
+                                    void* part, int b, int d, int h, int wd,
+                                    int c, long long rows_per_block,
+                                    int n_parts, void* stream) {
+    if (b < 1 || d < 1 || h < 1 || wd < 1 || c < 1 || rows_per_block < 1)
+        return (int)cudaErrorInvalidValue;
+    const long long rows = (long long)b * d * h;
+    if ((rows + rows_per_block - 1) / rows_per_block != n_parts ||
+        n_parts > 65535)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    const dim3 grid((unsigned)((c + WG_CH - 1) / WG_CH), (unsigned)n_parts);
+    depthwise_wgrad_partial<<<grid, dim3(WG_CH, WG_ROWS), 0, s>>>(
+        (const float*)x, (const float*)g, (float*)part, d, h, wd, c, rows,
+        rows_per_block);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const int n = 27 * c;
+    depthwise_wgrad_reduce<<<(n + 255) / 256, 256, 0, s>>>(
+        (const float*)part, (float*)dw, n, n_parts);
+    return (int)cudaGetLastError();
+}
+
 // x, y: (b, d, h, wd, c), w: (3, 3, 3, c), contiguous device memory of one
 // dtype (0: float32, 1: bfloat16); launches on `stream`, does not
 // synchronise. Returns the cudaError_t of the launch (0 on success).

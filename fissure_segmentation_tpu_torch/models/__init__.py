@@ -4,6 +4,7 @@ from .dgcnn import DGCNNSeg, EdgeConv  # noqa: F401
 from .ensemble import build_subsets, ensemble_predict  # noqa: F401
 from .folding_net import DGCNNFoldingNet  # noqa: F401
 from .io import load_fst, save_fst  # noqa: F401
+from .lraspp_3d import LRASPPMobileNetV33D  # noqa: F401
 from .point_transformer import PointTransformerSeg  # noqa: F401
 from .seg_cnn import (MobileNetASPP, predict_all_patches,  # noqa: F401
                       predict_full_volume)

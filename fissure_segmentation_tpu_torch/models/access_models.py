@@ -3,6 +3,7 @@ models/access_models.py)."""
 from __future__ import annotations
 
 from .dgcnn import DGCNNSeg
+from .lraspp_3d import LRASPPMobileNetV33D
 from .point_transformer import PointTransformerSeg
 from .seg_cnn import MobileNetASPP
 
@@ -19,12 +20,11 @@ def get_point_seg_model_class(name: str):
 
 
 def get_seg_cnn_model_class(version: str):
-    """The pre-segmentation CNN: "v1" MobileNetASPP; "v3" (LR-ASPP,
-    models/lraspp_3d.py) is not ported yet (ROADMAP Queue 1)."""
+    """The pre-segmentation CNN: "v1" MobileNetASPP, "v3" LR-ASPP on
+    MobileNetV3-large (models/lraspp_3d.py)."""
     if version == "v1":
         return MobileNetASPP
     if version == "v3":
-        raise NotImplementedError("the LR-ASPP CNN (v3) is not ported yet; "
-                                  "see ROADMAP.md Queue 1")
+        return LRASPPMobileNetV33D
     raise ValueError(f"unknown seg CNN version {version!r}; known: "
                      "['v1', 'v3']")

@@ -41,9 +41,13 @@ class BatchNorm(nn.Module):
     the same biased variance (torch's own BatchNorm would store the unbiased
     one). Eval: the running statistics. Both compute
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` like flax.
+    `update_stats` False skips the running update in training (a
+    checkpoint's recomputation of a forward that already folded its batch
+    in, models/seg_cnn.py).
     """
 
     momentum = 0.9  # flax's; torch's BatchNorm(momentum=0.1)
+    update_stats = True
 
     def __init__(self, features: int, epsilon: float = 1e-5):
         super().__init__()
@@ -67,7 +71,8 @@ class BatchNorm(nn.Module):
             axes = tuple(range(x.ndim - 1))
             mean = xf.mean(axes)
             var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
-            self.update_running(mean, var)
+            if self.update_stats:
+                self.update_running(mean, var)
         else:
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.epsilon) * self.scale

@@ -46,6 +46,9 @@ JAX_FIELDS = {
                         ("shape_type", None), ("n_input_points", 1024),
                         ("decode_mesh", True), ("deform", False),
                         ("static", False), ("dec_depth", 2)],
+    "MobileNetASPP": [("num_classes", None), ("patch_size", [128, 128, 128])],
+    "LRASPPMobileNetV33D": [("num_classes", None),
+                            ("patch_size", [128, 128, 128])],
 }
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,

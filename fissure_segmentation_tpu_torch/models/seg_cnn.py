@@ -18,12 +18,21 @@ through models/weights.py. Convolution weights are torch's (out, in, kd, kh,
 kw); a stride-1 depthwise weight is K6's (3, 3, 3, C). Initialisation is
 kaiming-normal over fan-out, as the JAX package's `kaiming_out`.
 
-Eval only, float32 only: the modules are built in eval mode and `.train()`
-raises, as does a bfloat16 compute dtype; K6 has no gradient. Training the
-CNN (train_seg_cnn.py) is a later port (ROADMAP Queue 1).
+The modules are built in eval mode, as the JAX package applies them with
+``train=False`` by default; `.train()` switches every BatchNorm to batch
+statistics and turns the ASPP's Dropout(0.5) on (train/image_trainer.py,
+float32; a bfloat16 compute dtype raises). In training with autograd on,
+each inverted residual and the ASPP are checkpointed
+(`torch.utils.checkpoint`), where the JAX package uses `nn.remat`. Two
+things differ from flax's functional remat and are handled here: the
+recomputation runs `forward` again, so BatchNorm's running update is
+skipped there (`_remat`), and checkpointing replays only the default
+generator, so the dropout mask is drawn (or passed in) outside the
+recomputed region.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
@@ -31,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.depthwise import depthwise_conv3_cuda
 from ..utils.filters import _pad_axis
@@ -57,15 +67,37 @@ def _kaiming_out(weight: torch.Tensor, generator) -> None:
                             generator=generator)
 
 
-class _EvalOnly:
-    """Built in eval mode; `.train()` raises (training is not ported)."""
+@contextlib.contextmanager
+def _frozen_stats(module: nn.Module):
+    """BatchNorm's running update off inside `module` for the block."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for bn in bns:
+        bn.update_stats = False
+    try:
+        yield
+    finally:
+        for bn in bns:
+            del bn.update_stats
 
-    def train(self, mode: bool = True):
-        if mode:
-            raise NotImplementedError(
-                f"{type(self).__name__} runs in eval mode only; training "
-                "the segmentation CNN is not ported yet (ROADMAP Queue 1)")
-        return super().train(False)
+
+def _remat(module: nn.Module, *args):
+    """``module(*args)``, checkpointed in training with autograd on (flax
+    ``nn.remat``): the first run updates BatchNorm's running statistics,
+    the recomputation in the backward does not, so a batch is folded in
+    once, as flax's functional remat folds it. Nothing random runs
+    inside."""
+    if not (module.training and torch.is_grad_enabled()):
+        return module(*args)
+    ran = []
+
+    def run(*a):
+        if ran:
+            with _frozen_stats(module):
+                return module(*a)
+        ran.append(True)
+        return module(*a)
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 class Conv(nn.Conv3d):
@@ -101,7 +133,7 @@ class DepthwiseConv3(nn.Module):
         return depthwise_conv3_cuda(x.contiguous(), self.kernel)
 
 
-class _InvertedResidual(_EvalOnly, nn.Module):
+class _InvertedResidual(nn.Module):
     """1x1 expand (3x3x3 stride 2 in the first block) -> 3x3x3 depthwise ->
     1x1 project, with the residual where shapes allow."""
 
@@ -134,7 +166,7 @@ _SPECS = ((32, 16, 1, True), (96, 24, 1, False), (144, 24, 1, False),
           (192, 64, 1, False), (384, 64, 1, False))
 
 
-class MobileNet3D(_EvalOnly, nn.Module):
+class MobileNet3D(nn.Module):
     """The backbone; returns (x1 at 1/2 with 16 channels, x2 at 1/4 with
     64 channels)."""
 
@@ -148,17 +180,20 @@ class MobileNet3D(_EvalOnly, nn.Module):
         self.eval()
 
     def forward(self, x: torch.Tensor):
-        h = self.Checkpoint_InvertedResidual_0(x)
+        h = _remat(self.Checkpoint_InvertedResidual_0, x)
         x1 = h
         for i in range(1, len(_SPECS)):
-            h = getattr(self, f"Checkpoint_InvertedResidual_{i}")(h)
+            h = _remat(getattr(self, f"Checkpoint_InvertedResidual_{i}"), h)
         return x1, h
 
 
-class ASPP(_EvalOnly, nn.Module):
+class ASPP(nn.Module):
     """Atrous spatial pyramid pooling: a 1x1 branch, one dilated 3x3x3
-    branch per rate, a global-pooling branch, then a 1x1 projection.
-    Dropout is the identity in eval."""
+    branch per rate, a global-pooling branch, then a 1x1 projection and
+    Dropout(0.5): in training, flax's ``where(mask, h / 0.5, 0)`` with the
+    keep mask the caller passes; the identity in eval."""
+
+    keep_prob = 0.5
 
     def __init__(self, in_channels: int, atrous_rates: Sequence[int],
                  out_channels: int = 256, generator=None):
@@ -179,11 +214,16 @@ class ASPP(_EvalOnly, nn.Module):
         return torch.relu(getattr(self, f"BatchNorm_{i}")(
             getattr(self, f"Conv_{i}")(x)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                keep: torch.Tensor | None = None) -> torch.Tensor:
         res = [self._branch(i, x) for i in range(self.n_rates + 1)]
         g = self._branch(self.n_rates + 1, x.mean((1, 2, 3), keepdim=True))
         res.append(g.expand_as(res[0]))
-        return self._branch(self.n_rates + 2, torch.cat(res, -1))
+        h = self._branch(self.n_rates + 2, torch.cat(res, -1))
+        if not self.training:
+            return h
+        return torch.where(keep, h / self.keep_prob,
+                           torch.zeros((), dtype=h.dtype, device=h.device))
 
 
 def _resize(x: torch.Tensor, scale: int, method: str) -> torch.Tensor:
@@ -202,7 +242,7 @@ def _resize(x: torch.Tensor, scale: int, method: str) -> torch.Tensor:
     return _ndhwc(y)
 
 
-class MobileNetASPP(_EvalOnly, nn.Module):
+class MobileNetASPP(nn.Module):
     """Pre-segmentation CNN: (B, D, H, W, 1) CT -> (B, D, H, W,
     num_classes) logits; D, H, W multiples of 4."""
 
@@ -223,9 +263,20 @@ class MobileNetASPP(_EvalOnly, nn.Module):
         self.Conv_2 = Conv(64, num_classes, 1, bias=True, generator=generator)
         self.eval()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keep: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """
+        :param x: (B, D, H, W, 1)
+        :param keep: in training, the ASPP dropout's keep mask (B, D/4,
+            H/4, W/4, 128) bool; drawn from `generator` (x's device)
+            when None (the tests inject JAX's)
+        """
         x1, x2 = self.MobileNet3D_0(x)
-        y = self.CheckpointASPP_0(x2)
+        if self.training and keep is None:
+            shape = (*x2.shape[:-1], self.CheckpointASPP_0.Conv_0.out_channels)
+            keep = torch.rand(shape, generator=generator,
+                              device=x.device) < ASPP.keep_prob
+        y = _remat(self.CheckpointASPP_0, x2, keep)
         y = torch.cat([x1, _resize(y, 2, "nearest")], -1)
         y = torch.relu(self.BatchNorm_0(self.Conv_0(y)))
         y = torch.relu(self.BatchNorm_1(self.Conv_1(y)))

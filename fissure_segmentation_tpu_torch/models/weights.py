@@ -24,7 +24,8 @@ file's bfloat16 arrays are read as tensors, models/io.py).
 
 `save_model` writes `model.pt`: the flattened tree, the constructor config
 and the class name (`model_class`), so `load_model(path)` rebuilds a
-DGCNNSeg, PointTransformerSeg or DGCNNFoldingNet without being told which;
+DGCNNSeg, PointTransformerSeg, DGCNNFoldingNet, MobileNetASPP or
+LRASPPMobileNetV33D without being told which;
 a `model.pt` written before the class was recorded loads when the class is
 passed in. `load_fold_model` reads a fold directory written by either
 package: its `model.pt`, or the JAX package's `model.fst` where only that
@@ -202,9 +203,12 @@ def model_class(name: str):
     header's `model_class`)."""
     from .dgcnn import DGCNNSeg
     from .folding_net import DGCNNFoldingNet
+    from .lraspp_3d import LRASPPMobileNetV33D
     from .point_transformer import PointTransformerSeg
+    from .seg_cnn import MobileNetASPP
     classes = {c.__name__: c for c in (DGCNNSeg, PointTransformerSeg,
-                                       DGCNNFoldingNet)}
+                                       DGCNNFoldingNet, MobileNetASPP,
+                                       LRASPPMobileNetV33D)}
     if name not in classes:
         raise KeyError(f"model class {name!r} is not ported; known: "
                        f"{sorted(classes)}")

@@ -1,7 +1,7 @@
 """The canonical train steps on one NVIDIA card: timing harness and
 profile.
 
-    python -m fissure_segmentation_tpu_torch.train.profile_step [--model DGCNN|PointTransformer|PCAE] [--amp] [--dynamic]
+    python -m fissure_segmentation_tpu_torch.train.profile_step [--model DGCNN|PointTransformer|PCAE|CNN|CNNv3] [--amp] [--dynamic]
 
 The step is DGCNNSeg(k=40, static; `--dynamic`: the dynamic graph, the
 default run's) or PointTransformerSeg at its full width, batch 32 x 2048
@@ -10,7 +10,11 @@ compute dtype), NNU loss + Adam with L2
 (`canonical_data`, `make_step`); `--model PCAE` is the PC-AE's step at
 the JAX entry's defaults with `--mesh` (train_pc_ae.make_step: 32 x 1024
 points of the synthetic meshes, k = 20, latent 512, f32, dynamic graph,
-the regularized mesh loss); `time_steps` times warm steps with the
+the regularized mesh loss); `--model CNN` / `CNNv3` is train_seg_cnn's
+step at its defaults (MobileNetASPP / LR-ASPP, 32 patches of 96^3 at 1.5
+mm, nnunet, f32; train_seg_cnn.make_step), whose device time
+`cnn_device_time` also sums by kind (K6, its wgrad, cuDNN's convolutions,
+the matrix products, the rest); `time_steps` times warm steps with the
 host clock around a sync. chip_smoke.py phases 7, 11 and 17 time them
 through these helpers. Run as a script it prints, for DGCNN in each routing
 (FSEG_FUSED_EDGE=0 and 1), for PointTransformer once:
@@ -56,7 +60,40 @@ KERNELS = {
     "PointTransformer": {"K5 fps": "fps_kernel"},
     "PCAE": {"K1 knn": "knn_kernel",
              "graph transpose": "transpose_",
-             "K2 scatter_rows": "scatter_rows_kernel"}}
+             "K2 scatter_rows": "scatter_rows_kernel"},
+    "CNN": {"K6 forward, recompute, dgrad": "depthwise_tiled",
+            "K6 wgrad": "depthwise_wgrad"}}
+KERNELS["CNNv3"] = KERNELS["CNN"]
+
+
+def cnn_device_time(avg, steps: int) -> dict:
+    """Device ms a step of a CNN step's profile (`key_averages()` over
+    `steps` steps) by kind of kernel: K6 (the forward, the checkpoints'
+    recomputation and the dgrad, one kernel), K6's wgrad, cuDNN's
+    convolutions (the stride-2 depthwise layer, the dense and the
+    grouped ones, forward and backward), the matrix products (the 1x1x1
+    convolutions), and every other kernel (BatchNorm, activations,
+    resizes, the loss, Adam); "total" is their sum."""
+    from torch.autograd import DeviceType
+    kinds = {"k6": 0.0, "k6_wgrad": 0.0, "cudnn_conv": 0.0, "matmul": 0.0,
+             "other": 0.0}
+    for e in avg:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = e.key.lower()
+        if "depthwise_tiled" in key or "depthwise_simple" in key:
+            kind = "k6"
+        elif "depthwise_wgrad" in key:
+            kind = "k6_wgrad"
+        elif "conv" in key or "cudnn" in key or "implicit" in key:
+            kind = "cudnn_conv"
+        elif "gemm" in key or "xmma" in key or "cutlass" in key:
+            kind = "matmul"
+        else:
+            kind = "other"
+        kinds[kind] += e.self_device_time_total / steps / 1e3
+    kinds["total"] = sum(kinds.values())
+    return kinds
 STEPS, BATCH, WARM = 10, 32, 2
 
 
@@ -142,6 +179,12 @@ def main(argv=None) -> int:
         from ..cli import get_pc_ae_train_parser
         pc_args = get_pc_ae_train_parser().parse_args(["--ds", "synthetic",
                                                        "--mesh"])
+    elif args.model.startswith("CNN"):
+        from .. import train_seg_cnn
+        from ..cli import get_seg_cnn_train_parser
+        cnn_args = get_seg_cnn_train_parser().parse_args(
+            ["--ds", "synthetic", "--model",
+             "v3" if args.model == "CNNv3" else "v1"])
     else:
         ds, loss_fn = canonical_data()
     tmp = tempfile.mkdtemp()
@@ -156,10 +199,13 @@ def main(argv=None) -> int:
                 name += " bf16"
             if args.dynamic:
                 name += " dynamic"
-        step = (train_pc_ae.make_step(pc_args, tmp)
-                if args.model == "PCAE" else
-                make_step(ds, loss_fn, tmp, model=args.model, dtype=dtype,
-                          dynamic=args.dynamic))
+        if args.model == "PCAE":
+            step = train_pc_ae.make_step(pc_args, tmp)
+        elif args.model.startswith("CNN"):
+            step = train_seg_cnn.make_step(cnn_args, tmp)
+        else:
+            step = make_step(ds, loss_fn, tmp, model=args.model, dtype=dtype,
+                             dynamic=args.dynamic)
         for _ in range(WARM):
             step()
         ms, _, _ = time_steps(step)
@@ -173,9 +219,13 @@ def main(argv=None) -> int:
         busy = sum(e.self_device_time_total for e in avg
                    if e.device_type == DeviceType.CUDA
                    and e.key != "feature_graph") / 3 / 1e3
+        unit = "patches" if args.model.startswith("CNN") else "clouds"
         print(f"{name}: {ms:.2f} ms/step ({BATCH * 1e3 / ms:.1f} "
-              f"clouds/s); kernels {busy:.2f} ms/step, busy share "
+              f"{unit}/s); kernels {busy:.2f} ms/step, busy share "
               f"{busy / ms:.3f} on {card}", flush=True)
+        if args.model.startswith("CNN"):
+            print(f"  by kind, ms/step: {cnn_device_time(avg, 3)}",
+                  flush=True)
         for label, key in KERNELS[args.model].items():
             t = sum(e.self_device_time_total for e in avg
                     if e.device_type == DeviceType.CUDA and key in e.key)

@@ -1,5 +1,7 @@
 """The kernels on the card (K1 kNN, the graph transpose, K2-K4 scatter, K5 farthest-point
-sampling, K6 depthwise convolution, the fused EdgeConv gather-reduce, the
+sampling, K6 depthwise convolution and its backward (the wgrad kernel, the
+dgrad through K6) with a CNN train step card against CPU, the fused
+EdgeConv gather-reduce, the
 streaming column sums) against their plain PyTorch versions, the DGCNN
 eval forward with grad enabled against the no_grad one, and the default
 run's path: the feature graph card against CPU, the dynamic step with its
@@ -14,6 +16,9 @@ run them there without it:
 
 This file imports no jax.
 """
+import copy
+
+import numpy as np
 import pytest
 import torch
 
@@ -583,9 +588,128 @@ def test_depthwise_kernel_checks_input(cuda):
         depthwise_conv3_cuda(x, w.cpu())
     with pytest.raises(TypeError, match="float32"):
         depthwise_conv3_cuda(x.half(), w.half())
-    with pytest.raises(RuntimeError, match="no gradient"):
-        depthwise_conv3_cuda(x, w.clone().requires_grad_())
+    with pytest.raises(TypeError, match="float32 only"):
+        depthwise_conv3_cuda(x.bfloat16(), w.bfloat16().requires_grad_())
     assert depthwise_conv3_cuda.launches == before
+
+
+# ---- K6's backward -------------------------------------------------------------
+
+WG_CASES = [
+    # (B, D, H, W, C): C below, off and across the 32-channel groups, D = 1,
+    # W = 1, rows off the thread rows, the step's narrowest layer small
+    (2, 5, 6, 7, 8), (1, 3, 9, 11, 33), (2, 7, 5, 40, 144), (1, 1, 4, 4, 5),
+    (3, 2, 3, 1, 64), (4, 12, 12, 12, 32), (2, 6, 6, 6, 384),
+]
+
+
+@pytest.mark.parametrize("b,d,h,w,c", WG_CASES)
+def test_depthwise_backward_kernels(cuda, b, d, h, w, c):
+    """wgrad within gamma_depth * sum |x dy| of the float64 plain version
+    (a tap whose terms are all padding exactly 0) and the same from launch
+    to launch; dgrad bit-equal to the plain version with flipped taps;
+    autograd through the wrapper launches both, once each."""
+    from fissure_segmentation_tpu_torch.kernels.depthwise import (
+        depthwise_conv3_dgrad, depthwise_conv3_wgrad_cuda,
+        depthwise_conv3_wgrad_plain, gamma, wgrad_plan)
+    g = torch.Generator().manual_seed(b * d * h * w + c)
+    x, gy = (torch.randn((b, d, h, w, c), generator=g).to(cuda)
+             for _ in range(2))
+    wt = torch.randn((3, 3, 3, c), generator=g).to(cuda)
+    got = depthwise_conv3_wgrad_cuda(x, gy)
+    torch.cuda.synchronize()
+    want = depthwise_conv3_wgrad_plain(x.double(), gy.double())
+    bound = gamma(wgrad_plan(x.shape)[2]) * depthwise_conv3_wgrad_plain(
+        x.double().abs(), gy.double().abs())
+    assert ((got.double() - want).abs() <= bound).all()
+    assert torch.equal(depthwise_conv3_wgrad_cuda(x, gy), got)
+    assert torch.equal(depthwise_conv3_dgrad(gy, wt), depthwise_conv3_plain(
+        gy, wt.flip((0, 1, 2)).contiguous()))
+    roles = dict(depthwise_conv3_cuda.roles)
+    wl = depthwise_conv3_wgrad_cuda.launches
+    xr, wr = x.clone().requires_grad_(), wt.clone().requires_grad_()
+    depthwise_conv3_cuda(xr, wr).backward(gy)
+    assert depthwise_conv3_cuda.roles["forward"] == roles["forward"] + 1
+    assert depthwise_conv3_cuda.roles["dgrad"] == roles["dgrad"] + 1
+    assert depthwise_conv3_wgrad_cuda.launches == wl + 1
+    assert torch.equal(wr.grad, got)
+
+
+def test_depthwise_wgrad_checks_input(cuda):
+    from fissure_segmentation_tpu_torch.kernels.depthwise import \
+        depthwise_conv3_wgrad_cuda
+    x = torch.randn((1, 4, 5, 6, 8), device=cuda)
+    before = depthwise_conv3_wgrad_cuda.launches
+    with pytest.raises(TypeError, match="float32 only"):
+        depthwise_conv3_wgrad_cuda(x.bfloat16(), x.bfloat16())
+    with pytest.raises(ValueError, match="one"):
+        depthwise_conv3_wgrad_cuda(x, x[..., :4].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        depthwise_conv3_wgrad_cuda(x.transpose(2, 3), x.transpose(2, 3))
+    with pytest.raises(ValueError, match="different devices"):
+        depthwise_conv3_wgrad_cuda(x, x.cpu())
+    assert depthwise_conv3_wgrad_cuda.launches == before
+
+
+@pytest.mark.parametrize("version", ["v1", "v3"])
+def test_cnn_train_step_on_card_matches_cpu(cuda, version, tmp_path):
+    """One ImageTrainer step of a full-width CNN on 2 augmented patches of
+    32^3, card (K6, its backward, cuDNN with TF32 off) against CPU from the
+    same weights, crops, draws and dropout mask: loss within 1e-4
+    relative, the gradient within 3e-2 relative L2 (train-mode BatchNorm
+    over few voxels amplifies the summation order; chip_smoke.py phase
+    28)."""
+    from fissure_segmentation_tpu_torch.data.image_dataset import (
+        ImageDataset, draw_augmentation)
+    from fissure_segmentation_tpu_torch.data.synthetic import \
+        make_synthetic_image_case
+    from fissure_segmentation_tpu_torch.losses import get_loss_fn
+    from fissure_segmentation_tpu_torch.models import (
+        export_jax_variables, get_seg_cnn_model_class)
+    from fissure_segmentation_tpu_torch.train.image_trainer import \
+        ImageTrainer
+    from fissure_segmentation_tpu_torch.train.trainer import TrainConfig
+    torch.backends.cudnn.allow_tf32 = False
+    cases = [make_synthetic_image_case(i, shape=(40, 40, 40))
+             for i in range(2)]
+    ds = ImageDataset([c["image"] * 3 for c in cases],
+                      [c["labels"] for c in cases], [("a", "0"), ("b", "0")],
+                      patch_size=(32, 32, 32), preprocessed=True)
+    imgs, lbls = ds.crop_batch(np.random.default_rng(0), [0, 1])
+    draws = draw_augmentation(torch.Generator().manual_seed(1), imgs.shape)
+    keep = torch.rand((2, 8, 8, 8, 128),
+                      generator=torch.Generator().manual_seed(3)) < 0.5
+    cls = get_seg_cnn_model_class(version)
+    model = cls(num_classes=ds.num_classes, patch_size=(32,) * 3,
+                generator=torch.Generator().manual_seed(2))
+    weights = torch.as_tensor(ds.get_class_weights(), dtype=torch.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        trainer = ImageTrainer(
+            copy.deepcopy(model), ds, get_loss_fn("nnunet", weights.to(dev)),
+            str(tmp_path), TrainConfig(batch_size=2), device=dev)
+        loss, _ = trainer.train_step(
+            imgs.to(dev), lbls.to(dev),
+            draws={k: v.to(dev) for k, v in draws.items()},
+            keep=keep.to(dev) if version == "v1" else None)
+        out[str(dev)] = (float(loss), export_jax_variables(trainer.model,
+                                                           grad=True))
+    (lc, gc), (lg, gg) = out["cpu"], out[str(cuda)]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+
+    def flat(t):
+        return torch.cat([torch.as_tensor(v).reshape(-1) for v in
+                          _flat_leaves(t)])
+    a, b = flat(gg), flat(gc)
+    assert float((a - b).norm() / b.norm()) <= 3e-2
+
+
+def _flat_leaves(tree):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _flat_leaves(tree[k])
+        else:
+            yield tree[k]
 
 
 # ---- the fused EdgeConv gather-reduce ----------------------------------------

@@ -117,15 +117,23 @@ def test_wrapper_runs_plain_on_cpu_and_checks_inputs():
 
 
 def test_wrapper_raises_when_autograd_would_record():
-    """K6 has no backward: a grad-requiring input raises unless autograd is
-    off, so no caller silently gets a detached output."""
+    """Autograd records through K6 in float32 (dgrad: K6 with the taps
+    flipped; wgrad: the plain 27 shifted sums on the CPU), equal to
+    torch's autograd of the plain version; a bfloat16 input that autograd
+    would record raises (the backward is float32 only); under no_grad
+    nothing records."""
     x, w = _inputs((1, 3, 4, 5, 6), 1)
-    wt = torch.from_numpy(w).requires_grad_()
-    xt = torch.from_numpy(x)
-    with pytest.raises(RuntimeError, match="no gradient"):
-        depthwise_conv3_cuda(xt, wt)
-    with pytest.raises(RuntimeError, match="no gradient"):
-        depthwise_conv3_cuda(xt.clone().requires_grad_(), wt.detach())
+    gy = np.random.default_rng(2).standard_normal(x.shape).astype(np.float32)
+    got = [torch.from_numpy(a).requires_grad_() for a in (x, w)]
+    want = [torch.from_numpy(a).requires_grad_() for a in (x, w)]
+    depthwise_conv3_cuda(*got).backward(torch.from_numpy(gy))
+    depthwise_conv3_plain(*want).backward(torch.from_numpy(gy))
+    for g, p in zip(got, want):
+        np.testing.assert_allclose(g.grad.numpy(), p.grad.numpy(), rtol=0,
+                                   atol=1e-5)
+    with pytest.raises(TypeError, match="float32 only"):
+        depthwise_conv3_cuda(torch.from_numpy(x).bfloat16().requires_grad_(),
+                             torch.from_numpy(w).bfloat16())
     with torch.no_grad():
-        out = depthwise_conv3_cuda(xt, wt)
+        out = depthwise_conv3_cuda(got[0], got[1])
     assert not out.requires_grad

@@ -1,6 +1,8 @@
 """The port's own copies of the JAX package's jax-free modules (cli,
-utils/coords.py, utils/{nifti,objio,mesh_viewer,visualization}.py, the
-native C++ host runtime) against the originals, and the
+utils/coords.py, utils/{nifti,objio,mesh_viewer,visualization,
+detached_run}.py, the native C++ host runtime) and of the pieces of its
+JAX modules the CNN's data path needs (utils/image_ops.py,
+keypoints/features.py:normalize_img) against the originals, and the
 rule that the port's entry points run on a CUDA card unless the caller asks
 for the CPU.
 
@@ -13,6 +15,9 @@ import torch
 
 from fissure_segmentation_tpu import cli as jcli
 from fissure_segmentation_tpu import native as jnative
+from fissure_segmentation_tpu.keypoints import features as jfeatures
+from fissure_segmentation_tpu.utils import detached_run as jdetached_run
+from fissure_segmentation_tpu.utils import image_ops as jimage_ops
 from fissure_segmentation_tpu.utils import coords as jcoords
 from fissure_segmentation_tpu.utils import mesh_viewer as jmesh_viewer
 from fissure_segmentation_tpu.utils import nifti as jnifti
@@ -20,13 +25,15 @@ from fissure_segmentation_tpu.utils import objio as jobjio
 from fissure_segmentation_tpu.utils import visualization as jvisualization
 from fissure_segmentation_tpu_torch import cli, native, train_point_seg
 from fissure_segmentation_tpu_torch.data import synthetic
+from fissure_segmentation_tpu_torch.keypoints import features
 from fissure_segmentation_tpu_torch.data.dataset import PointDataset
 from fissure_segmentation_tpu_torch.losses import get_loss_fn
 from fissure_segmentation_tpu_torch.models import DGCNNSeg
 from fissure_segmentation_tpu_torch.serving import segment_case
 from fissure_segmentation_tpu_torch.train.trainer import ModelTrainer
-from fissure_segmentation_tpu_torch.utils import (coords, mesh_viewer, nifti,
-                                                  objio, visualization)
+from fissure_segmentation_tpu_torch.utils import (coords, detached_run,
+                                                  image_ops, mesh_viewer,
+                                                  nifti, objio, visualization)
 
 PARSERS = ["get_dgcnn_train_parser", "get_point_segmentation_parser",
            "get_dpsr_train_parser", "get_seg_cnn_train_parser",
@@ -128,7 +135,8 @@ def test_native_copy_equals_original():
 
 
 COPIES = {"nifti": (nifti, jnifti), "objio": (objio, jobjio),
-          "mesh_viewer": (mesh_viewer, jmesh_viewer)}
+          "mesh_viewer": (mesh_viewer, jmesh_viewer),
+          "detached_run": (detached_run, jdetached_run)}
 
 
 @pytest.mark.parametrize("name", sorted(COPIES))
@@ -179,6 +187,30 @@ def test_host_utils_copies_write_what_the_originals_write(tmp_path):
     assert mpimg.imread(tmp_path / "port" / "a.png").shape == \
         mpimg.imread(tmp_path / "jax" / "a.png").shape
     assert visualization.matplotlib_available()
+
+
+def test_image_ops_and_normalize_copies_equal_originals():
+    """apply_mask, get_resample_factors and normalize_img of the port and
+    of the JAX package (resampling and morphology:
+    tests/test_torch_image_dataset.py)."""
+    rng = np.random.default_rng(5)
+    img = rng.normal(-500, 400, (5, 6, 7)).astype(np.float32)
+    mask = rng.random(img.shape) < 0.5
+    for dtype in (np.float32, np.int32):
+        got = image_ops.apply_mask(torch.from_numpy(img.astype(dtype)),
+                                   torch.from_numpy(mask))
+        want = np.asarray(jimage_ops.apply_mask(img.astype(dtype), mask))
+        assert got.numpy().dtype == want.dtype
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert image_ops.get_resample_factors((0.7, 0.8, 1.25), 1.5) == \
+        jimage_ops.get_resample_factors((0.7, 0.8, 1.25), 1.5)
+    assert (features.IMG_MIN, features.IMG_MAX) == \
+        (jfeatures.IMG_MIN, jfeatures.IMG_MAX)
+    np.testing.assert_allclose(
+        features.normalize_img(torch.from_numpy(img)).numpy(),
+        np.asarray(jfeatures.normalize_img(img)), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(features.normalize_img(img),
+                                  jfeatures.normalize_img(img))
 
 
 def test_native_build_is_cached_by_content():

@@ -19,7 +19,8 @@ import pytest
 import torch
 
 from fissure_segmentation_tpu.models import seg_cnn as jseg
-from fissure_segmentation_tpu_torch.models import (MobileNetASPP,
+from fissure_segmentation_tpu_torch.models import (LRASPPMobileNetV33D,
+                                                   MobileNetASPP,
                                                    export_jax_variables,
                                                    get_seg_cnn_model_class,
                                                    load_jax_variables,
@@ -162,14 +163,17 @@ def test_patch_helpers_equal():
 
 
 def test_eval_only_float32_only_and_registry():
+    """Built in eval mode; `.train()` switches every BatchNorm to batch
+    statistics (the training half, tests/test_torch_cnn_train.py); a
+    bfloat16 compute dtype still raises; "v3" resolves to LR-ASPP."""
     m = MobileNetASPP(num_classes=2, generator=torch.Generator().manual_seed(0))
     assert not m.training and not m.CheckpointASPP_0.BatchNorm_0.training
-    with pytest.raises(NotImplementedError, match="eval mode only"):
-        m.train()
+    assert m.train() is m
+    assert all(mod.training for mod in m.modules())
+    m.eval()
     with pytest.raises(NotImplementedError, match="float32 only"):
         predict_full_volume(m, torch.zeros(8, 8, 8), dtype=torch.bfloat16)
     assert get_seg_cnn_model_class("v1") is MobileNetASPP
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_seg_cnn_model_class("v3")
+    assert get_seg_cnn_model_class("v3") is LRASPPMobileNetV33D
     with pytest.raises(ValueError):
         get_seg_cnn_model_class("v2")

@@ -126,7 +126,10 @@ def test_port_runs_without_jax():
                  "losses.chamfer", "losses.mesh", "data.mesh_dataset",
                  "models.folding_net", "models.io", "models.dseg_ae",
                  "train_pc_ae", "dseg_ae_regularization",
-                 "train.canonical_cv"):
+                 "train.canonical_cv", "models.lraspp_3d",
+                 "data.image_dataset", "train.image_trainer",
+                 "train_seg_cnn", "utils.image_ops", "utils.profiling",
+                 "utils.detached_run", "keypoints.features"):
         assert f"fissure_segmentation_tpu_torch.{name}" in _port_modules()
     code = textwrap.dedent(f"""
         import importlib
