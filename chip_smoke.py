@@ -99,15 +99,18 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      the card at the seven stride-1 depthwise layers of MobileNetASPP on a
      256^3 CT (six shapes), bfloat16 at the widest, and the hard cases
      (ragged shapes, H and W off the tile, C = 5, 33, 36, 96, 144, 384 and
-     bfloat16 C = 12, 40, 64, 144, 192, D = 1 and 2, B = 2): outputs equal;
-     median times of the kernel, the plain version and cuDNN's grouped
-     conv3d (the library yardstick), with the bound; then block 5's
-     stride-2 depthwise layer (cuDNN, not a port kernel) timed alone at
-     (1, 128^3, 192) with its bound;
+     bfloat16 C = 12, 40, 64, 144, 192, D = 1 and 2, B = 2); K6's stride-2
+     mode at block 5's serving shape (1, 128^3, 192) in f32 and bf16, the
+     train step's stride-2 layers (32, 48^3, 192), (32, 48^3, 64) and
+     (32, 12^3, 240), and its hard cases (odd D, H, W, D = 1 and 2, H and
+     W off the tile, C = 5, 33, bf16 C = 12, 40): outputs equal; median
+     times of the kernel, the plain version and cuDNN's grouped conv3d at
+     the same stride (the library yardstick), with the bound;
  14. the serving slice in kp_mode="cnn" at full size: segment_case runs
      MobileNetASPP(num_classes=4) (seeded weights) on the 256^3 CT, then
      phase 4's keypoint-to-mesh path; one warm-up and 3 timed cases with
-     phase 4's checks, K6 at least 7 launches a case; the CNN forward's
+     phase 4's checks, K6 at least 7 launches a case at stride 1 and one
+     at stride 2 (block 5); the CNN forward's
      time and the peak device memory; then one kp_mode="enhancement" case
      with phase 4's checks;
  15. CNN reference on a small input (40 x 48 x 56, full width): softmax
@@ -179,23 +182,28 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
  25. DSEG-AE on one case card against CPU with injected draws
      (phase_dseg_reference): labels, padded points, decoded vertices and
      codes; K5's selections shifted by one point must miss;
- 26. K6's backward (phase_wgrad): the wgrad kernel against the float64
-     plain version within gamma_depth * sum |x dy| (its depth from the
-     launch plan) and equal from launch to launch, the dgrad (K6 with the
-     taps flipped) equal to its plain version, at every K6 layer of
+ 26. K6's backward (phase_wgrad) at strides 1 and 2: the wgrad kernel
+     against the float64 plain version within gamma_depth * sum |x dy|
+     (its depth from the launch plan) and equal from launch to launch,
+     the dgrad (K6 with the taps flipped; at stride 2 on dy stuffed to x's
+     shape) equal to its plain version, at every K6 layer of
      train_seg_cnn's step (v1: (32, 48^3, C) for C = 32, 96, 144, 192 and
-     (32, 24^3, C) for C = 192, 384; v3's widths) and the hard cases (C
-     off the 32-channel groups, D = 1, W = 1); a dw with its centre tap
+     (32, 24^3, C) for C = 192, 384, block 5's stride-2 (32, 48^3, 192);
+     v3's widths, its stride-2 rows (32, 48^3, 64) and (32, 12^3, 240))
+     and the hard cases at both strides (C off the 32-channel groups and
+     off 4, D = 1 and 2, W = 1, odd D, H, W); a dw with its centre tap
      taken one voxel off must miss the bound; median times of the wgrad
-     kernel, its plain version, cuDNN's conv3d_weight and the bound, of
-     the dgrad, its plain version and conv3d_input, summed over one v1
-     step;
+     kernel, its plain version, cuDNN's conv3d_weight at the same stride
+     and the bound, of the dgrad (and at stride 2 its stuffing alone), its
+     plain version and conv3d_input, summed over one v1 step;
  27. the train_seg_cnn entry at full width (phase_cnn_train: 32 patches
      of 96^3 at 1.5 mm, nnunet, f32): v1 trains fold 0 for 2 epochs and
      tests it, then --test_only; v3 trains 1 epoch and tests it (the JAX
-     entry's files, finite Dice, K6's launches by role and its wgrad's);
+     entry's files, finite Dice, K6's launches by role and stride and its
+     wgrad's: one dgrad and one wgrad a K6 layer a step);
      10 timed warm steps of each (ms/step, patches/s, peak memory) and
-     the device time of 3 by kind of kernel;
+     the device time of 3 by kind of kernel; one step's conv3d calls by
+     groups and kernel: none grouped in v1, only the 5x5x5 ones in v3;
  28. one train step of each CNN at full width on 2 patches of 32^3, card
      against CPU with the same weights, crops, augmentation draws and
      dropout mask (phase_cnn_train_reference); the v1 step with the
@@ -207,10 +215,12 @@ the default entry run, phase 22 the PC-AE, phase 24 DSEG-AE after its seg
 fold is trained, phase 27 each train_seg_cnn run) and read after it; the
 comparison launches of phases 3, 5, 6, 8, 9, 12, 13, 15, 16, 18, 21, 23,
 25, 26 and 28 and of the probes' own checks are not counted. K6's row
-gives its launches by path and role ("forward", a checkpoint's
-recomputation included, and "dgrad"), the wgrad kernel's row its own. K1's, K2's, the transpose's, K5's and
-the gather-reduce's rows add "slice": the PC-AE's and DSEG-AE's launches
-by path, and for K1, K2 and K5 by call (the wrapper's call key), each
+gives its stride-1 launches by path and role ("forward", a checkpoint's
+recomputation included, and "dgrad", both strides' dgrad being stride-1
+launches), the stride-2 row its stride-2 forwards by path, the wgrad
+kernel's row its own (all and at stride 2). K1's, K2's, the transpose's,
+K5's and the gather-reduce's rows add "slice": the PC-AE's and DSEG-AE's
+launches by path, and for K1, K2 and K5 by call (the wrapper's call key), each
 call with its time, plain time, bound and library time (index_add_ for
 K2): phase 3's, 6's or 9's where they time that call, else timed on
 random inputs of its shape. The line before the last but one is a JSON object
@@ -915,12 +925,18 @@ def _counts(ks, knn_cuda):
     return {k: fn.launches for k, fn in _wrappers(ks, knn_cuda).items()}
 
 
+def _zero(fn):
+    """Set a wrapper's launch count, and its count by role where it keeps
+    one, to 0."""
+    fn.launches = 0
+    for role in getattr(fn, "roles", {}):
+        fn.roles[role] = 0
+
+
 def _reset(ks, knn_cuda):
     wrappers = _wrappers(ks, knn_cuda)
     for fn in wrappers.values():
-        fn.launches = 0
-    for role in wrappers["depthwise_conv3"].roles:
-        wrappers["depthwise_conv3"].roles[role] = 0
+        _zero(fn)
     for name in ("gather_reduce", "scatter_count", "knn", "scatter_rows",
                  "fps"):
         wrappers[name].calls.clear()
@@ -1026,6 +1042,23 @@ def _close(name, got, want, **tol):
     if not np.allclose(got, want, **tol):
         raise AssertionError(f"train reference: {name} differs card vs CPU "
                              f"by {np.abs(got - want).max():.3g}")
+
+
+class Conv3dRecorder(TorchFunctionMode):
+    """Counts the F.conv3d calls (cuDNN's convolutions) by (groups, kernel
+    size) while active."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = {}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is torch.nn.functional.conv3d:
+            groups = args[6] if len(args) > 6 else kwargs.get("groups", 1)
+            key = (groups, tuple(args[1].shape[2:]))
+            self.calls[key] = self.calls.get(key, 0) + 1
+        return func(*args, **kwargs)
 
 
 class BranchRecorder(TorchFunctionMode):
@@ -1617,13 +1650,39 @@ def phase_pt_reference():
 
 # ---- the CNN keypoint path (K6) ---------------------------------------------
 
-def _dw_library(x, w):
+def _dw_library(x, w, stride=1):
     """cuDNN's grouped conv3d on the channels_last_3d view of NDHWC x: the
     library yardstick for K6 (timed here, never called by the port)."""
     c = x.shape[-1]
     return torch.nn.functional.conv3d(
         x.permute(0, 4, 1, 2, 3), w.permute(3, 0, 1, 2).unsqueeze(1),
-        padding=1, groups=c)
+        stride=stride, padding=1, groups=c)
+
+
+# K6's stride-2 mode: name: (shape, dtype, launches per CNN forward, timed)
+DW_STRIDE2 = {
+    # block 5 of MobileNetASPP on a 256^3 CT (serving), and in bf16
+    "s2_b5_1x128x128x128x192": ((1, 128, 128, 128, 192), "float32", 1, True),
+    "s2_bf16_1x128x128x128x192": ((1, 128, 128, 128, 192), "bfloat16", 0,
+                                  True),
+    # the train step's: v1 block 5, v3 rows 1 and 6 (32 patches of 96^3)
+    "s2_v1_b5_32x48x48x48x192": ((32, 48, 48, 48, 192), "float32", 0, True),
+    "s2_v3_r1_32x48x48x48x64": ((32, 48, 48, 48, 64), "float32", 0, True),
+    "s2_v3_r6_32x12x12x12x240": ((32, 12, 12, 12, 240), "float32", 0, True),
+    # hard cases: odd D, H, W (ceil(n / 2) outputs), D = 1 and 2, H and W
+    # off the 4 x 8 output tile, C off the 16-byte rows (the simple
+    # kernel), bf16 off the 8-channel copies
+    "s2_odd_1x9x13x21x32": ((1, 9, 13, 21, 32), "float32", 0, False),
+    "s2_odd_2x7x9x11x96": ((2, 7, 9, 11, 96), "float32", 0, False),
+    "s2_d1_1x1x12x20x64": ((1, 1, 12, 20, 64), "float32", 0, False),
+    "s2_d2_1x2x8x16x144": ((1, 2, 8, 16, 144), "float32", 0, False),
+    "s2_tile_edges_1x6x11x19x192": ((1, 6, 11, 19, 192), "float32", 0,
+                                    False),
+    "s2_c33_1x6x7x9x33": ((1, 6, 7, 9, 33), "float32", 0, False),
+    "s2_c5_2x5x4x3x5": ((2, 5, 4, 3, 5), "float32", 0, False),
+    "s2_bf16_1x5x9x9x40": ((1, 5, 9, 9, 40), "bfloat16", 0, False),
+    "s2_bf16_1x3x5x6x12": ((1, 3, 5, 6, 12), "bfloat16", 0, False),
+}
 
 
 def phase_depthwise(dw_cuda, dw_plain):
@@ -1631,8 +1690,13 @@ def phase_depthwise(dw_cuda, dw_plain):
     stride-1 depthwise layers of MobileNetASPP on a 256^3 CT; (128^3, 144)
     occurs twice), bfloat16 at the widest, a ragged shape and D = 1:
     outputs equal; median times of the kernel, the plain version and the
-    library call, and the bound. Returns (max |kernel - plain|, {shape:
-    timings}, the sums over one forward's seven launches)."""
+    library call, and the bound. Then K6's stride-2 mode (DW_STRIDE2: block
+    5's serving shape in f32 and bf16, the train step's three stride-2
+    layers, the hard cases): outputs equal to the plain version; at the
+    path shapes median times of the kernel, the plain version and cuDNN's
+    grouped stride-2 conv3d (the library call), with the bound. Returns
+    (max |kernel - plain|, {shape: timings}, the sums over one forward's
+    seven stride-1 launches, {stride-2 shape: timings})."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(13)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1663,15 +1727,18 @@ def phase_depthwise(dw_cuda, dw_plain):
         "bf16_1x2x5x6x12": ((1, 2, 5, 6, 12), bf16, 0, False),
         "bf16_d1_1x1x9x17x192": ((1, 1, 9, 17, 192), bf16, 0, False),
     }
-    max_err, timings = 0.0, {}
+    cases = {k: (*v, 1) for k, v in cases.items()}
+    cases.update({k: (shape, getattr(torch, dt), per_fwd, timed, 2)
+                  for k, (shape, dt, per_fwd, timed) in DW_STRIDE2.items()})
+    max_err, timings, stride2 = 0.0, {}, {}
     forward = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
                "launches": 0}
-    for name, (shape, dtype, per_fwd, timed) in cases.items():
+    for name, (shape, dtype, per_fwd, timed, s) in cases.items():
         x = torch.randn(shape, generator=g, device=dev).to(dtype)
         w = torch.randn((3, 3, 3, shape[-1]), generator=g, device=dev).to(dtype)
-        got = dw_cuda(x, w)
+        got = dw_cuda(x, w, s)
         torch.cuda.synchronize()
-        want = dw_plain(x, w)
+        want = dw_plain(x, w, s)
         torch.cuda.synchronize()
         max_err = max(max_err,
                       (got.float() - want.float()).abs().max().item())
@@ -1682,49 +1749,38 @@ def phase_depthwise(dw_cuda, dw_plain):
                 f"{(got.float() - want.float()).abs().max().item():.3g})")
         line = f"K6 {name}: kernel == plain (outputs)"
         if timed:
-            t_k = median_ms(lambda: dw_cuda(x, w))
-            t_p = median_ms(lambda: dw_plain(x, w), reps=3, inner=1, warm=1)
-            t_l = median_ms(lambda: _dw_library(x, w), reps=3, inner=1,
+            t_k = median_ms(lambda: dw_cuda(x, w, s))
+            t_p = median_ms(lambda: dw_plain(x, w, s), reps=3, inner=1,
                             warm=1)
-            lib_err = (_dw_library(x, w).permute(0, 2, 3, 4, 1).float()
+            t_l = median_ms(lambda: _dw_library(x, w, s), reps=3, inner=1,
+                            warm=1)
+            lib_err = (_dw_library(x, w, s).permute(0, 2, 3, 4, 1).float()
                        - got.float()).abs().max().item()
             # read x and w once, write y; 27 multiplies and 27 adds an output
-            bound, by = bound_ms((2 * x.numel() + w.numel()) * x.element_size(),
-                                 54 * x.numel())
-            timings[name] = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound,
-                             "bound_by": by, "library_ms": t_l,
-                             "library_max_abs_diff": lib_err}
-            for key, val in (("ms", t_k), ("plain_ms", t_p),
-                             ("bound_ms", bound), ("library_ms", t_l)):
-                forward[key] += per_fwd * val
-            forward["launches"] += per_fwd
+            bound, by = bound_ms((x.numel() + got.numel() + w.numel())
+                                 * x.element_size(), 54 * got.numel())
+            t = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound,
+                 "bound_by": by, "library_ms": t_l,
+                 "library_max_abs_diff": lib_err}
+            if s == 2:
+                stride2[name] = {**t, "launches_per_forward": per_fwd}
+            else:
+                timings[name] = t
+                for key, val in (("ms", t_k), ("plain_ms", t_p),
+                                 ("bound_ms", bound), ("library_ms", t_l)):
+                    forward[key] += per_fwd * val
+                forward["launches"] += per_fwd
             line += (f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library "
                      f"conv3d {t_l:.4f} ms (median; library differs by "
                      f"{lib_err:.3g}), bound {bound:.4f} ms ({by})")
         print(line, flush=True)
         del x, w, got, want
-    torch.cuda.empty_cache()
-    print(f"K6 one CNN forward ({forward['launches']} launches): kernel "
-          f"{forward['ms']:.4f} ms, plain {forward['plain_ms']:.4f} ms, "
-          f"library {forward['library_ms']:.4f} ms, bound "
-          f"{forward['bound_ms']:.4f} ms", flush=True)
-    # block 5's stride-2 depthwise layer: cuDNN through the model's Conv,
-    # timed alone (not a kernel of the port), with its bound
-    from fissure_segmentation_tpu_torch.models.seg_cnn import Conv
-    conv = Conv(192, 192, 3, stride=2, padding=1, groups=192).to(dev).eval()
-    x = torch.randn((1, 128, 128, 128, 192), generator=g, device=dev)
-    with torch.no_grad():
-        y = conv(x)
-        t = median_ms(lambda: conv(x), reps=3, inner=3, warm=1)
-    bound, by = bound_ms((x.numel() + y.numel() + conv.weight.numel()) * 4,
-                         54 * y.numel())
-    stride2 = {"shape": "1x128x128x128x192 -> 1x64x64x64x192 float32",
-               "ms": t, "bound_ms": bound, "bound_by": by}
-    print(f"stride-2 depthwise (block 5, cuDNN grouped conv3d, not a port "
-          f"kernel) {stride2['shape']}: {t:.4f} ms (median), bound "
-          f"{bound:.4f} ms ({by})", flush=True)
-    del conv, x, y
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
+    print(f"K6 one CNN forward ({forward['launches']} stride-1 launches): "
+          f"kernel {forward['ms']:.4f} ms, plain {forward['plain_ms']:.4f} "
+          f"ms, library {forward['library_ms']:.4f} ms, bound "
+          f"{forward['bound_ms']:.4f} ms; and block 5's stride-2 launch "
+          f"{stride2['s2_b5_1x128x128x128x192']['ms']:.4f} ms", flush=True)
     return max_err, timings, forward, stride2
 
 
@@ -1770,7 +1826,8 @@ def phase_cnn_slice(dw_cuda, card: str):
     whole-volume forward on the 256^3 CT inside segment_case, then the
     keypoints, the DGCNNSeg(k=40) ensemble with phase 4's class bias and
     the surface fit; one warm-up and 3 timed cases with phase 4's checks.
-    K6 must launch at least 7 times a case. Then the CNN forward alone
+    K6 must launch at least 7 times a case at stride 1 and once at
+    stride 2 (block 5). Then the CNN forward alone
     (CUDA events) and one kp_mode="enhancement" case. Returns (K6
     launches of the timed cases, timings)."""
     from fissure_segmentation_tpu_torch.data.synthetic import \
@@ -1800,7 +1857,8 @@ def phase_cnn_slice(dw_cuda, card: str):
     print(f"cnn slice: warm-up case {time.perf_counter() - t0:.3f} s",
           flush=True)
     n_cases = 3
-    dw_cuda.launches = knn_cuda.launches = gather_reduce.launches = 0
+    for fn in (dw_cuda, knn_cuda, gather_reduce):
+        _zero(fn)
     gather_reduce.calls.clear()
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -1811,15 +1869,18 @@ def phase_cnn_slice(dw_cuda, card: str):
         times.append(time.perf_counter() - t0)
         check_result(res, SHAPE, f"cnn case {i}")
     peak = torch.cuda.max_memory_allocated()
-    launches = {"depthwise_conv3": dw_cuda.launches, "knn": knn_cuda.launches,
+    launches = {"depthwise_conv3": dw_cuda.roles["forward"],
+                "depthwise_conv3_stride2": dw_cuda.roles["stride2"],
+                "knn": knn_cuda.launches,
                 "gather_reduce": gather_reduce.launches}
     # the timed cases' gather-reduce calls (the enhancement case below is
     # not counted, like its launches)
     phase_cnn_slice.gr_calls = dict(gather_reduce.calls)
-    if launches["depthwise_conv3"] < 7 * n_cases:
-        raise AssertionError(f"K6 launched {launches['depthwise_conv3']} "
-                             f"times in {n_cases} cnn cases; the path needs "
-                             f">= {7 * n_cases}")
+    if launches["depthwise_conv3"] < 7 * n_cases or \
+            launches["depthwise_conv3_stride2"] < n_cases:
+        raise AssertionError(f"K6 launched {launches} in {n_cases} cnn "
+                             f"cases; the path needs >= {7 * n_cases} at "
+                             f"stride 1 and >= {n_cases} at stride 2")
     tri = [int(v.sum()) for _, v in res.meshes]
     print(f"cnn slice: {len(res.kpts)} valid keypoints, labels "
           f"{np.bincount(res.labels, minlength=4).tolist()}, valid triangles "
@@ -3119,36 +3180,48 @@ def phase_dseg_reference(card: str, seg_dir: str, ae_dir: str):
 
 CNN_ARGV = ["--ds", "synthetic", "--fold", "0"]   # patch 96, 1.5 mm, batch 32
 # K6's layers in a train step at the defaults (32 patches of 96^3), by
-# name: (shape, launches of each role a step; v3's timed once)
+# name: (x's shape, stride, launches of each role a v1 step; v3's timed
+# once)
 WG_PATH = {
-    "v1_b0_32x48x48x48x32": ((32, 48, 48, 48, 32), 1),
-    "v1_b1_32x48x48x48x96": ((32, 48, 48, 48, 96), 1),
-    "v1_b2b3_32x48x48x48x144": ((32, 48, 48, 48, 144), 2),
-    "v1_b4_32x48x48x48x192": ((32, 48, 48, 48, 192), 1),
-    "v1_b6_32x24x24x24x192": ((32, 24, 24, 24, 192), 1),
-    "v1_b7_32x24x24x24x384": ((32, 24, 24, 24, 384), 1),
-    "v3_r0_32x48x48x48x16": ((32, 48, 48, 48, 16), 0),
-    "v3_r2_32x24x24x24x72": ((32, 24, 24, 24, 72), 0),
-    "v3_r7_32x6x6x6x200": ((32, 6, 6, 6, 200), 0),
-    "v3_r11_32x6x6x6x672": ((32, 6, 6, 6, 672), 0),
+    "v1_b0_32x48x48x48x32": ((32, 48, 48, 48, 32), 1, 1),
+    "v1_b1_32x48x48x48x96": ((32, 48, 48, 48, 96), 1, 1),
+    "v1_b2b3_32x48x48x48x144": ((32, 48, 48, 48, 144), 1, 2),
+    "v1_b4_32x48x48x48x192": ((32, 48, 48, 48, 192), 1, 1),
+    "v1_b5_s2_32x48x48x48x192": ((32, 48, 48, 48, 192), 2, 1),
+    "v1_b6_32x24x24x24x192": ((32, 24, 24, 24, 192), 1, 1),
+    "v1_b7_32x24x24x24x384": ((32, 24, 24, 24, 384), 1, 1),
+    "v3_r0_32x48x48x48x16": ((32, 48, 48, 48, 16), 1, 0),
+    "v3_r1_s2_32x48x48x48x64": ((32, 48, 48, 48, 64), 2, 0),
+    "v3_r2_32x24x24x24x72": ((32, 24, 24, 24, 72), 1, 0),
+    "v3_r6_s2_32x12x12x12x240": ((32, 12, 12, 12, 240), 2, 0),
+    "v3_r7_32x6x6x6x200": ((32, 6, 6, 6, 200), 1, 0),
+    "v3_r11_32x6x6x6x672": ((32, 6, 6, 6, 672), 1, 0),
 }
-# the wgrad kernel's hard cases: C below, off and across the 32-channel
-# groups, D = 1, one voxel along W, rows not a multiple of the thread rows
+# K6's backward layers a step (each one dgrad and one wgrad launch): v1's
+# seven stride-1 layers and block 5; v3's rows 0, 2, 7-11 and rows 1, 6
+K6_LAYERS = {"v1": (7, 1), "v3": (7, 2)}
+# the wgrad kernel's hard cases, at both strides: C below, off and across
+# the 32-channel groups (C off 4: the simple kernel), D = 1, one voxel
+# along W, odd D, H, W, rows not a multiple of the thread rows, H and W
+# off the tiles
 WG_HARD = {"c8_2x5x6x7x8": (2, 5, 6, 7, 8), "c33_1x3x9x11x33": (1, 3, 9, 11, 33),
            "c144_2x7x5x40x144": (2, 7, 5, 40, 144),
-           "d1_1x1x4x4x5": (1, 1, 4, 4, 5), "w1_3x2x3x1x64": (3, 2, 3, 1, 64)}
+           "d1_1x1x4x4x5": (1, 1, 4, 4, 5), "w1_3x2x3x1x64": (3, 2, 3, 1, 64),
+           "odd_1x9x13x21x36": (1, 9, 13, 21, 36),
+           "d2_2x2x17x9x96": (2, 2, 17, 9, 96)}
 CNN_STEP_TOL = {"loss": 1e-4, "grad_rel_l2": 3e-2, "stats": 1e-3,
                 "param": 2e-4}
 
 
-def wgrad_bound(x, gy):
+def wgrad_bound(x, gy, stride=1):
     """(float64 plain wgrad, the kernel's rounding bound gamma_depth *
     sum |x gy| per tap and channel, depth)."""
     from fissure_segmentation_tpu_torch.kernels.depthwise import (
         depthwise_conv3_wgrad_plain, gamma, wgrad_plan)
-    want = depthwise_conv3_wgrad_plain(x.double(), gy.double())
-    absw = depthwise_conv3_wgrad_plain(x.double().abs(), gy.double().abs())
-    depth = wgrad_plan(tuple(x.shape))[2]
+    want = depthwise_conv3_wgrad_plain(x.double(), gy.double(), stride)
+    absw = depthwise_conv3_wgrad_plain(x.double().abs(), gy.double().abs(),
+                                       stride)
+    depth = wgrad_plan(tuple(x.shape), stride).depth
     return want, gamma(depth) * absw, depth
 
 
@@ -3160,30 +3233,35 @@ def over_bound(err, bound) -> float:
                        torch.where(err > 0, inf, 0 * err)).max().item()
 
 
-def planted_wgrad(x, gy, wgrad=None):
+def planted_wgrad(x, gy, wgrad=None, stride=1):
     """The wgrad kernel's (`wgrad`'s) dw with one tap (the centre) taken
     from x moved by one voxel along W: a fault the bound must see."""
     if wgrad is None:
         from fissure_segmentation_tpu_torch.kernels.depthwise import \
             depthwise_conv3_wgrad_cuda as wgrad
-    dw = wgrad(x, gy).clone()
-    dw[1, 1, 1] = wgrad(torch.roll(x, 1, dims=3).contiguous(), gy)[1, 1, 1]
+    dw = wgrad(x, gy, stride).clone()
+    dw[1, 1, 1] = wgrad(torch.roll(x, 1, dims=3).contiguous(), gy,
+                        stride)[1, 1, 1]
     return dw
 
 
 def phase_wgrad():
-    """K6's backward on the card: the wgrad kernel against the float64
-    plain version within gamma_depth * sum |x dy| (depth from its launch
-    plan), the dgrad (K6 with flipped taps) equal to the plain version,
-    at every K6 layer of train_seg_cnn's step (v1 and v3 at the defaults)
-    and at the wgrad kernel's hard cases; the planted fault (one tap one
-    voxel off) must miss the bound. Median times of the wgrad kernel, its
-    plain version, cuDNN's conv3d_weight (the library call) and the bound;
-    of the dgrad, its plain version and cuDNN's conv3d_input. Returns (max
-    |wgrad - float64|, max err / bound, timings, sums over one v1 step)."""
+    """K6's backward on the card at strides 1 and 2: the wgrad kernel
+    against the float64 plain version within gamma_depth * sum |x dy|
+    (depth from its launch plan) and equal from launch to launch, the
+    dgrad (K6 with flipped taps; at stride 2 on dy stuffed to x's shape)
+    equal to the plain version, at every K6 layer of train_seg_cnn's step
+    (v1 and v3 at the defaults) and at the wgrad kernel's hard cases at
+    both strides; the planted fault (one tap one voxel off) must miss the
+    bound. Median times of the wgrad kernel, its plain version, cuDNN's
+    conv3d_weight (the library call) and the bound; of the dgrad (at
+    stride 2 with its stuffing, also timed alone), its plain version and
+    cuDNN's conv3d_input. Returns (max |wgrad - float64|, max err / bound,
+    timings, sums over one v1 step)."""
     from fissure_segmentation_tpu_torch.kernels.depthwise import (
         depthwise_conv3_dgrad, depthwise_conv3_plain,
-        depthwise_conv3_wgrad_cuda, depthwise_conv3_wgrad_plain)
+        depthwise_conv3_wgrad_cuda, depthwise_conv3_wgrad_plain, out_shape,
+        stuff)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(26)
     max_err, max_ratio, timings = 0.0, 0.0, {}
@@ -3191,16 +3269,17 @@ def phase_wgrad():
                              "wgrad_library_ms", "dgrad_ms", "dgrad_plain_ms",
                              "dgrad_bound_ms", "dgrad_library_ms")}
     step["launches"] = 0
-    cases = {**{k: v for k, v in WG_PATH.items()},
-             **{k: (v, 0) for k, v in WG_HARD.items()}}
-    for name, (shape, per_step) in cases.items():
+    cases = {**WG_PATH,
+             **{f"{k}_s{s}": (v, s, 0) for k, v in WG_HARD.items()
+                for s in (1, 2)}}
+    for name, (shape, s, per_step) in cases.items():
         c = shape[-1]
         x = torch.randn(shape, generator=g, device=dev)
-        gy = torch.randn(shape, generator=g, device=dev)
+        gy = torch.randn(out_shape(shape, s), generator=g, device=dev)
         w = torch.randn((3, 3, 3, c), generator=g, device=dev)
-        got = depthwise_conv3_wgrad_cuda(x, gy)
+        got = depthwise_conv3_wgrad_cuda(x, gy, s)
         torch.cuda.synchronize()
-        want, bound, depth = wgrad_bound(x, gy)
+        want, bound, depth = wgrad_bound(x, gy, s)
         err = (got.double() - want).abs()
         ratio = over_bound(err, bound)
         max_err, max_ratio = max(max_err, err.max().item()), max(max_ratio,
@@ -3208,51 +3287,62 @@ def phase_wgrad():
         if not ratio <= 1:
             raise AssertionError(f"wgrad {name}: {ratio:.3g} x its bound "
                                  f"gamma_{depth} sum|x dy|")
-        if not torch.equal(depthwise_conv3_wgrad_cuda(x, gy), got):
+        if not torch.equal(depthwise_conv3_wgrad_cuda(x, gy, s), got):
             raise AssertionError(f"wgrad {name}: two launches differ")
         # (with W = 1 the voxel one off along W is the voxel itself)
-        planted = over_bound((planted_wgrad(x, gy).double() - want).abs(),
-                             bound) if shape[3] > 1 else float("inf")
+        planted = over_bound((planted_wgrad(x, gy, stride=s).double()
+                              - want).abs(), bound) \
+            if shape[3] > 1 else float("inf")
         if planted <= 1:
             raise AssertionError(f"wgrad {name}: the planted fault stays "
                                  f"within the bound ({planted:.3g})")
         wf = w.flip((0, 1, 2)).contiguous()
-        dx = depthwise_conv3_dgrad(gy, w)
+        dx = depthwise_conv3_dgrad(gy, w, s, x.shape)
         torch.cuda.synchronize()
-        if not torch.equal(dx, depthwise_conv3_plain(gy, wf)):
+        want_dx = depthwise_conv3_plain(stuff(gy, x.shape) if s == 2 else gy,
+                                        wf)
+        if dx.shape != x.shape or not torch.equal(dx, want_dx):
             raise AssertionError(f"dgrad {name}: kernel differs from plain")
         line = (f"K6 backward {name}: wgrad within {ratio:.3g} of its bound "
                 f"(depth {depth}, max err {err.max().item():.3g}; the "
                 f"planted fault {planted:.3g} x), dgrad == plain")
         if shape[0] == 32:
-            n = x.numel()
+            n, m = x.numel(), gy.numel()
             xc, gc = x.permute(0, 4, 1, 2, 3), gy.permute(0, 4, 1, 2, 3)
             wshape = (c, 1, 3, 3, 3)
             t = {"wgrad_ms": median_ms(lambda: depthwise_conv3_wgrad_cuda(
-                     x, gy), reps=5, inner=3),
+                     x, gy, s), reps=5, inner=3),
                  "wgrad_plain_ms": median_ms(
-                     lambda: depthwise_conv3_wgrad_plain(x, gy), reps=3,
+                     lambda: depthwise_conv3_wgrad_plain(x, gy, s), reps=3,
                      inner=1, warm=1),
                  "wgrad_library_ms": median_ms(
                      lambda: torch.nn.grad.conv3d_weight(
-                         xc, wshape, gc, padding=1, groups=c), reps=3,
-                     inner=1, warm=1),
-                 "dgrad_ms": median_ms(lambda: depthwise_conv3_dgrad(gy, w),
-                                       reps=5, inner=3),
+                         xc, wshape, gc, stride=s, padding=1, groups=c),
+                     reps=3, inner=1, warm=1),
+                 "dgrad_ms": median_ms(
+                     lambda: depthwise_conv3_dgrad(gy, w, s, x.shape),
+                     reps=5, inner=3),
                  "dgrad_plain_ms": median_ms(
-                     lambda: depthwise_conv3_plain(gy, wf), reps=3, inner=1,
-                     warm=1),
+                     lambda: depthwise_conv3_plain(
+                         stuff(gy, x.shape) if s == 2 else gy, wf),
+                     reps=3, inner=1, warm=1),
                  "dgrad_library_ms": median_ms(
                      lambda: torch.nn.grad.conv3d_input(
                          xc.shape, w.permute(3, 0, 1, 2).unsqueeze(1), gc,
-                         padding=1, groups=c), reps=3, inner=1, warm=1)}
-            # wgrad reads x and dy once and writes 27 C; dgrad as K6
+                         stride=s, padding=1, groups=c), reps=3, inner=1,
+                     warm=1)}
+            if s == 2:   # the dgrad's stuffing alone: one write at x's size
+                t["stuff_ms"] = median_ms(lambda: stuff(gy, x.shape),
+                                          reps=5, inner=3)
+            # wgrad reads x and dy once and writes 27 C; dgrad reads dy and
+            # w once and writes dx; 27 multiply-adds for each of dy's values
             t["wgrad_bound_ms"], t["wgrad_bound_by"] = bound_ms(
-                (2 * n + 27 * c) * 4, 54 * n)
+                (n + m + 27 * c) * 4, 54 * m)
             t["dgrad_bound_ms"], t["dgrad_bound_by"] = bound_ms(
-                (2 * n + 27 * c) * 4, 54 * n)
-            t.update(max_abs_err=err.max().item(), err_over_bound=ratio,
-                     depth=depth, launches_per_v1_step=per_step)
+                (n + m + 27 * c) * 4, 54 * m)
+            t.update(stride=s, max_abs_err=err.max().item(),
+                     err_over_bound=ratio, depth=depth,
+                     launches_per_v1_step=per_step)
             timings[name] = t
             for k in step:
                 if k != "launches":
@@ -3262,11 +3352,12 @@ def phase_wgrad():
                      f"{t['wgrad_plain_ms']:.4f}, conv3d_weight "
                      f"{t['wgrad_library_ms']:.4f}, bound "
                      f"{t['wgrad_bound_ms']:.4f} ({t['wgrad_bound_by']}); "
-                     f"dgrad {t['dgrad_ms']:.4f} ms, plain "
-                     f"{t['dgrad_plain_ms']:.4f}, conv3d_input "
+                     f"dgrad {t['dgrad_ms']:.4f} ms"
+                     + (f" (stuffing {t['stuff_ms']:.4f})" if s == 2 else "")
+                     + f", plain {t['dgrad_plain_ms']:.4f}, conv3d_input "
                      f"{t['dgrad_library_ms']:.4f}")
         print(line, flush=True)
-        del x, gy, w, got, want, bound, dx
+        del x, gy, w, got, want, bound, dx, want_dx
         torch.cuda.empty_cache()
     print(f"K6 backward, one v1 step ({step['launches']} launches each): "
           f"wgrad {step['wgrad_ms']:.3f} ms (bound "
@@ -3307,11 +3398,15 @@ def phase_cnn_train(ks, knn_cuda, card: str, out_dir: str):
     fold 0 for 2 epochs and tests it, then --test_only on the same output;
     v3 trains 1 epoch and tests it (each run: the JAX entry's files,
     finite Dice, the launches of K6 by role and of its wgrad, counts reset
-    before and read after each run; every step of the backward: 7 dgrad
-    and 7 wgrad launches). Then the test half of v1's fold again, warm
+    before and read after each run; every step of the backward: one dgrad
+    and one wgrad launch a K6 layer, K6_LAYERS: v1 7 at stride 1 and 1 at
+    stride 2, v3 7 and 2). Then the test half of v1's fold again, warm
     (s/case), and 10 timed warm steps of each
     (train_seg_cnn.make_step: ms/step, patches/s, peak memory) and a
-    profile of 3 (device time by kind, profile_step.cnn_device_time).
+    profile of 3 (device time by kind, profile_step.cnn_device_time); then
+    one step's conv3d calls by groups and kernel size: v1 must make no
+    grouped call (its one grouped layer, block 5, runs on K6), v3 only its
+    5x5x5 layers' (rows 1 and 6 run on K6).
     Returns (launches by path, timing)."""
     from fissure_segmentation_tpu_torch import train_seg_cnn
     from fissure_segmentation_tpu_torch.cli import get_seg_cnn_train_parser
@@ -3341,12 +3436,16 @@ def phase_cnn_train(ks, knn_cuda, card: str, out_dir: str):
             raise AssertionError(f"train_seg_cnn {name}: failed")
         took = time.perf_counter() - t0
         res = _check_cnn_run(out, cls, f"train_seg_cnn {name}")
-        launches = {"forward": depthwise_conv3_cuda.roles["forward"],
-                    "dgrad": depthwise_conv3_cuda.roles["dgrad"],
-                    "wgrad": depthwise_conv3_wgrad_cuda.launches}
-        back = launches["dgrad"]
-        if launches["forward"] < 7 or back != launches["wgrad"] or \
-                back % 7 or back < 7 * epochs or (back and not epochs):
+        launches = {**depthwise_conv3_cuda.roles,
+                    "wgrad": depthwise_conv3_wgrad_cuda.launches,
+                    "wgrad_stride2":
+                        depthwise_conv3_wgrad_cuda.roles["stride2"]}
+        ones, twos = K6_LAYERS[name[:2]]
+        back, steps = launches["dgrad"], launches["dgrad"] // (ones + twos)
+        if launches["forward"] < ones or launches["stride2"] < twos or \
+                back != launches["wgrad"] or back % (ones + twos) or \
+                launches["wgrad_stride2"] != twos * steps or \
+                steps < epochs or (back and not epochs):
             raise AssertionError(f"train_seg_cnn {name}: K6 launches "
                                  f"{launches} in {epochs} epochs")
         paths[f"train_seg_cnn_{name}"] = launches
@@ -3391,7 +3490,23 @@ def phase_cnn_train(ks, knn_cuda, card: str, out_dir: str):
         top = sorted(((e.self_device_time_total / 3e3, e.key) for e in avg
                       if e.device_type == DeviceType.CUDA
                       and e.self_device_time_total > 0), reverse=True)[:12]
+        # the convolutions left to cuDNN, by (groups, kernel): one step's
+        # F.conv3d calls; the depthwise 3x3x3 layers must all be K6's
+        with Conv3dRecorder() as rec:
+            step()
+            torch.cuda.synchronize()
+        left = {k: v for k, v in rec.calls.items() if k[0] > 1}
+        if any(k[1] != (5, 5, 5) for k in left) or (name == "v1" and left):
+            raise AssertionError(f"cnn {name} step: grouped conv3d calls "
+                                 f"{left}: the 3x3x3 depthwise layers must "
+                                 f"run on K6")
         timing[f"{name}_step"] = {
+            "conv3d_calls": {f"groups{g}_k{k[0]}": n
+                             for (g, k), n in sorted(rec.calls.items())},
+            # cuDNN's names: a groups = 1 layer may run a "grouped" kernel
+            "grouped_named_kernels": sorted(
+                {e.key[:90] for e in avg if e.device_type == DeviceType.CUDA
+                 and "grouped" in e.key.lower()}),
             "ms_per_step": ms, "patches_per_s": args.batch * 1e3 / ms,
             "peak_bytes": peak, "device_ms_by_kind": kinds,
             "busy_share": kinds["total"] / ms,
@@ -3472,9 +3587,11 @@ def phase_cnn_train_reference(card: str):
         if name == "v1":
             good = depthwise.depthwise_conv3_wgrad_cuda
 
-            def faulty_wgrad(x, gy):
-                return planted_wgrad(x, gy, good)
-            faulty_wgrad.launches = 0     # the wrapper counts under its name
+            def faulty_wgrad(x, gy, stride=1):
+                return planted_wgrad(x, gy, good, stride)
+            # the wrapper counts under its name
+            faulty_wgrad.launches = 0
+            faulty_wgrad.roles = dict.fromkeys(good.roles, 0)
             depthwise.depthwise_conv3_wgrad_cuda = faulty_wgrad
             try:
                 faulty = run("cuda")
@@ -3694,8 +3811,7 @@ def main() -> int:
     cnn_serving, cnn_timing = phase_cnn_slice(depthwise_conv3_cuda, card)
     gr_calls.append(phase_cnn_slice.gr_calls)
     print(json.dumps({"cnn_serving": cnn_timing, "k6_per_forward": dw_forward,
-                      "stride2_depthwise_cudnn": dw_stride2, "card": card}),
-          flush=True)
+                      "k6_stride2": dw_stride2, "card": card}), flush=True)
 
     # 15. CNN reference, card against CPU, on a small input
     phase_cnn_reference()
@@ -3854,10 +3970,14 @@ def main() -> int:
         "slice": slice_row("fps", fps_timings), "shapes": fps_timings})
     widest = dw_timings["b4_1x128x128x128x192"]
     train_widest = wg_timings["v1_b4_32x48x48x48x192"]
+    train_s2 = wg_timings["v1_b5_s2_32x48x48x48x192"]
     k6_paths = {"serving_cnn": {"forward": cnn_serving["depthwise_conv3"],
                                 "dgrad": 0},
                 **{p: {"forward": v["forward"], "dgrad": v["dgrad"]}
                    for p, v in cnn_paths.items()}}
+    s2_paths = {"serving_cnn": cnn_serving["depthwise_conv3_stride2"],
+                **{p: v["stride2"] for p, v in cnn_paths.items()}}
+    serve_s2 = dw_stride2["s2_b5_1x128x128x128x192"]
     kernels.append({
         "name": "depthwise_conv3", "route": "cuda", "source": DW_SOURCE,
         "replaces": f"{PALLAS_DW}:200", "also_replaces": f"{PALLAS_DW}:171",
@@ -3871,18 +3991,38 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "shapes": dw_timings})
     kernels.append({
+        "name": "depthwise_conv3_stride2", "route": "cuda",
+        "source": DW_SOURCE,
+        # no TPU kernel: the JAX package computes the stride-2 layers with
+        # XLA's grouped convolution (and lraspp_3d.py:66)
+        "replaces": "fissure_segmentation_tpu/models/seg_cnn.py:53",
+        "launches": sum(s2_paths.values()), "by_path": s2_paths,
+        "max_abs_err": dw_err, "ms": serve_s2["ms"],
+        "plain_ms": serve_s2["plain_ms"], "bound_ms": serve_s2["bound_ms"],
+        "bound_by": serve_s2["bound_by"],
+        "library_ms": serve_s2["library_ms"],
+        "dgrad_at_v1_b5_32x48x48x48x192": {
+            k: train_s2[f"dgrad_{k}"] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "stuff_ms_at_v1_b5": train_s2["stuff_ms"],
+        "shapes": dw_stride2})
+    kernels.append({
         "name": "depthwise_wgrad", "route": "cuda", "source": DW_SOURCE,
         # no TPU kernel: the JAX package trains these layers with XLA's
         # gradient of its grouped convolution
         "replaces": "fissure_segmentation_tpu/models/seg_cnn.py:53",
         "launches": sum(v["wgrad"] for v in cnn_paths.values()),
-        "by_path": {p: v["wgrad"] for p, v in cnn_paths.items()},
+        "by_path": {p: {"all": v["wgrad"], "stride2": v["wgrad_stride2"]}
+                    for p, v in cnn_paths.items()},
         "max_abs_err": wg_err, "max_err_over_bound": wg_ratio,
         "ms": train_widest["wgrad_ms"],
         "plain_ms": train_widest["wgrad_plain_ms"],
         "bound_ms": train_widest["wgrad_bound_ms"],
         "bound_by": train_widest["wgrad_bound_by"],
         "library_ms": train_widest["wgrad_library_ms"],
+        "stride2_at_v1_b5_32x48x48x48x192": {
+            k: train_s2[f"wgrad_{k}"] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "per_v1_step": wg_step, "shapes": wg_timings})
     # the gather-reduce priced by call: the main path's launches of each
     # (want, dtype, shape) at that call's own time and bound; the top-level

@@ -125,9 +125,11 @@ def load() -> ctypes.CDLL:
                 "fseg_graph_transpose": [vp, vp, vp, vp, vp, i32, i64, i32,
                                          vp],
                 "fseg_depthwise_conv3": [vp, vp, vp, i32, i32, i32, i32, i32,
-                                         i32, vp],
+                                         i32, i32, vp],
                 "fseg_depthwise_wgrad": [vp, vp, vp, vp, i32, i32, i32, i32,
-                                         i32, i64, i32, vp],
+                                         i32, i32, i64, vp],
+                "fseg_depthwise_wgrad_plan": [i32, i32, i32, i32, i32, i32,
+                                              i32, ctypes.POINTER(i64)],
                 "fseg_gather_reduce": [vp, vp, vp, vp, vp, vp, vp, vp, i32,
                                        i32, i32, i32, i32, i32, vp],
                 "fseg_gather_reduce_parts": [i32, i32, i32, i32],

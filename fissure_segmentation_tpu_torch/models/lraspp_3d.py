@@ -12,9 +12,11 @@ then the two 1x1 classifiers summed and upsampled to the input.
 Layout and weights as in models/seg_cnn.py: NDHWC, flax's module names
 (`MobileNetV3Large3D_0/CheckpointInvertedResidualV3_i/Conv_j,
 BatchNorm_j, SqueezeExcite_0`, `LRASPPHead_0`), torch's conv weights. The
-3x3x3 stride-1 undilated depthwise layers (table rows 0, 2 and 7-11) are
-K6 (kernels/depthwise.py); the 5x5x5, the stride-2 and the dilated
-depthwise layers are grouped `F.conv3d`. Each inverted residual is
+3x3x3 undilated depthwise layers are K6 (kernels/depthwise.py): stride 1
+in table rows 0, 2 and 7-11, stride 2 in rows 1 and 6
+(`seg_cnn.DepthwiseConv3Stride2`, the grouped convolution's weight); the
+5x5x5 layers (rows 3-5 and 12-14, row 12 dilated) stay grouped
+`F.conv3d` (cuDNN), which is not K6's function. Each inverted residual is
 checkpointed in training (`seg_cnn._remat`, the JAX package's
 `nn.remat`). Built in eval mode; float32.
 """
@@ -27,7 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .blocks import BatchNorm, leaky_relu
-from .seg_cnn import Conv, DepthwiseConv3, _ncdhw, _ndhwc, _remat, relu6
+from .seg_cnn import (Conv, DepthwiseConv3, DepthwiseConv3Stride2, _ncdhw,
+                      _ndhwc, _remat, relu6)
 
 
 def _act(x: torch.Tensor, hs: bool) -> torch.Tensor:
@@ -83,6 +86,8 @@ class InvertedResidualV3(nn.Module):
             n = 1
         if kernel == 3 and stride == 1 and dilation == 1:
             dw = DepthwiseConv3(exp, generator)
+        elif kernel == 3 and stride == 2 and dilation == 1:
+            dw = DepthwiseConv3Stride2(exp, generator)
         else:
             dw = Conv(exp, exp, kernel, stride=stride,
                       padding=dilation * (kernel // 2), dilation=dilation,

@@ -5,18 +5,21 @@ Layout is NDHWC at every public function, as in the JAX package. Inside:
 
   * 1x1x1 convolutions are products over the last axis (`F.linear`);
   * dense 3x3x3 convolutions (the stride-2 stem, the ASPP's atrous branches,
-    the decoder's 64 -> 64) and the stride-2 depthwise layer of block 5 are
-    `F.conv3d` on the (B, C, D, H, W) permute of the NDHWC tensor, which is
-    the `channels_last_3d` memory format, so cuDNN takes it without a copy;
-  * the stride-1 depthwise layers (blocks 0-4 and 6-7) are K6
-    (kernels/depthwise.py), the hand-written CUDA kernel on a card.
+    the decoder's 64 -> 64) are `F.conv3d` on the (B, C, D, H, W) permute
+    of the NDHWC tensor, which is the `channels_last_3d` memory format, so
+    cuDNN takes it without a copy;
+  * the depthwise layers are K6 (kernels/depthwise.py), the hand-written
+    CUDA kernel on a card: stride 1 in blocks 0-4 and 6-7, stride 2 in
+    block 5.
 
 Submodules carry flax's names (`MobileNet3D_0/Checkpoint_InvertedResidual_i/
 Conv_0..2, BatchNorm_0..2`, `CheckpointASPP_0/Conv_0..6, BatchNorm_0..6`,
 top-level `Conv_0..2`, `BatchNorm_0..1`), so a JAX tree loads strictly
 through models/weights.py. Convolution weights are torch's (out, in, kd, kh,
-kw); a stride-1 depthwise weight is K6's (3, 3, 3, C). Initialisation is
-kaiming-normal over fan-out, as the JAX package's `kaiming_out`.
+kw), block 5's stride-2 depthwise weight too ((C, 1, 3, 3, 3), permuted to
+K6's taps in its forward); a stride-1 depthwise weight is K6's (3, 3, 3, C).
+Initialisation is kaiming-normal over fan-out, as the JAX package's
+`kaiming_out`.
 
 The modules are built in eval mode, as the JAX package applies them with
 ``train=False`` by default; `.train()` switches every BatchNorm to batch
@@ -133,6 +136,22 @@ class DepthwiseConv3(nn.Module):
         return depthwise_conv3_cuda(x.contiguous(), self.kernel)
 
 
+class DepthwiseConv3Stride2(Conv):
+    """3x3x3 depthwise convolution, stride 2, padding 1 (ceil(n / 2)
+    outputs an axis), through K6's stride-2 mode. The weight stays the
+    grouped convolution's (C, 1, 3, 3, 3), as the JAX tree and the `.fst`
+    files name and shape it; the forward permutes it to K6's (3, 3, 3, C)
+    under autograd, so its gradient lands in `weight`."""
+
+    def __init__(self, channels: int, generator=None):
+        super().__init__(channels, channels, 3, stride=2, padding=1,
+                         groups=channels, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight[:, 0].permute(1, 2, 3, 0).contiguous()
+        return depthwise_conv3_cuda(x.contiguous(), w, stride=2)
+
+
 class _InvertedResidual(nn.Module):
     """1x1 expand (3x3x3 stride 2 in the first block) -> 3x3x3 depthwise ->
     1x1 project, with the residual where shapes allow."""
@@ -146,8 +165,7 @@ class _InvertedResidual(nn.Module):
                        else Conv(cin, mid, 1, generator=generator))
         self.BatchNorm_0 = BatchNorm(mid)
         self.Conv_1 = (DepthwiseConv3(mid, generator) if stride == 1
-                       else Conv(mid, mid, 3, stride=stride, padding=1,
-                                 groups=mid, generator=generator))
+                       else DepthwiseConv3Stride2(mid, generator))
         self.BatchNorm_1 = BatchNorm(mid)
         self.Conv_2 = Conv(mid, out, 1, generator=generator)
         self.BatchNorm_2 = BatchNorm(out)

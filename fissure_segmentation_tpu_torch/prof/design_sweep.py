@@ -73,31 +73,33 @@ from fissure_segmentation_tpu_torch.prof.timing import (  # noqa: E402
     graph_ms, median_ms)
 
 CSRC = os.path.join(os.path.dirname(HERE), "kernels", "csrc")
-F32_TILE = "launch_tiled<float, 32, 8, 16, 4, 3>("
-BF16_TILE = "launch_tiled<__nv_bfloat16, 32, 8, 16, 4, 3>("
+F32_TILE = "launch_tiled<float, 32, 8, 16, 4, 3, 1, 1>("
+BF16_TILE = "launch_tiled<__nv_bfloat16, 32, 8, 16, 4, 3, 1, 1>("
 SPLIT_TARGET = "#define DW_TARGET_BLOCKS 1056"
 
 
 def _tiles(cfg: str) -> dict:
-    """Both dtypes' tiled launch in shape `cfg` (CS, TH, TW, RW, ST)."""
-    return {F32_TILE: f"launch_tiled<float, {cfg}>(",
-            BF16_TILE: f"launch_tiled<__nv_bfloat16, {cfg}>("}
+    """Both dtypes' stride-1 tiled launch in shape `cfg` (CS, TH, TW, RW,
+    ST)."""
+    return {F32_TILE: f"launch_tiled<float, {cfg}, 1, 1>(",
+            BF16_TILE: f"launch_tiled<__nv_bfloat16, {cfg}, 1, 1>("}
 
 
 # the simple kernel forced onto every shape, and three ablations of it
-_SIMPLE_ONLY = {"    if (aligned && dtype == 0)": "    if (false)",
+_SIMPLE_ONLY = {"    if (aligned && stride == 1)": "    if (false)",
                 "    if (aligned)\n": "    if (false)\n"}
 _NO_LOADS = {"? to_f32(row[(size_t)xv * c]) : 0.0f;":
              "? __int_as_float(0x3f800000 ^ (int)((g + j * 7 + dz * 3 + dy)"
              " & 0x7fff)) : 0.0f;"}
-_NO_PRODUCTS = {"acc[t] = __fadd_rn(acc[t], __fmul_rn(v[t + dx], wt));":
-                "acc[t] = __fadd_rn(acc[t], v[t + dx]);"}
-_COPY = {"    if (dtype == 0)\n        depthwise_simple<float>":
+_NO_PRODUCTS = {
+    "acc[t] = __fadd_rn(acc[t], __fmul_rn(v[S * t + dx], wt));":
+    "acc[t] = __fadd_rn(acc[t], v[S * t + dx]);"}
+_SIMPLE_S1 = "    if (stride == 1)\n        return dtype == 0\n"
+_COPY = {_SIMPLE_S1:
          "    if (dtype >= 0) {\n        const long long n16 = (long long)b"
          " * d * h * wd * c * (dtype ? 2 : 4) / 16;\n        copy16<<<132 *"
          " 16, 256, 0, s>>>((const uint4*)x, (uint4*)y, n16);\n        "
-         "return (int)cudaGetLastError();\n    }\n    if (dtype == 0)\n"
-         "        depthwise_simple<float>",
+         "return (int)cudaGetLastError();\n    }\n" + _SIMPLE_S1,
          "// ---- the tiled kernel": "__global__ void copy16(const uint4* x, "
          "uint4* y, long long n) {\n    for (long long i = blockIdx.x * "
          "(long long)blockDim.x + threadIdx.x; i < n; i += (long long)"
@@ -369,14 +371,14 @@ def build(variants: dict, out_dir: str) -> dict:
 
 
 def time_depthwise(lib, inputs) -> dict:
-    lib.fseg_depthwise_conv3.argtypes = [VP, VP, VP] + [I32] * 6 + [VP]
+    lib.fseg_depthwise_conv3.argtypes = [VP, VP, VP] + [I32] * 7 + [VP]
     row = {}
     for tag, x, w, want, check in inputs:
         y = torch.empty_like(x)
 
         def fn():
             return lib.fseg_depthwise_conv3(
-                x.data_ptr(), w.data_ptr(), y.data_ptr(), *x.shape,
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), *x.shape, 1,
                 int(x.dtype == torch.bfloat16), _stream())
 
         if fn() != 0:

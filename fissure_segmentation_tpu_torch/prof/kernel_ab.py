@@ -32,9 +32,17 @@ launches are shorter than the wrapper's host time) and by `median_ms`
 ("_host_included"). P1's k_onehot (K4 at 512 rows + `stream_sum`) is the
 checkout's `prof.probes.p1` row. The dynamic graph's feature-space kNN
 (`ops/knn.py:feature_knn`, no kernel of its own: a matmul and a stable
-sort) is timed at the default run's (32, 2048, 64) bf16, k = 40. Prints
-one JSON line (per shape the median ms of CUDA-event runs), then the
-card's name and power limit. Raises without a card.
+sort) is timed at the default run's (32, 2048, 64) bf16, k = 40. K6's
+backward and stride-2 layer at the CNN paths' shapes: the wgrad kernel
+at (32, 48^3, 192) (within gamma_depth * sum |x dy| of float64 first; the
+checkout's `wgrad_plan` gives the depth), and block 5's stride-2 layer
+forward at (1, 128^3, 192) f32 and weight gradient at (32, 48^3, 192):
+K6's stride-2 mode and the wgrad kernel at stride 2 where the checkout's
+`depthwise_conv3_cuda` takes `stride` (equal to plain, within the bound),
+else what the checkout runs for that layer, cuDNN's grouped conv3d and
+conv3d_weight (the route is recorded beside each time). Prints one JSON
+line (per shape the median ms of CUDA-event runs), then the card's name
+and power limit. Raises without a card.
 """
 from __future__ import annotations
 
@@ -88,6 +96,60 @@ def _timing():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _depthwise_backward(depthwise, gen, median_ms) -> dict:
+    """The wgrad kernel at (32, 48^3, 192), and block 5's stride-2 layer
+    (forward at (1, 128^3, 192), weight gradient at (32, 48^3, 192)) as
+    the checkout runs it: K6's stride-2 mode and the wgrad kernel at
+    stride 2, or cuDNN."""
+    strided = "stride" in inspect.signature(
+        depthwise.depthwise_conv3_cuda).parameters
+    out = {"stride2_route": "k6" if strided else "cudnn"}
+    x = torch.randn((32, 48, 48, 48, 192), generator=gen).cuda()
+    for s in (1, 2):
+        od = -(-48 // s)
+        gy = torch.randn((32, od, od, od, 192), generator=gen).cuda()
+        if s == 2 and not strided:
+            out["wgrad_s2_32x48x48x48x192"] = median_ms(
+                lambda: torch.nn.grad.conv3d_weight(
+                    x.permute(0, 4, 1, 2, 3), (192, 1, 3, 3, 3),
+                    gy.permute(0, 4, 1, 2, 3), stride=2, padding=1,
+                    groups=192), reps=3, inner=1, warm=1)
+            continue
+        args = (x, gy, s) if s == 2 else (x, gy)
+        plan = depthwise.wgrad_plan(tuple(x.shape), *args[2:])
+        depth = plan.depth if hasattr(plan, "depth") else plan[2]
+        got = depthwise.depthwise_conv3_wgrad_cuda(*args).double()
+        want = depthwise.depthwise_conv3_wgrad_plain(
+            x.double(), gy.double(), *args[2:])
+        bound = depthwise.gamma(depth) * depthwise.depthwise_conv3_wgrad_plain(
+            x.double().abs(), gy.double().abs(), *args[2:])
+        if not bool(((got - want).abs() <= bound).all()):
+            raise AssertionError(f"wgrad stride {s}: off its bound")
+        out[f"wgrad_s{s}_32x48x48x48x192"] = median_ms(
+            lambda: depthwise.depthwise_conv3_wgrad_cuda(*args), reps=5,
+            inner=3)
+        del got, want, bound
+    del x, gy
+    torch.cuda.empty_cache()
+    x = torch.randn((1, 128, 128, 128, 192), generator=gen).cuda()
+    w = torch.randn((3, 3, 3, 192), generator=gen).cuda()
+    if strided:
+        if not torch.equal(depthwise.depthwise_conv3_cuda(x, w, 2),
+                           depthwise.depthwise_conv3_plain(x, w, 2)):
+            raise AssertionError("K6 stride 2: kernel differs from plain")
+        out["forward_s2_1x128x128x128x192"] = median_ms(
+            lambda: depthwise.depthwise_conv3_cuda(x, w, 2))
+    else:
+        wc = w.permute(3, 0, 1, 2).unsqueeze(1)
+        out["forward_s2_1x128x128x128x192"] = median_ms(
+            lambda: torch.nn.functional.conv3d(
+                x.permute(0, 4, 1, 2, 3), wc, stride=2, padding=1,
+                groups=192), reps=3, inner=3, warm=1)
+    del x, w
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> None:
@@ -213,6 +275,8 @@ def main() -> None:
             lambda: gather_reduce.gather_reduce(a, gi, want))
     del a, gi, graphs
     torch.cuda.empty_cache()
+    out["depthwise_backward"] = _depthwise_backward(depthwise, gen,
+                                                    median_ms)
     from fissure_segmentation_tpu_torch.ops import knn as ops_knn
     feats = torch.randn((32, 2048, 64), generator=gen).to("cuda",
                                                          torch.bfloat16)

@@ -61,19 +61,21 @@ KERNELS = {
     "PCAE": {"K1 knn": "knn_kernel",
              "graph transpose": "transpose_",
              "K2 scatter_rows": "scatter_rows_kernel"},
-    "CNN": {"K6 forward, recompute, dgrad": "depthwise_tiled",
+    "CNN": {"K6 forward (strides 1 and 2), recompute, dgrad":
+            "depthwise_tiled",
             "K6 wgrad": "depthwise_wgrad"}}
 KERNELS["CNNv3"] = KERNELS["CNN"]
 
 
 def cnn_device_time(avg, steps: int) -> dict:
     """Device ms a step of a CNN step's profile (`key_averages()` over
-    `steps` steps) by kind of kernel: K6 (the forward, the checkpoints'
-    recomputation and the dgrad, one kernel), K6's wgrad, cuDNN's
-    convolutions (the stride-2 depthwise layer, the dense and the
-    grouped ones, forward and backward), the matrix products (the 1x1x1
-    convolutions), and every other kernel (BatchNorm, activations,
-    resizes, the loss, Adam); "total" is their sum."""
+    `steps` steps) by kind of kernel: K6 (the forward at strides 1 and 2,
+    the checkpoints' recomputation and the dgrad, one kernel), K6's wgrad
+    (both passes, both strides), cuDNN's convolutions (the dense, the
+    dilated and the 5x5x5 grouped ones, forward and backward), the matrix
+    products (the 1x1x1 convolutions), and every other kernel (BatchNorm,
+    activations, resizes, the stride-2 dgrad's stuffing, the loss, Adam);
+    "total" is their sum."""
     from torch.autograd import DeviceType
     kinds = {"k6": 0.0, "k6_wgrad": 0.0, "cudnn_conv": 0.0, "matmul": 0.0,
              "other": 0.0}

@@ -7,7 +7,8 @@ XLA's cost analysis of the compiled forward, which counts every operation.
 Here they are counted from one forward in eval mode without autograd:
   * flops: the convolution and matrix-product FLOPs (2 a multiply-add)
     that `torch.utils.flop_counter.FlopCounterMode` counts, plus K6's
-    (2 x 27 an output), which runs outside PyTorch's operators on a card;
+    (2 x 27 an output, at strides 1 and 2), which runs outside PyTorch's
+    operators on a card;
     elementwise passes (BatchNorm, activations, resizes) are not counted,
     so the number is below XLA's;
   * bytes_accessed: the bytes those same operations read and write, each
@@ -56,14 +57,15 @@ class _CountedBytes(TorchDispatchMode):
 def op_count(model: torch.nn.Module, x: torch.Tensor) -> dict:
     """{"flops", "bytes_accessed"} of one eval-mode forward of `model` on
     `x` (see the module doc for what they count)."""
-    from ..models.seg_cnn import DepthwiseConv3
+    from ..models.seg_cnn import DepthwiseConv3, DepthwiseConv3Stride2
     k6 = {"flops": 0, "bytes": 0}
 
     def hook(mod, args, out):
+        taps = mod.kernel if isinstance(mod, DepthwiseConv3) else mod.weight
         k6["flops"] += 2 * 27 * out.numel()
-        k6["bytes"] += _nbytes((args, mod.kernel, out))
+        k6["bytes"] += _nbytes((args, taps, out))
     handles = [m.register_forward_hook(hook) for m in model.modules()
-               if isinstance(m, DepthwiseConv3)]
+               if isinstance(m, (DepthwiseConv3, DepthwiseConv3Stride2))]
     training = model.training
     model.eval()
     flops = FlopCounterMode(display=False)

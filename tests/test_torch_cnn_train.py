@@ -66,13 +66,17 @@ from fissure_segmentation_tpu.train.image_trainer import \
 from fissure_segmentation_tpu_torch import train_seg_cnn
 from fissure_segmentation_tpu_torch.data.image_dataset import ImageDataset
 from fissure_segmentation_tpu_torch.kernels.depthwise import (
-    depthwise_conv3_cuda, depthwise_conv3_plain, depthwise_conv3_wgrad_plain)
+    depthwise_conv3_cuda, depthwise_conv3_dgrad, depthwise_conv3_plain,
+    depthwise_conv3_wgrad_plain, stuff)
 from fissure_segmentation_tpu_torch.losses import get_loss_fn
 from fissure_segmentation_tpu_torch.models import (LRASPPMobileNetV33D,
                                                    MobileNetASPP,
                                                    export_jax_variables,
                                                    load_fst,
                                                    load_jax_variables)
+from fissure_segmentation_tpu_torch.models.seg_cnn import (
+    Conv, DepthwiseConv3Stride2)
+from fissure_segmentation_tpu_torch.utils.profiling import op_count
 from fissure_segmentation_tpu_torch.train.image_trainer import ImageTrainer
 from fissure_segmentation_tpu_torch.train.trainer import TrainConfig
 
@@ -152,6 +156,74 @@ def test_k6_backward_matches_xla_gradient(shape):
     bad = wt.grad.numpy().copy()
     bad[1, 1, 1] = wt.grad.numpy()[1, 1, 2]
     assert _miss(bad, want_dw, b_dw) > 0
+
+
+def _xla_vjp_stride2(x, w, gy):
+    c = x.shape[-1]
+
+    def conv(x, w):
+        return lax.conv_general_dilated(
+            x, w.reshape(3, 3, 3, 1, c), (2, 2, 2), ((1, 1),) * 3,
+            feature_group_count=c,
+            dimension_numbers=("NDHWC", "DHWIO", "NDHWC"),
+            precision=lax.Precision.HIGHEST)
+    _, vjp = jax.vjp(conv, jnp.asarray(x), jnp.asarray(w))
+    dx, dw = vjp(jnp.asarray(gy))
+    return np.asarray(dx, np.float64), np.asarray(dw, np.float64)
+
+
+@pytest.mark.parametrize("shape", [(2, 6, 8, 10, 8), (1, 5, 7, 9, 33),
+                                   (2, 3, 4, 1, 96), (1, 1, 6, 5, 5)])
+def test_k6_stride2_backward_matches_xla_gradient(shape):
+    """The stride-2 backward: dx is K6 at stride 1 with flipped taps on dy
+    stuffed to x's shape, within 54 * 2^-24 * sum |dy w| of XLA's (a sum
+    of at most 27 products); dw is the plain wgrad at stride 2, within
+    twice gamma_N * sum |x dy| (N the terms, B x ceil(D/2) x ceil(H/2) x
+    ceil(W/2)); a dw with one tap shifted by one voxel must miss it."""
+    rng = np.random.default_rng(3 + sum(shape))
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = rng.standard_normal((3, 3, 3, shape[-1])).astype(np.float32)
+    oshape = (shape[0], *(-(-n // 2) for n in shape[1:4]), shape[-1])
+    gy = rng.standard_normal(oshape).astype(np.float32)
+    want_dx, want_dw = _xla_vjp_stride2(x, w, gy)
+    ax, aw, ag = (torch.from_numpy(np.abs(a)) for a in (x, w, gy))
+    b_dx = 54 * EPS32 * depthwise_conv3_plain(
+        stuff(ag, shape), aw.flip((0, 1, 2)).contiguous()).numpy()
+    b_dw = 2 * _gamma(int(np.prod(oshape[:4]))) * \
+        depthwise_conv3_wgrad_plain(ax, ag, 2).numpy()
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    out = depthwise_conv3_cuda(xt, wt, stride=2)
+    assert tuple(out.shape) == oshape
+    out.backward(torch.from_numpy(gy))
+    assert _miss(xt.grad.numpy(), want_dx, b_dx) <= 0
+    assert _miss(wt.grad.numpy(), want_dw, b_dw) <= 0
+    # the dgrad is K6 on the stuffed gradient, bit for bit
+    assert torch.equal(xt.grad, depthwise_conv3_dgrad(
+        torch.from_numpy(gy), torch.from_numpy(w), 2, shape))
+    bad = wt.grad.numpy().copy()
+    bad[1, 1, 1] = wt.grad.numpy()[1, 1, 2]
+    assert _miss(bad, want_dw, b_dw) > 0
+
+
+@pytest.mark.parametrize("version", ["v1", "v3"])
+def test_op_count_counts_the_stride2_layers_as_before(version):
+    """op_count.csv's flops and bytes_accessed with the stride-2 depthwise
+    layers on K6 equal those of the same model whose stride-2 layers are
+    the grouped `Conv` (`F.conv3d`) they replaced: 2 x 27 an output, x,
+    the taps and y once each."""
+    cls, size = ((MobileNetASPP, 16) if version == "v1"
+                 else (LRASPPMobileNetV33D, 32))
+    model = cls(num_classes=4, patch_size=(size,) * 3,
+                generator=torch.Generator().manual_seed(0))
+    assert any(isinstance(m, DepthwiseConv3Stride2) for m in model.modules())
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, size, size, size, 1)).astype(np.float32))
+    got = op_count(model, x)
+    for m in model.modules():
+        if isinstance(m, DepthwiseConv3Stride2):
+            m.__class__ = Conv
+    assert op_count(model, x) == got
 
 
 def test_k6_backward_float32_only():

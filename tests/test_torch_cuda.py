@@ -1,6 +1,7 @@
 """The kernels on the card (K1 kNN, the graph transpose, K2-K4 scatter, K5 farthest-point
-sampling, K6 depthwise convolution and its backward (the wgrad kernel, the
-dgrad through K6) with a CNN train step card against CPU, the fused
+sampling, K6 depthwise convolution at strides 1 and 2 and its backward (the
+wgrad kernel, the dgrad through K6) with a CNN train step card against
+CPU, the fused
 EdgeConv gather-reduce, the
 streaming column sums) against their plain PyTorch versions, the DGCNN
 eval forward with grad enabled against the no_grad one, and the default
@@ -619,7 +620,7 @@ def test_depthwise_backward_kernels(cuda, b, d, h, w, c):
     got = depthwise_conv3_wgrad_cuda(x, gy)
     torch.cuda.synchronize()
     want = depthwise_conv3_wgrad_plain(x.double(), gy.double())
-    bound = gamma(wgrad_plan(x.shape)[2]) * depthwise_conv3_wgrad_plain(
+    bound = gamma(wgrad_plan(x.shape).depth) * depthwise_conv3_wgrad_plain(
         x.double().abs(), gy.double().abs())
     assert ((got.double() - want).abs() <= bound).all()
     assert torch.equal(depthwise_conv3_wgrad_cuda(x, gy), got)
@@ -635,6 +636,79 @@ def test_depthwise_backward_kernels(cuda, b, d, h, w, c):
     assert torch.equal(wr.grad, got)
 
 
+DW_STRIDE2_CASES = [
+    # (B, D, H, W, C, dtype): block 5's serving width, the train step's
+    # stride-2 widths at a smaller volume, odd D, H, W, D = 1 and 2, H and
+    # W off the 4 x 8 output tile, C off the 16-byte rows, bf16
+    (1, 32, 32, 32, 192, torch.float32),
+    (2, 12, 12, 12, 64, torch.float32),
+    (2, 6, 6, 6, 240, torch.float32),
+    (1, 9, 13, 21, 32, torch.float32),
+    (1, 1, 12, 20, 64, torch.float32),
+    (1, 2, 8, 16, 144, torch.float32),
+    (1, 6, 7, 9, 33, torch.float32),
+    (2, 5, 4, 3, 5, torch.float32),
+    (1, 16, 16, 16, 192, torch.bfloat16),
+    (1, 5, 9, 9, 40, torch.bfloat16),
+    (1, 3, 5, 6, 12, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("b,d,h,w,c,dtype", DW_STRIDE2_CASES)
+def test_depthwise_stride2_kernel_equals_plain(cuda, b, d, h, w, c, dtype):
+    """K6's stride-2 mode bit-equal to its plain version (the stride-1
+    plain result at every other output), ceil(n / 2) outputs an axis;
+    counted as a "stride2" launch."""
+    from fissure_segmentation_tpu_torch.kernels.depthwise import out_shape
+    g = torch.Generator().manual_seed(b * d * h * w + c + 2)
+    x = torch.randn((b, d, h, w, c), generator=g).to(cuda, dtype)
+    wt = torch.randn((3, 3, 3, c), generator=g).to(cuda, dtype)
+    roles = dict(depthwise_conv3_cuda.roles)
+    got = depthwise_conv3_cuda(x, wt, stride=2)
+    torch.cuda.synchronize()
+    assert depthwise_conv3_cuda.roles == {**roles,
+                                          "stride2": roles["stride2"] + 1}
+    assert tuple(got.shape) == out_shape(x.shape, 2) and got.dtype == dtype
+    assert torch.equal(got, depthwise_conv3_plain(x, wt, 2))
+
+
+@pytest.mark.parametrize("b,d,h,w,c", WG_CASES + [(2, 9, 13, 21, 36),
+                                                  (1, 7, 9, 11, 96)])
+def test_depthwise_stride2_backward_kernels(cuda, b, d, h, w, c):
+    """At stride 2: wgrad within gamma_depth * sum |x dy| of the float64
+    plain version and the same from launch to launch; the dgrad (K6 on dy
+    stuffed to x's shape, flipped taps) bit-equal to the plain version on
+    the same stuffed input; autograd through the wrapper launches the
+    stride-2 forward, one dgrad and one stride-2 wgrad."""
+    from fissure_segmentation_tpu_torch.kernels.depthwise import (
+        depthwise_conv3_dgrad, depthwise_conv3_wgrad_cuda,
+        depthwise_conv3_wgrad_plain, gamma, out_shape, stuff, wgrad_plan)
+    g = torch.Generator().manual_seed(b * d * h * w + c + 1)
+    x = torch.randn((b, d, h, w, c), generator=g).to(cuda)
+    gy = torch.randn(out_shape(x.shape, 2), generator=g).to(cuda)
+    wt = torch.randn((3, 3, 3, c), generator=g).to(cuda)
+    got = depthwise_conv3_wgrad_cuda(x, gy, 2)
+    torch.cuda.synchronize()
+    want = depthwise_conv3_wgrad_plain(x.double(), gy.double(), 2)
+    bound = gamma(wgrad_plan(x.shape, 2).depth) * \
+        depthwise_conv3_wgrad_plain(x.double().abs(), gy.double().abs(), 2)
+    assert ((got.double() - want).abs() <= bound).all()
+    assert torch.equal(depthwise_conv3_wgrad_cuda(x, gy, 2), got)
+    dx = depthwise_conv3_dgrad(gy, wt, 2, x.shape)
+    assert torch.equal(dx, depthwise_conv3_plain(
+        stuff(gy, x.shape), wt.flip((0, 1, 2)).contiguous()))
+    roles = dict(depthwise_conv3_cuda.roles)
+    wl = dict(depthwise_conv3_wgrad_cuda.roles)
+    xr, wr = x.clone().requires_grad_(), wt.clone().requires_grad_()
+    depthwise_conv3_cuda(xr, wr, stride=2).backward(gy)
+    assert depthwise_conv3_cuda.roles == {
+        "forward": roles["forward"], "stride2": roles["stride2"] + 1,
+        "dgrad": roles["dgrad"] + 1}
+    assert depthwise_conv3_wgrad_cuda.roles == {
+        "stride1": wl["stride1"], "stride2": wl["stride2"] + 1}
+    assert torch.equal(wr.grad, got) and torch.equal(xr.grad, dx)
+
+
 def test_depthwise_wgrad_checks_input(cuda):
     from fissure_segmentation_tpu_torch.kernels.depthwise import \
         depthwise_conv3_wgrad_cuda
@@ -642,8 +716,12 @@ def test_depthwise_wgrad_checks_input(cuda):
     before = depthwise_conv3_wgrad_cuda.launches
     with pytest.raises(TypeError, match="float32 only"):
         depthwise_conv3_wgrad_cuda(x.bfloat16(), x.bfloat16())
-    with pytest.raises(ValueError, match="one"):
+    with pytest.raises(ValueError, match="shape"):
         depthwise_conv3_wgrad_cuda(x, x[..., :4].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        depthwise_conv3_wgrad_cuda(x, x, 2)
+    with pytest.raises(ValueError, match="stride"):
+        depthwise_conv3_wgrad_cuda(x, x, 3)
     with pytest.raises(ValueError, match="contiguous"):
         depthwise_conv3_wgrad_cuda(x.transpose(2, 3), x.transpose(2, 3))
     with pytest.raises(ValueError, match="different devices"):

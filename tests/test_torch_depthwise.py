@@ -1,7 +1,9 @@
 """K6 parity on the CPU: the plain version of the 3x3x3 depthwise
 convolution against both JAX Pallas formulations (interpret mode, as
 tests/test_pallas_kernels.py runs them) and against XLA's grouped
-convolution, on numpy-seeded inputs; and the wrapper's checks.
+convolution, at stride 1 and (XLA only: the JAX package has no Pallas
+stride-2 kernel) stride 2, on numpy-seeded inputs; and the wrapper's
+checks.
 
 Tolerance, per output element: the Pallas kernels sum the same 27
 products in the same (dz, dy, dx) order, but XLA's CPU fuses each
@@ -22,7 +24,7 @@ from jax import lax
 from fissure_segmentation_tpu.ops.pallas.depthwise import (
     depthwise_conv3, depthwise_conv3_ring)
 from fissure_segmentation_tpu_torch.kernels.depthwise import (
-    depthwise_conv3_cuda, depthwise_conv3_plain)
+    depthwise_conv3_cuda, depthwise_conv3_plain, out_shape)
 
 SHAPES = [
     # (B, D, H, W, C, ring th): the path's channel widths at small volume, a
@@ -137,3 +139,49 @@ def test_wrapper_raises_when_autograd_would_record():
     with torch.no_grad():
         out = depthwise_conv3_cuda(got[0], got[1])
     assert not out.requires_grad
+
+
+# ---- stride 2 ------------------------------------------------------------------
+
+STRIDE2_SHAPES = [
+    # (B, D, H, W, C): even sizes, odd sizes (ceil(n / 2) outputs), one and
+    # two voxels along an axis, C off the 16-byte rows
+    (1, 6, 8, 10, 8),
+    (2, 5, 7, 9, 5),
+    (1, 1, 2, 3, 96),
+    (1, 4, 5, 1, 33),
+]
+
+
+@pytest.mark.parametrize("shape", STRIDE2_SHAPES)
+def test_plain_stride2_matches_xla_grouped_conv(shape):
+    """The stride-2 plain version against XLA's grouped convolution with
+    window strides 2 and explicit padding 1 (the JAX package's
+    `nn.Conv(strides=2, padding=1, feature_group_count=C)`), within the
+    module's bound per output: ceil(n / 2) outputs along each axis."""
+    x, w = _inputs(shape, 3 + sum(shape))
+    c = shape[-1]
+    ref = np.asarray(lax.conv_general_dilated(
+        jnp.asarray(x), jnp.asarray(w).reshape(3, 3, 3, 1, c), (2, 2, 2),
+        ((1, 1),) * 3, feature_group_count=c,
+        dimension_numbers=("NDHWC", "DHWIO", "NDHWC"),
+        precision=lax.Precision.HIGHEST))
+    got = depthwise_conv3_plain(torch.from_numpy(x), torch.from_numpy(w), 2)
+    assert tuple(got.shape) == ref.shape == out_shape(shape, 2) == (
+        shape[0], *(-(-n // 2) for n in shape[1:4]), c)
+    bound = 54 * EPS32 * depthwise_conv3_plain(
+        torch.from_numpy(np.abs(x)), torch.from_numpy(np.abs(w)), 2).numpy()
+    _within(got.numpy(), ref, bound)
+
+
+def test_wrapper_stride2_runs_plain_on_cpu_and_checks_stride():
+    x, w = _inputs((1, 5, 6, 7, 8), 4)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    before = dict(depthwise_conv3_cuda.roles)
+    got = depthwise_conv3_cuda(xt, wt, stride=2)
+    assert torch.equal(got, depthwise_conv3_plain(xt, wt, 2))
+    assert torch.equal(got, depthwise_conv3_plain(xt, wt)[:, ::2, ::2, ::2])
+    assert depthwise_conv3_cuda.roles == before       # no kernel on the CPU
+    for bad in (0, 3, (2, 2, 2)):
+        with pytest.raises(ValueError, match="stride"):
+            depthwise_conv3_cuda(xt, wt, stride=bad)
