@@ -207,20 +207,39 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
  28. one train step of each CNN at full width on 2 patches of 32^3, card
      against CPU with the same weights, crops, augmentation draws and
      dropout mask (phase_cnn_train_reference); the v1 step with the
-     planted wgrad fault must miss the gradient tolerance.
+     planted wgrad fault must miss the gradient tolerance;
+ 29. DPSR-Net at the JAX entry's full width (phase_dpsr: train_dpsr_net,
+     DGCNN k = 20 dynamic f32, 32 x 1024 points, 128^3 grid, sigma 10):
+     v2 trains fold 0 for 3 epochs (the Chamfer term on from epoch 1) and
+     tests it, 10 timed steps with the Chamfer term on (ms/step, clouds/s,
+     peak memory, launches, device ms by stage from the forward's profiler
+     ranges), then v1 1 epoch and 3 timed steps (K1 also on the B x 3
+     masked class clouds);
+ 30. DPSR-Net v2 card against CPU at 2 x 256 points, a 24^3 grid
+     (phase_dpsr_reference): logits, PSR grids, samples, the gradient and
+     the Chamfer term's gradient within DPSR_TOL; a splat with one corner
+     dropped and a marching step without its gradient must miss them;
+ 31. DG-SSM at the JAX entry's full width (phase_dgssm: train_dgcnn_ssm
+     with --predict_affine, k = 20 dynamic, 32 x 1024): 3 epochs of fold
+     0 and test_dgssm, its s/case, then 10 timed steps;
+ 32. a DG-SSM step card against CPU, 4 clouds of 256 points
+     (phase_dgssm_reference), within DGSSM_TOL.
 
 Kernel launch counts are set to 0 before each main path (phases 4, 10 and
 14 serving, phases 7, 11 and 17 training, phase 19 the probes, phase 20
 the default entry run, phase 22 the PC-AE, phase 24 DSEG-AE after its seg
-fold is trained, phase 27 each train_seg_cnn run) and read after it; the
-comparison launches of phases 3, 5, 6, 8, 9, 12, 13, 15, 16, 18, 21, 23,
-25, 26 and 28 and of the probes' own checks are not counted. K6's row
+fold is trained, phase 27 each train_seg_cnn run, phases 29 DPSR-Net and
+31 DG-SSM) and read after it; the comparison launches of phases 3, 5, 6,
+8, 9, 12, 13, 15, 16, 18, 21, 23, 25, 26, 28, 30 and 32, of K3 and K4
+timed at DPSR-Net's step shape, and of the probes' own checks are not
+counted. K6's row
 gives its stride-1 launches by path and role ("forward", a checkpoint's
 recomputation included, and "dgrad", both strides' dgrad being stride-1
 launches), the stride-2 row its stride-2 forwards by path, the wgrad
 kernel's row its own (all and at stride 2). K1's, K2's, the transpose's,
 K5's and the gather-reduce's rows add "slice": the PC-AE's and DSEG-AE's
-launches by path, and for K1, K2 and K5 by call (the wrapper's call key), each
+launches by path (also DPSR-Net's and DG-SSM's), and for K1, K2 and K5 by
+call (the wrapper's call key), each
 call with its time, plain time, bound and library time (index_add_ for
 K2): phase 3's, 6's or 9's where they time that call, else timed on
 random inputs of its shape. The line before the last but one is a JSON object
@@ -229,6 +248,8 @@ describing the kernels (with each one's bound: the larger of its bytes over
 of one PyTorch library call that computes the same function, where there
 is one; the stream kernels' rows say "path": "probes"; K2's and K3's rows
 add their time with a shared transpose and the transpose's time and bound;
+K3's adds "by_call": the DGCNN train step's (32, 2048, 40, 64) and
+DPSR-Net's (32, 1024, 20, 64), each with its launches;
 the gather-reduce's row gives the numbers of its most launched call and
 "by_call": each (want, dtype, shape) call's main-path launches, time, bound
 and launches x (ms - bound ms); K4's row likewise, by the wrapper's call
@@ -3652,6 +3673,427 @@ def _cnn_step_compare(card, cpu, init) -> dict:
     return res
 
 
+# ---- DPSR-Net and DG-SSM (phases 29-32) -------------------------------------
+
+# the JAX entries' defaults (DGCNN k = 20, dynamic, f32, batch 32, 1024
+# points; DPSR-Net: a 128^3 grid, sigma 10, v2; DG-SSM: alpha 3, target
+# variance 0.95), cut in epochs only
+DPSR_ARGV = ["--ds", "synthetic", "--fold", "0"]
+DGSSM_ARGV = ["--ds", "synthetic", "--fold", "0", "--epochs", "3",
+              "--predict_affine"]
+DPSR_STAGES = ("dpsr:seg_net", "dpsr:splat_normals", "dpsr:psr",
+               "dpsr:marching_sampling")
+# phase_dpsr_reference says why
+DPSR_TOL = {"logits": 1e-4, "psr": 1e-4, "samples_share": 0.99,
+            "samples_rel_l2": 0.05, "grad_rel_l2": 1e-2,
+            "chamfer_grad_rel_l2": 1e-2}
+DGSSM_TOL = {"outputs": 1e-4, "loss": 1e-4, "grad_rel_l2": 1e-3}
+
+
+def _dpsr_step_split(step, steps: int = 3) -> dict:
+    """Device ms a step of a DPSR-Net step by stage, from torch.profiler
+    over `steps` warm steps: the forward's four ranges (models/
+    dpsr_net.py), and the rest of the step's kernels (the loss, the
+    backward and Adam) as "backward"; "total" is every kernel's time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    ranges = set(DPSR_STAGES) | {"feature_graph"}
+    total = sum(e.self_device_time_total for e in avg
+                if e.device_type == DeviceType.CUDA
+                and e.key not in ranges) / steps / 1e3
+    out = {name.split(":")[1]: sum(e.self_device_time_total for e in avg
+                                   if e.key == name) / steps / 1e3
+           for name in DPSR_STAGES}
+    out["backward"] = total - sum(out.values())
+    out["total"] = total
+    return out
+
+
+def _check_history(path: str, epochs: int, what: str) -> dict:
+    rows = list(csv.DictReader(open(path)))
+    hist = {k: [float(r[k]) for r in rows] for k in rows[0]}
+    if len(rows) != epochs or not all(np.isfinite(v).all()
+                                      for v in hist.values()):
+        raise AssertionError(f"{what}: history {hist}")
+    return hist
+
+
+def phase_dpsr(ks, knn_cuda, card: str, out_dir: str):
+    """DPSR-Net at the JAX entry's full width (DPSR_ARGV, v2: 3 epochs of
+    fold 0 and its test, so the Chamfer term is on from epoch 1): finite
+    losses, the Chamfer component 0 in epoch 0 and above 0 after,
+    model.pt (a DPSRNet2 at 128^3), op_count.csv, the test half's files
+    with finite Dice (its s/case); then 10 timed warm steps with the
+    Chamfer term on (ms/step, clouds/s, peak memory, launches: K1, the
+    transpose, K2, K3, K4 from the transpose, the gather-reduce, each
+    every step) and the device ms a step by stage (_dpsr_step_split). Then
+    v1 (--dpsr_version 1) at the same width: 1 epoch, then 3 timed steps
+    (K1 twice a step: the coordinate graph and the normals of the B x 3
+    class clouds). Counts are reset before and read after; returns
+    (counts, timing, calls by kernel, gather-reduce calls, K4 calls)."""
+    from fissure_segmentation_tpu_torch import train_dpsr_net
+    from fissure_segmentation_tpu_torch.cli import get_dpsr_train_parser
+    from fissure_segmentation_tpu_torch.models import (DPSRNet, DPSRNet2,
+                                                       load_model)
+    from fissure_segmentation_tpu_torch.train.profile_step import (
+        STEPS, WARM, time_steps)
+    parser = get_dpsr_train_parser()
+    timing = {}
+    _reset(ks, knn_cuda)
+    for version, epochs, extra in ((2, 3, []),
+                                   (1, 1, ["--dpsr_version", "1",
+                                           "--train_only"])):
+        out = os.path.join(out_dir, f"dpsr_v{version}")
+        argv = DPSR_ARGV + ["--epochs", str(epochs), "--output", out] + extra
+        t0 = time.perf_counter()
+        if train_dpsr_net.main(argv) != 0:
+            raise AssertionError(f"dpsr v{version}: the entry failed")
+        took = time.perf_counter() - t0
+        hist = _check_history(os.path.join(out, "fold0", "history.csv"),
+                              epochs, f"dpsr v{version}")
+        cham = hist["train_Chamfer"]
+        if cham[0] != 0.0 or not all(v > 0 for v in cham[1:]):
+            raise AssertionError(f"dpsr v{version}: Chamfer history {cham}")
+        model = load_model(os.path.join(out, "fold0", "model.pt"))
+        want = DPSRNet2 if version == 2 else DPSRNet
+        if type(model) is not want or model.config["dpsr_res"] != [128] * 3 \
+                or model.config["k"] != 20 or not model.config["dynamic"]:
+            raise AssertionError(f"dpsr v{version}: model.pt holds "
+                                 f"{type(model).__name__} {model.config}")
+        ops = _csv(os.path.join(out, "op_count.csv"))
+        if ops[0] != ["flops", "bytes_accessed", "params"] or \
+                not float(ops[1][2]) > 0:
+            raise AssertionError(f"dpsr v{version}: op_count.csv {ops}")
+        run = {"train_and_test_s" if version == 2 else "train_s": took,
+               "loss_history": hist["train_total_loss"],
+               "chamfer_history": cham}
+        if version == 2:
+            inf, post = _check_test_outputs(os.path.join(out, "fold0",
+                                                         "test"), "",
+                                            "dpsr")
+            run.update(inference_s_per_case=inf, post_s_per_case=post,
+                       test_s_per_case=inf + post)
+        args = parser.parse_args(argv)
+        step = train_dpsr_net.make_step(args, out, "cuda")
+        n_steps = STEPS if version == 2 else 3
+        for _ in range(WARM if version == 2 else 1):
+            step()
+        before = _counts(ks, knn_cuda)
+        ms, peak, losses = time_steps(step, n_steps)
+        after = _counts(ks, knn_cuda)
+        if not torch.isfinite(torch.stack(losses)).all():
+            raise AssertionError(f"dpsr v{version}: non-finite step loss")
+        launched = {k: after[k] - before[k] for k in after}
+        need = {"knn": 1 if version == 2 else 2, "transpose": 3,
+                "scatter_rows": 1, "scatter_routed": 2, "scatter_count": 2,
+                "gather_reduce": 2}
+        for k, n in need.items():
+            if launched[k] != n * n_steps:
+                raise AssertionError(f"dpsr v{version}: {k} launched "
+                                     f"{launched[k]} times in {n_steps} "
+                                     f"steps, not {n} a step")
+        run.update(ms_per_step=ms, clouds_per_s=32e3 / ms,
+                   peak_gib=peak / 2 ** 30,
+                   launches_per_step={k: v / n_steps
+                                      for k, v in launched.items() if v})
+        if version == 2:
+            run["device_ms_per_step"] = _dpsr_step_split(step)
+        timing[f"v{version}"] = run
+        print(f"dpsr v{version}: {json.dumps(run)} on {card}", flush=True)
+        del step
+        torch.cuda.empty_cache()
+    k4 = _check_k4_route(ks, "dpsr")
+    return (_counts(ks, knn_cuda), timing, _slice_calls(ks, knn_cuda),
+            _gr_calls(ks, knn_cuda), k4)
+
+
+@contextlib.contextmanager
+def dpsr_fault(kind: str):
+    """A planted fault in the DPSR path while the context lasts: "corner"
+    drops the (1, 1, 1) corner of every trilinear splat and interpolation
+    (ops/splat.py), "marching_grad" rebuilds the triangles from the
+    detached field, cutting the gradient through marching tetrahedra."""
+    from fissure_segmentation_tpu_torch.ops import marching, splat
+    if kind == "corner":
+        mod, name = splat, "_corner_weight"
+        real = splat._corner_weight
+
+        def fault(frac, dz, dy, dx):
+            w = real(frac, dz, dy, dx)
+            return w * 0 if (dz, dy, dx) == (1, 1, 1) else w
+    else:
+        mod, name = marching, "_gather_triangles"
+        real = marching._gather_triangles
+
+        def fault(phi, gids, iso, cy, cx):
+            return real(phi.detach(), gids, iso, cy, cx)
+    setattr(mod, name, fault)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+
+
+def phase_dpsr_reference(card: str):
+    """DPSR-Net v2 card against CPU at a small size (DGCNN k = 8, static,
+    2 x 256 dyadic points, a 24^3 grid, sigma 10, 512 samples a class,
+    the triangle budget max(2048, 8 r^2)) from one set of weights and the
+    same uniforms: one train-mode forward and backward of the DPSR loss
+    with its Chamfer term on. Held: the logits and the PSR grids within
+    DPSR_TOL of their largest entry (float32 products and cuFFT against
+    pocketfft: first card call 1.4e-5 and 5.0e-6), the valid flags equal,
+    at least DPSR_TOL["samples_share"] of the samples within 1e-4 of the
+    CPU's and all of them within DPSR_TOL["samples_rel_l2"] relative L2 (a
+    grid value within rounding of 0 adds or drops a triangle, and a sample
+    near that triangle's place in the area CDF moves to a z-order
+    neighbour, which may lie across the grid: the card calls read a share
+    of 0.998 and 0.021 relative L2), the
+    whole gradient and the Chamfer term's gradient within their relative
+    L2 limits (the seg net's LeakyReLU branches may split differently
+    near 0, as in phase 8). A splat with one corner dropped must miss the
+    PSR and sample limits, a marching step without its gradient the
+    Chamfer gradient's."""
+    from fissure_segmentation_tpu_torch.losses import get_loss_fn
+    from fissure_segmentation_tpu_torch.models import DPSRNet2
+    g = torch.Generator().manual_seed(31)
+    res, s = (24, 24, 24), 512
+    model0 = _draw_bn_offsets(DPSRNet2(
+        "DGCNN", k=8, in_features=3, num_classes=4, dynamic=False,
+        dpsr_res=res, max_tris=max(2048, 8 * 24 * 24), n_surface_samples=s,
+        generator=g), 31)
+    x = torch.randint(-28, 29, (2, 256, 3), generator=g) / 32.0
+    y = torch.randint(0, 4, (2, 256), generator=g)
+    surf = torch.rand((6, s, 3), generator=g) * 1.6 - 0.8
+    draws = (torch.rand((6, s), generator=g), torch.rand((6, s, 2),
+                                                         generator=g))
+    cw = torch.tensor([0.5, 1.5, 1.0, 1.0])
+
+    def step(dev):
+        m = copy.deepcopy(model0).to(dev).train()
+        seg, pts, valid, psr = m(x.to(dev), draws=draws, return_psr=True)
+        total, comps = get_loss_fn("dpsr", cw.to(dev))(
+            (seg, pts.reshape(6, s, 3), valid.reshape(6, s)),
+            (y.to(dev), surf.to(dev), torch.ones((6, s), dtype=torch.bool,
+                                                 device=dev)))
+        params = [p for _, p in sorted(m.named_parameters())]
+        cham = torch.autograd.grad(
+            comps["Chamfer"], params, retain_graph=True, allow_unused=True
+        ) if comps["Chamfer"].requires_grad else [None] * len(params)
+        total.backward()
+        return {"seg": seg.detach().cpu().numpy(),
+                "psr": psr.detach().cpu().numpy(),
+                "pts": pts.detach().cpu().numpy(),
+                "valid": valid.cpu().numpy(), "grad": _grads(m),
+                "cham": {str(i): (np.zeros(p.shape, np.float32) if c is None
+                                  else c.cpu().numpy())
+                         for i, (c, p) in enumerate(zip(cham, params))}}
+
+    def compare(got, want):
+        return {"logits": float(np.abs(got["seg"] - want["seg"]).max()
+                                / np.abs(want["seg"]).max()),
+                "psr": float(np.abs(got["psr"] - want["psr"]).max()
+                             / np.abs(want["psr"]).max()),
+                "valid_equal": bool(np.array_equal(got["valid"],
+                                                   want["valid"])),
+                "samples_share": float((np.abs(
+                    got["pts"] - want["pts"]).max(-1) <= 1e-4).mean()),
+                "samples_rel_l2": _rel_l2({"p": got["pts"]},
+                                          {"p": want["pts"]}),
+                "grad_rel_l2": _rel_l2(got["grad"], want["grad"]),
+                "chamfer_grad_rel_l2": _rel_l2(got["cham"], want["cham"])}
+    def within(res, k):     # "samples_share" is a least share, the rest
+        return (res[k] >= DPSR_TOL[k] if k == "samples_share"   # greatest
+                else res[k] <= DPSR_TOL[k])
+    cpu = step("cpu")
+    out = compare(step("cuda"), cpu)
+    if not out["valid_equal"] or not all(within(out, k) for k in DPSR_TOL):
+        raise AssertionError(f"dpsr reference: {out} against {DPSR_TOL}")
+    faults = {}
+    for kind, keys in (("corner", ("psr", "samples_share",
+                                   "samples_rel_l2")),
+                       ("marching_grad", ("chamfer_grad_rel_l2",))):
+        with dpsr_fault(kind):
+            f = compare(step("cuda"), cpu)
+        faults[kind] = {k: f[k] for k in keys}
+        if any(within(f, k) for k in keys):
+            raise AssertionError(f"dpsr reference: the planted {kind} "
+                                 f"fault gives only {faults[kind]}")
+    out["planted_faults"] = faults
+    print(f"dpsr reference: card vs CPU {out} (limits {DPSR_TOL}) on "
+          f"{card}", flush=True)
+    return out
+
+
+def _time_dpsr_scatter(ks, knn_cuda) -> dict:
+    """K3 and K4 at DPSR-Net's train step shape, (32, 1024, k = 20, C =
+    64) on its K1 graph, which phase 6 does not time: kernel against
+    plain, K3 with its own transpose and with the step's, K4 from the
+    transpose's row offsets (its call "ptr_32x1024", also on the card
+    alone from CUDA-graph replays) against torch.diff."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(29)
+    b, n, k, c = 32, 1024, 20, 64
+    idx3, _ = knn_cuda(torch.rand((b, n, 3), generator=g, device=dev) * 2
+                       - 1, k, True)
+    idx3 = idx3.contiguous()
+    idx2 = idx3.reshape(b, n * k)
+    tr = ks.transpose(idx2, n)
+    kstar = torch.randint(0, k, (b, n, c), generator=g, device=dev,
+                          dtype=torch.int32)
+    s_ = torch.randn((b, n, c), generator=g, device=dev)
+    p_ = torch.randn((b, n, c), generator=g, device=dev)
+    err3 = _check_routed(ks, idx3, kstar, s_, p_, n, tr)
+    err4 = _check_count(ks, idx2, n, tr)
+    b3, by3 = bound_ms(idx3.numel() * 4 + b * n * c * 4 + 2 * s_.numel() * 4
+                       + b * n * 2 * c * 4, 2 * idx3.numel() * c)
+    b4, by4 = bound_ms(b * n * 8 + 4, b * n)
+    ptr = tr[1]
+    out = {
+        "scatter_routed": {
+            "call": f"{b}x{n}x{k}x{c}_float32", "max_abs_err": err3,
+            "ms": median_ms(lambda: ks.scatter_routed(idx3, kstar, s_, p_,
+                                                      n)),
+            "shared_ms": median_ms(lambda: ks.scatter_routed(
+                idx3, kstar, s_, p_, n, tr)),
+            "plain_ms": median_ms(lambda: ks.scatter_routed_plain(
+                idx3, kstar, s_, p_, n)),
+            "bound_ms": b3, "bound_by": by3, "library_ms": None},
+        "scatter_count": {
+            "call": f"ptr_{b}x{n}", "max_abs_err": err4,
+            "ms": median_ms(lambda: ks.scatter_count(idx2, n, tr)),
+            "device_ms": graph_ms(lambda: ks.scatter_count(idx2, n, tr)),
+            "plain_ms": median_ms(lambda: ks.count_from_ptr_plain(ptr, b,
+                                                                  n)),
+            "bound_ms": b4, "bound_by": by4,
+            "library_ms": median_ms(lambda: torch.diff(ptr))}}
+    print(f"dpsr scatter timings (32x1024, k=20, C=64): {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def phase_dgssm(ks, knn_cuda, card: str, out_dir: str):
+    """DG-SSM at the JAX entry's full width (DGSSM_ARGV: with
+    --predict_affine, the default head schedule, the 12 synthetic cases):
+    3 epochs of fold 0 and test_dgssm: ssm.npz, model.pt (a DGSSM, every
+    head), finite losses, op_count.csv, corr_point_distance.csv and
+    cv_results.csv finite; test_dgssm again, timed (s/case); then 10 timed
+    warm steps with every head active (ms/step, clouds/s, peak memory,
+    launches a step: K1 once, the transpose and K2 4 times each). Counts
+    are reset before and read after; returns (counts, timing, calls by
+    kernel)."""
+    from fissure_segmentation_tpu_torch import train_dgcnn_ssm
+    from fissure_segmentation_tpu_torch.cli import get_dgcnn_ssm_train_parser
+    from fissure_segmentation_tpu_torch.data.dataset import create_split
+    from fissure_segmentation_tpu_torch.models import DGSSM, load_model
+    from fissure_segmentation_tpu_torch.shape_model import load_ssm
+    from fissure_segmentation_tpu_torch.train.profile_step import (
+        STEPS, WARM, time_steps)
+    _reset(ks, knn_cuda)
+    out = os.path.join(out_dir, "dgssm")
+    argv = DGSSM_ARGV + ["--output", out]
+    t0 = time.perf_counter()
+    if train_dgcnn_ssm.main(argv) != 0:
+        raise AssertionError("dgssm: the entry failed")
+    took = time.perf_counter() - t0
+    fold = os.path.join(out, "fold0")
+    hist = _check_history(os.path.join(fold, "history.csv"), 3, "dgssm")
+    model = load_model(os.path.join(fold, "model.pt"))
+    ssm = load_ssm(os.path.join(fold, "ssm.npz"))
+    if not isinstance(model, DGSSM) or model.ssm_modes != ssm.num_modes \
+            or not model.dynamic or model.k != 20:
+        raise AssertionError(f"dgssm: model.pt holds {model.config}")
+    dist = _csv(os.path.join(fold, "test", "corr_point_distance.csv"))
+    cv = _csv(os.path.join(out, "cv_results.csv"))
+    if dist[0] != ["mean", "std"] or not np.isfinite(
+            np.asarray(dist[1], float)).all() or cv[-1][0] != "mean":
+        raise AssertionError(f"dgssm: {dist} {cv}")
+    args = get_dgcnn_ssm_train_parser().parse_args(argv)
+    ds = train_dgcnn_ssm.build_dataset(args)
+    val = ds.split_data_set(create_split([list(i) for i in ds.ids],
+                                         k=5)[0])[1]
+    t1 = time.perf_counter()
+    train_dgcnn_ssm.test_dgssm(val, model, ssm, os.path.join(out, "again"),
+                               args.pts, device="cuda")
+    test_s = (time.perf_counter() - t1) / len(val)
+    step = train_dgcnn_ssm.make_step(args, out, "cuda")
+    for _ in range(WARM):
+        step()
+    before = _counts(ks, knn_cuda)
+    ms, peak, losses = time_steps(step)
+    after = _counts(ks, knn_cuda)
+    if not torch.isfinite(torch.stack(losses)).all():
+        raise AssertionError("dgssm: non-finite step loss")
+    launched = {k: after[k] - before[k] for k in after}
+    for k, n in {"knn": 1, "transpose": 4, "scatter_rows": 4}.items():
+        if launched[k] != n * STEPS:
+            raise AssertionError(f"dgssm: {k} launched {launched[k]} times "
+                                 f"in {STEPS} steps, not {n} a step")
+    timing = {"train_and_test_s": took,
+              "loss_history": hist["train_total_loss"],
+              "ssm_modes": ssm.num_modes,
+              "corr_point_distance": float(dist[1][0]),
+              "test_s_per_case": test_s, "ms_per_step": ms,
+              "clouds_per_s": 32e3 / ms, "peak_gib": peak / 2 ** 30,
+              "launches_per_step": {k: v / STEPS
+                                    for k, v in launched.items() if v}}
+    print(f"dgssm: {json.dumps(timing)} on {card}", flush=True)
+    return _counts(ks, knn_cuda), timing, _slice_calls(ks, knn_cuda)
+
+
+def phase_dgssm_reference(card: str):
+    """One DG-SSM train step card against CPU at a small size (k = 8,
+    static, 4 clouds of 256 dyadic points at scales 1/4 .. 1, every head
+    active and the affine path on, an SSM fitted on 12 random shapes of 64
+    points): the outputs within DGSSM_TOL["outputs"] of their largest
+    entry, the loss within rtol DGSSM_TOL["loss"], the whole gradient
+    within DGSSM_TOL["grad_rel_l2"] relative L2."""
+    from fissure_segmentation_tpu_torch.losses import get_loss_fn
+    from fissure_segmentation_tpu_torch.models import DGSSM
+    from fissure_segmentation_tpu_torch.shape_model import (fit_ssm,
+                                                            ssm_project)
+    rng = np.random.default_rng(32)
+    base = rng.normal(0, 0.3, (64, 3))
+    ssm = fit_ssm(base + rng.normal(0, 0.05, (12, 64, 3)))
+    g = torch.Generator().manual_seed(32)
+    model0 = _draw_bn_offsets(DGSSM(k=8, in_features=3,
+                                    ssm_modes=ssm.num_modes, dynamic=False,
+                                    generator=g), 32)
+    scale = torch.tensor([0.25, 0.5, 0.75, 1.0])[:, None, None]
+    x = torch.randint(-28, 29, (4, 256, 3), generator=g) / 32.0 * scale
+    t_corr = torch.from_numpy(base[None] + rng.normal(
+        0, 0.05, (4, 64, 3))).float()
+    t_par = torch.cat([torch.randn((4, 6), generator=g) * 0.1,
+                       torch.full((4, 3), 0.9)], -1)
+    loss_fn = get_loss_fn("ssm")
+
+    def step(dev):
+        m = copy.deepcopy(model0).to(dev).train()
+        s_ = ssm.to(dev)
+        out = m(x.to(dev), s_)
+        tc = t_corr.to(dev)
+        loss, _ = loss_fn(out, (tc, ssm_project(s_, tc), t_par.to(dev)))
+        loss.backward()
+        return [o.detach().cpu().numpy() for o in out], float(loss), \
+            _grads(m)
+    o_g, l_g, g_g = step("cuda")
+    o_c, l_c, g_c = step("cpu")
+    res = {"outputs": max(float(np.abs(a - b).max() / np.abs(b).max())
+                          for a, b in zip(o_g, o_c)),
+           "loss": abs(l_g - l_c) / abs(l_c), "grad_rel_l2": _rel_l2(g_g,
+                                                                     g_c)}
+    if any(res[k] > v for k, v in DGSSM_TOL.items()):
+        raise AssertionError(f"dgssm reference: {res} against {DGSSM_TOL}")
+    print(f"dgssm reference: step card vs CPU {res} (limits {DGSSM_TOL}) "
+          f"on {card}", flush=True)
+    return res
+
+
 def _time_slice_call(kind: str, key: str) -> dict:
     """A main-path call of K1, K2 or K5 that phases 3, 6 and 9 do not time,
     timed on random inputs of its shape (K5 with every point valid):
@@ -3887,9 +4329,35 @@ def main() -> int:
     print(json.dumps({"cnn_train_reference": phase_cnn_train_reference(card),
                       "card": card}), flush=True)
 
+    with tempfile.TemporaryDirectory() as family_dir:
+        # 29. DPSR-Net at full width, v2 then v1 (counts from 0, read after)
+        dpsr_counts, dpsr_timing, dpsr_calls, dpsr_gr, dpsr_k4 = phase_dpsr(
+            ks, knn_cuda, card, family_dir)
+        gr_calls.append(dpsr_gr)
+        print(json.dumps({"dpsr": dpsr_timing, "card": card}), flush=True)
+
+        # 30. DPSR-Net card against CPU, small input; the planted faults
+        print(json.dumps({"dpsr_reference": phase_dpsr_reference(card),
+                          "card": card}), flush=True)
+
+        # 31. DG-SSM at full width (counts from 0, read after)
+        dgssm_counts, dgssm_timing, dgssm_calls = phase_dgssm(
+            ks, knn_cuda, card, family_dir)
+        print(json.dumps({"dgssm": dgssm_timing, "card": card}), flush=True)
+
+        # 32. a DG-SSM step card against CPU, small input
+        print(json.dumps({"dgssm_reference": phase_dgssm_reference(card),
+                          "card": card}), flush=True)
+    slice_paths.update(dpsr=dpsr_calls, dgssm=dgssm_calls)
+    # K3 and K4 at DPSR-Net's step shape, which phase 6 does not time
+    dpsr_scatter = _time_dpsr_scatter(ks, knn_cuda)
+    scatter["scatter_count"][1][dpsr_scatter["scatter_count"]["call"]] = \
+        dpsr_scatter["scatter_count"]
+
     def slice_row(name, timed):
         """The slice's launches of a kernel, by path and by call."""
-        launches = {"pcae": pcae_counts[name], "dseg_ae": dseg_counts[name]}
+        launches = {"pcae": pcae_counts[name], "dseg_ae": dseg_counts[name],
+                    "dpsr": dpsr_counts[name], "dgssm": dgssm_counts[name]}
         row = {"launches": launches}
         if name in ("knn", "scatter_rows", "fps"):
             row["by_call"] = slice_by_call(name, slice_paths, timed)
@@ -3900,20 +4368,24 @@ def main() -> int:
     # K4 by call: the train paths' count_from_ptr, the probes' histogram at
     # 512 rows (the launches of their timed calls)
     k4_calls, k4_paths = {}, {}
-    for part in (counts["k4_calls"], bf16_counts["k4_calls"], default_k4):
+    for path, part in (("train", counts["k4_calls"]),
+                       ("train", bf16_counts["k4_calls"]),
+                       ("train", default_k4), ("dpsr", dpsr_k4)):
         for key, n in part.items():
             k4_calls[key] = k4_calls.get(key, 0) + n
-            k4_paths[key] = "train"
+            k4_paths[key] = path
     if probe_counts.get("scatter_count", 0) < 1:
         raise AssertionError("scatter_count: the probes never launched "
                              "the histogram")
     k4_calls[PROBE_K4_CALL] = probe_counts["scatter_count"]
     k4_paths[PROBE_K4_CALL] = "probes"
     if sum(k4_calls.values()) != (train_total["scatter_count"]
-                                  + probe_counts["scatter_count"]):
+                                  + probe_counts["scatter_count"]
+                                  + dpsr_counts["scatter_count"]):
         raise AssertionError(f"scatter_count: {k4_calls} by call against "
-                             f"{train_total['scatter_count']} train and "
-                             f"{probe_counts['scatter_count']} probe "
+                             f"{train_total['scatter_count']} train, "
+                             f"{probe_counts['scatter_count']} probe and "
+                             f"{dpsr_counts['scatter_count']} DPSR-Net "
                              "launches")
     graph = timings["dgcnn_graph_5x2048x3_k40"]
     kernels = [{
@@ -3921,7 +4393,8 @@ def main() -> int:
         "replaces": KNN_REPLACES,
         "launches": serving["knn"] + train_total["knn"]
         + pt_serving["knn"] + pt_counts["knn"] + cnn_serving["knn"]
-        + pcae_counts["knn"] + dseg_counts["knn"],
+        + pcae_counts["knn"] + dseg_counts["knn"] + dpsr_counts["knn"]
+        + dgssm_counts["knn"],
         "max_abs_err": max_err, "ms": graph["ms"],
         "plain_ms": graph["plain_ms"], "bound_ms": graph["bound_ms"],
         "bound_by": graph["bound_by"], "library_ms": None,
@@ -3932,7 +4405,8 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": SCATTER_SOURCE,
                "replaces": SCATTER_REPLACES[name],
                "launches": train_total[name] + pcae_counts[name]
-               + dseg_counts[name], "max_abs_err": err,
+               + dseg_counts[name] + dpsr_counts[name]
+               + dgssm_counts[name], "max_abs_err": err,
                "ms": path["ms"], "plain_ms": path["plain_ms"],
                "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
                "library_ms": path["library_ms"], "shapes": shapes}
@@ -3947,6 +4421,19 @@ def main() -> int:
             row.update(shared_ms=path["shared_ms"],
                        transpose_ms=tr_path["ms"],
                        transpose_bound_ms=tr_path["bound_ms"])
+        if name == "scatter_routed":
+            # by call: the DGCNN train paths' (32, 2048, 40, 64) and
+            # DPSR-Net's (32, 1024, 20, 64)
+            new = dpsr_scatter["scatter_routed"]
+            row["by_call"] = {
+                next(iter(shapes)): {
+                    "launches": row["launches"] - dpsr_counts[name],
+                    **{k: path[k] for k in ("ms", "shared_ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "library_ms")}},
+                new["call"]: {"launches": dpsr_counts[name],
+                              **{k: v for k, v in new.items()
+                                 if k != "call"}}}
         if name == "scatter_count":
             # priced by call; the top-level numbers are the most launched
             # call's (the train step's count_from_ptr)
@@ -4036,7 +4523,8 @@ def main() -> int:
     print(json.dumps({"gather_reduce_by_call": by_call}), flush=True)
     gr_launches = (serving["gather_reduce"] + train_total["gather_reduce"]
                    + cnn_serving["gather_reduce"]
-                   + dseg_counts["gather_reduce"])
+                   + dseg_counts["gather_reduce"]
+                   + dpsr_counts["gather_reduce"])
     if sum(calls.values()) != gr_launches:
         raise AssertionError(f"gather_reduce: {gr_launches} launches but "
                              f"{calls} by call")

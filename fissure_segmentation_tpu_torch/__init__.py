@@ -25,10 +25,13 @@ layout and names so each module's counterpart is easy to find:
                 normals, splatting, spectral PSR, marching tetrahedra
   keypoints/    Förstner detector, closed-form 3x3 eigenvalues
   models/       DGCNNSeg (f32 or the bf16 compute dtype) and
-                PointTransformerSeg (train and eval), the model
+                PointTransformerSeg (train and eval), the PC-AE, the
+                CNNs, DPSR-Net (v1, v2) and DG-SSM, the model
                 registry, JAX-variable loader and exporter, model.pt
                 save/load, subset ensemble
-  losses/       CE, generalized Dice, nnU-Net and recall losses
+  shape_model/  the PCA and localized statistical shape models
+  losses/       CE, generalized Dice, nnU-Net, recall, Chamfer, mesh,
+                DPSR and DG-SSM losses
   train/        ModelTrainer (Adam + L2, schedulers, resume), cross-val, the
                 train-step timing harness
   prof/         the streaming and gather probes (P1-P5's questions asked
@@ -36,10 +39,13 @@ layout and names so each module's counterpart is easy to find:
   postprocess/  batched per-class surface fit + host mesh filter/labelmap
   serving.py    segment_case: one CT case -> keypoints, labels, meshes
   train_point_seg.py  the training entry point (python -m ...;
-                --model DGCNN or PointTransformer)
+                --model DGCNN or PointTransformer); train_pc_ae.py,
+                dseg_ae_regularization.py, train_seg_cnn.py,
+                train_dpsr_net.py and train_dgcnn_ssm.py the other
+                families' entry points
 
-Devices: segment_case, train_point_seg and ModelTrainer run on a CUDA card
-unless the caller passes device="cpu"; without a card they raise.
+Devices: the entry points, ModelTrainer and the test helpers run on a CUDA
+card unless the caller passes device="cpu"; without a card they raise.
 
 The package imports torch, numpy and scipy — never jax, its NN libraries or
 anything of the JAX package: what it needs of a jax-free module there

@@ -1,5 +1,6 @@
-"""Mesh-backed dataset of the PC-AE (counterpart of data/mesh_dataset.py:
-`MeshStore`, `build_mesh_store`, `sample_mesh_batch`, `SampleFromMeshDS`).
+"""Mesh-backed datasets (counterpart of data/mesh_dataset.py: `MeshStore`,
+`build_mesh_store`, `sample_mesh_batch`, `SampleFromMeshDS` for the PC-AE,
+`PointToMeshDS` for DPSR-Net, `CorrespondingPointDataset` for DG-SSM).
 
 The (case, object) meshes are padded triangle soups stacked once into
 tensors on the training device (`MeshStore`, the triangle axis padded to a
@@ -15,12 +16,12 @@ dict; the parity tests pass the JAX package's):
   * "target": (u (B, St), uv (B, St, 2)), the mesh target's uniforms.
 
 A generator draws them in that order, on its own device.
-
-Not ported yet: `PointToMeshDS` and `CorrespondingPointDataset` (DPSR-Net
-and DG-SSM).
+`CorrespondingPointDataset.sample_batch` takes {"noise": (B, N_max)
+subset uniforms, "transform": the augmentation's SimilarityTransform}.
 """
 from __future__ import annotations
 
+import copy
 import os
 from glob import glob
 from typing import NamedTuple
@@ -31,7 +32,11 @@ import torch
 from ..ops.marching import sample_points_on_triangles
 from ..utils.coords import kpts_to_grid
 from ..utils.objio import load_obj, mesh_to_triangle_soup
-from .augmentation import point_augmentation, transform_points
+from .augmentation import (SimilarityTransform, chain_transforms,
+                           compose_transform, decompose_similarity_transform,
+                           point_augmentation, so3_log_map, transform_points)
+from .dataset import PointDataset
+from .store import sample_batch as sample_points_batch
 
 
 def load_meshes(folder: str, case: str, sequence: str,
@@ -214,3 +219,196 @@ class SampleFromMeshDS:
                       for x in split["val"]])
         vl.do_augmentation = False
         return tr, vl
+
+
+def _id_set(xs) -> set:
+    return {tuple(x) if isinstance(x, (list, tuple)) else (x, None)
+            for x in xs}
+
+
+def _select(cases: list[dict], idset: set) -> list[int]:
+    return [i for i, c in enumerate(cases)
+            if (c["case_id"], c["sequence"]) in idset
+            or (c["case_id"], None) in idset]
+
+
+class PointToMeshDS(PointDataset):
+    """PointDataset plus each case's ground-truth meshes, the supervision
+    of DPSR-Net's Chamfer term. Mesh vertices are normalized to grid
+    coordinates with respect to the world extent."""
+
+    def __init__(self, cases: list[dict], meshes: list[list[np.ndarray]],
+                 img_sizes_world: list, **kwargs):
+        super().__init__(cases, **kwargs)
+        self.img_sizes_world = [np.asarray(s, np.float32)
+                                for s in img_sizes_world]
+        self.meshes = [[kpts_to_grid(m.reshape(-1, 3),
+                                     size_w[::-1]).reshape(-1, 3, 3)
+                        for m in ms]
+                       for ms, size_w in zip(meshes, self.img_sizes_world)]
+
+    def mesh_store(self, indices=None, pad_to: int | None = None,
+                   device=None) -> MeshStore:
+        """One item per case: all its objects merged."""
+        idx = range(len(self.cases)) if indices is None else indices
+        return build_mesh_store([np.concatenate(self.meshes[i], axis=0)
+                                 for i in idx], pad_to, device)
+
+    def class_mesh_store(self, label: int, indices=None,
+                         pad_to: int | None = None, device=None) -> MeshStore:
+        """One item per case: its mesh of class `label` (1-based)."""
+        idx = range(len(self.cases)) if indices is None else indices
+        return build_mesh_store([self.meshes[i][label - 1] for i in idx],
+                                pad_to, device)
+
+    def split_data_set(self, split: dict, fold_nr=None):
+        """(train, val) keeping each case's meshes with it."""
+        def subset(idset, aug):
+            sel = _select(self.cases, idset)
+            ds = PointToMeshDS.__new__(PointToMeshDS)
+            PointDataset.__init__(
+                ds, copy.deepcopy([self.cases[i] for i in sel]),
+                sample_points=self.sample_points, binary=self.binary,
+                do_augmentation=aug)
+            ds.img_sizes_world = [self.img_sizes_world[i] for i in sel]
+            ds.meshes = [self.meshes[i] for i in sel]
+            return ds
+        return (subset(_id_set(split["train"]), self.do_augmentation),
+                subset(_id_set(split["val"]), False))
+
+
+class CorrespondingPointDataset(PointDataset):
+    """Keypoint clouds plus corresponding point sets and the similarity
+    transform the network regresses.
+
+    `corr_points`: (n_cases, P, 3) pre-registered corresponding points in
+    world coordinates; `prereg_transforms`: per case {"rotation",
+    "translation", "scale"}, the similarity that registered it to the mean
+    shape. Case i's target is norm^-1 o prereg_i^-1 o norm (o the
+    augmentation), as the 7-dof [so3 log | translation | scale] vector
+    (scale repeated to 3, the model's head width).
+    """
+
+    def __init__(self, cases: list[dict], corr_points: np.ndarray,
+                 prereg_transforms: list[dict],
+                 corr_labels: np.ndarray | None = None,
+                 do_augmentation: bool = True, **kwargs):
+        kwargs.setdefault("exclude_rhf", True)
+        super().__init__(cases, do_augmentation=False, **kwargs)
+        assert len(cases) == len(corr_points) == len(prereg_transforms)
+        self.corr_points = np.asarray(corr_points, np.float32)
+        self.corr_labels = (np.zeros(self.corr_points.shape[1], np.int32)
+                            if corr_labels is None
+                            else np.asarray(corr_labels))
+        self.prereg_transforms = prereg_transforms
+        self.augment_correspondingly = do_augmentation
+
+        def extent_zyx(c):
+            if "size_world" in c:    # xyz, like sitk GetSize() * spacing
+                return np.asarray(c["size_world"], np.float32)[::-1]
+            return (np.asarray(c["shape"], np.float32)
+                    * np.asarray(c.get("spacing", (1.0, 1.0, 1.0)),
+                                 np.float32))
+        self._sizes = np.stack([extent_zyx(c) for c in cases])
+
+    @property
+    def num_classes(self) -> int:
+        return int(len(np.unique(self.corr_labels)))
+
+    def normalize_pc(self, pc: np.ndarray, index: int,
+                     return_transform: bool = False):
+        """World -> grid coords with respect to case `index`'s world
+        extent; optionally also that map as a SimilarityTransform (an
+        anisotropic scale and a shift)."""
+        shape_zyx = self._sizes[index]
+        out = kpts_to_grid(pc, shape_zyx)
+        if not return_transform:
+            return out
+        whd = shape_zyx[::-1].astype(np.float32)
+        scale = (2.0 / whd).astype(np.float32)
+        shift = (-(whd - 1.0) / whd).astype(np.float32)
+        return out, SimilarityTransform(torch.eye(3),
+                                        torch.from_numpy(scale),
+                                        torch.from_numpy(shift))
+
+    def target_for_case(self, index: int) -> tuple[np.ndarray, np.ndarray]:
+        """(normalized corresponding points (P, 3), 7-dof params (9,)):
+        norm^-1 o prereg^-1 o norm composed as 4 x 4 row-vector matrices
+        in float64, its linear part split by SVD into the closest rotation
+        and the mean singular value as isotropic scale."""
+        corr_norm, norm_t = self.normalize_pc(self.corr_points[index], index,
+                                              return_transform=True)
+        tr = self.prereg_transforms[index]
+
+        def mat(rot, scale, trans):      # [p 1] @ M
+            m = np.eye(4, dtype=np.float64)
+            m[:3, :3] = np.asarray(rot, np.float64) * np.asarray(scale)
+            m[3, :3] = np.asarray(trans, np.float64)
+            return m
+
+        m_norm = mat(norm_t.rotation.numpy(), norm_t.scaling.numpy(),
+                     norm_t.translation.numpy())
+        m_prereg = mat(tr["rotation"], tr["scale"], tr["translation"])
+        m = np.linalg.inv(m_norm) @ np.linalg.inv(m_prereg) @ m_norm
+        a, trans = m[:3, :3], m[3, :3]
+        u, s, vt = np.linalg.svd(a)
+        rot = u @ vt
+        if np.linalg.det(rot) < 0:       # keep a proper rotation
+            u[:, -1] *= -1
+            rot = u @ vt
+        scale = np.full(3, s.mean())
+        log_r = so3_log_map(torch.tensor(rot, dtype=torch.float32)).numpy()
+        params = np.concatenate([log_r, trans.astype(np.float32),
+                                 scale.astype(np.float32)])
+        return np.asarray(corr_norm, np.float32), params.astype(np.float32)
+
+    def corr_targets(self) -> tuple[np.ndarray, np.ndarray]:
+        """Stacked (n_cases, P, 3) normalized corresponding points and
+        (n_cases, 9) transform params."""
+        pts, params = zip(*(self.target_for_case(i)
+                            for i in range(len(self))))
+        return np.stack(pts), np.stack(params)
+
+    def get_normalized_corr_datamatrix_with_affine_reg(self) -> np.ndarray:
+        """(n_cases, P, 3) normalized corresponding points: the SSM's
+        data matrix."""
+        return np.stack([self.normalize_pc(self.corr_points[i], i)
+                         for i in range(len(self))])
+
+    def sample_batch(self, store, case_idx: torch.Tensor,
+                     corr_pts: torch.Tensor, corr_params: torch.Tensor,
+                     generator: torch.Generator | None = None,
+                     draws: dict | None = None):
+        """(x (B, S, C), (corresponding points (B, P, 3), params (B, 9))):
+        sampled input clouds, with `augment_correspondingly` augmented and
+        the augmentation chained after the target transform (it acts in
+        the moving space)."""
+        draws = draws or {}
+        x, _ = sample_points_batch(store, case_idx, self.sample_points,
+                                   generator, augment=False,
+                                   noise=draws.get("noise"))
+        t_corr = corr_pts[case_idx]
+        t_params = corr_params[case_idx]
+        if self.augment_correspondingly:
+            coords, aug_t = point_augmentation(
+                x[..., :3], generator, transform=draws.get("transform"))
+            x = torch.cat([coords, x[..., 3:]], dim=-1)
+            base_t = compose_transform(t_params[:, :3], t_params[:, 3:6],
+                                       t_params[:, 6:7])
+            log_r, trans, scale = decompose_similarity_transform(
+                chain_transforms(base_t, aug_t))
+            t_params = torch.cat([log_r, trans,
+                                  scale.expand(*scale.shape[:-1], 3)], dim=-1)
+        return x, (t_corr, t_params)
+
+    def split_data_set(self, split: dict, fold_nr=None):
+        def subset(idset, aug):
+            sel = _select(self.cases, idset)
+            return CorrespondingPointDataset(
+                [self.cases[i] for i in sel], self.corr_points[sel],
+                [self.prereg_transforms[i] for i in sel], self.corr_labels,
+                do_augmentation=aug, sample_points=self.sample_points,
+                exclude_rhf=False, binary=self.binary)
+        return (subset(_id_set(split["train"]),
+                       self.augment_correspondingly),
+                subset(_id_set(split["val"]), False))

@@ -37,6 +37,7 @@ from .models.folding_net import DGCNNFoldingNet
 from .models.weights import load_fold_model
 from .train.evaluation import write_speed_results
 from .utils.coords import kpts_to_grid
+from .utils.device import resolve_device
 
 
 def default_device(args) -> torch.device:
@@ -60,15 +61,17 @@ def build_dataset(args, seg_args: dict) -> PointDataset:
 
 
 def evaluate_fold(ds: PointDataset, model: RegularizedSegDGCNN,
-                  out_dir: str, device="cpu", draws: list | None = None):
+                  out_dir: str, device=None, draws: list | None = None):
     """Reconstruct every case of `ds`; ae_reg_results.csv (mean and std of
     the Chamfer distances, mean s/case) and inference_time.csv.
 
+    :param device: where `model` is (default: the first CUDA card; the CPU
+        only when asked for)
     :param draws: per case, the `draws` of RegularizedSegDGCNN.__call__
         (tests inject the JAX entry's)
     """
+    device = resolve_device(device, "evaluate_fold")
     os.makedirs(out_dir, exist_ok=True)
-    device = torch.device(device)
     chamfers, times, reconstructed = [], [], []
     for i in range(len(ds)):
         x, _ = ds.get_full_pointcloud(i)

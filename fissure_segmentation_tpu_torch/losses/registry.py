@@ -1,9 +1,10 @@
 """Loss registry (counterpart of losses/registry.py): `get_loss_fn` returns
 ``loss(prediction, target) -> (scalar, components_dict)``.
 
-Ported: nnunet, ce, recall, chamfer and mesh (the mesh loss takes its 4
-`term_weights`: chamfer, edge length, normal consistency, Laplacian). The
-others raise NotImplementedError naming the module still to port.
+Every loss of the JAX registry is ported: nnunet, ce, recall, chamfer,
+mesh (4 `term_weights`: chamfer, edge length, normal consistency,
+Laplacian), ssm (3: point, coefficients, affine) and dpsr (3: segmentation,
+Chamfer, the epoch fraction that switches the Chamfer term on).
 """
 from __future__ import annotations
 
@@ -14,7 +15,6 @@ from .chamfer import chamfer_loss
 from .segmentation import batch_recall_loss, cross_entropy, nnu_loss
 
 LOSSES = ("nnunet", "ce", "recall", "ssm", "chamfer", "mesh", "dpsr")
-_UNPORTED = {"ssm": "losses/dgssm.py", "dpsr": "losses/dpsr.py"}
 
 
 def get_loss_fn(loss: str, class_weights=None,
@@ -36,8 +36,21 @@ def get_loss_fn(loss: str, class_weights=None,
                 w_normal_consistency=term_weights[2],
                 w_laplacian=term_weights[3])
         return make_regularized_mesh_loss()
-    if loss in _UNPORTED:
-        raise NotImplementedError(f'loss "{loss}" is not ported yet '
-                                  f"({_UNPORTED[loss]})")
+    if loss == "ssm":
+        from .dgssm import make_dgssm_loss
+        if term_weights is not None:
+            assert len(term_weights) == 3
+            return make_dgssm_loss(w_point=term_weights[0],
+                                   w_coefficients=term_weights[1],
+                                   w_affine=term_weights[2])
+        return make_dgssm_loss()
+    if loss == "dpsr":
+        from .dpsr import make_dpsr_loss
+        if term_weights is not None:
+            assert len(term_weights) == 3
+            return make_dpsr_loss(class_weights, w_seg=term_weights[0],
+                                  w_mesh=term_weights[1],
+                                  epoch_start_mesh_loss=term_weights[2])
+        return make_dpsr_loss(class_weights)
     raise ValueError(f'No loss function named "{loss}". Choose one of '
                      f"{list(LOSSES)}.")

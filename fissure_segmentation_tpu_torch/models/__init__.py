@@ -1,6 +1,9 @@
 from .access_models import (get_point_seg_model_class,  # noqa: F401
                             get_seg_cnn_model_class)
+from .dg_ssm import DGSSM, dgssm_ensemble_predict  # noqa: F401
 from .dgcnn import DGCNNSeg, EdgeConv  # noqa: F401
+from .dgcnn_cls import DGCNNCls, MultiHeadDGCNN  # noqa: F401
+from .dpsr_net import DPSRNet, DPSRNet2  # noqa: F401
 from .ensemble import build_subsets, ensemble_predict  # noqa: F401
 from .folding_net import DGCNNFoldingNet  # noqa: F401
 from .io import load_fst, save_fst  # noqa: F401

@@ -135,7 +135,9 @@ class DGCNNClsEncoder(nn.Module):
         self.SharedMLP_0 = SharedMLP(sum(ENCODER_WIDTHS), n_embedding,
                                      generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def point_features(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, N, C) -> (B, N, emb), the shared layer's output before the
+        global pooling."""
         graph = tr = None
         if self.static:
             graph = knn(x[..., :3], self.k, self_loop=True)
@@ -148,8 +150,10 @@ class DGCNNClsEncoder(nn.Module):
             e = getattr(self, f"EdgeMLP_{i}").edge_responses(h, graph, tr)
             h = e.amax(dim=-2)
             feats.append(h)
-        h = self.SharedMLP_0(torch.cat(feats, dim=-1))       # (B, N, emb)
-        return h.amax(dim=-2)                                # (B, emb)
+        return self.SharedMLP_0(torch.cat(feats, dim=-1))    # (B, N, emb)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.point_features(x).amax(dim=-2)           # (B, emb)
 
 
 class FoldingDecoder(nn.Module):

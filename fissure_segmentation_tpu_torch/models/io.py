@@ -46,6 +46,25 @@ JAX_FIELDS = {
                         ("shape_type", None), ("n_input_points", 1024),
                         ("decode_mesh", True), ("deform", False),
                         ("static", False), ("dec_depth", 2)],
+    "DPSRNet": [("seg_net_class", None), ("k", None), ("in_features", None),
+                ("num_classes", None), ("spatial_transformer", False),
+                ("dynamic", True), ("image_feat_module", False),
+                ("dpsr_res", [128, 128, 128]), ("dpsr_sigma", 10.0),
+                ("dpsr_scale", True), ("dpsr_shift", True),
+                ("k_normals", 30), ("max_tris", 100_000),
+                ("n_surface_samples", 2048)],
+    "DPSRNet2": [("seg_net_class", None), ("k", None), ("in_features", None),
+                 ("num_classes", None), ("spatial_transformer", False),
+                 ("dynamic", True), ("image_feat_module", False),
+                 ("normals_smoothing_sigma", 10.0),
+                 ("dpsr_res", [128, 128, 128]), ("dpsr_sigma", 10.0),
+                 ("dpsr_scale", True), ("dpsr_shift", True),
+                 ("max_tris", 100_000), ("n_surface_samples", 2048)],
+    "DGSSM": [("k", None), ("in_features", None), ("ssm_modes", None),
+              ("dynamic", True), ("predict_affine_params", True),
+              ("only_affine", False), ("dropout", 0.0),
+              ("active_heads", ["main", "translation", "rotation",
+                                "scaling"])],
     "MobileNetASPP": [("num_classes", None), ("patch_size", [128, 128, 128])],
     "LRASPPMobileNetV33D": [("num_classes", None),
                             ("patch_size", [128, 128, 128])],

@@ -24,8 +24,10 @@ file's bfloat16 arrays are read as tensors, models/io.py).
 
 `save_model` writes `model.pt`: the flattened tree, the constructor config
 and the class name (`model_class`), so `load_model(path)` rebuilds a
-DGCNNSeg, PointTransformerSeg, DGCNNFoldingNet, MobileNetASPP or
-LRASPPMobileNetV33D without being told which;
+DGCNNSeg, PointTransformerSeg, DGCNNFoldingNet, MobileNetASPP,
+LRASPPMobileNetV33D, DPSRNet, DPSRNet2 or DGSSM without being told which
+(DPSR-Net's seg net and DG-SSM's heads sit under the JAX tree's scopes,
+`DGCNNSeg_0` and `MultiHeadDGCNN_0/...`, so the same walk maps them);
 a `model.pt` written before the class was recorded loads when the class is
 passed in. `load_fold_model` reads a fold directory written by either
 package: its `model.pt`, or the JAX package's `model.fst` where only that
@@ -201,14 +203,17 @@ def _unflatten(flat: Mapping) -> dict:
 def model_class(name: str):
     """The port's model class of that name (a `model.pt`'s or a `.fst`
     header's `model_class`)."""
+    from .dg_ssm import DGSSM
     from .dgcnn import DGCNNSeg
+    from .dpsr_net import DPSRNet, DPSRNet2
     from .folding_net import DGCNNFoldingNet
     from .lraspp_3d import LRASPPMobileNetV33D
     from .point_transformer import PointTransformerSeg
     from .seg_cnn import MobileNetASPP
     classes = {c.__name__: c for c in (DGCNNSeg, PointTransformerSeg,
                                        DGCNNFoldingNet, MobileNetASPP,
-                                       LRASPPMobileNetV33D)}
+                                       LRASPPMobileNetV33D, DPSRNet,
+                                       DPSRNet2, DGSSM)}
     if name not in classes:
         raise KeyError(f"model class {name!r} is not ported; known: "
                        f"{sorted(classes)}")

@@ -11,9 +11,13 @@ triangles, located count-then-emit: per-cell triangle counts, their
 inclusive cumsum, one searchsorted per output slot, and a 12-lane bit-rank
 for the tet/slot within the cell. Slot j holds the (j+1)-th candidate in
 (cell z-order, tet, slot) order, so a budget overflow truncates in z-order
-exactly like the JAX package.
+exactly like the JAX package. The count and the emission run on the
+detached field; the triangles are rebuilt from it with gradients, so
+`phi` gets JAX's exact marching gradient. `marching_tetrahedra_batched`
+extracts a stack of fields at once (DPSR-Net's B x C' fields), with
+per-field z-order truncation.
 
-Not ported: the batched, hybrid and packed variants.
+Not ported: the JAX package's hybrid and packed variants.
 """
 from __future__ import annotations
 
@@ -95,57 +99,70 @@ def _tet_slot_bits(ins8: torch.Tensor) -> torch.Tensor:
 
 def _rank_to_slot(bits: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """Index of the (r+1)-th set flag along the last axis (prefix sum +
-    first-hit argmax; a row with no hit gives 0)."""
-    brank = torch.cumsum(bits.to(torch.int32), dim=-1)
+    first-hit argmax; a row with no hit gives 0). The prefix sum runs over
+    the leading axis of the transposed flags: PyTorch scans a short last
+    axis a row at a time, slowly at DPSR-Net's (96, 131072, 12) (PERF.md,
+    PR 14)."""
+    brank = torch.cumsum(bits.to(torch.int32).movedim(-1, 0).contiguous(),
+                         dim=0).movedim(0, -1)
     hit = (brank == (r + 1)[..., None]) & bits
     return torch.argmax(hit.to(torch.int32), dim=-1)
 
 
 def _marching_candidates(phi: torch.Tensor, max_tris: int, iso: float,
                          cell_mask: torch.Tensor | None):
-    """Count-then-emit candidate selection; returns (tvalid (max_tris,),
-    n_tris (), idx_buf (max_tris,) global candidate ids)."""
-    d, h, w = phi.shape
+    """Count-then-emit candidate selection over (B, D, H, W) fields, on
+    the detached field (integer work, as the JAX package's stop_gradient);
+    returns (tvalid (B, max_tris), n_tris (B,), idx_buf (B, max_tris)
+    global candidate ids)."""
+    b, d, h, w = phi.shape
     if min(d, h, w) < 2:
         raise ValueError(f"marching_tetrahedra needs >= 2 samples per axis, "
-                         f"got {tuple(phi.shape)}")
+                         f"got {tuple(phi.shape[1:])}")
     cz, cy, cx = d - 1, h - 1, w - 1
-    if cell_mask is not None and tuple(cell_mask.shape) != (cz, cy, cx):
+    if cell_mask is not None and tuple(cell_mask.shape[-3:]) != (cz, cy, cx):
         raise ValueError(f"cell_mask shape {tuple(cell_mask.shape)} != cell "
                          f"grid {(cz, cy, cx)}")
     dev = phi.device
-    counts = _cell_tri_counts(phi, iso, (cz, cy, cx))
+    phi = phi.detach()
+    counts = _cell_tri_counts(phi, iso, (cz, cy, cx))        # (B, cz, cy, cx)
     if cell_mask is not None:
         counts = counts * cell_mask.to(torch.int32)
-    n_tris = counts.sum()
+    n_tris = counts.sum((1, 2, 3))
 
     # output slot j's cell: the first cell whose running count reaches j+1
-    ccum = torch.cumsum(counts.reshape(-1), dim=0)            # int64
-    slots = torch.arange(1, max_tris + 1, device=dev)
-    cell_idx = torch.searchsorted(ccum, slots).clamp(0, ccum.shape[0] - 1)
-    prev = torch.where(cell_idx > 0, ccum[(cell_idx - 1).clamp(min=0)], 0)
+    ccum = torch.cumsum(counts.reshape(b, -1), dim=1)         # int64
+    slots = torch.arange(1, max_tris + 1, device=dev).expand(b, max_tris)
+    cell_idx = torch.searchsorted(ccum, slots.contiguous()).clamp(
+        0, ccum.shape[1] - 1)
+    prev = torch.where(cell_idx > 0,
+                       torch.gather(ccum, 1, (cell_idx - 1).clamp(min=0)), 0)
     r = slots - 1 - prev                                      # rank in cell
 
     x = cell_idx % cx
     y = (cell_idx // cx) % cy
     z = cell_idx // (cx * cy)
     co = torch.from_numpy(_CORNERS).to(dev)
-    vals8 = phi[z[:, None] + co[:, 0], y[:, None] + co[:, 1],
-                x[:, None] + co[:, 2]]                        # (max_tris, 8)
-    bits = _tet_slot_bits((vals8 < iso).to(torch.int32))      # (max_tris, 12)
+    bi = torch.arange(b, device=dev)[:, None, None]
+    vals8 = phi[bi, z[..., None] + co[:, 0], y[..., None] + co[:, 1],
+                x[..., None] + co[:, 2]]                      # (B, max_tris, 8)
+    bits = _tet_slot_bits((vals8 < iso).to(torch.int32))      # (..., 12)
     s = _rank_to_slot(bits, r)
-    tvalid = torch.arange(max_tris, device=dev) < torch.clamp(n_tris,
-                                                              max=max_tris)
+    tvalid = torch.arange(max_tris, device=dev) < torch.clamp(
+        n_tris, max=max_tris)[:, None]
     idx_buf = torch.where(tvalid, cell_idx * 12 + s, 0)
     return tvalid, n_tris, idx_buf
 
 
 def _gather_triangles(phi: torch.Tensor, gids: torch.Tensor, iso: float,
                       cy: int, cx: int) -> torch.Tensor:
-    """Triangles (M, 3, 3) zyx for global candidate ids
-    gid = ((z*cy + y)*cx + x)*12 + tet*2 + slot, by linear interpolation
-    along the tet edges the sign case crosses."""
+    """Triangles (B, M, 3, 3) zyx of (B, D, H, W) fields for global
+    candidate ids gid = ((z*cy + y)*cx + x)*12 + tet*2 + slot (B, M), by
+    linear interpolation along the tet edges the sign case crosses; the
+    gradient reaches phi through the corner values, as in the JAX
+    package."""
     dev, dt = phi.device, phi.dtype
+    b, m = gids.shape
     cell = gids // 12
     rem = gids % 12
     tet, slot = rem // 2, rem % 2
@@ -153,26 +170,43 @@ def _gather_triangles(phi: torch.Tensor, gids: torch.Tensor, iso: float,
     y = (cell // cx) % cy
     z = cell // (cx * cy)
 
-    corner_ids = torch.from_numpy(_TETS).to(dev)[tet]          # (M, 4)
-    offs = torch.from_numpy(_CORNERS).to(dev)[corner_ids]      # (M, 4, 3)
-    vals = phi[z[:, None] + offs[..., 0], y[:, None] + offs[..., 1],
-               x[:, None] + offs[..., 2]]                      # (M, 4)
-    ins = (vals < iso).to(torch.int64)
-    case = ins[:, 0] + 2 * ins[:, 1] + 4 * ins[:, 2] + 8 * ins[:, 3]
+    corner_ids = torch.from_numpy(_TETS).to(dev)[tet]          # (B, M, 4)
+    offs = torch.from_numpy(_CORNERS).to(dev)[corner_ids]      # (B, M, 4, 3)
+    bi = torch.arange(b, device=dev)[:, None, None]
+    vals = phi[bi, z[..., None] + offs[..., 0], y[..., None] + offs[..., 1],
+               x[..., None] + offs[..., 2]]                    # (B, M, 4)
+    ins = (vals.detach() < iso).to(torch.int64)
+    case = ins[..., 0] + 2 * ins[..., 1] + 4 * ins[..., 2] + 8 * ins[..., 3]
     edges = torch.from_numpy(_TET_TABLE).to(dev, torch.int64)[case, slot]
     e = edges.clamp(min=0)                                     # -1 pad -> 0
-    ab = torch.from_numpy(_TET_EDGES).to(dev)[e]               # (M, 3, 2)
+    ab = torch.from_numpy(_TET_EDGES).to(dev)[e]               # (B, M, 3, 2)
 
-    ar = torch.arange(gids.shape[0], device=dev)[:, None, None]
-    vgath = vals[ar, ab]                                       # (M, 3, 2)
-    ogath = offs[ar, ab].to(dt)                                # (M, 3, 2, 3)
+    vgath = torch.gather(vals, 2, ab.reshape(b, m, 6)).reshape(b, m, 3, 2)
+    ogath = torch.gather(offs, 2, ab.reshape(b, m, 6, 1).expand(
+        b, m, 6, 3)).reshape(b, m, 3, 2, 3).to(dt)
     va, vb = vgath[..., 0], vgath[..., 1]
     diff = vb - va
     frac = (iso - va) / torch.where(diff.abs() < 1e-12, 1e-12, diff)
-    frac = frac.clamp(0.0, 1.0)                                # (M, 3)
-    oa, ob = ogath[:, :, 0, :], ogath[:, :, 1, :]              # (M, 3, 3)
-    base = torch.stack([z, y, x], -1).to(dt)[:, None, :]       # (M, 1, 3)
+    frac = frac.clamp(0.0, 1.0)                                # (B, M, 3)
+    oa, ob = ogath[..., 0, :], ogath[..., 1, :]                # (B, M, 3, 3)
+    base = torch.stack([z, y, x], -1).to(dt)[..., None, :]     # (B, M, 1, 3)
     return base + oa + frac[..., None] * (ob - oa)
+
+
+def marching_tetrahedra_batched(phis: torch.Tensor, max_tris: int = 200_000,
+                                iso: float = 0.0,
+                                cell_mask: torch.Tensor | None = None):
+    """`marching_tetrahedra` of each of (B, D, H, W) fields at once.
+
+    :param cell_mask: optional (D-1, H-1, W-1) or (B, D-1, H-1, W-1) bool
+    :return: (tris (B, max_tris, 3, 3), valid (B, max_tris), n_tris (B,)),
+        differentiable in `phis` through the triangles' vertices
+    """
+    tvalid, n_tris, idx_buf = _marching_candidates(phis, max_tris, iso,
+                                                   cell_mask)
+    out = _gather_triangles(phis, idx_buf, iso, phis.shape[2] - 1,
+                            phis.shape[3] - 1)
+    return torch.where(tvalid[..., None, None], out, 0.0), tvalid, n_tris
 
 
 def marching_tetrahedra(phi: torch.Tensor, max_tris: int = 200_000,
@@ -186,11 +220,13 @@ def marching_tetrahedra(phi: torch.Tensor, max_tris: int = 200_000,
     :return: (tris (max_tris, 3, 3) zyx vertex coords in voxel units,
         valid (max_tris,) bool, n_tris () — the count before truncation)
     """
-    tvalid, n_tris, idx_buf = _marching_candidates(phi, max_tris, iso,
-                                                   cell_mask)
-    out = _gather_triangles(phi, idx_buf, iso, phi.shape[1] - 1,
-                            phi.shape[2] - 1)
-    return torch.where(tvalid[:, None, None], out, 0.0), tvalid, n_tris
+    if phi.ndim != 3:
+        raise ValueError(f"marching_tetrahedra takes a (D, H, W) field, got "
+                         f"{tuple(phi.shape)}")
+    tris, tvalid, n_tris = marching_tetrahedra_batched(
+        phi[None], max_tris, iso,
+        None if cell_mask is None else cell_mask[None])
+    return tris[0], tvalid[0], n_tris[0]
 
 
 def triangles_to_mesh(tris: torch.Tensor):

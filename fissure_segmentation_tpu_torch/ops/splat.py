@@ -1,9 +1,13 @@
-"""Trilinear point-to-grid splatting and grid interpolation for the DPSR
-solver (counterpart of ops/splat.py: `_splat_zyx` in drop mode,
-`point_rasterize`, `grid_interp`).
+"""Trilinear point-to-grid splatting and grid interpolation (counterpart
+of ops/splat.py: `_splat_zyx`, `splat_grid_sample`, `point_rasterize`,
+`grid_interp`).
 
-Conventions: points (..., 3) in [0, 1], index order matching the grid dims
-(the last coordinate indexes the last grid dim), cubesize 1/(size-1).
+Conventions: `splat_grid_sample` takes xyz coords in [-1, 1]
+(align_corners=False), the transpose of grid_sample; `point_rasterize` and
+`grid_interp` take points (..., 3) in [0, 1], index order matching the
+grid dims (the last coordinate indexes the last grid dim), cubesize
+1/(size-1). Every function is differentiable in its values and grid
+(index_add_'s backward is a gather), as the JAX package's scatter is.
 
 JAX drops out-of-range scatter updates and clamps out-of-range gathers
 silently; torch raises on both, so the port masks explicitly: a corner
@@ -14,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.coords import kpts_to_world
+
 
 def _corner_weight(frac: torch.Tensor, dz: int, dy: int, dx: int):
     return ((frac[..., 0] if dz else 1 - frac[..., 0])
@@ -21,12 +27,17 @@ def _corner_weight(frac: torch.Tensor, dz: int, dy: int, dx: int):
             * (frac[..., 2] if dx else 1 - frac[..., 2]))
 
 
-def _splat_zyx(vals: torch.Tensor, idx: torch.Tensor, grid_shape
-               ) -> torch.Tensor:
-    """Batched trilinear scatter with out-of-range corners dropped:
-    vals (B, N, F), float zyx indices idx (B, N, 3) -> (B, F, D, H, W).
-    Corners are added in the JAX package's order (dz, dy, dx), points in
-    index order within each corner."""
+def _splat_zyx(vals: torch.Tensor, idx: torch.Tensor, grid_shape,
+               mode: str = "drop") -> torch.Tensor:
+    """Batched trilinear scatter: vals (B, N, F), float zyx indices idx
+    (B, N, 3) -> (B, F, D, H, W). Corners are added in the JAX package's
+    order (dz, dy, dx), points in index order within each corner.
+
+    mode "drop": out-of-range corners contribute nothing (the transpose of
+    grid_sample's zeros padding); "clamp": corners clamp to the border (the
+    transpose of border padding)."""
+    if mode not in ("drop", "clamp"):
+        raise ValueError(f"unknown splat mode {mode!r}")
     d, h, w = grid_shape
     b, n, f = vals.shape
     lo = torch.floor(idx)
@@ -39,6 +50,8 @@ def _splat_zyx(vals: torch.Tensor, idx: torch.Tensor, grid_shape
         for dy in (0, 1):
             for dx in (0, 1):
                 corner = lo + torch.tensor([dz, dy, dx], device=idx.device)
+                if mode == "clamp":
+                    corner = torch.minimum(corner.clamp(min=0), dims - 1)
                 inside = ((corner >= 0) & (corner < dims)).all(-1)
                 flat = (corner[..., 0] * h + corner[..., 1]) * w \
                     + corner[..., 2]
@@ -48,6 +61,19 @@ def _splat_zyx(vals: torch.Tensor, idx: torch.Tensor, grid_shape
                 out.index_add_(0, flat.reshape(-1),
                                (wgt[..., None] * vals).reshape(-1, f))
     return out.reshape(b, d, h, w, f).permute(0, 4, 1, 2, 3)
+
+
+def splat_grid_sample(values: torch.Tensor, coords: torch.Tensor,
+                      grid_shape, mode: str = "drop") -> torch.Tensor:
+    """The transpose of grid_sample (DiVRoC): splat (B, N, F) values at
+    (B, N, 3) xyz coords in [-1, 1] (align_corners=False) into a
+    (B, F, D, H, W) grid; (N, F), (N, 3) give (F, D, H, W)."""
+    if values.ndim == 2:
+        return splat_grid_sample(values[None], coords[None], grid_shape,
+                                 mode)[0]
+    grid_shape = tuple(grid_shape)
+    idx_zyx = kpts_to_world(coords, grid_shape).flip(-1)
+    return _splat_zyx(values, idx_zyx, grid_shape, mode)
 
 
 def point_rasterize(pts: torch.Tensor, vals: torch.Tensor, size

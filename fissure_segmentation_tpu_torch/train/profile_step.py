@@ -1,7 +1,7 @@
 """The canonical train steps on one NVIDIA card: timing harness and
 profile.
 
-    python -m fissure_segmentation_tpu_torch.train.profile_step [--model DGCNN|PointTransformer|PCAE|CNN|CNNv3] [--amp] [--dynamic]
+    python -m fissure_segmentation_tpu_torch.train.profile_step [--model DGCNN|PointTransformer|PCAE|CNN|CNNv3|DPSR|DPSRv1|DGSSM] [--amp] [--dynamic]
 
 The step is DGCNNSeg(k=40, static; `--dynamic`: the dynamic graph, the
 default run's) or PointTransformerSeg at its full width, batch 32 x 2048
@@ -14,7 +14,12 @@ the regularized mesh loss); `--model CNN` / `CNNv3` is train_seg_cnn's
 step at its defaults (MobileNetASPP / LR-ASPP, 32 patches of 96^3 at 1.5
 mm, nnunet, f32; train_seg_cnn.make_step), whose device time
 `cnn_device_time` also sums by kind (K6, its wgrad, cuDNN's convolutions,
-the matrix products, the rest); `time_steps` times warm steps with the
+the matrix products, the rest); `--model DPSR` / `DPSRv1` is
+train_dpsr_net's step at the JAX entry's defaults (32 x 1024 points, DGCNN
+k = 20 dynamic, 128^3, v2 / v1, the Chamfer term on;
+train_dpsr_net.make_step), `--model DGSSM` train_dgcnn_ssm's with
+--predict_affine (32 x 1024, k = 20 dynamic, every head;
+train_dgcnn_ssm.make_step); `time_steps` times warm steps with the
 host clock around a sync. chip_smoke.py phases 7, 11 and 17 time them
 through these helpers. Run as a script it prints, for DGCNN in each routing
 (FSEG_FUSED_EDGE=0 and 1), for PointTransformer once:
@@ -65,6 +70,8 @@ KERNELS = {
             "depthwise_tiled",
             "K6 wgrad": "depthwise_wgrad"}}
 KERNELS["CNNv3"] = KERNELS["CNN"]
+KERNELS["DPSR"] = KERNELS["DPSRv1"] = KERNELS["DGCNN"]
+KERNELS["DGSSM"] = KERNELS["PCAE"]
 
 
 def cnn_device_time(avg, steps: int) -> dict:
@@ -187,6 +194,17 @@ def main(argv=None) -> int:
         cnn_args = get_seg_cnn_train_parser().parse_args(
             ["--ds", "synthetic", "--model",
              "v3" if args.model == "CNNv3" else "v1"])
+    elif args.model.startswith("DPSR"):
+        from .. import train_dpsr_net
+        from ..cli import get_dpsr_train_parser
+        fam_args = get_dpsr_train_parser().parse_args(
+            ["--ds", "synthetic", "--dpsr_version",
+             "1" if args.model == "DPSRv1" else "2"])
+    elif args.model == "DGSSM":
+        from .. import train_dgcnn_ssm
+        from ..cli import get_dgcnn_ssm_train_parser
+        fam_args = get_dgcnn_ssm_train_parser().parse_args(
+            ["--ds", "synthetic", "--predict_affine"])
     else:
         ds, loss_fn = canonical_data()
     tmp = tempfile.mkdtemp()
@@ -205,6 +223,10 @@ def main(argv=None) -> int:
             step = train_pc_ae.make_step(pc_args, tmp)
         elif args.model.startswith("CNN"):
             step = train_seg_cnn.make_step(cnn_args, tmp)
+        elif args.model.startswith("DPSR"):
+            step = train_dpsr_net.make_step(fam_args, tmp)
+        elif args.model == "DGSSM":
+            step = train_dgcnn_ssm.make_step(fam_args, tmp)
         else:
             step = make_step(ds, loss_fn, tmp, model=args.model, dtype=dtype,
                              dynamic=args.dynamic)
@@ -217,10 +239,12 @@ def main(argv=None) -> int:
                 step()
             torch.cuda.synchronize()
         avg = prof.key_averages()
-        # the "feature_graph" range carries its kernels' time again
+        # the profiler ranges ("feature_graph", DPSR-Net's "dpsr:*") carry
+        # their kernels' time again
         busy = sum(e.self_device_time_total for e in avg
                    if e.device_type == DeviceType.CUDA
-                   and e.key != "feature_graph") / 3 / 1e3
+                   and e.key != "feature_graph"
+                   and not e.key.startswith("dpsr:")) / 3 / 1e3
         unit = "patches" if args.model.startswith("CNN") else "clouds"
         print(f"{name}: {ms:.2f} ms/step ({BATCH * 1e3 / ms:.1f} "
               f"{unit}/s); kernels {busy:.2f} ms/step, busy share "
@@ -228,6 +252,12 @@ def main(argv=None) -> int:
         if args.model.startswith("CNN"):
             print(f"  by kind, ms/step: {cnn_device_time(avg, 3)}",
                   flush=True)
+        for e in avg:
+            if e.key.startswith("dpsr:") and \
+                    e.device_type == DeviceType.CUDA:
+                print(f"  {e.key:22s} {e.self_device_time_total / 3 / 1e3:.3f}"
+                      " ms/step (device time under the forward's range)",
+                      flush=True)
         for label, key in KERNELS[args.model].items():
             t = sum(e.self_device_time_total for e in avg
                     if e.device_type == DeviceType.CUDA and key in e.key)
@@ -237,7 +267,8 @@ def main(argv=None) -> int:
                    and "sort" in e.key.lower())
         print(f"  {'sorts':18s} {sort / 3 / 1e3:.3f} ms/step (every kernel "
               "named *sort*, searchsorted included)", flush=True)
-        if args.dynamic or args.model == "PCAE":
+        if args.dynamic or args.model in ("PCAE", "DPSR", "DPSRv1",
+                                          "DGSSM"):
             graph = sum(e.self_device_time_total for e in avg
                         if e.key == "feature_graph")
             print(f"  {'feature graphs':18s} {graph / 3 / 1e3:.3f} ms/step "

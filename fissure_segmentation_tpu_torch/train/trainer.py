@@ -16,6 +16,20 @@ best model by validation loss, checkpoint and resume.
     size); the best snapshot (ties -> later epoch) is written as `model.pt`
     (models/weights.py:save_model) with train_time.csv and history.csv.
 
+Family hooks (the JAX trainer's, train/trainer.py:21-30, 104-130):
+  * `batch_fn(generator, case_idx, train)` draws batches otherwise;
+  * `forward_fn(model, x, train)` applies the model otherwise (DG-SSM
+    passes its fitted SSM);
+  * `epoch_in_loss`: the loss takes the epoch, ``loss_fn(out, y,
+    epoch=epoch)`` (DPSR-Net's Chamfer switch);
+  * `init_input`: one eval-mode forward on that input before training
+    (the JAX trainer initializes its variables from it; the port's are
+    made at construction, so this only checks that the model runs on it);
+  * `epoch_callback(trainer, epoch)` before each epoch may change the
+    model in place (DG-SSM's head schedule sets `active_heads`); it
+    returns whether it did, where the JAX trainer then recompiles its
+    epoch and the port has nothing to rebuild.
+
 Random streams: the data order comes from numpy (seed + 1, as in the JAX
 trainer, so both packages train on the same case order); batch sampling and
 augmentation from a device `torch.Generator` reseeded every epoch from a
@@ -89,7 +103,11 @@ class PlateauScheduler:
 class ModelTrainer:
     def __init__(self, model: torch.nn.Module, ds, loss_fn: Callable,
                  out_dir: str, config: TrainConfig = TrainConfig(),
-                 device=None, batch_fn: Callable | None = None):
+                 device=None, batch_fn: Callable | None = None,
+                 forward_fn: Callable | None = None,
+                 epoch_in_loss: bool = False,
+                 init_input: torch.Tensor | None = None,
+                 epoch_callback: Callable | None = None):
         """
         :param model: initialized module; moved to `device`
         :param ds: the fold's training set; by default (a PointDataset)
@@ -97,7 +115,14 @@ class ModelTrainer:
         :param batch_fn: ``batch_fn(generator, case_idx, train) -> (x, y)``
             to draw batches otherwise (the PC-AE samples its meshes), with
             a generator and indices on `device`
-        :param loss_fn: ``loss_fn(logits, y) -> (loss, components)``
+        :param loss_fn: ``loss_fn(out, y) -> (loss, components)``, with
+            `epoch_in_loss` ``loss_fn(out, y, epoch=epoch)``
+        :param forward_fn: ``forward_fn(model, x, train) -> out`` instead
+            of ``model(x)``
+        :param init_input: an input for one eval-mode forward before
+            training
+        :param epoch_callback: ``epoch_callback(trainer, epoch) -> bool``,
+            called before each epoch
         :param device: where to train (default: the first CUDA card; the
             CPU only when ``device="cpu"`` is passed — without a card and
             without `device` it raises)
@@ -108,6 +133,10 @@ class ModelTrainer:
         self.device = torch.device("cuda" if device is None else device)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
+        self.forward_fn = forward_fn
+        self.epoch_in_loss = epoch_in_loss
+        self.epoch_callback = epoch_callback
+        self.current_epoch = 0
         self.out_dir = out_dir
         self.cfg = config
         os.makedirs(out_dir, exist_ok=True)
@@ -134,6 +163,11 @@ class ModelTrainer:
             self.steps_per_epoch = n_train // config.batch_size
         else:
             self.steps_per_epoch = max(1, -(-n_train // config.batch_size))
+
+        if init_input is not None:
+            with torch.no_grad():
+                self.model.eval()
+                self._forward(init_input.to(self.device), False)
 
         self.min_lr = config.lr * 0.05
         self.optimizer = torch.optim.Adam(self.model.parameters(),
@@ -165,11 +199,24 @@ class ModelTrainer:
         return self.min_lr + (cfg.lr - self.min_lr) * \
             (1 + math.cos(math.pi * epoch / cfg.epochs)) / 2
 
-    def train_step(self, x: torch.Tensor, y: torch.Tensor):
-        """One Adam step on the batch; returns (loss, components) as device
-        tensors, detached."""
+    def _forward(self, x, train: bool):
+        if self.forward_fn is not None:
+            return self.forward_fn(self.model, x, train)
+        return self.model(x)
+
+    def _loss(self, out, y, epoch: int):
+        if self.epoch_in_loss:
+            return self.loss_fn(out, y, epoch=epoch)
+        return self.loss_fn(out, y)
+
+    def train_step(self, x: torch.Tensor, y, epoch: int | None = None):
+        """One Adam step on the batch (`epoch`: the loss's, default the
+        current one); returns (loss, components) as device tensors,
+        detached."""
         self.model.train()
-        loss, comps = self.loss_fn(self.model(x), y)
+        loss, comps = self._loss(self._forward(x, True), y,
+                                 self.current_epoch if epoch is None
+                                 else epoch)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
@@ -198,7 +245,8 @@ class ModelTrainer:
         self.model.eval()
         idx = torch.as_tensor(self.val_indices, device=self.device)
         x, y = self.batch_fn(self._generator(seed), idx, False)
-        loss, comps = self.loss_fn(self.model(x), y)
+        loss, comps = self._loss(self._forward(x, False), y,
+                                 self.current_epoch)
         vals = {"total_loss": loss, **comps}
         return {k: float(v) for k, v in
                 zip(vals, torch.stack(list(vals.values())).cpu())}
@@ -289,6 +337,9 @@ class ModelTrainer:
 
         for epoch in range(initial_epoch, cfg.epochs):
             epoch_start = time.time()
+            self.current_epoch = epoch
+            if self.epoch_callback is not None:
+                self.epoch_callback(self, epoch)
             if cfg.scheduler == "cosine":
                 self._set_lr(self._cosine_lr(epoch))
             seed_ep, seed_val = self._epoch_seeds(rng_seeds)

@@ -43,6 +43,7 @@ from .models.folding_net import DGCNNFoldingNet, folding_points_for
 from .models.weights import load_fold_model
 from .ops.marching import sample_points_on_triangles
 from .train.trainer import ModelTrainer, TrainConfig
+from .utils.device import resolve_device
 
 EVAL_SEED = 7          # the JAX entry's PRNGKey(7)
 
@@ -134,18 +135,20 @@ def make_step(args, out_dir: str, device="cuda", seed: int = 0):
 
 
 def evaluate_reconstruction(ds: SampleFromMeshDS, model, out_dir: str,
-                            n_eval_samples: int = 4096, device="cpu",
+                            n_eval_samples: int = 4096, device=None,
                             draws: list | None = None) -> dict:
     """The mean Chamfer distance between each item's reconstruction (from
     `ds.sample_points` unaugmented surface samples) and `n_eval_samples`
     samples of its GT surface; reconstruction_chamfer.csv in `out_dir`.
 
+    :param device: where to run (default: the first CUDA card; the CPU
+        only when asked for)
     :param draws: per item {"input": (u (1, S), uv (1, S, 2)), "eval": (u
         (n_eval_samples,), uv (n_eval_samples, 2))} to use instead of a
         generator seeded with EVAL_SEED (tests inject the JAX entry's)
     """
+    device = resolve_device(device, "evaluate_reconstruction")
     os.makedirs(out_dir, exist_ok=True)
-    device = torch.device(device)
     store = ds.to_store(device=device)
     gen = torch.Generator(device=device).manual_seed(EVAL_SEED)
     model = model.to(device).eval()

@@ -42,6 +42,7 @@ from .models.weights import load_fold_model
 from .train.image_trainer import ImageTrainer
 from .train.trainer import TrainConfig
 from .utils.detached_run import maybe_run_detached_cli
+from .utils.device import resolve_device
 from .utils.profiling import param_and_op_count
 
 
@@ -75,9 +76,12 @@ def build_model(args, num_classes: int, seed: int = 0):
                generator=torch.Generator().manual_seed(seed))
 
 
-def test_cnn(ds: ImageDataset, model, out_dir: str, device="cpu") -> dict:
+def test_cnn(ds: ImageDataset, model, out_dir: str, device=None) -> dict:
     """Sliding-window inference of every case of `ds` and the Dice of its
-    argmax per class; the mean over the cases in test_dice.csv."""
+    argmax per class; the mean over the cases in test_dice.csv. Runs on
+    `device` (default: the first CUDA card; the CPU only when asked for),
+    where it moves `model`."""
+    device = resolve_device(device, "test_cnn")
     os.makedirs(out_dir, exist_ok=True)
     model = model.to(device).eval()
     dices = []

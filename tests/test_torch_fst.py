@@ -314,3 +314,52 @@ def test_reader_imports_neither_msgpack_nor_flax(tmp_path):
     """)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
                    env={**os.environ, "PYTHONPATH": REPO})
+
+
+def _jax_family(name):
+    """A JAX DPSRNet, DPSRNet2 or DGSSM and its trainer-ordered tree."""
+    x0 = jnp.zeros((1, 64, 3))
+    if name == "DGSSM":
+        from fissure_segmentation_tpu.models.dg_ssm import DGSSM as J
+        from fissure_segmentation_tpu.shape_model.ssm import fit_ssm
+        ssm = fit_ssm(np.random.default_rng(0).normal(size=(6, 20, 3)))
+        jm = J(k=6, in_features=3, ssm_modes=ssm.num_modes, dynamic=False,
+               active_heads=("main", "translation"))
+        variables = jm.init(jax.random.PRNGKey(0), x0, ssm, train=False)
+    else:
+        from fissure_segmentation_tpu.models import dpsr_net
+        jm = getattr(dpsr_net, name)(seg_net_class="DGCNN", k=6,
+                                     in_features=3, num_classes=3,
+                                     dynamic=False, dpsr_res=(16, 16, 16),
+                                     dpsr_sigma=3.0, max_tris=2048,
+                                     n_surface_samples=64)
+        key = jax.random.PRNGKey(0)
+        variables = jm.init(key, x0, train=False, rng=key)
+    return jm, _trainer_order(jax.tree_util.tree_map(np.asarray, variables))
+
+
+@pytest.mark.parametrize("name", ["DPSRNet", "DPSRNet2", "DGSSM"])
+def test_jax_fst_gives_dpsr_net_and_dgssm(tmp_path, name):
+    """DPSR-Net's and DG-SSM's `.fst` headers: a JAX-written file loads as
+    the port's class with the JAX module's config (the seg net and the
+    heads under their flax scopes), the port writes it back byte for byte,
+    and load_fold_model reads a fold that holds only it."""
+    from fissure_segmentation_tpu_torch.models import load_fold_model
+    jm, variables = _jax_family(name)
+    path = str(tmp_path / "model.fst")
+    jio.save_model(jm, variables, path)
+    model = io.load_fst(path)
+    assert type(model).__name__ == name
+    header, _ = io.read_fst(path)
+    assert io.jax_config(model) == (name, header["config"])
+    again = str(tmp_path / "again.fst")
+    io.save_fst(model, again)
+    assert open(again, "rb").read() == open(path, "rb").read()
+    back = load_fold_model(str(tmp_path))
+    assert type(back).__name__ == name and back.config == model.config
+    module, restored = jio.load_model(again)
+    assert type(module).__name__ == name
+    _equal_trees(io.msgpack_restore(io.to_bytes(io._sorted(
+        export_jax_variables(back)["params"]))),
+        io._sorted(jax.tree_util.tree_map(np.asarray,
+                                          dict(restored["params"]))))

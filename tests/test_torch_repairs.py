@@ -254,3 +254,123 @@ def test_model_trainer_raises_without_card(no_card, tmp_path):
         ModelTrainer(model, ds, loss_fn, str(tmp_path))
     assert ModelTrainer(model, ds, loss_fn, str(tmp_path),
                         device="cpu").device == torch.device("cpu")
+
+
+def _cnn_helper_args():
+    import argparse
+    from fissure_segmentation_tpu_torch import train_seg_cnn
+    from fissure_segmentation_tpu_torch.data.image_dataset import ImageDataset
+    c = synthetic.make_synthetic_image_case(0, shape=(24, 24, 24))
+    ds = ImageDataset([c["image"]], [c["labels"]],
+                      [(c["case_id"], c["sequence"])],
+                      resample_spacing=1.0, patch_size=(16, 16, 16))
+    model = train_seg_cnn.build_model(
+        argparse.Namespace(model="v1", patch_size=16), ds.num_classes)
+    return train_seg_cnn.test_cnn, (ds, model), "test_dice.csv"
+
+
+def _pcae_helper_args():
+    from fissure_segmentation_tpu_torch import train_pc_ae
+    from fissure_segmentation_tpu_torch.data.mesh_dataset import \
+        SampleFromMeshDS
+    from fissure_segmentation_tpu_torch.models import DGCNNFoldingNet
+    cases, meshes, sizes = synthetic.make_synthetic_mesh_dataset(
+        n_cases=2, grid_n=8, n_points=100, with_feature=False)
+    ds = SampleFromMeshDS(meshes, [(c["case_id"], c["sequence"])
+                                   for c in cases], sizes, 64)
+    model = DGCNNFoldingNet(k=4, n_embedding=16, shape_type="plane",
+                            n_input_points=64, decode_mesh=False,
+                            generator=torch.Generator().manual_seed(0))
+    return (lambda *a, **kw: train_pc_ae.evaluate_reconstruction(
+        *a, n_eval_samples=256, **kw)), (ds, model), \
+        "reconstruction_chamfer.csv"
+
+
+def _dseg_helper_args():
+    from fissure_segmentation_tpu_torch import dseg_ae_regularization
+    from fissure_segmentation_tpu_torch.models import DGCNNFoldingNet
+    from fissure_segmentation_tpu_torch.models.dseg_ae import \
+        RegularizedSegDGCNN
+    ds = PointDataset(synthetic.make_synthetic_dataset(
+        1, n_points=300, gt_surfaces=True), sample_points=128)
+    g = torch.Generator().manual_seed(0)
+    seg = DGCNNSeg(k=4, in_features=ds.n_features,
+                   num_classes=ds.num_classes, generator=g).eval()
+    ae = DGCNNFoldingNet(k=4, n_embedding=16, shape_type="plane",
+                         n_input_points=64, generator=g).eval()
+    model = RegularizedSegDGCNN(seg, ae, n_points_seg=128, n_points_ae=64)
+    return dseg_ae_regularization.evaluate_fold, (ds, model), \
+        "ae_reg_results.csv"
+
+
+@pytest.mark.parametrize("helper", ["test_cnn", "evaluate_reconstruction",
+                                    "evaluate_fold"])
+def test_test_helpers_need_a_card_or_the_cpu(helper, tmp_path, monkeypatch):
+    """train_seg_cnn.test_cnn, train_pc_ae.evaluate_reconstruction and
+    dseg_ae_regularization.evaluate_fold run on the card by default and
+    raise without one, writing nothing; given device="cpu" they run there
+    as before (the entries pass their device) and return the number their
+    CSV holds."""
+    fn, args, csv_name = {"test_cnn": _cnn_helper_args,
+                          "evaluate_reconstruction": _pcae_helper_args,
+                          "evaluate_fold": _dseg_helper_args}[helper]()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        fn(*args, str(tmp_path / "card"))
+    assert not (tmp_path / "card").exists()
+    out = fn(*args, str(tmp_path / "cpu"), device="cpu")
+    value = next(iter(out.values()))
+    with open(tmp_path / "cpu" / csv_name) as f:
+        rows = [r.strip().split(",") for r in f]
+    row = np.asarray(rows[1], float)
+    assert np.isfinite(value)
+    assert value == pytest.approx(row[1:].mean() if helper == "test_cnn"
+                                  else row[0])
+
+
+def test_shape_model_copies_equal_originals():
+    """shape_model/{ssm,lssm}.py's numpy fits are copies of the JAX
+    package's: the same arrays (float32) from the same data."""
+    from fissure_segmentation_tpu.shape_model import lssm as jlssm
+    from fissure_segmentation_tpu.shape_model import ssm as jssm
+    from fissure_segmentation_tpu_torch.shape_model import fit_lssm, fit_ssm
+    rng = np.random.default_rng(4)
+    shapes = rng.normal(size=(9, 40, 3))
+    for ours, theirs in ((fit_ssm(shapes, 2.5, 0.9),
+                          jssm.fit_ssm(shapes, 2.5, 0.9)),
+                         (fit_lssm(shapes, num_levels=3, target_variance=0.9),
+                          jlssm.fit_lssm(shapes, num_levels=3,
+                                         target_variance=0.9))):
+        for a, b in zip(ours[:3], theirs[:3]):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        assert ours[3:] == tuple(theirs[3:])
+
+
+def test_entry_synthetic_data_copies_equal_originals():
+    """The two entries' synthetic datasets (train_dpsr_net.build_dataset,
+    train_dgcnn_ssm's corresponding points) are the JAX entries'."""
+    import argparse
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import train_dgcnn_ssm as jentry_ssm
+    from fissure_segmentation_tpu_torch import train_dgcnn_ssm
+    cases = synthetic.make_synthetic_dataset(3, n_points=200,
+                                             with_feature=False)
+    for exclude in (False, True):
+        corr, labels = train_dgcnn_ssm.synthetic_correspondences(cases,
+                                                                 exclude)
+        assert corr.shape == (3, 256 * (2 if exclude else 3), 3)
+        np.testing.assert_array_equal(np.unique(labels),
+                                      [1, 2] if exclude else [1, 2, 3])
+    args = argparse.Namespace(ds="synthetic", data_dir=None, pts=64,
+                              exclude_rhf=False)
+    monkey_cases = synthetic.make_synthetic_dataset(12, n_points=3000,
+                                                    with_feature=False)
+    ours = train_dgcnn_ssm.build_dataset(args)
+    theirs = jentry_ssm.build_dataset(args)
+    np.testing.assert_array_equal(ours.corr_points, theirs.corr_points)
+    np.testing.assert_array_equal(ours.corr_labels, theirs.corr_labels)
+    for a, b in zip(ours.cases, monkey_cases):
+        np.testing.assert_array_equal(a["coords"], b["coords"])

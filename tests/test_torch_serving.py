@@ -129,7 +129,11 @@ def test_port_runs_without_jax():
                  "train.canonical_cv", "models.lraspp_3d",
                  "data.image_dataset", "train.image_trainer",
                  "train_seg_cnn", "utils.image_ops", "utils.profiling",
-                 "utils.detached_run", "keypoints.features"):
+                 "utils.detached_run", "keypoints.features",
+                 "models.dpsr_net", "models.dgcnn_cls", "models.dg_ssm",
+                 "losses.dpsr", "losses.dgssm", "shape_model.ssm",
+                 "shape_model.lssm", "utils.device", "train_dpsr_net",
+                 "train_dgcnn_ssm"):
         assert f"fissure_segmentation_tpu_torch.{name}" in _port_modules()
     code = textwrap.dedent(f"""
         import importlib

@@ -448,10 +448,14 @@ def test_loss_registry():
     assert set(get_loss_fn("nnunet", cw)(logits, y)[1]) == {"CE", "GDL"}
     assert set(get_loss_fn("ce", cw)(logits, y)[1]) == {"CE"}
     assert set(get_loss_fn("recall")(logits, y)[1]) == {"Recall-CE"}
-    for name in ("ssm", "dpsr"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_loss_fn(name)
     pts = torch.zeros((1, 5, 3))
+    dpsr = get_loss_fn("dpsr", cw)((logits, pts, torch.ones(1, 5, dtype=bool)),
+                                   (y, pts))
+    assert set(dpsr[1]) == {"Segmentation", "Chamfer"}
+    affine = torch.zeros((1, 9))
+    ssm = get_loss_fn("ssm")((pts, torch.zeros((1, 2)), affine),
+                             (pts, torch.zeros((1, 2)), affine))
+    assert set(ssm[1]) == {"Point-Loss", "Coefficients", "Affine-Params"}
     assert set(get_loss_fn("chamfer")(pts, pts)[1]) == {"Chamfer"}
     assert callable(get_loss_fn("mesh", term_weights=[1.0, 1.0, 0.1, 0.1]))
     with pytest.raises(ValueError, match="No loss"):
