@@ -3,7 +3,12 @@ keypoints/foerstner.py): 5-tap central-difference gradients, smoothed
 6-channel structure tensor, trace-of-inverse distinctiveness, max-pool NMS,
 6-neighborhood mask erosion, and a fixed-size exact top-k extraction.
 
-Not ported yet: the random subsample (`rng`) and `approx_top_k`.
+With `scores` or a `generator`, a uniform random subset of the detected
+points is kept instead of the most distinctive ones (the JAX package's
+`rng`: uniform + 1 where a point is detected, then the top-k); jax.random
+cannot be replayed in torch, so the tests inject JAX's draw as `scores`.
+
+Not ported yet: `approx_top_k`.
 """
 from __future__ import annotations
 
@@ -63,8 +68,14 @@ def erode_mask(mask: torch.Tensor) -> torch.Tensor:
 
 def foerstner_keypoints(img: torch.Tensor, mask: torch.Tensor,
                         sigma: float = 1.4, d: int = 9, thresh: float = 1e-8,
-                        max_kpts: int = 20000):
+                        max_kpts: int = 20000,
+                        generator: torch.Generator | None = None,
+                        scores: torch.Tensor | None = None):
     """Detect keypoints in a (D, H, W) volume within a boolean mask.
+
+    :param generator: draws the uniform scores of a random subset (see
+        extraction.uniform_scores)
+    :param scores: optional (D * H * W,) uniform draws instead
 
     :return: (kpts (max_kpts, 3) int32 zyx voxel indices, valid (max_kpts,)
         bool, n_candidates () — how many voxels passed the detector)
@@ -72,7 +83,14 @@ def foerstner_keypoints(img: torch.Tensor, mask: torch.Tensor,
     dist = distinctiveness(img, sigma)
     maxfeat = max_pool_same(dist, d)
     is_kpt = erode_mask(mask) & (maxfeat == dist) & (dist >= thresh)
-    score = torch.where(is_kpt, dist, torch.full_like(dist, -float("inf")))
+    if scores is None and generator is not None:
+        from .extraction import uniform_scores
+        scores = uniform_scores(dist.numel(), generator, dist.device)
+    if scores is not None:
+        rand = scores.reshape(dist.shape).to(dist.device) + 1.0
+        score = torch.where(is_kpt, rand, torch.full_like(dist, -float("inf")))
+    else:
+        score = torch.where(is_kpt, dist, torch.full_like(dist, -float("inf")))
     top, idx = masked_top_k(score, max_kpts)
     valid = torch.isfinite(top)
     _, h, w = img.shape[-3:]

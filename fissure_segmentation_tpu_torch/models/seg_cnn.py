@@ -36,6 +36,7 @@ recomputed region.
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
 from typing import Sequence
 
@@ -360,13 +361,22 @@ def predict_full_volume(model, img: torch.Tensor, dtype=None) -> torch.Tensor:
 
     :param model: MobileNetASPP (or any NDHWC model of the same contract)
     :param img: (D, H, W) float32 volume on the device to run on
-    :param dtype: compute dtype; float32 (None) only
+    :param dtype: compute dtype: float32 (None) or bfloat16. In bfloat16 a
+        copy of the model with every parameter and buffer cast runs on the
+        cast volume (the JAX package casts every float32 leaf of its
+        variables and the input), so the depthwise layers run K6 in
+        bfloat16; the softmax is taken in float32.
     :return: (D, H, W, num_classes) softmax
     """
-    _check_dtype(dtype)
+    if dtype not in (None, torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"CNN compute dtype {dtype} is not ported "
+                                  "yet (float32 or bfloat16)")
     dhw = tuple(img.shape)
     pad = [(-s) % 4 for s in dhw]
-    out = _softmax_forward(model, _edge_pad(img.to(torch.float32), pad))
+    vol = _edge_pad(img.to(torch.float32), pad)
+    if dtype == torch.bfloat16:
+        model, vol = copy.deepcopy(model).to(dtype), vol.to(dtype)
+    out = _softmax_forward(model, vol)
     lo = [q // 2 + q % 2 for q in pad]
     return out[lo[0]:lo[0] + dhw[0], lo[1]:lo[1] + dhw[1],
                lo[2]:lo[2] + dhw[2]]

@@ -2,7 +2,8 @@
 (counterpart of postprocess/surface_fitting.py).
 
 `pointcloud_surface_fitting` fits one cloud (the evaluation's per-class
-fit); the serving path fits all classes at once.
+fit, and per fissure label the label-map regularization of preprocessing,
+`poisson_reconstruction`); the serving path fits all classes at once.
 
 Device half (`batched_psr_mc`, the unpacked `_batched_psr_mc` of the JAX
 package): each class's points are compacted to a fixed `class_cap` prefix,
@@ -28,6 +29,7 @@ from ..ops.dpsr import dpsr_forward
 from ..ops.marching import marching_tetrahedra
 from ..ops.normals import estimate_pointcloud_normals
 from ..utils.coords import kpts_to_grid, kpts_to_world
+from ..utils.device import resolve_device
 
 
 # ---------------------------------------------------------------- device half
@@ -106,7 +108,8 @@ def pointcloud_surface_fitting(points_world: np.ndarray, shape,
                                crop_to_bbox: bool = True, device=None):
     """Fit a surface to one fissure point cloud: kNN-PCA normals (K1 at
     `k_normals` with a self-loop), the spectral PSR grid, marching
-    tetrahedra inside the points' bbox on `device` (default: the CPU), then
+    tetrahedra inside the points' bbox on `device` (default: the first
+    CUDA card; without one it raises, the CPU only when asked for), then
     the host filter.
 
     :param points_world: (N, 3) xyz voxel coordinates in a (D, H, W) volume
@@ -121,6 +124,7 @@ def pointcloud_surface_fitting(points_world: np.ndarray, shape,
             f"Tried reconstructing mesh from {points_world.shape[0]} points. "
             "Requires at least 4.")
     grid_res = tuple(grid_res)
+    device = resolve_device(device, "pointcloud_surface_fitting")
     pts_grid = torch.from_numpy(np.ascontiguousarray(
         kpts_to_grid(points_world, shape)[:, ::-1])).to(device)
     valid = torch.ones((1, pts_grid.shape[0]), dtype=torch.bool,
@@ -217,6 +221,44 @@ def _host_mesh_filter(inside: np.ndarray, tris: np.ndarray, tvalid: np.ndarray,
     g = tris / (np.array(grid_res, np.float64) - 1) * 2.0 - 1.0
     tris_world = kpts_to_world(g[..., ::-1].astype(np.float32), shape)
     return np.asarray(tris_world, np.float32), tvalid
+
+
+def poisson_reconstruction(fissures: np.ndarray,
+                           mask: np.ndarray | None = None,
+                           spacing=(1.0, 1.0, 1.0),
+                           mask_dilate_radius: int = 1, device=None,
+                           stages: dict | None = None, **kwargs):
+    """Label-map regularization: per fissure label, the whole voxel cloud
+    through `pointcloud_surface_fitting` on `device` (K1 normals, spectral
+    PSR, marching, the host filter), then every mesh rasterized back into
+    one labelmap by the exact native voxelizer.
+
+    :param fissures: (D, H, W) int labelmap
+    :param device: where the fits run (default: the first CUDA card; the
+        CPU only when asked for)
+    :param stages: optional dict; the synced seconds of each label's fit
+        ("poisson:label{f}") and of the rasterization ("poisson:labelmap")
+        are added to it
+    :return: (labelmap (D, H, W) uint8, list of (tris, valid) meshes)
+    """
+    from ..utils.profiling import stage
+    device = resolve_device(device, "poisson_reconstruction")
+    fissures = np.asarray(fissures)
+    shape = fissures.shape
+    spacing = np.asarray(spacing, np.float32)
+    labels = sorted(int(v) for v in np.unique(fissures) if v != 0)
+    meshes = []
+    for f in labels:
+        with stage(stages, f"poisson:label{f}", device):
+            pts_zyx = np.argwhere(fissures == f).astype(np.float32)
+            pts_world = pts_zyx[:, ::-1] * spacing
+            meshes.append(pointcloud_surface_fitting(
+                pts_world / spacing, shape, mask=mask,
+                mask_dilate_radius=mask_dilate_radius, right=f > 1,
+                center_x=shape[2] / 2, device=device, **kwargs))
+    with stage(stages, "poisson:labelmap", device):
+        labelmap = mesh_to_labelmap(meshes, shape)
+    return labelmap, meshes
 
 
 def mesh_to_labelmap(meshes, shape) -> np.ndarray:

@@ -68,6 +68,10 @@ def _keypoints(vol, mask, generator, *, kp_mode, max_kpts, fissure_mu,
         return kpts, valid, tuple(vol.shape)
     if kp_mode == "cnn":
         if cnn_model is not None:
+            if cnn_dtype not in (None, torch.float32):
+                raise NotImplementedError(
+                    f"serving: CNN compute dtype {cnn_dtype} is not ported "
+                    "yet (float32 only)")
             soft = predict_full_volume(cnn_model, vol, dtype=cnn_dtype)
         else:
             soft = vol

@@ -16,7 +16,9 @@ instead, per case (tests inject the JAX package's).
 
 The inference clock stops after `torch.cuda.synchronize()` (JAX: after
 `block_until_ready`); the copy of the labels to the host is not timed.
-Not ported: the "lobes" label space (it needs postprocess/random_walk.py).
+The "lobes" label space turns lobe predictions into fissure labels by the
+random-walk fill on the device (`lobe_points_to_fissure_labels`); its cases
+must carry ``fissure_labels`` and ``lung_mask``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from ..ops.marching import sample_points_on_triangles
 from ..postprocess.surface_fitting import (mesh_to_labelmap,
                                            pointcloud_surface_fitting)
 from ..utils.coords import kpts_to_world
+from ..utils.device import resolve_device
 from ..utils.mesh_viewer import export_mesh_viewer
 from ..utils.nifti import save_nifti
 from ..utils.objio import save_obj
@@ -54,13 +57,40 @@ def binary_to_fissure_labels(pred_binary: np.ndarray, pts_idx_zyx: np.ndarray,
     return np.where(np.asarray(pred_binary) > 0, lr, 0).astype(np.int32)
 
 
+def lobe_points_to_fissure_labels(pred_lobes: np.ndarray,
+                                  pts_idx_zyx: np.ndarray,
+                                  lung_mask: np.ndarray, cg_iters: int = 300,
+                                  device=None):
+    """Sparse lobe predictions at the points -> fissure labels at the
+    points: the point labels voxelized as random-walk seeds, the lung
+    filled on `device` (postprocess/random_walk.py:lobes_to_fissures), the
+    fissure map read back at the points.
+
+    :param device: the card unless asked for the CPU
+    :return: (pred_fissure_labels (N,) int32, fissure_map (D, H, W) uint8)
+    """
+    from ..postprocess.random_walk import lobes_to_fissures
+    device = resolve_device(device, "lobe_points_to_fissure_labels")
+    shape = np.asarray(lung_mask).shape
+    sparse = np.zeros(shape, np.int32)
+    idx = np.clip(pts_idx_zyx, 0, np.asarray(shape) - 1)
+    sparse[idx[:, 0], idx[:, 1], idx[:, 2]] = np.asarray(pred_lobes)
+    fis, _ = lobes_to_fissures(
+        torch.as_tensor(sparse, device=device),
+        torch.as_tensor(np.asarray(lung_mask, bool), device=device),
+        cg_iters=cg_iters)
+    fis = fis.cpu().numpy()
+    return fis[idx[:, 0], idx[:, 1], idx[:, 2]].astype(np.int32), fis
+
+
 def evaluate_case(pred_labels: np.ndarray, coords_grid: np.ndarray, case: dict,
                   num_classes: int, grid_res=(64, 64, 64),
                   n_metric_samples: int = 4000, seed: int = 42, device=None,
                   surface_draws: dict | None = None):
     """Post-process one case: per-fissure surface fit and mesh metrics.
 
-    :param device: where the fit and the metrics run (default: the CPU)
+    :param device: where the fit and the metrics run (default: the first
+        CUDA card; without one it raises, the CPU only when asked for)
     :param surface_draws: {class: (u, uv)} uniforms for
         `sample_points_on_triangles` instead of the generator seeded with
         `seed + class`
@@ -68,6 +98,7 @@ def evaluate_case(pred_labels: np.ndarray, coords_grid: np.ndarray, case: dict,
         float64 arrays (NaN where the fit failed), 'missing' (bool) and
         'meshes' (the fitted (tris, valid) per fissure class, or None)
     """
+    device = resolve_device(device, "evaluate_case")
     shape = case["shape"]
     n_f = num_classes - 1
     out = {k: np.full(n_f, np.nan) for k in ("assd", "sdsd", "hd", "hd95")}
@@ -161,9 +192,11 @@ def test_pipeline(ds: PointDataset, model, out_dir: str,
 
     :param model: (B, S, C) -> (B, S, num_classes) logits, in eval mode, on
         `device`
-    :param label_space: "fissures" (default) or "binary" (left/right
-        relabel through the case's ``lung_lr`` volume; GT from
-        ``fissure_labels_lr``); "lobes" is not ported yet
+    :param label_space: "fissures" (default), "lobes" (lobe predictions
+        to fissure labels by the random-walk fill in the case's
+        ``lung_mask``; GT from ``fissure_labels``; 5 lobes give 3 fissures,
+        4 lobes 2) or "binary" (left/right relabel through the case's
+        ``lung_lr`` volume; GT from ``fissure_labels_lr``)
     :param export_artifacts: write OBJ meshes, NIfTI labelmaps, the HTML
         viewer and (where matplotlib is installed) the point-cloud PNGs
         under ``out_dir/test_predictions/``
@@ -174,10 +207,7 @@ def test_pipeline(ds: PointDataset, model, out_dir: str,
         uv)}); either key may be left out
     :return: dict of per-class aggregate metric arrays
     """
-    if label_space == "lobes":
-        raise NotImplementedError("label_space='lobes' is not ported yet: "
-                                  "it needs postprocess/random_walk.py")
-    if label_space not in ("fissures", "binary"):
+    if label_space not in ("fissures", "lobes", "binary"):
         raise ValueError(f"unknown label_space {label_space!r}")
     if device is None:
         if not torch.cuda.is_available():
@@ -197,7 +227,12 @@ def test_pipeline(ds: PointDataset, model, out_dir: str,
         if not plots:
             print("test_pipeline: matplotlib is not installed; the "
                   "point-cloud PNGs are not written")
-    num_classes = ds.num_classes if label_space == "fissures" else 3
+    if label_space == "fissures":
+        num_classes = ds.num_classes
+    elif label_space == "binary":
+        num_classes = 3                      # bg / left / right
+    else:  # lobes: 5 lobes -> 3 fissures, 4 lobes (exclude_rhf) -> 2
+        num_classes = 4 if ds.num_classes >= 6 else 3
     generator = torch.Generator().manual_seed(seed)
 
     dices, per_case, ids = [], [], []
@@ -218,19 +253,26 @@ def test_pipeline(ds: PointDataset, model, out_dir: str,
         inference_times.append(time.time() - t0)
         pred = argmax.cpu().numpy()            # ... transfer not timed
 
-        if label_space == "binary":
+        if label_space != "fissures":
             case = ds.cases[i]
             world = kpts_to_world(np.asarray(x[:, :3], np.float32),
                                   case["shape"])
             idx_zyx = np.round(world[:, ::-1]).astype(int)
-            if "fissure_labels_lr" not in case:
+            gt_key = ("fissure_labels_lr" if label_space == "binary"
+                      else "fissure_labels")
+            if gt_key not in case:
                 raise KeyError(
-                    "label_space='binary' evaluation needs fissure-space GT "
-                    "labels (case key 'fissure_labels_lr'); the binary "
-                    "labels cannot be compared against the converted "
-                    "predictions")
-            pred = binary_to_fissure_labels(pred, idx_zyx, case["lung_lr"])
-            y = np.asarray(case["fissure_labels_lr"])
+                    f"label_space={label_space!r} evaluation needs fissure-"
+                    f"space GT labels (case key {gt_key!r}); the "
+                    f"{label_space} labels cannot be compared against the "
+                    "converted predictions")
+            if label_space == "binary":
+                pred = binary_to_fissure_labels(pred, idx_zyx,
+                                                case["lung_lr"])
+            else:
+                pred, _ = lobe_points_to_fissure_labels(
+                    pred, idx_zyx, case["lung_mask"], device=device)
+            y = np.asarray(case[gt_key])
 
         dices.append(batch_dice(torch.from_numpy(np.asarray(pred))[None],
                                 torch.from_numpy(np.asarray(y))[None],

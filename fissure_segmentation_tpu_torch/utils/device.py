@@ -2,6 +2,7 @@
 another device; without a card and without a device, raise."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -14,3 +15,11 @@ def resolve_device(device, what: str) -> torch.device:
         raise RuntimeError(f"{what}: no CUDA card found; pass device='cpu' "
                            "to run on the CPU")
     return torch.device("cuda")
+
+
+def as_device_tensor(x, device, what: str) -> torch.Tensor:
+    """`x` as a tensor: a tensor stays where it lies unless `device` is
+    given; numpy goes to `device` (`resolve_device`'s default)."""
+    if isinstance(x, torch.Tensor):
+        return x if device is None else x.to(device)
+    return torch.as_tensor(np.asarray(x), device=resolve_device(device, what))

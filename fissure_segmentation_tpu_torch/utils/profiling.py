@@ -1,5 +1,5 @@
-"""Parameter and operation counts, and a timing helper (counterpart of
-utils/profiling.py).
+"""Parameter and operation counts, a timing helper (counterpart of
+utils/profiling.py) and `stage`, the synced stage clock of preprocessing.
 
 `param_and_op_count` writes `op_count.csv` with the JAX package's columns
 (flops, bytes_accessed, params). The JAX package takes the first two from
@@ -18,6 +18,7 @@ Here they are counted from one forward in eval mode without autograd:
 """
 from __future__ import annotations
 
+import contextlib
 import csv
 import os
 import time
@@ -116,3 +117,21 @@ def time_fn(fn: Callable, *args, repeats: int = 10, warmup: int = 1,
         times.append(time.perf_counter() - t0)
     return {"mean_s": float(np.mean(times)), "std_s": float(np.std(times)),
             "min_s": float(np.min(times)), "times": times}
+
+
+@contextlib.contextmanager
+def stage(stages: dict | None, name: str, device):
+    """Time the block as stage `name`: with a dict, the card is
+    synchronized before and after it and the seconds are added to
+    ``stages[name]``; with None, nothing happens (no sync)."""
+    if stages is None:
+        yield
+        return
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    yield
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0

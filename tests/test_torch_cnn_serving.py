@@ -143,9 +143,16 @@ def test_cnn_keypoints_match_jax(max_kpts):
                                   np.asarray(kj)[np.asarray(vj)])
     fg = int(((soft.argmax(-1) != 0) & mask).sum())
     assert int(vt.sum()) == min(fg, max_kpts)
-    with pytest.raises(NotImplementedError, match="features"):
-        extraction.get_cnn_keypoints(torch.from_numpy(soft),
-                                     torch.from_numpy(mask), want_features=True)
+    # the 5^3 softmax patches, equal to JAX's (a gather, no arithmetic
+    # but the grid coordinates, which round alike)
+    _, _, fj = jext.get_cnn_keypoints(jnp.asarray(soft), jnp.asarray(mask),
+                                      max_kpts=max_kpts, rng=key)
+    _, _, ft = extraction.get_cnn_keypoints(
+        torch.from_numpy(soft), torch.from_numpy(mask), max_kpts=max_kpts,
+        scores=draw, want_features=True)
+    assert ft.shape == (max_kpts, 125 * soft.shape[-1])
+    np.testing.assert_array_equal(ft.numpy()[vt.numpy()],
+                                  np.asarray(fj)[np.asarray(vj)])
 
 
 def test_random_cap_matches_jax():

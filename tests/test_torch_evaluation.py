@@ -203,7 +203,8 @@ def test_pointcloud_surface_fitting_matches_jax():
     case = synthetic.make_synthetic_dataset(1, n_points=1500)[0]
     pts = _fissure_cloud(case, 2)
     kw = dict(grid_res=(32, 32, 32), right=True, center_x=case["shape"][2] / 2)
-    tris_t, valid_t = tsf.pointcloud_surface_fitting(pts, case["shape"], **kw)
+    tris_t, valid_t = tsf.pointcloud_surface_fitting(pts, case["shape"],
+                                                     device="cpu", **kw)
     tris_j, valid_j = jsf.pointcloud_surface_fitting(pts, case["shape"], **kw)
     assert tris_t.dtype == np.float32 and valid_t.dtype == bool
     n_t, n_j = int(valid_t.sum()), int(np.asarray(valid_j).sum())
@@ -222,7 +223,8 @@ def test_surface_fitting_raises_for_few_points(n):
     pts = rng.uniform(10, 50, (n, 3)).astype(np.float32)
     shape = (64, 64, 64)
     with pytest.raises(ValueError):
-        tsf.pointcloud_surface_fitting(pts, shape, grid_res=(16, 16, 16))
+        tsf.pointcloud_surface_fitting(pts, shape, grid_res=(16, 16, 16),
+                                       device="cpu")
     with pytest.raises((ValueError, TypeError)):
         jsf.pointcloud_surface_fitting(pts, shape, grid_res=(16, 16, 16))
 
@@ -409,7 +411,7 @@ def test_evaluate_case_matches_jax():
              for c in range(1, 4)}
     kw = dict(grid_res=(32, 32, 32), seed=SEED)
     got = evaluation.evaluate_case(case["labels"], case["coords"], case, 4,
-                                   surface_draws=draws, **kw)
+                                   surface_draws=draws, device="cpu", **kw)
     want = jevaluation.evaluate_case(case["labels"], case["coords"], case, 4,
                                      **kw)
     np.testing.assert_array_equal(got["missing"], want["missing"])
@@ -454,8 +456,8 @@ def test_binary_labels_and_label_spaces():
         jevaluation.binary_to_fissure_labels(pred, idx, lung))
     ds = dataset.PointDataset(synthetic.make_synthetic_dataset(
         1, n_points=100))
-    with pytest.raises(NotImplementedError, match="random_walk"):
-        evaluation.test_pipeline(ds, None, "unused", label_space="lobes",
+    with pytest.raises(ValueError, match="label_space"):
+        evaluation.test_pipeline(ds, None, "unused", label_space="lobe",
                                  device="cpu")
 
 

@@ -303,29 +303,83 @@ def _dseg_helper_args():
         "ae_reg_results.csv"
 
 
+def _fit_helper_args():
+    """pointcloud_surface_fitting on a fissure cloud of a synthetic case:
+    its valid triangle count."""
+    from fissure_segmentation_tpu_torch.postprocess.surface_fitting import \
+        pointcloud_surface_fitting
+    case = synthetic.make_synthetic_dataset(1, n_points=600)[0]
+    pts = coords.kpts_to_world(case["coords"][case["labels"] == 2],
+                               case["shape"])
+
+    def fit(pts, out_dir, **kw):
+        _, valid = pointcloud_surface_fitting(
+            pts, case["shape"], grid_res=(16, 16, 16), right=True, **kw)
+        return {"n_valid": float(valid.sum())}
+    return fit, (pts,), None
+
+
+def _evaluate_case_helper_args():
+    """evaluate_case on a synthetic case's GT labels: its ASSD."""
+    from fissure_segmentation_tpu_torch.train.evaluation import evaluate_case
+    case = synthetic.make_synthetic_dataset(1, n_points=600,
+                                            gt_surfaces=True)[0]
+
+    def run(case, out_dir, **kw):
+        out = evaluate_case(case["labels"], case["coords"], case, 4,
+                            grid_res=(16, 16, 16), n_metric_samples=200,
+                            **kw)
+        return {"assd": float(np.nanmean(out["assd"]))}
+    return run, (case,), None
+
+
 @pytest.mark.parametrize("helper", ["test_cnn", "evaluate_reconstruction",
-                                    "evaluate_fold"])
+                                    "evaluate_fold",
+                                    "pointcloud_surface_fitting",
+                                    "evaluate_case"])
 def test_test_helpers_need_a_card_or_the_cpu(helper, tmp_path, monkeypatch):
-    """train_seg_cnn.test_cnn, train_pc_ae.evaluate_reconstruction and
-    dseg_ae_regularization.evaluate_fold run on the card by default and
-    raise without one, writing nothing; given device="cpu" they run there
-    as before (the entries pass their device) and return the number their
-    CSV holds."""
+    """train_seg_cnn.test_cnn, train_pc_ae.evaluate_reconstruction,
+    dseg_ae_regularization.evaluate_fold, and (F12)
+    postprocess/surface_fitting.pointcloud_surface_fitting and
+    train/evaluation.evaluate_case run on the card by default and raise
+    without one, writing nothing; given device="cpu" they run there as
+    before (the entries and test_pipeline pass their device) and return a
+    finite number, the one their CSV holds where they write one."""
     fn, args, csv_name = {"test_cnn": _cnn_helper_args,
                           "evaluate_reconstruction": _pcae_helper_args,
-                          "evaluate_fold": _dseg_helper_args}[helper]()
+                          "evaluate_fold": _dseg_helper_args,
+                          "pointcloud_surface_fitting": _fit_helper_args,
+                          "evaluate_case": _evaluate_case_helper_args}[
+        helper]()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         fn(*args, str(tmp_path / "card"))
     assert not (tmp_path / "card").exists()
     out = fn(*args, str(tmp_path / "cpu"), device="cpu")
     value = next(iter(out.values()))
+    assert np.isfinite(value)
+    if csv_name is None:
+        assert value > 0
+        return
     with open(tmp_path / "cpu" / csv_name) as f:
         rows = [r.strip().split(",") for r in f]
     row = np.asarray(rows[1], float)
-    assert np.isfinite(value)
     assert value == pytest.approx(row[1:].mean() if helper == "test_cnn"
                                   else row[0])
+
+
+def test_preprocessing_constants_equal_originals():
+    """The HU clamp, the v1 exclusion list and the feature normalization
+    of the port's preprocessing are the JAX package's."""
+    from fissure_segmentation_tpu.preprocess import pipeline as jpipeline
+    from fissure_segmentation_tpu_torch.preprocess import pipeline
+    assert (pipeline.IMG_MIN, pipeline.IMG_MAX) == (jpipeline.IMG_MIN,
+                                                    jpipeline.IMG_MAX)
+    assert pipeline.EXCLUDE_LIST_V1 == jpipeline.EXCLUDE_LIST_V1
+    assert (features.IMG_MIN, features.IMG_MAX) == (jfeatures.IMG_MIN,
+                                                    jfeatures.IMG_MAX)
+    np.testing.assert_array_equal(features._SIX_NH, jfeatures._SIX_NH)
+    np.testing.assert_array_equal(features._SSC_PERM, jfeatures._SSC_PERM)
 
 
 def test_shape_model_copies_equal_originals():

@@ -164,15 +164,23 @@ def test_patch_helpers_equal():
 
 def test_eval_only_float32_only_and_registry():
     """Built in eval mode; `.train()` switches every BatchNorm to batch
-    statistics (the training half, tests/test_torch_cnn_train.py); a
-    bfloat16 compute dtype still raises; "v3" resolves to LR-ASPP."""
+    statistics (the training half, tests/test_torch_cnn_train.py); the
+    whole-volume forward takes float32 or bfloat16 (preprocessing's cnn
+    mode; the model itself is not cast), the sliding window float32 only,
+    other dtypes raise; "v3" resolves to LR-ASPP."""
     m = MobileNetASPP(num_classes=2, generator=torch.Generator().manual_seed(0))
     assert not m.training and not m.CheckpointASPP_0.BatchNorm_0.training
     assert m.train() is m
     assert all(mod.training for mod in m.modules())
     m.eval()
+    soft = predict_full_volume(m, torch.zeros(8, 8, 8), dtype=torch.bfloat16)
+    assert soft.shape == (8, 8, 8, 2) and soft.dtype == torch.float32
+    assert next(m.parameters()).dtype == torch.float32
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        predict_full_volume(m, torch.zeros(8, 8, 8), dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="float32 only"):
-        predict_full_volume(m, torch.zeros(8, 8, 8), dtype=torch.bfloat16)
+        predict_all_patches(m, torch.zeros(8, 8, 8), 2, patch_size=(8, 8, 8),
+                            dtype=torch.bfloat16)
     assert get_seg_cnn_model_class("v1") is MobileNetASPP
     assert get_seg_cnn_model_class("v3") is LRASPPMobileNetV33D
     with pytest.raises(ValueError):

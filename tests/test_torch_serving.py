@@ -133,7 +133,11 @@ def test_port_runs_without_jax():
                  "models.dpsr_net", "models.dgcnn_cls", "models.dg_ssm",
                  "losses.dpsr", "losses.dgssm", "shape_model.ssm",
                  "shape_model.lssm", "utils.device", "train_dpsr_net",
-                 "train_dgcnn_ssm"):
+                 "train_dgcnn_ssm", "preprocess.labels",
+                 "preprocess.pipeline", "postprocess.random_walk",
+                 "postprocess.surface_fitting", "utils.sampling",
+                 "keypoints.extraction", "keypoints.enhancement_eval",
+                 "preprocess_dataset"):
         assert f"fissure_segmentation_tpu_torch.{name}" in _port_modules()
     code = textwrap.dedent(f"""
         import importlib
