@@ -252,18 +252,47 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      fold 0's test through the lobes label space (the random-walk fill on
      the card): finite losses and Dice;
  36. one 96^3 case card against CPU with the same injected draws
-     (phase_preprocess_reference), within PRE_REF_TOL.
+     (phase_preprocess_reference), within PRE_REF_TOL;
+ 37. PointNet at full width (phase_pointnet): train_point_seg --model
+     PointNet (bf16 shared MLPs, --amp true) trains fold 0 for 3 epochs at
+     32 x 2048 on the synthetic cases and tests it, then --test_only,
+     --speed, the fold re-written as model.fst alone and tested (F15's
+     path), one warm-up and 3 timed segment_case cases on the 256^3 CT
+     with its model; again with --transformer (trained, tested, --speed);
+     10 timed warm steps bf16, f32 and bf16 with the input T-Net (ms/step,
+     clouds/s, peak memory, busy share); and (phase_pointnet_features,
+     run before phase 35's directory goes) one fold on phase 35's point
+     files, which carry MIND-SSC features (BASELINE's "w/ image
+     features");
+ 38. PointNetSeg with both T-Nets, one train step and one eval forward
+     card against CPU on 4 x 256 points, f32 and bf16
+     (phase_pointnet_reference), within POINTNET_TOL;
+ 39. DGCNN with --transformer --img_feat_extractor (bf16, 32 x 2048, 3
+     epochs of fold 0), static and dynamic, then 10 timed warm steps of
+     each with their launches a step (phase_stems); one bf16 step card
+     against CPU within BF16_TOL (phase_stems_reference);
+ 40. affine_experiments.run_example for DGCNN, OpenDGCNN and PointNet (k =
+     40, 8 x 1024 a step, AFFINE_EPOCHS x AFFINE_STEPS), 10 timed warm
+     steps of each with their launches (phase_affine); one step of each
+     card against CPU within AFFINE_TOL (phase_affine_reference); K3 and K4
+     timed at the affine DGCNN's step shapes (8, 1024, 40, C), C = 64,
+     128, 256.
 
 Kernel launch counts are set to 0 before each main path (phases 4, 10 and
 14 serving, phases 7, 11 and 17 training, phase 19 the probes, phase 20
 the default entry run, phase 22 the PC-AE, phase 24 DSEG-AE after its seg
 fold is trained, phase 27 each train_seg_cnn run, phases 29 DPSR-Net and
-31 DG-SSM, phase 33 each process_case run, phase 35 the chain) and read
-after it; the comparison launches of phases 3, 5, 6, 8, 9, 12, 13, 15,
-16, 18, 21, 23, 25, 26, 28, 30, 32, 34 and 36, of K3 and K4 timed at
-DPSR-Net's step shape, and of the probes' own checks are not counted.
-The chain's train_point_seg run counts with the train paths (it has the
-default run's widths); phase 33's K1 launches go into K1's "slice" row by
+31 DG-SSM, phase 33 each process_case run, phase 35 the chain, phases 37
+PointNet, 39 DGCNN with both stems and 40 the affine experiments) and
+read after it; the comparison launches of phases 3, 5, 6, 8, 9, 12, 13,
+15, 16, 18, 21, 23, 25, 26, 28, 30, 32, 34, 36, 38, 39's and 40's
+references, of K3 and K4 timed at DPSR-Net's and the affine step's
+shapes, and of the probes' own checks are not counted.
+The chain's train_point_seg run and phase 39's runs count with the train
+paths (their widths are the default run's); phases 37 and 40 go into the
+"slice" rows as paths of their own ("pointnet": serving's and the test
+half's K1; "affine"), K3's and K4's by_call add the affine calls; phase
+33's K1 launches go into K1's "slice" row by
 call ("preprocess", "preprocess_cnn", timed by phase 34), its K6 launches
 into K6's "by_path" ("preprocess_cnn"), and K6's row adds
 "preprocess_cnn_calls", phase 34's times at those calls. K6's row
@@ -300,6 +329,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import csv
+import functools
 import json
 import os
 import statistics
@@ -379,6 +409,21 @@ def bound_ms(n_bytes: float, n_ops: float):
     returns (ms, "bytes" or "operations")."""
     t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+@functools.lru_cache(maxsize=1)
+def _synthetic_ct_once() -> dict:
+    from fissure_segmentation_tpu_torch.data.synthetic import \
+        make_synthetic_image_case
+    return make_synthetic_image_case(0, shape=SHAPE)
+
+
+def synthetic_ct() -> dict:
+    """The full-size synthetic case (`make_synthetic_image_case(0,
+    shape=SHAPE)`), made once for the phases that serve or preprocess it
+    (about 11 s on the card's host each time otherwise); a copy for each
+    caller."""
+    return copy.deepcopy(_synthetic_ct_once())
 
 
 def _line(shape):
@@ -502,14 +547,12 @@ def check_result(res, shape, what: str):
 
 
 def phase_slice(knn_cuda, card: str):
-    from fissure_segmentation_tpu_torch.data.synthetic import \
-        make_synthetic_image_case
     from fissure_segmentation_tpu_torch.kernels.gather_reduce import \
         gather_reduce
     from fissure_segmentation_tpu_torch.models import DGCNNSeg
     from fissure_segmentation_tpu_torch.serving import segment_case
     t0 = time.perf_counter()
-    case = make_synthetic_image_case(0, shape=SHAPE)
+    case = synthetic_ct()
     vol = torch.from_numpy(case["image"]).cuda()
     mask = torch.from_numpy(case["lung_mask"]).cuda()
     model = DGCNNSeg(k=40, in_features=3, num_classes=4, dynamic=False,
@@ -993,7 +1036,7 @@ def _reset(ks, knn_cuda):
     for fn in wrappers.values():
         _zero(fn)
     for name in ("gather_reduce", "scatter_count", "knn", "scatter_rows",
-                 "fps"):
+                 "fps", "scatter_routed"):
         wrappers[name].calls.clear()
 
 
@@ -1422,13 +1465,11 @@ def phase_fps(fps_cuda, fps_plain):
 def phase_pt_slice(card: str):
     """The serving slice with PointTransformerSeg at full width; returns
     the kernel launches of the timed cases."""
-    from fissure_segmentation_tpu_torch.data.synthetic import \
-        make_synthetic_image_case
     from fissure_segmentation_tpu_torch.kernels.fps import fps_cuda
     from fissure_segmentation_tpu_torch.kernels.knn import knn_cuda
     from fissure_segmentation_tpu_torch.models import PointTransformerSeg
     from fissure_segmentation_tpu_torch.serving import segment_case
-    case = make_synthetic_image_case(0, shape=SHAPE)
+    case = synthetic_ct()
     vol = torch.from_numpy(case["image"]).cuda()
     mask = torch.from_numpy(case["lung_mask"]).cuda()
     model = PointTransformerSeg(
@@ -1885,15 +1926,13 @@ def phase_cnn_slice(dw_cuda, card: str):
     stride 2 (block 5). Then the CNN forward alone
     (CUDA events) and one kp_mode="enhancement" case. Returns (K6
     launches of the timed cases, timings)."""
-    from fissure_segmentation_tpu_torch.data.synthetic import \
-        make_synthetic_image_case
     from fissure_segmentation_tpu_torch.kernels.gather_reduce import \
         gather_reduce
     from fissure_segmentation_tpu_torch.kernels.knn import knn_cuda
     from fissure_segmentation_tpu_torch.models import (DGCNNSeg,
                                                        predict_full_volume)
     from fissure_segmentation_tpu_torch.serving import segment_case
-    case = make_synthetic_image_case(0, shape=SHAPE)
+    case = synthetic_ct()
     vol = torch.from_numpy(case["image"]).cuda()
     mask = torch.from_numpy(case["lung_mask"]).cuda()
     model = DGCNNSeg(k=40, in_features=3, num_classes=4, dynamic=False,
@@ -3970,45 +4009,7 @@ def _time_dpsr_scatter(ks, knn_cuda) -> dict:
     plain, K3 with its own transpose and with the step's, K4 from the
     transpose's row offsets (its call "ptr_32x1024", also on the card
     alone from CUDA-graph replays) against torch.diff."""
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(29)
-    b, n, k, c = 32, 1024, 20, 64
-    idx3, _ = knn_cuda(torch.rand((b, n, 3), generator=g, device=dev) * 2
-                       - 1, k, True)
-    idx3 = idx3.contiguous()
-    idx2 = idx3.reshape(b, n * k)
-    tr = ks.transpose(idx2, n)
-    kstar = torch.randint(0, k, (b, n, c), generator=g, device=dev,
-                          dtype=torch.int32)
-    s_ = torch.randn((b, n, c), generator=g, device=dev)
-    p_ = torch.randn((b, n, c), generator=g, device=dev)
-    err3 = _check_routed(ks, idx3, kstar, s_, p_, n, tr)
-    err4 = _check_count(ks, idx2, n, tr)
-    b3, by3 = bound_ms(idx3.numel() * 4 + b * n * c * 4 + 2 * s_.numel() * 4
-                       + b * n * 2 * c * 4, 2 * idx3.numel() * c)
-    b4, by4 = bound_ms(b * n * 8 + 4, b * n)
-    ptr = tr[1]
-    out = {
-        "scatter_routed": {
-            "call": f"{b}x{n}x{k}x{c}_float32", "max_abs_err": err3,
-            "ms": median_ms(lambda: ks.scatter_routed(idx3, kstar, s_, p_,
-                                                      n)),
-            "shared_ms": median_ms(lambda: ks.scatter_routed(
-                idx3, kstar, s_, p_, n, tr)),
-            "plain_ms": median_ms(lambda: ks.scatter_routed_plain(
-                idx3, kstar, s_, p_, n)),
-            "bound_ms": b3, "bound_by": by3, "library_ms": None},
-        "scatter_count": {
-            "call": f"ptr_{b}x{n}", "max_abs_err": err4,
-            "ms": median_ms(lambda: ks.scatter_count(idx2, n, tr)),
-            "device_ms": graph_ms(lambda: ks.scatter_count(idx2, n, tr)),
-            "plain_ms": median_ms(lambda: ks.count_from_ptr_plain(ptr, b,
-                                                                  n)),
-            "bound_ms": b4, "bound_by": by4,
-            "library_ms": median_ms(lambda: torch.diff(ptr))}}
-    print(f"dpsr scatter timings (32x1024, k=20, C=64): {json.dumps(out)}",
-          flush=True)
-    return out
+    return _time_scatter_at(ks, knn_cuda, 32, 1024, 20, 64, 29, "dpsr")
 
 
 def phase_dgssm(ks, knn_cuda, card: str, out_dir: str):
@@ -4213,7 +4214,8 @@ def slice_by_call(kind: str, paths: dict, timings: dict) -> dict:
 # every case has some 17 500 keypoints (at least --pts), then a DGCNNSeg
 # fold trained on the lobe labels at the default run's widths (dynamic
 # bf16, k = 40, 32 x 2048), so its kernel calls are the default run's
-CHAIN_PRE_ARGV = ["--synthetic", "5", "--kp_mode", "noisy"]
+CHAIN_PRE_ARGV = ["--synthetic", "5", "--kp_mode", "noisy", "--feature",
+                  "mind_ssc"]
 CHAIN_TRAIN_ARGV = ["--data", "lobes", "--fold", "0", "--epochs", "3",
                     "--pts", "2048", "--k", "40", "--batch", "32",
                     "--train_only"]
@@ -4324,8 +4326,6 @@ def phase_preprocess(ks, knn_cuda, card: str, out_dir: str):
     Returns ({run: counts}, {run: K1 calls}, K6 calls, clouds, timing)."""
     from fissure_segmentation_tpu_torch import preprocess_dataset
     from fissure_segmentation_tpu_torch.data.dataset import load_case_npz
-    from fissure_segmentation_tpu_torch.data.synthetic import \
-        make_synthetic_image_case
     from fissure_segmentation_tpu_torch.kernels.depthwise import \
         depthwise_conv3_cuda
     from fissure_segmentation_tpu_torch.models.io import load_fst, save_fst
@@ -4334,7 +4334,7 @@ def phase_preprocess(ks, knn_cuda, card: str, out_dir: str):
     from fissure_segmentation_tpu_torch.preprocess.labels import (
         find_lobes, label_to_mesh)
     t0 = time.perf_counter()
-    case = make_synthetic_image_case(0, shape=SHAPE)
+    case = synthetic_ct()
     img = case["image"] * 1000.0
     gen_s = time.perf_counter() - t0
     fst = os.path.join(out_dir, "cnn", "model.fst")
@@ -4722,6 +4722,574 @@ def phase_preprocess_reference(card: str, out_dir: str):
     return out
 
 
+# ---- the rest of the point models (phases 37-40) ---------------------------
+
+# phase 37: PointNet through the entry, BASELINE's first configuration
+# (--amp true, the CLI default: bf16 shared MLPs)
+POINTNET_ARGV = ["--model", "PointNet", "--ds", "synthetic", "--fold", "0",
+                 "--epochs", "3", "--pts", "2048", "--batch", "32"]
+# phase 39: DGCNN with both stems, bf16, trained only (--static added for
+# the static run)
+STEMS_ARGV = ["--ds", "synthetic", "--fold", "0", "--epochs", "3", "--pts",
+              "2048", "--k", "40", "--batch", "32", "--transformer",
+              "--img_feat_extractor", "--train_only"]
+AFFINE_EPOCHS, AFFINE_STEPS = 2, 10
+# phase_pointnet_reference and phase_affine_reference say why
+POINTNET_TOL = {"loss": 1e-4, "logits": 1e-4, "grad_rel_l2": 0.05,
+                "bf16_slack": 1.3}
+AFFINE_TOL = {"outputs": 1e-4, "loss": 1e-4, "grad_rel_l2": 1e-2}
+
+
+def _profiled_busy(step, steps: int = 3) -> float:
+    """The device's busy share over `steps` warm steps: summed device time
+    of the profiler's kernels over the host clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return busy / wall
+
+
+def _timed_steps(ks, knn_cuda, step, what: str) -> dict:
+    """WARM warm-up steps, then STEPS timed ones (ms/step, clouds/s of 32,
+    peak memory, the launches a step) and the busy share over 3 more."""
+    from fissure_segmentation_tpu_torch.train.profile_step import (
+        STEPS, WARM, time_steps)
+    for _ in range(WARM):
+        step()
+    before = _counts(ks, knn_cuda)
+    ms, peak, losses = time_steps(step)
+    after = _counts(ks, knn_cuda)
+    if not torch.isfinite(torch.stack(losses)).all():
+        raise AssertionError(f"{what}: non-finite loss in the timed steps")
+    return {"ms_per_step": ms, "clouds_per_s": 32e3 / ms,
+            "peak_gib": peak / 2 ** 30,
+            "launches_per_step": {k: (after[k] - before[k]) / STEPS
+                                  for k in after if after[k] - before[k]},
+            "busy_share": _profiled_busy(step)}
+
+
+def _pointnet_runs(train_point_seg, card: str, out_dir: str,
+                   timing: dict) -> None:
+    """Phase 37's entry runs (phase_pointnet says which), into `timing`."""
+    from fissure_segmentation_tpu_torch.models import (PointNetSeg,
+                                                       load_fold_model)
+    for name, extra in (("pointnet", []), ("transformer", ["--transformer"])):
+        run = os.path.join(out_dir, name)
+        t0 = time.perf_counter()
+        if train_point_seg.main(POINTNET_ARGV + extra + ["--output",
+                                                        run]) != 0:
+            raise AssertionError(f"pointnet ({name}): the entry failed")
+        took = time.perf_counter() - t0
+        fold = os.path.join(run, "fold0")
+        hist = _read_history(os.path.join(fold, "history.csv"))
+        model = load_fold_model(fold)
+        if len(hist) != 3 or not np.isfinite(hist).all() or \
+                not isinstance(model, PointNetSeg) or \
+                model.dtype != torch.bfloat16 or \
+                model.spatial_transform != bool(extra):
+            raise AssertionError(f"pointnet ({name}): history {hist}, "
+                                 f"model.pt {type(model).__name__} "
+                                 f"{model.config}")
+        inf, post = _check_test_outputs(os.path.join(fold, "test"), "",
+                                        f"pointnet ({name})")
+        modes = (["--test_only", "--fold", "0"], ["--speed"]) if not extra \
+            else (["--speed"],)
+        row = {"train_and_test_s": took, "loss_history": hist,
+               "inference_s_per_case": inf, "post_s_per_case": post}
+        for mode in modes:
+            if train_point_seg.main(["--output", run] + mode) != 0:
+                raise AssertionError(f"pointnet ({name}): {mode[0]} failed")
+            if mode[0] == "--test_only":
+                row["test_only"] = _check_test_outputs(
+                    os.path.join(fold, "test"), "", "pointnet --test_only")
+            else:
+                speed = _csv(os.path.join(run, "inference_time.csv"))
+                row["speed_ms"] = float(speed[1][0]) * 1e3
+        timing[name] = row
+        print(f"pointnet ({name}): {json.dumps(row)} on {card}", flush=True)
+
+    # F15's path: the fold as model.fst alone, read by --test_only
+    run, fst_run = (os.path.join(out_dir, n) for n in ("pointnet", "fst"))
+    _copy_fold_as_fst(run, fst_run)
+    args_path = os.path.join(fst_run, "commandline_args.json")
+    with open(args_path) as f:
+        stored = json.load(f)
+    with open(args_path, "w") as f:       # the test modes keep --output's
+        json.dump({**stored, "output": fst_run}, f)
+    if train_point_seg.main(["--output", fst_run, "--test_only", "--fold",
+                             "0"]) != 0:
+        raise AssertionError("pointnet: --test_only of the .fst fold failed")
+    if os.path.exists(os.path.join(fst_run, "fold0", "model.pt")):
+        raise AssertionError("pointnet: the .fst fold grew a model.pt")
+    timing["fst_test_only"] = _check_test_outputs(
+        os.path.join(fst_run, "fold0", "test"), "", "pointnet .fst")
+
+
+def phase_pointnet(ks, knn_cuda, card: str, out_dir: str):
+    """PointNet at full width through the entry (POINTNET_ARGV: 3 epochs of
+    fold 0 at 32 x 2048 on the synthetic cases, bf16 shared MLPs, then
+    fold 0's test): model.pt a PointNetSeg in bf16, finite losses, the test
+    CSVs (phase 20's checks); --test_only, --speed; the fold re-written as
+    model.fst alone (F15's path) and tested by --test_only; one warm-up and
+    3 timed segment_case cases on the 256^3 CT with the fold's model (the
+    synthetic cases' feature channel served as 0: segment_case hands the
+    model coordinates) and phase 4's class bias, under phase 4's checks;
+    the same entry with --transformer (the input T-Net) trained, tested
+    and timed by --speed (the entry runs share one synthetic dataset);
+    10 timed warm steps of PointNetSeg bf16, f32 and bf16 with the input
+    T-Net (ms/step, clouds/s, peak memory, busy share). PointNet launches
+    no kernel; serving's surface fit launches K1 (normals). Counts are
+    reset before and read after; returns (counts, calls, timing)."""
+    from fissure_segmentation_tpu_torch import train_point_seg
+    from fissure_segmentation_tpu_torch.models import load_fold_model
+    from fissure_segmentation_tpu_torch.serving import segment_case
+    from fissure_segmentation_tpu_torch.train.profile_step import (
+        canonical_data, make_step)
+    _reset(ks, knn_cuda)
+    timing = {}
+    with _cached_synthetic(train_point_seg):
+        _pointnet_runs(train_point_seg, card, out_dir, timing)
+    run = os.path.join(out_dir, "pointnet")
+
+    # serving with the fold's model
+    case = synthetic_ct()
+    vol = torch.from_numpy(case["image"]).cuda()
+    mask = torch.from_numpy(case["lung_mask"]).cuda()
+    model = load_fold_model(os.path.join(run, "fold0")).cuda().eval()
+    pad = model.config["in_features"] - 3
+
+    def coords_model(x):
+        """segment_case hands the model grid coordinates; the fold reads
+        them and the synthetic cases' feature channel, served as 0."""
+        return model(torch.cat([x, x.new_zeros((*x.shape[:-1], pad))], -1))
+    apply = biased_model(coords_model, case, SHAPE)
+
+    def serve(seed):
+        return segment_case(vol, mask, apply,
+                            torch.Generator().manual_seed(seed),
+                            center_x=SHAPE[2] / 2)
+    check_result(serve(1), SHAPE, "pointnet warm-up case")
+    times, k1 = [], knn_cuda.launches
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = serve(2 + i)
+        times.append(time.perf_counter() - t0)
+        check_result(res, SHAPE, f"pointnet case {i}")
+    if knn_cuda.launches - k1 < 3:
+        raise AssertionError("pointnet serving: K1 (normals) not launched "
+                             "every case")
+    timing["serving_s_per_case"] = times
+    del vol, mask
+    torch.cuda.empty_cache()
+
+    ds, loss_fn = canonical_data()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, kw in (("bf16", dict(dtype=torch.bfloat16)),
+                         ("f32", {}),
+                         ("bf16_transformer", dict(dtype=torch.bfloat16,
+                                                   spatial_transform=True))):
+            step = make_step(ds, loss_fn, tmp, model="PointNet", **kw)
+            timing[f"step_{name}"] = _timed_steps(ks, knn_cuda, step,
+                                                  f"pointnet {name}")
+    steps = {k: v for k, v in timing.items() if k.startswith("step_")}
+    print(f"pointnet: serving {[round(t, 4) for t in times]} s/case; "
+          f"steps {json.dumps(steps)} on {card}", flush=True)
+    return _counts(ks, knn_cuda), _slice_calls(ks, knn_cuda), timing
+
+
+def phase_pointnet_features(card: str, data: str, out_dir: str) -> dict:
+    """PointNet (the entry's defaults, bf16) trained 3 epochs on fold 0 of
+    the point files phase 35's preprocess_dataset wrote with --feature
+    mind_ssc (12 MIND-SSC channels a keypoint: BASELINE's "w/ image
+    features") and tested: in_features 15, finite losses and Dice, the
+    test CSV's layout (the point files carry no GT surfaces, so the ASSD
+    family stays NaN, as in phase 35)."""
+    from fissure_segmentation_tpu_torch import train_point_seg
+    from fissure_segmentation_tpu_torch.models import load_fold_model
+    run = os.path.join(out_dir, "pointnet_mind_ssc")
+    argv = ["--model", "PointNet", "--data_dir", data, "--fold", "0",
+            "--epochs", "3", "--pts", "2048", "--batch", "32", "--output",
+            run]
+    t0 = time.perf_counter()
+    if train_point_seg.main(argv) != 0:
+        raise AssertionError("pointnet (mind_ssc): the entry failed")
+    took = time.perf_counter() - t0
+    fold = os.path.join(run, "fold0")
+    hist = _read_history(os.path.join(fold, "history.csv"))
+    model = load_fold_model(fold)
+    rows = _csv(os.path.join(fold, "test", "test_results.csv"))
+    dice = np.asarray(rows[1][1:], float)
+    if model.config["in_features"] != 15 or not np.isfinite(hist).all() \
+            or [r[0] if r else None for r in rows] != RESULT_ROWS or \
+            not np.isfinite(dice).all():
+        raise AssertionError(f"pointnet (mind_ssc): {model.config}, {hist}, "
+                             f"{rows}")
+    speed = _csv(os.path.join(fold, "test", "inference_time.csv"))
+    out = {"train_and_test_s": took, "loss_history": hist,
+           "inference_s_per_case": float(speed[1][0]),
+           "post_s_per_case": float(speed[1][2]),
+           "mean_dice": dice.tolist()}
+    print(f"pointnet (mind_ssc): {json.dumps(out)} on {card}", flush=True)
+    return out
+
+
+def _step_on(dev, model0, x, y, cw):
+    """One NNU-loss train forward and backward of a copy of `model0` on
+    `dev`: (loss, eval logits of the copy before the step, gradient)."""
+    from fissure_segmentation_tpu_torch.losses import get_loss_fn
+    m = copy.deepcopy(model0).to(dev)
+    with torch.no_grad():
+        logits = m.eval()(x.to(dev)).float().cpu()
+    m.train()
+    loss, _ = get_loss_fn("nnunet", cw.to(dev))(m(x.to(dev)), y.to(dev))
+    loss.backward()
+    return float(loss.detach()), logits, _grads(m)
+
+
+def _small_batch(seed: int, n_cases: int = 3, b: int = 4):
+    """(dataset, x (b, 256, C), y, class weights) from synthetic cases of
+    600 points."""
+    from fissure_segmentation_tpu_torch.data.dataset import PointDataset
+    from fissure_segmentation_tpu_torch.data.store import sample_batch
+    from fissure_segmentation_tpu_torch.data.synthetic import \
+        make_synthetic_dataset
+    ds = PointDataset(make_synthetic_dataset(n_cases, n_points=600),
+                      sample_points=256)
+    x, y = sample_batch(ds.to_store(device="cuda"),
+                        torch.arange(b, device="cuda") % n_cases,
+                        ds.sample_points,
+                        torch.Generator(device="cuda").manual_seed(seed))
+    return ds, x, y, torch.as_tensor(ds.get_class_weights())
+
+
+def phase_pointnet_reference(card: str) -> dict:
+    """One train step and one eval forward of PointNetSeg with both T-Nets
+    on 4 clouds of 256 points, card against CPU from the same weights and
+    batch. float32: loss within rtol POINTNET_TOL["loss"], eval logits
+    within POINTNET_TOL["logits"] of their largest entry, the whole
+    gradient within POINTNET_TOL["grad_rel_l2"] in relative L2: train-mode
+    BatchNorm over the T-Nets' one vector a cloud amplifies summation-order
+    rounding (on the CPU JAX's own float32 gradient is up to 1.4 % off its
+    float64 one, tests/test_torch_pointnet.py). bf16 (the shared MLPs),
+    held as phase 18 holds DGCNN's: loss and eval logits against the CPU's
+    bf16 ones within BF16_TOL; the gradient no further from the CPU's
+    float32 one than the CPU's bf16 gradient is, times
+    POINTNET_TOL["bf16_slack"] (bf16 through the T-Nets' train-mode
+    BatchNorm moves the whole gradient by tens of percent on either side,
+    so card against CPU in bf16 would measure that amplification)."""
+    from fissure_segmentation_tpu_torch.models import PointNetSeg
+    ds, x, y, cw = _small_batch(38)
+    res = {}
+    runs = {}
+    for dt in (None, torch.bfloat16):
+        model0 = _draw_bn_offsets(PointNetSeg(
+            ds.n_features, ds.num_classes, True, True, dtype=dt,
+            generator=torch.Generator().manual_seed(38)), 38)
+        runs[dt] = [_step_on(dev, model0, x, y, cw)
+                    for dev in ("cuda", "cpu")]
+    (l_g, lo_g, g_g), (l_c, lo_c, g_c) = runs[None]
+    res["f32"] = {"loss": abs(l_g - l_c) / abs(l_c),
+                  "logits": float((lo_g - lo_c).abs().max()
+                                  / lo_c.abs().max()),
+                  "grad_rel_l2": _rel_l2(g_g, g_c)}
+    (b_g, blo_g, bg_g), (b_c, blo_c, bg_c) = runs[torch.bfloat16]
+    res["bf16"] = {
+        "loss": abs(b_g - b_c) / abs(b_c),
+        "logits": float((blo_g - blo_c).abs().max() / blo_c.abs().max()),
+        "grad_vs_cpu_f32": [_rel_l2(bg_g, g_c), _rel_l2(bg_c, g_c)]}
+    print(f"pointnet reference: card vs CPU {json.dumps(res)} (limits "
+          f"{POINTNET_TOL}, BF16_TOL {BF16_TOL}) on {card}", flush=True)
+    if any(res["f32"][k] > POINTNET_TOL[k] for k in res["f32"]):
+        raise AssertionError(f"pointnet reference f32: {res['f32']} against "
+                             f"{POINTNET_TOL}")
+    card_err, cpu_err = res["bf16"]["grad_vs_cpu_f32"]
+    if res["bf16"]["loss"] > BF16_TOL["loss"] or \
+            res["bf16"]["logits"] > BF16_TOL["logits"] or \
+            card_err > POINTNET_TOL["bf16_slack"] * cpu_err:
+        raise AssertionError(f"pointnet reference bf16: {res['bf16']} "
+                             f"against {BF16_TOL} and the slack "
+                             f"{POINTNET_TOL['bf16_slack']}")
+    return res
+
+
+def phase_stems(ks, knn_cuda, card: str, out_dir: str):
+    """DGCNN with both stems through the entry (STEMS_ARGV: bf16, k = 40,
+    32 x 2048, 3 epochs of fold 0), static and dynamic: model.pt with both
+    options, finite losses; then 10 timed warm steps of each (ms/step,
+    clouds/s, peak memory, busy share, launches a step: static K1 once,
+    the transpose once (the spatial transformer's EdgeConv shares the
+    static graph and its transpose); dynamic K1 twice (the transformer's
+    graph and EdgeConv_0's, both of coordinates), the transpose 4 times;
+    both: K2 twice (the transformer's EdgeMLP and EdgeConv_0's), the
+    gather-reduce, K3 and K4 twice). Counts are reset before and read
+    after; returns (counts, calls, gather-reduce calls, K4 calls,
+    timing)."""
+    from fissure_segmentation_tpu_torch import train_point_seg
+    from fissure_segmentation_tpu_torch.models import (DGCNNSeg,
+                                                       load_fold_model)
+    from fissure_segmentation_tpu_torch.train.profile_step import (
+        canonical_data, make_step)
+    os.environ.pop("FSEG_FUSED_EDGE", None)
+    _reset(ks, knn_cuda)
+    timing = {}
+    with _cached_synthetic(train_point_seg):
+        for name, extra in (("static", ["--static"]), ("dynamic", [])):
+            run = os.path.join(out_dir, f"stems_{name}")
+            t0 = time.perf_counter()
+            if train_point_seg.main(STEMS_ARGV + extra
+                                    + ["--output", run]) != 0:
+                raise AssertionError(f"stems ({name}): the entry failed")
+            took = time.perf_counter() - t0
+            hist = _read_history(os.path.join(run, "fold0", "history.csv"))
+            model = load_fold_model(os.path.join(run, "fold0"))
+            if not isinstance(model, DGCNNSeg) or model.dynamic != (
+                    name == "dynamic") or model.dtype != torch.bfloat16 or \
+                    not (model.spatial_transformer
+                         and model.image_feat_module) \
+                    or len(hist) != 3 or not np.isfinite(hist).all():
+                raise AssertionError(f"stems ({name}): {model.config}, "
+                                     f"{hist}")
+            timing[name] = {"train_s": took, "loss_history": hist}
+    ds, loss_fn = canonical_data()
+    for name in ("static", "dynamic"):
+        with tempfile.TemporaryDirectory() as tmp:
+            step = make_step(ds, loss_fn, tmp, dtype=torch.bfloat16,
+                             dynamic=name == "dynamic",
+                             spatial_transformer=True,
+                             image_feat_module=True)
+            row = _timed_steps(ks, knn_cuda, step, f"stems ({name})")
+        per = row["launches_per_step"]
+        want = ({"knn": 1, "transpose": 1} if name == "static"
+                else {"knn": 2, "transpose": 4})
+        want.update(scatter_rows=2, gather_reduce=2, scatter_routed=2,
+                    scatter_count=2)
+        if any(per.get(k) != n for k, n in want.items()):
+            raise AssertionError(f"stems ({name}): launches a step {per}, "
+                                 f"not {want}")
+        timing[name].update(row)
+        print(f"stems ({name}): {json.dumps(timing[name])} on {card}",
+              flush=True)
+    return (_counts(ks, knn_cuda), _slice_calls(ks, knn_cuda),
+            _gr_calls(ks, knn_cuda), _check_k4_route(ks, "stems"), timing)
+
+
+def phase_stems_reference(card: str) -> dict:
+    """One bf16 train step of DGCNNSeg(k = 8, static) with both stems at
+    B = 2, N = 256 on the card (kernels) and on the CPU (plain versions),
+    from the same weights and batch, both routings, held within BF16_TOL as
+    phase 18 holds the plain model (phase_bf16_reference says why). The
+    spatial transformer and the image features compute in float32 whatever
+    the model's dtype (their EdgeConv too, unfused, K2 in its backward):
+    their card-vs-CPU differences are float32 rounding, far below bf16's,
+    so they widen no limit; their gradient is part of the whole held
+    in relative L2."""
+    from fissure_segmentation_tpu_torch.models import DGCNNSeg
+    from fissure_segmentation_tpu_torch.train.trainer import TrainConfig
+    ds, x, y, cw = _small_batch(39, b=2)
+    model0 = _draw_bn_offsets(DGCNNSeg(
+        k=8, in_features=ds.n_features, num_classes=ds.num_classes,
+        dynamic=False, spatial_transformer=True, image_feat_module=True,
+        dtype=torch.bfloat16,
+        generator=torch.Generator().manual_seed(39)), 39)
+    res = {}
+    for fused in ("0", "1"):
+        os.environ["FSEG_FUSED_EDGE"] = fused
+        route = "fused" if fused == "1" else "unfused"
+        m_g, l_g, c_g, _ = _reference_step("cuda", model0, ds, cw,
+                                           TrainConfig(), x, y)
+        m_c, l_c, c_c, _ = _reference_step("cpu", model0, ds, cw,
+                                           TrainConfig(), x, y)
+        _close("stems bf16 loss", l_g, l_c, rtol=BF16_TOL["loss"], atol=0)
+        grad = _rel_l2(_grads(m_g), _grads(m_c))
+        from fissure_segmentation_tpu_torch.models import \
+            export_jax_variables
+        stats = _rel_l2(*(dict(_leaves(export_jax_variables(m)[
+            "batch_stats"])) for m in (m_g, m_c)))
+        with torch.no_grad():
+            lg = copy.deepcopy(model0).cuda().eval()(x).float().cpu()
+            lc = copy.deepcopy(model0).eval()(x.cpu()).float()
+        logits = float((lg - lc).abs().max() / lc.abs().max())
+        res[route] = {"loss": [l_g, l_c], "grad_rel_l2": grad,
+                      "stats_rel_l2": stats, "logits": logits}
+        if grad > BF16_TOL["grad_rel_l2"] or \
+                stats > BF16_TOL["stats_rel_l2"] or \
+                logits > BF16_TOL["logits"]:
+            raise AssertionError(f"stems reference ({route}): {res[route]} "
+                                 f"against {BF16_TOL}")
+    os.environ.pop("FSEG_FUSED_EDGE")
+    print(f"stems reference: card vs CPU {json.dumps(res)} (limits "
+          f"{BF16_TOL}) on {card}", flush=True)
+    return res
+
+
+def phase_affine(ks, knn_cuda, card: str, out_dir: str):
+    """affine_experiments.run_example for each of DGCNN, OpenDGCNN and
+    PointNet at the entry's widths (k = 40, 8 transforms of the 1024-point
+    target a step; rotation and translation, the point loss) for
+    AFFINE_EPOCHS x AFFINE_STEPS steps: finite metrics, the CSV rows; then
+    10 timed warm steps of each (ms/step, peak memory, busy share, the
+    launches a step: DGCNN K1 once (the coordinates; the three feature
+    graphs are `feature_knn`), the transpose, the gather-reduce, K3 and K4
+    4 times; OpenDGCNN K1 once, the transpose and K2 4 times; PointNet
+    none). Counts are reset before and read after; returns (counts, calls,
+    gather-reduce calls, K4 calls, K3 calls, timing)."""
+    from fissure_segmentation_tpu_torch import affine_experiments as ae
+    from fissure_segmentation_tpu_torch.train.profile_step import (
+        STEPS, WARM)
+    os.environ.pop("FSEG_FUSED_EDGE", None)
+    _reset(ks, knn_cuda)
+    timing = {}
+    want = {"DGCNN": {"knn": 1, "transpose": 4, "gather_reduce": 4,
+                      "scatter_routed": 4, "scatter_count": 4},
+            "OpenDGCNN": {"knn": 1, "transpose": 4, "scatter_rows": 4},
+            "PointNet": {}}
+    for name in ("DGCNN", "OpenDGCNN", "PointNet"):
+        t0 = time.perf_counter()
+        hist = ae.run_example(name, AFFINE_EPOCHS, AFFINE_STEPS, out_dir)
+        took = time.perf_counter() - t0
+        if len(hist) != AFFINE_EPOCHS or not all(
+                np.isfinite(v) for h in hist for v in h.values()):
+            raise AssertionError(f"affine ({name}): history {hist}")
+        rows = _csv(os.path.join(out_dir, f"{name}_sanity_check",
+                                 f"{name}_rot_translation_pointloss",
+                                 "training_progression.csv"))
+        if [r[0] for r in rows] != ["loss", "angle_rmse", "trans_rmse_mm",
+                                    "corr_err_mm"]:
+            raise AssertionError(f"affine ({name}): CSV rows {rows}")
+        step, _, gen = ae.build_example(name, device="cuda")
+        for _ in range(WARM):
+            step(gen)
+        before = _counts(ks, knn_cuda)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        for _ in range(STEPS):
+            m = step(gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) / STEPS * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        after = _counts(ks, knn_cuda)
+        per = {k: (after[k] - before[k]) / STEPS for k in after
+               if after[k] - before[k]}
+        if per != {k: float(v) for k, v in want[name].items()}:
+            raise AssertionError(f"affine ({name}): launches a step {per}, "
+                                 f"not {want[name]}")
+        if not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"affine ({name}): non-finite step loss")
+        timing[name] = {"run_s": took, "history": hist, "ms_per_step": ms,
+                        "peak_gib": peak / 2 ** 30,
+                        "launches_per_step": per,
+                        "busy_share": _profiled_busy(lambda: step(gen))}
+        print(f"affine ({name}): {json.dumps(timing[name])} on {card}",
+              flush=True)
+    return (_counts(ks, knn_cuda), _slice_calls(ks, knn_cuda),
+            _gr_calls(ks, knn_cuda), _check_k4_route(ks, "affine"),
+            dict(ks.scatter_routed.calls), timing)
+
+
+def phase_affine_reference(card: str) -> dict:
+    """One experiment step of each affine model, card against CPU, from
+    the same weights (k = 40) and the same 8 transforms of a 256-point
+    target: the step's metrics (loss, angle_rmse, trans_rmse, corr_err)
+    within rtol AFFINE_TOL["loss"], the outputs before the step within
+    AFFINE_TOL["outputs"] of their largest entry, the whole gradient within
+    AFFINE_TOL["grad_rel_l2"] in relative L2 (train-mode BatchNorm over the
+    batch's 8 vectors in the heads amplifies summation-order rounding; on
+    the CPU the port against JAX reads up to 1.2e-4,
+    tests/test_torch_affine.py)."""
+    from fissure_segmentation_tpu_torch import affine_experiments as ae
+    from fissure_segmentation_tpu_torch.models import AFFINE_MODELS
+    target_np, _ = ae.normalized_target_shape(np.random.default_rng(40),
+                                              n_points=256)
+    g = torch.Generator().manual_seed(40)
+    draws = (torch.rand((8, 3), generator=g), torch.rand((8, 3), generator=g))
+    res = {}
+    for name in ("DGCNN", "OpenDGCNN", "PointNet"):
+        model0 = _draw_bn_offsets(AFFINE_MODELS[name](
+            k=40, generator=torch.Generator().manual_seed(40)), 40)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            m = copy.deepcopy(model0).to(dev)
+            with torch.no_grad():
+                before = torch.cat(m.eval()(torch.from_numpy(
+                    target_np)[None].to(dev).expand(8, -1, -1)), -1).cpu()
+            opt = torch.optim.Adam(m.parameters(), lr=ae.LR)
+            step = ae.make_train_step(m, opt, torch.from_numpy(target_np)
+                                      .to(dev), True, True, True, False)
+            metrics = {k: float(v) for k, v in step(
+                None, draws=tuple(d.to(dev) for d in draws)).items()}
+            grads = _grads(m)
+            out[dev] = (metrics, before, grads)
+        (mg, bg, gg), (mc, bc, gc) = out["cuda"], out["cpu"]
+        res[name] = {"metrics": max(abs(mg[k] - mc[k]) / abs(mc[k])
+                                    for k in mc),
+                     "outputs": float((bg - bc).abs().max()
+                                      / bc.abs().max()),
+                     "grad_rel_l2": _rel_l2(gg, gc)}
+        if res[name]["metrics"] > AFFINE_TOL["loss"] or \
+                res[name]["outputs"] > AFFINE_TOL["outputs"] or \
+                res[name]["grad_rel_l2"] > AFFINE_TOL["grad_rel_l2"]:
+            raise AssertionError(f"affine reference ({name}): {res[name]} "
+                                 f"against {AFFINE_TOL}")
+    print(f"affine reference: card vs CPU {json.dumps(res)} (limits "
+          f"{AFFINE_TOL}) on {card}", flush=True)
+    return res
+
+
+def _time_scatter_at(ks, knn_cuda, b, n, k, c, seed, what):
+    """K3 and K4 at a train step's shape (b, n, k, c) on a K1 graph of
+    random points, which phase 6 does not time: as `_time_dpsr_scatter`
+    times DPSR-Net's."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    idx3, _ = knn_cuda(torch.rand((b, n, 3), generator=g, device=dev) * 2
+                       - 1, k, True)
+    idx3 = idx3.contiguous()
+    idx2 = idx3.reshape(b, n * k)
+    tr = ks.transpose(idx2, n)
+    kstar = torch.randint(0, k, (b, n, c), generator=g, device=dev,
+                          dtype=torch.int32)
+    s_ = torch.randn((b, n, c), generator=g, device=dev)
+    p_ = torch.randn((b, n, c), generator=g, device=dev)
+    err3 = _check_routed(ks, idx3, kstar, s_, p_, n, tr)
+    err4 = _check_count(ks, idx2, n, tr)
+    b3, by3 = bound_ms(idx3.numel() * 4 + b * n * c * 4 + 2 * s_.numel() * 4
+                       + b * n * 2 * c * 4, 2 * idx3.numel() * c)
+    b4, by4 = bound_ms(b * n * 8 + 4, b * n)
+    ptr = tr[1]
+    out = {
+        "scatter_routed": {
+            "call": f"{b}x{n}x{k}x{c}_float32", "max_abs_err": err3,
+            "ms": median_ms(lambda: ks.scatter_routed(idx3, kstar, s_, p_,
+                                                      n)),
+            "shared_ms": median_ms(lambda: ks.scatter_routed(
+                idx3, kstar, s_, p_, n, tr)),
+            "plain_ms": median_ms(lambda: ks.scatter_routed_plain(
+                idx3, kstar, s_, p_, n)),
+            "bound_ms": b3, "bound_by": by3, "library_ms": None},
+        "scatter_count": {
+            "call": f"ptr_{b}x{n}", "max_abs_err": err4,
+            "ms": median_ms(lambda: ks.scatter_count(idx2, n, tr)),
+            "device_ms": graph_ms(lambda: ks.scatter_count(idx2, n, tr)),
+            "plain_ms": median_ms(lambda: ks.count_from_ptr_plain(ptr, b,
+                                                                  n)),
+            "bound_ms": b4, "bound_by": by4,
+            "library_ms": median_ms(lambda: torch.diff(ptr))}}
+    print(f"{what} scatter timings ({b}x{n}, k={k}, C={c}): "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4927,32 +5495,78 @@ def main() -> int:
         # 36. one case card against CPU
         print(json.dumps({"preprocess_reference": phase_preprocess_reference(
             card, pre_dir), "card": card}), flush=True)
+
+        # 37 (its first run). PointNet on phase 35's MIND-SSC point files
+        pn_features = phase_pointnet_features(
+            card, os.path.join(pre_dir, "data"), pre_dir)
     slice_paths.update(preprocess=pre_calls["foerstner"],
                        preprocess_cnn=pre_calls["cnn"])
     timings.update(pre_k1)
+
+    # 37. PointNet at full width: trained, tested, timed, served (counts
+    # from 0, read after)
+    with tempfile.TemporaryDirectory() as pn_dir:
+        pn_counts, pn_calls, pn_timing = phase_pointnet(ks, knn_cuda, card,
+                                                        pn_dir)
+    pn_timing["mind_ssc"] = pn_features
+    print(json.dumps({"pointnet": pn_timing, "card": card}), flush=True)
+
+    # 38. PointNet card against CPU, f32 and bf16
+    print(json.dumps({"pointnet_reference": phase_pointnet_reference(card),
+                      "card": card}), flush=True)
+
+    # 39. DGCNN with both stems, static and dynamic (counts from 0, read
+    # after), then its bf16 step card against CPU
+    with tempfile.TemporaryDirectory() as st_dir:
+        st_counts, st_calls, st_gr, st_k4, st_timing = phase_stems(
+            ks, knn_cuda, card, st_dir)
+    gr_calls.append(st_gr)
+    print(json.dumps({"stems": st_timing, "card": card}), flush=True)
+    print(json.dumps({"stems_reference": phase_stems_reference(card),
+                      "card": card}), flush=True)
+
+    # 40. the affine experiments (counts from 0, read after), then a step
+    # of each model card against CPU; K3 and K4 at their step's shapes
+    with tempfile.TemporaryDirectory() as af_dir:
+        af_counts, af_calls, af_gr, af_k4, af_k3, af_timing = phase_affine(
+            ks, knn_cuda, card, af_dir)
+    gr_calls.append(af_gr)
+    print(json.dumps({"affine": af_timing, "card": card}), flush=True)
+    print(json.dumps({"affine_reference": phase_affine_reference(card),
+                      "card": card}), flush=True)
+    affine_scatter = {c: _time_scatter_at(ks, knn_cuda, 8, 1024, 40, c,
+                                          40 + c, "affine")
+                      for c in (64, 128, 256)}
+    scatter["scatter_count"][1]["ptr_8x1024"] = \
+        affine_scatter[64]["scatter_count"]
+    slice_paths.update(pointnet=pn_calls, stems=st_calls, affine=af_calls)
 
     def slice_row(name, timed):
         """The slice's launches of a kernel, by path and by call."""
         launches = {"pcae": pcae_counts[name], "dseg_ae": dseg_counts[name],
                     "dpsr": dpsr_counts[name], "dgssm": dgssm_counts[name],
                     "preprocess": pre_counts["foerstner"][name],
-                    "preprocess_cnn": pre_counts["cnn"][name]}
+                    "preprocess_cnn": pre_counts["cnn"][name],
+                    "pointnet": pn_counts[name], "stems": st_counts[name],
+                    "affine": af_counts[name]}
         row = {"launches": launches}
         if name in ("knn", "scatter_rows", "fps"):
             row["by_call"] = slice_by_call(name, slice_paths, timed)
         return row
 
     # the chain's train_point_seg run counts with the train paths, like the
-    # default run (its widths)
+    # default run (its widths), and so do phase 39's DGCNN runs with both
+    # stems
     train_total = {k: counts["total"][k] + bf16_counts[k] + default_counts[k]
-                   + chain_counts[k] for k in counts["total"]}
+                   + chain_counts[k] + st_counts[k] for k in counts["total"]}
     # K4 by call: the train paths' count_from_ptr, the probes' histogram at
     # 512 rows (the launches of their timed calls)
     k4_calls, k4_paths = {}, {}
     for path, part in (("train", counts["k4_calls"]),
                        ("train", bf16_counts["k4_calls"]),
                        ("train", default_k4), ("dpsr", dpsr_k4),
-                       ("train", chain_k4)):
+                       ("train", chain_k4), ("train", st_k4),
+                       ("affine", af_k4)):
         for key, n in part.items():
             k4_calls[key] = k4_calls.get(key, 0) + n
             k4_paths[key] = path
@@ -4963,11 +5577,13 @@ def main() -> int:
     k4_paths[PROBE_K4_CALL] = "probes"
     if sum(k4_calls.values()) != (train_total["scatter_count"]
                                   + probe_counts["scatter_count"]
-                                  + dpsr_counts["scatter_count"]):
+                                  + dpsr_counts["scatter_count"]
+                                  + af_counts["scatter_count"]):
         raise AssertionError(f"scatter_count: {k4_calls} by call against "
                              f"{train_total['scatter_count']} train, "
                              f"{probe_counts['scatter_count']} probe and "
                              f"{dpsr_counts['scatter_count']} DPSR-Net "
+                             f"and {af_counts['scatter_count']} affine "
                              "launches")
     graph = timings["dgcnn_graph_5x2048x3_k40"]
     kernels = [{
@@ -4977,7 +5593,7 @@ def main() -> int:
         + pt_serving["knn"] + pt_counts["knn"] + cnn_serving["knn"]
         + pcae_counts["knn"] + dseg_counts["knn"] + dpsr_counts["knn"]
         + dgssm_counts["knn"] + pre_counts["foerstner"]["knn"]
-        + pre_counts["cnn"]["knn"],
+        + pre_counts["cnn"]["knn"] + pn_counts["knn"] + af_counts["knn"],
         "max_abs_err": max_err, "ms": graph["ms"],
         "plain_ms": graph["plain_ms"], "bound_ms": graph["bound_ms"],
         "bound_by": graph["bound_by"], "library_ms": None,
@@ -4989,7 +5605,7 @@ def main() -> int:
                "replaces": SCATTER_REPLACES[name],
                "launches": train_total[name] + pcae_counts[name]
                + dseg_counts[name] + dpsr_counts[name]
-               + dgssm_counts[name], "max_abs_err": err,
+               + dgssm_counts[name] + af_counts[name], "max_abs_err": err,
                "ms": path["ms"], "plain_ms": path["plain_ms"],
                "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
                "library_ms": path["library_ms"], "shapes": shapes}
@@ -5010,13 +5626,25 @@ def main() -> int:
             new = dpsr_scatter["scatter_routed"]
             row["by_call"] = {
                 next(iter(shapes)): {
-                    "launches": row["launches"] - dpsr_counts[name],
+                    "launches": row["launches"] - dpsr_counts[name]
+                    - af_counts[name],
                     **{k: path[k] for k in ("ms", "shared_ms", "plain_ms",
                                             "bound_ms", "bound_by",
                                             "library_ms")}},
                 new["call"]: {"launches": dpsr_counts[name],
                               **{k: v for k, v in new.items()
                                  if k != "call"}}}
+            # the affine DGCNN's EdgeConvs, (8, 1024, 40, C), by call
+            timed = {t["scatter_routed"]["call"]: t["scatter_routed"]
+                     for t in affine_scatter.values()}
+            if set(af_k3) - set(timed) or \
+                    sum(af_k3.values()) != af_counts[name]:
+                raise AssertionError(f"scatter_routed: affine calls {af_k3} "
+                                     f"against {sorted(timed)}")
+            for key, n in af_k3.items():
+                row["by_call"][key] = {
+                    "launches": n, "path": "affine",
+                    **{k: v for k, v in timed[key].items() if k != "call"}}
         if name == "scatter_count":
             # priced by call; the top-level numbers are the most launched
             # call's (the train step's count_from_ptr)
@@ -5111,7 +5739,8 @@ def main() -> int:
     gr_launches = (serving["gather_reduce"] + train_total["gather_reduce"]
                    + cnn_serving["gather_reduce"]
                    + dseg_counts["gather_reduce"]
-                   + dpsr_counts["gather_reduce"])
+                   + dpsr_counts["gather_reduce"]
+                   + af_counts["gather_reduce"])
     if sum(calls.values()) != gr_launches:
         raise AssertionError(f"gather_reduce: {gr_launches} launches but "
                              f"{calls} by call")

@@ -254,7 +254,8 @@ def scatter_routed(idx: torch.Tensor, kstar: torch.Tensor, s: torch.Tensor,
                    p: torch.Tensor, n_rows: int,
                    transposed=None) -> torch.Tensor:
     """K3 on the inputs' device. Each kernel launch adds one to
-    ``scatter_routed.launches``.
+    ``scatter_routed.launches`` and to ``scatter_routed.calls`` under
+    "{B}x{N}x{K}x{C}_{dtype}".
 
     :param idx: (B, N, K) int32 neighbour indices
     :param kstar: (B, N, C) int32 routing slot in [0, K) per (node, channel)
@@ -293,10 +294,13 @@ def scatter_routed(idx: torch.Tensor, kstar: torch.Tensor, s: torch.Tensor,
                 out.data_ptr(), b, n, n_rows, kk, c,
                 int(s.dtype == torch.bfloat16), _stream(s.device))
     scatter_routed.launches += 1
+    key = f"{b}x{n}x{kk}x{c}_{str(s.dtype).removeprefix('torch.')}"
+    scatter_routed.calls[key] = scatter_routed.calls.get(key, 0) + 1
     return out
 
 
 scatter_routed.launches = 0
+scatter_routed.calls = {}
 
 
 # ---- K4 -------------------------------------------------------------------

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from .dgcnn import DGCNNSeg
 from .lraspp_3d import LRASPPMobileNetV33D
+from .pointnet import PointNetSeg
 from .point_transformer import PointTransformerSeg
 from .seg_cnn import MobileNetASPP
 
@@ -14,7 +15,7 @@ def get_point_seg_model_class(name: str):
     if name == "PointTransformer":
         return PointTransformerSeg
     if name == "PointNet":
-        raise NotImplementedError("PointNet is not ported yet")
+        return PointNetSeg
     raise ValueError(f"unknown point segmentation model {name!r}; known: "
                      "['DGCNN', 'PointNet', 'PointTransformer']")
 

@@ -168,3 +168,25 @@ class SharedMLP(nn.Module):
         if self.last_layer:
             return x
         return leaky_relu(self.BatchNorm_0(x), self.negative_slope)
+
+
+class MLPStack(nn.Module):
+    """A stack of SharedMLPs, `SharedMLP_0`, `SharedMLP_1`, ... as flax
+    names them (PointNet's stacks use slope 0.01, DGCNN's 0.2)."""
+
+    def __init__(self, in_features: int, features, negative_slope: float = 0.2,
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
+        super().__init__()
+        self.n_layers = len(features)
+        fin = in_features
+        for i, fout in enumerate(features):
+            setattr(self, f"SharedMLP_{i}",
+                    SharedMLP(fin, fout, negative_slope, generator=generator,
+                              dtype=dtype))
+            fin = fout
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_layers):
+            x = getattr(self, f"SharedMLP_{i}")(x)
+        return x

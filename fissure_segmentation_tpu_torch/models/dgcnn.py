@@ -28,8 +28,28 @@ casts its input and every block its kernel to bf16 before the product
 the logits are cast back to float32 for the loss. None or float32 computes
 in float32.
 
-Not ported yet (each raises NotImplementedError): the spatial transformer,
-the image-feature module and approximate kNN (`knn_recall`).
+The stem's two options (counterpart of dgcnn.py:SpatialTransformer,
+ImageFeatures and DGCNNBase._common): the static graph is built from the 3
+coordinate channels of the input first; `image_feat_module` then embeds the
+non-coordinate channels with two 1x1 SharedMLPs (6, 12; slope 0.01), so
+EdgeConv_0 reads 3 + 12 channels; `spatial_transformer` then regresses a
+3 x 3 matrix from the coordinates (an unfused EdgeConv [64, 128] on the
+static graph, or on its own self-loop graph of the coordinates through K1
+in a dynamic model, then SharedMLP(1024), a global max, Dense-BatchNorm-
+LeakyReLU(0.2) to 512 and 256, and a 256 -> 9 Dense with a zero kernel and
+an identity bias) and multiplies the coordinates by it. Both stems are
+float32 whatever `dtype` says (their EdgeConv too), as in the JAX package;
+the coordinate product is a float32 matmul at full precision as long as
+TF32 stays off (torch's default).
+
+DGCNNReg (counterpart of dgcnn.py:DGCNNReg): the same stem, four
+single-layer EdgeConvs (64, 64, 128, 256; fused where `fused_edge_enabled`
+says so), SharedMLP(1024), a global max to (B, 1024), then SharedMLPs of
+512 and 256 on those vectors (BatchNorm over the batch axis) and a last
+layer to (B, C).
+
+Not ported yet (raises NotImplementedError): approximate kNN
+(`knn_recall`).
 """
 from __future__ import annotations
 
@@ -41,7 +61,9 @@ from torch import nn
 from ..kernels.scatter import transpose
 from ..ops.knn import knn
 from ..ops.fused_edge import fused_edge_enabled
-from .blocks import EdgeMLP, FusedEdgeMLPMax, SharedMLP
+from .blocks import (BatchNorm, EdgeMLP, FusedEdgeMLPMax, MLPStack,
+                     SharedMLP, _dense, leaky_relu)
+from .pointnet import _check_dtype, apply_transform, identity_head
 
 
 class EdgeConv(nn.Module):
@@ -74,8 +96,52 @@ class EdgeConv(nn.Module):
         return e.amax(dim=-2)  # max over neighbors -> (B, N, C')
 
 
-class DGCNNSeg(nn.Module):
-    """Point segmentation DGCNN; (B, N, in_features) -> (B, N, C) logits."""
+class SpatialTransformer(nn.Module):
+    """Learned affine alignment of the coordinate channels, float32."""
+
+    def __init__(self, in_features: int = 3,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        g = generator
+        self.d = in_features
+        self.EdgeConv_0 = EdgeConv(in_features, [64, 128], generator=g)
+        self.SharedMLP_0 = SharedMLP(128, 1024, generator=g)
+        self.Dense_0 = _dense(1024, 512, True, g)
+        self.BatchNorm_0 = BatchNorm(512)
+        self.Dense_1 = _dense(512, 256, True, g)
+        self.BatchNorm_1 = BatchNorm(256)
+        self.Dense_2 = identity_head(256, in_features)
+
+    def forward(self, x: torch.Tensor, graph: torch.Tensor,
+                transposed=None) -> torch.Tensor:
+        """x (B, N, C) float32 and the graph of its coordinates; returns x
+        with its first `in_features` channels transformed."""
+        coords = x[..., :self.d]
+        t = self.SharedMLP_0(self.EdgeConv_0(coords, graph, transposed))
+        t = t.amax(dim=-2)                          # global max over points
+        t = leaky_relu(self.BatchNorm_0(self.Dense_0(t)), 0.2)
+        t = leaky_relu(self.BatchNorm_1(self.Dense_1(t)), 0.2)
+        coords = apply_transform(coords, self.Dense_2(t), self.d)
+        return torch.cat([coords, x[..., self.d:]], dim=-1)
+
+
+class ImageFeatures(MLPStack):
+    """1x1 embedding of the non-coordinate channels (a float32 MLPStack of
+    6 and 12, slope 0.01); the coordinates pass through."""
+
+    def __init__(self, in_features: int, out_channels=(6, 12),
+                 generator: torch.Generator | None = None):
+        super().__init__(in_features - 3, out_channels, 1e-2, generator)
+        self.out_features = 3 + out_channels[-1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([x[..., :3], super().forward(x[..., 3:])], dim=-1)
+
+
+class DGCNNBase(nn.Module):
+    """The stem and the EdgeConv chain shared by DGCNNSeg and DGCNNReg."""
+
+    edge_widths: tuple = ()
 
     def __init__(self, k: int, in_features: int, num_classes: int,
                  spatial_transformer: bool = False, dynamic: bool = True,
@@ -83,36 +149,32 @@ class DGCNNSeg(nn.Module):
                  knn_recall: float | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        unported = {"spatial_transformer": spatial_transformer,
-                    "image_feat_module": image_feat_module,
-                    "knn_recall": knn_recall is not None}
-        for name, on in unported.items():
-            if on:
-                raise NotImplementedError(f"DGCNNSeg({name}=...) is not "
-                                          "ported yet")
-        if isinstance(dtype, str):
-            dtype = getattr(torch, dtype)
-        if dtype not in (None, torch.float32, torch.bfloat16):
-            raise ValueError(f"DGCNNSeg: dtype must be None, float32 or "
-                             f"bfloat16, got {dtype}")
-        self.dtype = None if dtype == torch.float32 else dtype
+        if knn_recall is not None:
+            raise NotImplementedError(f"{type(self).__name__}(knn_recall="
+                                      "...) is not ported yet")
+        self.dtype = dt = _check_dtype(dtype, type(self).__name__)
         self.k = k
         self.dynamic = bool(dynamic)
+        self.spatial_transformer = bool(spatial_transformer)
+        self.image_feat_module = bool(image_feat_module)
         self.config = dict(k=k, in_features=in_features,
                            num_classes=num_classes, dynamic=self.dynamic)
-        if self.dtype is not None:   # JSON for model.pt
-            self.config["dtype"] = str(self.dtype).removeprefix("torch.")
-        g, dt = generator, self.dtype
-        self.EdgeConv_0 = EdgeConv(in_features, [64, 64], generator=g,
-                                   dtype=dt)
-        self.EdgeConv_1 = EdgeConv(64, [64], generator=g, dtype=dt)
-        self.EdgeConv_2 = EdgeConv(64, [64], generator=g, dtype=dt)
-        self.SharedMLP_0 = SharedMLP(192, 1024, generator=g, dtype=dt)
-        self.SharedMLP_1 = SharedMLP(192 + 1024, 256, generator=g, dtype=dt)
-        self.SharedMLP_2 = SharedMLP(256, 256, generator=g, dtype=dt)
-        self.SharedMLP_3 = SharedMLP(256, 128, generator=g, dtype=dt)
-        self.SharedMLP_4 = SharedMLP(128, num_classes, last_layer=True,
-                                     generator=g, dtype=dt)
+        for name in ("spatial_transformer", "image_feat_module"):
+            if getattr(self, name):
+                self.config[name] = True
+        if dt is not None:   # JSON for model.pt
+            self.config["dtype"] = str(dt).removeprefix("torch.")
+        g = generator
+        fin = in_features
+        if self.image_feat_module:
+            self.ImageFeatures_0 = ImageFeatures(in_features, generator=g)
+            fin = self.ImageFeatures_0.out_features
+        if self.spatial_transformer:
+            self.SpatialTransformer_0 = SpatialTransformer(generator=g)
+        for i, widths in enumerate(self.edge_widths):
+            setattr(self, f"EdgeConv_{i}",
+                    EdgeConv(fin, widths, generator=g, dtype=dt))
+            fin = widths[-1]
 
     def _transpose(self, graph: torch.Tensor):
         """The graph's transpose for the backward scatters, in a train-mode
@@ -123,21 +185,53 @@ class DGCNNSeg(nn.Module):
         return transpose(graph.reshape(b, n * k).to(torch.int32)
                          .contiguous(), n)
 
+    def _graph(self, x: torch.Tensor, self_loop: bool):
+        graph = knn(x, self.k, self_loop=self_loop)
+        return graph, self._transpose(graph)
+
+    def _features(self, x: torch.Tensor) -> list:
+        """The stem, then every EdgeConv; returns their outputs."""
+        graph = tr = None
+        if not self.dynamic:
+            graph, tr = self._graph(x[..., :3], False)
+        if self.image_feat_module:
+            x = self.ImageFeatures_0(x)
+        if self.spatial_transformer:
+            st = (graph, tr) if graph is not None else \
+                self._graph(x[..., :3], True)
+            x = self.SpatialTransformer_0(x, *st)
+        feats = []
+        for i in range(len(self.edge_widths)):
+            if self.dynamic:
+                graph, tr = self._graph(x[..., :3] if i == 0 else x, True)
+            x = getattr(self, f"EdgeConv_{i}")(x, graph, tr)
+            feats.append(x)
+        return feats
+
+
+class DGCNNSeg(DGCNNBase):
+    """Point segmentation DGCNN; (B, N, in_features) -> (B, N, C) logits."""
+
+    edge_widths = ([64, 64], [64], [64])
+
+    def __init__(self, k: int, in_features: int, num_classes: int,
+                 spatial_transformer: bool = False, dynamic: bool = True,
+                 image_feat_module: bool = False, dtype=None,
+                 knn_recall: float | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__(k, in_features, num_classes, spatial_transformer,
+                         dynamic, image_feat_module, dtype, knn_recall,
+                         generator)
+        g, dt = generator, self.dtype
+        self.SharedMLP_0 = SharedMLP(192, 1024, generator=g, dtype=dt)
+        self.SharedMLP_1 = SharedMLP(192 + 1024, 256, generator=g, dtype=dt)
+        self.SharedMLP_2 = SharedMLP(256, 256, generator=g, dtype=dt)
+        self.SharedMLP_3 = SharedMLP(256, 128, generator=g, dtype=dt)
+        self.SharedMLP_4 = SharedMLP(128, num_classes, last_layer=True,
+                                     generator=g, dtype=dt)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.dynamic:
-            g0 = knn(x[..., :3], self.k, self_loop=True)
-            x1 = self.EdgeConv_0(x, g0, self._transpose(g0))
-            g1 = knn(x1, self.k, self_loop=True)
-            x2 = self.EdgeConv_1(x1, g1, self._transpose(g1))
-            g2 = knn(x2, self.k, self_loop=True)
-            x3 = self.EdgeConv_2(x2, g2, self._transpose(g2))
-        else:
-            graph = knn(x[..., :3], self.k, self_loop=False)
-            tr = self._transpose(graph)
-            x1 = self.EdgeConv_0(x, graph, tr)
-            x2 = self.EdgeConv_1(x1, graph, tr)
-            x3 = self.EdgeConv_2(x2, graph, tr)
-        multi = torch.cat([x1, x2, x3], dim=-1)
+        multi = torch.cat(self._features(x), dim=-1)
         g = self.SharedMLP_0(multi).amax(dim=-2, keepdim=True)
         h = torch.cat([multi, g.expand(*multi.shape[:-1], g.shape[-1])],
                       dim=-1)
@@ -145,3 +239,31 @@ class DGCNNSeg(nn.Module):
         h = self.SharedMLP_2(h)
         h = self.SharedMLP_3(h)
         return self.SharedMLP_4(h).to(torch.float32)
+
+
+class DGCNNReg(DGCNNBase):
+    """Global regression DGCNN; (B, N, in_features) -> (B, C) outputs."""
+
+    edge_widths = ([64], [64], [128], [256])
+
+    def __init__(self, k: int, in_features: int, num_classes: int,
+                 spatial_transformer: bool = False, dynamic: bool = True,
+                 image_feat_module: bool = False, dtype=None,
+                 knn_recall: float | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__(k, in_features, num_classes, spatial_transformer,
+                         dynamic, image_feat_module, dtype, knn_recall,
+                         generator)
+        g, dt = generator, self.dtype
+        self.SharedMLP_0 = SharedMLP(512, 1024, generator=g, dtype=dt)
+        self.SharedMLP_1 = SharedMLP(1024, 512, generator=g, dtype=dt)
+        self.SharedMLP_2 = SharedMLP(512, 256, generator=g, dtype=dt)
+        self.SharedMLP_3 = SharedMLP(256, num_classes, last_layer=True,
+                                     generator=g, dtype=dt)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        multi = torch.cat(self._features(x), dim=-1)
+        h = self.SharedMLP_0(multi).amax(dim=-2)          # (B, 1024)
+        h = self.SharedMLP_1(h)
+        h = self.SharedMLP_2(h)
+        return self.SharedMLP_3(h).to(torch.float32)

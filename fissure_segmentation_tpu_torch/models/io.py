@@ -36,6 +36,13 @@ JAX_FIELDS = {
                  ("spatial_transformer", False), ("dynamic", True),
                  ("image_feat_module", False), ("dtype", None),
                  ("knn_recall", None)],
+    "DGCNNReg": [("k", None), ("in_features", None), ("num_classes", None),
+                 ("spatial_transformer", False), ("dynamic", True),
+                 ("image_feat_module", False), ("dtype", None),
+                 ("knn_recall", None)],
+    "PointNetSeg": [("in_features", None), ("num_classes", None),
+                    ("spatial_transform", False),
+                    ("feature_transform", False), ("dtype", None)],
     "PointTransformerSeg": [("in_features", None), ("num_classes", None),
                             ("blocks", [2, 3, 4, 6, 3]),
                             ("planes", [32, 64, 128, 256, 512]),

@@ -24,8 +24,9 @@ file's bfloat16 arrays are read as tensors, models/io.py).
 
 `save_model` writes `model.pt`: the flattened tree, the constructor config
 and the class name (`model_class`), so `load_model(path)` rebuilds a
-DGCNNSeg, PointTransformerSeg, DGCNNFoldingNet, MobileNetASPP,
-LRASPPMobileNetV33D, DPSRNet, DPSRNet2 or DGSSM without being told which
+DGCNNSeg, DGCNNReg, PointNetSeg, PointTransformerSeg, DGCNNFoldingNet,
+MobileNetASPP, LRASPPMobileNetV33D, DPSRNet, DPSRNet2, DGSSM or an affine
+model without being told which
 (DPSR-Net's seg net and DG-SSM's heads sit under the JAX tree's scopes,
 `DGCNNSeg_0` and `MultiHeadDGCNN_0/...`, so the same walk maps them);
 a `model.pt` written before the class was recorded loads when the class is
@@ -203,17 +204,21 @@ def _unflatten(flat: Mapping) -> dict:
 def model_class(name: str):
     """The port's model class of that name (a `model.pt`'s or a `.fst`
     header's `model_class`)."""
+    from .affine import AffineDGCNN, AffineOpenDGCNN, AffinePointNet
     from .dg_ssm import DGSSM
-    from .dgcnn import DGCNNSeg
+    from .dgcnn import DGCNNReg, DGCNNSeg
     from .dpsr_net import DPSRNet, DPSRNet2
     from .folding_net import DGCNNFoldingNet
     from .lraspp_3d import LRASPPMobileNetV33D
     from .point_transformer import PointTransformerSeg
+    from .pointnet import PointNetSeg
     from .seg_cnn import MobileNetASPP
     classes = {c.__name__: c for c in (DGCNNSeg, PointTransformerSeg,
                                        DGCNNFoldingNet, MobileNetASPP,
                                        LRASPPMobileNetV33D, DPSRNet,
-                                       DPSRNet2, DGSSM)}
+                                       DPSRNet2, DGSSM, PointNetSeg,
+                                       DGCNNReg, AffineDGCNN,
+                                       AffineOpenDGCNN, AffinePointNet)}
     if name not in classes:
         raise KeyError(f"model class {name!r} is not ported; known: "
                        f"{sorted(classes)}")

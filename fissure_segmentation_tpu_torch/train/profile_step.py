@@ -52,7 +52,7 @@ import torch
 from ..data.dataset import PointDataset
 from ..data.synthetic import make_synthetic_dataset
 from ..losses import get_loss_fn
-from ..models import DGCNNSeg, PointTransformerSeg
+from ..models import DGCNNSeg, PointNetSeg, PointTransformerSeg
 from .trainer import ModelTrainer, TrainConfig
 
 KERNELS = {
@@ -126,16 +126,22 @@ def canonical_data(device="cuda"):
 
 def make_step(ds, loss_fn, out_dir: str, device="cuda", batch: int = BATCH,
               model: str = "DGCNN", dtype: torch.dtype | None = None,
-              dynamic: bool = False):
-    """A fresh DGCNNSeg(k=40, `dynamic`, `dtype`) or PointTransformerSeg (full
-    width, f32) from seed 0 and its trainer; returns step() -> (loss,
+              dynamic: bool = False, **options):
+    """A fresh DGCNNSeg(k=40, `dynamic`, `dtype`), PointNetSeg(`dtype`) or
+    PointTransformerSeg (full width, f32) from seed 0 and its trainer, with
+    the model's other `options` (DGCNN's `spatial_transformer` and
+    `image_feat_module`, PointNet's T-Nets); returns step() -> (loss,
     components), one Adam step on a newly sampled batch. DGCNN's EdgeConv
     routing is FSEG_FUSED_EDGE's at each call."""
     gen0 = torch.Generator().manual_seed(0)
     if model == "DGCNN":
         net = DGCNNSeg(k=40, in_features=ds.n_features,
                        num_classes=ds.num_classes, generator=gen0,
-                       dtype=dtype, dynamic=dynamic)
+                       dtype=dtype, dynamic=dynamic, **options)
+    elif model == "PointNet":
+        net = PointNetSeg(in_features=ds.n_features,
+                          num_classes=ds.num_classes, generator=gen0,
+                          dtype=dtype, **options)
     elif model == "PointTransformer":
         net = PointTransformerSeg(in_features=ds.n_features,
                                   num_classes=ds.num_classes, generator=gen0)

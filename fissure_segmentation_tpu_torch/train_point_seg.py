@@ -1,5 +1,5 @@
-"""Train and test point segmentation (DGCNN or PointTransformer) with
-cross-validation (counterpart of train_point_seg.py).
+"""Train and test point segmentation (DGCNN, PointNet or PointTransformer)
+with cross-validation (counterpart of train_point_seg.py).
 
     python -m fissure_segmentation_tpu_torch.train_point_seg \\
         --ds synthetic --fold 0 --epochs 3 --pts 2048 --k 40 --output OUT
@@ -25,16 +25,20 @@ card it raises, unless the caller of `run` or `main` passes
 
 DGCNN builds its graphs dynamically (the JAX default; `--static`: one
 coordinate graph shared by the three EdgeConvs). `--amp true` (the CLI
-default) trains DGCNN with the bf16 compute dtype
-(`DGCNNSeg(dtype=torch.bfloat16)`: float32 parameters, Adam and loss, bf16
-products), as the JAX entry does; `--amp false` trains it in float32.
+default) trains DGCNN and PointNet with the bf16 compute dtype
+(`DGCNNSeg(dtype=torch.bfloat16)`, `PointNetSeg(dtype=torch.bfloat16)`:
+float32 parameters, Adam and loss, bf16 products; PointNet's T-Nets and
+logits head stay float32), as the JAX entry does; `--amp false` trains
+them in float32. `--transformer` turns on DGCNN's spatial transformer or
+PointNet's input T-Net, `--img_feat_extractor` DGCNN's image-feature stem.
 PointTransformer trains in float32 whatever `--amp` says (as in the JAX
 package, which keeps it out of bf16), and `--k`, `--static`,
 `--transformer`, `--img_feat_extractor` and `--knn_recall` do not apply to
-it. Not ported yet, each raising NotImplementedError: for DGCNN
-`--transformer`, `--img_feat_extractor`, `--knn_recall`; for every model
-`--dp`, `--visualize`, PointNet. The op_count.csv artifact is not written,
-and the test modes read the port's `model.pt`, not a JAX `.fst` file.
+it; PointNet takes neither `--k` nor `--static`. Not ported yet, each
+raising NotImplementedError: for DGCNN `--knn_recall`; for every model
+`--dp`, `--visualize`. The op_count.csv artifact is not written. The test
+modes read each fold's `model.pt`, or the JAX package's `model.fst` where
+only that exists (`models/weights.py:load_fold_model`).
 """
 from __future__ import annotations
 
@@ -50,7 +54,8 @@ from .cli import (get_point_segmentation_parser, load_args_for_testing,
 from .data.dataset import PointDataset, create_split, load_split_file
 from .data.synthetic import make_synthetic_dataset
 from .losses import get_loss_fn
-from .models import ensemble_predict, get_point_seg_model_class, load_model
+from .models import (ensemble_predict, get_point_seg_model_class,
+                     load_fold_model)
 from .train import evaluation
 from .train.cross_val import cross_val_training
 from .train.trainer import ModelTrainer, TrainConfig
@@ -58,15 +63,10 @@ from .train.trainer import ModelTrainer, TrainConfig
 
 def check_supported(args) -> None:
     """Raise NotImplementedError for every option this port does not take."""
-    dgcnn = args.model == "DGCNN"
     unported = {
-        "--transformer": dgcnn and args.transformer,
-        "--img_feat_extractor": dgcnn and args.img_feat_extractor,
-        "--knn_recall": dgcnn and args.knn_recall is not None,
+        "--knn_recall": args.model == "DGCNN" and args.knn_recall is not None,
         "--dp": args.dp,
         "--visualize": args.visualize is not None,
-        f"--model {args.model}": args.model not in ("DGCNN",
-                                                    "PointTransformer"),
     }
     for what, on in unported.items():
         if on:
@@ -92,15 +92,19 @@ def build_dataset(args) -> PointDataset:
 
 
 def build_model(args, ds: PointDataset, generator: torch.Generator):
-    """The JAX build_model's arguments (train_point_seg.py:70-87): DGCNN in
-    bf16 under --amp, PointTransformer in float32."""
+    """The JAX build_model's arguments (train_point_seg.py:70-87): DGCNN and
+    PointNet in bf16 under --amp, PointTransformer in float32."""
     cls = get_point_seg_model_class(args.model)
     kwargs = dict(in_features=ds.n_features, num_classes=ds.num_classes,
                   generator=generator)
+    if args.amp and args.model != "PointTransformer":
+        kwargs.update(dtype=torch.bfloat16)
     if args.model == "DGCNN":
-        kwargs.update(k=args.k, dynamic=not args.static)
-        if args.amp:
-            kwargs.update(dtype=torch.bfloat16)
+        kwargs.update(k=args.k, spatial_transformer=args.transformer,
+                      dynamic=not args.static,
+                      image_feat_module=args.img_feat_extractor)
+    elif args.model == "PointNet":
+        kwargs.update(spatial_transform=args.transformer)
     return cls(**kwargs)
 
 
@@ -160,8 +164,8 @@ def run(args, device=None) -> dict:
     model_cls = get_point_seg_model_class(args.model)
 
     if args.speed:
-        model = load_model(os.path.join(args.output, "fold0", "model.pt"),
-                           model_cls).to(device)
+        model = load_fold_model(os.path.join(args.output, "fold0"),
+                                model_cls).to(device)
         speed_test(ds, model, args.output, args.pts, device)
         return {}
 
@@ -183,8 +187,7 @@ def run(args, device=None) -> dict:
         models[fold] = trainer.run()
 
     def test_fn(val_ds, fold_dir, fold):
-        model = load_model(os.path.join(fold_dir, "model.pt"),
-                           model_cls).to(device)
+        model = load_fold_model(fold_dir, model_cls).to(device)
         val_ds.do_augmentation = False
         return evaluation.test_pipeline(
             val_ds, model, os.path.join(fold_dir, "test"),

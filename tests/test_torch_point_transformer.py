@@ -396,8 +396,8 @@ def test_model_registry_and_unported_dtype():
     assert get_point_seg_model_class("DGCNN") is DGCNNSeg
     assert get_point_seg_model_class("PointTransformer") is \
         PointTransformerSeg
-    with pytest.raises(NotImplementedError, match="PointNet"):
-        get_point_seg_model_class("PointNet")
+    from fissure_segmentation_tpu_torch.models import PointNetSeg
+    assert get_point_seg_model_class("PointNet") is PointNetSeg
     with pytest.raises(ValueError, match="unknown"):
         get_point_seg_model_class("nope")
     with pytest.raises(NotImplementedError, match="dtype"):

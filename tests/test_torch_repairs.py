@@ -4,10 +4,12 @@ detached_run}.py, the native C++ host runtime) and of the pieces of its
 JAX modules the CNN's data path needs (utils/image_ops.py,
 keypoints/features.py:normalize_img) against the originals, and the
 rule that the port's entry points run on a CUDA card unless the caller asks
-for the CPU.
+for the CPU, and F15's repair: train_point_seg's test modes read a fold
+the JAX package wrote.
 
-Tolerances: none. The copies must give equal namespaces, equal arrays and
-equal grids.
+Tolerances: none for the copies, which must give equal namespaces, equal
+arrays and equal grids; F15's test holds the ASSD rows within 1e-3 (its
+docstring says why).
 """
 import numpy as np
 import pytest
@@ -428,3 +430,85 @@ def test_entry_synthetic_data_copies_equal_originals():
     np.testing.assert_array_equal(ours.corr_labels, theirs.corr_labels)
     for a, b in zip(ours.cases, monkey_cases):
         np.testing.assert_array_equal(a["coords"], b["coords"])
+
+
+# ---- F15: the test modes read a fold the JAX package wrote -------------------
+
+@pytest.mark.parametrize("model", ["DGCNN", "PointNet"])
+def test_test_only_scores_a_jax_fst_fold(tmp_path, monkeypatch, model):
+    """F15: a fold that holds only the JAX package's model.fst (written by
+    its save_model, BatchNorm statistics randomized with numpy) and a split
+    file is scored by the port's `--test_only` as by the JAX entry's, with
+    the JAX entry's draws injected (tests/test_torch_entry.py): the per-case
+    Dice rows equal and the ASSD rows within MESH_RTOL (1e-3, that file's
+    tolerance: the surface fits differ by rounding). `--speed` reads the
+    same fold."""
+    import csv
+    import os
+    import sys
+
+    import jax
+    import jax.numpy as jnp
+    from fissure_segmentation_tpu.data.dataset import (create_split,
+                                                       save_split_file)
+    from fissure_segmentation_tpu.models import DGCNNSeg as JDGCNNSeg
+    from fissure_segmentation_tpu.models import PointNetSeg as JPointNetSeg
+    from fissure_segmentation_tpu.models import save_model as jsave_model
+    from fissure_segmentation_tpu_torch.train import evaluation
+    from test_torch_entry import MESH_RTOL, _cases_dir, _jax_draws
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    import train_point_seg as jentry
+
+    cases = _cases_dir(tmp_path, n_copd=0)
+    out = str(tmp_path / "run")
+    argv = ["--model", model, "--data_dir", cases, "--fold", "0",
+            "--epochs", "1", "--pts", "64", "--k", "8", "--amp", "false",
+            "--output", out]
+    jcli.store_args(jentry.get_point_segmentation_parser().parse_args(argv),
+                    out)
+    jm = (JDGCNNSeg(k=8, in_features=4, num_classes=4) if model == "DGCNN"
+          else JPointNetSeg(in_features=4, num_classes=4))
+    variables = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 4)))
+    rng = np.random.default_rng(0)
+
+    def bn(path, a):
+        name = jax.tree_util.keystr(path)
+        if "mean" in name:
+            return rng.normal(0, 0.3, a.shape).astype(np.float32)
+        if "var" in name:
+            return rng.uniform(0.5, 2.0, a.shape).astype(np.float32)
+        return np.asarray(a)
+    variables = jax.tree_util.tree_map_with_path(bn, variables)
+    fold = os.path.join(out, "fold0")
+    jsave_model(jm, variables, os.path.join(fold, "model.fst"))
+    ids = sorted(f.split("_points")[0] for f in os.listdir(cases))
+    save_split_file(create_split(ids, k=5), os.path.join(out,
+                                                         "cross_val_split.json"))
+    test_only = ["--output", out, "--test_only", "--fold", "0"]
+    with jax.default_matmul_precision("float32"):
+        jentry.run(jentry.get_point_segmentation_parser().parse_args(
+            test_only))
+
+    def rows(name):
+        with open(os.path.join(fold, "test", f"{name}_per_instance.csv")) as f:
+            return list(csv.reader(f))
+    want = {name: rows(name) for name in ("dice", "assd")}
+    real = evaluation.test_pipeline
+
+    def with_jax_draws(ds, *args, **kwargs):
+        return real(ds, *args, draws=_jax_draws(ds, kwargs["sample_points"]),
+                    **kwargs)
+    monkeypatch.setattr(evaluation, "test_pipeline", with_jax_draws)
+    assert sorted(os.listdir(fold)) == ["model.fst", "test"]
+    assert train_point_seg.main(test_only, device="cpu") == 0
+    got = {name: rows(name) for name in ("dice", "assd")}
+    assert got["dice"] == want["dice"] and len(want["dice"]) >= 2
+    assert [r[0] for r in got["assd"]] == [r[0] for r in want["assd"]]
+    for g, w in zip(got["assd"][1:], want["assd"][1:]):
+        np.testing.assert_allclose(np.asarray(g[1:], float),
+                                   np.asarray(w[1:], float), rtol=MESH_RTOL,
+                                   err_msg=g[0])
+    assert train_point_seg.main(["--output", out, "--speed"],
+                                device="cpu") == 0
+    assert os.path.exists(os.path.join(out, "inference_time.csv"))

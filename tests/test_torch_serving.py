@@ -137,7 +137,8 @@ def test_port_runs_without_jax():
                  "preprocess.pipeline", "postprocess.random_walk",
                  "postprocess.surface_fitting", "utils.sampling",
                  "keypoints.extraction", "keypoints.enhancement_eval",
-                 "preprocess_dataset"):
+                 "preprocess_dataset", "models.pointnet", "models.affine",
+                 "affine_experiments"):
         assert f"fissure_segmentation_tpu_torch.{name}" in _port_modules()
     code = textwrap.dedent(f"""
         import importlib

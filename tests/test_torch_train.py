@@ -609,19 +609,35 @@ ENTRY = ["--static", "--amp", "false", "--train_only", "--fold", "0"]
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--transformer"], "transformer"),
-    (["--img_feat_extractor"], "img_feat_extractor"),
+    (["--transformer"], None),
+    (["--img_feat_extractor"], None),
     (["--knn_recall", "0.9"], "knn_recall"),
     (["--dp"], "dp"),
     (["--visualize", "2"], "visualize"),
-    (["--model", "PointNet"], "PointNet"),
+    (["--model", "PointNet"], None),
 ], ids=["transformer", "img_feat_extractor", "knn_recall", "dp",
         "visualize", "pointnet"])
 def test_entry_point_raises_for_unported_options(tmp_path, extra, match):
+    """Options still unported raise before anything is written. The ported
+    ones (`--transformer`, `--img_feat_extractor`, `--model PointNet`)
+    train fold 0 for one epoch on the CPU and write model.pt with the
+    option in the model's config."""
     argv = list(ENTRY) + extra + ["--output", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match=match):
-        train_point_seg.main(argv)
-    assert not os.listdir(tmp_path)     # raised before writing anything
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            train_point_seg.main(argv)
+        assert not os.listdir(tmp_path)     # raised before writing anything
+        return
+    for c in synthetic.make_synthetic_dataset(5, n_points=150):
+        dataset.save_case_npz(c, str(tmp_path / "cases"))
+    argv += ["--data_dir", str(tmp_path / "cases"), "--pts", "48", "--k",
+             "4", "--batch", "2", "--epochs", "1"]
+    assert train_point_seg.main(argv, device="cpu") == 0
+    config = load_model(str(tmp_path / "fold0" / "model.pt")).config
+    want = {"--transformer": ("spatial_transformer", True),
+            "--img_feat_extractor": ("image_feat_module", True),
+            "--model": ("spatial_transform", False)}[extra[0]]
+    assert config[want[0]] is want[1]
 
 
 def test_entry_point_trains_a_fold_with_amp(tmp_path, monkeypatch):
