@@ -276,18 +276,53 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      steps of each with their launches (phase_affine); one step of each
      card against CPU within AFFINE_TOL (phase_affine_reference); K3 and K4
      timed at the affine DGCNN's step shapes (8, 1024, 40, C), C = 64,
-     128, 256.
+     128, 256;
+ 41. the approximate top-k's bin kernel (phase_approx_topk) against its
+     plain version, bit for bit, and the whole selection against
+     approx_top_k_plain: (1, 256^3) -> 20 000 at recall 0.95 (uniform
+     scores in f32 and bf16, the Förstner detector's masked score volume)
+     and the kNN rows (32 * 2048, 2048) -> 40 at 0.9 (coordinate
+     distances f32, bf16 feature distances); median times of the kernel,
+     its plain version, the aggregation, the whole selection and
+     torch.topk's exact top-k (the library column), the bound, and the
+     share of the exact top-k found;
+ 42. segment_cases against a serial loop of segment_case on 8 copies of
+     the shared 256^3 case (phase_pipeline): the host synchronisations of
+     one case's device half (torch.cuda.set_sync_debug_mode), then serial,
+     pipelined, pipelined, serial, every run bit-equal to the first
+     (keypoints, labels, every triangle, the labelmap); s/case, cases/s,
+     the stage medians and the busy share of each mode; the splat's
+     scatter at its serving shape, sorted index_put_ against index_add_;
+ 43. the fast variant (phase_fast_serving: DGCNNSeg bf16 with knn_recall
+     0.9, the approximate Förstner selection) served as phase 42 serves,
+     the bin kernel at least 11 launches a case; the detector's and the
+     graphs' shares of the exact selection; the bf16 CNN in kp_mode="cnn"
+     (f32 and bf16 timed, one case with approx_top_k), the whole volume
+     and the sliding window at 256^3 in both dtypes (K6 at both strides
+     in every case), and both protocols in bf16 card against CPU within
+     BF16_CNN_FACTOR x the CPU's own bf16 error and at least
+     BF16_CNN_MIN_SHARE x it from the card's own f32 softmax;
+ 44. train_point_seg --knn_recall 0.9 (phase_knn_recall_train: the
+     default run's widths, 3 epochs, --train_only; model.pt keeps the
+     recall), 10 timed bf16 steps dynamic and static with and without
+     knn_recall, and time_keypoint_extraction on 2 copies of the 256^3
+     case (its six CSV files).
 
 Kernel launch counts are set to 0 before each main path (phases 4, 10 and
 14 serving, phases 7, 11 and 17 training, phase 19 the probes, phase 20
 the default entry run, phase 22 the PC-AE, phase 24 DSEG-AE after its seg
 fold is trained, phase 27 each train_seg_cnn run, phases 29 DPSR-Net and
 31 DG-SSM, phase 33 each process_case run, phase 35 the chain, phases 37
-PointNet, 39 DGCNN with both stems and 40 the affine experiments) and
-read after it; the comparison launches of phases 3, 5, 6, 8, 9, 12, 13,
-15, 16, 18, 21, 23, 25, 26, 28, 30, 32, 34, 36, 38, 39's and 40's
-references, of K3 and K4 timed at DPSR-Net's and the affine step's
-shapes, and of the probes' own checks are not counted.
+PointNet, 39 DGCNN with both stems, 40 the affine experiments, 42 and 43
+a segment_cases batch, 44 the --knn_recall entry run) and read after it;
+the comparison launches of phases 3, 5, 6, 8, 9, 12, 13, 15, 16, 18, 21,
+23, 25, 26, 28, 30, 32, 34, 36, 38, 39's and 40's references, 41, 42's
+and 43's A/B runs and checks, of K3 and K4 timed at DPSR-Net's and the
+affine step's shapes, and of the probes' own checks are not counted.
+Phase 44's launches count with the train paths; phases 42 and 43 add K1's
+and the gather-reduce's launches of their batch.
+The bin kernel's row gives its launches by path (fast serving, the
+--knn_recall run) and by call, with phase 41's times at each call.
 The chain's train_point_seg run and phase 39's runs count with the train
 paths (their widths are the default run's); phases 37 and 40 go into the
 "slice" rows as paths of their own ("pointnet": serving's and the test
@@ -1009,6 +1044,8 @@ def _wrappers(ks, knn_cuda) -> dict:
         stream_sum, stream_sum_async)
     from fissure_segmentation_tpu_torch.kernels.depthwise import \
         depthwise_conv3_wgrad_cuda
+    from fissure_segmentation_tpu_torch.kernels.approx_topk import \
+        bin_extrema
     return {"knn": knn_cuda, "transpose": ks.transpose,
             "scatter_rows": ks.scatter_rows,
             "scatter_routed": ks.scatter_routed,
@@ -1016,7 +1053,7 @@ def _wrappers(ks, knn_cuda) -> dict:
             "depthwise_conv3": depthwise_conv3_cuda,
             "depthwise_wgrad": depthwise_conv3_wgrad_cuda,
             "gather_reduce": gather_reduce, "stream_sum": stream_sum,
-            "stream_sum_async": stream_sum_async}
+            "stream_sum_async": stream_sum_async, "bin_extrema": bin_extrema}
 
 
 def _counts(ks, knn_cuda):
@@ -1036,7 +1073,7 @@ def _reset(ks, knn_cuda):
     for fn in wrappers.values():
         _zero(fn)
     for name in ("gather_reduce", "scatter_count", "knn", "scatter_rows",
-                 "fps", "scatter_routed"):
+                 "fps", "scatter_routed", "bin_extrema"):
         wrappers[name].calls.clear()
 
 
@@ -5290,11 +5327,620 @@ def _time_scatter_at(ks, knn_cuda, b, n, k, c, seed, what):
     return out
 
 
+# ---- the rest of serving: the bin kernel, segment_cases, the fast variant,
+# the bf16 CNN, --knn_recall training (phases 41-44) ----------------------
+
+APPROX_SOURCE = "fissure_segmentation_tpu_torch/kernels/csrc/approx_topk.cu"
+# no TPU kernel: the JAX package's lax.approx_max_k / approx_min_k calls,
+# which XLA lowers to its ApproxTopK (a PartialReduce) on the TPU
+APPROX_REPLACES = "fissure_segmentation_tpu/keypoints/foerstner.py:109"
+APPROX_ALSO = ["fissure_segmentation_tpu/keypoints/extraction.py:116",
+               "fissure_segmentation_tpu/ops/knn.py:86",
+               "fissure_segmentation_tpu/ops/knn.py:91"]
+N_PIPE = 8            # cases of a segment_cases batch (bench.py's NPIPE)
+# the bf16 CNN card against CPU: within this many times the CPU's own bf16
+# error (its bf16 softmax against its f32 one); phase_fast_serving says why
+BF16_CNN_FACTOR = 4.0
+# ... and the card's bf16 softmax at least this share of that error away
+# from its own f32 one, so a CNN that ran in float32 fails
+BF16_CNN_MIN_SHARE = 0.25
+KNN09_ARGV = DEFAULT_ARGV + ["--knn_recall", "0.9", "--train_only"]
+
+
+def _exact_share(got_vals, exact_vals, largest: bool) -> float:
+    """The share of each row's exact top-k that a selection found, read
+    from values: a selected value at or beyond the exact k-th counts
+    (scores without ties at the cut)."""
+    kth = exact_vals[..., -1:]
+    hit = got_vals >= kth if largest else got_vals <= kth
+    finite = torch.isfinite(exact_vals)
+    hit = hit & torch.isfinite(got_vals)
+    return float(hit.sum() / finite.sum().clamp(min=1))
+
+
+def _bin_case(name, x, k, target, largest):
+    """Phase 41 at one shape, x in the shape its path selects over (its
+    rank sets the bins): the bin kernel on x's rows against its plain
+    version bit for bit, the whole selection against approx_top_k_plain,
+    then median
+    times of the kernel, its plain version, the aggregation (torch.sort),
+    the whole selection and torch.topk's exact top-k, the bound (the
+    kernel's bytes), and the share of the exact top-k found."""
+    from fissure_segmentation_tpu_torch.kernels.approx_topk import (
+        bin_extrema, bin_extrema_plain)
+    from fissure_segmentation_tpu_torch.ops.approx_topk import (
+        _aggregate, approx_top_k, approx_top_k_plain, reduction_output_size)
+    n = x.shape[-1]
+    rows = x.numel() // n
+    n_bins, r = reduction_output_size(n, x.ndim, k, target)
+    red = 1 << r
+    x2 = x.reshape(rows, n)
+    vk, ik = bin_extrema(x2, n_bins, red, largest)
+    torch.cuda.synchronize()
+    vp, ip = bin_extrema_plain(x2, n_bins, red, largest)
+    if not (torch.equal(vk, vp) and torch.equal(ik, ip)):
+        raise AssertionError(f"bins {name}: kernel differs from plain "
+                             f"({(ik != ip).sum().item()} winners)")
+    sel = approx_top_k(x, k, target, largest)
+    ref = approx_top_k_plain(x, k, target, largest)
+    if not all(torch.equal(a, b) for a, b in zip(sel, ref)):
+        raise AssertionError(f"bins {name}: selection differs from plain")
+    exact = torch.topk(x.float(), k, dim=-1, largest=largest).values
+    share = _exact_share(sel[0].float(), exact, largest)
+    es = x.element_size()
+    bound, by = bound_ms(rows * n * es + rows * n_bins * (es + 4), rows * n)
+    t = {"rows": rows, "n": n, "k": k, "recall_target": target,
+         "bins": n_bins, "reduction": red, "dtype": str(x.dtype)[6:],
+         "call": f"{rows}x{n}_L{n_bins}_{str(x.dtype)[6:]}",
+         "ms": median_ms(lambda: bin_extrema(x2, n_bins, red, largest)),
+         "plain_ms": median_ms(lambda: bin_extrema_plain(x2, n_bins, red,
+                                                         largest),
+                               reps=3, inner=1, warm=1),
+         "aggregate_ms": median_ms(lambda: _aggregate(vk, ik, k, largest),
+                                   reps=3, inner=3, warm=1),
+         "selection_ms": median_ms(lambda: approx_top_k(x, k, target,
+                                                        largest),
+                                   reps=3, inner=3, warm=1),
+         "library_ms": median_ms(lambda: torch.topk(x, k, dim=-1,
+                                                    largest=largest),
+                                 reps=3, inner=3, warm=1),
+         "library": "torch.topk (exact)", "bound_ms": bound, "bound_by": by,
+         "exact_share": share}
+    print(f"bins {name}: ({rows}, {n}) -> {k} at {target}, L {n_bins} x "
+          f"{red} {t['dtype']}: kernel == plain; kernel {t['ms']:.4f} ms, "
+          f"plain {t['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}); "
+          f"aggregation {t['aggregate_ms']:.4f} ms, selection "
+          f"{t['selection_ms']:.4f} ms, torch.topk exact "
+          f"{t['library_ms']:.4f} ms; exact share found {share:.4f}",
+          flush=True)
+    return t
+
+
+def _detector_scores(vol, mask):
+    """The Förstner detector's masked score volume (serving's arguments:
+    sigma 0.5, NMS d = 5, threshold 1e-8), flat (1-D, as the detector
+    selects over it)."""
+    from fissure_segmentation_tpu_torch.keypoints.foerstner import (
+        distinctiveness, erode_mask)
+    from fissure_segmentation_tpu_torch.utils.filters import max_pool_same
+    dist = distinctiveness(vol, 0.5)
+    is_kpt = erode_mask(mask) & (max_pool_same(dist, 5) == dist) & \
+        (dist >= 1e-8)
+    return torch.where(is_kpt, dist, -torch.inf).reshape(-1)
+
+
+def phase_approx_topk(card: str) -> dict:
+    """Phase 41: the approximate top-k's bin kernel against its plain
+    version at the paths' shapes: (1, 256^3) -> 20 000 at recall 0.95
+    (uniform scores in f32 and bf16, and the Förstner detector's masked
+    score volume of the shared case) and the kNN rows (32 * 2048, 2048)
+    -> 40 at 0.9 (the coordinate graph's f32 distances with the diagonal
+    at +inf; the bf16 feature graph's at (32, 2048, 64) with the diagonal
+    at -1). Returns the timings by name."""
+    from fissure_segmentation_tpu_torch.ops.knn import pairwise_sqdist
+    g = torch.Generator(device="cuda").manual_seed(41)
+    case = synthetic_ct()
+    vol = torch.from_numpy(case["image"]).cuda()
+    mask = torch.from_numpy(case["lung_mask"]).cuda()
+    uni = torch.rand((int(np.prod(SHAPE)),), generator=g, device="cuda")
+    pts = torch.rand((32, 2048, 3), generator=g, device="cuda")
+    d = pairwise_sqdist(pts, pts)
+    d.diagonal(dim1=-2, dim2=-1).fill_(torch.inf)
+    feats = torch.randn((32, 2048, 64), generator=g, device="cuda").to(
+        torch.bfloat16)
+    fd = pairwise_sqdist(feats, feats)
+    fd.diagonal(dim1=-2, dim2=-1).fill_(-1.0)
+    cases = {
+        "detector_uniform_f32": (uni, 20_000, 0.95, True),
+        "detector_uniform_bf16": (uni.to(torch.bfloat16), 20_000, 0.95,
+                                  True),
+        "detector_foerstner_f32": (_detector_scores(vol, mask), 20_000,
+                                   0.95, True),
+        "knn_rows_f32": (d, 40, 0.9, False),
+        "knn_rows_bf16": (fd, 40, 0.9, False),
+    }
+    out = {name: _bin_case(name, *args) for name, args in cases.items()}
+    del d, fd
+    torch.cuda.empty_cache()
+    print(json.dumps({"approx_topk_bins": out, "card": card}), flush=True)
+    return out
+
+
+def _sync_sites(fn):
+    """Run fn with torch.cuda.set_sync_debug_mode("warn"); returns (its
+    output, {the innermost line of the port on the stack at each host
+    synchronisation: count}). A `.item()` after fn is the positive control:
+    the mode must see it."""
+    import traceback
+    import warnings
+    sites = {}
+    port = os.sep + "fissure_segmentation_tpu_torch" + os.sep
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        here = [f for f in stack if port in f.filename]
+        at = (f"{here[-1].filename.split(port)[-1]}:{here[-1].lineno}"
+              if here else " < ".join(
+                  f"{os.path.basename(f.filename)}:{f.lineno}"
+                  for f in stack[::-1][:4]))
+        sites[at] = sites.get(at, 0) + 1
+    torch.cuda.synchronize()
+    # setting the mode warns of itself; that warning is not recorded
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            out = fn()
+            found = dict(sites)
+            torch.zeros(1, device="cuda").item()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if sum(sites.values()) == sum(found.values()):
+        raise AssertionError("sync debug mode did not see .item()")
+    return out, found
+
+
+def _same_results(a, b) -> bool:
+    """Bit for bit: keypoints, labels, every triangle, the labelmap."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if not (np.array_equal(x.kpts, y.kpts)
+                and np.array_equal(x.labels, y.labels)
+                and np.array_equal(x.labelmap, y.labelmap)):
+            return False
+        for (t1, v1), (t2, v2) in zip(x.meshes, y.meshes):
+            if not (np.array_equal(t1, t2) and np.array_equal(v1, v2)):
+                return False
+    return True
+
+
+def _serve_batch(vol, mask, apply, seed, pipelined, n=N_PIPE, **kw):
+    """n cases of the shared volume: segment_cases, or a loop of
+    segment_case with the same per-case generators; (results, s/case,
+    timings)."""
+    from fissure_segmentation_tpu_torch.serving import (case_generator,
+                                                        segment_case,
+                                                        segment_cases)
+    torch.cuda.synchronize()
+    tm = []
+    t0 = time.perf_counter()
+    if pipelined:
+        res = segment_cases([vol] * n, [mask] * n, apply, seed=seed,
+                            timings=tm, center_x=SHAPE[2] / 2, **kw)
+    else:
+        res = [segment_case(vol, mask, apply, case_generator(seed, i),
+                            center_x=SHAPE[2] / 2, **kw)
+               for i in range(n)]
+    return res, (time.perf_counter() - t0) / n, tm
+
+
+def _serve_ab(vol, mask, apply, what, card, **kw) -> dict:
+    """Serial loop and segment_cases in turns (serial, pipelined,
+    pipelined, serial), each N_PIPE cases of seed 0: every run bit-equal to
+    the first serial one; s/case and cases/s of each, the stage medians of
+    the pipelined runs, and the busy share of one more run of each."""
+    runs, tms = {"serial": [], "pipelined": []}, []
+    first = None
+    for mode in ("serial", "pipelined", "pipelined", "serial"):
+        res, s, tm = _serve_batch(vol, mask, apply, 0, mode == "pipelined",
+                                  **kw)
+        for r in res:
+            check_result(r, SHAPE, f"{what} {mode}")
+        if first is None:
+            first = res
+        elif not _same_results(res, first):
+            raise AssertionError(f"{what}: {mode} results differ from the "
+                                 "serial loop's")
+        runs[mode].append(s)
+        tms += tm
+    out = {m: {"s_per_case": statistics.median(v), "runs": v,
+               "cases_per_s": 1 / statistics.median(v)}
+           for m, v in runs.items()}
+    out["stage_ms_median"] = {
+        k: 1e3 * statistics.median([t[k] for t in tms]) for k in
+        ("dispatch_s", "fetch_s", "host_s")}
+    for mode in ("serial", "pipelined"):
+        out[mode]["busy_share"] = _profiled_busy(
+            lambda: _serve_batch(vol, mask, apply, 1, mode == "pipelined",
+                                 **kw), steps=1)
+    out["device_ms_per_case"] = (1e3 * out["pipelined"]["s_per_case"]
+                                 * out["pipelined"]["busy_share"])
+    print(f"{what}: {N_PIPE} cases, serial {out['serial']['s_per_case']:.4f}"
+          f" s/case (busy {out['serial']['busy_share']:.3f}), segment_cases "
+          f"{out['pipelined']['s_per_case']:.4f} s/case "
+          f"({out['pipelined']['cases_per_s']:.2f} cases/s, busy "
+          f"{out['pipelined']['busy_share']:.3f}), stage medians "
+          f"{ {k: round(v, 2) for k, v in out['stage_ms_median'].items()} } "
+          f"ms; results bit-equal to the serial loop in every run, on "
+          f"{card}", flush=True)
+    return out
+
+
+def _serving_model(case, **kw):
+    from fissure_segmentation_tpu_torch.models import DGCNNSeg
+    model = DGCNNSeg(k=40, in_features=3, num_classes=4, dynamic=False,
+                     generator=torch.Generator().manual_seed(0),
+                     **kw).cuda().eval()
+    return biased_model(model, case, SHAPE)
+
+
+def phase_pipeline(ks, knn_cuda, card: str):
+    """Phase 42: segment_cases against a serial loop of segment_case on
+    N_PIPE copies of the shared 256^3 case (Förstner, default widths, phase
+    4's model): the host synchronisations left in one case's device half
+    (torch.cuda.set_sync_debug_mode), then _serve_ab. Counts are reset
+    before the first pipelined run and read after it; returns (counts, the
+    gather-reduce's calls, timing)."""
+    from fissure_segmentation_tpu_torch.serving import (_dispatch_case,
+                                                        _fetch_case,
+                                                        case_generator)
+    case = synthetic_ct()
+    vol = torch.from_numpy(case["image"]).cuda()
+    mask = torch.from_numpy(case["lung_mask"]).cuda()
+    apply = _serving_model(case)
+    _serve_batch(vol, mask, apply, 5, True, n=3)         # warm-up
+    d, sites = _sync_sites(lambda: _dispatch_case(vol, mask, apply,
+                                                  case_generator(0, 0)))
+    _fetch_case(d)
+    print(f"pipeline: host synchronisations in one case's device half: "
+          f"{sites or 'none'}", flush=True)
+    _reset(ks, knn_cuda)
+    res, s, _ = _serve_batch(vol, mask, apply, 0, True)
+    counts = _counts(ks, knn_cuda)
+    gr = _gr_calls(ks, knn_cuda)
+    for name, n in (("knn", 11), ("gather_reduce", 20)):
+        if counts[name] < n * N_PIPE:
+            raise AssertionError(f"pipeline: {name} launched {counts[name]}"
+                                 f" times in {N_PIPE} cases")
+    timing = _serve_ab(vol, mask, apply, "pipeline", card)
+    timing["sync_sites"] = sites
+    timing["splat_scatter"] = _splat_scatter_ms(card)
+    return counts, gr, timing
+
+
+def _splat_scatter_ms(card: str) -> dict:
+    """The scatter of serving's PSR splat (ops/splat.py) at its call's
+    shape, 3 clouds of 8 x 8192 corner contributions of 3 features into
+    3 x 64^3 cells (random cells): median ms of the sorted index_put_ the
+    path runs (deterministic) and of index_add_ (float atomics)."""
+    g = torch.Generator(device="cuda").manual_seed(42)
+    cells = 64 ** 3
+    flat = (torch.randint(0, cells, (3, 8 * 8192), generator=g,
+                          device="cuda")
+            + cells * torch.arange(3, device="cuda")[:, None]).reshape(-1)
+    pay = torch.randn((flat.numel(), 3), generator=g, device="cuda")
+    out = torch.zeros((3 * cells, 3), device="cuda")
+    t = {"index_put_sorted_ms": median_ms(
+            lambda: out.zero_().index_put_((flat,), pay, accumulate=True)),
+         "index_add_ms": median_ms(
+            lambda: out.zero_().index_add_(0, flat, pay))}
+    print(f"pipeline: the splat's scatter (3 x 65 536 -> 3 x 64^3 cells, "
+          f"3 features, zeroing included): sorted index_put_ "
+          f"{t['index_put_sorted_ms']:.4f} ms, index_add_ "
+          f"{t['index_add_ms']:.4f} ms on {card}", flush=True)
+    return t
+
+
+def _graph_recall(x, k, self_loop, target, exact_fn) -> float:
+    from fissure_segmentation_tpu_torch.ops.knn import knn
+    got = knn(x, k, self_loop=self_loop, recall_target=target)
+    want = exact_fn()
+    hit = (got[..., :, None] == want[..., None, :]).any(-1)
+    return float(hit.float().mean())
+
+
+def _cnn_pair(dev_fn, cpu_fn, what: str) -> dict:
+    """The bf16 CNN's softmax card against CPU: within BF16_CNN_FACTOR x
+    the CPU's own bf16 error, at least BF16_CNN_MIN_SHARE x that error away
+    from the card's own f32 softmax (so the card ran in bf16), argmax
+    equal but where the CPU's bf16 top-two margin is under the
+    tolerance."""
+    card16, card32 = dev_fn(torch.bfloat16).cpu(), dev_fn(None).cpu()
+    cpu16, cpu32 = cpu_fn(torch.bfloat16), cpu_fn(None)
+    own = (cpu16 - cpu32).abs().max().item()
+    err = (card16 - cpu16).abs().max().item()
+    card_own = (card16 - card32).abs().max().item()
+    tol = BF16_CNN_FACTOR * own
+    if not (own > 0 and err <= tol):
+        raise AssertionError(f"{what}: bf16 card against CPU {err:.3g} > "
+                             f"{BF16_CNN_FACTOR} x the CPU's bf16 error "
+                             f"{own:.3g}")
+    if card_own < BF16_CNN_MIN_SHARE * own:
+        raise AssertionError(f"{what}: the card's bf16 softmax is "
+                             f"{card_own:.3g} from its f32 one, under "
+                             f"{BF16_CNN_MIN_SHARE} x the CPU's bf16 error "
+                             f"{own:.3g}: it did not run in bf16")
+    top2 = cpu16.topk(2, dim=-1).values
+    flipped = card16.argmax(-1) != cpu16.argmax(-1)
+    if (flipped & (top2[..., 0] - top2[..., 1] >= tol)).any():
+        raise AssertionError(f"{what}: argmax differs at a clear margin")
+    print(f"{what}: bf16 softmax card against CPU {err:.3g} (the CPU's "
+          f"bf16 error {own:.3g}, tolerance {tol:.3g}; card bf16 against "
+          f"card f32 {card_own:.3g}); argmax flips {int(flipped.sum())}",
+          flush=True)
+    return {"max_abs_err": err, "cpu_bf16_err": own,
+            "card_bf16_err": card_own, "flips": int(flipped.sum())}
+
+
+def phase_fast_serving(ks, knn_cuda, card: str):
+    """Phase 43: the fast variant served (DGCNNSeg bf16 with knn_recall =
+    0.9, the approximate Förstner selection) on the shared 256^3 case,
+    serial and pipelined (_serve_ab), counts reset before and read after;
+    the detector's share of the exact keypoints at recall 0.95 and the kNN
+    graphs' at 0.9 ((32, 2048, 3) f32, (32, 2048, 64) bf16 features); the
+    bf16 CNN in kp_mode="cnn" (float32 and bfloat16, one warm-up and 3
+    timed cases each, and one case with approx_top_k), the sliding window
+    at 256^3 in both dtypes, and both CNN protocols card against CPU in
+    bf16 on phase 15's small input, held within BF16_CNN_FACTOR x the
+    CPU's own bf16 error (the card and the CPU round each layer's bf16
+    output after float32 sums in other orders, an error of the bf16
+    error's own size; 4 leaves a margin). Returns (counts, gather-reduce
+    calls, the bin kernel's calls, timing)."""
+    from fissure_segmentation_tpu_torch.data.synthetic import \
+        make_synthetic_image_case
+    from fissure_segmentation_tpu_torch.kernels.approx_topk import \
+        bin_extrema
+    from fissure_segmentation_tpu_torch.keypoints.foerstner import \
+        foerstner_keypoints
+    from fissure_segmentation_tpu_torch.models import (predict_all_patches,
+                                                       predict_full_volume)
+    from fissure_segmentation_tpu_torch.ops.knn import feature_knn, knn
+    from fissure_segmentation_tpu_torch.serving import segment_case
+    case = synthetic_ct()
+    vol = torch.from_numpy(case["image"]).cuda()
+    mask = torch.from_numpy(case["lung_mask"]).cuda()
+    fast = _serving_model(case, dtype=torch.bfloat16, knn_recall=0.9)
+    timing = {"substep_s": {}}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        timing["substep_s"][name] = now - clock[0]
+        clock[0] = now
+    _serve_batch(vol, mask, fast, 5, True, n=3,
+                 approx_top_k=True)                     # warm-up
+    _reset(ks, knn_cuda)
+    _serve_batch(vol, mask, fast, 0, True, approx_top_k=True)
+    counts = _counts(ks, knn_cuda)
+    gr = _gr_calls(ks, knn_cuda)
+    bins = dict(bin_extrema.calls)
+    if counts["bin_extrema"] < 11 * N_PIPE:
+        raise AssertionError(f"fast serving: the bin kernel launched "
+                             f"{counts['bin_extrema']} times in {N_PIPE} "
+                             "cases; the path needs >= 11 a case")
+    timing["serving"] = _serve_ab(vol, mask, fast, "fast serving", card,
+                                  approx_top_k=True)
+    lap("serving")
+
+    kw = dict(sigma=0.5, d=5, thresh=1e-8, max_kpts=20_000)
+    ka, va, n_det = foerstner_keypoints(vol, mask, approx_top_k=True, **kw)
+    ke, ve, _ = foerstner_keypoints(vol, mask, **kw)
+    found = {tuple(r) for r in ka[va].tolist()}
+    exact = {tuple(r) for r in ke[ve].tolist()}
+    g = torch.Generator(device="cuda").manual_seed(43)
+    pts = torch.rand((32, 2048, 3), generator=g, device="cuda")
+    feats = torch.randn((32, 2048, 64), generator=g, device="cuda").to(
+        torch.bfloat16)
+    timing["recall"] = {
+        "detector_256cube_r095": len(found & exact) / max(len(exact), 1),
+        "detections": int(n_det), "exact_valid": len(exact),
+        "coords_32x2048x3_f32_r09": _graph_recall(
+            pts, 40, False, 0.9, lambda: knn(pts, 40, self_loop=False)),
+        "features_32x2048x64_bf16_r09": _graph_recall(
+            feats, 40, True, 0.9, lambda: feature_knn(feats, 40)[0])}
+    print(f"fast serving: shares of the exact selection found "
+          f"{timing['recall']}", flush=True)
+    lap("recall")
+
+    from fissure_segmentation_tpu_torch.kernels.depthwise import \
+        depthwise_conv3_cuda
+    cnn = _cnn_model(0).cuda()
+    apply = _serving_model(case)
+    for name, kwc in (("cnn_f32", {}),
+                      ("cnn_bf16", {"cnn_dtype": torch.bfloat16})):
+        segment_case(vol, mask, apply, torch.Generator().manual_seed(1),
+                     kp_mode="cnn", cnn_model=cnn, center_x=SHAPE[2] / 2,
+                     **kwc)
+        _zero(depthwise_conv3_cuda)
+        times = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = segment_case(vol, mask, apply,
+                               torch.Generator().manual_seed(2 + i),
+                               kp_mode="cnn", cnn_model=cnn,
+                               center_x=SHAPE[2] / 2, **kwc)
+            times.append(time.perf_counter() - t0)
+            check_result(res, SHAPE, f"{name} case {i}")
+        roles = dict(depthwise_conv3_cuda.roles)
+        if roles["forward"] < 3 or roles["stride2"] < 3:
+            raise AssertionError(f"{name}: K6 launched {roles} in 3 cases")
+        timing[name] = {"s_per_case": statistics.median(times),
+                        "cases_s": times, "k6_launches": roles}
+    before = bin_extrema.launches
+    res = segment_case(vol, mask, apply, torch.Generator().manual_seed(9),
+                       kp_mode="cnn", cnn_model=cnn, cnn_dtype=torch.bfloat16,
+                       approx_top_k=True, center_x=SHAPE[2] / 2)
+    check_result(res, SHAPE, "cnn bf16 approx case")
+    if bin_extrema.launches - before != 1:
+        raise AssertionError("cnn approx case: the bin kernel did not "
+                             "select its keypoints")
+    lap("cnn_mode")
+    for dt in (None, torch.bfloat16):
+        name = "bf16" if dt else "f32"
+        timing[f"full_volume_{name}_ms"] = median_ms(
+            lambda: predict_full_volume(cnn, vol, dtype=dt), reps=3,
+            inner=1, warm=1)
+        timing[f"all_patches_{name}_ms"] = median_ms(
+            lambda: predict_all_patches(cnn, vol, 4, dtype=dt), reps=1,
+            inner=1, warm=0)
+    lap("cnn_protocols_256")
+    small = make_synthetic_image_case(2, shape=(40, 48, 56))
+    img = torch.from_numpy(small["image"])
+    cnn_cpu = copy.deepcopy(cnn).cpu()
+    timing["cnn_reference"] = {
+        "full_volume": _cnn_pair(
+            lambda dt: predict_full_volume(cnn, img.cuda(), dtype=dt),
+            lambda dt: predict_full_volume(cnn_cpu, img, dtype=dt),
+            "cnn bf16 full volume"),
+        "all_patches": _cnn_pair(
+            lambda dt: predict_all_patches(cnn, img.cuda(), 4,
+                                           patch_size=(32, 32, 32),
+                                           dtype=dt),
+            lambda dt: predict_all_patches(cnn_cpu, img, 4,
+                                           patch_size=(32, 32, 32),
+                                           dtype=dt),
+            "cnn bf16 sliding window")}
+    lap("cnn_reference")
+    print(f"fast serving: cnn mode f32 {timing['cnn_f32']['s_per_case']:.4f}"
+          f" s/case, bf16 {timing['cnn_bf16']['s_per_case']:.4f} s/case; "
+          f"whole volume f32 {timing['full_volume_f32_ms']:.2f} ms, bf16 "
+          f"{timing['full_volume_bf16_ms']:.2f} ms; sliding window f32 "
+          f"{timing['all_patches_f32_ms']:.1f} ms, bf16 "
+          f"{timing['all_patches_bf16_ms']:.1f} ms on {card}", flush=True)
+    return counts, gr, bins, timing
+
+
+def phase_knn_recall_train(ks, knn_cuda, card: str):
+    """Phase 44: train_point_seg --knn_recall 0.9 (the default run's
+    dynamic bf16 DGCNNSeg, 32 x 2048, 3 epochs of fold 0, --train_only);
+    model.pt keeps knn_recall; then 10 timed warm steps with and without
+    knn_recall, dynamic and static (the canonical CV's graph), bf16; then
+    time_keypoint_extraction on 2 copies of the shared 256^3 case. Counts
+    reset before the entry run and read after it; returns (counts,
+    gather-reduce calls, K4 calls, the bin kernel's calls, timing)."""
+    from fissure_segmentation_tpu_torch import (time_keypoint_extraction,
+                                                train_point_seg)
+    from fissure_segmentation_tpu_torch.kernels.approx_topk import \
+        bin_extrema
+    from fissure_segmentation_tpu_torch.models import load_fold_model
+    from fissure_segmentation_tpu_torch.train.profile_step import (
+        canonical_data, make_step)
+    os.environ.pop("FSEG_FUSED_EDGE", None)
+    timing = {}
+    _reset(ks, knn_cuda)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        if train_point_seg.main(KNN09_ARGV + ["--output", tmp]) != 0:
+            raise AssertionError("knn09 run: the entry point failed")
+        timing["train_s"] = time.perf_counter() - t0
+        fold = os.path.join(tmp, "fold0")
+        hist = _read_history(os.path.join(fold, "history.csv"))
+        model = load_fold_model(fold)
+        if len(hist) != 3 or not np.isfinite(hist).all() or \
+                model.knn_recall != 0.9 or not model.dynamic:
+            raise AssertionError(f"knn09 run: history {hist}, model.pt "
+                                 f"{model.config}")
+        counts = _counts(ks, knn_cuda)
+        gr, k4 = _gr_calls(ks, knn_cuda), _check_k4_route(ks, "knn09 run")
+        bins = dict(bin_extrema.calls)
+        for name in ("bin_extrema", "transpose", "scatter_rows",
+                     "scatter_routed", "scatter_count", "gather_reduce"):
+            if counts[name] < 1:
+                raise AssertionError(f"knn09 run: {name} never launched")
+        timing["loss_history"] = hist
+        print(f"knn09 run: 3 epochs of fold 0 in {timing['train_s']:.1f} s;"
+              f" loss history {hist}; launches {counts}", flush=True)
+        ds, loss_fn = canonical_data()
+        for name, kw in (("dynamic", dict(dynamic=True)),
+                         ("dynamic_knn09", dict(dynamic=True,
+                                                knn_recall=0.9)),
+                         ("static", {}), ("static_knn09",
+                                          dict(knn_recall=0.9))):
+            step = make_step(ds, loss_fn, tmp, dtype=torch.bfloat16, **kw)
+            timing[name] = _timed_steps(ks, knn_cuda, step, name)
+        print(f"knn09 run: bf16 steps "
+              f"{ {k: round(timing[k]['ms_per_step'], 2) for k in ('dynamic', 'dynamic_knn09', 'static', 'static_knn09')} }"
+              f" ms on {card}", flush=True)
+
+        data = os.path.join(tmp, "cases")
+        os.makedirs(data)
+        ct = _synthetic_ct_once()
+        for i in range(2):
+            np.savez(os.path.join(data, f"synthetic{i}_img_fixed.npz"),
+                     image=ct["image"], lung_mask=ct["lung_mask"])
+        out = os.path.join(tmp, "preproc_timing")
+        if time_keypoint_extraction.main(["--data_dir", data, "--output",
+                                          out]) != 0:
+            raise AssertionError("time_keypoint_extraction failed")
+        timing["keypoint_timing"] = {
+            f: _csv(os.path.join(out, f)) for f in sorted(os.listdir(out))}
+        if len(timing["keypoint_timing"]) != 6:
+            raise AssertionError(f"time_keypoint_extraction wrote "
+                                 f"{sorted(timing['keypoint_timing'])}")
+    print(f"time_keypoint_extraction (2 cases of {SHAPE}): "
+          f"{timing['keypoint_timing']} on {card}", flush=True)
+    return counts, gr, k4, bins, timing
+
+
+def _bins_by_call(calls: dict, timed: dict) -> dict:
+    """The bin kernel's main-path launches by call, each with phase 41's
+    times where it times that call, else timed on random scores of its
+    shape."""
+    from fissure_segmentation_tpu_torch.ops.approx_topk import \
+        reduction_output_size
+    by_key = {t["call"]: t for t in timed.values()}
+    out = {}
+    for key, n in sorted(calls.items()):
+        if key not in by_key:
+            shape, rest = key.split("_", 1)
+            rows, width = (int(v) for v in shape.split("x"))
+            dt = getattr(torch, rest.split("_")[1])
+            # the detector's flat score volume, or the kNN's (B, N, N)
+            # distances
+            shape, k, target, largest = (
+                ((width,), 20_000, 0.95, True) if rows == 1
+                else ((rows // width, width, width), 40, 0.9, False))
+            if rows % width and rows != 1 or reduction_output_size(
+                    width, len(shape), k, target)[0] != int(
+                        rest.split("_")[0][1:]):
+                raise AssertionError(f"bins: call {key} of no known path")
+            x = torch.rand(shape, device="cuda").to(dt)
+            by_key[key] = _bin_case(key, x, k, target, largest)
+        t = by_key[key]
+        out[key] = {"launches": n, **{f: t[f] for f in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "aggregate_ms", "selection_ms")}}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on an NVIDIA card", file=sys.stderr)
         return 2
+    from fissure_segmentation_tpu_torch import train_point_seg
+    # the entry's synthetic dataset, made once for every train_point_seg
+    # run of the script (phases that cache it themselves keep doing so)
+    with _cached_synthetic(train_point_seg):
+        return _main()
+
+
+def _main() -> int:
     from fissure_segmentation_tpu_torch import native
     from fissure_segmentation_tpu_torch.kernels import _build
     from fissure_segmentation_tpu_torch.kernels import scatter as ks
@@ -5541,6 +6187,39 @@ def main() -> int:
         affine_scatter[64]["scatter_count"]
     slice_paths.update(pointnet=pn_calls, stems=st_calls, affine=af_calls)
 
+    # 41. the approximate top-k's bin kernel against its plain version
+    t41 = time.perf_counter()
+    bin_timings = phase_approx_topk(card)
+
+    # 42. segment_cases against a serial loop (counts from 0 before its
+    # first pipelined run, read after it)
+    t42 = time.perf_counter()
+    pipe_counts, pipe_gr, pipe_timing = phase_pipeline(
+        ks, knn_cuda, card)
+    gr_calls.append(pipe_gr)
+    print(json.dumps({"pipeline": pipe_timing, "card": card}), flush=True)
+
+    # 43. the fast variant served, recall against exact, the bf16 CNN
+    # (counts from 0 before its first timed pipelined run, read after it)
+    t43 = time.perf_counter()
+    fast_counts, fast_gr, fast_bins, fast_timing = \
+        phase_fast_serving(ks, knn_cuda, card)
+    gr_calls.append(fast_gr)
+    print(json.dumps({"fast_serving": fast_timing, "card": card}),
+          flush=True)
+
+    # 44. train_point_seg --knn_recall 0.9 (counts from 0, read after), the
+    # steps with and without it, time_keypoint_extraction
+    t44 = time.perf_counter()
+    knn09_counts, knn09_gr, knn09_k4, knn09_bins, knn09_timing = \
+        phase_knn_recall_train(ks, knn_cuda, card)
+    gr_calls.append(knn09_gr)
+    print(json.dumps({"knn_recall_train": knn09_timing, "card": card}),
+          flush=True)
+    print(json.dumps({"phase_s": {
+        "41": t42 - t41, "42": t43 - t42, "43": t44 - t43,
+        "44": time.perf_counter() - t44}}), flush=True)
+
     def slice_row(name, timed):
         """The slice's launches of a kernel, by path and by call."""
         launches = {"pcae": pcae_counts[name], "dseg_ae": dseg_counts[name],
@@ -5558,7 +6237,11 @@ def main() -> int:
     # default run (its widths), and so do phase 39's DGCNN runs with both
     # stems
     train_total = {k: counts["total"][k] + bf16_counts[k] + default_counts[k]
-                   + chain_counts[k] + st_counts[k] for k in counts["total"]}
+                   + chain_counts[k] + st_counts[k] + knn09_counts[k]
+                   for k in counts["total"]}
+    # phases 42 and 43 serve through K1, the gather-reduce and the bin
+    # kernel
+    serve_total = {k: pipe_counts[k] + fast_counts[k] for k in pipe_counts}
     # K4 by call: the train paths' count_from_ptr, the probes' histogram at
     # 512 rows (the launches of their timed calls)
     k4_calls, k4_paths = {}, {}
@@ -5566,7 +6249,7 @@ def main() -> int:
                        ("train", bf16_counts["k4_calls"]),
                        ("train", default_k4), ("dpsr", dpsr_k4),
                        ("train", chain_k4), ("train", st_k4),
-                       ("affine", af_k4)):
+                       ("affine", af_k4), ("train", knn09_k4)):
         for key, n in part.items():
             k4_calls[key] = k4_calls.get(key, 0) + n
             k4_paths[key] = path
@@ -5593,7 +6276,8 @@ def main() -> int:
         + pt_serving["knn"] + pt_counts["knn"] + cnn_serving["knn"]
         + pcae_counts["knn"] + dseg_counts["knn"] + dpsr_counts["knn"]
         + dgssm_counts["knn"] + pre_counts["foerstner"]["knn"]
-        + pre_counts["cnn"]["knn"] + pn_counts["knn"] + af_counts["knn"],
+        + pre_counts["cnn"]["knn"] + pn_counts["knn"] + af_counts["knn"]
+        + serve_total["knn"],
         "max_abs_err": max_err, "ms": graph["ms"],
         "plain_ms": graph["plain_ms"], "bound_ms": graph["bound_ms"],
         "bound_by": graph["bound_by"], "library_ms": None,
@@ -5605,7 +6289,8 @@ def main() -> int:
                "replaces": SCATTER_REPLACES[name],
                "launches": train_total[name] + pcae_counts[name]
                + dseg_counts[name] + dpsr_counts[name]
-               + dgssm_counts[name] + af_counts[name], "max_abs_err": err,
+               + dgssm_counts[name] + af_counts[name] + serve_total[name],
+               "max_abs_err": err,
                "ms": path["ms"], "plain_ms": path["plain_ms"],
                "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
                "library_ms": path["library_ms"], "shapes": shapes}
@@ -5627,7 +6312,7 @@ def main() -> int:
             row["by_call"] = {
                 next(iter(shapes)): {
                     "launches": row["launches"] - dpsr_counts[name]
-                    - af_counts[name],
+                    - af_counts[name] - serve_total[name],
                     **{k: path[k] for k in ("ms", "shared_ms", "plain_ms",
                                             "bound_ms", "bound_by",
                                             "library_ms")}},
@@ -5740,7 +6425,8 @@ def main() -> int:
                    + cnn_serving["gather_reduce"]
                    + dseg_counts["gather_reduce"]
                    + dpsr_counts["gather_reduce"]
-                   + af_counts["gather_reduce"])
+                   + af_counts["gather_reduce"]
+                   + serve_total["gather_reduce"])
     if sum(calls.values()) != gr_launches:
         raise AssertionError(f"gather_reduce: {gr_launches} launches but "
                              f"{calls} by call")
@@ -5753,6 +6439,26 @@ def main() -> int:
         "by_call": by_call, "slice": slice_row("gather_reduce", {}),
         "gap_ms": sum(r["gap_ms"] for r in by_call.values()),
         "shapes": gr_timings})
+    bin_calls = {}
+    for part in (fast_bins, knn09_bins):
+        for key, n in part.items():
+            bin_calls[key] = bin_calls.get(key, 0) + n
+    det = bin_timings["detector_uniform_f32"]
+    kernels.append({
+        "name": "approx_topk_bins", "route": "cuda",
+        "source": APPROX_SOURCE, "replaces": APPROX_REPLACES,
+        "no_tpu_kernel": "XLA's ApproxTopK behind lax.approx_max_k / "
+                         "approx_min_k",
+        "also_replaces": APPROX_ALSO,
+        "launches": fast_counts["bin_extrema"] + knn09_counts["bin_extrema"],
+        "by_path": {"fast_serving": fast_counts["bin_extrema"],
+                    "knn_recall_train": knn09_counts["bin_extrema"]},
+        "max_abs_err": 0.0, "ms": det["ms"], "plain_ms": det["plain_ms"],
+        "bound_ms": det["bound_ms"], "bound_by": det["bound_by"],
+        "library_ms": det["library_ms"], "library": det["library"],
+        "aggregate_ms": det["aggregate_ms"],
+        "by_call": _bins_by_call(bin_calls, bin_timings),
+        "shapes": bin_timings})
     for name, head in stream_heads.items():
         kernels.append({
             "name": name, "route": "cuda", "source": STREAM_SOURCE,

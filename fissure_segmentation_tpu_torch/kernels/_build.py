@@ -134,6 +134,10 @@ def load() -> ctypes.CDLL:
                                        i32, i32, i32, i32, i32, vp],
                 "fseg_gather_reduce_parts": [i32, i32, i32, i32],
                 "fseg_stream_sum": [vp, vp, vp, i64, i32, i32, i32, vp],
+                "fseg_bin_extrema": [vp, vp, vp, i64, i64, i64, i32, i32,
+                                     i32, vp],
+                "fseg_bin_extrema": [vp, vp, vp, i64, i64, i64, i32, i32, i32,
+                                     vp],
                 "fseg_stream_sum_async": [vp, vp, vp, i64, i32, i32, i32, i32,
                                           i32, vp],
             }

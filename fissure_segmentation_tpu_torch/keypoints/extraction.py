@@ -13,15 +13,17 @@ Every mode gives a fixed-size set on the device: (max_kpts, 3) int32 zyx
 voxel indices and a validity mask. `compute_keypoints` turns it into the
 case dict the point datasets read. Random draws come from a
 `torch.Generator`, or are injected (`scores`, `draws`): jax.random cannot
-be replayed in torch, and the tests inject the JAX package's draws.
-
-Not ported yet: `approx_top_k`.
+be replayed in torch, and the tests inject the JAX package's draws. The
+cnn mode's selection may be approximate (`approx_top_k`: ops/approx_topk.py,
+the bin kernel on the card); its scores are uniform draws, so an
+approximate top-k of them is still a uniform random subset.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..ops.approx_topk import approx_top_k as approx_max_k
 from ..ops.topk import masked_top_k
 from ..utils.coords import kpts_to_grid
 from ..utils.device import as_device_tensor
@@ -127,7 +129,8 @@ def get_cnn_keypoints(softmax_scores: torch.Tensor, lung_mask: torch.Tensor,
                       feat_patch: int = 5, max_kpts: int = MAX_KPTS,
                       generator: torch.Generator | None = None,
                       scores: torch.Tensor | None = None,
-                      want_features: bool = False):
+                      want_features: bool = False,
+                      approx_top_k: bool = False):
     """Foreground argmax of the CNN softmax within the lung mask; a uniform
     random subset of at most max_kpts of them (random scores, then the exact
     top-k); features: the feat_patch^3 patches of every softmax channel
@@ -139,6 +142,10 @@ def get_cnn_keypoints(softmax_scores: torch.Tensor, lung_mask: torch.Tensor,
     :param scores: optional (D * H * W,) uniform draws to use instead
     :param want_features: sample the softmax patches (JAX's default;
         here off, as serving's coordinate models never read them)
+    :param approx_top_k: select the random subset with the approximate
+        top-k at recall target 0.95 (`lax.approx_max_k`'s default): the
+        same distribution where the foreground exceeds max_kpts; where it
+        is smaller, a bin may hide a foreground voxel behind another
     :return: (kp (max_kpts, 3) int32 zyx, valid (max_kpts,) bool,
         features (max_kpts, C * feat_patch^3) float32 or None)
     """
@@ -147,8 +154,13 @@ def get_cnn_keypoints(softmax_scores: torch.Tensor, lung_mask: torch.Tensor,
     flat = fg.reshape(-1)
     if scores is None:
         scores = uniform_scores(flat.numel(), generator, flat.device)
-    score = torch.where(flat, scores.reshape(-1).to(flat.device), -torch.inf)
-    top, idx = masked_top_k(score, max_kpts)
+    score = torch.where(flat, scores.reshape(-1).to(flat.device,
+                                                    non_blocking=True),
+                        -torch.inf)
+    if approx_top_k:
+        top, idx = approx_max_k(score, max_kpts)
+    else:
+        top, idx = masked_top_k(score, max_kpts)
     kp = _flat_to_zyx(idx, h, w)
     if not want_features:
         return kp, torch.isfinite(top), None

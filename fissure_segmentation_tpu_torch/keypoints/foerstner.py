@@ -7,14 +7,16 @@ With `scores` or a `generator`, a uniform random subset of the detected
 points is kept instead of the most distinctive ones (the JAX package's
 `rng`: uniform + 1 where a point is detected, then the top-k); jax.random
 cannot be replayed in torch, so the tests inject JAX's draw as `scores`.
-
-Not ported yet: `approx_top_k`.
+`approx_top_k=True` selects with the approximate top-k instead
+(ops/approx_topk.py, `lax.approx_max_k`'s default recall target 0.95: the
+bin kernel on the card).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..ops.approx_topk import approx_top_k as approx_max_k
 from ..ops.topk import masked_top_k
 from ..utils.filters import filter_1d, max_pool_same, smooth
 
@@ -70,12 +72,15 @@ def foerstner_keypoints(img: torch.Tensor, mask: torch.Tensor,
                         sigma: float = 1.4, d: int = 9, thresh: float = 1e-8,
                         max_kpts: int = 20000,
                         generator: torch.Generator | None = None,
-                        scores: torch.Tensor | None = None):
+                        scores: torch.Tensor | None = None,
+                        approx_top_k: bool = False):
     """Detect keypoints in a (D, H, W) volume within a boolean mask.
 
     :param generator: draws the uniform scores of a random subset (see
         extraction.uniform_scores)
     :param scores: optional (D * H * W,) uniform draws instead
+    :param approx_top_k: select with the approximate top-k at recall
+        target 0.95 (`lax.approx_max_k`'s default) instead of the exact one
 
     :return: (kpts (max_kpts, 3) int32 zyx voxel indices, valid (max_kpts,)
         bool, n_candidates () — how many voxels passed the detector)
@@ -87,11 +92,15 @@ def foerstner_keypoints(img: torch.Tensor, mask: torch.Tensor,
         from .extraction import uniform_scores
         scores = uniform_scores(dist.numel(), generator, dist.device)
     if scores is not None:
-        rand = scores.reshape(dist.shape).to(dist.device) + 1.0
+        rand = scores.reshape(dist.shape).to(dist.device,
+                                             non_blocking=True) + 1.0
         score = torch.where(is_kpt, rand, torch.full_like(dist, -float("inf")))
     else:
         score = torch.where(is_kpt, dist, torch.full_like(dist, -float("inf")))
-    top, idx = masked_top_k(score, max_kpts)
+    if approx_top_k:
+        top, idx = approx_max_k(score.reshape(-1), max_kpts)
+    else:
+        top, idx = masked_top_k(score, max_kpts)
     valid = torch.isfinite(top)
     _, h, w = img.shape[-3:]
     kpts = torch.stack([idx // (h * w), (idx // w) % h, idx % w], dim=-1)

@@ -48,8 +48,12 @@ says so), SharedMLP(1024), a global max to (B, 1024), then SharedMLPs of
 512 and 256 on those vectors (BatchNorm over the batch axis) and a last
 layer to (B, C).
 
-Not ported yet (raises NotImplementedError): approximate kNN
-(`knn_recall`).
+`knn_recall` (JAX's opt-in approximate graphs): the static graph and every
+EdgeConv's dynamic graph are built by `ops/knn.py:knn(recall_target=
+knn_recall)` (the distances materialized, the approximate top-k's bin
+kernel on the card); the spatial transformer's own graph in a dynamic
+model stays exact, as in the JAX package. `config` records it, so model.pt
+and `.fst` keep it.
 """
 from __future__ import annotations
 
@@ -149,11 +153,9 @@ class DGCNNBase(nn.Module):
                  knn_recall: float | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if knn_recall is not None:
-            raise NotImplementedError(f"{type(self).__name__}(knn_recall="
-                                      "...) is not ported yet")
         self.dtype = dt = _check_dtype(dtype, type(self).__name__)
         self.k = k
+        self.knn_recall = None if knn_recall is None else float(knn_recall)
         self.dynamic = bool(dynamic)
         self.spatial_transformer = bool(spatial_transformer)
         self.image_feat_module = bool(image_feat_module)
@@ -164,6 +166,8 @@ class DGCNNBase(nn.Module):
                 self.config[name] = True
         if dt is not None:   # JSON for model.pt
             self.config["dtype"] = str(dt).removeprefix("torch.")
+        if self.knn_recall is not None:
+            self.config["knn_recall"] = self.knn_recall
         g = generator
         fin = in_features
         if self.image_feat_module:
@@ -185,8 +189,9 @@ class DGCNNBase(nn.Module):
         return transpose(graph.reshape(b, n * k).to(torch.int32)
                          .contiguous(), n)
 
-    def _graph(self, x: torch.Tensor, self_loop: bool):
-        graph = knn(x, self.k, self_loop=self_loop)
+    def _graph(self, x: torch.Tensor, self_loop: bool, exact: bool = False):
+        graph = knn(x, self.k, self_loop=self_loop,
+                    recall_target=None if exact else self.knn_recall)
         return graph, self._transpose(graph)
 
     def _features(self, x: torch.Tensor) -> list:
@@ -198,7 +203,7 @@ class DGCNNBase(nn.Module):
             x = self.ImageFeatures_0(x)
         if self.spatial_transformer:
             st = (graph, tr) if graph is not None else \
-                self._graph(x[..., :3], True)
+                self._graph(x[..., :3], True, exact=True)
             x = self.SpatialTransformer_0(x, *st)
         feats = []
         for i in range(len(self.edge_widths)):

@@ -6,7 +6,9 @@ a final softmax over the sum gives the prediction. Coverage is guaranteed
 by construction: the first ceil(N/S) subsets partition one random
 permutation (tail wrapped), the rest are extra random draws. The JAX
 package's scan over subset groups is a Python loop here, and the
-accumulation an `index_add_`.
+accumulation one `index_add_` a subset: a subset holds no point twice, so
+no two of its additions meet on the card's float atomics, and the sum
+takes the same order on every run and device (the CPU's).
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ def build_subsets(n_points: int, sample_points: int, n_runs_min: int = 50,
     rows = [covered.reshape(n_cover, sample_points)]
     rows += [torch.randperm(n_points, generator=generator)[None, :sample_points]
              for _ in range(n_runs - n_cover)]
-    return torch.cat(rows).to(device)
+    return torch.cat(rows).to(device, non_blocking=True)
 
 
 def ensemble_predict(model: Callable[[torch.Tensor], torch.Tensor],
@@ -49,7 +51,8 @@ def ensemble_predict(model: Callable[[torch.Tensor], torch.Tensor],
     if subsets is None:
         subsets = build_subsets(pc.shape[0], sample_points, n_runs_min,
                                 generator, pc.device)
-    subsets = subsets.to(device=pc.device, dtype=torch.int64)
+    subsets = subsets.to(device=pc.device, dtype=torch.int64,
+                         non_blocking=True)
     r, s = subsets.shape
     if r % subset_batch:  # pad with repeats of the first subsets
         subsets = torch.cat([subsets, subsets[:subset_batch - r % subset_batch]])
@@ -60,6 +63,6 @@ def ensemble_predict(model: Callable[[torch.Tensor], torch.Tensor],
             if acc is None:
                 acc = torch.zeros(pc.shape[0], probs.shape[-1],
                                   dtype=torch.float32, device=pc.device)
-            acc.index_add_(0, group.reshape(-1),
-                           probs.reshape(-1, probs.shape[-1]))
+            for rows, p in zip(group, probs):
+                acc.index_add_(0, rows, p)
     return torch.softmax(acc, dim=-1)

@@ -332,12 +332,6 @@ def gaussian_importance_map(patch_size, sigma_scale=1 / 4.0) -> np.ndarray:
     return w.astype(np.float32)
 
 
-def _check_dtype(dtype) -> None:
-    if dtype not in (None, torch.float32):
-        raise NotImplementedError(f"CNN compute dtype {dtype} is not ported "
-                                  "yet (float32 only)")
-
-
 def _edge_pad(img: torch.Tensor, pad) -> torch.Tensor:
     """Edge padding of a (D, H, W) volume, (q // 2 + q % 2) low and q // 2
     high on each axis, as jnp.pad(mode="edge") with the JAX split."""
@@ -351,6 +345,18 @@ def _softmax_forward(model, vol: torch.Tensor) -> torch.Tensor:
     """(D, H, W) volume -> (D, H, W, C) softmax of the model's logits."""
     logits = model(vol[None, ..., None])[0]
     return torch.softmax(logits.to(torch.float32), dim=-1)
+
+
+def _compute_copy(model, dtype):
+    """The model to run in `dtype`: itself for float32 (None), else a copy
+    with every parameter and buffer cast (the JAX package casts every
+    float32 leaf of its variables)."""
+    if dtype not in (None, torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"CNN compute dtype {dtype} is not ported "
+                                  "yet (float32 or bfloat16)")
+    if dtype == torch.bfloat16:
+        return copy.deepcopy(model).to(dtype)
+    return model
 
 
 @torch.no_grad()
@@ -368,15 +374,11 @@ def predict_full_volume(model, img: torch.Tensor, dtype=None) -> torch.Tensor:
         bfloat16; the softmax is taken in float32.
     :return: (D, H, W, num_classes) softmax
     """
-    if dtype not in (None, torch.float32, torch.bfloat16):
-        raise NotImplementedError(f"CNN compute dtype {dtype} is not ported "
-                                  "yet (float32 or bfloat16)")
+    model = _compute_copy(model, dtype)
     dhw = tuple(img.shape)
     pad = [(-s) % 4 for s in dhw]
     vol = _edge_pad(img.to(torch.float32), pad)
-    if dtype == torch.bfloat16:
-        model, vol = copy.deepcopy(model).to(dtype), vol.to(dtype)
-    out = _softmax_forward(model, vol)
+    out = _softmax_forward(model, vol.to(dtype or torch.float32))
     lo = [q // 2 + q % 2 for q in pad]
     return out[lo[0]:lo[0] + dhw[0], lo[1]:lo[1] + dhw[1],
                lo[2]:lo[2] + dhw[2]]
@@ -390,9 +392,14 @@ def predict_all_patches(model, img: torch.Tensor, num_classes: int,
     (models/seg_cnn.py:predict_all_patches, the reference protocol).
 
     :param img: (D, H, W) float32 volume on the device to run on
+    :param dtype: compute dtype of the CNN: float32 (None) or bfloat16 (a
+        cast copy of the model runs on each patch cast from the float32
+        padded volume, as `predict_full_volume` does); each patch's softmax,
+        the Gaussian blending and the second softmax stay float32, as in
+        the JAX package
     :return: (D, H, W, num_classes) softmax
     """
-    _check_dtype(dtype)
+    model = _compute_copy(model, dtype)
     dhw = tuple(img.shape)
     dev = img.device
     starts = get_patch_starts(dhw, min_overlap, patch_size)
@@ -411,7 +418,8 @@ def predict_all_patches(model, img: torch.Tensor, num_classes: int,
                 sl = (slice(sz, sz + patch_size[0]),
                       slice(sy, sy + patch_size[1]),
                       slice(sx, sx + patch_size[2]))
-                out[sl] += _softmax_forward(model, img_p[sl]) * gmap
+                patch = img_p[sl].to(dtype or torch.float32)
+                out[sl] += _softmax_forward(model, patch) * gmap
                 norm[sl] += gmap
     out = out / norm
     lo = [q // 2 + q % 2 for q in pad]

@@ -13,6 +13,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.device import host_to
 from .splat import grid_interp, point_rasterize
 
 
@@ -57,8 +58,8 @@ def spectral_psr(v: torch.Tensor, normal_field: torch.Tensor, res,
     :return: (B, *res) indicator field phi (zero level-set = surface)
     """
     res = tuple(res)
-    psr_w = torch.from_numpy(np.array(_psr_weights(res, float(sig)))).to(
-        normal_field.device)                                  # (d0,d1,d2r,3)
+    psr_w = host_to(np.array(_psr_weights(res, float(sig))),
+                    normal_field.device)                      # (d0,d1,d2r,3)
     n_hat = torch.fft.rfftn(normal_field, dim=(2, 3, 4))     # (B,3,d0,d1,d2r)
     phi_hat = (n_hat * psr_w.permute(3, 0, 1, 2)[None]).sum(1)
     phi = torch.fft.irfftn(phi_hat, s=res, dim=(1, 2, 3))

@@ -20,13 +20,21 @@ the backward. Semantics: squared euclidean distances, `self_loop=True`
 keeps the point itself as its first neighbor, `self_loop=False` computes
 k+1 and drops the first column.
 
-Not ported yet: `query_chunk` and the approximate `recall_target` path.
+The approximate graph (`recall_target`, ops/knn.py:79-95 of the JAX
+package) skips K1 for every width: the distance matrix is materialized by
+the same formula (bf16 norms rounded as above), the diagonal is pinned to
+-1 under `self_loop` (self is then always found, in slot 0) or to +inf
+without it, and `ops/approx_topk.py` selects the k smallest with the bin
+kernel on the card; negative distances (self's -1) are clamped to 0.
+
+Not ported yet: `query_chunk`.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels.knn import MAX_C, MAX_KK, knn_cuda
+from .approx_topk import approx_top_k
 
 
 def _sqnorm(x: torch.Tensor) -> torch.Tensor:
@@ -71,22 +79,41 @@ def feature_knn(x: torch.Tensor, kk: int):
         return idx[..., :kk].to(torch.int32), dist[..., :kk]
 
 
+def approx_knn(x: torch.Tensor, k: int, self_loop: bool,
+               recall_target: float):
+    """The approximate graph of `knn(recall_target=...)`, without autograd.
+
+    :param x: (B, N, C) float32 or bfloat16
+    :return: (idx (B, N, k) int32, dist (B, N, k) in x's dtype)
+    """
+    with torch.no_grad(), torch.profiler.record_function("approx_graph"):
+        x = x.detach()
+        d = pairwise_sqdist(x, x)
+        d.diagonal(dim1=-2, dim2=-1).fill_(-1.0 if self_loop else torch.inf)
+        dist, idx = approx_top_k(d, k, recall_target, largest=False)
+        if self_loop:
+            dist = dist.clamp(min=0.0)
+        return idx.to(torch.int32), dist
+
+
 def knn(x: torch.Tensor, k: int, self_loop: bool = False,
         return_dist: bool = False, recall_target: float | None = None):
     """k nearest neighbors of every point within its own cloud.
 
     :param x: (..., N, C) point clouds, channel-last; float32 for the K1
-        route (C <= 8), float32 or bfloat16 for the feature route
+        route (C <= 8), float32 or bfloat16 for the feature route and the
+        approximate one
+    :param recall_target: build the approximate graph at this recall
+        (`approx_knn`) instead of the exact one
     :return: (..., N, k) int32 indices [, (..., N, k) squared distances]
     """
-    if recall_target is not None:
-        raise NotImplementedError("approximate kNN (recall_target) is not "
-                                  "ported yet")
     n, c = x.shape[-2:]
     kk = k if self_loop else k + 1
     lead = x.shape[:-2]
     x3 = x.reshape(-1, n, c)
-    if c <= MAX_C and kk <= MAX_KK:      # K1 raises for kk > N
+    if recall_target is not None:
+        idx, dist = approx_knn(x3, k, self_loop, recall_target)
+    elif c <= MAX_C and kk <= MAX_KK:      # K1 raises for kk > N
         idx, dist = knn_cuda(x3.contiguous(), k, self_loop)
     else:
         idx, dist = feature_knn(x3, kk)

@@ -24,6 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device import host_to
+
 # 6-tetrahedra decomposition of the unit cube (corner ids 0..7, bit order
 # (z, y, x): corner = z*4 + y*2 + x). All 6 tets share the main diagonal 0-7.
 _TETS = np.array([
@@ -142,7 +144,7 @@ def _marching_candidates(phi: torch.Tensor, max_tris: int, iso: float,
     x = cell_idx % cx
     y = (cell_idx // cx) % cy
     z = cell_idx // (cx * cy)
-    co = torch.from_numpy(_CORNERS).to(dev)
+    co = host_to(_CORNERS, dev)
     bi = torch.arange(b, device=dev)[:, None, None]
     vals8 = phi[bi, z[..., None] + co[:, 0], y[..., None] + co[:, 1],
                 x[..., None] + co[:, 2]]                      # (B, max_tris, 8)
@@ -170,16 +172,16 @@ def _gather_triangles(phi: torch.Tensor, gids: torch.Tensor, iso: float,
     y = (cell // cx) % cy
     z = cell // (cx * cy)
 
-    corner_ids = torch.from_numpy(_TETS).to(dev)[tet]          # (B, M, 4)
-    offs = torch.from_numpy(_CORNERS).to(dev)[corner_ids]      # (B, M, 4, 3)
+    corner_ids = host_to(_TETS, dev)[tet]          # (B, M, 4)
+    offs = host_to(_CORNERS, dev)[corner_ids]      # (B, M, 4, 3)
     bi = torch.arange(b, device=dev)[:, None, None]
     vals = phi[bi, z[..., None] + offs[..., 0], y[..., None] + offs[..., 1],
                x[..., None] + offs[..., 2]]                    # (B, M, 4)
     ins = (vals.detach() < iso).to(torch.int64)
     case = ins[..., 0] + 2 * ins[..., 1] + 4 * ins[..., 2] + 8 * ins[..., 3]
-    edges = torch.from_numpy(_TET_TABLE).to(dev, torch.int64)[case, slot]
+    edges = host_to(_TET_TABLE, dev, torch.int64)[case, slot]
     e = edges.clamp(min=0)                                     # -1 pad -> 0
-    ab = torch.from_numpy(_TET_EDGES).to(dev)[e]               # (B, M, 3, 2)
+    ab = host_to(_TET_EDGES, dev)[e]               # (B, M, 3, 2)
 
     vgath = torch.gather(vals, 2, ab.reshape(b, m, 6)).reshape(b, m, 3, 2)
     ogath = torch.gather(offs, 2, ab.reshape(b, m, 6, 1).expand(

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from ..keypoints.hessian import eigvalsh3
+from ..utils.device import host_to
 from .edge import gather_neighbors
 from .knn import knn
 
@@ -29,7 +30,7 @@ def _smallest_eigvec3(a00, a11, a22, a01, a02, a12):
         *best.shape, 1, 3))[..., 0, :]
     norm = torch.linalg.norm(v, dim=-1, keepdim=True)
     # degenerate (isotropic) neighborhoods: fall back to +z
-    fallback = torch.tensor([0.0, 0.0, 1.0], dtype=v.dtype, device=v.device)
+    fallback = host_to([0.0, 0.0, 1.0], v.device, v.dtype)
     return torch.where(norm > 1e-12, v / torch.clamp(norm, min=1e-12),
                        fallback.expand_as(v))
 

@@ -7,18 +7,28 @@ Conventions: `splat_grid_sample` takes xyz coords in [-1, 1]
 `grid_interp` take points (..., 3) in [0, 1], index order matching the
 grid dims (the last coordinate indexes the last grid dim), cubesize
 1/(size-1). Every function is differentiable in its values and grid
-(index_add_'s backward is a gather), as the JAX package's scatter is.
+(the scatter's backward is a gather), as the JAX package's scatter is.
 
 JAX drops out-of-range scatter updates and clamps out-of-range gathers
 silently; torch raises on both, so the port masks explicitly: a corner
 outside the grid contributes weight 0 at index 0 (adding +0.0 leaves every
 cell's value unchanged), and interpolation clamps its corner indices.
+
+The scatter is deterministic on every device: one `index_add_` on the
+CPU, which adds in index order, and on the card one `index_put_` with
+`accumulate=True`, which sorts the indices stably and sums each cell's
+contributions in that order (`index_add_` on the card adds with float
+atomics in no fixed order). With more than one feature a cell the card's
+sums are the CPU's bit for bit; with one, its sorted path sums a cell's
+contributions by warp and is the same from run to run only. Serving's
+`segment_cases` relies on this to match a loop of `segment_case`.
 """
 from __future__ import annotations
 
 import torch
 
 from ..utils.coords import kpts_to_world
+from ..utils.device import host_to
 
 
 def _corner_weight(frac: torch.Tensor, dz: int, dy: int, dx: int):
@@ -43,23 +53,29 @@ def _splat_zyx(vals: torch.Tensor, idx: torch.Tensor, grid_shape,
     lo = torch.floor(idx)
     frac = idx - lo
     lo = lo.to(torch.int64)
-    dims = torch.tensor([d, h, w], device=idx.device)
-    base = (torch.arange(b, device=idx.device) * (d * h * w))[:, None]
-    out = torch.zeros(b * d * h * w, f, dtype=vals.dtype, device=vals.device)
+    dims = host_to([d, h, w], idx.device)
+    flats, pays = [], []
     for dz in (0, 1):
         for dy in (0, 1):
             for dx in (0, 1):
-                corner = lo + torch.tensor([dz, dy, dx], device=idx.device)
+                corner = lo + host_to([dz, dy, dx], idx.device)
                 if mode == "clamp":
                     corner = torch.minimum(corner.clamp(min=0), dims - 1)
                 inside = ((corner >= 0) & (corner < dims)).all(-1)
                 flat = (corner[..., 0] * h + corner[..., 1]) * w \
                     + corner[..., 2]
-                flat = torch.where(inside, flat + base, 0)
+                flats.append(torch.where(inside, flat, 0))
                 wgt = torch.where(inside, _corner_weight(frac, dz, dy, dx),
                                   0.0)
-                out.index_add_(0, flat.reshape(-1),
-                               (wgt[..., None] * vals).reshape(-1, f))
+                pays.append(wgt[..., None] * vals)
+    base = (torch.arange(b, device=idx.device) * (d * h * w))[:, None]
+    flat = (torch.cat(flats, 1) + base).reshape(-1)
+    pay = torch.cat(pays, 1).reshape(-1, f)
+    out = torch.zeros(b * d * h * w, f, dtype=vals.dtype, device=vals.device)
+    if out.is_cuda:
+        out.index_put_((flat,), pay, accumulate=True)
+    else:
+        out.index_add_(0, flat, pay)
     return out.reshape(b, d, h, w, f).permute(0, 4, 1, 2, 3)
 
 
@@ -80,7 +96,7 @@ def point_rasterize(pts: torch.Tensor, vals: torch.Tensor, size
                     ) -> torch.Tensor:
     """DPSR rasterizer: pts (B, N, 3) in [0, 1], vals (B, N, F) ->
     (B, F, *size)."""
-    sz = torch.tensor(size, dtype=torch.float32, device=pts.device)
+    sz = host_to(size, pts.device, torch.float32)
     return _splat_zyx(vals, pts * (sz - 1), tuple(size))
 
 
@@ -90,7 +106,7 @@ def grid_interp(grid: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     b = grid.shape[0]
     size = grid.shape[1:4]
     f = grid.shape[-1]
-    sz = torch.tensor(size, dtype=torch.float32, device=pts.device)
+    sz = host_to(size, pts.device, torch.float32)
     idx = pts * (sz - 1)
     lo = torch.floor(idx)
     frac = idx - lo

@@ -29,7 +29,7 @@ from ..ops.dpsr import dpsr_forward
 from ..ops.marching import marching_tetrahedra
 from ..ops.normals import estimate_pointcloud_normals
 from ..utils.coords import kpts_to_grid, kpts_to_world
-from ..utils.device import resolve_device
+from ..utils.device import host_to, resolve_device
 
 
 # ---------------------------------------------------------------- device half
@@ -39,8 +39,8 @@ def _bbox_cell_mask(points_grid_zyx: torch.Tensor, valid: torch.Tensor,
     """(B, N, 3) zyx grid points, (B, N) validity -> (B, *cells) bool: the
     PSR cells with a corner inside the valid points' voxel bbox (the cells
     that can survive the host bbox crop)."""
-    res = torch.tensor(grid_res, dtype=points_grid_zyx.dtype,
-                       device=points_grid_zyx.device) - 1
+    res = host_to(grid_res, points_grid_zyx.device,
+                  points_grid_zyx.dtype) - 1
     g = (points_grid_zyx + 1.0) / 2.0 * res                   # (B, N, 3)
     big = 4.0 * res.max()
     vm = valid[..., None]

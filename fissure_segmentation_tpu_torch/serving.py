@@ -1,22 +1,35 @@
 """One-call CT-case inference: keypoints -> ensemble segmentation -> fissure
-meshes (counterpart of serving.py:CaseResult and segment_case).
+meshes (counterpart of serving.py:CaseResult, segment_case and
+segment_cases).
 
-Device half, on a CUDA card (`case_device`: the input's, or `device=`; the
-CPU only when `device="cpu"` is passed): keypoints in one of three modes —
-Förstner, Hessian enhancement, or the pre-segmentation CNN (its
-whole-volume forward on the CT, or a given softmax volume) — then the
+Device half (`_dispatch_case`), on a CUDA card (`case_device`: the
+input's, or `device=`; the CPU only when `device="cpu"` is passed):
+keypoints in one of three modes — Förstner, Hessian enhancement, or the
+pre-segmentation CNN (its whole-volume forward on the CT in float32 or
+bfloat16, or a given softmax volume) — selected exactly or, with
+`approx_top_k`, by the approximate top-k (ops/approx_topk.py); then the
 50 x 2048-point subset ensemble of the point model, then per-class
-masked-normal spectral PSR and marching tetrahedra. Host half: one fetch of
-keypoints, labels, inside grids and float triangles, then the native C++
-component filter per class and the labelmap.
+masked-normal spectral PSR and marching tetrahedra. Its outputs are copied
+to pinned host buffers without waiting (an event marks the end of the
+copies). Fetch (`_fetch_case`): wait for that event. Host half
+(`_finish_case`): the native C++ component filter per class and the
+labelmap. `segment_case` is the three in a row; `segment_cases` pipelines
+them over many cases.
 
-Not ported yet: `approx_top_k`, a bfloat16 CNN (`cnn_dtype`), the packed
-transfer encodings and the pipelined `segment_cases`.
+The device half enqueues its work without a host synchronisation: host
+data reaches the card by non-blocking copies (utils/device.py:host_to),
+and nothing reads a device value back. Its results are the same on every
+run: the ensemble adds one subset at a time (models/ensemble.py) and the
+PSR splat goes through K2 (ops/splat.py), so no float atomics decide an
+order.
+
+Not ported: the JAX package's packed transfer encodings.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +42,11 @@ from .models.seg_cnn import predict_full_volume
 from .postprocess.surface_fitting import (_host_mesh_filter, batched_psr_mc,
                                           mesh_to_labelmap)
 from .utils.coords import kpts_to_grid
+from .utils.device import host_to
+
+# segment_case's keywords that only the host half reads
+HOST_KEYS = ("rights", "center_x", "lung_mask_filter", "mask_dilate_radius",
+             "crop_to_bbox", "make_labelmap")
 
 
 @dataclass
@@ -38,6 +56,19 @@ class CaseResult:
     labels: np.ndarray        # (n_valid,) predicted class per keypoint
     meshes: list              # per foreground class: (tris (T,3,3) world xyz, valid (T,))
     labelmap: np.ndarray | None   # (D, H, W) uint8, if requested
+
+
+@dataclass
+class _Dispatched:
+    """A case whose device half is enqueued: its outputs (kpts, valid,
+    pred, inside, tris, n_tris) as host tensors being copied into (pinned
+    buffers on a card) and the event that marks the copies' end (None on
+    the CPU)."""
+    out: tuple
+    event: torch.cuda.Event | None
+    shape: tuple
+    grid_res: tuple
+    num_fg_classes: int
 
 
 def case_device(vol, device=None) -> torch.device:
@@ -55,11 +86,12 @@ def case_device(vol, device=None) -> torch.device:
 
 
 def _keypoints(vol, mask, generator, *, kp_mode, max_kpts, fissure_mu,
-               fissure_sigma, cnn_model, cnn_dtype, kp_scores):
+               fissure_sigma, cnn_model, cnn_dtype, kp_scores, approx_top_k):
     """(kpts (max_kpts, 3) int32 zyx, valid, case shape) in `kp_mode`."""
     if kp_mode == "foerstner":
         kpts, valid, _ = foerstner_keypoints(vol, mask, sigma=0.5, d=5,
-                                             thresh=1e-8, max_kpts=max_kpts)
+                                             thresh=1e-8, max_kpts=max_kpts,
+                                             approx_top_k=approx_top_k)
         return kpts, valid, tuple(vol.shape)
     if kp_mode == "enhancement":
         enh = hessian_fissure_enhancement(vol, fissure_mu=fissure_mu,
@@ -67,17 +99,12 @@ def _keypoints(vol, mask, generator, *, kp_mode, max_kpts, fissure_mu,
         kpts, valid = get_enhancement_keypoints(enh, max_kpts=max_kpts)
         return kpts, valid, tuple(vol.shape)
     if kp_mode == "cnn":
-        if cnn_model is not None:
-            if cnn_dtype not in (None, torch.float32):
-                raise NotImplementedError(
-                    f"serving: CNN compute dtype {cnn_dtype} is not ported "
-                    "yet (float32 only)")
-            soft = predict_full_volume(cnn_model, vol, dtype=cnn_dtype)
-        else:
-            soft = vol
+        soft = (vol if cnn_model is None else
+                predict_full_volume(cnn_model, vol, dtype=cnn_dtype))
         kpts, valid, _ = get_cnn_keypoints(soft, mask, max_kpts=max_kpts,
                                            generator=generator,
-                                           scores=kp_scores)
+                                           scores=kp_scores,
+                                           approx_top_k=approx_top_k)
         return kpts, valid, tuple(soft.shape[:-1])
     raise ValueError(f'serving does not support kp_mode "{kp_mode}"')
 
@@ -100,6 +127,88 @@ def _device_case(vol, mask, model, generator, subsets, *, max_kpts,
         coords.flip(-1), class_valid, grid_res, sig, k_normals, max_tris,
         class_cap)
     return (kpts, valid, pred, inside, tris, n_tris), shape
+
+
+def _dispatch_case(vol, mask, model, generator=None, subsets=None, *,
+                   device=None, kp_mode: str = "foerstner",
+                   max_kpts: int = 20000, sample_points: int = 2048,
+                   n_runs_min: int = 50, subset_batch: int = 5,
+                   grid_res=(64, 64, 64), sig: float = 4.0,
+                   k_normals: int = 30, max_tris: int = 24000,
+                   num_fg_classes: int = 3, approx_top_k: bool = False,
+                   class_cap: int = 8192, fissure_mu: float = -313.5,
+                   fissure_sigma: float = 62.6, cnn_model=None,
+                   cnn_dtype=None, kp_scores=None) -> _Dispatched:
+    """Enqueue one case's device half and the copies of its outputs to the
+    host; returns without waiting for the card."""
+    device = case_device(vol, device)
+    vol_t = host_to(vol, device, torch.float32)
+    mask_t = host_to(mask, device, torch.bool)
+    if kp_scores is not None:
+        kp_scores = host_to(kp_scores, device)
+    grid_res = tuple(grid_res)
+    out, shape = _device_case(
+        vol_t, mask_t, model, generator, subsets, max_kpts=max_kpts,
+        sample_points=sample_points, n_runs_min=n_runs_min,
+        subset_batch=subset_batch, grid_res=grid_res, sig=sig,
+        k_normals=k_normals, max_tris=max_tris,
+        num_fg_classes=num_fg_classes, class_cap=class_cap, kp_mode=kp_mode,
+        fissure_mu=fissure_mu, fissure_sigma=fissure_sigma,
+        cnn_model=cnn_model, cnn_dtype=cnn_dtype, kp_scores=kp_scores,
+        approx_top_k=approx_top_k)
+    event = None
+    if device.type == "cuda":
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for t in out)
+        for h, t in zip(host, out):
+            h.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        out = host
+    return _Dispatched(out, event, shape, grid_res, num_fg_classes)
+
+
+def _fetch_case(dispatched: _Dispatched) -> _Dispatched:
+    """Wait until the case's outputs are on the host (the event's wait
+    releases the GIL); returns them as numpy arrays."""
+    if dispatched.event is not None:
+        dispatched.event.synchronize()
+    out = tuple(t.numpy() for t in dispatched.out)
+    return _Dispatched(out, None, dispatched.shape, dispatched.grid_res,
+                       dispatched.num_fg_classes)
+
+
+def _finish_case(fetched: _Dispatched, *, rights=None,
+                 center_x: float | None = None,
+                 lung_mask_filter: np.ndarray | None = None,
+                 mask_dilate_radius: int = 1, crop_to_bbox: bool = True,
+                 make_labelmap: bool = True) -> CaseResult:
+    """The host half of a fetched case: per-class component filter (native
+    C++, which releases the GIL) and the labelmap."""
+    kpts, valid, pred, inside, tris, n_tris = fetched.out
+    shape, grid_res = fetched.shape, fetched.grid_res
+    num_fg_classes = fetched.num_fg_classes
+    if rights is None:
+        rights = ([False, True, True]
+                  + [None] * num_fg_classes)[:num_fg_classes]
+    world = kpts[:, ::-1].astype(np.float32)
+    meshes = []
+    for i in range(num_fg_classes):
+        pts_c = world[valid & (pred == i + 1)]
+        n = int(n_tris[i])
+        if len(pts_c) < 4 or n == 0:
+            meshes.append((np.zeros((0, 3, 3), np.float32),
+                           np.zeros(0, bool)))
+            continue
+        meshes.append(_host_mesh_filter(
+            inside[i], tris[i, :n], np.ones(n, bool), pts_c, shape, grid_res,
+            lung_mask_filter, mask_dilate_radius, rights[i], center_x,
+            crop_to_bbox))
+
+    labelmap = mesh_to_labelmap(meshes, shape) if make_labelmap else None
+    return CaseResult(kpts=kpts[valid].astype(np.int32),
+                      labels=pred[valid].astype(np.int32),
+                      meshes=meshes, labelmap=labelmap)
 
 
 def segment_case(vol, mask, model: Callable[[torch.Tensor], torch.Tensor],
@@ -125,7 +234,8 @@ def segment_case(vol, mask, model: Callable[[torch.Tensor], torch.Tensor],
     :param mask: (D, H, W) bool lung mask (keypoint restriction)
     :param model: point-segmentation model in eval mode,
         (B, S, 3) grid coords -> (B, S, num_classes) logits
-    :param generator: draws the ensemble subsets (models/ensemble.py)
+    :param generator: draws the ensemble subsets (models/ensemble.py) and,
+        in the cnn mode, the keypoint subset's uniform scores
     :param subsets: optional (R, sample_points) subset indices to use
         instead of a draw
     :param device: where the device half runs (default: `vol`'s card if
@@ -135,10 +245,14 @@ def segment_case(vol, mask, model: Callable[[torch.Tensor], torch.Tensor],
         intensity weighting `fissure_mu`/`fissure_sigma`, in the image's
         units) or "cnn" (a uniform random subset of the CNN's foreground
         voxels inside `mask`)
+    :param approx_top_k: select the Förstner and cnn keypoints with the
+        approximate top-k (ops/approx_topk.py, recall target 0.95) instead
+        of the exact one
     :param cnn_model: for ``kp_mode="cnn"``: the pre-segmentation CNN in
         eval mode on the case's device (models.MobileNetASPP); its
         whole-volume forward runs on `vol` inside the device half
-    :param cnn_dtype: the CNN's compute dtype; float32 (None) only
+    :param cnn_dtype: the CNN's compute dtype: float32 (None) or
+        torch.bfloat16 (a cast copy of the CNN; the softmax is float32)
     :param kp_scores: for ``kp_mode="cnn"``: (D * H * W,) uniform draws
         for the random keypoint subset instead of a draw from `generator`
         (tests inject the JAX package's draw)
@@ -151,40 +265,144 @@ def segment_case(vol, mask, model: Callable[[torch.Tensor], torch.Tensor],
     :return: CaseResult with keypoints, labels, per-class meshes (world xyz)
         and optionally the labelmap
     """
-    if approx_top_k:
-        raise NotImplementedError("approx_top_k is not ported yet")
-    device = case_device(vol, device)
-    vol_t = torch.as_tensor(vol, dtype=torch.float32, device=device)
-    mask_t = torch.as_tensor(mask, dtype=torch.bool, device=device)
-    grid_res = tuple(grid_res)
-    out, shape = _device_case(
-        vol_t, mask_t, model, generator, subsets, max_kpts=max_kpts,
-        sample_points=sample_points, n_runs_min=n_runs_min,
-        subset_batch=subset_batch, grid_res=grid_res, sig=sig,
-        k_normals=k_normals, max_tris=max_tris,
-        num_fg_classes=num_fg_classes, class_cap=class_cap, kp_mode=kp_mode,
-        fissure_mu=fissure_mu, fissure_sigma=fissure_sigma,
-        cnn_model=cnn_model, cnn_dtype=cnn_dtype, kp_scores=kp_scores)
-    kpts, valid, pred, inside, tris, n_tris = (t.cpu().numpy() for t in out)
+    dispatched = _dispatch_case(
+        vol, mask, model, generator, subsets, device=device, kp_mode=kp_mode,
+        max_kpts=max_kpts, sample_points=sample_points,
+        n_runs_min=n_runs_min, subset_batch=subset_batch, grid_res=grid_res,
+        sig=sig, k_normals=k_normals, max_tris=max_tris,
+        num_fg_classes=num_fg_classes, approx_top_k=approx_top_k,
+        class_cap=class_cap, fissure_mu=fissure_mu,
+        fissure_sigma=fissure_sigma, cnn_model=cnn_model,
+        cnn_dtype=cnn_dtype, kp_scores=kp_scores)
+    return _finish_case(_fetch_case(dispatched), rights=rights,
+                        center_x=center_x, lung_mask_filter=lung_mask_filter,
+                        mask_dilate_radius=mask_dilate_radius,
+                        crop_to_bbox=crop_to_bbox,
+                        make_labelmap=make_labelmap)
 
-    if rights is None:
-        rights = ([False, True, True]
-                  + [None] * num_fg_classes)[:num_fg_classes]
-    world = kpts[:, ::-1].astype(np.float32)
-    meshes = []
-    for i in range(num_fg_classes):
-        pts_c = world[valid & (pred == i + 1)]
-        n = int(n_tris[i])
-        if len(pts_c) < 4 or n == 0:
-            meshes.append((np.zeros((0, 3, 3), np.float32),
-                           np.zeros(0, bool)))
-            continue
-        meshes.append(_host_mesh_filter(
-            inside[i], tris[i, :n], np.ones(n, bool), pts_c, shape, grid_res,
-            lung_mask_filter, mask_dilate_radius, rights[i], center_x,
-            crop_to_bbox))
 
-    labelmap = mesh_to_labelmap(meshes, shape) if make_labelmap else None
-    return CaseResult(kpts=kpts[valid].astype(np.int32),
-                      labels=pred[valid].astype(np.int32),
-                      meshes=meshes, labelmap=labelmap)
+def case_generator(seed: int, i: int) -> torch.Generator:
+    """The CPU generator of case `i` of a `segment_cases` call with base
+    seed `seed`: seeded from numpy's SeedSequence((seed, i)), so cases and
+    seeds draw independent streams."""
+    state = np.random.SeedSequence((seed, i)).generate_state(1, np.uint64)
+    return torch.Generator().manual_seed(int(state[0]) >> 1)
+
+
+def _per_case(value, n: int, what: str) -> list:
+    if value is None:
+        return [None] * n
+    value = list(value)
+    if len(value) != n:
+        raise ValueError(f"segment_cases: {len(value)} {what} for {n} cases")
+    return value
+
+
+def segment_cases(volumes: Sequence, masks: Sequence, model, *,
+                  seed: int = 0, generators: Sequence | None = None,
+                  subsets: Sequence | None = None, window: int = 3,
+                  timings: list | None = None,
+                  pipeline_threads: bool = True, **kwargs) -> list:
+    """Throughput-pipelined multi-case serving on one card.
+
+    `segment_case` runs dispatch -> fetch -> host half case by case, so the
+    host half (the native component filter and the labelmap) waits for the
+    card and the card for it. Here three stages overlap:
+
+      main thread   enqueues case i+2's device half on the card's stream,
+                    records an event and starts the non-blocking copies of
+                    its outputs into pinned host buffers
+      fetch thread  waits on case i+1's event (the wait releases the GIL)
+      host thread   filters and rasterizes case i (numpy and the native
+                    library, whose ctypes calls release the GIL)
+
+    so the rate approaches 1/max(device, fetch, host) instead of
+    1/(device + fetch + host).
+
+    Per-case draws: case i draws its subsets (and, in the cnn mode, its
+    keypoint scores) from ``generators[i]`` when given, else from
+    ``case_generator(seed, i)``; ``subsets[i]`` overrides the subsets'
+    draw where given. The results equal a loop of `segment_case(volumes[i],
+    masks[i], model, <the same generator>, subsets=subsets[i], **kwargs)`
+    bit for bit, threaded or not: the same work is enqueued in the same
+    order, and the device half's results do not depend on timing (see the
+    module's docstring).
+
+    :param volumes: (D, H, W) volumes (arrays or tensors); one per case
+    :param masks: matching lung masks
+    :param window: cases in flight across the three stages at most (3
+        keeps every stage busy; each holds its inputs and outputs)
+    :param timings: optional list; gets one dict a case: "dispatch_s"
+        always, "fetch_s" and "host_s" threaded, "finish_s" (fetch and host
+        half) when not
+    :param pipeline_threads: run the fetch and host stages on two worker
+        threads (default); False keeps the main thread's dispatch-ahead
+        window only
+    :param kwargs: segment_case's keywords (kp_mode, device, approx_top_k,
+        center_x, ...)
+    :return: list of CaseResult, in case order
+    """
+    volumes, masks = list(volumes), list(masks)
+    n = len(volumes)
+    if len(masks) != n:
+        raise ValueError(f"{n} volumes vs {len(masks)} masks")
+    if window < 1:
+        raise ValueError(f"segment_cases: window={window} < 1")
+    gens = (_per_case(generators, n, "generators") if generators is not None
+            else [case_generator(seed, i) for i in range(n)])
+    subs = _per_case(subsets, n, "subsets")
+    host_kw = {k: kwargs.pop(k) for k in HOST_KEYS if k in kwargs}
+    results: list = [None] * n
+    tms = [{} for _ in range(n)]
+
+    def dispatch(i):
+        t0 = time.perf_counter()
+        d = _dispatch_case(volumes[i], masks[i], model, gens[i], subs[i],
+                           **kwargs)
+        tms[i]["dispatch_s"] = time.perf_counter() - t0
+        return d
+
+    if pipeline_threads and n > 1:
+        from concurrent.futures import ThreadPoolExecutor
+
+        def fetch_job(i, d):
+            t0 = time.perf_counter()
+            fetched = _fetch_case(d)
+            tms[i]["fetch_s"] = time.perf_counter() - t0
+            return fetched
+
+        def host_job(i, fetch_fut):
+            fetched = fetch_fut.result()
+            t0 = time.perf_counter()
+            res = _finish_case(fetched, **host_kw)
+            tms[i]["host_s"] = time.perf_counter() - t0
+            return res
+
+        with ThreadPoolExecutor(1) as fetch_pool, \
+                ThreadPoolExecutor(1) as host_pool:
+            futs = [None] * n
+            for i in range(n):
+                d = dispatch(i)
+                futs[i] = host_pool.submit(host_job, i,
+                                           fetch_pool.submit(fetch_job, i, d))
+                if i + 1 >= window:
+                    results[i + 1 - window] = futs[i + 1 - window].result()
+            for i in range(max(0, n - window + 1), n):
+                results[i] = futs[i].result()
+    else:
+        pending: list = []
+
+        def finish(i, d):
+            t0 = time.perf_counter()
+            results[i] = _finish_case(_fetch_case(d), **host_kw)
+            tms[i]["finish_s"] = time.perf_counter() - t0
+
+        for i in range(n):
+            pending.append((i, dispatch(i)))
+            if len(pending) >= window:
+                finish(*pending.pop(0))
+        for i, d in pending:
+            finish(i, d)
+    if timings is not None:
+        timings.extend(tms)
+    return results

@@ -7,7 +7,9 @@ against the JAX package's committed run.
 It trains and tests every fold with the port's train_point_seg entry,
 under the flags of the reference run's commandline_args.json (synthetic
 cases, DGCNN static, bf16 (`--amp true`), k = 40, 2048 points, batch 16,
-800 epochs of one step, cosine schedule) and its cross_val_split.json,
+800 epochs of one step, cosine schedule; `--knn_recall` where the run set
+it: results/demo_tpu_canonical_cv5_knn09 trains with 0.9) and its
+cross_val_split.json,
 then compares the two cv_results.csv files: for each class's mean Dice
 (classes 0-3) and each fissure's mean ASSD (1-3), the port's mean over
 folds must lie within BOUND_STDS of the reference's cross-fold standard
@@ -16,7 +18,8 @@ comparison with its gap and bound, and "pass") and prints it. It also
 reports the paired per-case Dice difference (dice_per_instance.csv, the
 same validation cases in both runs) for the record. Runs on the card
 (train_point_seg's rule). The port's run on an H100 is committed as CSVs
-under results/torch_h100_canonical_cv5 (`compare` re-reads it).
+under results/torch_h100_canonical_cv5 (`compare` re-reads it), the
+knn09 run under results/torch_h100_canonical_cv5_knn09.
 """
 from __future__ import annotations
 
@@ -32,14 +35,16 @@ REFERENCE = "results/demo_tpu_canonical_cv5"
 BOUND_STDS = 2.0
 # the reference flags that train_point_seg's parser takes, in argv form
 FLAGS = ("ds", "pts", "k", "batch", "epochs", "lr", "wd", "loss",
-         "scheduler", "amp", "data", "model")
+         "scheduler", "amp", "data", "model", "knn_recall")
 SWITCHES = ("coords", "static", "exclude_rhf", "binary")
 
 
 def reference_argv(ref_args: dict) -> list:
     argv = []
     for key in FLAGS:
-        value = ref_args[key]
+        value = ref_args.get(key)
+        if value is None:        # the parser's default
+            continue
         argv += [f"--{key}", str(value).lower() if isinstance(value, bool)
                  else str(value)]
     for key in SWITCHES:

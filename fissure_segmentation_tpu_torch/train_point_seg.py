@@ -34,9 +34,11 @@ PointNet's input T-Net, `--img_feat_extractor` DGCNN's image-feature stem.
 PointTransformer trains in float32 whatever `--amp` says (as in the JAX
 package, which keeps it out of bf16), and `--k`, `--static`,
 `--transformer`, `--img_feat_extractor` and `--knn_recall` do not apply to
-it; PointNet takes neither `--k` nor `--static`. Not ported yet, each
-raising NotImplementedError: for DGCNN `--knn_recall`; for every model
-`--dp`, `--visualize`. The op_count.csv artifact is not written. The test
+it; PointNet takes neither `--k` nor `--static`. `--knn_recall R` builds
+DGCNN's graphs approximately at recall target R
+(`DGCNNSeg(knn_recall=R)`, ops/knn.py). Not ported yet, each raising
+NotImplementedError: `--dp`, `--visualize`. The op_count.csv artifact is
+not written. The test
 modes read each fold's `model.pt`, or the JAX package's `model.fst` where
 only that exists (`models/weights.py:load_fold_model`).
 """
@@ -64,7 +66,6 @@ from .train.trainer import ModelTrainer, TrainConfig
 def check_supported(args) -> None:
     """Raise NotImplementedError for every option this port does not take."""
     unported = {
-        "--knn_recall": args.model == "DGCNN" and args.knn_recall is not None,
         "--dp": args.dp,
         "--visualize": args.visualize is not None,
     }
@@ -102,7 +103,8 @@ def build_model(args, ds: PointDataset, generator: torch.Generator):
     if args.model == "DGCNN":
         kwargs.update(k=args.k, spatial_transformer=args.transformer,
                       dynamic=not args.static,
-                      image_feat_module=args.img_feat_extractor)
+                      image_feat_module=args.img_feat_extractor,
+                      knn_recall=args.knn_recall)
     elif args.model == "PointNet":
         kwargs.update(spatial_transform=args.transformer)
     return cls(**kwargs)

@@ -25,7 +25,7 @@ def _whd(shape, like):
     d, h, w = shape
     size = np.asarray([w, h, d], dtype=np.float32)
     if isinstance(like, torch.Tensor):
-        return torch.from_numpy(size).to(like.device)
+        return torch.from_numpy(size).to(like.device, non_blocking=True)
     return size
 
 

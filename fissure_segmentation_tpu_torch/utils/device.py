@@ -1,5 +1,6 @@
 """The port's device default: a CUDA card unless the caller asks for
-another device; without a card and without a device, raise."""
+another device; without a card and without a device, raise. `host_to`
+moves host data to a device without a host synchronisation."""
 from __future__ import annotations
 
 import numpy as np
@@ -23,3 +24,12 @@ def as_device_tensor(x, device, what: str) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x if device is None else x.to(device)
     return torch.as_tensor(np.asarray(x), device=resolve_device(device, what))
+
+
+def host_to(x, device, dtype=None) -> torch.Tensor:
+    """Host data (an array, a list or a CPU tensor) as a tensor on `device`
+    without waiting for the device: the copy is enqueued (`non_blocking`).
+    From pageable memory CUDA stages the bytes before the call returns, so
+    `x` may change or go at once; a blocking copy would instead wait for
+    all the work queued on the stream (a host synchronisation)."""
+    return torch.as_tensor(x, dtype=dtype).to(device, non_blocking=True)

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import host_to
+
 
 def _np_gaussian_kernel1d(sigma: float, order: int, radius: int) -> np.ndarray:
     """A Gaussian (or its `order`-th derivative) on [-radius, radius],
@@ -83,7 +85,7 @@ def filter_1d(img: torch.Tensor, weight, dim: int,
               padding_mode: str = "replicate") -> torch.Tensor:
     """1-D correlation along spatial axis `dim` of a (..., D, H, W) volume,
     symmetric N//2 padding: out = sum_t w[t] * x[..., t:t+L] in tap order."""
-    weight = torch.as_tensor(np.asarray(weight, np.float32), device=img.device)
+    weight = host_to(np.asarray(weight, np.float32), img.device)
     n = weight.shape[0]
     axis = img.ndim - 3 + dim
     length = img.shape[axis]

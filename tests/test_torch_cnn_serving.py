@@ -26,7 +26,8 @@ from fissure_segmentation_tpu.serving import segment_case as jsegment_case
 from fissure_segmentation_tpu.utils import filters as jfilt
 from fissure_segmentation_tpu_torch.keypoints import extraction, hessian
 from fissure_segmentation_tpu_torch.models import (DGCNNSeg, MobileNetASPP,
-                                                   load_jax_variables)
+                                                   load_jax_variables,
+                                                   predict_full_volume)
 from fissure_segmentation_tpu_torch.serving import segment_case
 from fissure_segmentation_tpu_torch.utils import filters
 
@@ -280,10 +281,18 @@ def test_segment_case_cnn_model_matches_jax(point_models):
                       kp_scores=torch.from_numpy(_cnn_draw(SHAPE)),
                       center_x=SHAPE[2] / 2, device="cpu", **CFG)
     _assert_same_case(rj, rt)
-    with pytest.raises(NotImplementedError, match="float32 only"):
-        segment_case(vol, mask, tapply, subsets=subsets, kp_mode="cnn",
-                     cnn_model=tcnn, cnn_dtype=torch.bfloat16, device="cpu",
-                     **CFG)
+    # cnn_dtype=bfloat16 runs the CNN in bf16 inside the case: its
+    # keypoints are those of the bf16 softmax with the same draw
+    draw = torch.from_numpy(_cnn_draw(SHAPE))
+    rb = segment_case(vol, mask, tapply, subsets=subsets, kp_mode="cnn",
+                      cnn_model=tcnn, cnn_dtype=torch.bfloat16,
+                      kp_scores=draw, center_x=SHAPE[2] / 2, device="cpu",
+                      **CFG)
+    soft = predict_full_volume(tcnn, torch.from_numpy(vol),
+                               dtype=torch.bfloat16)
+    kp, valid, _ = extraction.get_cnn_keypoints(
+        soft, torch.from_numpy(mask), max_kpts=CFG["max_kpts"], scores=draw)
+    np.testing.assert_array_equal(rb.kpts, kp[valid].numpy())
 
 
 def test_segment_case_enhancement_matches_jax(point_models):

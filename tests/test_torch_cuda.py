@@ -7,7 +7,9 @@ streaming column sums) against their plain PyTorch versions, the DGCNN
 eval forward with grad enabled against the no_grad one, and the default
 run's path: the feature graph card against CPU, the dynamic step with its
 three transposes against the same step given none, test_pipeline card
-against CPU.
+against CPU; the approximate top-k's bin kernel against its plain version,
+the approximate graph card against CPU, the splat's sorted scatter and
+segment_cases against a loop of segment_case.
 
 These tests need an NVIDIA card and skip elsewhere. The repository's
 tests/conftest.py imports jax, which the card's machine does not have, so
@@ -1174,3 +1176,131 @@ def test_dseg_reconstruct_on_card_equals_cpu(cuda):
 def copy_to(model, dev):
     import copy
     return copy.deepcopy(model).to(dev)
+
+
+# ---- the approximate top-k's bin kernel, serving's determinism --------------
+
+BIN_CASES = [
+    # (rows, n, L, R): the detector's rank-1 row, the kNN rows, a row off
+    # L * R (padding), bins past the row's end, R = 1
+    (1, 1 << 20, 1 << 15, 32),
+    (300, 2048, 512, 4),
+    (7, 5000, 1024, 5),
+    (3, 100, 128, 1),
+    (2, 4096, 4096, 1),
+]
+
+
+@pytest.mark.parametrize("largest", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,n,n_bins,red", BIN_CASES)
+def test_bin_extrema_kernel_equals_plain(cuda, rows, n, n_bins, red, dtype,
+                                         largest):
+    """Bit for bit, values and first-occurrence indices, on integer-valued
+    scores full of ties with a masked share (+-inf)."""
+    from fissure_segmentation_tpu_torch.kernels.approx_topk import (
+        bin_extrema, bin_extrema_plain)
+    g = torch.Generator().manual_seed(rows + n)
+    x = torch.randint(0, 20, (rows, n), generator=g).to(dtype)
+    x[torch.rand((rows, n), generator=g) < 0.3] = \
+        -torch.inf if largest else torch.inf
+    x = x.to(cuda)
+    before = bin_extrema.launches
+    vk, ik = bin_extrema(x, n_bins, red, largest)
+    torch.cuda.synchronize()
+    vp, ip = bin_extrema_plain(x, n_bins, red, largest)
+    assert bin_extrema.launches == before + 1
+    assert torch.equal(ik, ip) and torch.equal(vk, vp)
+    assert vk.dtype == dtype and ik.dtype == torch.int32
+
+
+def test_bin_extrema_kernel_checks_input(cuda):
+    from fissure_segmentation_tpu_torch.kernels.approx_topk import \
+        bin_extrema
+    x = torch.zeros((2, 100), device=cuda)
+    with pytest.raises(ValueError, match="exceed"):
+        bin_extrema(x, 10, 5)
+    with pytest.raises(TypeError):
+        bin_extrema(x.half(), 128, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        bin_extrema(torch.zeros((100, 2), device=cuda).T, 128, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_approx_knn_on_card_equals_plain(cuda, dtype):
+    """The approximate graph on the card (the bin kernel) equals the one
+    its plain version selects from the same distances, at N = 2048 (four
+    scores a bin); self in slot 0."""
+    from fissure_segmentation_tpu_torch.ops.approx_topk import \
+        approx_top_k_plain
+    from fissure_segmentation_tpu_torch.ops.knn import (approx_knn,
+                                                        pairwise_sqdist)
+    x = _uniform((4, 2048, 3), 31).to(cuda, dtype)
+    idx, dist = approx_knn(x, 40, True, 0.9)
+    d = pairwise_sqdist(x, x)
+    d.diagonal(dim1=-2, dim2=-1).fill_(-1.0)
+    want_d, want_i = approx_top_k_plain(d, 40, 0.9, largest=False)
+    assert torch.equal(idx, want_i.to(torch.int32))
+    assert torch.equal(dist, want_d.clamp(min=0.0))
+    assert (idx[..., 0] == torch.arange(2048, device=cuda)).all()
+
+
+def test_splat_deterministic_on_card_equals_cpu(cuda):
+    """The splat's sorted scatter on the card: the same bits from run to
+    run, and with three features a cell equal to the CPU's index_add_,
+    which adds in the same order; with one feature the same from run to
+    run, and its gradient a gather."""
+    from fissure_segmentation_tpu_torch.ops.splat import point_rasterize
+    g = torch.Generator().manual_seed(32)
+    pts = torch.rand((3, 5000, 3), generator=g) ** 3   # crowded cells
+    vals = torch.randn((3, 5000, 3), generator=g)
+    want = point_rasterize(pts, vals, (32, 32, 32))
+    a = point_rasterize(pts.to(cuda), vals.to(cuda), (32, 32, 32))
+    b = point_rasterize(pts.to(cuda), vals.to(cuda), (32, 32, 32))
+    assert torch.equal(a, b) and torch.equal(a.cpu(), want)
+    one = vals[..., :1].to(cuda).requires_grad_(True)
+    c = point_rasterize(pts.to(cuda), one, (32, 32, 32))
+    assert torch.equal(c, point_rasterize(pts.to(cuda), one, (32, 32, 32)))
+    torch.testing.assert_close(c.detach().cpu(),
+                               point_rasterize(pts, vals[..., :1],
+                                               (32, 32, 32)),
+                               rtol=1e-5, atol=1e-5)
+    c.square().sum().backward()
+    ref = vals[..., :1].clone().requires_grad_(True)
+    point_rasterize(pts, ref, (32, 32, 32)).square().sum().backward()
+    torch.testing.assert_close(one.grad.cpu(), ref.grad, rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_segment_cases_on_card_equals_a_loop(cuda):
+    """Three cases of a 64^3 sheet: segment_cases, threaded and not, bit
+    for bit equal to a loop of segment_case with the same generators; the
+    fast variant too."""
+    from fissure_segmentation_tpu_torch.models import DGCNNSeg
+    from fissure_segmentation_tpu_torch.serving import (case_generator,
+                                                        segment_case,
+                                                        segment_cases)
+    rng = np.random.default_rng(0)
+    img = rng.normal(-700, 80, (64, 64, 64)).astype(np.float32)
+    zz, yy, _ = np.meshgrid(*[np.arange(64)] * 3, indexing="ij")
+    img[np.abs(zz - (28 + 0.2 * yy)) < 1.0] = -300.0
+    vol = torch.from_numpy(img).to(cuda)
+    mask = torch.ones(vol.shape, dtype=torch.bool, device=cuda)
+    cfg = dict(max_kpts=4000, sample_points=512, n_runs_min=8,
+               subset_batch=2, grid_res=(32, 32, 32), center_x=32.0)
+    for kw in ({}, {"dtype": torch.bfloat16, "knn_recall": 0.9}):
+        model = DGCNNSeg(k=20, in_features=3, num_classes=4, dynamic=False,
+                         generator=torch.Generator().manual_seed(0),
+                         **kw).to(cuda).eval()
+        fast = dict(approx_top_k=bool(kw))
+        loop = [segment_case(vol, mask, model, case_generator(3, i), **cfg,
+                             **fast) for i in range(3)]
+        for threads in (True, False):
+            got = segment_cases([vol] * 3, [mask] * 3, model, seed=3,
+                                pipeline_threads=threads, **cfg, **fast)
+            for a, b in zip(got, loop):
+                assert np.array_equal(a.kpts, b.kpts)
+                assert np.array_equal(a.labels, b.labels)
+                assert np.array_equal(a.labelmap, b.labelmap)
+                for (t1, v1), (t2, v2) in zip(a.meshes, b.meshes):
+                    assert np.array_equal(t1, t2) and np.array_equal(v1, v2)

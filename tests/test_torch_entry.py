@@ -299,3 +299,46 @@ def test_canonical_cv_flags_and_comparison(tmp_path):
     # the port's committed H100 run passes the bound
     port = os.path.join(REPO, "results", "torch_h100_canonical_cv5")
     assert canonical_cv.compare(port, ref, 5)["pass"]
+
+
+def test_canonical_cv_knn09_flags():
+    """The knn09 reference's flags parse into the namespace it recorded
+    (`--knn_recall 0.9` included, its split aside); the exact run's
+    recorded null recall adds no flag."""
+    import json
+    from fissure_segmentation_tpu_torch.cli import \
+        get_point_segmentation_parser
+    from fissure_segmentation_tpu_torch.train import canonical_cv
+    ref = os.path.join(REPO, "results", "demo_tpu_canonical_cv5_knn09")
+    with open(os.path.join(ref, "commandline_args.json")) as f:
+        recorded = json.load(f)
+    argv = canonical_cv.reference_argv(recorded)
+    assert argv[argv.index("--knn_recall") + 1] == "0.9"
+    args = vars(get_point_segmentation_parser().parse_args(argv))
+    for key, value in recorded.items():
+        if key not in ("output", "split"):
+            assert args[key] == value, key
+    with open(os.path.join(REPO, canonical_cv.REFERENCE,
+                           "commandline_args.json")) as f:
+        assert "--knn_recall" not in canonical_cv.reference_argv(
+            json.load(f))
+
+
+def test_canonical_cv_knn09_committed_run():
+    """The port's committed knn09 run (results/torch_h100_canonical_cv5_
+    knn09, H100) re-reads to its comparison.json, which passes the bound
+    on every row, and its exact-against-fast deltas.csv has the JAX
+    script's columns and metrics."""
+    import json
+    from fissure_segmentation_tpu_torch.train import canonical_cv
+    port = os.path.join(REPO, "results", "torch_h100_canonical_cv5_knn09")
+    ref = os.path.join(REPO, "results", "demo_tpu_canonical_cv5_knn09")
+    result = canonical_cv.compare(port, ref, 5)
+    with open(os.path.join(port, "comparison.json")) as f:
+        assert json.load(f) == result
+    assert result["pass"] and all(r["within"] for r in result["comparisons"])
+    ours = _read(os.path.join(port, "fast_variant_eval", "deltas.csv"))
+    theirs = _read(os.path.join(REPO, canonical_cv.REFERENCE,
+                                "fast_variant_eval", "deltas.csv"))
+    assert ours[1] == theirs[1] == ["metric", "exact", "fast", "delta"]
+    assert [r[0] for r in ours[2:]] == [r[0] for r in theirs[2:]]

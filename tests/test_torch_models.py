@@ -112,34 +112,57 @@ def test_export_jax_variables_round_trip():
         export_jax_variables(tm, grad=True)
 
 
+def _small_case(**kw):
+    """segment_case on a 16^3 noise volume at a tiny configuration."""
+    vol = np.random.default_rng(0).normal(0, 1, (16, 16, 16)).astype(
+        np.float32)
+    model = DGCNNSeg(k=4, in_features=3, num_classes=4, dynamic=False,
+                     generator=torch.Generator().manual_seed(0)).eval()
+    return segment_case(vol, np.ones(vol.shape, bool), model,
+                        torch.Generator().manual_seed(1), device="cpu",
+                        max_kpts=256, sample_points=64, n_runs_min=2,
+                        subset_batch=1, grid_res=(8, 8, 8), **kw)
+
+
 @pytest.mark.parametrize("call,raises", [
     (lambda: DGCNNSeg(k=4, in_features=3, num_classes=4, knn_recall=0.9),
-     True),
+     False),
     (lambda: DGCNNSeg(k=4, in_features=3, num_classes=4,
                       spatial_transformer=True), False),
     (lambda: DGCNNSeg(k=4, in_features=5, num_classes=4,
                       image_feat_module=True), False),
     (lambda: PointTransformerSeg(in_features=3, num_classes=4,
                                  dtype=torch.bfloat16), True),
-    (lambda: knn(torch.zeros((1, 8, 3)), 2, recall_target=0.9), True),
-    (lambda: segment_case(np.zeros((8, 8, 8), np.float32),
-                          np.ones((8, 8, 8), bool), None, kp_mode="cnn",
-                          cnn_model=MobileNetASPP(num_classes=4),
-                          cnn_dtype=torch.bfloat16, device="cpu"), True),
-    (lambda: segment_case(np.zeros((8, 8, 8), np.float32),
-                          np.ones((8, 8, 8), bool), None, approx_top_k=True),
-     True),
+    (lambda: knn(torch.randn((1, 8, 3),
+                             generator=torch.Generator().manual_seed(0)),
+                 2, recall_target=0.9), False),
+    (lambda: _small_case(kp_mode="cnn",
+                         cnn_model=MobileNetASPP(num_classes=4),
+                         cnn_dtype=torch.bfloat16), False),
+    (lambda: _small_case(approx_top_k=True), False),
 ], ids=["knn_recall", "spatial_transformer", "image_feat_module",
         "bf16", "knn_recall_target", "kp_mode_cnn", "approx_top_k"])
 def test_unported_options_raise(call, raises):
-    """Options still unported raise NotImplementedError. The spatial
-    transformer and the image-feature module are ported: their models
-    build, and a forward gives finite logits of the input's shape."""
+    """Options still unported raise NotImplementedError. The ported ones
+    run: the models with the spatial transformer, the image-feature module
+    or knn_recall build, and a forward gives finite logits of the input's
+    shape; knn(recall_target) gives each point's other points; segment_case
+    with a bf16 CNN or approx_top_k gives a case result."""
     if raises:
         with pytest.raises(NotImplementedError):
             call()
         return
-    model = call().eval()
+    out = call()
+    if isinstance(out, torch.Tensor):     # the approximate graph, N = 8
+        assert out.shape == (1, 8, 2) and out.dtype == torch.int32
+        assert ((out >= 0) & (out < 8)).all()
+        assert (out != torch.arange(8)[None, :, None]).all()
+        return
+    if not isinstance(out, torch.nn.Module):
+        assert out.labelmap.shape == (16, 16, 16)
+        assert len(out.kpts) == len(out.labels) > 0
+        return
+    model = out.eval()
     x = torch.randn(2, 32, model.config["in_features"],
                     generator=torch.Generator().manual_seed(0))
     with torch.no_grad():

@@ -138,7 +138,9 @@ def test_port_runs_without_jax():
                  "postprocess.surface_fitting", "utils.sampling",
                  "keypoints.extraction", "keypoints.enhancement_eval",
                  "preprocess_dataset", "models.pointnet", "models.affine",
-                 "affine_experiments"):
+                 "affine_experiments", "ops.approx_topk",
+                 "kernels.approx_topk", "time_keypoint_extraction",
+                 "train.fast_variant_eval"):
         assert f"fissure_segmentation_tpu_torch.{name}" in _port_modules()
     code = textwrap.dedent(f"""
         import importlib
@@ -163,6 +165,8 @@ def test_port_runs_without_jax():
         cnn = MobileNetASPP(num_classes=4,
                             generator=torch.Generator().manual_seed(2))
         for kw in (dict(kp_mode="cnn", cnn_model=cnn),
+                   dict(kp_mode="cnn", cnn_model=cnn,
+                        cnn_dtype=torch.bfloat16, approx_top_k=True),
                    dict(kp_mode="enhancement")):
             res = segment_case(img, np.ones(img.shape, bool), model,
                                torch.Generator().manual_seed(1), max_kpts=300,
@@ -170,6 +174,12 @@ def test_port_runs_without_jax():
                                grid_res=(12, 12, 12), k_normals=8,
                                device="cpu", **kw)
             assert len(res.kpts) > 0, kw
+        from fissure_segmentation_tpu_torch.serving import segment_cases
+        res = segment_cases([img, img], [np.ones(img.shape, bool)] * 2,
+                            model, approx_top_k=True, max_kpts=300,
+                            sample_points=64, n_runs_min=3, subset_batch=2,
+                            grid_res=(12, 12, 12), k_normals=8, device="cpu")
+        assert len(res) == 2 and len(res[1].kpts) > 0
         bad = [m for m in sys.modules
                if m in ("jax", "flax") or m.startswith(("jax.", "flax."))
                or m == "fissure_segmentation_tpu"

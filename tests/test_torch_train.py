@@ -611,7 +611,7 @@ ENTRY = ["--static", "--amp", "false", "--train_only", "--fold", "0"]
 @pytest.mark.parametrize("extra,match", [
     (["--transformer"], None),
     (["--img_feat_extractor"], None),
-    (["--knn_recall", "0.9"], "knn_recall"),
+    (["--knn_recall", "0.9"], None),
     (["--dp"], "dp"),
     (["--visualize", "2"], "visualize"),
     (["--model", "PointNet"], None),
@@ -619,9 +619,9 @@ ENTRY = ["--static", "--amp", "false", "--train_only", "--fold", "0"]
         "visualize", "pointnet"])
 def test_entry_point_raises_for_unported_options(tmp_path, extra, match):
     """Options still unported raise before anything is written. The ported
-    ones (`--transformer`, `--img_feat_extractor`, `--model PointNet`)
-    train fold 0 for one epoch on the CPU and write model.pt with the
-    option in the model's config."""
+    ones (`--transformer`, `--img_feat_extractor`, `--knn_recall`,
+    `--model PointNet`) train fold 0 for one epoch on the CPU and write
+    model.pt with the option in the model's config."""
     argv = list(ENTRY) + extra + ["--output", str(tmp_path)]
     if match is not None:
         with pytest.raises(NotImplementedError, match=match):
@@ -636,8 +636,10 @@ def test_entry_point_raises_for_unported_options(tmp_path, extra, match):
     config = load_model(str(tmp_path / "fold0" / "model.pt")).config
     want = {"--transformer": ("spatial_transformer", True),
             "--img_feat_extractor": ("image_feat_module", True),
+            "--knn_recall": ("knn_recall", 0.9),
             "--model": ("spatial_transform", False)}[extra[0]]
-    assert config[want[0]] is want[1]
+    assert config[want[0]] == want[1]
+    assert type(config[want[0]]) is type(want[1])
 
 
 def test_entry_point_trains_a_fold_with_amp(tmp_path, monkeypatch):
