@@ -154,8 +154,8 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      inference and post-processing s/case from inference_time.csv, the
      --speed ms; then 10 timed warm dynamic bf16 steps (ms/step, clouds/s,
      peak memory, launches: three graph transposes a step, K1, K2, K3, K4,
-     the gather-reduce) and the feature graph alone at (32, 2048, 64) bf16
-     k=40;
+     the gather-reduce, two fused row selections: the feature graphs) and
+     the feature graph alone at (32, 2048, 64) bf16 k=40;
  21. the default run's path card against CPU on a small input
      (phase_dynamic_reference): a dynamic DGCNNSeg's f32 step (its feature
      graphs, loss, gradient, eval logits; a wrong neighbour planted in the
@@ -277,15 +277,23 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      card against CPU within AFFINE_TOL (phase_affine_reference); K3 and K4
      timed at the affine DGCNN's step shapes (8, 1024, 40, C), C = 64,
      128, 256;
- 41. the approximate top-k's bin kernel (phase_approx_topk) against its
-     plain version, bit for bit, and the whole selection against
-     approx_top_k_plain: (1, 256^3) -> 20 000 at recall 0.95 (uniform
-     scores in f32 and bf16, the Förstner detector's masked score volume)
-     and the kNN rows (32 * 2048, 2048) -> 40 at 0.9 (coordinate
-     distances f32, bf16 feature distances); median times of the kernel,
-     its plain version, the aggregation, the whole selection and
-     torch.topk's exact top-k (the library column), the bound, and the
-     share of the exact top-k found;
+ 41. the approximate top-k's kernels (phase_approx_topk) against their
+     plain versions, bit for bit. The bin pass (k > 128) and the whole
+     selection against approx_top_k_plain at (1, 256^3) -> 20 000 at
+     recall 0.95 (uniform scores in f32 and bf16, the Förstner detector's
+     masked score volume): the kernel's time cold and warm, its plain
+     version's, the aggregation's, the selection's and torch.topk's exact
+     top-k (the library column), the bound, the share of the exact top-k
+     found. The fused row selection (k <= 128) against its plain version
+     and the path it replaced (the bin pass and two sorts; for the exact
+     feature graph the stable sort): the kNN rows (32 * 2048, 2048) -> 40
+     at 0.9 (coordinate distances f32, bf16 feature distances), the
+     fast-serving static graph's (10 240, 2048) rows f32 and bf16, the
+     exact feature graph (32 * 2048, 2048) bf16 at kk = 40 and 41, and
+     rows full of ties with signed zeros and masked +-inf (both dtypes and
+     directions, k = 1, 40, 41, 128 and the exact top-41); times of the
+     kernel, its plain version, the replaced path and torch.topk, the
+     bound, its share, and the share of the exact top-k found;
  42. segment_cases against a serial loop of segment_case on 8 copies of
      the shared 256^3 case (phase_pipeline): the host synchronisations of
      one case's device half (torch.cuda.set_sync_debug_mode), then serial,
@@ -295,7 +303,8 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      scatter at its serving shape, sorted index_put_ against index_add_;
  43. the fast variant (phase_fast_serving: DGCNNSeg bf16 with knn_recall
      0.9, the approximate Förstner selection) served as phase 42 serves,
-     the bin kernel at least 11 launches a case; the detector's and the
+     the bin pass at least one launch a case (the detector) and the fused
+     row selection at least ten (the ensemble's static graphs); the detector's and the
      graphs' shares of the exact selection; the bf16 CNN in kp_mode="cnn"
      (f32 and bf16 timed, one case with approx_top_k), the whole volume
      and the sliding window at 256^3 in both dtypes (K6 at both strides
@@ -321,8 +330,12 @@ and 43's A/B runs and checks, of K3 and K4 timed at DPSR-Net's and the
 affine step's shapes, and of the probes' own checks are not counted.
 Phase 44's launches count with the train paths; phases 42 and 43 add K1's
 and the gather-reduce's launches of their batch.
-The bin kernel's row gives its launches by path (fast serving, the
---knn_recall run) and by call, with phase 41's times at each call.
+The bin pass's row gives its launches by path (fast serving, the
+--knn_recall run) and by call, with phase 41's times at each call; the
+fused row selection's row its launches by path (every exact feature graph
+on the card and every approximate graph) and by call where the path
+records its calls (the default run, fast serving, the --knn_recall run),
+with phase 41's times or times at that call's shape.
 The chain's train_point_seg run and phase 39's runs count with the train
 paths (their widths are the default run's); phases 37 and 40 go into the
 "slice" rows as paths of their own ("pointnet": serving's and the test
@@ -1044,8 +1057,8 @@ def _wrappers(ks, knn_cuda) -> dict:
         stream_sum, stream_sum_async)
     from fissure_segmentation_tpu_torch.kernels.depthwise import \
         depthwise_conv3_wgrad_cuda
-    from fissure_segmentation_tpu_torch.kernels.approx_topk import \
-        bin_extrema
+    from fissure_segmentation_tpu_torch.kernels.approx_topk import (
+        bin_extrema, select_rows)
     return {"knn": knn_cuda, "transpose": ks.transpose,
             "scatter_rows": ks.scatter_rows,
             "scatter_routed": ks.scatter_routed,
@@ -1053,7 +1066,8 @@ def _wrappers(ks, knn_cuda) -> dict:
             "depthwise_conv3": depthwise_conv3_cuda,
             "depthwise_wgrad": depthwise_conv3_wgrad_cuda,
             "gather_reduce": gather_reduce, "stream_sum": stream_sum,
-            "stream_sum_async": stream_sum_async, "bin_extrema": bin_extrema}
+            "stream_sum_async": stream_sum_async, "bin_extrema": bin_extrema,
+            "select_rows": select_rows}
 
 
 def _counts(ks, knn_cuda):
@@ -1073,7 +1087,7 @@ def _reset(ks, knn_cuda):
     for fn in wrappers.values():
         _zero(fn)
     for name in ("gather_reduce", "scatter_count", "knn", "scatter_rows",
-                 "fps", "scatter_routed", "bin_extrema"):
+                 "fps", "scatter_routed", "bin_extrema", "select_rows"):
         wrappers[name].calls.clear()
 
 
@@ -2573,8 +2587,9 @@ def phase_default_run(ks, knn_cuda, card: str):
     bf16), batch 32 x 2048, 3 epochs of fold 0, then fold 0's test), then
     --test_only, --speed and --copd on the same output; then 10 timed warm
     dynamic bf16 steps and the feature graph alone. Counts are reset before
-    and read after; returns (counts, timing, gather-reduce calls, K4
-    calls)."""
+    and read after the runs and steps (before the feature graph is timed
+    alone); returns (counts, timing, gather-reduce calls, K4 calls, the
+    fused row selection's calls)."""
     from fissure_segmentation_tpu_torch import train_point_seg
     from fissure_segmentation_tpu_torch.models import (DGCNNSeg,
                                                        export_jax_variables,
@@ -2660,10 +2675,18 @@ def phase_default_run(ks, knn_cuda, card: str):
         raise AssertionError(f"default run: {launched['transpose']} graph "
                              f"transposes in {STEPS} steps, not three a step")
     for k, n in (("knn", 1), ("scatter_rows", 1), ("scatter_routed", 2),
-                 ("scatter_count", 2), ("gather_reduce", 2)):
+                 ("scatter_count", 2), ("gather_reduce", 2),
+                 ("select_rows", 2)):
         if launched[k] < n * STEPS:
             raise AssertionError(f"default run: {k} launched "
                                  f"{launched[k]} times in {STEPS} steps")
+    counts = _counts(ks, knn_cuda)
+    for k in ("knn", "transpose", "scatter_rows", "scatter_routed",
+              "scatter_count", "gather_reduce", "select_rows"):
+        if counts[k] < 1:
+            raise AssertionError(f"default run: {k} never launched")
+    calls = (_gr_calls(ks, knn_cuda), _check_k4_route(ks, "default run"),
+             dict(_wrappers(ks, knn_cuda)["select_rows"].calls))
     feats = torch.randn((32, 2048, 64), device="cuda").to(torch.bfloat16)
     graph_ms = median_ms(lambda: feature_knn(feats, 40), reps=5, inner=3)
     timing.update(ms_per_step=ms, clouds_per_s=32e3 / ms, peak_bytes=peak,
@@ -2675,13 +2698,7 @@ def phase_default_run(ks, knn_cuda, card: str):
           f"steps {launched}; the feature graph (32, 2048, 64) bf16 k=40 "
           f"{graph_ms:.3f} ms a call, {2 * graph_ms:.3f} ms a step, on "
           f"{card}", flush=True)
-    counts = _counts(ks, knn_cuda)
-    for k in ("knn", "transpose", "scatter_rows", "scatter_routed",
-              "scatter_count", "gather_reduce"):
-        if counts[k] < 1:
-            raise AssertionError(f"default run: {k} never launched")
-    return (counts, timing, _gr_calls(ks, knn_cuda),
-            _check_k4_route(ks, "default run"))
+    return (counts, timing, *calls)
 
 
 @contextlib.contextmanager
@@ -5107,7 +5124,7 @@ def phase_stems(ks, knn_cuda, card: str, out_dir: str):
             row = _timed_steps(ks, knn_cuda, step, f"stems ({name})")
         per = row["launches_per_step"]
         want = ({"knn": 1, "transpose": 1} if name == "static"
-                else {"knn": 2, "transpose": 4})
+                else {"knn": 2, "transpose": 4, "select_rows": 2})
         want.update(scatter_rows=2, gather_reduce=2, scatter_routed=2,
                     scatter_count=2)
         if any(per.get(k) != n for k, n in want.items()):
@@ -5176,8 +5193,9 @@ def phase_affine(ks, knn_cuda, card: str, out_dir: str):
     AFFINE_EPOCHS x AFFINE_STEPS steps: finite metrics, the CSV rows; then
     10 timed warm steps of each (ms/step, peak memory, busy share, the
     launches a step: DGCNN K1 once (the coordinates; the three feature
-    graphs are `feature_knn`), the transpose, the gather-reduce, K3 and K4
-    4 times; OpenDGCNN K1 once, the transpose and K2 4 times; PointNet
+    graphs are `feature_knn`, the fused row selection 3 times), the
+    transpose, the gather-reduce, K3 and K4 4 times; OpenDGCNN K1 once and
+    the row selection 3 times, the transpose and K2 4 times; PointNet
     none). Counts are reset before and read after; returns (counts, calls,
     gather-reduce calls, K4 calls, K3 calls, timing)."""
     from fissure_segmentation_tpu_torch import affine_experiments as ae
@@ -5187,8 +5205,10 @@ def phase_affine(ks, knn_cuda, card: str, out_dir: str):
     _reset(ks, knn_cuda)
     timing = {}
     want = {"DGCNN": {"knn": 1, "transpose": 4, "gather_reduce": 4,
-                      "scatter_routed": 4, "scatter_count": 4},
-            "OpenDGCNN": {"knn": 1, "transpose": 4, "scatter_rows": 4},
+                      "scatter_routed": 4, "scatter_count": 4,
+                      "select_rows": 3},
+            "OpenDGCNN": {"knn": 1, "transpose": 4, "scatter_rows": 4,
+                          "select_rows": 3},
             "PointNet": {}}
     for name in ("DGCNN", "OpenDGCNN", "PointNet"):
         t0 = time.perf_counter()
@@ -5337,6 +5357,11 @@ APPROX_REPLACES = "fissure_segmentation_tpu/keypoints/foerstner.py:109"
 APPROX_ALSO = ["fissure_segmentation_tpu/keypoints/extraction.py:116",
                "fissure_segmentation_tpu/ops/knn.py:86",
                "fissure_segmentation_tpu/ops/knn.py:91"]
+# the fused row selection: the approximate graphs' approx_min_k and the
+# exact feature graph's lax.top_k
+SELECT_REPLACES = "fissure_segmentation_tpu/ops/knn.py:86"
+SELECT_ALSO = ["fissure_segmentation_tpu/ops/knn.py:91",
+               "fissure_segmentation_tpu/ops/knn.py:111"]
 N_PIPE = 8            # cases of a segment_cases batch (bench.py's NPIPE)
 # the bf16 CNN card against CPU: within this many times the CPU's own bf16
 # error (its bf16 softmax against its f32 one); phase_fast_serving says why
@@ -5359,17 +5384,19 @@ def _exact_share(got_vals, exact_vals, largest: bool) -> float:
 
 
 def _bin_case(name, x, k, target, largest):
-    """Phase 41 at one shape, x in the shape its path selects over (its
-    rank sets the bins): the bin kernel on x's rows against its plain
-    version bit for bit, the whole selection against approx_top_k_plain,
-    then median
-    times of the kernel, its plain version, the aggregation (torch.sort),
-    the whole selection and torch.topk's exact top-k, the bound (the
-    kernel's bytes), and the share of the exact top-k found."""
+    """Phase 41 at one shape of the bin pass (k > 128), x in the shape its
+    path selects over (its rank sets the bins): the kernel on x's rows
+    against its plain version bit for bit, the whole selection against
+    approx_top_k_plain, then the kernel's time cold (L2 flushed before
+    each call: its 33-67 MB input is about the L2's size) and warm, median
+    times of its plain version, the aggregation (two sorts), the whole
+    selection and torch.topk's exact top-k, the bound (the kernel's
+    bytes), and the share of the exact top-k found."""
     from fissure_segmentation_tpu_torch.kernels.approx_topk import (
-        bin_extrema, bin_extrema_plain)
+        aggregate, bin_extrema, bin_extrema_plain)
     from fissure_segmentation_tpu_torch.ops.approx_topk import (
-        _aggregate, approx_top_k, approx_top_k_plain, reduction_output_size)
+        approx_top_k, approx_top_k_plain, reduction_output_size)
+    from fissure_segmentation_tpu_torch.prof.timing import cold_ms
     n = x.shape[-1]
     rows = x.numel() // n
     n_bins, r = reduction_output_size(n, x.ndim, k, target)
@@ -5392,11 +5419,12 @@ def _bin_case(name, x, k, target, largest):
     t = {"rows": rows, "n": n, "k": k, "recall_target": target,
          "bins": n_bins, "reduction": red, "dtype": str(x.dtype)[6:],
          "call": f"{rows}x{n}_L{n_bins}_{str(x.dtype)[6:]}",
-         "ms": median_ms(lambda: bin_extrema(x2, n_bins, red, largest)),
+         "ms": cold_ms(lambda: bin_extrema(x2, n_bins, red, largest)),
+         "warm_ms": median_ms(lambda: bin_extrema(x2, n_bins, red, largest)),
          "plain_ms": median_ms(lambda: bin_extrema_plain(x2, n_bins, red,
                                                          largest),
                                reps=3, inner=1, warm=1),
-         "aggregate_ms": median_ms(lambda: _aggregate(vk, ik, k, largest),
+         "aggregate_ms": median_ms(lambda: aggregate(vk, ik, k, largest),
                                    reps=3, inner=3, warm=1),
          "selection_ms": median_ms(lambda: approx_top_k(x, k, target,
                                                         largest),
@@ -5407,13 +5435,114 @@ def _bin_case(name, x, k, target, largest):
          "library": "torch.topk (exact)", "bound_ms": bound, "bound_by": by,
          "exact_share": share}
     print(f"bins {name}: ({rows}, {n}) -> {k} at {target}, L {n_bins} x "
-          f"{red} {t['dtype']}: kernel == plain; kernel {t['ms']:.4f} ms, "
-          f"plain {t['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}); "
-          f"aggregation {t['aggregate_ms']:.4f} ms, selection "
-          f"{t['selection_ms']:.4f} ms, torch.topk exact "
+          f"{red} {t['dtype']}: kernel == plain; kernel cold {t['ms']:.4f} "
+          f"ms, warm {t['warm_ms']:.4f}, plain {t['plain_ms']:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}); aggregation {t['aggregate_ms']:.4f} ms, "
+          f"selection {t['selection_ms']:.4f} ms, torch.topk exact "
           f"{t['library_ms']:.4f} ms; exact share found {share:.4f}",
           flush=True)
     return t
+
+
+def _select_case(name, x, k, target, largest, exact=False, timed=True):
+    """Phase 41 at one shape of the fused row selection (k <= 128), x in
+    the shape its path selects over: the kernel against its plain version
+    bit for bit (indices, values with their own bits) and against the path
+    it replaces: the bin pass and two sorts (PR 17's selection, also
+    approx_top_k against approx_top_k_plain) or, with `exact` (the feature
+    graph: one element a bin, int32 indices), the stable sort feature_knn
+    ran. Where `timed`, median times of the kernel, its plain version, the
+    replaced path and torch.topk's exact top-k, the bound (x read once, k
+    values and indices a row written once) and the share of the exact
+    top-k found."""
+    from fissure_segmentation_tpu_torch.kernels.approx_topk import (
+        aggregate, bin_extrema, select_rows, select_rows_plain)
+    from fissure_segmentation_tpu_torch.ops.approx_topk import (
+        approx_top_k, approx_top_k_plain, reduction_output_size)
+    n = x.shape[-1]
+    rows = x.numel() // n
+    x2 = x.reshape(rows, n)
+    if exact:
+        n_bins, red, index = n, 1, torch.int32
+    else:
+        n_bins, r = reduction_output_size(n, x.ndim, k, target)
+        red, index = 1 << r, torch.int64
+    vk, ik = select_rows(x2, n_bins, red, k, largest, index_dtype=index)
+    torch.cuda.synchronize()
+    vp, ip = select_rows_plain(x2, n_bins, red, k, largest)
+
+    def same(v, i):
+        return (torch.equal(ik.long(), i.long()) and torch.equal(vk, v)
+                and torch.equal(torch.signbit(vk), torch.signbit(v)))
+    if not same(vp, ip):
+        raise AssertionError(f"select {name}: kernel differs from plain "
+                             f"({(ik.long() != ip).sum().item()} slots)")
+    if exact:
+        def old():
+            return torch.sort(x2, dim=-1, descending=largest, stable=True)
+        what = "stable sort"
+        # -0.0 sorts as +0.0 (the distances hold none)
+        si = torch.sort(x2 + 0.0, dim=-1, descending=largest,
+                        stable=True)[1][:, :k]
+        replaced = x2.gather(1, si), si
+    else:
+        def old():
+            return aggregate(*bin_extrema(x2, n_bins, red, largest), k,
+                             largest)
+        what = "bin pass + two sorts"
+        replaced = old()
+        sel = approx_top_k(x, k, target, largest)
+        ref = approx_top_k_plain(x, k, target, largest)
+        if not all(torch.equal(a, b) for a, b in zip(sel, ref)):
+            raise AssertionError(f"select {name}: approx_top_k differs "
+                                 "from approx_top_k_plain")
+    if not same(*replaced):
+        raise AssertionError(f"select {name}: kernel differs from the "
+                             f"{what} it replaces")
+    if not timed:
+        print(f"select {name}: ({rows}, {n}) -> {k}, L {n_bins} x {red} "
+              f"{str(x.dtype)[6:]}: kernel == plain == {what}", flush=True)
+        return None
+    exact_vals = torch.topk(x2.float(), k, dim=-1, largest=largest).values
+    share = _exact_share(vk.float(), exact_vals, largest)
+    es = x.element_size()
+    ib = 4 if exact else 8
+    bound, by = bound_ms(rows * n * es + rows * k * (es + ib), rows * n)
+    t = {"rows": rows, "n": n, "k": k, "recall_target": target,
+         "bins": n_bins, "reduction": red, "dtype": str(x.dtype)[6:],
+         "call": f"{rows}x{n}_L{n_bins}_k{k}_{str(x.dtype)[6:]}",
+         "ms": median_ms(lambda: select_rows(x2, n_bins, red, k, largest,
+                                             index_dtype=index)),
+         "plain_ms": median_ms(lambda: select_rows_plain(
+             x2, n_bins, red, k, largest), reps=3, inner=1, warm=1),
+         "old_path": what,
+         "old_path_ms": median_ms(old, reps=3, inner=3, warm=1),
+         "library_ms": median_ms(lambda: torch.topk(x2, k, dim=-1,
+                                                    largest=largest),
+                                 reps=3, inner=3, warm=1),
+         "library": "torch.topk (exact)", "bound_ms": bound, "bound_by": by,
+         "exact_share": share}
+    t["bound_share"] = bound / t["ms"]
+    print(f"select {name}: ({rows}, {n}) -> {k} at {target}, L {n_bins} x "
+          f"{red} {t['dtype']}: kernel == plain == {what}; kernel "
+          f"{t['ms']:.4f} ms ({t['bound_share']:.2f} of the bound "
+          f"{bound:.4f} ms, {by}), plain {t['plain_ms']:.4f} ms, {what} "
+          f"{t['old_path_ms']:.4f} ms, torch.topk exact "
+          f"{t['library_ms']:.4f} ms; exact share found {share:.4f}",
+          flush=True)
+    return t
+
+
+def _tied_rows(rows, n, largest, dtype, g):
+    """Integer scores full of ties, signed zeros, negative values and a
+    quarter masked at -inf (+inf for the minimum)."""
+    x = torch.randint(-10, 11, (rows, n), generator=g, device="cuda").float()
+    zero = x == 0
+    x[zero] = torch.where(torch.rand(int(zero.sum()), generator=g,
+                                     device="cuda") < 0.5, -0.0, 0.0)
+    x[torch.rand((rows, n), generator=g, device="cuda") < 0.25] = \
+        -torch.inf if largest else torch.inf
+    return x.to(dtype)
 
 
 def _detector_scores(vol, mask):
@@ -5429,20 +5558,33 @@ def _detector_scores(vol, mask):
     return torch.where(is_kpt, dist, -torch.inf).reshape(-1)
 
 
-def phase_approx_topk(card: str) -> dict:
-    """Phase 41: the approximate top-k's bin kernel against its plain
-    version at the paths' shapes: (1, 256^3) -> 20 000 at recall 0.95
-    (uniform scores in f32 and bf16, and the Förstner detector's masked
-    score volume of the shared case) and the kNN rows (32 * 2048, 2048)
-    -> 40 at 0.9 (the coordinate graph's f32 distances with the diagonal
-    at +inf; the bf16 feature graph's at (32, 2048, 64) with the diagonal
-    at -1). Returns the timings by name."""
+def phase_approx_topk(card: str):
+    """Phase 41: the approximate top-k's kernels against their plain
+    versions at the paths' shapes. The bin pass (k > 128): (1, 256^3) ->
+    20 000 at recall 0.95 (uniform scores in f32 and bf16, and the
+    Förstner detector's masked score volume of the shared case). The fused
+    row selection (k <= 128): the kNN rows (32 * 2048, 2048) -> 40 at 0.9
+    (the coordinate graph's f32 distances with the diagonal at +inf; the
+    bf16 feature graph's at (32, 2048, 64) with the diagonal at -1), the
+    fast-serving static graph's (5 * 2048, 2048) rows in f32 (the path's)
+    and bf16, the exact feature graph (the bf16 distances of (32, 2048, 64)
+    features, diagonal 0) at kk = 40 (the default run's) and 41 against
+    the stable sort, and rows full of ties with signed zeros and masked
+    +-inf in both dtypes and directions. Returns (the bin pass's timings,
+    the selection's timings), by name."""
     from fissure_segmentation_tpu_torch.ops.knn import pairwise_sqdist
     g = torch.Generator(device="cuda").manual_seed(41)
     case = synthetic_ct()
     vol = torch.from_numpy(case["image"]).cuda()
     mask = torch.from_numpy(case["lung_mask"]).cuda()
     uni = torch.rand((int(np.prod(SHAPE)),), generator=g, device="cuda")
+    bins = {name: _bin_case(name, *args) for name, args in {
+        "detector_uniform_f32": (uni, 20_000, 0.95, True),
+        "detector_uniform_bf16": (uni.to(torch.bfloat16), 20_000, 0.95,
+                                  True),
+        "detector_foerstner_f32": (_detector_scores(vol, mask), 20_000,
+                                   0.95, True)}.items()}
+    del uni
     pts = torch.rand((32, 2048, 3), generator=g, device="cuda")
     d = pairwise_sqdist(pts, pts)
     d.diagonal(dim1=-2, dim2=-1).fill_(torch.inf)
@@ -5450,20 +5592,30 @@ def phase_approx_topk(card: str) -> dict:
         torch.bfloat16)
     fd = pairwise_sqdist(feats, feats)
     fd.diagonal(dim1=-2, dim2=-1).fill_(-1.0)
-    cases = {
-        "detector_uniform_f32": (uni, 20_000, 0.95, True),
-        "detector_uniform_bf16": (uni.to(torch.bfloat16), 20_000, 0.95,
-                                  True),
-        "detector_foerstner_f32": (_detector_scores(vol, mask), 20_000,
-                                   0.95, True),
+    sel = {name: _select_case(name, *args) for name, args in {
         "knn_rows_f32": (d, 40, 0.9, False),
         "knn_rows_bf16": (fd, 40, 0.9, False),
-    }
-    out = {name: _bin_case(name, *args) for name, args in cases.items()}
+        "fast_static_f32": (d[:5], 40, 0.9, False),
+        "fast_static_bf16": (d[:5].to(torch.bfloat16), 40, 0.9, False)}
+        .items()}
     del d, fd
+    exact = pairwise_sqdist(feats)
+    for kk in (40, 41):
+        sel[f"feature_graph_bf16_k{kk}"] = _select_case(
+            f"feature_graph_bf16_k{kk}", exact, kk, None, False, exact=True)
+    del exact
+    for dt in (torch.float32, torch.bfloat16):
+        for largest in (True, False):
+            x = _tied_rows(4096, 2048, largest, dt, g)
+            for k in (1, 40, 41, 128):
+                _select_case(f"ties_{str(dt)[6:]}_{largest}_k{k}", x, k, 0.9,
+                             largest, timed=False)
+            _select_case(f"ties_{str(dt)[6:]}_{largest}_exact", x, 41, None,
+                         largest, exact=True, timed=False)
     torch.cuda.empty_cache()
-    print(json.dumps({"approx_topk_bins": out, "card": card}), flush=True)
-    return out
+    print(json.dumps({"approx_topk_bins": bins, "approx_topk_select": sel,
+                      "card": card}), flush=True)
+    return bins, sel
 
 
 def _sync_sites(fn):
@@ -5699,11 +5851,11 @@ def phase_fast_serving(ks, knn_cuda, card: str):
     CPU's own bf16 error (the card and the CPU round each layer's bf16
     output after float32 sums in other orders, an error of the bf16
     error's own size; 4 leaves a margin). Returns (counts, gather-reduce
-    calls, the bin kernel's calls, timing)."""
+    calls, the bin pass's and the fused row selection's calls, timing)."""
     from fissure_segmentation_tpu_torch.data.synthetic import \
         make_synthetic_image_case
-    from fissure_segmentation_tpu_torch.kernels.approx_topk import \
-        bin_extrema
+    from fissure_segmentation_tpu_torch.kernels.approx_topk import (
+        bin_extrema, select_rows)
     from fissure_segmentation_tpu_torch.keypoints.foerstner import \
         foerstner_keypoints
     from fissure_segmentation_tpu_torch.models import (predict_all_patches,
@@ -5727,11 +5879,14 @@ def phase_fast_serving(ks, knn_cuda, card: str):
     _serve_batch(vol, mask, fast, 0, True, approx_top_k=True)
     counts = _counts(ks, knn_cuda)
     gr = _gr_calls(ks, knn_cuda)
-    bins = dict(bin_extrema.calls)
-    if counts["bin_extrema"] < 11 * N_PIPE:
-        raise AssertionError(f"fast serving: the bin kernel launched "
-                             f"{counts['bin_extrema']} times in {N_PIPE} "
-                             "cases; the path needs >= 11 a case")
+    bins = (dict(bin_extrema.calls), dict(select_rows.calls))
+    # a case: the detector's selection on the bin pass, the ensemble's ten
+    # static graphs on the fused row selection
+    for name, n in (("bin_extrema", 1), ("select_rows", 10)):
+        if counts[name] < n * N_PIPE:
+            raise AssertionError(f"fast serving: {name} launched "
+                                 f"{counts[name]} times in {N_PIPE} cases; "
+                                 f"the path needs >= {n} a case")
     timing["serving"] = _serve_ab(vol, mask, fast, "fast serving", card,
                                   approx_top_k=True)
     lap("serving")
@@ -5787,7 +5942,7 @@ def phase_fast_serving(ks, knn_cuda, card: str):
                        approx_top_k=True, center_x=SHAPE[2] / 2)
     check_result(res, SHAPE, "cnn bf16 approx case")
     if bin_extrema.launches - before != 1:
-        raise AssertionError("cnn approx case: the bin kernel did not "
+        raise AssertionError("cnn approx case: the bin pass did not "
                              "select its keypoints")
     lap("cnn_mode")
     for dt in (None, torch.bfloat16):
@@ -5832,11 +5987,12 @@ def phase_knn_recall_train(ks, knn_cuda, card: str):
     knn_recall, dynamic and static (the canonical CV's graph), bf16; then
     time_keypoint_extraction on 2 copies of the shared 256^3 case. Counts
     reset before the entry run and read after it; returns (counts,
-    gather-reduce calls, K4 calls, the bin kernel's calls, timing)."""
+    gather-reduce calls, K4 calls, the fused row selection's calls,
+    timing)."""
     from fissure_segmentation_tpu_torch import (time_keypoint_extraction,
                                                 train_point_seg)
     from fissure_segmentation_tpu_torch.kernels.approx_topk import \
-        bin_extrema
+        select_rows
     from fissure_segmentation_tpu_torch.models import load_fold_model
     from fissure_segmentation_tpu_torch.train.profile_step import (
         canonical_data, make_step)
@@ -5857,8 +6013,8 @@ def phase_knn_recall_train(ks, knn_cuda, card: str):
                                  f"{model.config}")
         counts = _counts(ks, knn_cuda)
         gr, k4 = _gr_calls(ks, knn_cuda), _check_k4_route(ks, "knn09 run")
-        bins = dict(bin_extrema.calls)
-        for name in ("bin_extrema", "transpose", "scatter_rows",
+        bins = dict(select_rows.calls)
+        for name in ("select_rows", "transpose", "scatter_rows",
                      "scatter_routed", "scatter_count", "gather_reduce"):
             if counts[name] < 1:
                 raise AssertionError(f"knn09 run: {name} never launched")
@@ -5895,6 +6051,41 @@ def phase_knn_recall_train(ks, knn_cuda, card: str):
     print(f"time_keypoint_extraction (2 cases of {SHAPE}): "
           f"{timing['keypoint_timing']} on {card}", flush=True)
     return counts, gr, k4, bins, timing
+
+
+def _select_by_call(calls: dict, timed: dict) -> dict:
+    """The fused row selection's main-path launches by call, each with phase
+    41's times where it times that call, else timed on inputs of its shape:
+    at one element a bin (the exact feature graph) the distances of random
+    features, else random distances of (B, N, N) kNN rows at recall 0.9."""
+    from fissure_segmentation_tpu_torch.ops.approx_topk import \
+        reduction_output_size
+    from fissure_segmentation_tpu_torch.ops.knn import pairwise_sqdist
+    by_key = {t["call"]: t for t in timed.values()}
+    out = {}
+    for key, n in sorted(calls.items()):
+        if key not in by_key:
+            shape, lpart, kpart, dt = key.split("_")
+            rows, width = (int(v) for v in shape.split("x"))
+            n_bins, k, dt = int(lpart[1:]), int(kpart[1:]), getattr(torch, dt)
+            if rows % width or (n_bins != width and reduction_output_size(
+                    width, 3, k, 0.9)[0] != n_bins):
+                raise AssertionError(f"select: call {key} of no known path")
+            b = rows // width
+            if n_bins == width:
+                x = pairwise_sqdist(torch.randn((b, width, 64),
+                                                device="cuda").to(dt))
+                by_key[key] = _select_case(key, x, k, None, False,
+                                           exact=True)
+            else:
+                x = torch.rand((b, width, width), device="cuda").to(dt)
+                by_key[key] = _select_case(key, x, k, 0.9, False)
+            del x
+        t = by_key[key]
+        out[key] = {"launches": n, **{f: t[f] for f in (
+            "call", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "old_path_ms")}}
+    return out
 
 
 def _bins_by_call(calls: dict, timed: dict) -> dict:
@@ -6043,7 +6234,7 @@ def _main() -> int:
 
     # 20. the default run of the entry point: dynamic bf16 training and
     # the test half (counts from 0, read after)
-    default_counts, default_timing, default_gr, default_k4 = \
+    default_counts, default_timing, default_gr, default_k4, default_sel = \
         phase_default_run(ks, knn_cuda, card)
     gr_calls.append(default_gr)
     print(json.dumps({"default_run": default_timing, "card": card}),
@@ -6187,9 +6378,9 @@ def _main() -> int:
         affine_scatter[64]["scatter_count"]
     slice_paths.update(pointnet=pn_calls, stems=st_calls, affine=af_calls)
 
-    # 41. the approximate top-k's bin kernel against its plain version
+    # 41. the approximate top-k's kernels against their plain versions
     t41 = time.perf_counter()
-    bin_timings = phase_approx_topk(card)
+    bin_timings, sel_timings = phase_approx_topk(card)
 
     # 42. segment_cases against a serial loop (counts from 0 before its
     # first pipelined run, read after it)
@@ -6202,7 +6393,7 @@ def _main() -> int:
     # 43. the fast variant served, recall against exact, the bf16 CNN
     # (counts from 0 before its first timed pipelined run, read after it)
     t43 = time.perf_counter()
-    fast_counts, fast_gr, fast_bins, fast_timing = \
+    fast_counts, fast_gr, (fast_bins, fast_sel), fast_timing = \
         phase_fast_serving(ks, knn_cuda, card)
     gr_calls.append(fast_gr)
     print(json.dumps({"fast_serving": fast_timing, "card": card}),
@@ -6211,7 +6402,7 @@ def _main() -> int:
     # 44. train_point_seg --knn_recall 0.9 (counts from 0, read after), the
     # steps with and without it, time_keypoint_extraction
     t44 = time.perf_counter()
-    knn09_counts, knn09_gr, knn09_k4, knn09_bins, knn09_timing = \
+    knn09_counts, knn09_gr, knn09_k4, knn09_sel, knn09_timing = \
         phase_knn_recall_train(ks, knn_cuda, card)
     gr_calls.append(knn09_gr)
     print(json.dumps({"knn_recall_train": knn09_timing, "card": card}),
@@ -6439,26 +6630,52 @@ def _main() -> int:
         "by_call": by_call, "slice": slice_row("gather_reduce", {}),
         "gap_ms": sum(r["gap_ms"] for r in by_call.values()),
         "shapes": gr_timings})
-    bin_calls = {}
-    for part in (fast_bins, knn09_bins):
-        for key, n in part.items():
-            bin_calls[key] = bin_calls.get(key, 0) + n
     det = bin_timings["detector_uniform_f32"]
     kernels.append({
         "name": "approx_topk_bins", "route": "cuda",
         "source": APPROX_SOURCE, "replaces": APPROX_REPLACES,
-        "no_tpu_kernel": "XLA's ApproxTopK behind lax.approx_max_k / "
-                         "approx_min_k",
-        "also_replaces": APPROX_ALSO,
+        "no_tpu_kernel": "XLA's ApproxTopK behind lax.approx_max_k",
+        "also_replaces": APPROX_ALSO[:1],
         "launches": fast_counts["bin_extrema"] + knn09_counts["bin_extrema"],
         "by_path": {"fast_serving": fast_counts["bin_extrema"],
                     "knn_recall_train": knn09_counts["bin_extrema"]},
-        "max_abs_err": 0.0, "ms": det["ms"], "plain_ms": det["plain_ms"],
-        "bound_ms": det["bound_ms"], "bound_by": det["bound_by"],
-        "library_ms": det["library_ms"], "library": det["library"],
-        "aggregate_ms": det["aggregate_ms"],
-        "by_call": _bins_by_call(bin_calls, bin_timings),
+        "max_abs_err": 0.0, "ms": det["ms"], "warm_ms": det["warm_ms"],
+        "plain_ms": det["plain_ms"], "bound_ms": det["bound_ms"],
+        "bound_by": det["bound_by"], "library_ms": det["library_ms"],
+        "library": det["library"], "aggregate_ms": det["aggregate_ms"],
+        "by_call": _bins_by_call(fast_bins, bin_timings),
         "shapes": bin_timings})
+    # the fused row selection: the approximate graphs and every exact
+    # feature graph on the card, by path; by call where the path records
+    # its calls (the default run, fast serving, the --knn_recall run)
+    sel_paths = {"train": train_total["select_rows"],
+                 "pcae": pcae_counts["select_rows"],
+                 "dseg_ae": dseg_counts["select_rows"],
+                 "dpsr": dpsr_counts["select_rows"],
+                 "dgssm": dgssm_counts["select_rows"],
+                 "preprocess": pre_counts["foerstner"]["select_rows"],
+                 "preprocess_cnn": pre_counts["cnn"]["select_rows"],
+                 "pointnet": pn_counts["select_rows"],
+                 "affine": af_counts["select_rows"],
+                 "serving": serve_total["select_rows"]}
+    sel_calls = {}
+    for part in (default_sel, fast_sel, knn09_sel):
+        for key, n in part.items():
+            sel_calls[key] = sel_calls.get(key, 0) + n
+    sel_by_call = _select_by_call(sel_calls, sel_timings)
+    top = sel_by_call[max(sel_calls, key=sel_calls.get)]
+    kernels.append({
+        "name": "approx_topk_select", "route": "cuda",
+        "source": APPROX_SOURCE, "replaces": SELECT_REPLACES,
+        "no_tpu_kernel": "XLA's ApproxTopK behind lax.approx_min_k and "
+                         "lax.top_k",
+        "also_replaces": SELECT_ALSO,
+        "launches": sum(sel_paths.values()), "by_path": sel_paths,
+        "max_abs_err": 0.0, "call": top["call"],
+        **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "old_path_ms")},
+        "library": "torch.topk (exact)", "by_call": sel_by_call,
+        "shapes": sel_timings})
     for name, head in stream_heads.items():
         kernels.append({
             "name": name, "route": "cuda", "source": STREAM_SOURCE,

@@ -8,9 +8,11 @@ layout and names so each module's counterpart is easy to find:
                 (csrc/knn.cu), K2-K4 the EdgeConv scatters (csrc/scatter.cu),
                 K5 farthest-point sampling (csrc/fps.cu), K6 the depthwise
                 convolution (csrc/depthwise.cu), the fused EdgeConv
-                gather-reduce (csrc/gather_reduce.cu) and the streaming
-                column sums (csrc/stream.cu); each kernel has a plain
-                PyTorch version beside it, used for CPU tensors
+                gather-reduce (csrc/gather_reduce.cu), the streaming
+                column sums (csrc/stream.cu) and the approximate top-k's
+                fused row selection and bin pass (csrc/approx_topk.cu);
+                each kernel has a plain PyTorch version beside it, used
+                for CPU tensors
   native/       the C++ host runtime (connected components, voxelization,
                 dilation), a copy of the JAX package's source, built with g++
                 at first use; no fallback

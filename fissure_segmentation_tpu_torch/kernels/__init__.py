@@ -4,8 +4,9 @@ scatters and the graph transpose K2/K3 walk (scatter.py), K5
 farthest-point sampling (fps.py), K6 the 3x3x3 depthwise convolution
 (depthwise.py), the fused EdgeConv gather-reduce
 (gather_reduce.py, P5's function), the streaming column sums
-(stream.py, P1-P4's) and the approximate top-k's bin pass (approx_topk.py,
-XLA's ApproxTopK behind lax.approx_max_k / approx_min_k, no TPU kernel).
+(stream.py, P1-P4's) and the approximate top-k's fused row selection and
+bin pass (approx_topk.py, XLA's ApproxTopK behind lax.approx_max_k /
+approx_min_k and the feature graph's lax.top_k, no TPU kernel).
 
 Sources live in csrc/ and are compiled by _build.py with nvcc for sm_90a at
 first use. Each kernel module holds the ctypes wrapper (which launches the

@@ -9,10 +9,11 @@ plain C interface, which is then loaded with ctypes:
     nvcc -gencode arch=compute_90a,code=sm_90a -shared
          -o _build/libfseg_kernels_<hash>.so <tmp>/*.o
 
-The library name carries a hash of the sources and flags, so an edited
-source is never served from a stale build. `-fmad=false` keeps nvcc from
-contracting a*b+c into an FMA anywhere: the kernels must round every
-operation exactly like their plain PyTorch versions (see kernels/knn.py).
+The library name carries a hash of the sources, the headers they share
+(``csrc/*.cuh``) and the flags, so an edited source or header is never
+served from a stale build. `-fmad=false` keeps nvcc from contracting
+a*b+c into an FMA anywhere: the kernels must round every operation
+exactly like their plain PyTorch versions (see kernels/knn.py).
 No header of PyTorch is included, so a build takes seconds.
 """
 from __future__ import annotations
@@ -59,7 +60,7 @@ def _nvcc() -> str:
 
 def _lib_path(srcs: list[str]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
         with open(s, "rb") as f:
             h.update(f.read())
     return os.path.join(_BUILD_DIR, f"libfseg_kernels_{h.hexdigest()[:16]}.so")
@@ -136,8 +137,8 @@ def load() -> ctypes.CDLL:
                 "fseg_stream_sum": [vp, vp, vp, i64, i32, i32, i32, vp],
                 "fseg_bin_extrema": [vp, vp, vp, i64, i64, i64, i32, i32,
                                      i32, vp],
-                "fseg_bin_extrema": [vp, vp, vp, i64, i64, i64, i32, i32, i32,
-                                     vp],
+                "fseg_select_rows": [vp, vp, vp, i64, i64, i64, i32, i32,
+                                     i32, i32, i32, vp],
                 "fseg_stream_sum_async": [vp, vp, vp, i64, i32, i32, i32, i32,
                                           i32, vp],
             }

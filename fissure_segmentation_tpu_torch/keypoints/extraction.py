@@ -15,7 +15,7 @@ case dict the point datasets read. Random draws come from a
 `torch.Generator`, or are injected (`scores`, `draws`): jax.random cannot
 be replayed in torch, and the tests inject the JAX package's draws. The
 cnn mode's selection may be approximate (`approx_top_k`: ops/approx_topk.py,
-the bin kernel on the card); its scores are uniform draws, so an
+the bin pass on the card); its scores are uniform draws, so an
 approximate top-k of them is still a uniform random subset.
 """
 from __future__ import annotations

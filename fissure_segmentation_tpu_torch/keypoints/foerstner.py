@@ -9,7 +9,7 @@ points is kept instead of the most distinctive ones (the JAX package's
 cannot be replayed in torch, so the tests inject JAX's draw as `scores`.
 `approx_top_k=True` selects with the approximate top-k instead
 (ops/approx_topk.py, `lax.approx_max_k`'s default recall target 0.95: the
-bin kernel on the card).
+bin pass on the card).
 """
 from __future__ import annotations
 

@@ -5,8 +5,9 @@ Dynamic graph (`dynamic=True`, the default, as in JAX): each EdgeConv
 builds its own graph with a self-loop. EdgeConv_0 builds it from the 3
 coordinate channels through K1 (`ops/knn.py:knn`, which launches K1 for
 CUDA tensors), EdgeConv_1 and _2 in feature space from their input (64
-channels, in the compute dtype: `ops/knn.py:feature_knn`, a matmul and a
-stable sort, without autograd). Static graph (`dynamic=False`, what the
+channels, in the compute dtype: `ops/knn.py:feature_knn`, a matmul and the
+exact kk smallest, the approximate top-k's fused row selection on the card
+and a stable sort on the CPU, without autograd). Static graph (`dynamic=False`, what the
 serving path runs): one kNN over the coordinate channels without self-loop,
 shared by all three EdgeConvs. In a train-mode forward on the card whose
 gradient is recorded, each graph's transpose (`kernels/scatter.py:
@@ -50,8 +51,8 @@ layer to (B, C).
 
 `knn_recall` (JAX's opt-in approximate graphs): the static graph and every
 EdgeConv's dynamic graph are built by `ops/knn.py:knn(recall_target=
-knn_recall)` (the distances materialized, the approximate top-k's bin
-kernel on the card); the spatial transformer's own graph in a dynamic
+knn_recall)` (the distances materialized, the approximate top-k's fused
+row selection on the card); the spatial transformer's own graph in a dynamic
 model stays exact, as in the JAX package. `config` records it, so model.pt
 and `.fst` keep it.
 """

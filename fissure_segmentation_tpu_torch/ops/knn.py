@@ -6,16 +6,19 @@ kernel for a CUDA tensor and runs its plain PyTorch version for a CPU
 tensor. Wider clouds (DGCNN's feature-space graph, C = 64) take the JAX
 package's XLA formula, where it also leaves Pallas: |x|^2 - 2 x.y + |y|^2
 with the diagonal zeroed, in the input's dtype (bf16 features give a bf16
-graph, as in JAX), one `torch.matmul` and a stable ascending sort (ties to
-the lower index, what `lax.top_k(-d, kk)` selects). In bf16 the terms
+graph, as in JAX), one `torch.matmul` and the kk smallest in ascending
+order, ties to the lower index (what `lax.top_k(-d, kk)` selects): on the
+card the approximate top-k's fused row selection at one element a bin,
+which is exact (kernels/approx_topk.py:select_rows, kk <= 128), on the
+CPU a stable sort. In bf16 the terms
 round as the jitted JAX graph rounds them (its optimized HLO on the CPU):
 each squared norm is the float32 sum of the exact float32 squares of the
 bf16 values, rounded once to bf16 (XLA fuses the convert into the
 product, so the squares are never rounded to bf16); the product and the
-combination round to bf16 operation by operation, and the sort compares
-bf16 keys. That path builds the
+combination round to bf16 operation by operation, and the selection
+compares bf16 keys. That path builds the
 graph on a detached input: the indices carry no gradient, and the (B, N, N)
-distances and the sort's indices are freed at once instead of living until
+distances and the selection's indices are freed at once instead of living until
 the backward. Semantics: squared euclidean distances, `self_loop=True`
 keeps the point itself as its first neighbor, `self_loop=False` computes
 k+1 and drops the first column.
@@ -24,8 +27,9 @@ The approximate graph (`recall_target`, ops/knn.py:79-95 of the JAX
 package) skips K1 for every width: the distance matrix is materialized by
 the same formula (bf16 norms rounded as above), the diagonal is pinned to
 -1 under `self_loop` (self is then always found, in slot 0) or to +inf
-without it, and `ops/approx_topk.py` selects the k smallest with the bin
-kernel on the card; negative distances (self's -1) are clamped to 0.
+without it, and `ops/approx_topk.py` selects the k smallest (on the card
+with the fused row selection, k <= 128); negative distances (self's -1)
+are clamped to 0.
 
 Not ported yet: `query_chunk`.
 """
@@ -33,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.approx_topk import DTYPES, MAX_K, select_rows
 from ..kernels.knn import MAX_C, MAX_KK, knn_cuda
 from .approx_topk import approx_top_k
 
@@ -63,19 +68,35 @@ def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor | None = None
     return d
 
 
+def feature_route(d: torch.Tensor, kk: int) -> str:
+    """How `feature_knn` selects the kk smallest of the distances d:
+    "fused" (the fused row selection at one element a bin) for a CUDA
+    tensor of float32 or bfloat16 and kk <= MAX_K, else "sort"."""
+    return ("fused" if d.is_cuda and d.dtype in DTYPES and kk <= MAX_K
+            else "sort")
+
+
 def feature_knn(x: torch.Tensor, kk: int):
     """The kk nearest points of each point by the JAX formula, ascending,
-    ties to the lower index, in x's dtype, without autograd.
+    ties to the lower index, in x's dtype, without autograd: on the card
+    (float32 or bfloat16, kk <= 128) the fused row selection with one
+    element a bin, elsewhere a stable sort; the two agree bit for bit.
 
     :param x: (B, N, C)
     :return: (idx (B, N, kk) int32, dist (B, N, kk) in x's dtype)
     """
-    if kk > x.shape[-2]:
-        raise ValueError(f"knn: kk={kk} exceeds N={x.shape[-2]}")
+    n = x.shape[-2]
+    if kk > n:
+        raise ValueError(f"knn: kk={kk} exceeds N={n}")
     # the profiler's "feature_graph" range (train/profile_step.py)
     with torch.no_grad(), torch.profiler.record_function("feature_graph"):
-        dist, idx = torch.sort(pairwise_sqdist(x.detach()), dim=-1,
-                               stable=True)
+        d = pairwise_sqdist(x.detach())
+        if feature_route(d, kk) == "fused":
+            dist, idx = select_rows(d.reshape(-1, n), n, 1, kk,
+                                    largest=False, index_dtype=torch.int32)
+            return (idx.reshape(*d.shape[:-1], kk),
+                    dist.reshape(*d.shape[:-1], kk))
+        dist, idx = torch.sort(d, dim=-1, stable=True)
         return idx[..., :kk].to(torch.int32), dist[..., :kk]
 
 

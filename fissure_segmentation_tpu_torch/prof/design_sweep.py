@@ -1,18 +1,18 @@
 """Design sweeps and splits of K6 (the 3x3x3 depthwise convolution), of
-K2's graph transpose, of the fused EdgeConv gather-reduce, of K3 and of
-K4's histogram on the card, from scratch builds of edited sources. Run
-from the repository root:
+K2's graph transpose, of the fused EdgeConv gather-reduce, of K3, of K4's
+histogram and of the approximate top-k's kernels on the card, from scratch
+builds of edited sources. Run from the repository root:
 
     python fissure_segmentation_tpu_torch/prof/design_sweep.py \
-        [--parts split,dw,tr,gr,grb,k3,k4] [--build DIR]
+        [--parts split,dw,tr,gr,grb,k3,k4,sel,bins] [--build DIR]
 
-Each variant is a copy of kernels/csrc/depthwise.cu, scatter.cu or
-gather_reduce.cu with one constant, launch shape or path edited, built
-alone by nvcc into DIR (default: a temporary directory) and called through
-ctypes; the package keeps no knob for any of them. Every variant that
-computes the kernel's function is checked first (K6 and the gather-reduce
-bit-equal to plain, the transpose equal, K3 equal to the package's kernel).
-Parts:
+Each variant is a copy of kernels/csrc/depthwise.cu, scatter.cu,
+gather_reduce.cu or approx_topk.cu with one constant, launch shape or path
+edited, built alone by nvcc into DIR (default: a temporary directory) and
+called through ctypes; the package keeps no knob for any of them. Every
+variant that computes the kernel's function is checked first (K6, the
+gather-reduce and the approximate top-k's kernels bit-equal to plain, the
+transpose equal, K3 equal to the package's kernel). Parts:
 
   split  what holds a kernel back, at the path shapes: the simple K6 kernel
          (`depthwise_simple`, now the path of channel rows that are not
@@ -43,7 +43,21 @@ Parts:
          batch size at 2048 rows (B = 1 ... 32, E = 81 920); the checked
          variants also time `count_from_ptr` at each case. K4's times are
          CUDA-graph replays (`prof.timing.graph_ms`): one launch is shorter
-         than a ctypes call.
+         than a ctypes call;
+  sel    the fused row selection (`select_rows`) at the kNN rows of the
+         --knn_recall step ((32 * 2048, 2048) -> 40 at L = 512 x 4, f32
+         coordinate and bf16 feature distances), the exact feature graph
+         (bf16, one element a bin, kk = 41) and the fast-serving static
+         graph's (10 240, 2048) f32: rows a block, loads in flight, blocks
+         an SM (registers capped), no vectors (one element a lane), the
+         threshold tested on the values before keys are built, K1's way of
+         adding keys instead of the buffer (a round with 8 or 4 keys or more
+         below the threshold merged, fewer inserted one at a time), and the
+         loads and keys alone (no selection: the floor of its memory side);
+  bins   the bin pass at (1, 256^3), L = 524 288 x 32, f32 and bf16, timed
+         cold (`prof.timing.cold_ms`) and warm: as it is, without vectors
+         (the PR 17 kernel's one element a thread) and with 4 or 16 loads
+         in flight.
 
 Prints one JSON line ({part: {variant: {shape: median ms}}}), then the
 card's name and power limit. Raises without a card or nvcc.
@@ -70,7 +84,7 @@ from fissure_segmentation_tpu_torch.kernels.depthwise import (  # noqa: E402
     depthwise_conv3_plain)
 from fissure_segmentation_tpu_torch.kernels.knn import knn_cuda  # noqa: E402
 from fissure_segmentation_tpu_torch.prof.timing import (  # noqa: E402
-    graph_ms, median_ms)
+    cold_ms, graph_ms, median_ms)
 
 CSRC = os.path.join(os.path.dirname(HERE), "kernels", "csrc")
 F32_TILE = "launch_tiled<float, 32, 8, 16, 4, 3, 1, 1>("
@@ -141,6 +155,85 @@ _K3_ROUTING_ONLY = {
     "                for (int i = 0; i < VEC; ++i) ap[i] = __fadd_rn(ap[i], "
     "w[i]);\n": "",
     "                ap[i] = __fadd_rn(ap[i], to_f32<T>(p[base + ch]));\n": ""}
+
+# the approximate top-k: no 16-byte vectors (one element a lane or thread);
+# the fused selection with the loads, bins and keys alone (every key folded
+# into one per lane, the output read at a valid index)
+_NO_VECTORS = {"    return n % vec == 0 && L % vec == 0":
+               "    return false && n % vec == 0 && L % vec == 0"}
+_SEL_NO_SELECTION = {
+    "            const bool pass = kv[e] < th;\n":
+    "            th = umin64(th, kv[e]);\n            continue;\n"
+    "            const bool pass = kv[e] < th;\n",
+    "            const unsigned i = (unsigned)list[r];\n":
+    "            const unsigned i = (unsigned)(th ^ list[r]) % (unsigned)n;\n"}
+# K1's way instead of the buffer: a round with `merge_min` or more keys
+# below the threshold is merged at once, fewer are inserted one at a time
+_SEL_WAIT = """            if (nw >= 32) {
+                __syncwarp();
+                const u64 v = wait[lane], rest = wait[lane + 32];
+                __syncwarp();
+                nw -= 32;
+                if (lane < nw) wait[lane] = rest;
+                merge<LL>(list, sort32(v, lane), lane);
+                th = kth<LL>(list, kr, kl);
+            }
+"""
+
+
+# the threshold tested on each winner's value and index before its key is
+# built (only a winner that passes is keyed)
+_SEL_VALUE_FILTER = {
+    "    u64 th = ~0ull;\n":
+    "    u64 th = ~0ull;\n    float thv = LARGEST ? -INFINITY : INFINITY;\n"
+    "    unsigned thi = ~0u;\n",
+    """        u64 kv[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+            kv[e] = m > 0 ? order_key<LARGEST>(
+                                best[e], (unsigned)(b0 + e + jb[e] * L))
+                          : ~0ull;
+""": "",
+    "            const bool pass = kv[e] < th;\n":
+    """            const unsigned ie = (unsigned)(b0 + e + jb[e] * L);
+            const float ve = best[e];
+            const bool pass = m > 0 && ((LARGEST ? ve > thv : ve < thv) ||
+                                        (ve == thv && ie < thi));
+""",
+    "            if (pass) wait[nw + __popc(ballot & below)] = kv[e];\n":
+    "            if (pass)\n                wait[nw + __popc(ballot & below)] ="
+    " order_key<LARGEST>(ve, ie);\n",
+    "                th = kth<LL>(list, kr, kl);\n            }\n        }\n"
+    "    }\n":
+    """                th = kth<LL>(list, kr, kl);
+                unsigned o = (unsigned)(th >> 32);
+                if (LARGEST) o = ~o;
+                thv = th == ~0ull ? (LARGEST ? -INFINITY : INFINITY)
+                      : __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu)
+                                                          : ~o);
+                thi = (unsigned)th;
+            }
+        }
+    }
+"""}
+
+
+def _sel_insert(merge_min: int) -> dict:
+    return {"            if (pass) wait[nw + __popc(ballot & below)] = "
+            "kv[e];\n            nw += __popc(ballot);\n" + _SEL_WAIT:
+            f"""            unsigned pend = ballot;
+            if (__popc(pend) >= {merge_min}) {{
+                merge<LL>(list, sort32(pass ? kv[e] : ~0ull, lane), lane);
+                th = kth<LL>(list, kr, kl);
+                continue;
+            }}
+            while (pend) {{
+                const int src = __ffs(pend) - 1;
+                insert<LL>(list, shfl64(kv[e], src), lane);
+                th = kth<LL>(list, kr, kl);
+                pend &= ~(1u << src) & __ballot_sync(KNN_FULL, kv[e] < th);
+            }}
+"""}
 
 # K4's histogram: P forced (the sweep's model of hist_parts is B * P about
 # the SMs); an empty kernel; the loads alone
@@ -236,6 +329,27 @@ VARIANTS = {
         "threads_1024": {_HIST_THREADS: "#define HIST_THREADS 1024 "},
         "unroll_2": {"#define HIST_UNROLL 4 ": "#define HIST_UNROLL 2 "},
         "unroll_8": {"#define HIST_UNROLL 4 ": "#define HIST_UNROLL 8 "},
+    }.items()},
+    "sel": {name: ("approx_topk.cu", edits) for name, edits in {
+        "default": {},
+        "warps_4": {"#define SEL_WARPS 8 ": "#define SEL_WARPS 4 "},
+        "warps_16": {"#define SEL_WARPS 8 ": "#define SEL_WARPS 16 "},
+        "insert_each_merge_8": _sel_insert(8),
+        "insert_each_merge_4": _sel_insert(4),
+        "unroll_4": {"#define SEL_UNROLL 2 ": "#define SEL_UNROLL 4 "},
+        "value_filter": _SEL_VALUE_FILTER,
+        "min_blocks_3": {"__launch_bounds__(SEL_WARPS * 32)\nselect_rows(":
+                         "__launch_bounds__(SEL_WARPS * 32, 3)\nselect_rows("},
+        "min_blocks_4": {"__launch_bounds__(SEL_WARPS * 32)\nselect_rows(":
+                         "__launch_bounds__(SEL_WARPS * 32, 4)\nselect_rows("},
+        "no_vectors": _NO_VECTORS,
+        "abl_no_selection": _SEL_NO_SELECTION,
+    }.items()},
+    "bins": {name: ("approx_topk.cu", edits) for name, edits in {
+        "default": {},
+        "no_vectors": _NO_VECTORS,
+        "unroll_4": {"#define BIN_UNROLL 8 ": "#define BIN_UNROLL 4 "},
+        "unroll_16": {"#define BIN_UNROLL 8 ": "#define BIN_UNROLL 16 "},
     }.items()},
     "tr": {name: ("scatter.cu", edits) for name, edits in {
         "default": {},
@@ -358,7 +472,7 @@ def build(variants: dict, out_dir: str) -> dict:
         with open(path, "w") as f:
             f.write(src)
         procs[name] = subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
+            [nvcc, *_build.NVCC_FLAGS, "-I", CSRC, "-shared", "-o",
              os.path.join(out_dir, f"{name}.so"), path],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     libs = {}
@@ -619,9 +733,107 @@ def time_k4(lib, cases, check: bool) -> dict:
     return row
 
 
+def sel_cases() -> list:
+    """(tag, x (rows, n), L, R, k, largest, idx64, plain result): the kNN
+    rows of the --knn_recall step (coordinate distances f32 with the
+    diagonal at +inf, bf16 feature distances with it at -1; L = 512 x 4,
+    k = 40), the exact feature graph (bf16, diagonal 0, L = n, kk = 41,
+    int32 indices) and the fast-serving static graph's rows (5 clouds of
+    2048, f32)."""
+    from fissure_segmentation_tpu_torch.kernels.approx_topk import \
+        select_rows_plain
+    from fissure_segmentation_tpu_torch.ops.knn import pairwise_sqdist
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    pts = torch.rand((32, 2048, 3), generator=gen, device="cuda")
+    coords = pairwise_sqdist(pts, pts)
+    coords.diagonal(dim1=-2, dim2=-1).fill_(torch.inf)
+    feats = torch.randn((32, 2048, 64), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    fd = pairwise_sqdist(feats, feats)
+    fd.diagonal(dim1=-2, dim2=-1).fill_(-1.0)
+    exact = pairwise_sqdist(feats)
+    out = []
+    for tag, d, n_bins, red, k, idx64 in (
+            ("knn_rows_f32", coords, 512, 4, 40, 1),
+            ("knn_rows_bf16", fd, 512, 4, 40, 1),
+            ("feature_graph_bf16_k41", exact, 2048, 1, 41, 0),
+            ("static_10240x2048_f32", coords[:5], 512, 4, 40, 1)):
+        x = d.reshape(-1, 2048)
+        out.append((tag, x, n_bins, red, k, False, idx64,
+                    select_rows_plain(x, n_bins, red, k, False)))
+    return out
+
+
+def time_sel(lib, cases, check: bool) -> dict:
+    """The fused row selection through the library's fseg_select_rows at
+    each case (equal to plain, values and indices, where `check`)."""
+    lib.fseg_select_rows.argtypes = [VP, VP, VP, I64, I64, I64, I32, I32,
+                                     I32, I32, I32, VP]
+    row = {}
+    for tag, x, n_bins, red, k, largest, idx64, (vp, ip) in cases:
+        rows, n = x.shape
+        vals = torch.empty((rows, k), dtype=x.dtype, device=x.device)
+        idx = torch.empty((rows, k), device=x.device,
+                          dtype=torch.int64 if idx64 else torch.int32)
+
+        def fn():
+            if lib.fseg_select_rows(
+                    x.data_ptr(), vals.data_ptr(), idx.data_ptr(), rows, n,
+                    n_bins, red, k, int(largest),
+                    int(x.dtype == torch.bfloat16), idx64, _stream()) != 0:
+                raise RuntimeError(f"select_rows {tag}: launch failed")
+
+        fn()
+        torch.cuda.synchronize()
+        if check and not (torch.equal(vals, vp)
+                          and torch.equal(idx.long(), ip)):
+            raise AssertionError(f"select_rows {tag}: differs from plain")
+        row[tag] = median_ms(fn)
+    return row
+
+
+def bins_cases() -> list:
+    """(tag, x (1, 256^3), L, R, plain result): the detectors' uniform
+    scores in f32 and bf16, L = 524 288, R = 32."""
+    from fissure_segmentation_tpu_torch.kernels.approx_topk import \
+        bin_extrema_plain
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.rand((1, 256 ** 3), generator=gen, device="cuda")
+    return [(f"detector_256cube_{str(dt)[6:]}", x.to(dt), 524_288, 32,
+             bin_extrema_plain(x.to(dt), 524_288, 32, True))
+            for dt in (torch.float32, torch.bfloat16)]
+
+
+def time_bins(lib, cases, check: bool) -> dict:
+    """The bin pass through the library's fseg_bin_extrema (equal to plain
+    where `check`), cold and warm."""
+    lib.fseg_bin_extrema.argtypes = [VP, VP, VP, I64, I64, I64, I32, I32,
+                                     I32, VP]
+    row = {}
+    for tag, x, n_bins, red, (vp, ip) in cases:
+        rows, n = x.shape
+        vals = torch.empty((rows, n_bins), dtype=x.dtype, device=x.device)
+        idx = torch.empty((rows, n_bins), dtype=torch.int32, device=x.device)
+
+        def fn():
+            if lib.fseg_bin_extrema(x.data_ptr(), vals.data_ptr(),
+                                    idx.data_ptr(), rows, n, n_bins, red, 1,
+                                    int(x.dtype == torch.bfloat16),
+                                    _stream()) != 0:
+                raise RuntimeError(f"bin_extrema {tag}: launch failed")
+
+        fn()
+        torch.cuda.synchronize()
+        if check and not (torch.equal(vals, vp) and torch.equal(idx, ip)):
+            raise AssertionError(f"bin_extrema {tag}: differs from plain")
+        row[f"{tag}_cold"] = cold_ms(fn)
+        row[f"{tag}_warm"] = median_ms(fn)
+    return row
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parts", default="split,dw,tr,gr,grb,k3,k4")
+    ap.add_argument("--parts", default="split,dw,tr,gr,grb,k3,k4,sel,bins")
     ap.add_argument("--build", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -646,6 +858,8 @@ def main() -> None:
                         dtype=torch.int32)
     grs = gr_cases(knn_cuda) if {"split", "gr"} & set(parts) else []
     k4s = k4_cases() if "k4" in parts else []
+    sels = sel_cases() if "sel" in parts else []
+    bins = bins_cases() if "bins" in parts else []
     res = {part: {} for part in parts}
     for full, lib in libs.items():
         part, name = full.split("_", 1)
@@ -655,7 +869,11 @@ def main() -> None:
         whole = (part != "split" or name in ("gr", "gr_simple", "k3",
                                              "k3_simple")) \
             and not name.startswith("abl_")
-        if part == "tr":
+        if part == "sel":
+            res[part][name] = time_sel(lib, sels, whole)
+        elif part == "bins":
+            res[part][name] = time_bins(lib, bins, whole)
+        elif part == "tr":
             res[part][name] = time_transpose(lib, idx, n)
         elif part == "k4":
             res[part][name] = time_k4(lib, k4s, whole)

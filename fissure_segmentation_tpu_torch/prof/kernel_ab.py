@@ -1,8 +1,9 @@
 """K1 (kNN), K5 (farthest-point sampling), K6 (the depthwise convolution),
 K2-K4 (the EdgeConv scatters, with the graph transpose they build), the
-fused EdgeConv gather-reduce and P1's k_onehot of one checkout of this
-repository, timed on the card at their path shapes, so that two commits
-can be compared in one call on one card. Run it with the checkout's root:
+fused EdgeConv gather-reduce, P1's k_onehot and the approximate top-k of
+one checkout of this repository, timed on the card at their path shapes,
+so that two commits can be compared in one call on one card. Run it with
+the checkout's root:
 
     python fissure_segmentation_tpu_torch/prof/kernel_ab.py ROOT [--tag NAME]
 
@@ -32,7 +33,14 @@ launches are shorter than the wrapper's host time) and by `median_ms`
 ("_host_included"). P1's k_onehot (K4 at 512 rows + `stream_sum`) is the
 checkout's `prof.probes.p1` row. The dynamic graph's feature-space kNN
 (`ops/knn.py:feature_knn`, no kernel of its own: a matmul and a stable
-sort) is timed at the default run's (32, 2048, 64) bf16, k = 40. K6's
+sort, or the approximate top-k's fused row selection where the checkout
+has it) is timed at the default run's (32, 2048, 64) bf16, k = 40. The
+approximate selection (`ops/approx_topk.py:approx_top_k`, as the
+checkout runs it: the bin pass and two sorts, or the fused row selection
+for k <= 128), equal to the checkout's `approx_top_k_plain` first, is
+timed at the kNN rows of the --knn_recall step ((32 * 2048, 2048) -> 40
+at recall 0.9, coordinate distances f32 and bf16 feature distances) and
+at the 256^3 detector's (1, 256^3) -> 20 000 at 0.95 in bf16. K6's
 backward and stride-2 layer at the CNN paths' shapes: the wgrad kernel
 at (32, 48^3, 192) (within gamma_depth * sum |x dy| of float64 first; the
 checkout's `wgrad_plan` gives the depth), and block 5's stride-2 layer
@@ -148,6 +156,37 @@ def _depthwise_backward(depthwise, gen, median_ms) -> dict:
                 x.permute(0, 4, 1, 2, 3), wc, stride=2, padding=1,
                 groups=192), reps=3, inner=3, warm=1)
     del x, w
+    torch.cuda.empty_cache()
+    return out
+
+
+def _approx_selection(ops_knn, feats, gen, median_ms) -> dict:
+    """The checkout's approx_top_k at the kNN rows of the --knn_recall
+    step (f32 coordinate distances with the diagonal at +inf, the bf16
+    feature distances of `feats` with it at -1; k = 40 at 0.9) and at the
+    256^3 detector in bf16 (k = 20 000 at 0.95), each equal to the
+    checkout's approx_top_k_plain first."""
+    from fissure_segmentation_tpu_torch.ops import approx_topk
+    pts = torch.rand((32, 2048, 3), generator=gen).cuda()
+    d = ops_knn.pairwise_sqdist(pts, pts)
+    d.diagonal(dim1=-2, dim2=-1).fill_(torch.inf)
+    fd = ops_knn.pairwise_sqdist(feats, feats)
+    fd.diagonal(dim1=-2, dim2=-1).fill_(-1.0)
+    det = torch.rand((256 ** 3,), generator=gen).to("cuda", torch.bfloat16)
+    out = {}
+    for name, x, k, target, largest in (
+            ("knn_rows_65536x2048_float32_k40", d, 40, 0.9, False),
+            ("knn_rows_65536x2048_bfloat16_k40", fd, 40, 0.9, False),
+            ("detector_1x16777216_bfloat16_k20000", det, 20_000, 0.95,
+             True)):
+        got = approx_topk.approx_top_k(x, k, target, largest)
+        want = approx_topk.approx_top_k_plain(x, k, target, largest)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"approx_top_k {name}: differs from plain")
+        out[name] = median_ms(
+            lambda: approx_topk.approx_top_k(x, k, target, largest), reps=5,
+            inner=3)
+    del d, fd, det
     torch.cuda.empty_cache()
     return out
 
@@ -282,6 +321,7 @@ def main() -> None:
                                                          torch.bfloat16)
     out["feature_graph"] = {"32x2048x64_bfloat16_k40": median_ms(
         lambda: ops_knn.feature_knn(feats, 40), reps=5, inner=3)}
+    out["approx_topk"] = _approx_selection(ops_knn, feats, gen, median_ms)
     del feats
     from fissure_segmentation_tpu_torch.prof import probes
     pidx, pg = probes.payload()

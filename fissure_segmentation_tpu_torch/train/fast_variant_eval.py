@@ -10,7 +10,7 @@ JAX model.fst):
 
   exact:  float32 compute, exact kNN graphs
   fast:   bfloat16 compute, knn_recall=0.9 graphs (the approximate
-          top-k's bin kernel on the card)
+          top-k's fused row selection on the card)
 
 and writes RUN_DIR/fast_variant_eval/deltas.csv (metric, exact, fast,
 delta: the mean over folds of each fold's mean over fissures, Dice without

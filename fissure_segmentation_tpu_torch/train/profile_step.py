@@ -1,10 +1,11 @@
 """The canonical train steps on one NVIDIA card: timing harness and
 profile.
 
-    python -m fissure_segmentation_tpu_torch.train.profile_step [--model DGCNN|PointTransformer|PCAE|CNN|CNNv3|DPSR|DPSRv1|DGSSM] [--amp] [--dynamic]
+    python -m fissure_segmentation_tpu_torch.train.profile_step [--model DGCNN|PointTransformer|PCAE|CNN|CNNv3|DPSR|DPSRv1|DGSSM] [--amp] [--dynamic] [--knn_recall R]
 
 The step is DGCNNSeg(k=40, static; `--dynamic`: the dynamic graph, the
-default run's) or PointTransformerSeg at its full width, batch 32 x 2048
+default run's; `--knn_recall`: its approximate graphs, whose device time
+it also prints) or PointTransformerSeg at its full width, batch 32 x 2048
 points of the synthetic point cases, f32 (DGCNN with `--amp`: the bf16
 compute dtype), NNU loss + Adam with L2
 (`canonical_data`, `make_step`); `--model PCAE` is the PC-AE's step at
@@ -28,14 +29,14 @@ through these helpers. Run as a script it prints, for DGCNN in each routing
     summed kernel time per step against the timed ms/step (the device's
     busy share);
   * the device time per step of the port's kernels (K1-K4, the graph
-    transpose's four kernels and the fused EdgeConv's gather-reduce for
-    DGCNN, K5 for PointTransformer) and of the
-    sorts (DGCNN: the batch sampler's and, with `--dynamic`, the feature
-    graphs', the graph transpose being a kernel of its own;
-    PointTransformer: the stable sorts of `knn_query` and the batch
-    sampler's); with `--dynamic`, the device time of the two feature-space
+    transpose's four kernels, the fused EdgeConv's gather-reduce and the
+    approximate top-k's row selection for DGCNN, K5 for PointTransformer)
+    and of the sorts (DGCNN: the batch sampler's, the graph transpose being
+    a kernel of its own; PointTransformer: the stable sorts of `knn_query`
+    and the batch sampler's); with `--dynamic`, the device time of the two feature-space
     graphs (`ops/knn.py:feature_knn`'s "feature_graph" range: the matmul,
-    the elementwise passes and the stable sort).
+    the elementwise passes and the fused row selection,
+    `kernels/approx_topk.py:select_rows`).
 """
 from __future__ import annotations
 
@@ -61,11 +62,13 @@ KERNELS = {
               "K2 scatter_rows": "scatter_rows_kernel",
               "K3 scatter_routed": "scatter_routed_",
               "K4 scatter_count": "count_",
-              "gather_reduce": "gather_reduce_"},
+              "gather_reduce": "gather_reduce_",
+              "select_rows": "select_rows"},
     "PointTransformer": {"K5 fps": "fps_kernel"},
     "PCAE": {"K1 knn": "knn_kernel",
              "graph transpose": "transpose_",
-             "K2 scatter_rows": "scatter_rows_kernel"},
+             "K2 scatter_rows": "scatter_rows_kernel",
+             "select_rows": "select_rows"},
     "CNN": {"K6 forward (strides 1 and 2), recompute, dgrad":
             "depthwise_tiled",
             "K6 wgrad": "depthwise_wgrad"}}
@@ -179,6 +182,9 @@ def main(argv=None) -> int:
                     help="DGCNN in the bf16 compute dtype (--amp true)")
     ap.add_argument("--dynamic", action="store_true",
                     help="DGCNN with the dynamic graph (the default run's)")
+    ap.add_argument("--knn_recall", type=float, default=None,
+                    help="DGCNN's approximate graphs at this recall "
+                         "(train_point_seg --knn_recall)")
     args = ap.parse_args(argv)
     dtype = torch.bfloat16 if args.amp and args.model == "DGCNN" else None
     if not torch.cuda.is_available():
@@ -225,6 +231,8 @@ def main(argv=None) -> int:
                 name += " bf16"
             if args.dynamic:
                 name += " dynamic"
+            if args.knn_recall is not None:
+                name += f" knn_recall {args.knn_recall}"
         if args.model == "PCAE":
             step = train_pc_ae.make_step(pc_args, tmp)
         elif args.model.startswith("CNN"):
@@ -234,8 +242,10 @@ def main(argv=None) -> int:
         elif args.model == "DGSSM":
             step = train_dgcnn_ssm.make_step(fam_args, tmp)
         else:
+            recall = ({} if args.knn_recall is None
+                      else {"knn_recall": args.knn_recall})
             step = make_step(ds, loss_fn, tmp, model=args.model, dtype=dtype,
-                             dynamic=args.dynamic)
+                             dynamic=args.dynamic, **recall)
         for _ in range(WARM):
             step()
         ms, _, _ = time_steps(step)
@@ -245,11 +255,11 @@ def main(argv=None) -> int:
                 step()
             torch.cuda.synchronize()
         avg = prof.key_averages()
-        # the profiler ranges ("feature_graph", DPSR-Net's "dpsr:*") carry
-        # their kernels' time again
+        # the profiler ranges ("feature_graph", "approx_graph", DPSR-Net's
+        # "dpsr:*") carry their kernels' time again
         busy = sum(e.self_device_time_total for e in avg
                    if e.device_type == DeviceType.CUDA
-                   and e.key != "feature_graph"
+                   and e.key not in ("feature_graph", "approx_graph")
                    and not e.key.startswith("dpsr:")) / 3 / 1e3
         unit = "patches" if args.model.startswith("CNN") else "clouds"
         print(f"{name}: {ms:.2f} ms/step ({BATCH * 1e3 / ms:.1f} "
@@ -279,6 +289,12 @@ def main(argv=None) -> int:
                         if e.key == "feature_graph")
             print(f"  {'feature graphs':18s} {graph / 3 / 1e3:.3f} ms/step "
                   "(device time under ops/knn.py:feature_knn)", flush=True)
+        if args.knn_recall is not None:
+            graph = sum(e.self_device_time_total for e in avg
+                        if e.key == "approx_graph")
+            print(f"  {'approximate graphs':18s} {graph / 3 / 1e3:.3f} "
+                  "ms/step (device time under ops/knn.py:approx_knn)",
+                  flush=True)
         print(avg.table(sort_by="self_device_time_total", row_limit=22,
                         max_name_column_width=60), flush=True)
     os.environ.pop("FSEG_FUSED_EDGE", None)

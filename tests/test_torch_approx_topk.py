@@ -22,13 +22,13 @@ from jax._src.lib import _jax as jax_lib
 from fissure_segmentation_tpu.models import DGCNNSeg as JDGCNNSeg
 from fissure_segmentation_tpu.ops.knn import knn as jknn
 from fissure_segmentation_tpu_torch.kernels.approx_topk import (
-    bin_extrema, bin_extrema_plain)
+    aggregate, bin_extrema, bin_extrema_plain)
 from fissure_segmentation_tpu_torch.models import (DGCNNSeg,
                                                    load_jax_variables,
                                                    load_model, save_model)
 from fissure_segmentation_tpu_torch.models.io import load_fst, save_fst
 from fissure_segmentation_tpu_torch.ops.approx_topk import (
-    _aggregate, approx_top_k, approx_top_k_plain, reduction_output_size)
+    approx_top_k, approx_top_k_plain, reduction_output_size)
 from fissure_segmentation_tpu_torch.ops.knn import knn
 from fissure_segmentation_tpu_torch.ops.topk import masked_top_k
 
@@ -147,7 +147,7 @@ def test_bins_and_ties():
     vals, idx = bin_extrema_plain(x, 4, 2)
     assert vals.tolist() == [[5.0, 5.0, 5.0, 1.0]]
     assert idx.tolist() == [[4, 1, 2, 7]]
-    top, at = _aggregate(vals, idx, 2, True)
+    top, at = aggregate(vals, idx, 2, True)
     assert top.tolist() == [[5.0, 5.0]] and at.tolist() == [[1, 2]]
     # ties inside a bin go to the lower index, for the minimum too
     x = torch.tensor([[3.0, 2, 3, 2, 1, 9]])     # bins {0, 2, 4}, {1, 3, 5}

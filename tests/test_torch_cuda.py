@@ -7,9 +7,11 @@ streaming column sums) against their plain PyTorch versions, the DGCNN
 eval forward with grad enabled against the no_grad one, and the default
 run's path: the feature graph card against CPU, the dynamic step with its
 three transposes against the same step given none, test_pipeline card
-against CPU; the approximate top-k's bin kernel against its plain version,
-the approximate graph card against CPU, the splat's sorted scatter and
-segment_cases against a loop of segment_case.
+against CPU; the approximate top-k's fused row selection and bin pass
+against their plain versions, the feature graph on the fused selection
+against the stable sort it replaced, the approximate graph card against
+CPU, the splat's sorted scatter and segment_cases against a loop of
+segment_case.
 
 These tests need an NVIDIA card and skip elsewhere. The repository's
 tests/conftest.py imports jax, which the card's machine does not have, so
@@ -1226,11 +1228,130 @@ def test_bin_extrema_kernel_checks_input(cuda):
         bin_extrema(torch.zeros((100, 2), device=cuda).T, 128, 1)
 
 
+SELECT_CASES = [
+    # (rows, n, L, R): the kNN rows (L = 512 x 4) with a row count off the
+    # 8 rows a block handles, n off L * R, bins past the row's end (L > n),
+    # R = 1 (the exact feature graph), odd n (one element a lane, no
+    # vectors), and the fast-serving static graph's rows
+    (300, 2048, 512, 4),
+    (7, 5000, 1024, 5),
+    (3, 100, 128, 1),
+    (13, 2048, 2048, 1),
+    (9, 1001, 1001, 1),
+    (2, 4099, 1024, 5),
+]
+SELECT_KS = (1, 20, 40, 41, 128)
+
+
+def _tied_scores(rows, n, seed, dtype, largest):
+    """Integer-valued scores full of ties, signed zeros, negative values and
+    a masked share at -inf (+inf for the minimum)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(-10, 11, (rows, n), generator=g).float()
+    zero = x == 0
+    x[zero] = torch.where(torch.rand(int(zero.sum()), generator=g) < 0.5,
+                          -0.0, 0.0)
+    x[torch.rand((rows, n), generator=g) < 0.25] = \
+        -torch.inf if largest else torch.inf
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("largest", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,n,n_bins,red", SELECT_CASES)
+def test_select_rows_kernel_equals_plain(cuda, rows, n, n_bins, red, dtype,
+                                         largest):
+    """The fused row selection bit for bit against its plain version (the
+    bin pass's plain version, then the aggregation), for k in SELECT_KS up
+    to min(n, L): values with their own bits (-0.0 kept) and indices, int64
+    and int32, also from a row start off 16 bytes; one launch a call."""
+    from fissure_segmentation_tpu_torch.kernels.approx_topk import (
+        select_rows, select_rows_plain)
+    x = _tied_scores(rows, n, rows + n, dtype, largest).to(cuda)
+    off = torch.empty(rows * n + 1, dtype=dtype, device=cuda)[1:].view(
+        rows, n).copy_(x)
+    for k in SELECT_KS:
+        if k > min(n, n_bins):
+            continue
+        vp, ip = select_rows_plain(x, n_bins, red, k, largest)
+        before = select_rows.launches
+        for src, index in ((x, torch.int64), (x, torch.int32),
+                           (off, torch.int64)):
+            vk, ik = select_rows(src, n_bins, red, k, largest,
+                                 index_dtype=index)
+            torch.cuda.synchronize()
+            assert ik.dtype == index and vk.dtype == dtype
+            assert torch.equal(ik.long(), ip), (k, index)
+            assert torch.equal(vk, vp) and torch.equal(
+                torch.signbit(vk), torch.signbit(vp)), (k, index)
+        assert select_rows.launches == before + 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_select_rows_kernel_on_generic_scores(cuda, dtype):
+    """Generic floats of both signs at the kNN rows' bins and at R = 1,
+    both directions: equal to plain, and at R = 1 equal to torch.topk's
+    values (no ties)."""
+    from fissure_segmentation_tpu_torch.kernels.approx_topk import (
+        select_rows, select_rows_plain)
+    g = torch.Generator().manual_seed(40)
+    x = torch.randn((1000, 2048), generator=g).to(cuda, dtype)
+    for largest in (True, False):
+        for n_bins, red, k in ((512, 4, 40), (2048, 1, 41), (2048, 1, 128)):
+            got = select_rows(x, n_bins, red, k, largest)
+            want = select_rows_plain(x, n_bins, red, k, largest)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+        exact = torch.topk(x.float(), 41, dim=-1, largest=largest).values
+        assert torch.equal(select_rows(x, 2048, 1, 41, largest)[0].float(),
+                           exact)
+
+
+def test_select_rows_kernel_checks_input(cuda):
+    from fissure_segmentation_tpu_torch.kernels.approx_topk import \
+        select_rows
+    x = torch.zeros((2, 300), device=cuda)
+    with pytest.raises(ValueError, match="outside"):
+        select_rows(x, 300, 1, 129)
+    with pytest.raises(ValueError, match="exceed"):
+        select_rows(x, 10, 5, 3)
+    with pytest.raises(TypeError):
+        select_rows(x.half(), 300, 1, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        select_rows(torch.zeros((300, 2), device=cuda).T, 300, 1, 5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_feature_knn_on_card_equals_the_sort(cuda, dtype):
+    """feature_knn on the card (the fused selection at one element a bin)
+    equals the stable sort it replaced on the same distances, indices and
+    distances: generic features at the default run's (4, 2048, 64), kk =
+    41, and dyadic ones full of ties at kk = 1, 40, 128."""
+    from fissure_segmentation_tpu_torch.kernels.approx_topk import \
+        select_rows
+    from fissure_segmentation_tpu_torch.ops.knn import (feature_knn,
+                                                        pairwise_sqdist)
+    g = torch.Generator().manual_seed(41)
+    generic = torch.randn((4, 2048, 64), generator=g)
+    dyadic = torch.randint(-16, 17, (3, 700, 64), generator=g) / 16.0
+    for x, kks in ((generic, (41,)), (dyadic, (1, 40, 128))):
+        x = x.to(cuda, dtype)
+        d = pairwise_sqdist(x)
+        sd, si = torch.sort(d, dim=-1, stable=True)
+        for kk in kks:
+            before = select_rows.launches
+            idx, dist = feature_knn(x, kk)
+            assert select_rows.launches == before + 1
+            assert idx.dtype == torch.int32 and dist.dtype == dtype
+            assert torch.equal(idx, si[..., :kk].to(torch.int32))
+            assert torch.equal(dist, sd[..., :kk])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_approx_knn_on_card_equals_plain(cuda, dtype):
-    """The approximate graph on the card (the bin kernel) equals the one
-    its plain version selects from the same distances, at N = 2048 (four
-    scores a bin); self in slot 0."""
+    """The approximate graph on the card (the fused row selection) equals
+    the one its plain version selects from the same distances, at N = 2048
+    (four scores a bin); self in slot 0."""
     from fissure_segmentation_tpu_torch.ops.approx_topk import \
         approx_top_k_plain
     from fissure_segmentation_tpu_torch.ops.knn import (approx_knn,
