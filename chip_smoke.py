@@ -315,7 +315,29 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      default run's widths, 3 epochs, --train_only; model.pt keeps the
      recall), 10 timed bf16 steps dynamic and static with and without
      knn_recall, and time_keypoint_extraction on 2 copies of the 256^3
-     case (its six CSV files).
+     case (its six CSV files);
+ 45. corresponding points (phase_correspondences): 8 synthetic 256^3
+     cases, 3 fissure objects of 4096 voxels each (every case but the first
+     moved by a seeded similarity), generate_corresponding_points at its
+     defaults in "simple" mode (3 K5 launches) and "kmeans" (3 cases); ms
+     an iteration of the rigid (12 288^2) and deformable (4096^2) CPD loops
+     and their host syncs; the fixed transform the identity, cases closer
+     after registration; card against CPU on a cut;
+ 46. register_images through its entry at 256^3 (phase_register): the
+     case in HU against itself warped by a sinusoid, 50 Adam steps, the
+     warped image, the fields and TRE at 200 lung landmarks; the loss falls
+     and TRE improves; stage seconds and peak memory; the JAX test's
+     recovery bounds at 24^3; card against CPU at 64^3;
+ 47. evaluate_baselines through its entry (phase_baselines), "voxels" and
+     "subsample" on 2 synthetic 256^3 cases whose predictions are the
+     ground truth shifted by a voxel: the JAX entry's CSV layout, finite
+     values, K1 on its tiled branch held against its plain version; s/case
+     by stage; card against CPU at 64^3;
+ 48. the shape probes (phase_shape_probes): the three of
+     shape_sanity_checks at the entry's defaults within
+     tests/test_shape_sanity.py's bounds (the DG-SSM toy launching K1, the
+     transpose and K2), and fit_plane_to_fissure on each fissure of the
+     256^3 case.
 
 Kernel launch counts are set to 0 before each main path (phases 4, 10 and
 14 serving, phases 7, 11 and 17 training, phase 19 the probes, phase 20
@@ -323,11 +345,16 @@ the default entry run, phase 22 the PC-AE, phase 24 DSEG-AE after its seg
 fold is trained, phase 27 each train_seg_cnn run, phases 29 DPSR-Net and
 31 DG-SSM, phase 33 each process_case run, phase 35 the chain, phases 37
 PointNet, 39 DGCNN with both stems, 40 the affine experiments, 42 and 43
-a segment_cases batch, 44 the --knn_recall entry run) and read after it;
+a segment_cases batch, 44 the --knn_recall entry run, 45 the "simple"
+correspondences, 47 the two evaluate_baselines runs, 48 the DG-SSM toy)
+and read after it;
 the comparison launches of phases 3, 5, 6, 8, 9, 12, 13, 15, 16, 18, 21,
 23, 25, 26, 28, 30, 32, 34, 36, 38, 39's and 40's references, 41, 42's
-and 43's A/B runs and checks, of K3 and K4 timed at DPSR-Net's and the
-affine step's shapes, and of the probes' own checks are not counted.
+and 43's A/B runs and checks, 45's K5 check and reference, 47's K1 check
+and reference, of K3 and K4 timed at DPSR-Net's and the affine step's
+shapes, and of the probes' own checks are not counted. Phases 45, 47 and
+48 go into the "slice" rows as paths of their own ("correspondences": K5;
+"baselines": K1; "shape_probes": K1, the transpose, K2).
 Phase 44's launches count with the train paths; phases 42 and 43 add K1's
 and the gather-reduce's launches of their batch.
 The bin pass's row gives its launches by path (fast serving, the
@@ -6119,6 +6146,590 @@ def _bins_by_call(calls: dict, timed: dict) -> dict:
     return out
 
 
+# ---- the shape models and the scripts downstream of preprocessing
+# (phases 45-48) -------------------------------------------------------------
+
+CORR_CASES = 8            # synthetic 256^3 cases of the correspondences
+CORR_POINTS = 4096        # points drawn from each fissure label's voxels
+CORR_ITERS = 60           # rigid_iters = deform_iters, the entry's defaults
+# the kmeans mode on the first 2 cases: its host k-means over every moved
+# cloud (8 x 4096 points an object, 256 centres, 20 Lloyd rounds) and the
+# registrations of 7 cases would take about 40 s (3 cases took 15.5 s on
+# the H100's host); the cut is the number of cases, not a width
+CORR_KMEANS_CASES = 2
+# the card-vs-CPU reference: the first 3 cases at 256 points an object and
+# 32 correspondences (the CPU takes seconds an E-step at 4096);
+# phase_correspondences says why these limits
+CORR_REF = {"cases": 3, "points": 256, "n_per_object": 32}
+CORR_TOL = {"rotation": 1e-3, "translation": 1e-2, "scale": 1e-4,
+            "share": 0.9, "near": 1e-2, "mean_rtol": 0.05}
+# kernels/csrc/knn.cu stages KNN_SMEM_CLOUD = 192 KiB of cloud a block,
+# 16 384 xyz points; larger clouds take its tiled branch
+K1_STAGED_POINTS = 16384
+REG_LANDMARKS = 200
+REG_REF_SHAPE = (64, 64, 64)
+# phase_register says why
+REG_TOL = {"first_loss": 1e-4, "final_loss": 1e-3, "disp": 5e-2}
+EB_REF_SHAPE = (64, 64, 64)
+EB_TOL = 1e-3              # ASSD family, card against CPU (phase_baselines)
+
+
+@functools.lru_cache(maxsize=1)
+def _second_ct() -> dict:
+    from fissure_segmentation_tpu_torch.data.synthetic import \
+        make_synthetic_image_case
+    return make_synthetic_image_case(1, shape=SHAPE)
+
+
+def _ct(seed: int) -> dict:
+    """`make_synthetic_image_case(seed, shape=SHAPE)`; seeds 0 and 1 made
+    once (phases 45-48 share them), read-only."""
+    if seed == 0:
+        return _synthetic_ct_once()
+    if seed == 1:
+        return _second_ct()
+    from fissure_segmentation_tpu_torch.data.synthetic import \
+        make_synthetic_image_case
+    return make_synthetic_image_case(seed, shape=SHAPE)
+
+
+def _similarity(seed: int):
+    """A seeded similarity (rotation by 0.1 rad about a random axis, scale
+    within 5 %, translation within 8 voxels): how a case lies in its own
+    scan. Returns (R, s, t) for p -> (p - c) @ R^T * s + c + t."""
+    rng = np.random.default_rng(1000 + seed)
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]])
+    r = np.eye(3) + np.sin(0.1) * k + (1 - np.cos(0.1)) * (k @ k)
+    return r, 1 + rng.uniform(-0.05, 0.05), rng.uniform(-8, 8, 3)
+
+
+def _case_objects(seed: int) -> list:
+    """Case `seed`'s three fissure objects: CORR_POINTS voxels of each label
+    drawn by a numpy generator seeded `seed`, world xyz; every case but the
+    first moved by `_similarity(seed)` about the volume's centre."""
+    labels = _ct(seed)["labels"]
+    rng = np.random.default_rng(seed)
+    objs = []
+    for lbl in (1, 2, 3):
+        vox = np.argwhere(labels == lbl)[:, ::-1].astype(np.float32)
+        objs.append(vox[rng.choice(len(vox), CORR_POINTS, replace=False)])
+    if seed:
+        r, s, t = _similarity(seed)
+        c = (np.asarray(SHAPE[::-1], np.float64) - 1) / 2
+        objs = [((o - c) @ r.T * s + c + t).astype(np.float32)
+                for o in objs]
+    return objs
+
+
+def _check_correspondences(out, n_cases: int, what: str) -> dict:
+    """The fixed case's transform is the identity; finite points of the
+    right shape; the mean distance between corresponding points of a
+    moving case and the fixed case, in the fixed frame, is below the same
+    points' distance before registration (in the case's own frame, the
+    similarity undone). Returns both means."""
+    corr, labels, transforms = out
+    if corr.shape != (n_cases, 3 * 256, 3) or not np.isfinite(corr).all():
+        raise AssertionError(f"{what}: correspondences {corr.shape}")
+    if sorted(set(labels.tolist())) != [1, 2, 3]:
+        raise AssertionError(f"{what}: labels {set(labels.tolist())}")
+    t0 = transforms[0]
+    if not (np.array_equal(t0["rotation"], np.eye(3))
+            and not np.any(t0["translation"]) and t0["scale"] == 1.0):
+        raise AssertionError(f"{what}: the fixed case's transform {t0}")
+    after, before = [], []
+    for c in range(1, n_cases):
+        tr = transforms[c]
+        raw = ((corr[c] - tr["translation"]) / tr["scale"]) \
+            @ tr["rotation"].T
+        after.append(float(np.linalg.norm(corr[c] - corr[0], axis=1).mean()))
+        before.append(float(np.linalg.norm(raw - corr[0], axis=1).mean()))
+    if not np.mean(after) < np.mean(before):
+        raise AssertionError(f"{what}: {np.mean(after)} voxels between "
+                             f"cases after registration, {np.mean(before)} "
+                             "before")
+    return {"mean_dist_after": float(np.mean(after)),
+            "mean_dist_before": float(np.mean(before))}
+
+
+def phase_correspondences(ks, knn_cuda, card: str):
+    """Corresponding points at full width (`generate_corresponding_points`,
+    the defaults: 60 rigid and 60 deformable CPD iterations, 256 points an
+    object) over CORR_CASES synthetic 256^3 cases of 3 objects of
+    CORR_POINTS points (`_case_objects`): ms an iteration of each CPD loop
+    at the path's sizes (rigid 12 288 x 12 288, deformable M = N = 4096)
+    and the host synchronisations of one call of each
+    (`torch.cuda.set_sync_debug_mode`, where they happen); then 'simple'
+    mode over every case (counts from 0 before, read after: exactly 3 K5
+    launches, one an object, and no other kernel), K5 held against its
+    plain version at those calls, 'kmeans' on the first CORR_KMEANS_CASES;
+    `_check_correspondences` on both. Card against CPU on CORR_REF: the
+    similarity transforms within CORR_TOL, a CORR_TOL["share"] of the
+    corresponding points within CORR_TOL["near"] voxels and the mean
+    distance between cases within CORR_TOL["mean_rtol"]: the deformable
+    M-step's solve amplifies rounding once sigma^2 nears its floor, which
+    can move a nearest moved point (tests/test_torch_correspondences.py;
+    readings of the first H100 call: rotation 1.2e-6, translation 1.8e-4
+    voxels, scale 3e-7, every point within 1e-2, the mean distance 1.6e-6
+    apart). Returns (counts, K1/K2/K5 calls, timing)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fissure_segmentation_tpu_torch.kernels.fps import (fps_cuda,
+                                                            fps_plain)
+    from fissure_segmentation_tpu_torch.shape_model import \
+        generate_corresponding_points
+    from fissure_segmentation_tpu_torch.shape_model.registration import (
+        register_cpd_deformable, register_cpd_rigid)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(CORR_CASES) as pool:
+        cases = list(pool.map(_case_objects, range(CORR_CASES)))
+    timing = {"make_cases_s": time.perf_counter() - t0,
+              "points_per_label": [int((_ct(s)["labels"] == lbl).sum())
+                                   for s in (0, 1) for lbl in (1, 2, 3)]}
+    fixed = torch.from_numpy(np.concatenate(cases[0])).cuda()
+    moving = torch.from_numpy(np.concatenate(cases[1])).cuda()
+    obj_f = torch.from_numpy(cases[0][0]).cuda()
+    obj_m = torch.from_numpy(cases[1][0]).cuda()
+    loops = {"rigid": lambda: register_cpd_rigid(fixed, moving,
+                                                 max_iter=CORR_ITERS),
+             "deformable": lambda: register_cpd_deformable(
+                 obj_f, obj_m, max_iter=CORR_ITERS)}
+    for name, fn in loops.items():
+        fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        timing[f"{name}_ms_per_iter"] = \
+            (time.perf_counter() - t1) * 1e3 / CORR_ITERS
+        _, sites = _sync_sites(fn)
+        timing[f"{name}_host_syncs"] = sites
+    del fixed, moving
+    torch.cuda.empty_cache()
+
+    _reset(ks, knn_cuda)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = generate_corresponding_points(cases)
+    timing["simple_s"] = time.perf_counter() - t1
+    counts, calls = _counts(ks, knn_cuda), _slice_calls(ks, knn_cuda)
+    if counts["fps"] != 3 or any(n for k, n in counts.items() if k != "fps"):
+        raise AssertionError(f"correspondences: launches {counts}, not "
+                             "3 of K5 alone")
+    timing["simple"] = _check_correspondences(out, CORR_CASES, "simple")
+    for o in range(3):
+        x = torch.from_numpy(cases[0][o]).cuda()[None]
+        if not torch.equal(fps_cuda(x, 256), fps_plain(x, 256)):
+            raise AssertionError(f"correspondences: K5 differs from plain "
+                                 f"on object {o + 1}")
+    t1 = time.perf_counter()
+    kout = generate_corresponding_points(cases[:CORR_KMEANS_CASES],
+                                         mode="kmeans")
+    timing["kmeans_s"] = time.perf_counter() - t1
+    timing["kmeans"] = _check_correspondences(kout, CORR_KMEANS_CASES,
+                                              "kmeans")
+
+    ref = [[o[:CORR_REF["points"]] for o in c]
+           for c in cases[:CORR_REF["cases"]]]
+    kw = {"n_per_object": CORR_REF["n_per_object"]}
+    got = generate_corresponding_points(ref, device="cuda", **kw)
+    want = generate_corresponding_points(ref, device="cpu", **kw)
+    diff = {k: max(float(np.abs(np.asarray(a[k]) - np.asarray(b[k])).max())
+                   for a, b in zip(got[2], want[2]))
+            for k in ("rotation", "translation", "scale")}
+    near = float((np.linalg.norm(got[0] - want[0], axis=-1)
+                  <= CORR_TOL["near"]).mean())
+    mean_g = np.linalg.norm(got[0][1:] - got[0][:1], axis=-1).mean()
+    mean_w = np.linalg.norm(want[0][1:] - want[0][:1], axis=-1).mean()
+    timing["reference"] = {**diff, "near_share": near,
+                           "mean_dist_card": float(mean_g),
+                           "mean_dist_cpu": float(mean_w)}
+    if any(diff[k] > CORR_TOL[k] for k in diff) or near < CORR_TOL["share"] \
+            or abs(mean_g - mean_w) > CORR_TOL["mean_rtol"] * mean_w:
+        raise AssertionError(f"correspondences: card against CPU "
+                             f"{timing['reference']} over {CORR_TOL}")
+    print(f"correspondences: {json.dumps(timing)} on {card}", flush=True)
+    return counts, calls, timing
+
+
+def _sinusoid(shape, amp: float, device) -> torch.Tensor:
+    """tests/test_adam_registration.py's smooth normalized-xyz field, zero
+    near the faces."""
+    from fissure_segmentation_tpu_torch.shape_model.adam_registration import \
+        _identity_grid_xyz
+    idx = _identity_grid_xyz(shape, device)
+    window = torch.prod(torch.cos(idx * np.pi / 2) ** 2, dim=-1,
+                        keepdim=True)
+    return amp * torch.sin(idx * np.pi * 1.5) * window
+
+
+def _registration_pair(case: dict, device, amp: float = 0.05) -> dict:
+    """The case in HU as the moving image; the fixed image and its labels
+    are the moving ones warped by `_sinusoid` (labels nearest)."""
+    from fissure_segmentation_tpu_torch.shape_model.adam_registration import \
+        warp_volume
+    shape = tuple(case["image"].shape)
+    disp = _sinusoid(shape, amp, device)
+    mov = {"img": torch.from_numpy(case["image"] * 1000.0).to(device),
+           "mask": torch.from_numpy(case["lung_mask"]).to(device),
+           "fissures_poisson": torch.from_numpy(case["labels"]).to(device),
+           "lobes": torch.from_numpy(case["lobes"]).to(device)}
+    fix = {k: warp_volume(v.float(), disp, "bilinear" if k == "img"
+                          else "nearest") for k, v in mov.items()}
+    fix = {k: v if k == "img" else v.to(mov[k].dtype) for k, v in fix.items()}
+    return {"fix": fix, "mov": mov, "disp": disp}
+
+
+def _smooth_image(shape, seed: int, device) -> torch.Tensor:
+    """tests/test_adam_registration.py's band-limited volume (its
+    jax.image.resize upsampling is F.interpolate's trilinear,
+    align_corners=False)."""
+    small = np.random.RandomState(seed).randn(*[max(2, s // 4)
+                                                for s in shape])
+    img = torch.nn.functional.interpolate(
+        torch.from_numpy(small).float()[None, None].to(device), size=shape,
+        mode="trilinear", align_corners=False)[0, 0]
+    return img / (img.abs().max() + 1e-9)
+
+
+def _jax_test_recovery() -> dict:
+    """tests/test_adam_registration.py:47-78 on the card: 24^3, a sinusoid
+    of amplitude 0.08, 80 Adam steps at lr 0.5 and lambda 0.1; its bounds:
+    the loss falls below 0.3 x the first, the warped image's squared error
+    below 0.35 x the unregistered one, TRE at 50 landmarks below 0.6 x."""
+    from fissure_segmentation_tpu_torch.shape_model import adam_registration \
+        as ar
+    from fissure_segmentation_tpu_torch.utils.sampling import \
+        grid_sample_volume
+    shape = (24, 24, 24)
+    moving = _smooth_image(shape, 1, "cuda")
+    disp_gt = _sinusoid(shape, 0.08, "cuda")
+    fixed = ar.warp_volume(moving, disp_gt)
+    disp_lo, losses = ar.dense_adam_registration(
+        ar.downsample_mean(fixed[None], 2), ar.downsample_mean(moving[None], 2),
+        iters=80, lambda_weight=0.1, lr=0.5)
+    disp = ar.upsample_displacement(disp_lo, shape)
+    warped = ar.warp_volume(moving, disp)
+    lms = torch.from_numpy(np.random.RandomState(3).uniform(
+        -0.5, 0.5, (50, 3))).float().cuda()
+    lm_mov = lms + grid_sample_volume(disp_gt.permute(3, 0, 1, 2), lms).T
+    before, after = ar.landmark_tre_mm(lms, lm_mov, disp, (1.0, 1.0, 1.0))
+    out = {"loss_ratio": float(losses[-1] / losses[0]),
+           "error_ratio": float(torch.mean((warped - fixed) ** 2)
+                                / torch.mean((moving - fixed) ** 2)),
+           "tre_ratio": float(after.mean() / before.mean())}
+    if not (out["loss_ratio"] < 0.3 and out["error_ratio"] < 0.35
+            and out["tre_ratio"] < 0.6):
+        raise AssertionError(f"register: the JAX test's bounds {out}")
+    return out
+
+
+def phase_register(card: str) -> dict:
+    """register_images at full width through the entry (`main()`, its
+    defaults: 50 Adam steps, lambda 0.65, lr 1, the warped image, the
+    disp/disp_lo npz and TRE): the moving image is the shared 256^3 case
+    in HU with its lung mask, fissure labels and lobes, the fixed one that
+    warped by `_sinusoid` (amplitude 0.05; labels nearest), as uncompressed
+    NIfTI files found by the entry's naming; REG_LANDMARKS landmarks on
+    lung voxels of the fixed image, the moving ones displaced by the
+    sinusoid. Checks: the loss falls, TRE after below TRE before, the
+    files' shapes; the synced seconds of each stage (io, features, the
+    Adam loop and its ms a step, upsample, warp) and the peak memory. Then
+    `_jax_test_recovery`, and card against CPU at REG_REF_SHAPE (the same
+    pair, `register_images`' defaults): the first loss within
+    REG_TOL["first_loss"], the last within REG_TOL["final_loss"], the mean
+    |disp difference| within REG_TOL["disp"] x the mean |disp| (readings
+    of the first H100 call: 1.2e-7, 1.2e-7, 1.7e-6). The field starts at
+    zero, on the kinks of the trilinear interpolation, where the one-sided
+    derivative follows the last bit of a coordinate, and Adam's first
+    steps are +-lr whatever a gradient's size: a rounding difference there
+    sends a voxel's steps another way (between the port and JAX's fused
+    XLA code at 24^3 the field moved by 17 % of its largest entry,
+    tests/test_torch_adam_registration.py), which the limits leave room
+    for."""
+    from fissure_segmentation_tpu_torch import register_images
+    from fissure_segmentation_tpu_torch.shape_model import adam_registration \
+        as ar
+    from fissure_segmentation_tpu_torch.utils.coords import kpts_to_grid
+    from fissure_segmentation_tpu_torch.utils.nifti import load_nifti, save_nifti
+    from fissure_segmentation_tpu_torch.utils.sampling import \
+        grid_sample_volume
+    case = _synthetic_ct_once()
+    pair = _registration_pair(case, "cuda")
+    with tempfile.TemporaryDirectory() as d:
+        paths = {}
+        for side in ("fix", "mov"):
+            for k, v in pair[side].items():
+                paths[(side, k)] = os.path.join(d, f"case_{k}_{side}.nii")
+                save_nifti(paths[(side, k)], v.cpu().numpy())
+        rng = np.random.default_rng(46)
+        lung = np.argwhere(pair["fix"]["mask"].cpu().numpy())
+        pick = lung[rng.choice(len(lung), REG_LANDMARKS, replace=False)]
+        lm_fix = kpts_to_grid(pick[:, ::-1].astype(np.float32), SHAPE)
+        lm_fix_t = torch.from_numpy(np.ascontiguousarray(lm_fix)).cuda()
+        lm_mov = (lm_fix_t + grid_sample_volume(
+            pair["disp"].permute(3, 0, 1, 2), lm_fix_t).T).cpu().numpy()
+        np.savez(os.path.join(d, "lms.npz"), lm_fix=lm_fix, lm_mov=lm_mov)
+        argv = ["-F", paths[("fix", "img")], "-M", paths[("mov", "img")],
+                "-f", paths[("fix", "mask")], "-m", paths[("mov", "mask")],
+                "-w", os.path.join(d, "warped.nii"),
+                "-d", os.path.join(d, "disp.npz"),
+                "-l", os.path.join(d, "lms.npz")]
+        del pair
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        stages = {}
+        t0 = time.perf_counter()
+        res = register_images.main(argv, stages=stages)
+        took = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        losses = res["losses"].cpu().numpy()
+        warped = load_nifti(os.path.join(d, "warped.nii")).array
+        with np.load(os.path.join(d, "disp.npz")) as z:
+            shapes = (z["disp"].shape, z["disp_lo"].shape)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"register: losses {losses[0]} -> {losses[-1]}")
+    before, after = res["tre"]
+    if not after < before:
+        raise AssertionError(f"register: TRE {before} -> {after} mm")
+    lo = tuple(s // 2 for s in SHAPE)
+    if warped.shape != SHAPE or shapes != ((*SHAPE, 3), (*lo, 3)):
+        raise AssertionError(f"register: outputs {warped.shape} {shapes}")
+    del res
+    torch.cuda.empty_cache()
+    timing = {"entry_s": took, "stages_s": stages,
+              "adam_ms_per_step": stages["adam"] * 1e3 / len(losses),
+              "peak_gib": peak / 2 ** 30, "loss_first": float(losses[0]),
+              "loss_last": float(losses[-1]), "tre_before_mm": before,
+              "tre_after_mm": after, "jax_test": _jax_test_recovery()}
+
+    from fissure_segmentation_tpu_torch.data.synthetic import \
+        make_synthetic_image_case
+    small = make_synthetic_image_case(0, shape=REG_REF_SHAPE)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        p = _registration_pair(small, dev)
+        outs[dev] = ar.register_images(
+            p["fix"]["img"], p["mov"]["img"], mask_fix=p["fix"]["mask"],
+            mask_mov=p["mov"]["mask"], fissures_fix=p["fix"]["fissures_poisson"],
+            fissures_mov=p["mov"]["fissures_poisson"],
+            lobes_fix=p["fix"]["lobes"], lobes_mov=p["mov"]["lobes"])
+    lg, lw = outs["cuda"]["losses"].cpu().numpy(), outs["cpu"]["losses"].numpy()
+    dg, dw = outs["cuda"]["disp"].cpu().numpy(), outs["cpu"]["disp"].numpy()
+    ref = {"first_loss": float(abs(lg[0] / lw[0] - 1)),
+           "final_loss": float(abs(lg[-1] / lw[-1] - 1)),
+           "disp": float(np.abs(dg - dw).mean() / np.abs(dw).mean())}
+    timing["reference"] = ref
+    if any(ref[k] > REG_TOL[k] for k in ref):
+        raise AssertionError(f"register: card against CPU {ref} over "
+                             f"{REG_TOL}")
+    print(f"register: {json.dumps(timing)} on {card}", flush=True)
+    return timing
+
+
+def _write_case_layout(folder: str, case: dict, pred_dir: str) -> None:
+    """One case in LungDataIndex's layout (the image in HU as int16, the
+    fissure labels, the lung mask) and its prediction: the ground-truth
+    fissures shifted by one voxel along z."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fissure_segmentation_tpu_torch.utils.nifti import save_nifti
+    cid = case["case_id"]
+    files = [(os.path.join(folder, f"{cid}_img_fixed.nii.gz"),
+              (case["image"] * 1000.0).astype(np.int16)),
+             (os.path.join(folder, f"{cid}_fissures_fixed.nii.gz"),
+              case["labels"].astype(np.uint8)),
+             (os.path.join(folder, f"{cid}_mask_fixed.nii.gz"),
+              case["lung_mask"].astype(np.uint8)),
+             (os.path.join(pred_dir, f"{cid}_fixed.nii.gz"),
+              np.roll(case["labels"], 1, axis=0).astype(np.uint8))]
+    with ThreadPoolExecutor(len(files)) as pool:
+        list(pool.map(lambda f: save_nifti(*f), files))
+
+
+def _baseline_csvs(out: str, mode: str, n_fissures: int = 3) -> dict:
+    """The JAX entry's CSV layout (write_results' rows, the CPU test holds
+    the port's against the JAX entry's) with finite values; returns the
+    numeric rows."""
+    rows = _csv(os.path.join(out, "fold0", f"test_results_{mode}.csv"))
+    if [r[0] if r else None for r in rows] != RESULT_ROWS or \
+            any(len(r) != n_fissures + 2 for r in rows if r and
+                r[0] != "Class"):
+        raise AssertionError(f"baselines {mode}: layout {rows}")
+    cv = _csv(os.path.join(out, f"cv_results_{mode}.csv"))
+    if cv[0] != ["fold", "assd", "dice"] or len(cv) != 2:
+        raise AssertionError(f"baselines {mode}: cv_results {cv}")
+    values = {r[0]: np.asarray(r[1:], float) for r in rows
+              if r and r[0] not in ("Class", "Fissure")}
+    if not all(np.isfinite(v).all() for v in values.values()) or \
+            not np.isfinite(np.asarray(cv[1], float)).all():
+        raise AssertionError(f"baselines {mode}: values {values} {cv}")
+    return values
+
+
+def phase_baselines(ks, knn_cuda, card: str):
+    """evaluate_baselines through its entry (`main()`) in the modes
+    "voxels" and "subsample" (20 000 points) on the shared 256^3 cases 0
+    and 1 written in LungDataIndex's layout, each prediction its ground
+    truth shifted by one voxel (counts from 0 before the two runs, read
+    after: K1 alone, the Poisson fits' normals, at least one call on its
+    tiled branch, above K1_STAGED_POINTS points): `_baseline_csvs`; s/case
+    by stage (reading, fits, surface samples, metrics); K1 held against
+    its plain version at the voxels run's clouds (`phase_preprocess_
+    kernels`). Then card against CPU on one EB_REF_SHAPE case with the same
+    surface-sample draws: Dice and the missing share equal, the ASSD family
+    within rtol EB_TOL (K1 equals its plain version; the PSR's FFTs and the
+    metrics' sums differ by rounding). Returns (counts, calls, K1 timings,
+    timing)."""
+    from fissure_segmentation_tpu_torch import evaluate_baselines
+    from fissure_segmentation_tpu_torch.data.synthetic import \
+        make_synthetic_image_case
+    from fissure_segmentation_tpu_torch.utils.coords import kpts_to_grid
+    timing, clouds = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        data, preds = os.path.join(d, "data"), os.path.join(d, "preds")
+        os.makedirs(data)
+        os.makedirs(preds)
+        t0 = time.perf_counter()
+        for seed in (0, 1):
+            _write_case_layout(data, _ct(seed), preds)
+        timing["write_s"] = time.perf_counter() - t0
+        for seed in (0, 1):
+            pred = np.roll(_ct(seed)["labels"], 1, axis=0)
+            for lbl in (1, 2, 3):
+                world = np.argwhere(pred == lbl)[:, ::-1].astype(np.float32)
+                g = np.ascontiguousarray(kpts_to_grid(world, SHAPE)[:, ::-1])
+                clouds[f"case{seed}_{lbl}"] = torch.from_numpy(g)[None].cuda()
+        _reset(ks, knn_cuda)
+        for mode in ("voxels", "subsample"):
+            stages = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            evaluate_baselines.main(
+                ["--result_dir", preds, "--data_dir", data, "--output",
+                 os.path.join(d, mode), "--mode", mode], stages=stages)
+            took = time.perf_counter() - t0
+            values = _baseline_csvs(os.path.join(d, mode), mode)
+            timing[mode] = {"s_per_case": took / 2,
+                            "stages_s_per_case": {k: v / 2 for k, v in
+                                                  stages.items()},
+                            "mean_assd": values["Mean ASSD"].tolist(),
+                            "mean_dice": values["Mean Dice"].tolist()}
+        counts, calls = _counts(ks, knn_cuda), _slice_calls(ks, knn_cuda)
+    tiled = sum(n for key, n in calls["knn"].items()
+                if int(key.split("x")[1]) > K1_STAGED_POINTS)
+    if any(n for k, n in counts.items() if k != "knn") or tiled < 1:
+        raise AssertionError(f"baselines: launches {counts}, K1 calls "
+                             f"{calls['knn']}")
+    timing["k1_calls"], timing["k1_tiled_launches"] = calls["knn"], tiled
+    k1, _, _ = phase_preprocess_kernels(clouds, {})
+    del clouds
+    torch.cuda.empty_cache()
+
+    small = make_synthetic_image_case(0, shape=EB_REF_SHAPE)
+    g = torch.Generator().manual_seed(47)
+    draws = {(small["case_id"], "fixed"): {
+        lbl: (torch.rand((10000,), generator=g),
+              torch.rand((10000, 2), generator=g)) for lbl in (1, 2, 3)}}
+    got = {}
+    with tempfile.TemporaryDirectory() as d:
+        data, preds = os.path.join(d, "data"), os.path.join(d, "preds")
+        os.makedirs(data)
+        os.makedirs(preds)
+        _write_case_layout(data, small, preds)
+        for dev in ("cuda", "cpu"):
+            evaluate_baselines.main(
+                ["--result_dir", preds, "--data_dir", data, "--output",
+                 os.path.join(d, dev)], device=dev, draws=draws)
+            got[dev] = _baseline_csvs(os.path.join(d, dev), "voxels")
+    rel = 0.0
+    for name, want in got["cpu"].items():
+        have = got["cuda"][name]
+        if name.endswith("Dice") or name == "proportion missing":
+            if not np.array_equal(have, want):
+                raise AssertionError(f"baselines: {name} card {have}, CPU "
+                                     f"{want}")
+            continue
+        rel = max(rel, float(np.max(np.abs(have - want)
+                                    / np.maximum(np.abs(want), 1e-12))))
+    timing["reference_assd_family_rtol"] = rel
+    if rel > EB_TOL:
+        raise AssertionError(f"baselines: card against CPU rtol {rel} > "
+                             f"{EB_TOL}")
+    print(f"baselines: {json.dumps(timing)} on {card}", flush=True)
+    return counts, calls, k1, timing
+
+
+def phase_shape_probes(ks, knn_cuda, card: str):
+    """The three probes of shape_sanity_checks at the entry's defaults, held
+    to tests/test_shape_sanity.py's bounds (weights: error below 0.05;
+    eigenvectors: below max(3 x the PCA optimum, 0.02); the DG-SSM toy,
+    30 epochs x 10 steps of 8 x 256 points, k = 10, static: the last
+    epoch's error below 0.9 x the first; counts from 0 before the toy,
+    read after: a step launches K1 once, the transpose once and K2 four
+    times, nothing else), and `fit_plane_to_fissure` on each fissure's
+    voxels of the shared 256^3 case: a unit normal, and a Huber objective
+    no larger than the least-squares start's. Returns (counts, calls,
+    timing)."""
+    import torch.nn.functional as F
+
+    from fissure_segmentation_tpu_torch import shape_sanity_checks as sanity
+    from fissure_segmentation_tpu_torch.postprocess.plane_fitting import (
+        fit_plane_to_fissure, plane_from_points_lstsq)
+    timing = {}
+    t0 = time.perf_counter()
+    err, base = sanity.sanity_check_weights(verbose=False)
+    timing["weights"] = {"s": time.perf_counter() - t0, "error": err,
+                         "baseline": base}
+    if not err < 0.05:
+        raise AssertionError(f"probes: weights {err} (baseline {base})")
+    t0 = time.perf_counter()
+    err, opt = sanity.sanity_check_eigenvectors(verbose=False)
+    timing["eigenvectors"] = {"s": time.perf_counter() - t0, "error": err,
+                              "optimum": opt}
+    if not err < max(3 * opt, 0.02):
+        raise AssertionError(f"probes: eigenvectors {err} (optimum {opt})")
+    _reset(ks, knn_cuda)
+    t0 = time.perf_counter()
+    errs = sanity.dgssm_rigid_toy_example(verbose=False)
+    timing["dgssm"] = {"s": time.perf_counter() - t0, "first": errs[0],
+                       "last": errs[-1]}
+    counts, calls = _counts(ks, knn_cuda), _slice_calls(ks, knn_cuda)
+    steps = 300
+    want = {"knn": steps, "transpose": steps, "scatter_rows": 4 * steps}
+    if not errs[-1] < 0.9 * errs[0] or \
+            any(counts[k] != want.get(k, 0) for k in counts):
+        raise AssertionError(f"probes: dgssm errors {errs[0]} -> {errs[-1]},"
+                             f" launches {counts}")
+    labels = _synthetic_ct_once()["labels"]
+    timing["planes"] = {}
+    for lbl in (1, 2, 3):
+        pts = torch.from_numpy(
+            np.argwhere(labels == lbl)[:, ::-1].astype(np.float32)).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n, d = fit_plane_to_fissure(pts)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        n0, d0 = plane_from_points_lstsq(pts)
+
+        def huber(n_, d_):
+            dist = pts @ n_ - d_
+            return float(F.huber_loss(dist, torch.zeros_like(dist),
+                                      delta=1.0))
+        fit, start = huber(n, d), huber(n0, d0)
+        timing["planes"][lbl] = {"s": took, "points": len(pts),
+                                 "huber": fit, "huber_lstsq": start}
+        if abs(float(torch.linalg.norm(n)) - 1) > 1e-5 or not fit <= start:
+            raise AssertionError(f"probes: plane {lbl}: |n| "
+                                 f"{float(torch.linalg.norm(n))}, Huber "
+                                 f"{fit} against {start}")
+    print(f"shape probes: {json.dumps(timing)} on {card}", flush=True)
+    return counts, calls, timing
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -6407,9 +7018,41 @@ def _main() -> int:
     gr_calls.append(knn09_gr)
     print(json.dumps({"knn_recall_train": knn09_timing, "card": card}),
           flush=True)
+
+    # 45. corresponding points over 8 cases (counts from 0 before the
+    # 'simple' run, read after it)
+    t45 = time.perf_counter()
+    corr_counts, corr_calls, corr_timing = phase_correspondences(
+        ks, knn_cuda, card)
+    print(json.dumps({"correspondences": corr_timing, "card": card}),
+          flush=True)
+
+    # 46. register_images through its entry at 256^3
+    t46 = time.perf_counter()
+    print(json.dumps({"register_images": phase_register(card),
+                      "card": card}), flush=True)
+
+    # 47. evaluate_baselines in both modes (counts from 0 before the two
+    # runs, read after them)
+    t47 = time.perf_counter()
+    eb_counts, eb_calls, eb_k1, eb_timing = phase_baselines(ks, knn_cuda,
+                                                            card)
+    print(json.dumps({"baselines": eb_timing, "card": card}), flush=True)
+    timings.update(eb_k1)
+
+    # 48. the shape probes (counts from 0 before the DG-SSM toy, read
+    # after it) and the plane fits
+    t48 = time.perf_counter()
+    shape_counts, shape_calls, shape_timing = phase_shape_probes(
+        ks, knn_cuda, card)
+    print(json.dumps({"shape_probes": shape_timing, "card": card}),
+          flush=True)
+    slice_paths.update(correspondences=corr_calls, baselines=eb_calls,
+                       shape_probes=shape_calls)
     print(json.dumps({"phase_s": {
-        "41": t42 - t41, "42": t43 - t42, "43": t44 - t43,
-        "44": time.perf_counter() - t44}}), flush=True)
+        "41": t42 - t41, "42": t43 - t42, "43": t44 - t43, "44": t45 - t44,
+        "45": t46 - t45, "46": t47 - t46, "47": t48 - t47,
+        "48": time.perf_counter() - t48}}), flush=True)
 
     def slice_row(name, timed):
         """The slice's launches of a kernel, by path and by call."""
@@ -6418,7 +7061,10 @@ def _main() -> int:
                     "preprocess": pre_counts["foerstner"][name],
                     "preprocess_cnn": pre_counts["cnn"][name],
                     "pointnet": pn_counts[name], "stems": st_counts[name],
-                    "affine": af_counts[name]}
+                    "affine": af_counts[name],
+                    "correspondences": corr_counts[name],
+                    "baselines": eb_counts[name],
+                    "shape_probes": shape_counts[name]}
         row = {"launches": launches}
         if name in ("knn", "scatter_rows", "fps"):
             row["by_call"] = slice_by_call(name, slice_paths, timed)
@@ -6468,7 +7114,7 @@ def _main() -> int:
         + pcae_counts["knn"] + dseg_counts["knn"] + dpsr_counts["knn"]
         + dgssm_counts["knn"] + pre_counts["foerstner"]["knn"]
         + pre_counts["cnn"]["knn"] + pn_counts["knn"] + af_counts["knn"]
-        + serve_total["knn"],
+        + serve_total["knn"] + eb_counts["knn"] + shape_counts["knn"],
         "max_abs_err": max_err, "ms": graph["ms"],
         "plain_ms": graph["plain_ms"], "bound_ms": graph["bound_ms"],
         "bound_by": graph["bound_by"], "library_ms": None,
@@ -6480,7 +7126,8 @@ def _main() -> int:
                "replaces": SCATTER_REPLACES[name],
                "launches": train_total[name] + pcae_counts[name]
                + dseg_counts[name] + dpsr_counts[name]
-               + dgssm_counts[name] + af_counts[name] + serve_total[name],
+               + dgssm_counts[name] + af_counts[name] + serve_total[name]
+               + shape_counts[name],
                "max_abs_err": err,
                "ms": path["ms"], "plain_ms": path["plain_ms"],
                "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
@@ -6537,7 +7184,8 @@ def _main() -> int:
     kernels.append({
         "name": "fps", "route": "cuda", "source": FPS_SOURCE,
         "replaces": FPS_REPLACES,
-        "launches": pt_serving["fps"] + pt_counts["fps"] + dseg_counts["fps"],
+        "launches": pt_serving["fps"] + pt_counts["fps"] + dseg_counts["fps"]
+        + corr_counts["fps"],
         "max_abs_err": fps_err, "ms": step["ms"],
         "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
         "bound_by": step["bound_by"], "library_ms": None,

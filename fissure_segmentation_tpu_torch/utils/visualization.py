@@ -1,6 +1,8 @@
-"""The test pipeline's point-cloud plot (a copy of `plot_point_cloud` and its
-helpers from the JAX package's utils/visualization.py, held equal to the
-original by tests/test_torch_repairs.py).
+"""The test pipeline's point-cloud plot and the figure scripts' slice
+overlays (copies of `plot_point_cloud`, `visualize_with_overlay`,
+`legend_figure` and their helpers from the JAX package's
+utils/visualization.py, held equal to the originals by
+tests/test_torch_repairs.py and tests/test_torch_baselines.py).
 
 matplotlib is imported at the call, never with the module: a machine
 without it (`matplotlib_available()` is False) runs everything else, and the
@@ -74,3 +76,49 @@ def _finish(fig, path, show):
     if show:  # pragma: no cover - interactive
         plt.show()
     plt.close(fig)
+
+
+def visualize_with_overlay(image: np.ndarray, segmentation: np.ndarray,
+                           title: str = "", alpha: float = 0.5, ax=None,
+                           path: str | None = None, show: bool = False,
+                           colors=None, spacing=None):
+    """2-D image + translucent label overlay (visualization.py:78-113).
+
+    :param colors: optional sequence of matplotlib colors; label L uses
+        colors[L-1] (reference qualitative.py:73,116 passes explicit
+        per-model / per-class colors); default is color_for_label
+    :param spacing: optional (row, col) pixel spacing -> anisotropic aspect
+    """
+    plt = _plt()
+    fig = None
+    if ax is None:
+        fig, ax = plt.subplots()
+    aspect = 1.0 if spacing is None else spacing[0] / spacing[1]
+    ax.imshow(np.asarray(image), cmap="gray", aspect=aspect)
+    seg = np.asarray(segmentation)
+    overlay = np.zeros((*seg.shape, 4), np.float32)
+    from matplotlib.colors import to_rgba
+    for lbl in np.unique(seg):
+        if lbl == 0:
+            continue
+        color = (colors[(int(lbl) - 1) % len(colors)] if colors is not None
+                 else color_for_label(lbl))
+        overlay[seg == lbl] = to_rgba(color, alpha)
+    ax.imshow(overlay, aspect=aspect)
+    ax.set_title(title)
+    ax.axis("off")
+    if fig is not None:
+        _finish(fig, path, show)
+    return ax
+
+
+def legend_figure(labels, colors, path: str | None = None, show: bool = False):
+    """Standalone color legend (reference visualization.py legend_figure,
+    used by qualitative.py:76,120)."""
+    plt = _plt()
+    from matplotlib.patches import Patch
+    fig, ax = plt.subplots(figsize=(2, 0.4 * len(labels) + 0.4))
+    handles = [Patch(color=c, label=l) for l, c in zip(labels, colors)]
+    ax.legend(handles=handles, loc="center", frameon=False)
+    ax.axis("off")
+    _finish(fig, path, show)

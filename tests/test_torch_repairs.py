@@ -24,6 +24,7 @@ from fissure_segmentation_tpu.utils import coords as jcoords
 from fissure_segmentation_tpu.utils import mesh_viewer as jmesh_viewer
 from fissure_segmentation_tpu.utils import nifti as jnifti
 from fissure_segmentation_tpu.utils import objio as jobjio
+from fissure_segmentation_tpu.utils import tables as jtables
 from fissure_segmentation_tpu.utils import visualization as jvisualization
 from fissure_segmentation_tpu_torch import cli, native, train_point_seg
 from fissure_segmentation_tpu_torch.data import synthetic
@@ -35,7 +36,8 @@ from fissure_segmentation_tpu_torch.serving import segment_case
 from fissure_segmentation_tpu_torch.train.trainer import ModelTrainer
 from fissure_segmentation_tpu_torch.utils import (coords, detached_run,
                                                   image_ops, mesh_viewer,
-                                                  nifti, objio, visualization)
+                                                  nifti, objio, tables,
+                                                  visualization)
 
 PARSERS = ["get_dgcnn_train_parser", "get_point_segmentation_parser",
            "get_dpsr_train_parser", "get_seg_cnn_train_parser",
@@ -138,12 +140,13 @@ def test_native_copy_equals_original():
 
 COPIES = {"nifti": (nifti, jnifti), "objio": (objio, jobjio),
           "mesh_viewer": (mesh_viewer, jmesh_viewer),
-          "detached_run": (detached_run, jdetached_run)}
+          "detached_run": (detached_run, jdetached_run),
+          "tables": (tables, jtables)}
 
 
 @pytest.mark.parametrize("name", sorted(COPIES))
 def test_host_utils_copy_is_the_original(name):
-    """utils/{nifti,objio,mesh_viewer}.py are the JAX package's modules
+    """utils/{nifti,objio,mesh_viewer,detached_run,tables}.py are the JAX package's modules
     but for the lines of the docstring that say they are copies."""
     import inspect
     mine = inspect.getsource(COPIES[name][0]).splitlines()
@@ -244,6 +247,38 @@ def test_train_point_seg_raises_without_card(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA card"):
         train_point_seg.main(argv)
     assert not out.exists()            # raised before writing anything
+
+
+def _downstream_entries(tmp_path):
+    from fissure_segmentation_tpu_torch import (evaluate_baselines,
+                                                register_images,
+                                                shape_sanity_checks)
+    from fissure_segmentation_tpu_torch.shape_model import \
+        generate_corresponding_points
+    pts = np.random.default_rng(0).normal(size=(2, 20, 3))
+    return {
+        "register_images": lambda: register_images.main(
+            ["-F", "f", "-M", "m", "-f", "fm", "-m", "mm", "-d",
+             str(tmp_path / "out" / "d.npz")]),
+        "evaluate_baselines": lambda: evaluate_baselines.main(
+            ["--result_dir", str(tmp_path), "--data_dir", str(tmp_path),
+             "--output", str(tmp_path / "out")]),
+        "shape_sanity_checks": lambda: shape_sanity_checks.main(
+            ["--probe", "weights"]),
+        "generate_corresponding_points":
+            lambda: generate_corresponding_points([list(pts), list(pts)])}
+
+
+@pytest.mark.parametrize("name", ["register_images", "evaluate_baselines",
+                                  "shape_sanity_checks",
+                                  "generate_corresponding_points"])
+def test_downstream_entries_raise_without_card(no_card, tmp_path, name):
+    """The entries downstream of preprocessing (and the correspondences)
+    run on the card by default and, without one, raise before reading or
+    writing anything."""
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        _downstream_entries(tmp_path)[name]()
+    assert not (tmp_path / "out").exists()
 
 
 def test_model_trainer_raises_without_card(no_card, tmp_path):

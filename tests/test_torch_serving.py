@@ -140,7 +140,13 @@ def test_port_runs_without_jax():
                  "preprocess_dataset", "models.pointnet", "models.affine",
                  "affine_experiments", "ops.approx_topk",
                  "kernels.approx_topk", "time_keypoint_extraction",
-                 "train.fast_variant_eval"):
+                 "train.fast_variant_eval", "shape_model.registration",
+                 "shape_model.correspondences",
+                 "shape_model.adam_registration", "shape_model.qualitative",
+                 "postprocess.plane_fitting", "utils.tables",
+                 "register_images", "shape_sanity_checks",
+                 "evaluate_baselines", "compute_fraction_of_fissures",
+                 "qualitative_plots"):
         assert f"fissure_segmentation_tpu_torch.{name}" in _port_modules()
     code = textwrap.dedent(f"""
         import importlib
