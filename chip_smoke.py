@@ -337,7 +337,44 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      shape_sanity_checks at the entry's defaults within
      tests/test_shape_sanity.py's bounds (the DG-SSM toy launching K1, the
      transpose and K2), and fit_plane_to_fissure on each fissure of the
-     256^3 case.
+     256^3 case;
+ 49-52. the parallel layer (phases_parallel), in two ranks spawned on the
+     one card: a two-rank gloo group (both ranks compute on cuda:0; the
+     collectives go through host memory, send and receive through pinned
+     host copies, which the phase prints) and, in rank 0, a one-rank NCCL
+     subgroup.
+ 49. data-parallel training at the default run's width (DGCNNSeg k = 40,
+     dynamic, bf16, 32 x 2048 a step, 16 a rank on two ranks): ten steps
+     on each group against the single-device trainer at the same seed
+     (the trajectory within rtol = atol = 3e-2, JAX's own bound); one
+     static f32 step on an injected batch: the loss within 1e-5 relative,
+     each gradient within 4x the single device's own reduction-order
+     spread (the same step with the batch's halves swapped) or 1e-2 of
+     its leaf's largest magnitude, the whole gradient within 4x that
+     spread in relative L2; the one-rank NCCL step within 1e-6 of the
+     no-group one (its operations are the single path's); ms/step, peak
+     memory and busy share of each layout; then train_point_seg --dp for
+     one epoch of fold 0 (one card: the single-rank path);
+ 50. the sharded subset ensemble in serving (the 256^3 case's 20 000
+     Förstner keypoints, DGCNNSeg k = 40 static f32, 50 x 2048 subsets in
+     groups of 5) against ensemble_predict on the same subsets:
+     probabilities within 1e-5, the argmax equal wherever the top two are
+     more than 1e-4 apart, the PSR/marching meshes equal for every class
+     whose keypoints agree;
+ 51. the z-slab sliding window of MobileNetASPP (K6 in every block) on
+     the 256^3 CT, patch 128^3, overlap 0.5, two ranks, f32, against
+     predict_all_patches within atol 2e-5;
+ 52. the ring kNN of the case's keypoints (k = 40, no self loop) against
+     K1's dense graph: sorted distances within 1e-4 relative plus 8 eps32
+     of the largest |x|^2 (the ring's tile is the JAX formula, K1 sums
+     exact squares), indices equal but at near-ties (counted), every merge
+     selection equal to
+     select_rows_plain bit for bit, the merge's calls timed; then
+     parallel/dryrun.py:dryrun_multichip over two gloo ranks on the card
+     (its defaults). Every call the parallel paths make of K1, K2, the
+     transpose, K3 (at its own payload type) and K4 at a shape the earlier
+     phases do not check is held against its plain version at that shape
+     and timed (par_kernel_checks).
 
 Kernel launch counts are set to 0 before each main path (phases 4, 10 and
 14 serving, phases 7, 11 and 17 training, phase 19 the probes, phase 20
@@ -346,15 +383,22 @@ fold is trained, phase 27 each train_seg_cnn run, phases 29 DPSR-Net and
 31 DG-SSM, phase 33 each process_case run, phase 35 the chain, phases 37
 PointNet, 39 DGCNN with both stems, 40 the affine experiments, 42 and 43
 a segment_cases batch, 44 the --knn_recall entry run, 45 the "simple"
-correspondences, 47 the two evaluate_baselines runs, 48 the DG-SSM toy)
-and read after it;
+correspondences, 47 the two evaluate_baselines runs, 48 the DG-SSM toy, in each rank of phases 49-52 each path: the ten
+training steps, the ensemble, the window, the ring; phase 49's --dp entry
+run) and read after it;
 the comparison launches of phases 3, 5, 6, 8, 9, 12, 13, 15, 16, 18, 21,
 23, 25, 26, 28, 30, 32, 34, 36, 38, 39's and 40's references, 41, 42's
 and 43's A/B runs and checks, 45's K5 check and reference, 47's K1 check
 and reference, of K3 and K4 timed at DPSR-Net's and the affine step's
 shapes, and of the probes' own checks are not counted. Phases 45, 47 and
 48 go into the "slice" rows as paths of their own ("correspondences": K5;
-"baselines": K1; "shape_probes": K1, the transpose, K2).
+"baselines": K1; "shape_probes": K1, the transpose, K2). Phases 49-52
+add their launches to every row they launch and give them in a
+"parallel" entry by path and layout (K6's in "by_path" as
+"parallel_window"; the fused row selection's in "by_path" as "parallel",
+its ring-merge calls in "by_call" with their times); K3's by_call adds
+the parallel calls, priced at their shape with a float32 payload, K4's
+the parallel path's calls.
 Phase 44's launches count with the train paths; phases 42 and 43 add K1's
 and the gather-reduce's launches of their batch.
 The bin pass's row gives its launches by path (fast serving, the
@@ -5330,10 +5374,12 @@ def phase_affine_reference(card: str) -> dict:
     return res
 
 
-def _time_scatter_at(ks, knn_cuda, b, n, k, c, seed, what):
-    """K3 and K4 at a train step's shape (b, n, k, c) on a K1 graph of
-    random points, which phase 6 does not time: as `_time_dpsr_scatter`
-    times DPSR-Net's."""
+def _time_scatter_at(ks, knn_cuda, b, n, k, c, seed, what,
+                     dtype=torch.float32):
+    """The transpose, K3 (payload `dtype`) and K4 at a train step's shape
+    (b, n, k, c) on a K1 graph of random points, which phase 6 does not
+    time: each against its plain version (the transpose bit for bit), as
+    `_time_dpsr_scatter` times DPSR-Net's."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     idx3, _ = knn_cuda(torch.rand((b, n, 3), generator=g, device=dev) * 2
@@ -5341,19 +5387,31 @@ def _time_scatter_at(ks, knn_cuda, b, n, k, c, seed, what):
     idx3 = idx3.contiguous()
     idx2 = idx3.reshape(b, n * k)
     tr = ks.transpose(idx2, n)
+    if not all(torch.equal(a, w) for a, w in
+               zip(tr, ks.transpose_plain(idx2, n))):
+        raise AssertionError(f"transpose {what} {b}x{n * k}_rows{n}: "
+                             "kernel != plain")
     kstar = torch.randint(0, k, (b, n, c), generator=g, device=dev,
                           dtype=torch.int32)
-    s_ = torch.randn((b, n, c), generator=g, device=dev)
-    p_ = torch.randn((b, n, c), generator=g, device=dev)
+    s_ = torch.randn((b, n, c), generator=g, device=dev).to(dtype)
+    p_ = torch.randn((b, n, c), generator=g, device=dev).to(dtype)
     err3 = _check_routed(ks, idx3, kstar, s_, p_, n, tr)
     err4 = _check_count(ks, idx2, n, tr)
-    b3, by3 = bound_ms(idx3.numel() * 4 + b * n * c * 4 + 2 * s_.numel() * 4
+    b3, by3 = bound_ms(idx3.numel() * 4 + b * n * c * 4
+                       + 2 * s_.numel() * s_.element_size()
                        + b * n * 2 * c * 4, 2 * idx3.numel() * c)
     b4, by4 = bound_ms(b * n * 8 + 4, b * n)
+    bt, byt = bound_ms(idx2.numel() * 8 + (b * n + 1) * 4, 0)
     ptr = tr[1]
     out = {
+        "transpose": {
+            "call": f"{b}x{n * k}_rows{n}", "max_abs_err": 0.0,
+            "ms": median_ms(lambda: ks.transpose(idx2, n)),
+            "plain_ms": median_ms(lambda: ks.transpose_plain(idx2, n)),
+            "bound_ms": bt, "bound_by": byt, "library_ms": None},
         "scatter_routed": {
-            "call": f"{b}x{n}x{k}x{c}_float32", "max_abs_err": err3,
+            "call": f"{b}x{n}x{k}x{c}_{str(dtype)[6:]}",
+            "max_abs_err": err3,
             "ms": median_ms(lambda: ks.scatter_routed(idx3, kstar, s_, p_,
                                                       n)),
             "shared_ms": median_ms(lambda: ks.scatter_routed(
@@ -5369,8 +5427,9 @@ def _time_scatter_at(ks, knn_cuda, b, n, k, c, seed, what):
                                                                   n)),
             "bound_ms": b4, "bound_by": by4,
             "library_ms": median_ms(lambda: torch.diff(ptr))}}
-    print(f"{what} scatter timings ({b}x{n}, k={k}, C={c}): "
-          f"{json.dumps(out)}", flush=True)
+    print(f"{what} scatter timings ({b}x{n}, k={k}, C={c}, "
+          f"{str(dtype)[6:]}): transpose == plain; {json.dumps(out)}",
+          flush=True)
     return out
 
 
@@ -6730,6 +6789,665 @@ def phase_shape_probes(ks, knn_cuda, card: str):
     return counts, calls, timing
 
 
+# ---- the parallel layer (phases 49-52) --------------------------------------
+#
+# One card: NCCL refuses two ranks on one device, so the layer runs in two
+# ways, each in ranks spawned by parallel/mesh.py:spawn: a one-rank NCCL
+# group on cuda:0 (the production backend's collectives) and a two-rank
+# gloo group whose ranks both compute on cuda:0 (a real split of the work;
+# the collectives go through host memory, and the two ranks share the SMs,
+# so their times are no speed-up). Each rank sets the launch counts to 0
+# just before each main path and reads them just after, and returns them.
+
+PAR_RANKS = 2
+PAR_STEPS = 10                 # phase 49's trajectory
+PAR_BATCH, PAR_POINTS, PAR_K = 32, 2048, 40    # the default run's widths
+PAR_CASE_POINTS = 8000         # points of each of the 4 training cases
+PAR_MAX_KPTS = 20000           # the serving default
+PAR_SEED = 49
+PAR_TRAJ_TOL = dict(rtol=3e-2, atol=3e-2)   # __graft_entry__.py:164
+PAR_NCCL_TOL = 1e-6
+PAR_WINDOW_TOL = 2e-5          # tests/test_spatial_sharding.py:97
+PAR_ENSEMBLE_TOL = 1e-5
+PAR_KNN_TOL = 1e-4
+PAR_GAP = 1e-4                 # top-two gap below which an argmax may flip
+PAR_SUBSETS = (50, 2048, 5)    # subsets, points, subsets a group
+PAR_WINDOW = dict(patch_size=(128, 128, 128), min_overlap=0.5)
+
+
+def _par_counts() -> tuple:
+    """The launch counts and the calls by key of every wrapper, since the
+    last `_par_zero` (in a rank)."""
+    from fissure_segmentation_tpu_torch.kernels import scatter as ks
+    from fissure_segmentation_tpu_torch.kernels.knn import knn_cuda
+    w = _wrappers(ks, knn_cuda)
+    return ({k: fn.launches for k, fn in w.items()},
+            {k: dict(fn.calls) for k, fn in w.items() if hasattr(fn, "calls")},
+            {k: dict(fn.roles) for k, fn in w.items() if hasattr(fn, "roles")})
+
+
+def _par_zero() -> None:
+    from fissure_segmentation_tpu_torch.kernels import scatter as ks
+    from fissure_segmentation_tpu_torch.kernels.knn import knn_cuda
+    _reset(ks, knn_cuda)
+
+
+def _par_model(kind: str):
+    """The models from a seed: "bf16" the default run's DGCNNSeg(k=40,
+    dynamic, bf16), "f32" DGCNNSeg(k=40, static, f32) (phase 49), "serve"
+    the serving one, DGCNNSeg(k=40, static, f32) on coordinates (phase
+    50)."""
+    from fissure_segmentation_tpu_torch.models import DGCNNSeg
+    kw = dict(dtype=torch.bfloat16) if kind == "bf16" else dict(dynamic=False)
+    return DGCNNSeg(k=PAR_K, in_features=3 if kind == "serve" else 4,
+                    num_classes=4,
+                    generator=torch.Generator().manual_seed(PAR_SEED), **kw)
+
+
+def _par_trainer(ds, loss_fn, kind, group, out_dir, device):
+    from fissure_segmentation_tpu_torch.train.trainer import (ModelTrainer,
+                                                              TrainConfig)
+    return ModelTrainer(_par_model(kind), ds, loss_fn, out_dir,
+                        TrainConfig(batch_size=PAR_BATCH, scheduler="none"),
+                        device=device, group=group)
+
+
+def _par_steps(tr, inp, rows, timed: bool) -> dict:
+    """PAR_STEPS steps of the trainer on inp's case indices from one
+    generator (rows: this rank's), counted; then the busy share over 3
+    more. Returns the losses, ms/step over the steps after the first two,
+    peak memory and the counts."""
+    gen = tr._generator(PAR_SEED)
+    idx = torch.as_tensor(inp["step_idx"], device=tr.device)
+
+    def step(i):
+        x, y = tr._draw(gen, idx[i % len(idx)], True, rows)
+        return tr.train_step(x, y)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _par_zero()
+    losses, t0 = [], None
+    for i in range(PAR_STEPS):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(float(step(i)))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (PAR_STEPS - 2) * 1e3
+    counts = _par_counts()
+    out = {"losses": losses, "ms_per_step": ms,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "counts": counts}
+    if timed:
+        out["busy_share"] = _profiled_busy(lambda: step(0))
+    return out
+
+
+def _par_f32_step(tr, inp, rows) -> dict:
+    """One static f32 step on the injected batch (rows: this rank's):
+    the loss and every parameter's gradient."""
+    x = torch.as_tensor(inp["f32_x"], device=tr.device)
+    y = torch.as_tensor(inp["f32_y"], device=tr.device).long()
+    if rows is not None:
+        x, y = x[rows], y[rows]
+    loss, _ = tr.train_step(x, y)
+    return {"loss": float(loss),
+            "grads": {n: p.grad.detach().cpu().numpy()
+                      for n, p in tr.model.named_parameters()
+                      if p.grad is not None}}
+
+
+def _par_data(inp, device):
+    from fissure_segmentation_tpu_torch.data.dataset import PointDataset
+    from fissure_segmentation_tpu_torch.losses import get_loss_fn
+    ds = PointDataset(copy.deepcopy(inp["cases"]), sample_points=PAR_POINTS)
+    return ds, get_loss_fn("nnunet", torch.as_tensor(
+        ds.get_class_weights(), device=device))
+
+
+def _par_serving_model(inp, device):
+    """The serving model with its seeded weights and bench.py's class bias
+    (biased_model: every class gets keypoints, so every class's mesh is
+    compared)."""
+    seg = _par_model("serve").to(device).eval()
+    seg.load_state_dict({k: torch.as_tensor(v) for k, v in
+                         inp["seg_state"].items()})
+    return biased_model(seg, {"surface_params": inp["surface_params"]},
+                        SHAPE)
+
+
+def _par_serving(mesh, inp, what: str) -> dict:
+    """The sharded subset ensemble on the case's keypoints, the sliding
+    window on the CT (unless `what` leaves it out) and the ring kNN of the
+    keypoints; counts from 0 before each, read after."""
+    from fissure_segmentation_tpu_torch.kernels import approx_topk
+    from fissure_segmentation_tpu_torch.models import MobileNetASPP
+    from fissure_segmentation_tpu_torch.parallel import (
+        points, shard_along, sharded_ensemble_predict, sharded_knn,
+        sharded_predict_all_patches)
+    dev, out = mesh.device, {}
+    seg = _par_serving_model(inp, dev)
+    pc = torch.as_tensor(inp["coords"], device=dev)
+    n_runs, pts, group = PAR_SUBSETS
+    subsets = torch.as_tensor(inp["subsets"], device=dev)
+    torch.cuda.synchronize()
+    _par_zero()
+    t0 = time.perf_counter()
+    probs = sharded_ensemble_predict(seg, pc, mesh, sample_points=pts,
+                                     subset_batch=group, subsets=subsets)
+    torch.cuda.synchronize()
+    out["ensemble"] = {"s": time.perf_counter() - t0,
+                       "counts": _par_counts()}
+    if mesh.rank == 0:
+        out["ensemble"]["probs"] = probs.cpu().numpy()
+    del probs
+
+    if "window" in what:
+        cnn = MobileNetASPP(num_classes=4).to(dev).eval()
+        cnn.load_state_dict({k: torch.as_tensor(v) for k, v in
+                             inp["cnn_state"].items()})
+        img = torch.as_tensor(inp["image"], device=dev)
+        torch.cuda.synchronize()
+        _par_zero()
+        t0 = time.perf_counter()
+        soft = sharded_predict_all_patches(cnn, img, 4, mesh, **PAR_WINDOW)
+        torch.cuda.synchronize()
+        out["window"] = {"s": time.perf_counter() - t0,
+                         "counts": _par_counts()}
+        if mesh.rank == 0:
+            out["window"]["soft"] = soft.cpu().numpy()
+        del soft, img
+
+    # the ring kNN; the merge's selections recorded for the check after
+    kp = torch.as_tensor(inp["ring_points"], device=dev)
+    recorded, real = [], points.select_rows
+
+    def recording(x, *a, **kw):
+        res = real(x, *a, **kw)
+        recorded.append((x.clone(), a, kw, res))
+        return res
+    points.select_rows = recording
+    try:
+        torch.cuda.synchronize()
+        _par_zero()
+        t0 = time.perf_counter()
+        idx, dist = sharded_knn(shard_along(kp, mesh), PAR_K, mesh,
+                                return_dist=True)
+        torch.cuda.synchronize()
+        out["ring"] = {"s": time.perf_counter() - t0,
+                       "counts": _par_counts(),
+                       "idx": idx.cpu().numpy(), "dist": dist.cpu().numpy()}
+    finally:
+        points.select_rows = real
+    same = 0
+    for x, a, kw, (vals, sel) in recorded:
+        pv, pi = approx_topk.select_rows_plain(x, *a, **kw)
+        same += int(torch.equal(vals, pv) and torch.equal(sel, pi))
+    out["ring"].update(selections=len(recorded), bit_equal=same,
+                       call=recorded[0][0].shape if recorded else None)
+    return out
+
+
+def _par_rank(mesh, inp) -> dict:
+    """A rank of the two-rank gloo group on cuda:0: its paths, then, on
+    rank 0, the one-rank NCCL subgroup's while rank 1 waits. Returns
+    {"gloo2": ..., "nccl1": ... (rank 0)} with each part's seconds."""
+    import torch.distributed as dist
+    from fissure_segmentation_tpu_torch.parallel import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    nccl_group = dist.new_group([0], backend="nccl")
+    out = {"gloo2": _par_gloo_rank(mesh, inp)}
+    t1 = time.perf_counter()
+    if mesh.rank == 0:
+        out["nccl1"] = _par_nccl_rank(make_mesh(mesh.device, nccl_group),
+                                      inp)
+    out["s"] = {"gloo2": t1 - t0, "nccl1": time.perf_counter() - t1}
+    dist.barrier(group=mesh.group)
+    return out
+
+
+def _par_gloo_rank(mesh, inp) -> dict:
+    """The two-rank gloo group: phase 49's ten bf16 steps and the f32 step,
+    then phases 50-52's serving paths."""
+    out = {"staged": list(mesh.staged), "rank": mesh.rank}
+    ds, loss_fn = _par_data(inp, mesh.device)
+    share = PAR_BATCH // mesh.size
+    rows = slice(mesh.rank * share, (mesh.rank + 1) * share)
+    with tempfile.TemporaryDirectory() as td:
+        tr = _par_trainer(ds, loss_fn, "bf16", mesh.group, td, mesh.device)
+        out["train"] = _par_steps(tr, inp, rows, timed=True)
+        del tr
+        tr = _par_trainer(ds, loss_fn, "f32", mesh.group, td, mesh.device)
+        out["f32"] = _par_f32_step(tr, inp, rows)
+        del tr
+    out.update(_par_serving(mesh, inp, "ensemble window ring"))
+    return out
+
+
+def _par_nccl_rank(mesh, inp) -> dict:
+    """The one-rank NCCL group (rank 0's subgroup): the f32 step and phase
+    49's ten bf16 steps, then the ensemble and the ring kNN (their
+    collectives are NCCL's; one rank's ring sends to itself)."""
+    out = {"staged": list(mesh.staged), "rank": mesh.rank}
+    ds, loss_fn = _par_data(inp, mesh.device)
+    with tempfile.TemporaryDirectory() as td:
+        tr = _par_trainer(ds, loss_fn, "f32", mesh.group, td, mesh.device)
+        out["f32"] = _par_f32_step(tr, inp, None)
+        del tr
+        tr = _par_trainer(ds, loss_fn, "bf16", mesh.group, td, mesh.device)
+        out["train"] = _par_steps(tr, inp, slice(0, PAR_BATCH), timed=True)
+        del tr
+    out.update(_par_serving(mesh, inp, "ensemble ring"))
+    return out
+
+
+def _leaf_err(got: dict, want: dict) -> dict:
+    """Per parameter: max |got - want| over the largest |want| of the leaf
+    (a leaf of float32 noise, below 1e-4 of the largest of all, at that)."""
+    top = max(float(np.abs(w).max()) for w in want.values())
+    return {k: float(np.abs(got[k] - w).max())
+            / max(float(np.abs(w).max()), 1e-4 * top)
+            for k, w in want.items()}
+
+
+def _par_inputs(card: str) -> dict:
+    """Everything the ranks take, made once here: the training cases,
+    phase 49's step indices and injected f32 batch, the 256^3 case's
+    Förstner keypoints (20 000 at most), the serving model's and the CNN's
+    seeded weights, the ensemble's subsets."""
+    from fissure_segmentation_tpu_torch import serving
+    from fissure_segmentation_tpu_torch.data.synthetic import \
+        make_synthetic_dataset
+    from fissure_segmentation_tpu_torch.models.ensemble import build_subsets
+    from fissure_segmentation_tpu_torch.utils.coords import kpts_to_grid
+    rng = np.random.default_rng(PAR_SEED)
+    inp = {"cases": make_synthetic_dataset(4, n_points=PAR_CASE_POINTS),
+           "step_idx": rng.integers(0, 4, (PAR_STEPS, PAR_BATCH))}
+    inp["f32_x"] = rng.normal(size=(PAR_BATCH, PAR_POINTS, 4)).astype(
+        np.float32)
+    inp["f32_y"] = rng.integers(0, 4, (PAR_BATCH, PAR_POINTS))
+    case = synthetic_ct()
+    vol = torch.as_tensor(case["image"], dtype=torch.float32, device="cuda")
+    mask = torch.as_tensor(case["lung_mask"], device="cuda").to(torch.bool)
+    with torch.no_grad():
+        kpts, valid, shape = serving._keypoints(
+            vol, mask, None, kp_mode="foerstner", max_kpts=PAR_MAX_KPTS,
+            fissure_mu=0.0, fissure_sigma=1.0, cnn_model=None,
+            cnn_dtype=None, kp_scores=None, approx_top_k=False)
+        coords = torch.where(valid[:, None], kpts_to_grid(
+            kpts.flip(-1).to(torch.float32), shape), -1.0)
+    inp["coords"], inp["valid"] = coords.cpu().numpy(), valid.cpu().numpy()
+    ring = inp["coords"][inp["valid"]]
+    inp["ring_points"] = ring[:len(ring) // PAR_RANKS * PAR_RANKS]
+    inp["image"] = case["image"].astype(np.float32)
+    inp["surface_params"] = case["surface_params"]
+    inp["seg_state"] = {k: v.cpu().numpy() for k, v in
+                        _par_model("serve").state_dict().items()}
+    inp["cnn_state"] = {k: v.cpu().numpy() for k, v in
+                        _cnn_model(PAR_SEED).state_dict().items()}
+    n_runs, pts, _ = PAR_SUBSETS
+    inp["subsets"] = build_subsets(len(coords), pts, n_runs,
+                                   torch.Generator().manual_seed(PAR_SEED)
+                                   ).numpy()
+    print(f"parallel inputs: {int(valid.sum())} keypoints of the 256^3 "
+          f"case, ring cloud {len(inp['ring_points'])} points, "
+          f"{inp['subsets'].shape[0]} subsets; {card}", flush=True)
+    return inp
+
+
+def _par_single(inp) -> dict:
+    """The same work on one device without a group (the parent process):
+    the ten bf16 steps, the f32 step and the f32 step on the batch's rows
+    in another order (its reduction-order spread)."""
+    ds, loss_fn = _par_data(inp, "cuda")
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        tr = _par_trainer(ds, loss_fn, "bf16", None, td, "cuda")
+        out["train"] = _par_steps(tr, inp, None, timed=True)
+        del tr
+        tr = _par_trainer(ds, loss_fn, "f32", None, td, "cuda")
+        out["f32"] = _par_f32_step(tr, inp, None)
+        del tr
+        perm = np.roll(np.arange(PAR_BATCH), PAR_BATCH // 2)
+        tr = _par_trainer(ds, loss_fn, "f32", None, td, "cuda")
+        out["f32_perm"] = _par_f32_step(
+            tr, {"f32_x": inp["f32_x"][perm], "f32_y": inp["f32_y"][perm]},
+            None)
+    return out
+
+
+def phase_parallel_train(card: str, inp: dict, gloo: list, nccl: list,
+                         single: dict) -> dict:
+    """Phase 49: data-parallel training at the default run's width. The two
+    gloo ranks' ten bf16 steps against one device's (the trajectory within
+    JAX's own data-parallel bound); the f32 step's loss within 1e-5
+    relative and every gradient within 4x the single device's own
+    reduction-order spread (the same step with the rows in another order:
+    where a max over k or a LeakyReLU takes the other branch, a leaf moves
+    by up to 1e-2 of its largest magnitude on a small model) or 1e-2 of
+    the leaf's largest magnitude, and the whole gradient within 4x that
+    spread in relative L2; the one-rank NCCL trainer against the no-group
+    one within
+    1e-6 relative; ms/step, peak memory and the busy share of each."""
+    out = {"card": card}
+    h1 = np.asarray(single["train"]["losses"])
+    for name, ranks in (("gloo2", gloo), ("nccl1", nccl)):
+        hn = np.asarray(ranks[0]["train"]["losses"])
+        if not all(r["train"]["losses"] == ranks[0]["train"]["losses"]
+                   for r in ranks):
+            raise AssertionError(f"parallel train {name}: ranks disagree on "
+                                 "the loss")
+        np.testing.assert_allclose(hn, h1, err_msg=name, **PAR_TRAJ_TOL)
+        out[name] = {"max_loss_diff": float(np.abs(hn - h1).max()),
+                     **{k: [r["train"][k] for r in ranks] for k in
+                        ("ms_per_step", "peak_gib", "busy_share")},
+                     "staged": ranks[0]["staged"]}
+    out["single"] = {k: single["train"][k] for k in
+                     ("ms_per_step", "peak_gib", "busy_share")}
+    f1 = single["f32"]
+    spread = _leaf_err(single["f32_perm"]["grads"], f1["grads"])
+    for name, ranks in (("gloo2", gloo), ("nccl1", nccl)):
+        g = ranks[0]["f32"]
+        rel = abs(g["loss"] - f1["loss"]) / abs(f1["loss"])
+        err = _leaf_err(g["grads"], f1["grads"])
+        if name == "nccl1":
+            bad = {k: e for k, e in err.items() if e > PAR_NCCL_TOL}
+            if rel > PAR_NCCL_TOL or bad:
+                raise AssertionError(f"parallel nccl1: loss {rel:.2e}, "
+                                     f"gradients {bad}")
+        else:
+            bad = {k: (e, spread[k]) for k, e in err.items()
+                   if e > max(4 * spread[k], 1e-2)}
+            l2, l2_spread = (_rel_l2(g["grads"], f1["grads"]),
+                             _rel_l2(single["f32_perm"]["grads"],
+                                     f1["grads"]))
+            if rel > 1e-5 or bad or l2 > max(4 * l2_spread, 1e-5):
+                raise AssertionError(f"parallel gloo2 f32 step: loss "
+                                     f"{rel:.2e}, gradients {bad}, rel L2 "
+                                     f"{l2:.2e} (spread {l2_spread:.2e})")
+            out[name].update(f32_grad_rel_l2=l2,
+                             f32_grad_rel_l2_spread=l2_spread)
+        out[name].update(f32_loss_rel=rel, f32_grad_worst=max(err.values()))
+    out["f32_grad_spread_worst"] = max(spread.values())
+    print(json.dumps({"parallel_train": out}), flush=True)
+    return out
+
+
+def phase_parallel_ensemble(card: str, inp: dict, gloo: list,
+                            nccl: list) -> dict:
+    """Phase 50: the sharded subset ensemble in serving against
+    ensemble_predict on the same subsets (probabilities within 1e-5, the
+    argmax equal wherever the top two are more than 1e-4 apart) and the
+    PSR/marching meshes built from the two predictions equal for every
+    class whose keypoints the two agree on."""
+    from fissure_segmentation_tpu_torch.models import ensemble_predict
+    from fissure_segmentation_tpu_torch.postprocess.surface_fitting import \
+        batched_psr_mc
+    seg = _par_serving_model(inp, "cuda")
+    coords = torch.as_tensor(inp["coords"], device="cuda")
+    valid = torch.as_tensor(inp["valid"], device="cuda")
+    n_runs, pts, group = PAR_SUBSETS
+    subsets = torch.as_tensor(inp["subsets"], device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = ensemble_predict(seg, coords, sample_points=pts,
+                           subset_batch=group, subsets=subsets)
+    torch.cuda.synchronize()
+    out = {"card": card, "single_s": time.perf_counter() - t0}
+    top2 = ref.topk(2, dim=-1).values
+    clear = top2[:, 0] - top2[:, 1] > PAR_GAP
+    for name, ranks in (("gloo2", gloo), ("nccl1", nccl)):
+        probs = torch.as_tensor(ranks[0]["ensemble"]["probs"],
+                                device="cuda")
+        err = float((probs - ref).abs().max())
+        if err > PAR_ENSEMBLE_TOL:
+            raise AssertionError(f"parallel ensemble {name}: {err}")
+        pred, pred1 = probs.argmax(-1), ref.argmax(-1)
+        if not torch.equal(pred[clear], pred1[clear]):
+            raise AssertionError(f"parallel ensemble {name}: argmax differs "
+                                 "outside the near-ties")
+        classes = [valid & (p[None] == torch.arange(1, 4, device="cuda")[
+            :, None]) for p in (pred, pred1)]
+        meshes = [batched_psr_mc(coords.flip(-1), c, (64, 64, 64), 4.0, 30,
+                                 24000) for c in classes]
+        equal_classes = 0
+        for c in range(3):
+            if torch.equal(classes[0][c], classes[1][c]):
+                for a, b in zip(meshes[0], meshes[1]):
+                    if not torch.equal(a[c], b[c]):
+                        raise AssertionError(f"parallel ensemble {name}: "
+                                             f"class {c + 1} meshes differ")
+                equal_classes += 1
+        out[name] = {"max_abs_err": err, "near_ties": int((~clear).sum()),
+                     "pred_differs": int((pred != pred1).sum()),
+                     "classes_meshes_equal": equal_classes,
+                     "triangles": [int(n) for n in meshes[0][2]],
+                     "s": [r["ensemble"]["s"] for r in ranks]}
+    print(json.dumps({"parallel_ensemble": out}), flush=True)
+    return out
+
+
+def phase_parallel_window(card: str, inp: dict, gloo: list) -> dict:
+    """Phase 51: the z-slab sliding window of MobileNetASPP (K6 in every
+    block) on the 256^3 CT, two ranks, f32, against predict_all_patches
+    (atol 2e-5)."""
+    from fissure_segmentation_tpu_torch.models import predict_all_patches
+    cnn = _cnn_model(PAR_SEED).cuda().eval()
+    img = torch.as_tensor(inp["image"], device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = predict_all_patches(cnn, img, 4, **PAR_WINDOW)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    soft = torch.as_tensor(gloo[0]["window"]["soft"], device="cuda")
+    err = float((soft - ref).abs().max())
+    if soft.shape != ref.shape or err > PAR_WINDOW_TOL:
+        raise AssertionError(f"parallel window: {tuple(soft.shape)}, {err}")
+    out = {"card": card, "max_abs_err": err, "single_s": single_s,
+           "s": [r["window"]["s"] for r in gloo],
+           "k6_launches": [r["window"]["counts"][0]["depthwise_conv3"]
+                           for r in gloo]}
+    print(json.dumps({"parallel_window": out}), flush=True)
+    return out
+
+
+def phase_parallel_knn(card: str, inp: dict, gloo: list, nccl: list,
+                       sel_timings: dict) -> dict:
+    """Phase 52: the ring kNN of the case's keypoints (k = 40, no self
+    loop) on two ranks against K1's dense graph: sorted distances within
+    1e-4 relative plus the float32 cancellation of the ring's distance
+    formula (8 eps32 of the largest |x|^2; K1 sums exact squares), indices
+    equal but at near-ties within that bound, every merge selection
+    equal to select_rows_plain bit for bit; the merge's call timed (added to
+    `sel_timings`); then dryrun_multichip over two gloo ranks on the
+    card."""
+    from fissure_segmentation_tpu_torch.kernels.knn import knn_cuda
+    from fissure_segmentation_tpu_torch.parallel.dryrun import \
+        dryrun_multichip
+    pts = torch.as_tensor(inp["ring_points"], device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx1, d1 = knn_cuda(pts[None].contiguous(), PAR_K, False)
+    torch.cuda.synchronize()
+    out = {"card": card, "points": len(pts),
+           "dense_s": time.perf_counter() - t0}
+    idx1, d1 = idx1[0].long().cpu().numpy(), d1[0].cpu().numpy()
+    # the ring's tile is |x|^2 - 2 x.y + |y|^2 in float32 (the JAX
+    # formula), K1 sums exact squares: besides 1e-4 relative, the tile's
+    # cancellation, 8 eps32 of the largest |x|^2, is allowed
+    atol = 8 * float(np.finfo(np.float32).eps) * float(
+        (inp["ring_points"].astype(np.float64) ** 2).sum(-1).max())
+    out["atol"] = atol
+    for name, ranks in (("gloo2", gloo), ("nccl1", nccl)):
+        idx = np.concatenate([r["ring"]["idx"] for r in ranks])
+        dist = np.concatenate([r["ring"]["dist"] for r in ranks])
+        err = np.abs(np.sort(dist, -1) - np.sort(d1, -1))
+        if (err > PAR_KNN_TOL * np.abs(d1) + atol).any():
+            raise AssertionError(f"parallel knn {name}: distances "
+                                 f"{err.max()}")
+        differ = idx != idx1
+        # a differing slot is a near-tie: its distance within that bound
+        # of the dense graph's at that slot
+        gap = np.abs(dist - d1)[differ]
+        if (gap > PAR_KNN_TOL * np.abs(d1[differ]) + atol).any():
+            raise AssertionError(f"parallel knn {name}: a differing index "
+                                 "is no near-tie")
+        rel = err / np.maximum(np.abs(d1), 1e-12)
+        sels = sum(r["ring"]["selections"] for r in ranks)
+        if sum(r["ring"]["bit_equal"] for r in ranks) != sels:
+            raise AssertionError(f"parallel knn {name}: a merge selection "
+                                 "differs from select_rows_plain")
+        out[name] = {"max_dist_rel": float(rel.max()),
+                     "max_dist_abs": float(err.max()),
+                     "index_differs": int(differ.sum()),
+                     "selections_bit_equal": sels,
+                     "s": [r["ring"]["s"] for r in ranks]}
+    # the merge's call at its shape: rank 0's first candidate rows
+    n_loc = len(pts) // PAR_RANKS
+    loc = pts[:n_loc]
+    from fissure_segmentation_tpu_torch.ops.knn import pairwise_sqdist
+    d = pairwise_sqdist(loc, loc).float()
+    d.diagonal().fill_(-1.0)
+    cand = torch.cat([torch.full((n_loc, PAR_K + 1), torch.inf,
+                                 device="cuda"), d], 1).contiguous()
+    t = _select_case("ring_merge", cand, PAR_K + 1, None, False, exact=True)
+    sel_timings["ring_merge"] = t
+    del d, cand
+    # the one-rank ring's merge: every point a query, the whole cloud a
+    # block
+    d = pairwise_sqdist(pts, pts).float()
+    d.diagonal().fill_(-1.0)
+    cand = torch.cat([torch.full((len(pts), PAR_K + 1), torch.inf,
+                                 device="cuda"), d], 1).contiguous()
+    del d
+    sel_timings["ring_merge_1rank"] = _select_case(
+        "ring_merge_1rank", cand, PAR_K + 1, None, False, exact=True)
+    out["merge_calls"] = [t["call"], sel_timings["ring_merge_1rank"]["call"]]
+    del cand
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dryrun_multichip(PAR_RANKS)     # its defaults: gloo ranks on the card
+    out["dryrun_s"] = time.perf_counter() - t0
+    print(json.dumps({"parallel_knn": out}), flush=True)
+    return out
+
+
+def phase_parallel_entry(card: str) -> dict:
+    """train_point_seg --dp for one epoch of fold 0 on the one card: the
+    single-rank path (the default run's widths)."""
+    from fissure_segmentation_tpu_torch import train_point_seg
+    with tempfile.TemporaryDirectory() as out:
+        _par_zero()
+        t0 = time.perf_counter()
+        assert train_point_seg.main(
+            DEFAULT_ARGV[:4] + ["--epochs", "1"] + DEFAULT_ARGV[6:]
+            + ["--dp", "--train_only", "--output", out]) == 0
+        hist = _read_history(os.path.join(out, "fold0", "history.csv"))
+        if not (os.path.exists(os.path.join(out, "fold0", "model.pt"))
+                and np.isfinite(hist).all()):
+            raise AssertionError("train_point_seg --dp: no model or a "
+                                 "non-finite loss")
+        return {"card": card, "s": time.perf_counter() - t0,
+                "loss": hist, "counts": _par_counts()}
+
+
+def _par_sum(ranks: list, key: str) -> tuple:
+    """The launches and calls of a path summed over the ranks."""
+    launches, calls, roles = {}, {}, {}
+    for r in ranks:
+        n, c, ro = r[key]["counts"]
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+        for k, d in c.items():
+            for kk, v in d.items():
+                calls.setdefault(k, {})[kk] = calls.setdefault(k, {}).get(
+                    kk, 0) + v
+        for k, d in ro.items():
+            for kk, v in d.items():
+                roles.setdefault(k, {})[kk] = roles.setdefault(k, {}).get(
+                    kk, 0) + v
+    return launches, calls, roles
+
+
+def phases_parallel(card: str, sel_timings: dict) -> dict:
+    """Phases 49-52 (inputs made here, then one spawn of two gloo ranks, of
+    which rank 0 also runs the one-rank NCCL subgroup's paths); returns the
+    launches by path and layout."""
+    from fissure_segmentation_tpu_torch.parallel import spawn
+    t0 = time.perf_counter()
+    inp = _par_inputs(card)
+    torch.cuda.empty_cache()
+    t_in = time.perf_counter()
+    ranks = spawn(_par_rank, PAR_RANKS, "gloo", "cuda:0", args=(inp,),
+                  timeout_s=600.0)
+    t_sp = time.perf_counter()
+    gloo = [r["gloo2"] for r in ranks]
+    nccl = [ranks[0]["nccl1"]]
+    print(f"parallel: staged collectives under gloo on the card: "
+          f"{gloo[0]['staged']}; under NCCL: {nccl[0]['staged']}; inputs "
+          f"{t_in - t0:.1f} s, the spawn {t_sp - t_in:.1f} s (in rank 0: "
+          f"gloo paths {ranks[0]['s']['gloo2']:.1f} s, NCCL paths "
+          f"{ranks[0]['s']['nccl1']:.1f} s)", flush=True)
+    single = _par_single(inp)
+    res = {"train": phase_parallel_train(card, inp, gloo, nccl, single)}
+    res["entry"] = phase_parallel_entry(card)
+    res["ensemble"] = phase_parallel_ensemble(card, inp, gloo, nccl)
+    res["window"] = phase_parallel_window(card, inp, gloo)
+    res["knn"] = phase_parallel_knn(card, inp, gloo, nccl, sel_timings)
+    paths = {}
+    for layout, ranks in (("gloo2", gloo), ("nccl1", nccl)):
+        for path in ("train", "ensemble", "window", "ring"):
+            if path in ranks[0]:
+                paths[f"{path}_{layout}"] = _par_sum(ranks, path)
+    paths["entry_dp"] = res["entry"].pop("counts")
+    res["paths"] = paths
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
+def par_kernel_checks(ks, knn_cuda, par_paths: dict, scatter: dict,
+                      timings: dict) -> dict:
+    """The kernels' calls on the parallel paths at shapes the earlier phases
+    do not check, each held against its plain version at its shape and
+    timed: the transpose, K3 (at the call's own payload type) and K4 on a
+    K1 graph of the call's shape (`_time_scatter_at`), K1's and K2's calls
+    (`slice_by_call`). K4's new calls are added to phase 6's `scatter`
+    timings. Returns {"scatter": {call: timings}, "transposes": {call:
+    timings}, "knn": by path and call, "scatter_rows": by path and call}."""
+    def calls(name):
+        out = {}
+        for p in par_paths.values():
+            for key, n in p[1].get(name, {}).items():
+                out[key] = out.get(key, 0) + n
+        return out
+    timed = {}
+    for key in calls("scatter_routed"):
+        if f"path_{key}" not in scatter["scatter_routed"][1]:
+            b, n, k, c = (int(v) for v in key.split("_")[0].split("x"))
+            timed[key] = _time_scatter_at(
+                ks, knn_cuda, b, n, k, c, 49 + b, "parallel",
+                getattr(torch, key.rsplit("_", 1)[1]))
+            scatter["scatter_count"][1].setdefault(
+                f"ptr_{b}x{n}", timed[key]["scatter_count"])
+    for key in calls("scatter_count"):
+        if key not in scatter["scatter_count"][1]:
+            b, n = (int(v) for v in key.removeprefix("ptr_").split("x"))
+            timed[key] = _time_scatter_at(ks, knn_cuda, b, n, PAR_K, 64,
+                                          49 + b, "parallel")
+            scatter["scatter_count"][1][key] = timed[key]["scatter_count"]
+    paths = {p: v[1] for p, v in par_paths.items()}
+    return {"scatter": timed,
+            "transposes": {t["transpose"]["call"]: t["transpose"]
+                           for t in timed.values()},
+            **{kind: {path: c for path, c in slice_by_call(
+                kind, paths, shapes).items() if c}
+               for kind, shapes in (("knn", timings),
+                                    ("scatter_rows",
+                                     scatter["scatter_rows"][1]))}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -7049,10 +7767,36 @@ def _main() -> int:
           flush=True)
     slice_paths.update(correspondences=corr_calls, baselines=eb_calls,
                        shape_probes=shape_calls)
+
+    # 49-52. the parallel layer: data-parallel training, the sharded
+    # ensemble, the z-slab window, the ring kNN and dryrun_multichip, on a
+    # two-rank gloo group and a one-rank NCCL group on the card (each rank
+    # counts from 0 before each of its paths and reads after), and
+    # train_point_seg --dp (counts from 0, read after)
+    t49 = time.perf_counter()
+    par = phases_parallel(card, sel_timings)
+    par_paths = par.pop("paths")
+    par_counts = {k: sum(p[0].get(k, 0) for p in par_paths.values())
+                  for k in counts["total"]}
+
+    def par_calls(name):
+        calls = {}
+        for p in par_paths.values():
+            for key, n in p[1].get(name, {}).items():
+                calls[key] = calls.get(key, 0) + n
+        return calls
+
+    def par_row(name):
+        return {path: p[0].get(name, 0) for path, p in par_paths.items()
+                if p[0].get(name, 0)}
+    gr_calls.append(par_calls("gather_reduce"))
+    print(json.dumps({"parallel_launches": {
+        path: {k: v for k, v in p[0].items() if v}
+        for path, p in par_paths.items()}, "card": card}), flush=True)
     print(json.dumps({"phase_s": {
         "41": t42 - t41, "42": t43 - t42, "43": t44 - t43, "44": t45 - t44,
         "45": t46 - t45, "46": t47 - t46, "47": t48 - t47,
-        "48": time.perf_counter() - t48}}), flush=True)
+        "48": t49 - t48, "49-52": time.perf_counter() - t49}}), flush=True)
 
     def slice_row(name, timed):
         """The slice's launches of a kernel, by path and by call."""
@@ -7086,19 +7830,24 @@ def _main() -> int:
                        ("train", bf16_counts["k4_calls"]),
                        ("train", default_k4), ("dpsr", dpsr_k4),
                        ("train", chain_k4), ("train", st_k4),
-                       ("affine", af_k4), ("train", knn09_k4)):
+                       ("affine", af_k4), ("train", knn09_k4),
+                       ("parallel", par_calls("scatter_count"))):
         for key, n in part.items():
             k4_calls[key] = k4_calls.get(key, 0) + n
-            k4_paths[key] = path
+            if path != "parallel" or key not in k4_paths:
+                k4_paths[key] = path
     if probe_counts.get("scatter_count", 0) < 1:
         raise AssertionError("scatter_count: the probes never launched "
                              "the histogram")
     k4_calls[PROBE_K4_CALL] = probe_counts["scatter_count"]
     k4_paths[PROBE_K4_CALL] = "probes"
+    par_checked = par_kernel_checks(ks, knn_cuda, par_paths, scatter,
+                                    timings)
     if sum(k4_calls.values()) != (train_total["scatter_count"]
                                   + probe_counts["scatter_count"]
                                   + dpsr_counts["scatter_count"]
-                                  + af_counts["scatter_count"]):
+                                  + af_counts["scatter_count"]
+                                  + par_counts["scatter_count"]):
         raise AssertionError(f"scatter_count: {k4_calls} by call against "
                              f"{train_total['scatter_count']} train, "
                              f"{probe_counts['scatter_count']} probe and "
@@ -7114,11 +7863,15 @@ def _main() -> int:
         + pcae_counts["knn"] + dseg_counts["knn"] + dpsr_counts["knn"]
         + dgssm_counts["knn"] + pre_counts["foerstner"]["knn"]
         + pre_counts["cnn"]["knn"] + pn_counts["knn"] + af_counts["knn"]
-        + serve_total["knn"] + eb_counts["knn"] + shape_counts["knn"],
+        + serve_total["knn"] + eb_counts["knn"] + shape_counts["knn"]
+        + par_counts["knn"],
         "max_abs_err": max_err, "ms": graph["ms"],
         "plain_ms": graph["plain_ms"], "bound_ms": graph["bound_ms"],
         "bound_by": graph["bound_by"], "library_ms": None,
-        "slice": slice_row("knn", timings), "shapes": timings}]
+        "slice": slice_row("knn", timings),
+        "parallel": {"launches": par_row("knn"),
+                     "by_call": par_checked["knn"]},
+        "shapes": timings}]
     tr_path = next(iter(scatter["transpose"][1].values()))
     for name, (err, shapes) in scatter.items():
         path = next(iter(shapes.values()))       # the first timed shape
@@ -7127,7 +7880,7 @@ def _main() -> int:
                "launches": train_total[name] + pcae_counts[name]
                + dseg_counts[name] + dpsr_counts[name]
                + dgssm_counts[name] + af_counts[name] + serve_total[name]
-               + shape_counts[name],
+               + shape_counts[name] + par_counts[name],
                "max_abs_err": err,
                "ms": path["ms"], "plain_ms": path["plain_ms"],
                "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
@@ -7138,6 +7891,12 @@ def _main() -> int:
             row["also_replaces"].append(SCATTER_REPLACES["scatter_routed"])
         if name in ("transpose", "scatter_rows"):
             row["slice"] = slice_row(name, shapes)
+        row["parallel"] = {"launches": par_row(name),
+                           "calls": par_calls(name)}
+        if name == "scatter_rows":
+            row["parallel"]["by_call"] = par_checked["scatter_rows"]
+        if name == "transpose":   # no calls dict: checked at each graph
+            row["parallel"]["checked_at"] = par_checked["transposes"]
         if name in ("scatter_rows", "scatter_routed"):
             # "ms" builds its own transpose; "shared_ms" is given one
             row.update(shared_ms=path["shared_ms"],
@@ -7150,7 +7909,8 @@ def _main() -> int:
             row["by_call"] = {
                 next(iter(shapes)): {
                     "launches": row["launches"] - dpsr_counts[name]
-                    - af_counts[name] - serve_total[name],
+                    - af_counts[name] - serve_total[name]
+                    - par_counts[name],
                     **{k: path[k] for k in ("ms", "shared_ms", "plain_ms",
                                             "bound_ms", "bound_by",
                                             "library_ms")}},
@@ -7168,6 +7928,15 @@ def _main() -> int:
                 row["by_call"][key] = {
                     "launches": n, "path": "affine",
                     **{k: v for k, v in timed[key].items() if k != "call"}}
+            # the parallel paths' calls, each checked and priced at its
+            # shape and payload type: phase 6's or the one timed above
+            for key, n in par_calls(name).items():
+                t = shapes.get(f"path_{key}") or \
+                    par_checked["scatter"][key]["scatter_routed"]
+                row["by_call"][f"{key} (parallel)"] = {
+                    "launches": n, "path": "parallel",
+                    **{k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}}
         if name == "scatter_count":
             # priced by call; the top-level numbers are the most launched
             # call's (the train step's count_from_ptr)
@@ -7185,7 +7954,7 @@ def _main() -> int:
         "name": "fps", "route": "cuda", "source": FPS_SOURCE,
         "replaces": FPS_REPLACES,
         "launches": pt_serving["fps"] + pt_counts["fps"] + dseg_counts["fps"]
-        + corr_counts["fps"],
+        + corr_counts["fps"] + par_counts["fps"],
         "max_abs_err": fps_err, "ms": step["ms"],
         "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
         "bound_by": step["bound_by"], "library_ms": None,
@@ -7199,10 +7968,17 @@ def _main() -> int:
                    for p, v in cnn_paths.items()},
                 "preprocess_cnn": {
                     "forward": pre_counts["cnn"]["depthwise_conv3_forward"],
-                    "dgrad": 0}}
+                    "dgrad": 0},
+                "parallel_window": {
+                    "forward": par_paths["window_gloo2"][2][
+                        "depthwise_conv3"]["forward"],
+                    "dgrad": par_paths["window_gloo2"][2][
+                        "depthwise_conv3"]["dgrad"]}}
     s2_paths = {"serving_cnn": cnn_serving["depthwise_conv3_stride2"],
                 **{p: v["stride2"] for p, v in cnn_paths.items()},
-                "preprocess_cnn": pre_counts["cnn"]["depthwise_conv3_stride2"]}
+                "preprocess_cnn": pre_counts["cnn"]["depthwise_conv3_stride2"],
+                "parallel_window": par_paths["window_gloo2"][2][
+                    "depthwise_conv3"]["stride2"]}
     serve_s2 = dw_stride2["s2_b5_1x128x128x128x192"]
     kernels.append({
         "name": "depthwise_conv3", "route": "cuda", "source": DW_SOURCE,
@@ -7265,7 +8041,8 @@ def _main() -> int:
                    + dseg_counts["gather_reduce"]
                    + dpsr_counts["gather_reduce"]
                    + af_counts["gather_reduce"]
-                   + serve_total["gather_reduce"])
+                   + serve_total["gather_reduce"]
+                   + par_counts["gather_reduce"])
     if sum(calls.values()) != gr_launches:
         raise AssertionError(f"gather_reduce: {gr_launches} launches but "
                              f"{calls} by call")
@@ -7276,6 +8053,8 @@ def _main() -> int:
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": top["library_ms"], "old_ms": top.get("old_ms"),
         "by_call": by_call, "slice": slice_row("gather_reduce", {}),
+        "parallel": {"launches": par_row("gather_reduce"),
+                     "calls": par_calls("gather_reduce")},
         "gap_ms": sum(r["gap_ms"] for r in by_call.values()),
         "shapes": gr_timings})
     det = bin_timings["detector_uniform_f32"]
@@ -7305,9 +8084,11 @@ def _main() -> int:
                  "preprocess_cnn": pre_counts["cnn"]["select_rows"],
                  "pointnet": pn_counts["select_rows"],
                  "affine": af_counts["select_rows"],
-                 "serving": serve_total["select_rows"]}
+                 "serving": serve_total["select_rows"],
+                 "parallel": par_counts["select_rows"]}
     sel_calls = {}
-    for part in (default_sel, fast_sel, knn09_sel):
+    for part in (default_sel, fast_sel, knn09_sel,
+                 par_calls("select_rows")):
         for key, n in part.items():
             sel_calls[key] = sel_calls.get(key, 0) + n
     sel_by_call = _select_by_call(sel_calls, sel_timings)

@@ -16,7 +16,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .augmentation import SimilarityTransform, point_augmentation
+from .augmentation import (SimilarityTransform, point_augmentation,
+                           random_transform)
 
 
 class PointCloudStore(NamedTuple):
@@ -62,7 +63,8 @@ def sample_batch(store: PointCloudStore, case_idx: torch.Tensor,
                  sample_points: int, generator: torch.Generator | None = None,
                  augment: bool = True, binary: bool = False,
                  noise: torch.Tensor | None = None,
-                 transform: SimilarityTransform | None = None):
+                 transform: SimilarityTransform | None = None,
+                 rows: slice | None = None):
     """Draw a batch: the `sample_points` valid points of smallest uniform
     noise per case (ties to the lower index, like lax.top_k), then a random
     similarity augmentation of the coordinates.
@@ -70,13 +72,25 @@ def sample_batch(store: PointCloudStore, case_idx: torch.Tensor,
     :param case_idx: (B,) int indices into the store
     :param noise: (B, N_max) uniform noise to use instead of drawing it
     :param transform: augmentation transform to use instead of drawing it
-    :return: x (B, S, 3+F) float32, y (B, S) int64
+    :param rows: keep only these rows of the batch (a data-parallel rank's
+        share): the noise and the transform are drawn, or taken, for the
+        whole batch first, so the rows are those that the whole batch's
+        draw gives them, whatever the split
+    :return: x (B, S, 3+F) float32, y (B, S) int64 (B: the rows kept)
     """
     b = case_idx.shape[0]
     n_max = store.coords.shape[1]
     if noise is None:
         noise = torch.rand((b, n_max), generator=generator,
                            device=store.coords.device)
+    if rows is not None:
+        if augment and transform is None:
+            transform = random_transform(generator, (b,),
+                                         device=store.coords.device)
+        case_idx, noise = case_idx[rows], noise[rows]
+        if augment:
+            transform = SimilarityTransform(*(t[rows] for t in transform))
+        b = case_idx.shape[0]
     noise = torch.where(store.valid[case_idx], noise, 2.0)
     sel = torch.sort(noise, dim=1, stable=True).indices[:, :sample_points]
 

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.collectives import group_size, sum_local
 from ..ops.edge import edge_mlp_pre_gather
 from ..ops.fused_edge import fused_edge_eval, fused_edge_train
 
@@ -44,10 +45,18 @@ class BatchNorm(nn.Module):
     `update_stats` False skips the running update in training (a
     checkpoint's recomputation of a forward that already folded its batch
     in, models/seg_cnn.py).
+
+    `group` (set by `convert_sync_batchnorm`): a torch.distributed process
+    group over which the batch is split, in shards of one size. Training
+    then takes the statistics of the global batch: the float32 moments of
+    x and x^2 are averaged over the group (ops/collectives.py:sum_local,
+    whose backward sums the statistics' gradients too); the running
+    statistics fold the global values in on every rank.
     """
 
     momentum = 0.9  # flax's; torch's BatchNorm(momentum=0.1)
     update_stats = True
+    group = None
 
     def __init__(self, features: int, epsilon: float = 1e-5):
         super().__init__()
@@ -69,14 +78,30 @@ class BatchNorm(nn.Module):
         if self.training:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             axes = tuple(range(x.ndim - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            mean, ex2 = xf.mean(axes), (xf * xf).mean(axes)
+            if self.group is not None:
+                # the ranks' shards are of one size: the global moments
+                # are the mean of the ranks' (one rank: the same bits)
+                mean, ex2 = sum_local(torch.stack([mean, ex2]),
+                                      self.group) / group_size(self.group)
+            var = torch.clamp(ex2 - mean * mean, min=0.0)
             if self.update_stats:
                 self.update_running(mean, var)
         else:
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.epsilon) * self.scale
         return ((x - mean) * mul + self.bias).to(x.dtype)
+
+
+def convert_sync_batchnorm(module: nn.Module, group) -> nn.Module:
+    """Give every BatchNorm in `module` the process group `group` (None:
+    take it away): the counterpart of nn.SyncBatchNorm's
+    convert_sync_batchnorm, with flax's statistics (`BatchNorm`). The fused
+    EdgeConv reads its BatchNorm's group too. Returns `module`."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+    return module
 
 
 def _dense(fin: int, fout: int, bias: bool,
@@ -137,7 +162,7 @@ class FusedEdgeMLPMax(EdgeMLP):
         if self.training:
             out, mean, var = fused_edge_train(a, cen, bn.scale, bn.bias, idx,
                                               bn.epsilon, self.negative_slope,
-                                              transposed)
+                                              transposed, group=bn.group)
             bn.update_running(mean, var)
             return out
         return fused_edge_eval(a, cen, bn.scale, bn.bias, bn.mean, bn.var,

@@ -24,6 +24,15 @@ the (B, N, k, C) neighbour tensor is never built on the card. `a` and `cen`
 may be float32 or bfloat16 (the bf16 compute dtype); the statistics are
 float32 and the output is in a's dtype, as in the JAX package.
 
+Under a process group (data-parallel training, `group=`) the clouds are
+split over the ranks and the statistics are those of the global edge set:
+the forward sums the per-channel sums that `_stats` takes (and the count
+of edges) over the group before it forms the mean and variance, and the
+backward sums dbeta and dgamma over the group before the BatchNorm
+means that need them; the gradients it returns for gamma and beta stay
+this rank's share (the trainer sums the parameters' gradients). The
+gather-reduce, K3 and K4 stay per rank, on the rank's clouds.
+
 `fused_edge_enabled` reads FSEG_FUSED_EDGE=1/0 at every EdgeConv call, like
 the JAX package. Without it the fused route is off on the CPU (as off-TPU
 in the JAX package) and, on CUDA, set by `CUDA_DEFAULT`, for training and
@@ -39,6 +48,7 @@ import torch
 
 from ..kernels.gather_reduce import gather_reduce
 from ..kernels.scatter import scatter_count, scatter_routed, transpose
+from .collectives import all_reduce_, group_size
 from .edge import _flat_gather
 
 _ENV_FLAG = "FSEG_FUSED_EDGE"
@@ -60,16 +70,21 @@ def _gather_reduce(a: torch.Tensor, idx: torch.Tensor):
                          "all")
 
 
-def _stats(s1, s2, cen, kk: int):
+def _stats(s1, s2, cen, kk: int, group=None):
     """Exact BatchNorm train statistics over the virtual (B, N, k) edge set
-    (flax semantics: f32, fast variance, clipped at 0)."""
+    (flax semantics: f32, fast variance, clipped at 0); under `group` over
+    the edge sets of every rank. Returns (mean, var, the edge count)."""
     cenf = cen.to(torch.float32)
     e_tot = s1.shape[0] * s1.shape[1] * kk
-    mean = (s1.sum((0, 1)) + kk * cenf.sum((0, 1))) / e_tot
-    ez2 = (s2.sum((0, 1)) + 2.0 * (cenf * s1).sum((0, 1))
-           + kk * (cenf * cenf).sum((0, 1))) / e_tot
-    var = torch.clamp(ez2 - mean * mean, min=0.0)
-    return mean, var
+    sz = s1.sum((0, 1)) + kk * cenf.sum((0, 1))
+    sz2 = (s2.sum((0, 1)) + 2.0 * (cenf * s1).sum((0, 1))
+           + kk * (cenf * cenf).sum((0, 1)))
+    if group is not None:
+        sz, sz2 = all_reduce_(torch.stack([sz, sz2]), group)
+        e_tot *= group_size(group)
+    mean = sz / e_tot
+    var = torch.clamp(sz2 / e_tot - mean * mean, min=0.0)
+    return mean, var, e_tot
 
 
 def _tail(sel, cen, mean, sigma, gamma, beta):
@@ -80,10 +95,10 @@ def _tail(sel, cen, mean, sigma, gamma, beta):
 
 class _FusedEdgeTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, cen, gamma, beta, idx, eps, slope, transposed):
+    def forward(ctx, a, cen, gamma, beta, idx, eps, slope, transposed, group):
         kk = idx.shape[-1]
         mx, mn, am, amn, s1, s2 = _gather_reduce(a, idx)
-        mean, var = _stats(s1, s2, cen, kk)
+        mean, var, e_tot = _stats(s1, s2, cen, kk, group)
         sigma = torch.sqrt(var + eps)
         pos = gamma >= 0
         sel = torch.where(pos, mx, mn)
@@ -94,6 +109,7 @@ class _FusedEdgeTrain(torch.autograd.Function):
                               sigma)
         ctx.slope = slope
         ctx.transposed = transposed
+        ctx.group, ctx.e_tot = group, e_tot
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
 
@@ -103,16 +119,20 @@ class _FusedEdgeTrain(torch.autograd.Function):
             ctx.saved_tensors
         b, n, kk = idx.shape
         c = a.shape[-1]
-        e_tot = b * n * kk
+        e_tot = ctx.e_tot
         u, xhat_star = _tail(sel, cen, mean, sigma, gamma, beta)
         du = g.to(torch.float32) * torch.where(u >= 0, 1.0, ctx.slope)
 
         dbeta = du.sum((0, 1))
         dgamma = (du * xhat_star).sum((0, 1))
+        dbeta_all, dgamma_all = dbeta, dgamma
+        if ctx.group is not None:
+            dbeta_all, dgamma_all = all_reduce_(torch.stack([dbeta, dgamma]),
+                                                ctx.group)
         # the BatchNorm train backward means over the virtual edge set
         # collapse to (B, N, C) reductions (dxhat is nonzero only at kstar)
-        mean_dxh = gamma * dbeta / e_tot                  # E[dxhat]
-        mean_dxh_xh = gamma * dgamma / e_tot              # E[dxhat * xhat]
+        mean_dxh = gamma * dbeta_all / e_tot              # E[dxhat]
+        mean_dxh_xh = gamma * dgamma_all / e_tot          # E[dxhat * xhat]
         cenf = cen.to(torch.float32)
 
         s_payload = (gamma * du / sigma).to(a.dtype)
@@ -133,12 +153,12 @@ class _FusedEdgeTrain(torch.autograd.Function):
         sum_xh_k = (s1 + kk * (cenf - mean)) / sigma
         dcen = (gamma * du - kk * mean_dxh - mean_dxh_xh * sum_xh_k) / sigma
         return (da.to(a.dtype), dcen.to(cen.dtype), dgamma.to(gamma.dtype),
-                dbeta.to(beta.dtype), None, None, None, None)
+                dbeta.to(beta.dtype), None, None, None, None, None)
 
 
 def fused_edge_train(a: torch.Tensor, cen: torch.Tensor, gamma: torch.Tensor,
                      beta: torch.Tensor, idx: torch.Tensor, eps: float,
-                     slope: float, transposed=None):
+                     slope: float, transposed=None, group=None):
     """Train-mode fused EdgeConv core.
 
     :param a: (B, N, C) neighbor-projected features (``x @ w_d``)
@@ -147,12 +167,14 @@ def fused_edge_train(a: torch.Tensor, cen: torch.Tensor, gamma: torch.Tensor,
     :param idx: (B, N, K) int neighbor indices (no gradient)
     :param transposed: `kernels/scatter.py:transpose` of idx as (B, N * K),
         for K3 and K4 in the backward; built there, once for both, when None
+    :param group: the process group the batch is split over (the
+        statistics are the global edge set's), or None
     :return: (out (B, N, C) in a.dtype, batch mean (C,) f32, batch var (C,)
         f32) — mean and var feed the running-statistics update and take no
         gradient
     """
     return _FusedEdgeTrain.apply(a, cen, gamma, beta, idx, eps, slope,
-                                 transposed)
+                                 transposed, group)
 
 
 def fused_edge_eval(a, cen, gamma, beta, ra_mean, ra_var, idx,

@@ -30,6 +30,33 @@ Family hooks (the JAX trainer's, train/trainer.py:21-30, 104-130):
     returns whether it did, where the JAX trainer then recompiles its
     epoch and the port has nothing to rebuild.
 
+Data parallelism (`group=`, the counterpart of the JAX trainer's `mesh=`,
+train/trainer.py:103-125,195-230 there): one process a rank, each holding
+the model; the trainer computes the single-device step of the global
+batch, as GSPMD does:
+  * the parameters and buffers are broadcast from the group's rank 0 at
+    the start, and every BatchNorm (the fused EdgeConv's too) takes the
+    global batch's statistics (models/blocks.py:convert_sync_batchnorm);
+  * every rank draws the whole batch from the shared generator and keeps
+    its contiguous share of the rows (data/store.py:sample_batch `rows`),
+    so each rank trains on exactly the rows a single-device run draws at
+    the same seed; the batch size must divide by the group's size (the
+    store's sampler only: a caller's `batch_fn` is refused under a group);
+  * the loss is taken with ``group=`` (losses/segmentation.py): its value
+    on every rank is the global batch's, and its backward leaves each
+    rank its share of the gradient; the shares are summed over the group
+    once a step (one flat all-reduce) and Adam runs alike on every rank;
+  * validation gives the global value: split over the ranks where the
+    validation set divides by the group's size, else the whole set on
+    every rank (the JAX trainer replicates it then too);
+  * only rank 0 writes (checkpoints, history, plots, model.pt, the
+    visualizations); `run()` returns the same best snapshot on every rank.
+
+`visualization_fn(x, y, out, epoch, out_dir)` (the JAX trainer's hook,
+train/trainer.py:111-135,393-399 there): after validation, every
+`visualize_every` epochs, with host numpy arrays of the validation batch
+and the eval-mode output (utils/visualization.py:point_seg_visualization).
+
 Random streams: the data order comes from numpy (seed + 1, as in the JAX
 trainer, so both packages train on the same case order); batch sampling and
 augmentation from a device `torch.Generator` reseeded every epoch from a
@@ -42,6 +69,7 @@ from __future__ import annotations
 import copy
 import csv
 import dataclasses
+import inspect
 import math
 import os
 import time
@@ -49,9 +77,12 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.store import sample_batch
+from ..models.blocks import convert_sync_batchnorm
 from ..models.weights import save_model
+from ..ops.collectives import all_reduce_, global_rank, group_rank, group_size
 
 
 @dataclasses.dataclass
@@ -107,7 +138,9 @@ class ModelTrainer:
                  forward_fn: Callable | None = None,
                  epoch_in_loss: bool = False,
                  init_input: torch.Tensor | None = None,
-                 epoch_callback: Callable | None = None):
+                 epoch_callback: Callable | None = None,
+                 visualization_fn: Callable | None = None,
+                 visualize_every: int = 1, group=None):
         """
         :param model: initialized module; moved to `device`
         :param ds: the fold's training set; by default (a PointDataset)
@@ -126,12 +159,36 @@ class ModelTrainer:
         :param device: where to train (default: the first CUDA card; the
             CPU only when ``device="cpu"`` is passed — without a card and
             without `device` it raises)
+        :param visualization_fn: ``fn(x, y, out, epoch, out_dir)`` every
+            `visualize_every` epochs (rank 0 only)
+        :param group: a torch.distributed process group to train over,
+            data-parallel (this process is one rank, `device` its device);
+            the loss must take ``group=``
         """
         if device is None and not torch.cuda.is_available():
             raise RuntimeError("ModelTrainer: no CUDA card found; pass "
                                "device='cpu' to train on the CPU")
         self.device = torch.device("cuda" if device is None else device)
         self.model = model.to(self.device)
+        self.group = group
+        self.rank, self.world = group_rank(group), group_size(group)
+        if group is not None:
+            if config.batch_size % self.world:
+                raise ValueError(f"batch_size {config.batch_size} not "
+                                 f"divisible by the group's size "
+                                 f"{self.world}")
+            if "group" not in inspect.signature(loss_fn).parameters:
+                raise ValueError("ModelTrainer: under a group the loss must "
+                                 "take group= (losses/segmentation.py)")
+            if batch_fn is not None:
+                raise ValueError("ModelTrainer: under a group batches come "
+                                 "from the dataset's store")
+            convert_sync_batchnorm(self.model, group)
+            with torch.no_grad():
+                for t in self.model.state_dict().values():
+                    dist.broadcast(t, src=global_rank(group, 0), group=group)
+        self.visualization_fn = visualization_fn
+        self.visualize_every = visualize_every
         self.loss_fn = loss_fn
         self.forward_fn = forward_fn
         self.epoch_in_loss = epoch_in_loss
@@ -150,11 +207,11 @@ class ModelTrainer:
         if batch_fn is None:
             store = ds.to_store(device=self.device)
 
-            def batch_fn(generator, case_idx, train):
+            def batch_fn(generator, case_idx, train, rows=None):
                 return sample_batch(store, case_idx, ds.sample_points,
                                     generator,
                                     augment=train and ds.do_augmentation,
-                                    binary=ds.binary)
+                                    binary=ds.binary, rows=rows)
         self.batch_fn = batch_fn
 
         n_train = len(self.train_indices)
@@ -204,23 +261,48 @@ class ModelTrainer:
             return self.forward_fn(self.model, x, train)
         return self.model(x)
 
-    def _loss(self, out, y, epoch: int):
+    def _loss(self, out, y, epoch: int, group=None):
+        kw = {} if group is None else {"group": group}
         if self.epoch_in_loss:
-            return self.loss_fn(out, y, epoch=epoch)
-        return self.loss_fn(out, y)
+            kw["epoch"] = epoch
+        return self.loss_fn(out, y, **kw)
 
     def train_step(self, x: torch.Tensor, y, epoch: int | None = None):
         """One Adam step on the batch (`epoch`: the loss's, default the
         current one); returns (loss, components) as device tensors,
-        detached."""
+        detached. Under a group x and y are this rank's rows, and the
+        loss is the global batch's."""
         self.model.train()
         loss, comps = self._loss(self._forward(x, True), y,
                                  self.current_epoch if epoch is None
-                                 else epoch)
+                                 else epoch, self.group)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.group is not None:
+            self._sum_gradients()
         self.optimizer.step()
         return loss.detach(), {k: v.detach() for k, v in comps.items()}
+
+    def _sum_gradients(self) -> None:
+        """Sum the ranks' shares of the gradient over the group, as one flat
+        all-reduce."""
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]),
+                           self.group)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+
+    def _rows(self, n: int) -> slice:
+        """This rank's contiguous share of a batch of n rows."""
+        share = n // self.world
+        return slice(self.rank * share, (self.rank + 1) * share)
+
+    def _draw(self, gen, idx, train: bool, rows: slice | None):
+        """The batch of case indices `idx`, or its `rows` only (drawn for
+        the whole batch)."""
+        if rows is None:
+            return self.batch_fn(gen, idx, train)
+        return self.batch_fn(gen, idx, train, rows=rows)
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
@@ -228,9 +310,10 @@ class ModelTrainer:
     def _epoch(self, perm: np.ndarray, seed: int):
         gen = self._generator(seed)
         idx = torch.as_tensor(perm, device=self.device)
+        rows = None if self.group is None else self._rows(perm.shape[1])
         losses, comps = [], {}
         for step in range(perm.shape[0]):
-            x, y = self.batch_fn(gen, idx[step], True)
+            x, y = self._draw(gen, idx[step], True, rows)
             loss, c = self.train_step(x, y)
             losses.append(loss)
             for k, v in c.items():
@@ -244,9 +327,12 @@ class ModelTrainer:
     def _validate(self, seed: int):
         self.model.eval()
         idx = torch.as_tensor(self.val_indices, device=self.device)
-        x, y = self.batch_fn(self._generator(seed), idx, False)
+        split = self.group is not None and len(idx) % self.world == 0
+        x, y = self._draw(self._generator(seed), idx, False,
+                          self._rows(len(idx)) if split else None)
         loss, comps = self._loss(self._forward(x, False), y,
-                                 self.current_epoch)
+                                 self.current_epoch,
+                                 self.group if split else None)
         vals = {"total_loss": loss, **comps}
         return {k: float(v) for k, v in
                 zip(vals, torch.stack(list(vals.values())).cpu())}
@@ -275,6 +361,25 @@ class ModelTrainer:
             history.setdefault(k, [0.0] * self.cfg.epochs)
             history[k][epoch] = float(v)
 
+    @torch.no_grad()
+    def _visualize(self, seed: int, epoch: int) -> None:
+        """The hook on the validation batch, in eval mode (rank 0)."""
+        self.model.eval()
+        idx = torch.as_tensor(self.val_indices, device=self.device)
+        x, y = self.batch_fn(self._generator(seed), idx, False)
+        out = self._forward(x, False)
+
+        def host(t):
+            if isinstance(t, torch.Tensor):
+                return t.detach().float().cpu().numpy()
+            if isinstance(t, dict):
+                return {k: host(v) for k, v in t.items()}
+            if isinstance(t, (tuple, list)):
+                return type(t)(host(v) for v in t)
+            return t
+        self.visualization_fn(host(x), host(y), host(out), epoch,
+                              self.out_dir)
+
     def _state(self) -> dict:
         return {k: v.detach().to("cpu", copy=True)
                 for k, v in self.model.state_dict().items()}
@@ -285,6 +390,14 @@ class ModelTrainer:
         return os.path.join(self.out_dir, "checkpoint.pt")
 
     def save_checkpoint(self, epoch: int) -> None:
+        """Rank 0 writes the checkpoint; under a group every rank waits for
+        it."""
+        if self.rank == 0:
+            self._write_checkpoint(epoch)
+        if self.group is not None:
+            dist.barrier(group=self.group)
+
+    def _write_checkpoint(self, epoch: int) -> None:
         state = {
             "epoch": epoch,
             "model": self._state(),
@@ -349,6 +462,10 @@ class ModelTrainer:
                         else train_vals)
             self._record(self.validation_history, val_vals, epoch)
             val_total = val_vals["total_loss"]
+            if (self.visualization_fn is not None and self.val_indices
+                    and self.rank == 0
+                    and (epoch + 1) % self.visualize_every == 0):
+                self._visualize(seed_val, epoch)
 
             if cfg.scheduler == "plateau":
                 self._set_lr(self.scheduler.step(val_total))
@@ -358,7 +475,8 @@ class ModelTrainer:
                 self.best_snapshot = self._state()
             if cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0:
                 self.save_checkpoint(epoch)
-            if epoch % cfg.show_every == 0 or epoch == cfg.epochs - 1:
+            if self.rank == 0 and (epoch % cfg.show_every == 0
+                                   or epoch == cfg.epochs - 1):
                 print(f"EPOCH {epoch} ({time.time() - epoch_start:.3f}s) "
                       f"train {train_vals['total_loss']:.4f} "
                       f"val {val_total:.4f}", flush=True)
@@ -367,12 +485,14 @@ class ModelTrainer:
         return self.model
 
     def _finalize(self, total_train_time_s: float) -> None:
+        if self.best_snapshot is not None:
+            self.model.load_state_dict(copy.deepcopy(self.best_snapshot))
+        if self.rank != 0:
+            return
         with open(os.path.join(self.out_dir, "train_time.csv"), "w") as f:
             w = csv.writer(f)
             w.writerow(["train time [m]"])
             w.writerow([str(total_train_time_s / 60)])
-        if self.best_snapshot is not None:
-            self.model.load_state_dict(copy.deepcopy(self.best_snapshot))
         save_model(self.model, os.path.join(self.out_dir, "model.pt"))
         self._save_history()
         self._plot_progression()

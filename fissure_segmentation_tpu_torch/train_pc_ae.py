@@ -22,8 +22,9 @@ that exists. The model trains in float32, as the JAX entry's does.
 Everything runs on CUDA card `--gpu`; without a card it raises, unless the
 caller of `run` or `main` passes ``device="cpu"`` (as the tests do).
 
-Not written: op_count.csv. Not ported yet (each raising
-NotImplementedError): `--dp`, `--visualize`.
+Not written: op_count.csv. `--dp` and `--visualize` are taken and have no
+effect, as in the JAX entry, whose generic parser gives them to every
+entry and whose PC-AE run reads neither.
 """
 from __future__ import annotations
 
@@ -46,13 +47,6 @@ from .train.trainer import ModelTrainer, TrainConfig
 from .utils.device import resolve_device
 
 EVAL_SEED = 7          # the JAX entry's PRNGKey(7)
-
-
-def check_supported(args) -> None:
-    for what, on in (("--dp", args.dp),
-                     ("--visualize", args.visualize is not None)):
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet")
 
 
 def default_device(args) -> torch.device:
@@ -176,12 +170,10 @@ def evaluate_reconstruction(ds: SampleFromMeshDS, model, out_dir: str,
 def run(args, device=None) -> dict:
     """Train and/or test the folds `args` asks for; returns {fold: trained
     model} (the best snapshot, the one written as model.pt)."""
-    check_supported(args)
     device = default_device(args) if device is None else torch.device(device)
     os.makedirs(args.output, exist_ok=True)
     if args.test_only:
         args = load_args_for_testing(args.output, args)
-        check_supported(args)
     else:
         store_args(args, args.output)
 

@@ -36,9 +36,20 @@ package, which keeps it out of bf16), and `--k`, `--static`,
 `--transformer`, `--img_feat_extractor` and `--knn_recall` do not apply to
 it; PointNet takes neither `--k` nor `--static`. `--knn_recall R` builds
 DGCNN's graphs approximately at recall target R
-(`DGCNNSeg(knn_recall=R)`, ops/knn.py). Not ported yet, each raising
-NotImplementedError: `--dp`, `--visualize`. The op_count.csv artifact is
-not written. The test
+(`DGCNNSeg(knn_recall=R)`, ops/knn.py).
+
+`--dp` trains each fold data-parallel, as the JAX entry does over every
+local device: one NCCL rank a visible card (parallel/mesh.py:spawn), each
+rank training on its share of every batch with the global batch's loss
+and BatchNorm statistics (train/trainer.py, `group=`); the batch size must
+divide by the number of cards. With one card it trains as without `--dp`.
+`run(args, device="cpu", world_size=n)` trains over n gloo ranks on the CPU
+(the tests). The test half and `--speed` run once, in the calling process,
+after the ranks have written the fold. `--visualize N` draws the first
+validation cloud's labels and prediction every N epochs
+(fold*/visualizations/epoch{E}.png, utils/visualization.py; rank 0 only
+under `--dp`, and only where matplotlib imports). The op_count.csv
+artifact is not written. The test
 modes read each fold's `model.pt`, or the JAX package's `model.fst` where
 only that exists (`models/weights.py:load_fold_model`).
 """
@@ -58,20 +69,11 @@ from .data.synthetic import make_synthetic_dataset
 from .losses import get_loss_fn
 from .models import (ensemble_predict, get_point_seg_model_class,
                      load_fold_model)
+from .parallel.mesh import spawn
 from .train import evaluation
 from .train.cross_val import cross_val_training
 from .train.trainer import ModelTrainer, TrainConfig
-
-
-def check_supported(args) -> None:
-    """Raise NotImplementedError for every option this port does not take."""
-    unported = {
-        "--dp": args.dp,
-        "--visualize": args.visualize is not None,
-    }
-    for what, on in unported.items():
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet")
+from .utils.visualization import point_seg_visualization
 
 
 def build_dataset(args) -> PointDataset:
@@ -146,16 +148,71 @@ def speed_test(ds: PointDataset, model, out_dir: str, sample_points: int,
     return times
 
 
-def run(args, device=None) -> dict:
+def dp_world_size(args, device: torch.device,
+                  world_size: int | None = None) -> int:
+    """The ranks `--dp` trains over: `world_size` if given, else one a
+    visible card (1 on the CPU, and without `--dp`)."""
+    if not args.dp:
+        return 1
+    if world_size is not None:
+        return world_size
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def make_trainer(args, ds: PointDataset, train_ds, fold_dir: str,
+                 cfg: TrainConfig, fold: int, device,
+                 group=None) -> ModelTrainer:
+    """The fold's trainer: its model from the fold's seed, the loss on
+    `device`, the visualization hook under `--visualize`."""
+    seed = cfg.seed + fold
+    model = build_model(args, ds, torch.Generator().manual_seed(seed))
+    class_weights = torch.as_tensor(ds.get_class_weights(), device=device)
+    vis = args.visualize
+    return ModelTrainer(model, train_ds, get_loss_fn(args.loss, class_weights),
+                        fold_dir, TrainConfig(**{**cfg.__dict__, "seed": seed}),
+                        device=device,
+                        visualization_fn=point_seg_visualization if vis
+                        else None,
+                        visualize_every=int(vis) if vis else 1, group=group)
+
+
+def _train_fold_rank(mesh, args, ds, train_ds, fold_dir, cfg, fold) -> None:
+    """One `--dp` rank: train the fold over the mesh's group (rank 0
+    writes it)."""
+    make_trainer(args, ds, train_ds, fold_dir, cfg, fold, mesh.device,
+                 mesh.group).run()
+
+
+def train_fold_dp(args, ds, train_ds, fold_dir: str, cfg: TrainConfig,
+                  fold: int, device: torch.device, world_size: int) -> None:
+    """Train one fold over `world_size` spawned ranks: NCCL with card i for
+    rank i, or gloo on the CPU."""
+    if device.type == "cuda":
+        if world_size > torch.cuda.device_count():
+            raise ValueError(f"--dp: {world_size} ranks for "
+                             f"{torch.cuda.device_count()} cards (NCCL takes "
+                             "one card a rank)")
+        from .kernels import _build
+        _build.build()      # once, here, not in every rank at once
+        backend, devices = "nccl", [f"cuda:{i}" for i in range(world_size)]
+    else:
+        backend, devices = "gloo", "cpu"
+    # the ranks share this process's intra-op threads
+    spawn(_train_fold_rank, world_size, backend, devices,
+          args=(args, ds, train_ds, fold_dir, cfg, fold), timeout_s=900.0,
+          threads=max(1, torch.get_num_threads() // world_size))
+
+
+def run(args, device=None, world_size: int | None = None) -> dict:
     """Train and/or test the folds `args` asks for; returns {fold: trained
-    model} (the best snapshot, the one written as model.pt)."""
-    check_supported(args)
+    model} (the best snapshot, the one written as model.pt).
+    `world_size`: the ranks `--dp` trains over (default: the visible
+    cards)."""
     device = default_device(args) if device is None else torch.device(device)
     os.makedirs(args.output, exist_ok=True)
     if args.test_only or args.copd or args.speed:
         # the trained run's arguments, with the test-time overrides
         args = load_args_for_testing(args.output, args)
-        check_supported(args)
     else:
         store_args(args, args.output)
     if args.copd:
@@ -171,22 +228,22 @@ def run(args, device=None) -> dict:
         speed_test(ds, model, args.output, args.pts, device)
         return {}
 
-    class_weights = torch.as_tensor(ds.get_class_weights(), device=device)
-    loss_fn = get_loss_fn(args.loss, class_weights)
     split = load_split_file(args.split) if args.split else \
         create_split(ds.ids, k=5)
     cfg = TrainConfig(epochs=args.epochs, lr=args.lr, batch_size=args.batch,
                       weight_decay=args.wd, scheduler=args.scheduler)
+    n_ranks = dp_world_size(args, device, world_size)
 
     models = {}
 
     def train_fn(train_ds, fold_dir, fold):
-        seed = cfg.seed + fold
-        model = build_model(args, ds, torch.Generator().manual_seed(seed))
-        trainer = ModelTrainer(model, train_ds, loss_fn, fold_dir,
-                               TrainConfig(**{**cfg.__dict__, "seed": seed}),
-                               device=device)
-        models[fold] = trainer.run()
+        if n_ranks > 1:
+            train_fold_dp(args, ds, train_ds, fold_dir, cfg, fold, device,
+                          n_ranks)
+            models[fold] = load_fold_model(fold_dir, model_cls).to(device)
+            return
+        models[fold] = make_trainer(args, ds, train_ds, fold_dir, cfg, fold,
+                                    device).run()
 
     def test_fn(val_ds, fold_dir, fold):
         model = load_fold_model(fold_dir, model_cls).to(device)

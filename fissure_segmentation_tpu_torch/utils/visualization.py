@@ -1,8 +1,9 @@
-"""The test pipeline's point-cloud plot and the figure scripts' slice
-overlays (copies of `plot_point_cloud`, `visualize_with_overlay`,
-`legend_figure` and their helpers from the JAX package's
-utils/visualization.py, held equal to the originals by
-tests/test_torch_repairs.py and tests/test_torch_baselines.py).
+"""The test pipeline's point-cloud plot, the trainer's per-epoch figure
+and the figure scripts' slice overlays (copies of `plot_point_cloud`,
+`point_seg_visualization`, `visualize_with_overlay`, `legend_figure` and
+their helpers from the JAX package's utils/visualization.py, held equal to
+the originals by tests/test_torch_repairs.py,
+tests/test_torch_baselines.py and tests/test_torch_parallel_train.py).
 
 matplotlib is imported at the call, never with the module: a machine
 without it (`matplotlib_available()` is False) runs everything else, and the
@@ -66,6 +67,48 @@ def plot_point_cloud(pc: np.ndarray, labels: np.ndarray | None = None,
                                 label=f"label {lbl}", alpha=0.6 if lbl else 0.1)
     ax.set_title(title)
     _finish(fig, path, show)
+
+
+def _first_leaf(tree):
+    """The first array of a nested dict/tuple/list (jax.tree.leaves order:
+    dict keys sorted)."""
+    if isinstance(tree, dict):
+        return _first_leaf(tree[sorted(tree)[0]])
+    if isinstance(tree, (tuple, list)):
+        return _first_leaf(tree[0])
+    return tree
+
+
+def point_seg_visualization(x: np.ndarray, y, out, epoch: int, out_dir: str):
+    """The trainer's per-epoch visualization (the reference ModelTrainer's
+    `visualization_fn` hook): ground truth against predicted labels of the
+    first validation cloud, written to
+    `<out_dir>/visualizations/epoch{N}.png`; nothing where matplotlib does
+    not import.
+
+    :param x: (B, N, F) validation batch, the first 3 features xyz
+    :param y: (B, N) int labels (nested targets: the first leaf)
+    :param out: (B, N, C) logits (nested outputs: the first leaf)
+    """
+    if not matplotlib_available():
+        return
+    plt = _plt()
+    y = _first_leaf(y)
+    out = _first_leaf(out)
+    pc = np.asarray(x)[0, :, :3]
+    gt = np.asarray(y)[0]
+    pred = np.argmax(np.asarray(out)[0], axis=-1)
+    fig = plt.figure(figsize=(10, 5))
+    for i, (lab, title) in enumerate([(gt, "ground truth"),
+                                      (pred, f"prediction (epoch {epoch})")]):
+        ax = fig.add_subplot(1, 2, i + 1, projection="3d")
+        for lbl in np.unique(lab):
+            m = lab == lbl
+            point_cloud_on_axis(ax, pc[m],
+                                c=color_for_label(lbl) if lbl else "lightgray",
+                                alpha=0.6 if lbl else 0.1, title=title)
+    path = os.path.join(out_dir, "visualizations", f"epoch{epoch}.png")
+    _finish(fig, path, show=False)
 
 
 def _finish(fig, path, show):

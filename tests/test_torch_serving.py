@@ -146,7 +146,9 @@ def test_port_runs_without_jax():
                  "postprocess.plane_fitting", "utils.tables",
                  "register_images", "shape_sanity_checks",
                  "evaluate_baselines", "compute_fraction_of_fissures",
-                 "qualitative_plots"):
+                 "qualitative_plots", "ops.collectives", "parallel",
+                 "parallel.mesh", "parallel.ensemble", "parallel.points",
+                 "parallel.spatial", "parallel.dryrun"):
         assert f"fissure_segmentation_tpu_torch.{name}" in _port_modules()
     code = textwrap.dedent(f"""
         import importlib

@@ -612,28 +612,42 @@ ENTRY = ["--static", "--amp", "false", "--train_only", "--fold", "0"]
     (["--transformer"], None),
     (["--img_feat_extractor"], None),
     (["--knn_recall", "0.9"], None),
-    (["--dp"], "dp"),
-    (["--visualize", "2"], "visualize"),
+    (["--dp"], None),
+    (["--visualize", "1"], None),
     (["--model", "PointNet"], None),
 ], ids=["transformer", "img_feat_extractor", "knn_recall", "dp",
         "visualize", "pointnet"])
 def test_entry_point_raises_for_unported_options(tmp_path, extra, match):
-    """Options still unported raise before anything is written. The ported
-    ones (`--transformer`, `--img_feat_extractor`, `--knn_recall`,
-    `--model PointNet`) train fold 0 for one epoch on the CPU and write
-    model.pt with the option in the model's config."""
+    """Options still unported raise before anything is written (none of
+    these is left). The ported ones (`--transformer`,
+    `--img_feat_extractor`, `--knn_recall`, `--model PointNet`, `--dp`,
+    `--visualize`) train fold 0 for one epoch on the CPU and write model.pt
+    with the option in the model's config; `--dp` on one device trains as
+    without it, and `--visualize 1` draws epoch 0's figure where
+    matplotlib imports."""
     argv = list(ENTRY) + extra + ["--output", str(tmp_path)]
     if match is not None:
         with pytest.raises(NotImplementedError, match=match):
             train_point_seg.main(argv)
         assert not os.listdir(tmp_path)     # raised before writing anything
         return
-    for c in synthetic.make_synthetic_dataset(5, n_points=150):
+    # 10 cases leave fold 0's trainer a validation case to draw
+    n_cases = 10 if extra[0] == "--visualize" else 5
+    for c in synthetic.make_synthetic_dataset(n_cases, n_points=150):
         dataset.save_case_npz(c, str(tmp_path / "cases"))
     argv += ["--data_dir", str(tmp_path / "cases"), "--pts", "48", "--k",
              "4", "--batch", "2", "--epochs", "1"]
     assert train_point_seg.main(argv, device="cpu") == 0
     config = load_model(str(tmp_path / "fold0" / "model.pt")).config
+    if extra[0] == "--visualize":
+        from fissure_segmentation_tpu_torch.utils.visualization import \
+            matplotlib_available
+        assert (tmp_path / "fold0" / "visualizations" / "epoch0.png"
+                ).exists() == matplotlib_available()
+        return
+    if extra[0] == "--dp":
+        assert config["k"] == 4 and not config["dynamic"]
+        return
     want = {"--transformer": ("spatial_transformer", True),
             "--img_feat_extractor": ("image_feat_module", True),
             "--knn_recall": ("knn_recall", 0.9),
