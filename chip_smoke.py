@@ -375,6 +375,26 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      transpose, K3 (at its own payload type) and K4 at a shape the earlier
      phases do not check is held against its plain version at that shape
      and timed (par_kernel_checks).
+ 53. the fused EdgeConv tail and the last of the JAX package: the tail's
+     CUDA default (CUDA_TAIL_DEFAULT, FSEG_FUSED_EDGE_TAIL unset: a
+     default step goes through FusedEdgeTail where it is on) and its A/B
+     (phase_tail_ab: prof/tail_ab.py's static f32 and bf16, dynamic bf16
+     and stems steps at 32 x 2048 and the serving ensemble on the 256^3
+     case's keypoints, tail on against off, medians of TAIL_AB_RUNS runs of
+     TAIL_AB_STEPS, the default no slower than TAIL_AB_NOISE; the
+     host-bound serving ensemble held by its device time); a train
+     step with the tail on both sides, card against CPU, f32 and bf16
+     (phase_tail_reference); knn(query_chunk=) equal to the unchunked call
+     at (3, 8192, 3) kk = 30 (K1) and (2, 2048, 64) bf16 kk = 40 (the
+     feature route; phase_knn_chunk); PointTransformerSeg(dtype=bf16) at
+     full width, card against CPU (phase_pt_bf16_reference); the fetch
+     stage of segment_cases and the float path's device -> host copies of
+     a case against its s/case (phase_fetch), which decide the packed
+     encodings.
+
+The CUDA default of the fused tail is on, and the CPU's off: every
+card-vs-CPU phase runs with FSEG_FUSED_EDGE_TAIL set to the CUDA default,
+so both sides take one route.
 
 Kernel launch counts are set to 0 before each main path (phases 4, 10 and
 14 serving, phases 7, 11 and 17 training, phase 19 the probes, phase 20
@@ -388,7 +408,8 @@ training steps, the ensemble, the window, the ring; phase 49's --dp entry
 run) and read after it;
 the comparison launches of phases 3, 5, 6, 8, 9, 12, 13, 15, 16, 18, 21,
 23, 25, 26, 28, 30, 32, 34, 36, 38, 39's and 40's references, 41, 42's
-and 43's A/B runs and checks, 45's K5 check and reference, 47's K1 check
+and 43's A/B runs and checks, 53's A/B and checks (its A/B's launches
+are printed), 45's K5 check and reference, 47's K1 check
 and reference, of K3 and K4 timed at DPSR-Net's and the affine step's
 shapes, and of the probes' own checks are not counted. Phases 45, 47 and
 48 go into the "slice" rows as paths of their own ("correspondences": K5;
@@ -2780,8 +2801,8 @@ def planted_graph_fault():
     from fissure_segmentation_tpu_torch.ops import knn as knn_mod
     real = knn_mod.feature_knn
 
-    def fault(x, kk):
-        idx, dist = real(x, kk)
+    def fault(x, kk, *args):
+        idx, dist = real(x, kk, *args)
         idx = idx.clone()
         idx[..., 1] = idx[..., 1].roll(1, dims=-1)
         return idx, dist
@@ -2800,8 +2821,8 @@ class GraphRecorder:
         from fissure_segmentation_tpu_torch.ops import knn as knn_mod
         self.mod, self.real, self.graphs = knn_mod, knn_mod.feature_knn, []
 
-        def record(x, kk):
-            out = self.real(x, kk)
+        def record(x, kk, *args):
+            out = self.real(x, kk, *args)
             self.graphs.append(out[0].cpu())
             return out
         knn_mod.feature_knn = record
@@ -7448,6 +7469,315 @@ def par_kernel_checks(ks, knn_cuda, par_paths: dict, scatter: dict,
                                      scatter["scatter_rows"][1]))}}
 
 
+# ---- phase 53: the fused EdgeConv tail and the last of the JAX package ----
+
+TAIL_AB_RUNS = 3        # runs of each setting (on, off, off, on, on, off)
+TAIL_AB_STEPS = 10      # warm steps (or ensemble forwards) a run
+TAIL_F32_GRAD_TOL = 1e-3    # phase_tail_reference says why
+TAIL_AB_NOISE = 0.01        # phase_tail_ab says why
+FETCH_SHARE_LIMIT = 0.02    # the packed encodings' decision (ROADMAP)
+
+
+def phase_tail_ab(ks, knn_cuda, card: str) -> dict:
+    """53a: the tail's CUDA default and its A/B on the card. With
+    FSEG_FUSED_EDGE_TAIL unset, `fused_tail_enabled("cuda")` must be
+    `CUDA_TAIL_DEFAULT` and a default static step must call FusedEdgeTail
+    (EdgeConv_0); then prof/tail_ab.py's cases, tail on against off
+    (TAIL_AB_RUNS runs of TAIL_AB_STEPS each, CUDA events), the serving
+    ensemble on the 256^3 case's Förstner keypoints. The default must be
+    no slower than the other setting in any case. The A/B's launches are
+    read (reset before, read after) and printed, not counted in the
+    kernels line (an A/B, like phases 42 and 43's). The default must not
+    be slower than the other setting by more than TAIL_AB_NOISE: in the
+    train steps by the A/B's medians (device-bound: they moved 0.1-0.5 %
+    from call to call on an H100), in the serving ensemble by its device
+    time a forward (the profiler's kernels over 3 forwards): that forward
+    is host-bound, and this late in the script its host time spreads
+    +-30 % from run to run (46-76 ms a forward on an H100), so its
+    A/B medians are printed, not held. prof/tail_ab.py's A/B in a fresh
+    process (PERF.md) is what set the default."""
+    from fissure_segmentation_tpu_torch import serving
+    from fissure_segmentation_tpu_torch.models.blocks import FusedEdgeTail
+    from fissure_segmentation_tpu_torch.ops.fused_edge import (
+        CUDA_TAIL_DEFAULT, fused_tail_enabled)
+    from fissure_segmentation_tpu_torch.prof.tail_ab import (CASES, ab,
+                                                             build_cases)
+    from fissure_segmentation_tpu_torch.utils.coords import kpts_to_grid
+    saved = os.environ.pop("FSEG_FUSED_EDGE_TAIL", None)
+    calls = []
+    real = FusedEdgeTail.forward
+    FusedEdgeTail.forward = lambda self, e: calls.append(1) or real(self, e)
+    try:
+        if fused_tail_enabled("cuda") != CUDA_TAIL_DEFAULT:
+            raise AssertionError("tail: the CUDA default is not "
+                                 "CUDA_TAIL_DEFAULT")
+        case = synthetic_ct()
+        vol = torch.as_tensor(case["image"], dtype=torch.float32,
+                              device="cuda")
+        mask = torch.as_tensor(case["lung_mask"], device="cuda").bool()
+        with torch.no_grad():
+            kpts, valid, shape = serving._keypoints(
+                vol, mask, None, kp_mode="foerstner", max_kpts=20000,
+                fissure_mu=0.0, fissure_sigma=1.0, cnn_model=None,
+                cnn_dtype=None, kp_scores=None, approx_top_k=False)
+            cloud = torch.where(valid[:, None], kpts_to_grid(
+                kpts.flip(-1).to(torch.float32), shape), -1.0)
+        with tempfile.TemporaryDirectory() as tmp:
+            fns = build_cases(tmp, CASES, serving_cloud=cloud)
+            fns["static f32"]()
+            if bool(calls) != CUDA_TAIL_DEFAULT:
+                raise AssertionError(f"tail: a default step made {len(calls)}"
+                                     " FusedEdgeTail calls")
+            _reset(ks, knn_cuda)
+            res = {name: ab(fn, TAIL_AB_RUNS, TAIL_AB_STEPS, warm=2)
+                   for name, fn in fns.items()}
+            launches = {k: v for k, v in _counts(ks, knn_cuda).items() if v}
+            host_bound = "serving f32"
+            res[host_bound]["device_ms"] = dev = {}
+            for flag in ("1", "0"):
+                os.environ["FSEG_FUSED_EDGE_TAIL"] = flag
+                dev["on" if flag == "1" else "off"] = _device_ms(
+                    fns[host_bound], calls=2)
+    finally:
+        FusedEdgeTail.forward = real
+        os.environ.pop("FSEG_FUSED_EDGE_TAIL", None)
+        if saved is not None:
+            os.environ["FSEG_FUSED_EDGE_TAIL"] = saved
+    ratio = {n: r["on_over_off"] for n, r in res.items() if n != host_bound}
+    ratio[host_bound] = dev["on"] / dev["off"]
+    if not CUDA_TAIL_DEFAULT:
+        ratio = {n: 1.0 / q for n, q in ratio.items()}
+    slower = [n for n, q in ratio.items() if q > 1.0 + TAIL_AB_NOISE]
+    if slower:
+        raise AssertionError(f"tail: the default ({CUDA_TAIL_DEFAULT}) is "
+                             f"slower in {slower}: {res}")
+    for name, r in res.items():
+        print(f"tail A/B {name}: on {r['on_median']:.3f} ms, off "
+              f"{r['off_median']:.3f} ms ({r['on_over_off']:.4f}); runs on "
+              f"{[round(t, 3) for t in r['on']]}, off "
+              f"{[round(t, 3) for t in r['off']]} on {card}", flush=True)
+    print(f"tail A/B: serving's device ms a forward {dev} (held; its host-"
+          f"bound medians above are printed only); launches of the A/B (not "
+          f"counted) {launches}", flush=True)
+    return {"cases": res, "default": CUDA_TAIL_DEFAULT,
+            "ab_launches": launches}
+
+
+def _device_ms(fn, calls: int = 3) -> float:
+    """The summed device time of the profiler's kernels a call of `fn`,
+    over `calls` warm calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / calls
+
+
+def phase_tail_reference(card: str) -> dict:
+    """53b: DGCNNSeg(k = 8, static) with the tail on both sides
+    (FSEG_FUSED_EDGE_TAIL=1: the CPU's default is off), one train step on 4
+    clouds of 256 points, card against CPU. float32 (the fused single-
+    layer route, CUDA's default, on both sides): the loss within rtol 1e-5
+    and the whole gradient within TAIL_F32_GRAD_TOL in relative L2, on the
+    first input whose forward branches (LeakyReLU sides, maxima, routed
+    slots) agree on both sides (phase_train_reference says why; it holds
+    each leaf within 2e-4 there, 1e-3 as a whole allows a few leaves'
+    rounding to add up); bf16 as phase 18 holds it (BF16_TOL)."""
+    from fissure_segmentation_tpu_torch.models import export_jax_variables
+    from fissure_segmentation_tpu_torch.train.trainer import TrainConfig
+    saved = os.environ.get("FSEG_FUSED_EDGE_TAIL")
+    os.environ["FSEG_FUSED_EDGE_TAIL"] = "1"
+    os.environ["FSEG_FUSED_EDGE"] = "1"
+    res = {}
+    try:
+        for seed in range(REF_SEEDS):
+            ds, x, y, cw = _small_batch(530 + seed)
+            model0 = _reference_model(seed, ds)
+            m_g, l_g, _, br_g = _reference_step("cuda", model0, ds, cw,
+                                                TrainConfig(), x, y)
+            m_c, l_c, _, br_c = _reference_step("cpu", model0, ds, cw,
+                                                TrainConfig(), x, y)
+            if len(br_g) == len(br_c) and all(
+                    torch.equal(a, b) for a, b in zip(br_g, br_c)):
+                break
+        else:
+            raise AssertionError(f"tail reference: no input of {REF_SEEDS} "
+                                 "took the same branches on both sides")
+        _close("tail f32 loss", l_g, l_c, rtol=1e-5, atol=0)
+        grad = _rel_l2(dict(_leaves(export_jax_variables(m_g, grad=True))),
+                       dict(_leaves(export_jax_variables(m_c, grad=True))))
+        if grad > TAIL_F32_GRAD_TOL:
+            raise AssertionError(f"tail reference: f32 gradient {grad:.3g} "
+                                 f"apart (tolerance {TAIL_F32_GRAD_TOL})")
+        res["f32"] = {"seed": seed, "loss": [l_g, l_c], "grad_rel_l2": grad}
+        ds, x, y, cw = _small_batch(539)
+        model0 = _reference_model(0, ds, dtype=torch.bfloat16)
+        m_g, l_g, _, _ = _reference_step("cuda", model0, ds, cw,
+                                         TrainConfig(), x, y)
+        m_c, l_c, _, _ = _reference_step("cpu", model0, ds, cw,
+                                         TrainConfig(), x, y)
+        _close("tail bf16 loss", l_g, l_c, rtol=BF16_TOL["loss"], atol=0)
+        grad = _rel_l2(dict(_leaves(export_jax_variables(m_g, grad=True))),
+                       dict(_leaves(export_jax_variables(m_c, grad=True))))
+        stats = _rel_l2(*(dict(_leaves(export_jax_variables(m)[
+            "batch_stats"])) for m in (m_g, m_c)))
+        if grad > BF16_TOL["grad_rel_l2"] or \
+                stats > BF16_TOL["stats_rel_l2"]:
+            raise AssertionError(f"tail reference: bf16 gradient {grad:.3g},"
+                                 f" statistics {stats:.3g} apart ({BF16_TOL})")
+        res["bf16"] = {"loss": [l_g, l_c], "grad_rel_l2": grad,
+                       "stats_rel_l2": stats}
+    finally:
+        os.environ.pop("FSEG_FUSED_EDGE")
+        if saved is None:
+            os.environ.pop("FSEG_FUSED_EDGE_TAIL")
+        else:
+            os.environ["FSEG_FUSED_EDGE_TAIL"] = saved
+    print(f"tail reference: card vs CPU with the tail on both sides "
+          f"{json.dumps(res)} on {card}", flush=True)
+    return res
+
+
+def phase_knn_chunk(card: str) -> dict:
+    """53c: knn(query_chunk=) on the card equals the unchunked call,
+    indices and distances: K1's route at (3, 8192, 3), kk = 30 (the
+    serving normals' shape; K1 keeps no distance matrix, so the chunk
+    changes nothing there), and the feature route at (2, 2048, 64) bf16,
+    kk = 40, in chunks of 512 rows (each block's distances by the JAX
+    formula, the fused row selection)."""
+    from fissure_segmentation_tpu_torch.ops.knn import knn
+    g = torch.Generator().manual_seed(53)
+    out = {}
+    for name, x, k, chunk in (
+            ("k1_3x8192x3_kk30", torch.rand((3, 8192, 3), generator=g)
+             * 2 - 1, 30, 1024),
+            ("feature_2x2048x64_bf16_kk40",
+             torch.randn((2, 2048, 64), generator=g).to(torch.bfloat16), 40,
+             512)):
+        x = x.cuda()
+        whole = knn(x, k, self_loop=True, return_dist=True)
+        part = knn(x, k, self_loop=True, return_dist=True,
+                   query_chunk=chunk)
+        if not (torch.equal(whole[0], part[0])
+                and torch.equal(whole[1], part[1])):
+            raise AssertionError(f"knn chunk {name}: the chunked selection "
+                                 "differs from the unchunked one")
+        out[name] = {"chunk": chunk, "equal": True,
+                     "chunked_ms": median_ms(lambda: knn(
+                         x, k, self_loop=True, query_chunk=chunk), reps=3,
+                         inner=3),
+                     "whole_ms": median_ms(lambda: knn(x, k, self_loop=True),
+                                           reps=3, inner=3)}
+    print(f"knn query_chunk on the card: {json.dumps(out)} on {card}",
+          flush=True)
+    return out
+
+
+def phase_pt_bf16_reference(card: str) -> dict:
+    """53d: PointTransformerSeg(dtype=bf16) at full depth and width, one
+    train-mode forward and backward of sum(logits * w) on 2 clouds of 1024
+    dyadic points (every kNN distance exact, so both sides select alike),
+    card against CPU from the same weights: the logits and the whole
+    gradient within 2 x the CPU's own bf16-vs-float32 distance (relative
+    L2), the rule the CPU tests hold the bf16 model to against JAX's; and
+    the eval-mode logits (running statistics: nothing amplifies rounding)
+    within BF16_TOL["logits"] of their largest entry."""
+    from fissure_segmentation_tpu_torch.models import (PointTransformerSeg,
+                                                       export_jax_variables)
+    g = torch.Generator().manual_seed(531)
+    x = torch.randint(-16, 17, (2, 1024, 3), generator=g) / 16.0
+    w = torch.randn((2, 1024, 4), generator=g)
+    f32 = PointTransformerSeg(3, 4, generator=torch.Generator()
+                              .manual_seed(532))
+    runs = {}
+    for name, dev, dtype in (("card", "cuda", torch.bfloat16),
+                             ("cpu", "cpu", torch.bfloat16),
+                             ("cpu_f32", "cpu", None)):
+        model = PointTransformerSeg(3, 4, dtype=dtype)
+        model.load_state_dict(f32.state_dict())
+        model = model.to(dev).train()
+        out = model(x.to(dev))
+        (out * w.to(dev)).sum().backward()
+        grads = dict(_leaves(export_jax_variables(model, grad=True)))
+        runs[name] = (out.detach().float().cpu().numpy(), grads)
+    rel = {"logits": lambda a, b: float(np.linalg.norm(a[0] - b[0])
+                                        / np.linalg.norm(b[0])),
+           "grad": lambda a, b: _rel_l2(a[1], b[1])}
+    res = {k: {"card_vs_cpu": f(runs["card"], runs["cpu"]),
+               "cpu_bf16_vs_f32": f(runs["cpu"], runs["cpu_f32"])}
+           for k, f in rel.items()}
+    for k, r in res.items():
+        if not r["card_vs_cpu"] <= 2 * r["cpu_bf16_vs_f32"]:
+            raise AssertionError(f"PointTransformer bf16 reference: {k} "
+                                 f"{r}")
+    model = PointTransformerSeg(3, 4, dtype=torch.bfloat16)
+    model.load_state_dict(f32.state_dict())
+    with torch.no_grad():
+        lc = model.eval()(x).float()
+        lg = model.cuda()(x.cuda()).float().cpu()
+    res["eval_logits"] = float((lg - lc).abs().max() / lc.abs().max())
+    if res["eval_logits"] > BF16_TOL["logits"]:
+        raise AssertionError(f"PointTransformer bf16 reference: eval logits "
+                             f"{res['eval_logits']:.3g} * max|logit| apart")
+    print(f"PointTransformer bf16 reference: {json.dumps(res)} on {card}",
+          flush=True)
+    return res
+
+
+def phase_fetch(card: str) -> dict:
+    """53e: what the packed encodings would save. N_PIPE copies of the
+    256^3 case through segment_cases (phase 4's model) with its stage
+    timings: the fetch stage's median (the wait for a case's event: the
+    rest of its device half and its copies) against the s/case; the bytes
+    a case copies device -> host on the float path (the dispatched
+    outputs), and those copies alone (CUDA events, into pinned buffers)
+    against the s/case. The packed encodings are not to port if the copies
+    take under FETCH_SHARE_LIMIT of a case."""
+    from fissure_segmentation_tpu_torch.serving import (_device_case,
+                                                        case_generator)
+    case = synthetic_ct()
+    vol = torch.from_numpy(case["image"]).cuda()
+    mask = torch.from_numpy(case["lung_mask"]).cuda()
+    apply = _serving_model(case)
+    _serve_batch(vol, mask, apply, 5, True, n=2)         # warm-up
+    _, s_case, tm = _serve_batch(vol, mask, apply, 0, True)
+    fetch = statistics.median(t["fetch_s"] for t in tm)
+    with torch.no_grad():
+        out, _ = _device_case(
+            vol, mask, apply, case_generator(0, 0), None, max_kpts=20000,
+            sample_points=2048, n_runs_min=50, subset_batch=5,
+            grid_res=(64, 64, 64), sig=4.0, k_normals=30, max_tris=24000,
+            num_fg_classes=3, class_cap=8192, kp_mode="foerstner",
+            fissure_mu=-313.5, fissure_sigma=62.6, cnn_model=None,
+            cnn_dtype=None, kp_scores=None, approx_top_k=False)
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in out]
+    n_bytes = sum(t.numel() * t.element_size() for t in out)
+
+    def copies():
+        for h, t in zip(host, out):
+            h.copy_(t, non_blocking=True)
+    copy_ms = median_ms(copies, reps=5, inner=5)
+    res = {"cases": N_PIPE, "s_per_case": s_case, "fetch_s_median": fetch,
+           "fetch_share": fetch / s_case, "bytes_per_case": n_bytes,
+           "copy_ms": copy_ms, "copy_share": copy_ms / 1e3 / s_case,
+           "copy_gb_per_s": n_bytes / copy_ms / 1e6,
+           "by_output": {name: t.numel() * t.element_size() for name, t in
+                         zip(("kpts", "valid", "pred", "inside", "tris",
+                              "n_tris"), out)}}
+    res["packed_encodings"] = ("not to port"
+                               if res["copy_share"] < FETCH_SHARE_LIMIT
+                               else "port")
+    print(f"fetch: {json.dumps(res)} on {card}", flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -7472,6 +7802,12 @@ def _main() -> int:
     # 1. card and settings
     card = card_line()
     print(f"card: {card}", flush=True)
+    # the card-vs-CPU phases hold the card against the CPU on one route:
+    # the fused tail's, where it is CUDA's default (the CPU's is off), so
+    # the CPU side takes it too (phase 53 checks the default itself)
+    from fissure_segmentation_tpu_torch.ops.fused_edge import \
+        CUDA_TAIL_DEFAULT
+    os.environ["FSEG_FUSED_EDGE_TAIL"] = "1" if CUDA_TAIL_DEFAULT else "0"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -7793,10 +8129,21 @@ def _main() -> int:
     print(json.dumps({"parallel_launches": {
         path: {k: v for k, v in p[0].items() if v}
         for path, p in par_paths.items()}, "card": card}), flush=True)
+    # 53. the fused tail's default and A/B (its launches read and printed,
+    # not counted), the tail card against CPU, knn(query_chunk=), the bf16
+    # PointTransformer card against CPU, the fetch stage and its copies
+    t53 = time.perf_counter()
+    tail = {"ab": phase_tail_ab(ks, knn_cuda, card),
+            "reference": phase_tail_reference(card),
+            "knn_query_chunk": phase_knn_chunk(card),
+            "pt_bf16_reference": phase_pt_bf16_reference(card),
+            "fetch": phase_fetch(card)}
+    print(json.dumps({"tail_and_helpers": tail, "card": card}), flush=True)
     print(json.dumps({"phase_s": {
         "41": t42 - t41, "42": t43 - t42, "43": t44 - t43, "44": t45 - t44,
         "45": t46 - t45, "46": t47 - t46, "47": t48 - t47,
-        "48": t49 - t48, "49-52": time.perf_counter() - t49}}), flush=True)
+        "48": t49 - t48, "49-52": t53 - t49,
+        "53": time.perf_counter() - t53}}), flush=True)
 
     def slice_row(name, timed):
         """The slice's launches of a kernel, by path and by call."""

@@ -180,6 +180,31 @@ class PointDataset:
         return mk(train, self.do_augmentation), mk(val, False)
 
 
+def load_reference_point_file(folder: str, case: str, sequence: str,
+                              feat: str | None = None) -> dict:
+    """Read the reference's {case}_coords_{seq}.pth point files
+    (general_utils.py:70-80 layout: 3xN coords, N labels, optional features)."""
+    import torch
+
+    def _load(kind):
+        p = os.path.join(folder, f"{case}_{kind}_{sequence}.pth")
+        return torch.load(p, map_location="cpu") if os.path.exists(p) else None
+    coords = _load("coords")
+    out = {
+        "coords": coords.numpy().T.astype(np.float32),
+        "labels": _load("fissures").numpy().astype(np.int32),
+        "case_id": case, "sequence": sequence,
+    }
+    lobes = _load("lobes")
+    if lobes is not None:
+        out["lobes"] = lobes.numpy().astype(np.int32)
+    if feat is not None:
+        f = _load(feat)
+        if f is not None:
+            out["features"] = f.numpy().T.astype(np.float32)
+    return out
+
+
 def create_split(ids: list, k: int = 5, seed: int = 42) -> list[dict]:
     """k-fold split over case ids: random permutation, k folds, val = fold,
     train = the rest."""

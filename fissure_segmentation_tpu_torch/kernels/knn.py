@@ -33,22 +33,33 @@ def _finish(idx, dist, self_loop: bool):
     return idx, dist
 
 
-def knn_plain(x: torch.Tensor, k: int, self_loop: bool = False):
-    """Plain PyTorch K1: materialize the (B, N, N) distances, stable sort.
+def knn_plain(x: torch.Tensor, k: int, self_loop: bool = False,
+              query_chunk: int | None = None):
+    """Plain PyTorch K1: materialize the (B, N, N) distances — or, with
+    `query_chunk`, (B, query_chunk, N) at a time — and stable-sort them.
+    Each distance is the same operations either way, so the chunks select
+    exactly what the whole matrix does.
 
     :param x: (B, N, C) float32
     :return: (idx (B, N, k) int32, dist (B, N, k) float32)
     """
     kk = _kk(k, self_loop)
-    if kk > x.shape[-2]:
-        raise ValueError(f"kk={kk} exceeds N={x.shape[-2]}")
-    d = None
-    for ch in range(x.shape[-1]):
-        diff = x[..., :, None, ch] - x[..., None, :, ch]
-        sq = diff * diff
-        d = sq if d is None else d + sq
-    dist, idx = torch.sort(d, dim=-1, stable=True)
-    return _finish(idx[..., :kk].to(torch.int32), dist[..., :kk], self_loop)
+    n = x.shape[-2]
+    if kk > n:
+        raise ValueError(f"kk={kk} exceeds N={n}")
+    qc = n if query_chunk is None else min(query_chunk, n)
+    idx, dist = [], []
+    for start in range(0, n, qc):
+        q = x[..., start:start + qc, :]
+        d = None
+        for ch in range(x.shape[-1]):
+            diff = q[..., :, None, ch] - x[..., None, :, ch]
+            sq = diff * diff
+            d = sq if d is None else d + sq
+        dc, ic = torch.sort(d, dim=-1, stable=True)
+        idx.append(ic[..., :kk].to(torch.int32))
+        dist.append(dc[..., :kk])
+    return _finish(torch.cat(idx, -2), torch.cat(dist, -2), self_loop)
 
 
 def _check(x: torch.Tensor, kk: int) -> None:
@@ -67,18 +78,21 @@ def _check(x: torch.Tensor, kk: int) -> None:
         raise ValueError(f"knn: kk={kk} exceeds N={n}")
 
 
-def knn_cuda(x: torch.Tensor, k: int, self_loop: bool = False):
+def knn_cuda(x: torch.Tensor, k: int, self_loop: bool = False,
+             query_chunk: int | None = None):
     """K1 on x's device: the CUDA kernel for a CUDA tensor, `knn_plain` for
     a CPU tensor. Each kernel launch adds one to ``knn_cuda.launches`` and
     to ``knn_cuda.calls`` under "{B}x{N}x{C}_kk{kk}".
 
     :param x: (B, N, C) float32, contiguous, C <= 8, kk <= 128
+    :param query_chunk: the plain version's rows of distances at a time
+        (the kernel keeps no distance matrix, so it ignores it)
     :return: (idx (B, N, k) int32, dist (B, N, k) float32)
     """
     kk = _kk(k, self_loop)
     _check(x, kk)
     if x.device.type == "cpu":
-        return knn_plain(x, k, self_loop)
+        return knn_plain(x, k, self_loop, query_chunk)
     if not x.is_cuda:
         raise ValueError(f"knn: unsupported device {x.device}")
     from ._build import load

@@ -8,17 +8,35 @@ Chamfer, the epoch fraction that switches the Chamfer term on).
 """
 from __future__ import annotations
 
+import enum
 import functools
 from typing import Sequence
 
 from .chamfer import chamfer_loss
 from .segmentation import batch_recall_loss, cross_entropy, nnu_loss
 
-LOSSES = ("nnunet", "ce", "recall", "ssm", "chamfer", "mesh", "dpsr")
+class Losses(enum.Enum):
+    NNUNET = "nnunet"
+    CE = "ce"
+    RECALL = "recall"
+    SSM = "ssm"
+    CHAMFER = "chamfer"
+    MESH = "mesh"
+    DPSR = "dpsr"
+
+    @classmethod
+    def list(cls):
+        return [c.value for c in cls]
 
 
-def get_loss_fn(loss: str, class_weights=None,
+LOSSES = tuple(Losses.list())
+
+
+def get_loss_fn(loss, class_weights=None,
                 term_weights: Sequence[float] | None = None):
+    """`loss`: a name of `LOSSES` or a `Losses` member."""
+    if isinstance(loss, Losses):
+        loss = loss.value
     if loss == "nnunet":
         return functools.partial(nnu_loss, class_weights=class_weights)
     if loss == "ce":

@@ -48,7 +48,9 @@ def generalized_dice_loss(logits: torch.Tensor, targets: torch.Tensor,
                           batch_dice: bool = True, smooth: float = 1.0,
                           apply_softmax: bool = True, group=None):
     """GDL: 1/V-weighted soft dice, returns -dice. Under a `group` the
-    batch Dice takes tp, fp, fn and the volumes over the global batch."""
+    batch Dice takes tp, fp, fn and the volumes over the global batch;
+    without `batch_dice` each sample's Dice is its own and their mean is
+    taken over the global batch (what JAX computes under GSPMD)."""
     num_classes = logits.shape[-1]
     probs = torch.softmax(logits, dim=-1) if apply_softmax else logits
     y = _onehot(targets, num_classes)
@@ -58,10 +60,7 @@ def generalized_dice_loss(logits: torch.Tensor, targets: torch.Tensor,
     fp = (probs * (1 - y)).sum(axes)
     fn = ((1 - probs) * y).sum(axes)
     volumes = y.sum(axes)
-    if group is not None:
-        if not batch_dice:
-            raise NotImplementedError("generalized_dice_loss: a group "
-                                      "needs batch_dice")
+    if group is not None and batch_dice:
         tp, fp, fn, volumes = sum_replicated(
             torch.stack([tp, fp, fn, volumes]), group)
     volumes = volumes + 1e-6
@@ -69,7 +68,13 @@ def generalized_dice_loss(logits: torch.Tensor, targets: torch.Tensor,
     sum_axis = 0 if batch_dice else 1
     tp, fp, fn = tp.sum(sum_axis), fp.sum(sum_axis), fn.sum(sum_axis)
     dc = (2 * tp + smooth) / (2 * tp + fp + fn + smooth)
-    gdl = -dc.mean()
+    if group is not None and not batch_dice:
+        # the ranks' shards are of one size: the global mean of the
+        # samples' Dice
+        gdl = -sum_replicated(dc.sum(), group) / (dc.numel()
+                                                 * group_size(group))
+    else:
+        gdl = -dc.mean()
     return gdl, {"GDL": gdl}
 
 

@@ -17,4 +17,4 @@ from .seg_cnn import (MobileNetASPP, predict_all_patches,  # noqa: F401
                       predict_full_volume)
 from .weights import (export_jax_variables, load_fold_model,  # noqa: F401
                       load_jax_variables, load_model, model_class,
-                      save_model)
+                      register_model, save_model)

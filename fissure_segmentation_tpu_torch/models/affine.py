@@ -23,7 +23,7 @@ from torch import nn
 
 from ..data.augmentation import (SimilarityTransform, compose_transform,
                                  transform_points)
-from .blocks import BatchNorm, MLPStack, _dense
+from .blocks import BatchNorm, MLPStack, _dense, dropout
 from .dgcnn import DGCNNReg
 from .dgcnn_cls import DGCNNCls, _check_dropout
 
@@ -92,6 +92,7 @@ class PointNetCls(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         _check_dropout(dropout)
+        self.dropout = dropout
         g = generator
         self.MLPStack_0 = MLPStack(in_features, [64, 64, 64, 128, emb_dims],
                                    1e-2, generator=g)
@@ -99,9 +100,15 @@ class PointNetCls(nn.Module):
         self.BatchNorm_0 = BatchNorm(512)
         self.Dense_1 = _dense(512, output_channels, True, g)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keep=None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """`keep`: in training, the Dropout's keep mask (B, 512), else
+        drawn from `generator`."""
         h = self.MLPStack_0(x).amax(dim=-2)
-        return self.Dense_1(torch.relu(self.BatchNorm_0(self.Dense_0(h))))
+        y = torch.relu(self.BatchNorm_0(self.Dense_0(h)))
+        if self.training:
+            y = dropout(y, self.dropout, keep, generator)
+        return self.Dense_1(y)
 
 
 class AffinePointNet(nn.Module):

@@ -13,8 +13,9 @@ compute dtype before each product; BatchNorm's statistics are float32 and
 its output is in the dtype of its input, which is the compute dtype (flax
 `BatchNorm(dtype=...)`). None computes in the input's dtype.
 
-Not ported: `FusedEdgeTail`. It reaches no kernel and computes the same
-function as the unfused tail (ROADMAP Queue 1).
+`FusedEdgeTail` is the last sublayer of a multi-layer EdgeConv computed
+from per-(n, c) reductions of its Dense output, where
+`ops/fused_edge.py:fused_tail_enabled` says so (models/dgcnn.py).
 """
 from __future__ import annotations
 
@@ -91,6 +92,27 @@ class BatchNorm(nn.Module):
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.epsilon) * self.scale
         return ((x - mean) * mul + self.bias).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, keep: torch.Tensor | None = None,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax's nn.Dropout in training: ``where(keep, x / (1 - rate), 0)``,
+    the keep mask drawn as ``rand < 1 - rate`` from `generator` (on x's
+    device) unless the caller passes it (the tests inject JAX's, which
+    jax.random cannot replay); rate 0 is the identity, rate 1 gives zeros.
+    Eval mode is the caller's: it does not call this."""
+    if rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    if keep is None:
+        if generator is None:
+            raise ValueError("dropout > 0 in training needs a "
+                             "torch.Generator or the keep mask")
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) < 1.0 - rate
+    return torch.where(keep.to(x.device), x / (1.0 - rate),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def convert_sync_batchnorm(module: nn.Module, group) -> nn.Module:
@@ -193,6 +215,72 @@ class SharedMLP(nn.Module):
         if self.last_layer:
             return x
         return leaky_relu(self.BatchNorm_0(x), self.negative_slope)
+
+
+class FusedEdgeTail(SharedMLP):
+    """The LAST sublayer of a multi-layer EdgeConv — per-edge Dense,
+    BatchNorm, LeakyReLU and the max over k — with the pointwise tail
+    commuted through per-(n, c) reductions of the Dense output q
+    (counterpart of models/blocks.py:FusedEdgeTail). Per channel the
+    activation is monotone in q (increasing iff the BatchNorm scale is
+    >= 0), so its max over k is the tail of sel = sign * amax_k(sign * q),
+    sign = +1 where scale >= 0 and -1 elsewhere; the exact train-mode
+    statistics are mean = Sum q / E and var = max(0, Sum q^2 / E - mean^2)
+    over the E = B * N * k edges, in float32 (flax's fast variance). The
+    post-BatchNorm (B, N, k, F) tensor and its LeakyReLU are never built;
+    the Dense still runs per edge.
+
+    The backward is autograd's: `amax` splits the gradient among k-ties
+    like `jnp.max` (ties are common in bf16). Sum q is `sum(dtype=
+    float32)` and Sum q^2 the square of the float32 `vector_norm`, so a
+    bf16 q is never copied to float32 in the forward. In eval the
+    selection is `where(scale >= 0, amax(q), amin(q))` (-max(-q) is
+    min(q) exactly; amin splits ties as amax does) followed by BatchNorm's
+    own eval formula and the LeakyReLU, under no_grad `F.leaky_relu` (the
+    same values in one launch; its gradient at 0 is not jnp.where's): as
+    many launches as the unfused route, which counts where serving is
+    host-bound, and, as float rounding is monotone, its output bit for
+    bit. Under a process group
+    (`BatchNorm_0.group`, data-parallel training) Sum q, Sum q^2 and E are
+    summed over the group (ops/collectives.py:sum_local), as BatchNorm's
+    moments are.
+
+    It is a SharedMLP (`Dense_0` without bias, `BatchNorm_0`), so JAX
+    trees and checkpoints load into it unchanged, and `unfused` is the
+    unfused route on the same weights.
+    """
+
+    def unfused(self, e: torch.Tensor) -> torch.Tensor:
+        """The same sublayer by the unfused route: SharedMLP's forward,
+        then the max over k."""
+        return super().forward(e).amax(dim=-2)
+
+    def forward(self, e: torch.Tensor) -> torch.Tensor:
+        """(B, N, k, Fin) edges -> (B, N, F), in the compute dtype."""
+        dt = self.dtype or e.dtype
+        q = F.linear(e.to(dt), self.Dense_0.weight.to(dt))
+        bn = self.BatchNorm_0
+        if not bn.training:
+            sel = torch.where(bn.scale >= 0, q.amax(dim=-2), q.amin(dim=-2))
+            act = leaky_relu if torch.is_grad_enabled() else F.leaky_relu
+            return act(bn(sel), self.negative_slope).to(q.dtype)
+        sign = torch.where(bn.scale >= 0, 1.0, -1.0).to(q.dtype)
+        sel = sign * (sign * q).amax(dim=-2)                  # (B, N, F)
+        red = tuple(range(q.ndim - 1))
+        s1 = q.sum(red, dtype=torch.float32)
+        s2 = torch.linalg.vector_norm(q, 2, red,
+                                      dtype=torch.float32).square()
+        e_tot = q.numel() // q.shape[-1]
+        if bn.group is not None:
+            s1, s2 = sum_local(torch.stack([s1, s2]), bn.group)
+            e_tot *= group_size(bn.group)
+        mean = s1 / e_tot
+        var = torch.clamp(s2 / e_tot - mean * mean, min=0.0)
+        if bn.update_stats:
+            bn.update_running(mean, var)
+        sigma = torch.sqrt(var + bn.epsilon)
+        u = bn.scale * ((sel.to(torch.float32) - mean) / sigma) + bn.bias
+        return leaky_relu(u, self.negative_slope).to(q.dtype)
 
 
 class MLPStack(nn.Module):

@@ -18,8 +18,11 @@ x_i]) -> shared MLP -> max over k; seg head: 3x EdgeConv(64) -> 1024-d
 global max -> MLP(256, 256, 128, C).
 A single-layer EdgeConv runs the fused core (`FusedEdgeMLPMax`, backward
 K3 + K4) when `fused_edge_enabled` says so at the call; otherwise the
-gather's backward is K2. Both maxima over k and over points are `amax`,
-which splits the gradient among ties like `jnp.max`.
+gather's backward is K2. A multi-layer EdgeConv (DGCNNSeg's EdgeConv_0
+[64, 64], the spatial transformer's [64, 128]) runs its last sublayer as
+`FusedEdgeTail` when `fused_tail_enabled` says so at the call, else as a
+SharedMLP followed by the max over k. Both maxima over k and over points
+are `amax`, which splits the gradient among ties like `jnp.max`.
 
 `dtype=torch.bfloat16` (or "bfloat16") is the JAX model's bf16 compute
 dtype, what `--amp true` trains with: parameters stay float32, the
@@ -65,9 +68,9 @@ from torch import nn
 
 from ..kernels.scatter import transpose
 from ..ops.knn import knn
-from ..ops.fused_edge import fused_edge_enabled
-from .blocks import (BatchNorm, EdgeMLP, FusedEdgeMLPMax, MLPStack,
-                     SharedMLP, _dense, leaky_relu)
+from ..ops.fused_edge import fused_edge_enabled, fused_tail_enabled
+from .blocks import (BatchNorm, EdgeMLP, FusedEdgeMLPMax, FusedEdgeTail,
+                     MLPStack, SharedMLP, _dense, leaky_relu)
 from .pointnet import _check_dtype, apply_transform, identity_head
 
 
@@ -82,10 +85,11 @@ class EdgeConv(nn.Module):
         mlp = FusedEdgeMLPMax if len(features) == 1 else EdgeMLP
         self.EdgeMLP_0 = mlp(in_features, features[0], generator=generator,
                              dtype=dtype)
-        for i, (fin, fout) in enumerate(zip(features[:-1], features[1:])):
-            setattr(self, f"SharedMLP_{i}",
-                    SharedMLP(fin, fout, generator=generator, dtype=dtype))
         self.n_shared = len(features) - 1
+        for i, (fin, fout) in enumerate(zip(features[:-1], features[1:])):
+            mlp = FusedEdgeTail if i == self.n_shared - 1 else SharedMLP
+            setattr(self, f"SharedMLP_{i}",
+                    mlp(fin, fout, generator=generator, dtype=dtype))
 
     def forward(self, x: torch.Tensor, idx: torch.Tensor,
                 transposed=None) -> torch.Tensor:
@@ -96,9 +100,14 @@ class EdgeConv(nn.Module):
         if self.n_shared == 0 and fused_edge_enabled(x.device):
             return self.EdgeMLP_0(x, idx, transposed)
         e = self.EdgeMLP_0.edge_responses(x, idx, transposed)
-        for i in range(self.n_shared):
+        if self.n_shared == 0:
+            return e.amax(dim=-2)  # max over neighbors -> (B, N, C')
+        for i in range(self.n_shared - 1):
             e = getattr(self, f"SharedMLP_{i}")(e)
-        return e.amax(dim=-2)  # max over neighbors -> (B, N, C')
+        tail = getattr(self, f"SharedMLP_{self.n_shared - 1}")
+        if fused_tail_enabled(x.device):
+            return tail(e)
+        return tail.unfused(e)
 
 
 class SpatialTransformer(nn.Module):

@@ -1,6 +1,6 @@
 """PointTransformer segmentation network (counterpart of
-models/point_transformer.py), float32; `.train()` for the train step,
-`.eval()` for inference.
+models/point_transformer.py); `.train()` for the train step, `.eval()` for
+inference.
 
 A 5-stage encoder with farthest-point downsampling (ops/fps.py, K5 for CUDA
 tensors), vector self-attention over nsample neighbours with positional
@@ -13,7 +13,13 @@ attention softmax runs over the neighbour axis in float32; the max-pool of
 TransitionDown is `amax`, which splits the gradient among ties like
 `jnp.max`.
 
-Not ported (raises NotImplementedError): the `dtype` option (bf16 compute).
+`dtype=torch.bfloat16` (or "bfloat16") is the JAX model's compute dtype:
+parameters stay float32; every Dense casts its input and parameters to
+bf16 and every BatchNorm (float32 statistics) gives its output in bf16,
+as flax's `Dense(dtype=)` and `BatchNorm(dtype=)` do, while coordinates,
+FPS (K5), `knn_query`, the grouping offsets, the attention softmax, the
+stage outputs and the logits' Dense stay float32, cast where the JAX
+module casts them. None or float32 computes in float32.
 """
 from __future__ import annotations
 
@@ -26,20 +32,36 @@ from torch import nn
 from ..ops.fps import farthest_point_sampling
 from ..ops.pointops import interpolate, knn_query, query_and_group
 from .blocks import BatchNorm, _dense
+from .pointnet import _check_dtype
 
 
-def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, lin.weight, lin.bias)
+def _linear(lin: nn.Linear, x: torch.Tensor, dt=None) -> torch.Tensor:
+    """flax Dense(dtype=dt): input, kernel and bias cast to dt (None: as
+    they are)."""
+    if dt is None:
+        return F.linear(x, lin.weight, lin.bias)
+    bias = None if lin.bias is None else lin.bias.to(dt)
+    return F.linear(x.to(dt), lin.weight.to(dt), bias)
+
+
+def _bn(bn: BatchNorm, x: torch.Tensor, dt=None) -> torch.Tensor:
+    """flax BatchNorm(dtype=dt): float32 statistics, the output in dt."""
+    y = bn(x)
+    return y if dt is None else y.to(dt)
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32)
 
 
 class PointTransformerLayer(nn.Module):
     """Vector self-attention among nsample neighbours (seg_model.py:17-53)."""
 
     def __init__(self, planes: int, share_planes: int = 8, nsample: int = 16,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, dtype=None):
         super().__init__()
         c, s, g = planes, share_planes, generator
-        self.share_planes, self.nsample = s, nsample
+        self.share_planes, self.nsample, self.dtype = s, nsample, dtype
         self.Dense_0 = _dense(c, c, True, g)        # query
         self.Dense_1 = _dense(c, c, True, g)        # key
         self.Dense_2 = _dense(c, c, True, g)        # value
@@ -52,24 +74,28 @@ class PointTransformerLayer(nn.Module):
         self.Dense_6 = _dense(c // s, c // s, True, g)
 
     def forward(self, p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        x_q = _linear(self.Dense_0, x)
-        x_k = _linear(self.Dense_1, x)
-        x_v = _linear(self.Dense_2, x)
+        dt = self.dtype
+        x_q = _linear(self.Dense_0, x, dt)
+        x_k = _linear(self.Dense_1, x, dt)
+        x_v = _linear(self.Dense_2, x, dt)
         idx, _ = knn_query(p, p, self.nsample)
+        # the float32 offsets promote the grouped keys to float32 (as
+        # jnp.concatenate does)
         k_grp, _ = query_and_group(p, p, x_k, self.nsample, idx=idx)
         v_grp, _ = query_and_group(p, p, x_v, self.nsample, idx=idx,
                                    use_xyz=False)
         p_r, x_k = k_grp[..., :3], k_grp[..., 3:]
-        pe = F.relu(self.BatchNorm_0(_linear(self.Dense_3, p_r)))
-        pe = _linear(self.Dense_4, pe)                    # (B, N, ns, c)
+        pe = F.relu(_bn(self.BatchNorm_0, _linear(self.Dense_3, p_r, dt),
+                        dt))
+        pe = _linear(self.Dense_4, pe, dt)                # (B, N, ns, c)
         w = x_k - x_q[..., None, :] + pe
-        w = F.relu(self.BatchNorm_1(w))
-        w = F.relu(self.BatchNorm_2(_linear(self.Dense_5, w)))
-        w = _linear(self.Dense_6, w)
-        w = torch.softmax(w.to(torch.float32), dim=-2)    # over neighbours
+        w = F.relu(_bn(self.BatchNorm_1, w, dt))
+        w = F.relu(_bn(self.BatchNorm_2, _linear(self.Dense_5, w, dt), dt))
+        w = _linear(self.Dense_6, w, dt)
+        w = torch.softmax(_f32(w), dim=-2)                # over neighbours
         b, n, ns, c = v_grp.shape
         s = self.share_planes
-        v = (v_grp + pe).reshape(b, n, ns, s, c // s)
+        v = _f32(v_grp + pe).reshape(b, n, ns, s, c // s)
         return (v * w[..., None, :]).sum(dim=2).reshape(b, n, c)
 
 
@@ -77,23 +103,25 @@ class PointTransformerBlock(nn.Module):
     """Residual block (seg_model.py:122-142)."""
 
     def __init__(self, planes: int, share_planes: int = 8, nsample: int = 16,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, dtype=None):
         super().__init__()
         g = generator
+        self.dtype = dtype
         self.Dense_0 = _dense(planes, planes, False, g)
         self.BatchNorm_0 = BatchNorm(planes)
         self.PointTransformerLayer_0 = PointTransformerLayer(
-            planes, share_planes, nsample, g)
+            planes, share_planes, nsample, g, dtype)
         self.BatchNorm_1 = BatchNorm(planes)
         self.Dense_1 = _dense(planes, planes, False, g)
         self.BatchNorm_2 = BatchNorm(planes)
 
     def forward(self, p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        h = F.relu(self.BatchNorm_0(_linear(self.Dense_0, x)))
+        dt = self.dtype
+        h = F.relu(_bn(self.BatchNorm_0, _linear(self.Dense_0, x, dt), dt))
         h = self.PointTransformerLayer_0(p, h)
-        h = F.relu(self.BatchNorm_1(h))
-        h = self.BatchNorm_2(_linear(self.Dense_1, h))
-        return F.relu(h + x)
+        h = F.relu(_bn(self.BatchNorm_1, h, dt))
+        h = _bn(self.BatchNorm_2, _linear(self.Dense_1, h, dt), dt)
+        return F.relu(_f32(h) + _f32(x))
 
 
 class TransitionDown(nn.Module):
@@ -101,22 +129,26 @@ class TransitionDown(nn.Module):
     stride 1 is a point-wise Dense + BatchNorm + ReLU."""
 
     def __init__(self, in_planes: int, out_planes: int, stride: int = 1,
-                 nsample: int = 16, generator: torch.Generator | None = None):
+                 nsample: int = 16, generator: torch.Generator | None = None,
+                 dtype=None):
         super().__init__()
-        self.stride, self.nsample = stride, nsample
+        self.stride, self.nsample, self.dtype = stride, nsample, dtype
         fin = in_planes if stride == 1 else 3 + in_planes
         self.Dense_0 = _dense(fin, out_planes, False, generator)
         self.BatchNorm_0 = BatchNorm(out_planes)
 
     def forward(self, p: torch.Tensor, x: torch.Tensor):
+        dt = self.dtype
         if self.stride == 1:
-            return p, F.relu(self.BatchNorm_0(_linear(self.Dense_0, x)))
+            return p, _f32(F.relu(_bn(self.BatchNorm_0,
+                                      _linear(self.Dense_0, x, dt), dt)))
         b, n, _ = p.shape
         idx = farthest_point_sampling(p, n // self.stride).to(torch.int64)
         new_p = torch.gather(p, 1, idx[..., None].expand(-1, -1, 3))
         grouped, _ = query_and_group(p, new_p, x, self.nsample)
-        h = F.relu(self.BatchNorm_0(_linear(self.Dense_0, grouped)))
-        return new_p, h.amax(dim=-2)
+        h = F.relu(_bn(self.BatchNorm_0, _linear(self.Dense_0, grouped, dt),
+                       dt))
+        return new_p, _f32(h.amax(dim=-2))
 
 
 class TransitionUp(nn.Module):
@@ -128,9 +160,10 @@ class TransitionUp(nn.Module):
 
     def __init__(self, in_planes: int, out_planes: int | None = None,
                  coarse_planes: int | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, dtype=None):
         super().__init__()
         g = generator
+        self.dtype = dtype
         self.summit = out_planes is None
         if self.summit:
             c = in_planes
@@ -144,12 +177,18 @@ class TransitionUp(nn.Module):
             self.BatchNorm_1 = BatchNorm(out_planes)
 
     def forward(self, p1, x1, p2=None, x2=None):
+        dt = self.dtype
         if self.summit:
-            g = F.relu(_linear(self.Dense_0, x1.mean(dim=-2, keepdim=True)))
-            h = torch.cat([x1, g.expand(*x1.shape[:-1], g.shape[-1])], -1)
-            return F.relu(self.BatchNorm_0(_linear(self.Dense_1, h)))
-        h1 = F.relu(self.BatchNorm_0(_linear(self.Dense_0, x1)))
-        h2 = F.relu(self.BatchNorm_1(_linear(self.Dense_1, x2)))
+            g = F.relu(_linear(self.Dense_0, x1.mean(dim=-2, keepdim=True),
+                               dt))
+            h = torch.cat([x1.to(g.dtype),
+                           g.expand(*x1.shape[:-1], g.shape[-1])], -1)
+            return _f32(F.relu(_bn(self.BatchNorm_0,
+                                   _linear(self.Dense_1, h, dt), dt)))
+        h1 = _f32(F.relu(_bn(self.BatchNorm_0, _linear(self.Dense_0, x1, dt),
+                             dt)))
+        h2 = _f32(F.relu(_bn(self.BatchNorm_1, _linear(self.Dense_1, x2, dt),
+                             dt)))
         return h1 + interpolate(p2, p1, h2)
 
 
@@ -167,37 +206,38 @@ class PointTransformerSeg(nn.Module):
                  share_planes: int = 8, dtype=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if dtype not in (None, torch.float32):
-            raise NotImplementedError("PointTransformerSeg(dtype=...) is not "
-                                      "ported yet (float32 only)")
+        self.dtype = dt = _check_dtype(dtype, type(self).__name__)
         self.config = dict(in_features=in_features, num_classes=num_classes,
                            blocks=list(blocks), planes=list(planes),
                            strides=list(strides), nsamples=list(nsamples),
                            share_planes=share_planes)
+        if dt is not None:   # JSON for model.pt
+            self.config["dtype"] = str(dt).removeprefix("torch.")
         g = generator
         self.stages = []          # (TransitionDown name, [block names])
         n_blocks, fin = 0, in_features
         for i, (pl, blk, st, ns) in enumerate(zip(planes, blocks, strides,
                                                   nsamples)):
             setattr(self, f"TransitionDown_{i}",
-                    TransitionDown(fin, pl, st, ns, g))
+                    TransitionDown(fin, pl, st, ns, g, dt))
             names = []
             for _ in range(1, blk):
                 name = f"PointTransformerBlock_{n_blocks}"
                 setattr(self, name,
-                        PointTransformerBlock(pl, share_planes, ns, g))
+                        PointTransformerBlock(pl, share_planes, ns, g, dt))
                 names.append(name)
                 n_blocks += 1
             self.stages.append((f"TransitionDown_{i}", names))
             fin = pl
         self.decoder = []         # (TransitionUp name, block name)
         for j, i in enumerate((4, 3, 2, 1, 0)):
-            up = (TransitionUp(planes[4], generator=g) if i == 4 else
-                  TransitionUp(planes[i], planes[i], planes[i + 1], g))
+            up = (TransitionUp(planes[4], generator=g, dtype=dt) if i == 4
+                  else TransitionUp(planes[i], planes[i], planes[i + 1], g,
+                                    dt))
             setattr(self, f"TransitionUp_{j}", up)
             name = f"PointTransformerBlock_{n_blocks}"
             setattr(self, name, PointTransformerBlock(
-                planes[i], share_planes, nsamples[i], g))
+                planes[i], share_planes, nsamples[i], g, dt))
             self.decoder.append((f"TransitionUp_{j}", name))
             n_blocks += 1
         self.Dense_0 = _dense(planes[0], planes[0], True, g)
@@ -220,5 +260,6 @@ class PointTransformerSeg(nn.Module):
             else:
                 h = getattr(self, up)(ps[i], xs[i], ps[i + 1], h)
             h = getattr(self, name)(ps[i], h)
-        out = F.relu(self.BatchNorm_0(_linear(self.Dense_0, h)))
-        return _linear(self.Dense_1, out)
+        dt = self.dtype
+        out = F.relu(_bn(self.BatchNorm_0, _linear(self.Dense_0, h, dt), dt))
+        return _linear(self.Dense_1, _f32(out))

@@ -352,8 +352,8 @@ def _compute_copy(model, dtype):
     with every parameter and buffer cast (the JAX package casts every
     float32 leaf of its variables)."""
     if dtype not in (None, torch.float32, torch.bfloat16):
-        raise NotImplementedError(f"CNN compute dtype {dtype} is not ported "
-                                  "yet (float32 or bfloat16)")
+        raise NotImplementedError(f"CNN compute dtype {dtype}: not to port; "
+                                  "K6 computes float32 or bfloat16")
     if dtype == torch.bfloat16:
         return copy.deepcopy(model).to(dtype)
     return model

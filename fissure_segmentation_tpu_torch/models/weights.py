@@ -201,9 +201,24 @@ def _unflatten(flat: Mapping) -> dict:
     return tree
 
 
+MODEL_REGISTRY: dict[str, type] = {}
+
+
+def register_model(cls: type) -> type:
+    """Make `cls` loadable by name: `model_class` (and so `load_model` and
+    `load_fst`) then resolves a file's `model_class` of `cls.__name__` to
+    it (the JAX package's models/io.py:register_model). Returns `cls`, so
+    it serves as a class decorator."""
+    MODEL_REGISTRY[cls.__name__] = cls
+    return cls
+
+
 def model_class(name: str):
     """The port's model class of that name (a `model.pt`'s or a `.fst`
-    header's `model_class`)."""
+    header's `model_class`): a class given to `register_model`, else one
+    of the port's models."""
+    if name in MODEL_REGISTRY:
+        return MODEL_REGISTRY[name]
     from .affine import AffineDGCNN, AffineOpenDGCNN, AffinePointNet
     from .dg_ssm import DGSSM
     from .dgcnn import DGCNNReg, DGCNNSeg
@@ -220,7 +235,8 @@ def model_class(name: str):
                                        DGCNNReg, AffineDGCNN,
                                        AffineOpenDGCNN, AffinePointNet)}
     if name not in classes:
-        raise KeyError(f"model class {name!r} is not ported; known: "
+        raise KeyError(f"model class {name!r} is unknown (register it with "
+                       "register_model); known: "
                        f"{sorted(classes)}")
     return classes[name]
 

@@ -10,6 +10,7 @@ refuses the source, or the library does not load, `load` raises
 NativeBuildError.
 
 Public API (all NumPy in / NumPy out):
+    available()                 -> whether the runtime builds and loads
     cc_label_3d(grid)           -> (labels int32 zyx, n_components)
     cc_stats(labels, n)         -> (sizes int64, x_sums float64) per label
     point_mesh_distance(verts, tris, queries) -> (nq,) float32
@@ -101,6 +102,16 @@ def load() -> ctypes.CDLL:
                                                   u8p]
             _lib = lib
         return _lib
+
+
+def available() -> bool:
+    """Whether the host runtime builds and loads here (the JAX package's
+    `native.available`); the functions below raise where it does not."""
+    try:
+        load()
+    except NativeBuildError:
+        return False
+    return True
 
 
 def _ptr(a: np.ndarray, ctype):

@@ -65,6 +65,20 @@ def gather_neighbors(x: torch.Tensor, idx: torch.Tensor,
     return out.reshape(*lead, n, k, c)
 
 
+def edge_features(x: torch.Tensor, idx: torch.Tensor,
+                  transposed=None) -> torch.Tensor:
+    """DGCNN edge features ``concat([x_j - x_i, x_i])`` (the JAX package's
+    `edge_features`).
+
+    :param x: (..., N, C) per-point features
+    :param idx: (..., N, k) neighbor indices
+    :return: (..., N, k, 2C) edge features
+    """
+    neigh = gather_neighbors(x, idx, transposed)
+    center = x[..., :, None, :].expand_as(neigh)
+    return torch.cat([neigh - center, center], dim=-1)
+
+
 def edge_mlp_pre_gather(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                         transposed=None) -> torch.Tensor:
     """``concat([x_j - x_i, x_i]) @ w`` with the matmul moved before the

@@ -39,6 +39,14 @@ in the JAX package) and, on CUDA, set by `CUDA_DEFAULT`, for training and
 eval alike: on an H100 the fused route was faster both in the canonical
 DGCNNSeg train step (B=32, N=2048, k=40, f32) and in the serving
 ensemble's eval forwards (PERF.md, the fused-or-unfused measurements).
+
+`fused_tail_enabled` routes the last sublayer of a multi-layer EdgeConv
+through models/blocks.py:FusedEdgeTail (no kernel of its own: reductions
+and autograd). It reads FSEG_FUSED_EDGE_TAIL=1/0 at every call; without it
+the tail is off on the CPU (as off-TPU in the JAX package) and, on CUDA,
+set by `CUDA_TAIL_DEFAULT`, chosen by an A/B on an H100 of the DGCNNSeg
+steps and the serving ensemble with the tail on and off
+(prof/tail_ab.py, PERF.md).
 """
 from __future__ import annotations
 
@@ -52,15 +60,27 @@ from .collectives import all_reduce_, group_size
 from .edge import _flat_gather
 
 _ENV_FLAG = "FSEG_FUSED_EDGE"
+_TAIL_ENV_FLAG = "FSEG_FUSED_EDGE_TAIL"
 CUDA_DEFAULT = True
+CUDA_TAIL_DEFAULT = True
+
+
+def _enabled(flag: str, device, cuda_default: bool) -> bool:
+    env = os.environ.get(flag)
+    if env is not None:
+        return env not in ("0", "false", "False")
+    return torch.device(device).type == "cuda" and cuda_default
 
 
 def fused_edge_enabled(device) -> bool:
     """Route single-layer EdgeConvs through the fused core on `device`?"""
-    env = os.environ.get(_ENV_FLAG)
-    if env is not None:
-        return env not in ("0", "false", "False")
-    return torch.device(device).type == "cuda" and CUDA_DEFAULT
+    return _enabled(_ENV_FLAG, device, CUDA_DEFAULT)
+
+
+def fused_tail_enabled(device) -> bool:
+    """Route the last sublayer of multi-layer EdgeConvs through
+    FusedEdgeTail on `device`?"""
+    return _enabled(_TAIL_ENV_FLAG, device, CUDA_TAIL_DEFAULT)
 
 
 def _gather_reduce(a: torch.Tensor, idx: torch.Tensor):

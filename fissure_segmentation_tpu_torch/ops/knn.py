@@ -31,7 +31,16 @@ without it, and `ops/approx_topk.py` selects the k smallest (on the card
 with the fused row selection, k <= 128); negative distances (self's -1)
 are clamped to 0.
 
-Not ported yet: `query_chunk`.
+`query_chunk` (ops/knn.py:50, 114-125 of the JAX package) bounds the
+distance matrix to (..., query_chunk, N); it must divide N, as in the JAX
+package. The feature route then builds each block of rows by the same
+formula (the block's squared norms, its rows of the product, the
+diagonal zeroed at the block's offset) and selects in each row as the
+whole matrix does, so it picks the same neighbours, ties included, on
+the card and on the CPU. K1 keeps no distance matrix on the card and
+ignores the chunk there; its plain version on the CPU sorts one block of
+rows at a time (kernels/knn.py:knn_plain), with K1's order. The
+approximate graph materializes the whole matrix, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -76,11 +85,26 @@ def feature_route(d: torch.Tensor, kk: int) -> str:
             else "sort")
 
 
-def feature_knn(x: torch.Tensor, kk: int):
+def _select(d: torch.Tensor, kk: int):
+    """The kk smallest of each row of d, ascending, ties to the lower
+    index: (idx int32, dist)."""
+    n = d.shape[-1]
+    if feature_route(d, kk) == "fused":
+        dist, idx = select_rows(d.reshape(-1, n), n, 1, kk,
+                                largest=False, index_dtype=torch.int32)
+        return (idx.reshape(*d.shape[:-1], kk),
+                dist.reshape(*d.shape[:-1], kk))
+    dist, idx = torch.sort(d, dim=-1, stable=True)
+    return idx[..., :kk].to(torch.int32), dist[..., :kk]
+
+
+def feature_knn(x: torch.Tensor, kk: int, query_chunk: int | None = None):
     """The kk nearest points of each point by the JAX formula, ascending,
     ties to the lower index, in x's dtype, without autograd: on the card
     (float32 or bfloat16, kk <= 128) the fused row selection with one
     element a bin, elsewhere a stable sort; the two agree bit for bit.
+    `query_chunk`: the distances are built and selected in blocks of that
+    many rows (see the module's docstring).
 
     :param x: (B, N, C)
     :return: (idx (B, N, kk) int32, dist (B, N, kk) in x's dtype)
@@ -90,14 +114,18 @@ def feature_knn(x: torch.Tensor, kk: int):
         raise ValueError(f"knn: kk={kk} exceeds N={n}")
     # the profiler's "feature_graph" range (train/profile_step.py)
     with torch.no_grad(), torch.profiler.record_function("feature_graph"):
-        d = pairwise_sqdist(x.detach())
-        if feature_route(d, kk) == "fused":
-            dist, idx = select_rows(d.reshape(-1, n), n, 1, kk,
-                                    largest=False, index_dtype=torch.int32)
-            return (idx.reshape(*d.shape[:-1], kk),
-                    dist.reshape(*d.shape[:-1], kk))
-        dist, idx = torch.sort(d, dim=-1, stable=True)
-        return idx[..., :kk].to(torch.int32), dist[..., :kk]
+        x = x.detach()
+        if query_chunk is None or query_chunk >= n:
+            return _select(pairwise_sqdist(x), kk)
+        yy = _sqnorm(x).transpose(-1, -2)
+        parts = []
+        for start in range(0, n, query_chunk):
+            q = x[..., start:start + query_chunk, :]
+            d = _sqnorm(q) - 2.0 * torch.matmul(q, x.transpose(-1, -2)) + yy
+            d.diagonal(offset=start, dim1=-2, dim2=-1).zero_()
+            parts.append(_select(d, kk))
+        return (torch.cat([p[0] for p in parts], -2),
+                torch.cat([p[1] for p in parts], -2))
 
 
 def approx_knn(x: torch.Tensor, k: int, self_loop: bool,
@@ -118,7 +146,8 @@ def approx_knn(x: torch.Tensor, k: int, self_loop: bool,
 
 
 def knn(x: torch.Tensor, k: int, self_loop: bool = False,
-        return_dist: bool = False, recall_target: float | None = None):
+        return_dist: bool = False, recall_target: float | None = None,
+        query_chunk: int | None = None):
     """k nearest neighbors of every point within its own cloud.
 
     :param x: (..., N, C) point clouds, channel-last; float32 for the K1
@@ -126,18 +155,24 @@ def knn(x: torch.Tensor, k: int, self_loop: bool = False,
         approximate one
     :param recall_target: build the approximate graph at this recall
         (`approx_knn`) instead of the exact one
+    :param query_chunk: bound the distance matrix to (..., query_chunk, N);
+        must divide N (see the module's docstring)
     :return: (..., N, k) int32 indices [, (..., N, k) squared distances]
     """
     n, c = x.shape[-2:]
     kk = k if self_loop else k + 1
+    if query_chunk is not None and query_chunk < n and n % query_chunk:
+        raise ValueError(f"query_chunk {query_chunk} must divide N={n}")
     lead = x.shape[:-2]
     x3 = x.reshape(-1, n, c)
     if recall_target is not None:
         idx, dist = approx_knn(x3, k, self_loop, recall_target)
     elif c <= MAX_C and kk <= MAX_KK:      # K1 raises for kk > N
-        idx, dist = knn_cuda(x3.contiguous(), k, self_loop)
+        idx, dist = knn_cuda(x3.contiguous(), k, self_loop, query_chunk)
     else:
-        idx, dist = feature_knn(x3, kk)
+        # unchunked, the (x, kk) call that wrappers of feature_knn expect
+        idx, dist = (feature_knn(x3, kk) if query_chunk is None
+                     else feature_knn(x3, kk, query_chunk))
         if not self_loop:
             idx, dist = idx[..., 1:], dist[..., 1:]
     idx = idx.reshape(*lead, n, k)

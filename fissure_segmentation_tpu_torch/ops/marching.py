@@ -17,7 +17,9 @@ detached field; the triangles are rebuilt from it with gradients, so
 extracts a stack of fields at once (DPSR-Net's B x C' fields), with
 per-field z-order truncation.
 
-Not ported: the JAX package's hybrid and packed variants.
+Not to port: the JAX package's hybrid variant (measured a negative there)
+and `marching_tetrahedra_packed`, a transfer encoding for a slow tunnel
+(serving.py says why the card's float path needs none).
 """
 from __future__ import annotations
 

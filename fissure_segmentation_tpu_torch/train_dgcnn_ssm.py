@@ -24,7 +24,9 @@ tests do).
 
 The synthetic corresponding points are built directly (the same (u, v)
 fissure parameters in every case), so the CPD registration is not on this
-path. Not ported: real-data training (the JAX entry raises too).
+path. Real-data training raises, as the JAX entry does: neither entry
+computes the corresponding points it needs
+(`shape_model.generate_corresponding_points`).
 """
 from __future__ import annotations
 
@@ -99,7 +101,7 @@ def build_dataset(args) -> CorrespondingPointDataset:
                                          do_augmentation=True)
     raise NotImplementedError(
         "real-data DG-SSM needs corresponding points from "
-        "shape_model.generate_corresponding_points (not ported yet)")
+        "shape_model.generate_corresponding_points")
 
 
 def fit_shape_model(args, train_ds: CorrespondingPointDataset):

@@ -21,7 +21,8 @@ model.pt, or the JAX package's model.fst where only that exists.
 Everything runs on CUDA card `--gpu`; without a card it raises, unless the
 caller of `run` or `main` passes ``device="cpu"`` (as the tests do).
 
-Not ported: real-data training (the JAX entry raises too).
+Real-data training raises, as the JAX entry does (it needs the
+`*_mesh_*` directories, which neither entry reads).
 """
 from __future__ import annotations
 

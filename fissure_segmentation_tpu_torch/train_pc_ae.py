@@ -22,8 +22,10 @@ that exists. The model trains in float32, as the JAX entry's does.
 Everything runs on CUDA card `--gpu`; without a card it raises, unless the
 caller of `run` or `main` passes ``device="cpu"`` (as the tests do).
 
-Not written: op_count.csv. `--dp` and `--visualize` are taken and have no
-effect, as in the JAX entry, whose generic parser gives them to every
+A run that trains writes op_count.csv first, as the JAX entry does (the
+model from seed 0 on a zero cloud of `--pts` points; utils/profiling.py
+says what its counts cover). `--dp` and `--visualize` are taken and have
+no effect, as in the JAX entry, whose generic parser gives them to every
 entry and whose PC-AE run reads neither.
 """
 from __future__ import annotations
@@ -45,6 +47,7 @@ from .models.weights import load_fold_model
 from .ops.marching import sample_points_on_triangles
 from .train.trainer import ModelTrainer, TrainConfig
 from .utils.device import resolve_device
+from .utils.profiling import param_and_op_count
 
 EVAL_SEED = 7          # the JAX entry's PRNGKey(7)
 
@@ -178,6 +181,14 @@ def run(args, device=None) -> dict:
         store_args(args, args.output)
 
     ds = build_dataset(args)
+    if not args.test_only:
+        # the op_count.csv artifact (./train_pc_ae.py:113-122)
+        counts = param_and_op_count(
+            build_model(args, torch.Generator().manual_seed(0)).to(device),
+            torch.zeros((1, args.pts, 3), device=device),
+            out_dir=args.output)
+        print(f"model: {counts['params']:,} params, "
+              f"{counts['flops'] / 1e9:.2f} GFLOP / fwd batch-1")
     case_ids = [list(i) for i in ds.ids]
     split = load_split_file(args.split) if args.split else \
         create_split(case_ids, k=5)

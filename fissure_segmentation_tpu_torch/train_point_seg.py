@@ -48,8 +48,10 @@ divide by the number of cards. With one card it trains as without `--dp`.
 after the ranks have written the fold. `--visualize N` draws the first
 validation cloud's labels and prediction every N epochs
 (fold*/visualizations/epoch{E}.png, utils/visualization.py; rank 0 only
-under `--dp`, and only where matplotlib imports). The op_count.csv
-artifact is not written. The test
+under `--dp`, and only where matplotlib imports). A run that trains
+writes op_count.csv first, as the JAX entry does (the model from seed 0
+on the first case's first `--pts` points; utils/profiling.py says what
+its counts cover). The test
 modes read each fold's `model.pt`, or the JAX package's `model.fst` where
 only that exists (`models/weights.py:load_fold_model`).
 """
@@ -73,6 +75,7 @@ from .parallel.mesh import spawn
 from .train import evaluation
 from .train.cross_val import cross_val_training
 from .train.trainer import ModelTrainer, TrainConfig
+from .utils.profiling import param_and_op_count
 from .utils.visualization import point_seg_visualization
 
 
@@ -227,6 +230,15 @@ def run(args, device=None, world_size: int | None = None) -> dict:
                                 model_cls).to(device)
         speed_test(ds, model, args.output, args.pts, device)
         return {}
+    if not args.test_only:
+        # the op_count.csv artifact (./train_point_seg.py:134-144)
+        pc, _ = ds.get_full_pointcloud(0)
+        x0 = torch.as_tensor(np.asarray(pc[:args.pts], np.float32))[None]
+        counts = param_and_op_count(
+            build_model(args, ds, torch.Generator().manual_seed(0))
+            .to(device), x0.to(device), out_dir=args.output)
+        print(f"model: {counts['params']:,} params, "
+              f"{counts['flops'] / 1e9:.2f} GFLOP / fwd batch-1")
 
     split = load_split_file(args.split) if args.split else \
         create_split(ds.ids, k=5)

@@ -57,6 +57,17 @@ def kpts_to_world(kpts_pt, shape, align_corners: bool | None = None):
     return (kpts_pt + 1) / 2 * (size - 1)
 
 
+def grid_to_index_coords(kpts_pt, shape, align_corners: bool | None = None):
+    """Normalized xyz grid coords -> zyx floating-point array indices.
+
+    Convenience for `jax.scipy.ndimage.map_coordinates`-style sampling of
+    (D, H, W) volumes.
+    """
+    world = kpts_to_world(kpts_pt, shape, align_corners)  # xyz
+    return world[..., ::-1] if isinstance(world, np.ndarray) \
+        else world.flip(-1)  # zyx
+
+
 def np_grid_coords(world_xyz: np.ndarray, shape) -> np.ndarray:
     """Pure-numpy kpts_to_grid for host-side generation/IO paths."""
     return np.asarray(kpts_to_grid(np.asarray(world_xyz, np.float32), shape))

@@ -1,5 +1,6 @@
-"""Parameter and operation counts, a timing helper (counterpart of
-utils/profiling.py) and `stage`, the synced stage clock of preprocessing.
+"""Parameter and operation counts, a timing helper, a trace (counterpart
+of utils/profiling.py) and `stage`, the synced stage clock of
+preprocessing.
 
 `param_and_op_count` writes `op_count.csv` with the JAX package's columns
 (flops, bytes_accessed, params). The JAX package takes the first two from
@@ -15,6 +16,15 @@ Here they are counted from one forward in eval mode without autograd:
     input (weights included) once and each output once;
   * params: the number of parameters (exact; BatchNorm's running
     statistics are buffers, as they are batch_stats in the JAX tree).
+
+`cost_analysis(fn, *args)` gives the JAX function's keys ("flops", "bytes
+accessed", "transcendentals") for any callable, read from the same
+dispatch counters: the flops and bytes of the counted operators as above,
+and one transcendental per output element of the elementwise exp, log,
+trigonometric, tanh, sigmoid, erf, sqrt, rsqrt and pow operators and of
+softmax. `trace(out_dir)` is the counterpart of `jax.profiler.trace`: a
+torch.profiler trace of the block (the CPU, and the card where there is
+one) written as a Chrome trace, `out_dir`/trace.json.
 """
 from __future__ import annotations
 
@@ -40,18 +50,57 @@ def _nbytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
+_TRANSCENDENTAL = {getattr(torch.ops.aten, name) for name in (
+    "exp", "exp2", "expm1", "log", "log1p", "log2", "log10", "sin", "cos",
+    "tan", "asin", "acos", "atan", "sinh", "cosh", "tanh", "sigmoid",
+    "erf", "erfc", "sqrt", "rsqrt", "pow", "_softmax", "_log_softmax")}
+
+
 class _CountedBytes(TorchDispatchMode):
-    """Bytes read and written by the operators FlopCounterMode counts."""
+    """Bytes read and written by the operators FlopCounterMode counts, and
+    the output elements of the transcendental ones."""
 
     def __init__(self, counted):
         super().__init__()
-        self.counted, self.bytes = counted, 0
+        self.counted, self.bytes, self.transcendentals = counted, 0, 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         if func.overloadpacket in self.counted:
             self.bytes += _nbytes((args, kwargs)) + _nbytes(out)
+        if func.overloadpacket in _TRANSCENDENTAL:
+            self.transcendentals += sum(t.numel() for t in tree_leaves(out)
+                                        if isinstance(t, torch.Tensor))
         return out
+
+
+@torch.no_grad()
+def cost_analysis(fn: Callable, *example_args, **example_kwargs) -> dict:
+    """{"flops", "bytes accessed", "transcendentals"} of one call of `fn`
+    on the example arguments, without autograd (see the module doc for
+    what they count)."""
+    flops = FlopCounterMode(display=False)
+    with flops, _CountedBytes(flops.flop_registry) as counted:
+        fn(*example_args, **example_kwargs)
+    return {"flops": float(flops.get_total_flops()),
+            "bytes accessed": float(counted.bytes),
+            "transcendentals": float(counted.transcendentals)}
+
+
+@contextlib.contextmanager
+def trace(out_dir: str):
+    """Context manager: a torch.profiler trace of the block (the CPU, and
+    the card where there is one), written as the Chrome trace
+    `out_dir`/trace.json (Perfetto, chrome://tracing); yields the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
 
 
 @torch.no_grad()

@@ -1,9 +1,12 @@
-"""The test pipeline's point-cloud plot, the trainer's per-epoch figure
-and the figure scripts' slice overlays (copies of `plot_point_cloud`,
-`point_seg_visualization`, `visualize_with_overlay`, `legend_figure` and
-their helpers from the JAX package's utils/visualization.py, held equal to
-the originals by tests/test_torch_repairs.py,
-tests/test_torch_baselines.py and tests/test_torch_parallel_train.py).
+"""The test pipeline's point-cloud plot, the trainer's per-epoch figure,
+the figure scripts' slice overlays and the remaining plot and colour
+helpers (copies of `plot_point_cloud`, `point_seg_visualization`,
+`visualize_with_overlay`, `legend_figure`, `plot_slice`,
+`trimesh_on_axis`, `plot_meshes`, `plot_normals`, `color_2d_points_bremm`,
+`color_2d_mesh_bremm` and their helpers from the JAX package's
+utils/visualization.py, held equal to the originals by
+tests/test_torch_repairs.py, tests/test_torch_baselines.py,
+tests/test_torch_parallel_train.py and tests/test_torch_helpers.py).
 
 matplotlib is imported at the call, never with the module: a machine
 without it (`matplotlib_available()` is False) runs everything else, and the
@@ -165,3 +168,113 @@ def legend_figure(labels, colors, path: str | None = None, show: bool = False):
     ax.legend(handles=handles, loc="center", frameon=False)
     ax.axis("off")
     _finish(fig, path, show)
+
+
+def plot_slice(img: np.ndarray, labels: np.ndarray | None = None,
+               axis: int = 0, index: int | None = None,
+               path: str | None = None, show: bool = False, title: str = ""):
+    """One volume slice with optional label overlay (visualization.py's
+    image+seg plots)."""
+    plt = _plt()
+    img = np.asarray(img)
+    if index is None:
+        index = img.shape[axis] // 2
+    sl = np.take(img, index, axis=axis)
+    fig, ax = plt.subplots()
+    ax.imshow(sl, cmap="gray")
+    if labels is not None:
+        lab = np.take(np.asarray(labels), index, axis=axis).astype(float)
+        lab[lab == 0] = np.nan
+        ax.imshow(lab, cmap="tab10", alpha=0.5, vmin=0, vmax=9)
+    ax.set_title(title or f"axis {axis} slice {index}")
+    ax.axis("off")
+    _finish(fig, path, show)
+
+
+def trimesh_on_axis(ax, tris: np.ndarray, valid: np.ndarray | None = None,
+                    color="tab:blue", alpha: float = 0.4):
+    """(visualization.py trimesh_on_axis) triangle soup (T, 3, 3) xyz."""
+    from mpl_toolkits.mplot3d.art3d import Poly3DCollection
+    tris = np.asarray(tris)
+    if valid is not None:
+        tris = tris[np.asarray(valid)]
+    coll = Poly3DCollection(tris, alpha=alpha, facecolor=color,
+                            edgecolor="none")
+    ax.add_collection3d(coll)
+    lo, hi = tris.reshape(-1, 3).min(0), tris.reshape(-1, 3).max(0)
+    ax.set_xlim(lo[0], hi[0]); ax.set_ylim(lo[1], hi[1]); ax.set_zlim(lo[2], hi[2])
+
+
+def plot_meshes(meshes, path: str | None = None, show: bool = False,
+                title: str = ""):
+    """List of (tris, valid) soups on one 3-D axis."""
+    plt = _plt()
+    fig = plt.figure()
+    ax = fig.add_subplot(111, projection="3d")
+    for i, (tris, valid) in enumerate(meshes):
+        trimesh_on_axis(ax, tris, valid, color=color_for_label(i + 1))
+    ax.set_title(title)
+    _finish(fig, path, show)
+
+
+def plot_normals(coords: np.ndarray, normals: np.ndarray, ax=None,
+                 title: str = "", path: str | None = None,
+                 show: bool = False, scale: float = 0.1):
+    """Quiver plot of oriented point normals (visualization.py:257-283)."""
+    plt = _plt()
+    fig = None
+    if ax is None:
+        fig = plt.figure()
+        ax = fig.add_subplot(111, projection="3d")
+    c = np.asarray(coords)
+    n = np.asarray(normals)
+    ax.quiver(c[:, 0], c[:, 1], c[:, 2], n[:, 0], n[:, 1], n[:, 2],
+              length=scale, normalize=True, linewidth=0.5)
+    ax.set_title(title)
+    if fig is not None:
+        _finish(fig, path, show)
+    return ax
+
+
+def color_2d_points_bremm(points: np.ndarray) -> np.ndarray:
+    """2-D coordinates -> CIELab-plane RGB colors (visualization.py:303-321,
+    Bremm et al. 2011) — encodes 2-D correspondence positions as colors for
+    folding/correspondence visualizations. Pure-numpy Lab->sRGB (D65).
+
+    :param points: (N, 2)
+    :return: (N, 3) RGB in [0, 1]
+    """
+    pts = np.asarray(points, np.float64)
+    p_min, p_max = pts.min(0, keepdims=True), pts.max(0, keepdims=True)
+    ab = (pts - p_min) / np.maximum(p_max - p_min, 1e-12) * 200.0 - 100.0
+    lab = np.concatenate([np.full((len(pts), 1), 55.0), ab], axis=1)
+
+    # Lab -> XYZ (D65 white)
+    fy = (lab[:, 0] + 16.0) / 116.0
+    fx = fy + lab[:, 1] / 500.0
+    fz = fy - lab[:, 2] / 200.0
+
+    def _finv(t):
+        d = 6.0 / 29.0
+        return np.where(t > d, t ** 3, 3 * d * d * (t - 4.0 / 29.0))
+
+    white = np.array([0.95047, 1.0, 1.08883])
+    xyz = np.stack([_finv(fx), _finv(fy), _finv(fz)], -1) * white
+
+    # XYZ -> linear sRGB -> gamma
+    m = np.array([[3.2404542, -1.5371385, -0.4985314],
+                  [-0.9692660, 1.8760108, 0.0415560],
+                  [0.0556434, -0.2040259, 1.0572252]])
+    rgb = xyz @ m.T
+    rgb = np.clip(rgb, 0.0, 1.0)
+    return np.where(rgb <= 0.0031308, 12.92 * rgb,
+                    1.055 * rgb ** (1 / 2.4) - 0.055)
+
+
+def color_2d_mesh_bremm(vertices: np.ndarray,
+                        triangles: np.ndarray) -> np.ndarray:
+    """Per-triangle Bremm colors from 2-D vertex positions
+    (visualization.py:324-326)."""
+    verts = np.asarray(vertices)[:, :2]
+    centroids = verts[np.asarray(triangles)].mean(axis=1)
+    return color_2d_points_bremm(centroids)

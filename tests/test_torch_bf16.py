@@ -70,8 +70,8 @@ ZERO_GRAD = "SharedMLP_0/BatchNorm_0/bias"
 
 @pytest.fixture
 def routing(monkeypatch):
-    """Set FSEG_FUSED_EDGE for both packages; the JAX fused tail stays off
-    (it is not ported)."""
+    """Set FSEG_FUSED_EDGE for both packages; the fused tail stays off in
+    both (the CPU's default; tests/test_torch_fused_tail.py holds it)."""
     monkeypatch.delenv("FSEG_FUSED_EDGE_TAIL", raising=False)
 
     def set_fused(on: bool):

@@ -7,7 +7,8 @@ streaming column sums) against their plain PyTorch versions, the DGCNN
 eval forward with grad enabled against the no_grad one, and the default
 run's path: the feature graph card against CPU, the dynamic step with its
 three transposes against the same step given none, test_pipeline card
-against CPU; the approximate top-k's fused row selection and bin pass
+against CPU; the fused EdgeConv tail card against CPU; knn(query_chunk=)
+against the unchunked call on the card; the approximate top-k's fused row selection and bin pass
 against their plain versions, the feature graph on the fused selection
 against the stable sort it replaced, the approximate graph card against
 CPU, the splat's sorted scatter and segment_cases against a loop of
@@ -1034,13 +1035,15 @@ def test_dynamic_step_with_transposes_equals_step_without(cuda, dtype,
             assert torch.equal(a, b)
 
 
-def test_test_pipeline_on_card_matches_cpu(cuda, tmp_path):
+def test_test_pipeline_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     """One small case through test_pipeline with a static f32 model (no
     near-tie in a feature graph can differ) and the same injected draws on
-    the card and on the CPU: the same predictions and Dice; the ASSD family
+    the card and on the CPU, both on the fused tail's route: the same
+    predictions and Dice; the ASSD family
     within 1e-2 relative: the surface fit's sums (PSR's FFT, the normals)
     round in other orders, and HD95 steps between samples (reading on an
     H100: 3.8e-3 at HD95, within 1e-4 elsewhere)."""
+    monkeypatch.setenv("FSEG_FUSED_EDGE_TAIL", "1")
     import numpy as np
     from fissure_segmentation_tpu_torch.data.dataset import PointDataset
     from fissure_segmentation_tpu_torch.data.synthetic import \
@@ -1141,11 +1144,13 @@ def test_pcae_step_with_transposes_equals_step_without(cuda, static,
     assert all(torch.equal(a, b) for a, b in zip(g1, g2))
 
 
-def test_dseg_reconstruct_on_card_equals_cpu(cuda):
-    """DSEG-AE's reconstruct from the same labels and draws: the padded
+def test_dseg_reconstruct_on_card_equals_cpu(cuda, monkeypatch):
+    """DSEG-AE's reconstruct from the same labels and draws (both sides on
+    the fused tail's route): the padded
     cloud (K1 at kk = 2 with 1e6 points), the masked FPS (K5) and the AE
     forward on the card give the CPU's vertices within 1e-4 of their
     scale."""
+    monkeypatch.setenv("FSEG_FUSED_EDGE_TAIL", "1")
     import numpy as np
     from fissure_segmentation_tpu_torch.data.synthetic import \
         make_synthetic_dataset
@@ -1425,3 +1430,54 @@ def test_segment_cases_on_card_equals_a_loop(cuda):
                 assert np.array_equal(a.labelmap, b.labelmap)
                 for (t1, v1), (t2, v2) in zip(a.meshes, b.meshes):
                     assert np.array_equal(t1, t2) and np.array_equal(v1, v2)
+
+
+# ---- the fused EdgeConv tail and knn(query_chunk=) ----------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_tail_on_card_equals_cpu(cuda, dtype):
+    """FusedEdgeTail in train mode on (2, 512, 20, 64) edges, card against
+    CPU from the same weights: the output within 1e-5 (f32) / 2^-7 (bf16)
+    of its largest entry, the running statistics within 1e-5, the
+    gradients of the edges, the kernel, the scale and the bias within
+    1e-4 (f32) / 2e-2 (bf16) in relative L2 (cuBLAS and the CPU sum the
+    product's terms in other orders)."""
+    from fissure_segmentation_tpu_torch.models.blocks import FusedEdgeTail
+    g = torch.Generator().manual_seed(21)
+    tail = FusedEdgeTail(64, 64, generator=g, dtype=dtype)
+    with torch.no_grad():
+        tail.BatchNorm_0.scale.copy_(torch.randn(64, generator=g) + 0.3)
+    e = torch.randn((2, 512, 20, 64), generator=g)
+    w = torch.randn((2, 512, 64), generator=g)
+    outs = {}
+    for dev in ("cpu", cuda):
+        t = copy.deepcopy(tail).to(dev).train()
+        ed = e.to(dev).clone().requires_grad_(True)
+        out = t(ed)
+        (out.float() * w.to(dev)).sum().backward()
+        outs[str(dev)] = [out.detach().float().cpu(), ed.grad.float().cpu(),
+                          t.Dense_0.weight.grad.cpu(),
+                          t.BatchNorm_0.scale.grad.cpu(),
+                          t.BatchNorm_0.bias.grad.cpu(),
+                          t.BatchNorm_0.mean.cpu(), t.BatchNorm_0.var.cpu()]
+    c, d = outs["cpu"], outs[str(cuda)]
+    f32 = dtype == torch.float32
+    assert (d[0] - c[0]).abs().max() <= (1e-5 if f32 else 2 ** -7) * \
+        c[0].abs().max()
+    for a, b in zip(d[1:5], c[1:5]):
+        assert (a - b).norm() <= (1e-4 if f32 else 2e-2) * b.norm()
+    for a, b in zip(d[5:], c[5:]):
+        assert torch.allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("c,dtype", [(3, torch.float32),
+                                     (64, torch.float32),
+                                     (64, torch.bfloat16)])
+def test_knn_query_chunk_on_card_equals_unchunked(cuda, c, dtype):
+    """knn(query_chunk=) on the card selects the unchunked call's indices
+    and distances exactly: K1's route (C = 3) and the feature route."""
+    from fissure_segmentation_tpu_torch.ops.knn import knn
+    x = _uniform((2, 2048, c), 31).to(dtype).to(cuda)
+    whole = knn(x, 40, self_loop=True, return_dist=True)
+    part = knn(x, 40, self_loop=True, return_dist=True, query_chunk=256)
+    assert torch.equal(whole[0], part[0]) and torch.equal(whole[1], part[1])

@@ -14,6 +14,13 @@ jitted step with the batch sharded over a virtual 4-device mesh.
     port's global loss and gradient are JAX's, and those of a plain-DDP
     port (per-rank loss and BatchNorm, the ranks' mean) miss them by far
     more than the tolerance;
+  * the same step with the fused EdgeConv tail on in both packages
+    (FSEG_FUSED_EDGE_TAIL=1: its statistics are summed over the group),
+    within the same tolerances;
+  * the per-sample generalized Dice loss (batch_dice=False) under the
+    group: the mean over the global batch of each sample's Dice, against
+    JAX's on the whole batch: the loss within rtol 1e-6, each rank's rows
+    of the logits' gradient within rtol = atol = 1e-7;
   * 3 epochs of the data-parallel trainer against the single-device one at
     the same seed: the histories within JAX's data-parallel bound (rtol =
     atol = 3e-2, __graft_entry__.py:dryrun_multichip), rank 0 alone writing
@@ -85,8 +92,12 @@ def run():
     for r in range(N_DEV):
         xu[r * SHARE:(r + 1) * SHARE, :, :3] += r / 2
         yu[r * SHARE:(r + 1) * SHARE, ::2] = r
+    gdl_logits = rng.normal(size=(b, 64, 4)).astype(np.float32)
+    gdl_y = rng.integers(0, 4, (b, 64)).astype(np.int32)
+    gdl_y[0] = 0                    # a sample without the other classes
     inp = dict(vars=variables, x=x, y=y, xu=xu, yu=yu, cw=CW, lr=LR, wd=WD,
-               share=SHARE, train_cfg=TRAIN_CFG)
+               share=SHARE, train_cfg=TRAIN_CFG, gdl_logits=gdl_logits,
+               gdl_y=gdl_y)
 
     mesh = jmake_mesh(("data",), devices=jax.devices()[:N_DEV])
     rep, shard = NamedSharding(mesh, P()), NamedSharding(mesh, P("data"))
@@ -99,8 +110,10 @@ def run():
 
     tx = optax.chain(optax.add_decayed_weights(WD), optax.adam(LR))
     want = {}
-    for fused in (False, True):
-        os.environ["FSEG_FUSED_EDGE"] = "1" if fused else "0"
+    routes = {False: {"FSEG_FUSED_EDGE": "0"}, True: {"FSEG_FUSED_EDGE": "1"},
+              "tail": {"FSEG_FUSED_EDGE_TAIL": "1"}}
+    for fused, env in routes.items():
+        os.environ.update(env)       # read while the step is traced
         with jax.default_matmul_precision("float32"):
             step = jax.jit(jax.value_and_grad(jloss, has_aux=True),
                            in_shardings=(rep, shard, shard),
@@ -111,7 +124,13 @@ def run():
             want[f"step_{fused}"] = jax.tree_util.tree_map(np.asarray, dict(
                 loss=loss, comps=comps, stats=stats, grads=grads,
                 params=optax.apply_updates(variables["params"], updates)))
-    os.environ.pop("FSEG_FUSED_EDGE")
+        for name in env:
+            os.environ.pop(name)
+    gdl, gdl_grad = jax.value_and_grad(
+        lambda lg: jlosses.generalized_dice_loss(
+            lg, jnp.asarray(gdl_y), batch_dice=False)[0])(
+                jnp.asarray(gdl_logits))
+    want["gdl"] = (float(gdl), np.asarray(gdl_grad))
     with jax.default_matmul_precision("float32"):
         (loss_u, _), grads_u = jax.value_and_grad(jloss, has_aux=True)(
             variables["params"], xu, yu)
@@ -122,7 +141,8 @@ def run():
     return inp, want, got
 
 
-@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+@pytest.mark.parametrize("fused", [False, True, "tail"],
+                         ids=["unfused", "fused", "tail"])
 def test_dp_step_matches_jax_dp_step(run, fused):
     _, want, got = run
     w, g = want[f"step_{fused}"], got[0][f"step_{fused}"]
@@ -136,6 +156,16 @@ def test_dp_step_matches_jax_dp_step(run, fused):
     for other in got[1:]:
         _assert_trees_close(other[f"step_{fused}"]["variables"],
                             g["variables"], rtol=0, atol=0)
+
+
+def test_per_sample_dice_over_the_group_matches_jax(run):
+    inp, want, got = run
+    loss_j, grad_j = want["gdl"]
+    for r, g in enumerate(got):
+        loss, grad = g["gdl"]
+        np.testing.assert_allclose(loss, loss_j, rtol=1e-6)
+        rows = slice(r * inp["share"], (r + 1) * inp["share"])
+        np.testing.assert_allclose(grad, grad_j[rows], rtol=1e-7, atol=1e-7)
 
 
 def test_plain_ddp_would_fail_this_batch(run):

@@ -400,8 +400,12 @@ def test_model_registry_and_unported_dtype():
     assert get_point_seg_model_class("PointNet") is PointNetSeg
     with pytest.raises(ValueError, match="unknown"):
         get_point_seg_model_class("nope")
-    with pytest.raises(NotImplementedError, match="dtype"):
-        PointTransformerSeg(3, 4, dtype=torch.bfloat16)
+    # bf16 is ported (tests/test_torch_helpers.py holds it); float16 is no
+    # compute dtype of the port
+    assert PointTransformerSeg(3, 4, dtype=torch.bfloat16).config[
+        "dtype"] == "bfloat16"
+    with pytest.raises(ValueError, match="dtype"):
+        PointTransformerSeg(3, 4, dtype=torch.float16)
 
 
 # ---- the training entry point ----------------------------------------------

@@ -85,6 +85,13 @@ def test_coords_copy_equals_original():
         np.testing.assert_array_equal(
             coords.kpts_to_grid(torch.from_numpy(world), shape, align).numpy(),
             g)
+        np.testing.assert_array_equal(
+            coords.grid_to_index_coords(g, shape, align),
+            jcoords.grid_to_index_coords(g, shape, align))
+        np.testing.assert_array_equal(
+            coords.grid_to_index_coords(torch.from_numpy(g), shape,
+                                        align).numpy(),
+            coords.grid_to_index_coords(g, shape, align))
     np.testing.assert_array_equal(coords.np_grid_coords(world, shape),
                                   jcoords.np_grid_coords(world, shape))
 

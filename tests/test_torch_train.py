@@ -95,8 +95,8 @@ def _dyadic_cloud(rng, shape):
 
 @pytest.fixture
 def routing(monkeypatch):
-    """Set FSEG_FUSED_EDGE for both packages; the JAX fused tail stays off
-    (it is not ported)."""
+    """Set FSEG_FUSED_EDGE for both packages; the fused tail stays off in
+    both (the CPU's default; tests/test_torch_fused_tail.py holds it)."""
     monkeypatch.delenv("FSEG_FUSED_EDGE_TAIL", raising=False)
 
     def set_fused(on: bool):
@@ -661,7 +661,8 @@ def test_entry_point_trains_a_fold_with_amp(tmp_path, monkeypatch):
     dtype, as the JAX entry does: `main(argv, device="cpu")` trains one
     epoch of fold 0; the model it built is DGCNNSeg(dtype=bf16) with float32
     parameters, its EdgeConvs returned bf16 in every training forward, and
-    model.pt keeps the dtype."""
+    model.pt keeps the dtype. The run builds two models: op_count.csv's
+    (seed 0, one eval forward) and the fold's, which it trains."""
     built, seen = [], []
     build = train_point_seg.build_model
 
@@ -676,8 +677,8 @@ def test_entry_point_trains_a_fold_with_amp(tmp_path, monkeypatch):
             "--ds", "synthetic", "--pts", "48", "--k", "4", "--batch", "2",
             "--epochs", "1", "--output", str(tmp_path)]
     assert train_point_seg.main(argv, device="cpu") == 0
-    (model,) = built
-    assert model.dtype == torch.bfloat16
+    (op_model, model) = built
+    assert op_model.dtype == model.dtype == torch.bfloat16
     assert all(p.dtype == torch.float32 for p in model.parameters())
     assert (True, torch.bfloat16) in seen
     assert {dtype for _, dtype in seen} == {torch.bfloat16}

@@ -12,6 +12,8 @@ import torch
 
 from fissure_segmentation_tpu_torch.data import dataset, synthetic
 from fissure_segmentation_tpu_torch.losses import get_loss_fn
+from fissure_segmentation_tpu_torch.losses.segmentation import \
+    generalized_dice_loss
 from fissure_segmentation_tpu_torch.models import (DGCNNSeg, MobileNetASPP,
                                                    ensemble_predict,
                                                    export_jax_variables,
@@ -93,15 +95,20 @@ def _grad_tree(model):
 def dp_step_rank(mesh, inp):
     """One data-parallel ModelTrainer step of DGCNNSeg(k=6, static) from
     the JAX weights on this rank's rows of the injected batch, with the
-    fused EdgeConv off and on (FSEG_FUSED_EDGE); then the same batch as a
-    plain-DDP port would take it (per-rank loss and BatchNorm, the mean of
-    the ranks' losses and gradients); then a data-parallel trainer run."""
+    fused EdgeConv off and on (FSEG_FUSED_EDGE) and with the fused tail on
+    (FSEG_FUSED_EDGE_TAIL); then the same batch as a plain-DDP port would
+    take it (per-rank loss and BatchNorm, the mean of the ranks' losses
+    and gradients); then the per-sample Dice loss (batch_dice=False) of
+    this rank's rows of injected logits over the group, and its gradient;
+    then a data-parallel trainer run."""
     out = {}
     rows = slice(mesh.rank * inp["share"], (mesh.rank + 1) * inp["share"])
     x, y = _t(inp["x"])[rows], _t(inp["y"])[rows].long()
     cw = _t(inp["cw"])
-    for fused in (False, True):
-        os.environ["FSEG_FUSED_EDGE"] = "1" if fused else "0"
+    routes = {False: {"FSEG_FUSED_EDGE": "0"}, True: {"FSEG_FUSED_EDGE": "1"},
+              "tail": {"FSEG_FUSED_EDGE_TAIL": "1"}}
+    for fused, env in routes.items():
+        os.environ.update(env)
         model = load_jax_variables(DGCNNSeg(k=6, in_features=4,
                                             num_classes=4, dynamic=False),
                                    inp["vars"])
@@ -117,7 +124,15 @@ def dp_step_rank(mesh, inp):
         out[f"step_{fused}"] = dict(
             loss=float(loss), comps={k: float(v) for k, v in comps.items()},
             grads=_grad_tree(model), variables=export_jax_variables(model))
-    os.environ.pop("FSEG_FUSED_EDGE")
+        for name in env:
+            os.environ.pop(name)
+
+    # the per-sample Dice loss over the group
+    logits = _t(inp["gdl_logits"])[rows].requires_grad_(True)
+    gdl, _ = generalized_dice_loss(logits, _t(inp["gdl_y"])[rows],
+                                   batch_dice=False, group=mesh.group)
+    gdl.backward()
+    out["gdl"] = (float(gdl), _np(logits.grad))
 
     # the unbalanced batch: the global loss, and the plain-DDP one
     xu, yu = _t(inp["xu"])[rows], _t(inp["yu"])[rows].long()
