@@ -142,8 +142,13 @@ Phases; any failure raises and exits non-zero, nothing falls back to the CPU:
      checked against its plain version first (stream_sum and
      stream_sum_async within their rounding bound on the payload, equal on
      a payload of integers, where every sum is exact, and unequal there
-     once a tile is zeroed); the stream kernels' times beside their plain
-     version, torch.sum and the bound. P5's comparison is phase 16's. P1's
+     once a tile is zeroed; P3's totals, taken from the launch that sums
+     the columns, within their own bound); the stream kernels' times
+     beside their plain version, torch.sum(g), torch.sum(., 0) and the
+     bound; their hard cases (probes.hard_cases: rows under the grid and
+     off every tile, L = 4 ... 1024, the smallest and largest ring, calls
+     back to back and on two streams at once bit-equal and equal to the
+     replay of their order). P5's comparison is phase 16's. P1's
      k_onehot is the path of K4's histogram (at 512 rows);
  20. the default run of the entry point at full width (no --static, no
      --train_only: DGCNNSeg(k=40, dynamic, bf16), 32 x 2048, 3 epochs of
@@ -2579,11 +2584,15 @@ def phase_bf16_reference():
 
 
 def phase_probes(card: str):
-    """The probes of P1-P4 (prof/probes.py) at 3 repetitions, then the
-    stream kernels' headline times beside their plain version, torch.sum
-    and the bound. The path's launches are those of the probes' timed calls
-    (each row counts its own; the probes' checks are not counted). Returns
-    ({kernel: launches}, rows, {kernel: timings})."""
+    """The probes of P1-P4 (prof/probes.py) at 3 repetitions (each variant
+    held against plain first), then the stream kernels' headline times
+    beside their plain version, torch.sum(g) to a scalar, torch.sum(., 0)
+    and the bound, then their hard cases (`probes.hard_cases`: rows under
+    the grid and off every tile, L = 4 ... 1024, the smallest and largest
+    ring; launches back to back and on two streams at once bit-equal and
+    equal to the order's replay). The path's launches are those of the
+    probes' timed calls (each row counts its own; the checks are not
+    counted). Returns ({kernel: launches}, rows, {kernel: timings})."""
     from fissure_segmentation_tpu_torch.kernels.stream import (
         stream_sum, stream_sum_async, stream_sum_plain)
     from fissure_segmentation_tpu_torch.prof import probes
@@ -2607,18 +2616,22 @@ def phase_probes(card: str):
         t_p = median_ms(lambda: stream_sum_plain(view), reps=3)
         t_l = median_ms(lambda: torch.sum(view, 0, dtype=torch.float32),
                         reps=3)
+        t_t = median_ms(lambda: torch.sum(g, dtype=torch.float32), reps=3)
         # read the view once, write L f32; one add per element
         bound, by = bound_ms(view.numel() * 2 + view.shape[1] * 4,
                              view.numel())
         heads[name] = {"ms": row["ms"], "plain_ms": t_p, "library_ms": t_l,
-                       "bound_ms": bound, "bound_by": by,
-                       "max_abs_err": row["max_abs_err"],
+                       "library_total_ms": t_t, "bound_ms": bound,
+                       "bound_by": by, "max_abs_err": row["max_abs_err"],
                        "shape": list(view.shape), "variant": row["variant"],
                        "gb_per_s": row["gb_per_s"]}
         print(f"{name} {row['variant']}: kernel {row['ms']:.4f} ms "
               f"({row['gb_per_s']:.1f} GB/s), plain {t_p:.4f} ms, library "
-              f"torch.sum {t_l:.4f} ms, bound {bound:.4f} ms ({by}) on "
-              f"{card}", flush=True)
+              f"torch.sum(g) {t_t:.4f} ms, torch.sum(., 0) {t_l:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}) on {card}", flush=True)
+    hard = probes.hard_cases()
+    print(f"stream kernels' hard cases: {len(hard)} held, "
+          f"{json.dumps(hard)}", flush=True)
     return counts, rows, heads
 
 

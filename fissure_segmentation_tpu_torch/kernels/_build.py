@@ -134,13 +134,15 @@ def load() -> ctypes.CDLL:
                 "fseg_gather_reduce": [vp, vp, vp, vp, vp, vp, vp, vp, i32,
                                        i32, i32, i32, i32, i32, vp],
                 "fseg_gather_reduce_parts": [i32, i32, i32, i32],
-                "fseg_stream_sum": [vp, vp, vp, i64, i32, i32, i32, vp],
+                "fseg_stream_sum": [vp, vp, vp, vp, vp, i64, i32, i32, i32,
+                                    vp],
+                "fseg_stream_occupancy": [i32, i32, i32, i32],
                 "fseg_bin_extrema": [vp, vp, vp, i64, i64, i64, i32, i32,
                                      i32, vp],
                 "fseg_select_rows": [vp, vp, vp, i64, i64, i64, i32, i32,
                                      i32, i32, i32, vp],
-                "fseg_stream_sum_async": [vp, vp, vp, i64, i32, i32, i32, i32,
-                                          i32, vp],
+                "fseg_stream_sum_async": [vp, vp, vp, vp, vp, i64, i32, i32,
+                                          i32, i32, i32, vp],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

@@ -1,18 +1,20 @@
 """Design sweeps and splits of K6 (the 3x3x3 depthwise convolution), of
 K2's graph transpose, of the fused EdgeConv gather-reduce, of K3, of K4's
-histogram and of the approximate top-k's kernels on the card, from scratch
-builds of edited sources. Run from the repository root:
+histogram, of the approximate top-k's kernels and of the streaming column
+sums on the card, from scratch builds of edited sources. Run from the
+repository root:
 
     python fissure_segmentation_tpu_torch/prof/design_sweep.py \
-        [--parts split,dw,tr,gr,grb,k3,k4,sel,bins] [--build DIR]
+        [--parts split,dw,tr,gr,grb,k3,k4,sel,bins,st] [--build DIR]
 
 Each variant is a copy of kernels/csrc/depthwise.cu, scatter.cu,
-gather_reduce.cu or approx_topk.cu with one constant, launch shape or path
-edited, built alone by nvcc into DIR (default: a temporary directory) and
-called through ctypes; the package keeps no knob for any of them. Every
-variant that computes the kernel's function is checked first (K6, the
-gather-reduce and the approximate top-k's kernels bit-equal to plain, the
-transpose equal, K3 equal to the package's kernel). Parts:
+gather_reduce.cu, approx_topk.cu or stream.cu with one constant, launch
+shape or path edited, built alone by nvcc into DIR (default: a temporary
+directory) and called through ctypes; the package keeps no knob for any of
+them. Every variant that computes the kernel's function is checked first
+(K6, the gather-reduce and the approximate top-k's kernels bit-equal to
+plain, the transpose equal, K3 equal to the package's kernel, the stream
+sums equal to plain on integers). Parts:
 
   split  what holds a kernel back, at the path shapes: the simple K6 kernel
          (`depthwise_simple`, now the path of channel rows that are not
@@ -58,6 +60,20 @@ transpose equal, K3 equal to the package's kernel). Parts:
          cold (`prof.timing.cold_ms`) and warm: as it is, without vectors
          (the PR 17 kernel's one element a thread) and with 4 or 16 loads
          in flight.
+
+  st     the streaming column sums (stream.cu): loads in flight a thread
+         (ST_UNROLL 4, 8, 16), stream_sum's blocks an SM (1, 2, 4), the
+         loads as __ldcs instead of L1::no_allocate with an L2 evict-first
+         policy, the producer's bulk copies cut to 16 or 4 KB, the ring's
+         blocks an SM capped at 2, groups of 4 or 64 blocks in the finish,
+         full fences around the tickets, stream_sum's units in balanced
+         contiguous ranges instead of dealt to the blocks in turn, 4 loads
+         in flight at 8 blocks an SM, and both kernels without their
+         finish (an ablation: the streaming and the block's partial
+         alone);
+         at P1's (2 621 440, 64) bf16 view, its float32 copy and P3's
+         (1 310 720, 128) view over ASYNC_GRID, each equal to plain on an
+         integer payload first.
 
 Prints one JSON line ({part: {variant: {shape: median ms}}}), then the
 card's name and power limit. Raises without a card or nvcc.
@@ -240,6 +256,33 @@ def _sel_insert(merge_min: int) -> dict:
 _HIST_P = "    const int p = sms / b;\n"
 
 
+# the stream sums' finish with a full fence by every thread around each
+# ticket (the first design) instead of acq_rel tickets
+_ST_FENCES = {
+    "    readers_sync();             // the block's row, before its ticket":
+    "    __threadfence();\n    readers_sync();",
+    "    if (!last) return;\n    if (tid == 0) cnt[grp] = 0;":
+    "    if (!last) return;\n    __threadfence();\n"
+    "    if (tid == 0) cnt[grp] = 0;",
+    "        grow[c] = s;\n    }\n    readers_sync();":
+    "        grow[c] = s;\n    }\n    __threadfence();\n    readers_sync();",
+    "    if (!last) return;\n    if (tid == 0) cnt[groups] = 0;":
+    "    if (!last) return;\n    __threadfence();\n"
+    "    if (tid == 0) cnt[groups] = 0;"}
+# stream_sum's units in balanced contiguous ranges (block b: units
+# [units * b / blocks, units * (b + 1) / blocks), ST_UNROLL neighbouring
+# units at a time; the first design) instead of dealt to the blocks in turn
+_ST_RANGES = {
+    "    const long long step = gridDim.x;\n"
+    "    long long u = blockIdx.x;\n"
+    "    for (; u + (ST_UNROLL - 1) * step < units; u += ST_UNROLL * step) {\n":
+    "    const long long step = 1;\n"
+    "    long long u = units * blockIdx.x / gridDim.x;\n"
+    "    const long long end = units * (blockIdx.x + 1) / gridDim.x;\n"
+    "    for (; u + ST_UNROLL <= end; u += ST_UNROLL) {\n",
+    "    for (; u < units; u += step)\n": "    for (; u < end; ++u)\n"}
+
+
 def _hist_p(p: int) -> dict:
     return {_HIST_P: f"    const int p = {p} + 0 * sms / b;\n"}
 
@@ -344,6 +387,36 @@ VARIANTS = {
                          "__launch_bounds__(SEL_WARPS * 32, 4)\nselect_rows("},
         "no_vectors": _NO_VECTORS,
         "abl_no_selection": _SEL_NO_SELECTION,
+    }.items()},
+    "st": {name: ("stream.cu", edits) for name, edits in {
+        "default": {},
+        "unroll_4": {"#define ST_UNROLL 8 ": "#define ST_UNROLL 4 "},
+        "unroll_16_blocks_2": {
+            "#define ST_UNROLL 8 ": "#define ST_UNROLL 16 ",
+            "#define ST_BLOCKS_PER_SM 4 ": "#define ST_BLOCKS_PER_SM 2 "},
+        "blocks_2": {"#define ST_BLOCKS_PER_SM 4 ":
+                     "#define ST_BLOCKS_PER_SM 2 "},
+        "blocks_1": {"#define ST_BLOCKS_PER_SM 4 ":
+                     "#define ST_BLOCKS_PER_SM 1 "},
+        "ldcs": {"uint4 load_stream(const uint4* p, uint64_t pol) {\n":
+                 "uint4 load_stream(const uint4* p, uint64_t pol) {\n"
+                 "    return __ldcs(p);\n"},
+        "copy_16k": {"#define ST_COPY (1 << 20)": "#define ST_COPY 16384"},
+        "copy_4k": {"#define ST_COPY (1 << 20)": "#define ST_COPY 4096"},
+        "ring_blocks_2": {"#define ST_ASYNC_BLOCKS_PER_SM 7 ":
+                          "#define ST_ASYNC_BLOCKS_PER_SM 2 "},
+        "group_4": {"#define ST_GROUP 16 ": "#define ST_GROUP 4 "},
+        "group_64": {"#define ST_GROUP 16 ": "#define ST_GROUP 64 "},
+        "fences": _ST_FENCES,
+        "ranges": _ST_RANGES,
+        "unroll_4_blocks_8": {
+            "#define ST_UNROLL 8 ": "#define ST_UNROLL 4 ",
+            "#define ST_BLOCKS_PER_SM 4 ": "#define ST_BLOCKS_PER_SM 8 "},
+        "abl_no_finish": {
+            "    finish_sums(part, cnt, out, total, l, tid);\n}\n\n"
+            "__device__": "}\n\n__device__",
+            "tid);\n    finish_sums(part, cnt, out, total, l, tid);\n}\n\n"
+            "static": "tid);\n}\n\nstatic"},
     }.items()},
     "bins": {name: ("approx_topk.cu", edits) for name, edits in {
         "default": {},
@@ -456,9 +529,10 @@ def _stream() -> ctypes.c_void_p:
 
 def build(variants: dict, out_dir: str) -> dict:
     """{name: (source, edits)} -> {name: loaded library}; all nvcc runs
-    start together. An edit whose text is not in the source raises."""
+    start together, after every edit has been applied. An edit whose text
+    is not in the source raises (before any nvcc starts)."""
     nvcc = _build._nvcc()
-    procs = {}
+    paths = {}
     for name, (source, edits) in variants.items():
         with open(os.path.join(CSRC, source)) as f:
             src = f.read()
@@ -468,9 +542,11 @@ def build(variants: dict, out_dir: str) -> dict:
             src = src.replace(old, new)
         src += {"scatter.cu": _STAGES, "gather_reduce.cu": _GR_COPY}.get(
             source, "")
-        path = os.path.join(out_dir, f"{name}.cu")
-        with open(path, "w") as f:
+        paths[name] = os.path.join(out_dir, f"{name}.cu")
+        with open(paths[name], "w") as f:
             f.write(src)
+    procs = {}
+    for name, path in paths.items():
         procs[name] = subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-I", CSRC, "-shared", "-o",
              os.path.join(out_dir, f"{name}.so"), path],
@@ -831,9 +907,81 @@ def time_bins(lib, cases, check: bool) -> dict:
     return row
 
 
+def st_cases() -> list:
+    """(tag, g2d, chunk, nbuf, plain sums of its integer payload, that
+    payload, the payload with a tile zeroed): P1's (2 621 440, 64) bf16
+    view and its float32 copy for stream_sum; P3's (1 310 720, 128) view
+    at the probes' ASYNC_GRID for the ring."""
+    from fissure_segmentation_tpu_torch.kernels.stream import (
+        exact_payload, stream_sum_plain)
+    from fissure_segmentation_tpu_torch.prof.probes import (ASYNC_GRID,
+                                                            payload)
+    g = payload()[1]
+    views = [("p1_2621440x64_bf16", g.view(-1, 64), None, None),
+             ("p4_2621440x64_f32", g.view(-1, 64).float(), None, None)] + [
+        (f"p3_1310720x128_bf16_c{c}_b{b}", g.view(-1, 128), c, b)
+        for c, b in ASYNC_GRID]
+    out, ints = [], {}
+    for tag, v, c, b in views:
+        key = (tuple(v.shape), v.dtype)
+        if key not in ints:
+            x = exact_payload(v)
+            bad = x.clone()
+            bad[x.shape[0] // 2:x.shape[0] // 2 + 256] = 0
+            ints[key] = (stream_sum_plain(x), x, bad)
+        out.append((tag, v, c, b, *ints[key]))
+    return out
+
+
+def time_st(lib, cases, check: bool) -> dict:
+    """Each stream variant at `cases` through the scratch library's own
+    occupancy query and entry points (equal to plain on the integer
+    payload and unequal with a tile zeroed, where `check`), CUDA events."""
+    lib.fseg_stream_occupancy.argtypes = [I32] * 4
+    lib.fseg_stream_sum.argtypes = [VP] * 5 + [I64, I32, I32, I32, VP]
+    lib.fseg_stream_sum_async.argtypes = [VP] * 5 + [I64] + [I32] * 5 + [VP]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cnt = torch.zeros(256, dtype=torch.int32, device="cuda")
+    row = {}
+    for tag, v, chunk, nbuf, want, ints, bad in cases:
+        rows, lanes = v.shape
+        bf16 = int(v.dtype == torch.bfloat16)
+        per_sm = lib.fseg_stream_occupancy(lanes, bf16, chunk or 0, nbuf or 0)
+        work = (max(1, v.numel() * v.element_size() // 16 // 256)
+                if chunk is None else -(-rows // chunk))
+        blocks = min(per_sm * sms, work)
+        part = torch.empty((2 * blocks, lanes), device="cuda")
+        out = torch.empty(lanes, device="cuda")
+
+        def fn(x=v):
+            if chunk is None:
+                err = lib.fseg_stream_sum(
+                    x.data_ptr(), part.data_ptr(), cnt.data_ptr(),
+                    out.data_ptr(), None, rows, lanes, bf16, blocks,
+                    _stream())
+            else:
+                err = lib.fseg_stream_sum_async(
+                    x.data_ptr(), part.data_ptr(), cnt.data_ptr(),
+                    out.data_ptr(), None, rows, lanes, bf16, chunk, nbuf,
+                    blocks, _stream())
+            if err != 0:
+                raise RuntimeError(f"stream {tag}: launch failed ({err})")
+            return out
+
+        if check:
+            if not torch.equal(fn(ints).clone(), want):
+                raise AssertionError(f"stream {tag}: differs from plain")
+            if torch.equal(fn(bad), want):
+                raise AssertionError(f"stream {tag}: a zeroed tile unseen")
+        row[tag] = median_ms(fn)
+        row[f"{tag}_blocks"] = blocks
+    return row
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parts", default="split,dw,tr,gr,grb,k3,k4,sel,bins")
+    ap.add_argument("--parts",
+                    default="split,dw,tr,gr,grb,k3,k4,sel,bins,st")
     ap.add_argument("--build", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -860,6 +1008,7 @@ def main() -> None:
     k4s = k4_cases() if "k4" in parts else []
     sels = sel_cases() if "sel" in parts else []
     bins = bins_cases() if "bins" in parts else []
+    sts = st_cases() if "st" in parts else []
     res = {part: {} for part in parts}
     for full, lib in libs.items():
         part, name = full.split("_", 1)
@@ -869,7 +1018,9 @@ def main() -> None:
         whole = (part != "split" or name in ("gr", "gr_simple", "k3",
                                              "k3_simple")) \
             and not name.startswith("abl_")
-        if part == "sel":
+        if part == "st":
+            res[part][name] = time_st(lib, sts, whole)
+        elif part == "sel":
             res[part][name] = time_sel(lib, sels, whole)
         elif part == "bins":
             res[part][name] = time_bins(lib, bins, whole)

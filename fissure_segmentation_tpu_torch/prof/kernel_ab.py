@@ -1,11 +1,13 @@
 """K1 (kNN), K5 (farthest-point sampling), K6 (the depthwise convolution),
 K2-K4 (the EdgeConv scatters, with the graph transpose they build), the
-fused EdgeConv gather-reduce, P1's k_onehot and the approximate top-k of
+fused EdgeConv gather-reduce, P1's k_onehot, the streaming column sums and
+the approximate top-k of
 one checkout of this repository, timed on the card at their path shapes,
 so that two commits can be compared in one call on one card. Run it with
 the checkout's root:
 
     python fissure_segmentation_tpu_torch/prof/kernel_ab.py ROOT [--tag NAME]
+        [--stream_only]
 
 The script imports the kernels from ROOT, not from its own location, and
 times both roots with its own copy's prof/timing.py, so one copy times any
@@ -48,9 +50,15 @@ forward at (1, 128^3, 192) f32 and weight gradient at (32, 48^3, 192):
 K6's stride-2 mode and the wgrad kernel at stride 2 where the checkout's
 `depthwise_conv3_cuda` takes `stride` (equal to plain, within the bound),
 else what the checkout runs for that layer, cuDNN's grouped conv3d and
-conv3d_weight (the route is recorded beside each time). Prints one JSON
-line (per shape the median ms of CUDA-event runs), then the card's name
-and power limit. Raises without a card.
+conv3d_weight (the route is recorded beside each time). The streaming
+column sums (`stream_sum`, `stream_sum_async`; "stream" in its JSON) at
+P1's (2 621 440, 64) bf16 view and its float32 copy, at P3's (1 310 720,
+128) view over ASYNC_GRID and P3's total as the checkout's probe takes
+it, each within the checkout's own rounding_bound first, beside
+torch.sum(g) and torch.sum(., 0), each also split by the profiler into
+its kernels' device ms a call. Prints one JSON line (per shape the median
+ms of CUDA-event runs), then the card's name and power limit. Raises
+without a card.
 """
 from __future__ import annotations
 
@@ -61,6 +69,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -191,10 +200,105 @@ def _approx_selection(ops_knn, feats, gen, median_ms) -> dict:
     return out
 
 
+def _device_split(fn, calls: int = 10) -> dict:
+    """{kernel name: [device ms a call, launches a call]} of `fn` from the
+    profiler's trace of `calls` warm calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:80]: [e.self_device_time_total / calls / 1e3,
+                         e.count / calls]
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def _host_ms(fn, calls: int = 50) -> float:
+    """The host's ms a call of `fn` back to back (what it takes to enqueue
+    one; the card's queue is far deeper than `calls`)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
+
+
+def _stream_sums(stream, probes, g, median_ms, graph_ms) -> dict:
+    """The checkout's stream_sum at P1's (2 621 440, 64) bf16 view and on
+    its float32 copy, stream_sum_async at P3's (1 310 720, 128) view over
+    the probes' ASYNC_GRID (each within the checkout's rounding_bound of
+    plain first), P3's total as the checkout's probe takes it (from the
+    launch where `stream_sum` takes `total`, else `.sum()` of the column
+    sums), torch.sum(g) to a scalar and torch.sum(., 0) beside them; each
+    also split by the profiler into its kernels' device ms a call; P3's
+    totals through stream_sum and the (128, 4) ring and torch.sum(g) also
+    by CUDA-graph replays (the card alone) and by the host's ms to enqueue
+    one."""
+    with_total = "total" in inspect.signature(stream.stream_sum).parameters
+    g64, g128 = g.view(-1, 64), g.view(-1, 128)
+    gf = g64.float()
+    calls = [("stream_sum_2621440x64_bfloat16", g64, None, None),
+             ("stream_sum_2621440x64_float32", gf, None, None)] + [
+        (f"stream_sum_async_1310720x128_bfloat16_c{c}_b{b}", g128, c, b)
+        for c, b in probes.ASYNC_GRID]
+    out, split = {}, {}
+    for name, view, c, b in calls:
+        def fn(view=view, c=c, b=b):
+            return (stream.stream_sum(view) if c is None else
+                    stream.stream_sum_async(view, c, b))
+        err = (fn().double() - stream.stream_sum_plain(view).double()).abs()
+        if not bool((err <= stream.rounding_bound(view, c, b)).all()):
+            raise AssertionError(f"{name}: off its rounding bound of plain")
+        out[name] = median_ms(fn)
+        split[name] = _device_split(fn)
+    for name, view, c, b in (("P3_total_stream_sum", g64, None, None),
+                             ("P3_total_async_c32_b2", g128, 32, 2),
+                             ("P3_total_async_c128_b4", g128, 128, 4)):
+        def fn(view=view, c=c, b=b):
+            if with_total:
+                return (stream.stream_sum(view, total=True) if c is None else
+                        stream.stream_sum_async(view, c, b, total=True))[1]
+            return (stream.stream_sum(view) if c is None else
+                    stream.stream_sum_async(view, c, b)).sum()
+        out[name] = median_ms(fn)
+        split[name] = _device_split(fn)
+        if c in (None, 128):
+            out[f"{name}_card_alone"] = graph_ms(fn)
+            out[f"{name}_host"] = _host_ms(fn)
+    for name, fn in (
+            ("torch_sum_total", lambda: torch.sum(g, dtype=torch.float32)),
+            ("torch_sum_cols_2621440x64_bfloat16",
+             lambda: torch.sum(g64, 0, dtype=torch.float32)),
+            ("torch_sum_cols_1310720x128_bfloat16",
+             lambda: torch.sum(g128, 0, dtype=torch.float32)),
+            ("torch_sum_cols_2621440x64_float32",
+             lambda: torch.sum(gf, 0))):
+        out[name] = median_ms(fn)
+    out["torch_sum_total_card_alone"] = graph_ms(
+        lambda: torch.sum(g, dtype=torch.float32))
+    out["torch_sum_total_host"] = _host_ms(
+        lambda: torch.sum(g, dtype=torch.float32))
+    out["total_from_launch"] = with_total
+    out["split"] = split
+    del gf
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root")
     ap.add_argument("--tag", default="")
+    ap.add_argument("--stream_only", action="store_true",
+                    help="time the streaming column sums alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_ab runs only on an NVIDIA card")
@@ -208,6 +312,14 @@ def main() -> None:
         if not os.path.abspath(mod.__file__).startswith(root + os.sep):
             raise RuntimeError(f"{mod.__name__} imported from "
                                f"{mod.__file__}, not from {root}")
+    if args.stream_only:
+        from fissure_segmentation_tpu_torch.kernels import stream
+        from fissure_segmentation_tpu_torch.prof import probes
+        out = {"root": root, "tag": args.tag, "stream": _stream_sums(
+            stream, probes, probes.payload()[1], median_ms, graph_ms)}
+        print(json.dumps(out), flush=True)
+        print(_card(), flush=True)
+        return
     gen = torch.Generator().manual_seed(0)
     out = {"root": root, "tag": args.tag, "knn": {}, "fps": {},
            "depthwise": {}, "scatter": {}, "gather_reduce": {}}
@@ -328,11 +440,18 @@ def main() -> None:
     row = next(r for r in probes.p1(pidx, pg)
                if r["variant"].startswith("k_onehot"))
     out["probes"] = {"P1_k_onehot": row["ms"]}
+    from fissure_segmentation_tpu_torch.kernels import stream
+    out["stream"] = _stream_sums(stream, probes, pg, median_ms, graph_ms)
+    del pidx, pg
     print(json.dumps(out), flush=True)
+    print(_card(), flush=True)
+
+
+def _card() -> str:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60)
-    print(card.stdout.strip().splitlines()[0], flush=True)
+    return card.stdout.strip().splitlines()[0]
 
 
 if __name__ == "__main__":

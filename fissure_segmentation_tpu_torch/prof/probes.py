@@ -8,16 +8,18 @@ through the port's kernels:
      payload: `stream_sum`), `k_onehot` (counts of idx mod 512 plus the
      zero-padded payload sums: K4 `scatter_count` at 512 rows +
      `stream_sum`), `k_dot` (one-hot(idx mod 512)^T g: K2 `scatter_rows` at
-     512 rows, for every batch);
+     512 rows, for every batch), with the library calls for the last two
+     (`bincount` + `torch.sum`; `index_add_` of the float32 payload);
   P2 prof_scatter_clean.py and P4 prof_stream_bw.py: the column sums of the
      payload viewed as (R, L), L = 64 ... 1024, and of its float32 copy
      (`stream_sum`);
   P3 prof_scatter_alt.py: the payload's total through `stream_sum` (the
      BlockSpec reduction) and through `stream_sum_async` over the TPU
-     probe's (chunk, nbuf) grid (the manual DMA ring), and `torch.sum` as
-     the library call. The TPU chunks (4096 ... 32 768 rows of 128 lanes,
-     1-8 MB) exceed an SM's 227 KB of shared memory, so the grid keeps the
-     probe's nbuf and divides its chunk by 128;
+     probe's (chunk, nbuf) grid (the manual DMA ring), each taking the
+     total from the launch that sums the columns (`total=True`), and
+     `torch.sum` as the library call. The TPU chunks (4096 ... 32 768 rows
+     of 128 lanes, 1-8 MB) exceed an SM's 227 KB of shared memory, so the
+     grid keeps the probe's nbuf and divides its chunk by 128;
   P5 prof_fused_gather.py: out = max_k a[b, idx[b, n, k]] at B=32, N=2048,
      k=40, F=64 in bf16 — `gather_reduce(want="max")` against the flat
      gather + amax the port ran before, and `embedding_bag(mode="max")` as
@@ -30,7 +32,8 @@ counts must be equal; a stream sum (`_sum_check`) must be within its
 kernel's rounding bound (kernels/stream.py:rounding_bound, about 1e-4 of
 the column sums here: the payload is drawn around 1, not 0), equal on a
 payload of small integers, where every partial sum is exact, and unequal
-once one tile of that payload is zeroed (the check sees a skipped tile).
+once one tile of that payload is zeroed (the check sees a skipped tile); a
+P3 total must be within its own bound (kernels/stream.py:total_bound).
 One line per variant: ms and GB/s, the GB being the bytes the function
 must move (inputs read once, output written once); each row also counts
 the kernel launches of its timed calls (not those of its checks). The TPU
@@ -43,14 +46,17 @@ import argparse
 import json
 import sys
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..kernels import scatter as ks
 from ..kernels.gather_reduce import (flat_rows, gather_reduce,
                                      gather_reduce_plain)
-from ..kernels.stream import (exact_payload, rounding_bound, stream_sum,
-                              stream_sum_async, stream_sum_plain)
+from ..kernels.stream import (MAX_RING, exact_payload, grid_blocks,
+                              replay, rounding_bound, stream_sum,
+                              stream_sum_async, stream_sum_plain,
+                              stream_total_plain, total_bound)
 from ..ops.edge import _flat_gather
 from .timing import median_ms
 
@@ -128,6 +134,17 @@ def _sum_check(what: str, fn, g2d, chunk=None, nbuf=None) -> float:
     return err
 
 
+def _total_check(what: str, fn, g2d, chunk=None, nbuf=None) -> float:
+    """The total of `fn(g2d)` ((sums, total) from one launch) against the
+    plain total, within the kernel's bound; returns |kernel - plain|."""
+    got = float(fn(g2d)[1])
+    err = abs(got - float(stream_total_plain(g2d)))
+    if not err <= total_bound(g2d, chunk, nbuf):
+        raise AssertionError(f"{what}: total off its plain version by "
+                             f"{err:.3g}, beyond the rounding bound")
+    return err
+
+
 def p1(idx, g, reps: int = 7) -> list:
     """P1: stream only, + one-hot counts, one-hot dot."""
     g2 = g.view(B * E, C)
@@ -145,6 +162,14 @@ def p1(idx, g, reps: int = 7) -> list:
     rows.append(_row("P1", "k_onehot: scatter_count 512 + stream_sum",
                      lambda: onehot(ks.scatter_count, stream_sum),
                      _nbytes(lo, g2) + N_LO * 4, err, reps))
+    lo_flat = lo.reshape(-1)
+
+    def onehot_lib():
+        return torch.bincount(lo_flat, minlength=N_LO) + F.pad(
+            torch.sum(g2, 0, dtype=torch.float32), (0, N_LO - C))
+    rows.append(_row("P1", "library: bincount + torch.sum", onehot_lib,
+                     _nbytes(lo, g2) + N_LO * 4,
+                     (onehot_lib() - want).abs().max().item(), reps))
     got = ks.scatter_rows(lo, g, N_LO)
     want = ks.scatter_rows_plain(lo, g, N_LO)
     deg = ks.scatter_count_plain(lo, N_LO)[..., None]
@@ -153,6 +178,15 @@ def p1(idx, g, reps: int = 7) -> list:
     rows.append(_row("P1", "k_dot: scatter_rows 512 rows",
                      lambda: ks.scatter_rows(lo, g, N_LO),
                      _nbytes(lo, g) + B * N_LO * C * 4, err, reps))
+    # as chip_smoke.py times K2's library call: the float32 payload copy
+    # made outside, added into one (B * 512 + 1, C) array
+    flat, pay = ks._flat_targets(lo, N_LO), g.reshape(-1, C).float()
+    acc = torch.zeros((B * N_LO + 1, C), device=g.device)
+    lib = acc.clone().index_add_(0, flat, pay)[:-1].view(B, N_LO, C)
+    rows.append(_row("P1", "library: index_add_ 512 rows",
+                     lambda: acc.index_add_(0, flat, pay),
+                     _nbytes(lo, g) + B * N_LO * C * 4,
+                     (lib - want).abs().max().item(), reps))
     return rows
 
 
@@ -176,14 +210,19 @@ def p3(g, reps: int = 7, grid=ASYNC_GRID) -> list:
     g64 = g.view(B * E, C)
     g128 = g.view(-1, 128)
     nb = _nbytes(g) + 4
-    rows = [_row("P3", "pallas_blockspec: stream_sum(B*E, 64).sum()",
-                 lambda: stream_sum(g64).sum(), nb,
-                 _sum_check("P3 blockspec", stream_sum, g64), reps)]
+    def blockspec(v, total=False):
+        return stream_sum(v, total=total)
+    _total_check("P3 blockspec", lambda v: blockspec(v, True), g64)
+    rows = [_row("P3", "pallas_blockspec: stream_sum(B*E, 64) total",
+                 lambda: blockspec(g64, True), nb,
+                 _sum_check("P3 blockspec", blockspec, g64), reps)]
     for chunk, nbuf in grid:
-        def ring(v, chunk=chunk, nbuf=nbuf):
-            return stream_sum_async(v, chunk, nbuf)
+        def ring(v, total=False, chunk=chunk, nbuf=nbuf):
+            return stream_sum_async(v, chunk, nbuf, total)
+        _total_check(f"P3 async c={chunk} b={nbuf}", lambda v: ring(v, True),
+                     g128, chunk, nbuf)
         rows.append(_row("P3", f"manual_reduce: stream_sum_async c={chunk} "
-                         f"b={nbuf}", lambda: ring(g128).sum(), nb,
+                         f"b={nbuf}", lambda: ring(g128, True), nb,
                          _sum_check(f"P3 async c={chunk} b={nbuf}", ring,
                                     g128, chunk, nbuf), reps))
     lib = torch.sum(g, dtype=torch.float32)
@@ -193,6 +232,90 @@ def p3(g, reps: int = 7, grid=ASYNC_GRID) -> list:
                      lambda: torch.sum(g, dtype=torch.float32), nb, err,
                      reps))
     return rows
+
+
+# (rows, L, dtype) the stream kernels' hard cases: fewer rows than the
+# grid has blocks; rows off the loads in flight (8 units of 4 KB), off a
+# tile and off every chunk; L from one 16-byte vector to 1024
+HARD_CASES = ((7, 4, torch.float32), (1, 8, torch.bfloat16),
+              (100, 1024, torch.bfloat16), (1001, 8, torch.bfloat16),
+              (81_957, 64, torch.bfloat16), (40_001, 64, torch.float32),
+              *((5_003, lanes, torch.float32)
+                for lanes in (4, 8, 16, 32, 64, 128, 256, 512, 1024)),
+              *((5_003, lanes, torch.bfloat16)
+                for lanes in (8, 16, 32, 64, 128, 256, 512, 1024)))
+
+
+def hard_cases(calls: int = 4) -> list:
+    """Both stream kernels at HARD_CASES (the ring at the smallest and the
+    largest of ASYNC_GRID that fit 200 KB): on a payload around 1, `calls`
+    launches back to back and one on each of two streams at once are
+    bit-equal (the streams' launches held back by a spin on each, so that
+    they run together), equal to `replay` (the order `depth` counts) and
+    within the rounding bound of plain; on integers every launch equals
+    plain, and with a tile zeroed none does. Returns one record a case and
+    kernel; raises on a miss. Needs a card."""
+    out = []
+    for rows, lanes, dtype in HARD_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(rows + lanes)
+        g = (torch.randn((rows, lanes), generator=gen, device="cuda")
+             + 1.0).to(dtype)
+        ints = exact_payload(g, seed=lanes)
+        bad = ints.clone()
+        bad[rows // 2:rows // 2 + 16] = 0
+        rings = [cb for cb in ASYNC_GRID
+                 if cb[0] * cb[1] * lanes * g.element_size() <= MAX_RING]
+        fits = sorted(rings, key=lambda cb: cb[0] * cb[1])
+        variants = [("stream_sum", None, None)] + [
+            ("stream_sum_async", c, b) for c, b in
+            dict.fromkeys([fits[0], fits[-1]] if fits else [])]
+        for name, chunk, nbuf in variants:
+            def fn(v, total=False, chunk=chunk, nbuf=nbuf):
+                return (stream_sum(v, total) if chunk is None else
+                        stream_sum_async(v, chunk, nbuf, total))
+            what = f"{name} ({rows}, {lanes}) {str(dtype)[6:]} c={chunk} " \
+                   f"b={nbuf}"
+            first, tot = fn(g, True)
+            again = [fn(g) for _ in range(calls)]
+            streams = (torch.cuda.Stream(), torch.cuda.Stream())
+            torch.cuda.synchronize()
+            pair = []
+            for st in streams:
+                with torch.cuda.stream(st):
+                    torch.cuda._sleep(50_000)   # both streams start together
+                    pair.append(fn(g))
+            torch.cuda.synchronize()
+            if not all(torch.equal(first, x) for x in again + pair):
+                raise AssertionError(f"{what}: launches differ")
+            blocks = grid_blocks(g, chunk, nbuf)
+            sums, rtot, _, _ = replay(g.float().cpu().numpy(),
+                                      g.element_size(), blocks, chunk)
+            if not (np.array_equal(first.cpu().numpy(), sums)
+                    and float(tot) == float(rtot)):
+                raise AssertionError(f"{what}: differs from its replay")
+            err = _within(what, first, stream_sum_plain(g),
+                          rounding_bound(g, chunk, nbuf))
+            if not abs(float(tot) - float(stream_total_plain(g))) <= \
+                    total_bound(g, chunk, nbuf):
+                raise AssertionError(f"{what}: total beyond its bound")
+            want = stream_sum_plain(ints)
+            pair = []
+            for st in streams:
+                with torch.cuda.stream(st):
+                    torch.cuda._sleep(50_000)
+                    pair.append(fn(ints))
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, want) for x in pair + [fn(ints)]):
+                raise AssertionError(f"{what}: differs from plain on "
+                                     "integers")
+            if torch.equal(fn(bad), want):
+                raise AssertionError(f"{what}: a zeroed tile left the sums "
+                                     "equal")
+            out.append({"kernel": name, "shape": [rows, lanes],
+                        "dtype": str(dtype)[6:], "chunk": chunk,
+                        "nbuf": nbuf, "blocks": blocks,
+                        "max_abs_err": err})
+    return out
 
 
 def p5_inputs(device="cuda", seed: int = 1, dtype=torch.bfloat16):

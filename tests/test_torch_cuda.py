@@ -36,8 +36,10 @@ from fissure_segmentation_tpu_torch.kernels.gather_reduce import (
     STAGED_MAX_N, call_key, gather_reduce, gather_reduce_plain, staged_parts)
 from fissure_segmentation_tpu_torch.kernels.knn import knn_cuda, knn_plain
 from fissure_segmentation_tpu_torch.kernels.stream import (
-    exact_payload, rounding_bound, stream_sum, stream_sum_async,
-    stream_sum_plain)
+    MAX_RING, depth, exact_payload, grid_blocks, replay, rounding_bound,
+    stream_sum, stream_sum_async, stream_sum_plain, stream_total_plain,
+    total_bound)
+from fissure_segmentation_tpu_torch.prof.probes import ASYNC_GRID
 
 pytestmark = pytest.mark.cuda
 
@@ -948,6 +950,111 @@ def test_stream_sums_exact_on_integers_and_see_a_zeroed_tile(cuda, rows,
     for fn in (stream_sum, lambda v: stream_sum_async(v, 16, 3)):
         assert torch.equal(fn(ints), want)
         assert not torch.equal(fn(bad), want)
+
+
+# fewer rows than the grid has blocks; rows off the 8 loads in flight, off
+# a tile and off every chunk; L from one 16-byte vector to 1024
+STREAM_HARD = [(100, 1024, torch.bfloat16), (81957, 64, torch.bfloat16),
+               (40001, 64, torch.float32), (5003, 4, torch.float32),
+               (5003, 8, torch.bfloat16), (5003, 16, torch.float32),
+               (5003, 32, torch.bfloat16), (5003, 128, torch.float32),
+               (5003, 256, torch.bfloat16), (5003, 512, torch.float32),
+               (5003, 1024, torch.float32)]
+
+
+def _stream_variants(lanes, dtype):
+    """stream_sum, and the ring at the smallest and the largest (chunk,
+    nbuf) of the probes' grid whose ring fits 200 KB at this L."""
+    elem = torch.finfo(dtype).bits // 8
+    fits = sorted((cb for cb in ASYNC_GRID
+                   if cb[0] * cb[1] * lanes * elem <= MAX_RING),
+                  key=lambda cb: cb[0] * cb[1])
+    rings = list(dict.fromkeys([fits[0], fits[-1]])) if fits else []
+    return [(None, None)] + rings
+
+
+def _stream_call(chunk, nbuf):
+    def fn(v, total=False):
+        if chunk is None:
+            return stream_sum(v, total)
+        return stream_sum_async(v, chunk, nbuf, total)
+    return fn
+
+
+def _around_one(rows, lanes, dtype, cuda):
+    gen = torch.Generator().manual_seed(rows + lanes)
+    return (torch.randn((rows, lanes), generator=gen) + 1).to(cuda, dtype)
+
+
+@pytest.mark.parametrize("rows,lanes,dtype", STREAM_HARD)
+def test_stream_sums_bit_equal_back_to_back_and_on_two_streams(
+        cuda, rows, lanes, dtype):
+    """Eight launches back to back, then one on each of two streams at once
+    (each held back by a spin so the two run together, and so share no
+    finish counter), are bit-equal; on integers each equals plain."""
+    g = _around_one(rows, lanes, dtype, cuda)
+    ints = exact_payload(g, seed=rows)
+    for chunk, nbuf in _stream_variants(lanes, dtype):
+        fn = _stream_call(chunk, nbuf)
+        for x, want in ((g, fn(g)), (ints, stream_sum_plain(ints))):
+            runs = [fn(x) for _ in range(8)]
+            streams = (torch.cuda.Stream(), torch.cuda.Stream())
+            torch.cuda.synchronize()
+            for st in streams:
+                with torch.cuda.stream(st):
+                    torch.cuda._sleep(50_000)
+                    runs.append(fn(x))
+            torch.cuda.synchronize()
+            assert all(torch.equal(r, want) for r in runs), (chunk, nbuf)
+
+
+@pytest.mark.parametrize("rows,lanes,dtype", STREAM_HARD + STREAM_CASES)
+def test_stream_sums_follow_their_replay(cuda, rows, lanes, dtype):
+    """Each kernel's column sums and total equal, bit for bit, the numpy
+    replay of its order of additions (kernels/stream.py:replay), whose
+    values meet no more additions than `depth` counts; both within their
+    rounding bounds of plain."""
+    g = _around_one(rows, lanes, dtype, cuda)
+    x = g.float().cpu().numpy()
+    for chunk, nbuf in _stream_variants(lanes, dtype):
+        sums, total = _stream_call(chunk, nbuf)(g, True)
+        blocks = grid_blocks(g, chunk, nbuf)
+        want, want_total, met, met_total = replay(x, g.element_size(),
+                                                  blocks, chunk)
+        assert np.array_equal(sums.cpu().numpy(), want), (chunk, nbuf)
+        assert float(total) == float(want_total)
+        assert met <= depth(rows, lanes, g.element_size(), blocks, chunk)
+        assert met_total <= depth(rows, lanes, g.element_size(), blocks,
+                                  chunk, total=True)
+        assert ((sums.double() - stream_sum_plain(g).double()).abs()
+                <= rounding_bound(g, chunk, nbuf)).all()
+        assert abs(float(total) - float(stream_total_plain(g))) <= \
+            total_bound(g, chunk, nbuf)
+
+
+def test_stream_sums_are_one_launch(cuda):
+    """Each call, with or without its total, is one kernel on the card and
+    nothing else (the profiler's trace): no second pass over the blocks'
+    partials, no memset of a counter."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    g = _around_one(81920, 64, torch.bfloat16, cuda)
+    for chunk, nbuf in [(None, None), (32, 2), (128, 4)]:
+        fn = _stream_call(chunk, nbuf)
+        for total in (False, True):
+            fn(g, total)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    fn(g, total)
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.events()
+                       if e.device_type == DeviceType.CUDA]
+            names = {e.name for e in kernels}
+            assert len(kernels) == 5, (chunk, total, names)
+            assert all("stream" in n and "finish" not in n for n in names)
+            assert all(("async" in n) == (chunk is not None) for n in names)
 
 
 def test_stream_sums_check_input(cuda):

@@ -22,8 +22,8 @@ from jax.experimental import pallas as pl
 
 from fissure_segmentation_tpu_torch.kernels import scatter as ks
 from fissure_segmentation_tpu_torch.kernels.stream import (
-    THREADS, depth, exact_payload, stream_sum, stream_sum_async,
-    stream_sum_plain, sum_bound)
+    GROUP, THREADS, depth, exact_payload, replay, stream_sum,
+    stream_sum_async, stream_sum_plain, stream_total_plain, sum_bound)
 from fissure_segmentation_tpu_torch.prof import probes
 
 B, E, C = 2, 4096, 64          # a small payload of the probes' layout
@@ -158,50 +158,135 @@ def test_rounding_bound_covers_a_sequential_sum():
             <= sum_bound(g, 1)).all()
 
 
-def _stream_sum_order(g, blocks):
-    """csrc/stream.cu's stream_sum_kernel + finish_kernel on a (R, L)
-    float32 numpy array, in their order of float32 additions; returns the
-    sums and the most additions any value met."""
+def _kernel_order(g, elem, blocks, chunk=None):
+    """csrc/stream.cu's order of float32 additions, written out thread by
+    thread: stream_sum_kernel (chunk None: 256-vector unit u to block
+    u % blocks, the last block also the vectors past the last whole unit)
+    or stream_async_kernel (tile t to block t % blocks, thread tid
+    its vectors tid, tid + 256, ... of the tile); then the butterfly inside
+    each warp, the warps in order, groups of GROUP blocks, the groups, and
+    the total over 32 lanes. `g` holds the values as float32. Returns (sums,
+    total, most additions a value met to a column sum, to the total)."""
     rows, lanes = g.shape
-    groups = lanes // 4                        # float32: 4 values a vector
-    row_lanes = THREADS // groups
-    out = np.zeros(lanes, np.float32)
-    met = np.zeros(rows, np.int64)             # additions on each row's path
-    finish = np.zeros(rows, np.int64)
+    v = 16 // elem
+    ngr = lanes // v
+    vec = g.reshape(-1, v)
+    seqs = [[[] for _ in range(THREADS)] for _ in range(blocks)]
+    if chunk is None:
+        units = len(vec) // THREADS
+        for u in range(units):
+            for t in range(THREADS):
+                seqs[u % blocks][t].append(u * THREADS + t)
+        for t in range(len(vec) - units * THREADS):
+            seqs[blocks - 1][t].append(units * THREADS + t)
+    else:
+        for tile in range(-(-rows // chunk)):
+            n = min(chunk, rows - tile * chunk) * ngr
+            for j in range(n):
+                seqs[tile % blocks][j % THREADS].append(tile * chunk * ngr + j)
+    part, mpart = [], []
     for b in range(blocks):
-        acc = np.zeros((row_lanes, lanes), np.float32)
-        seen = [[] for _ in range(row_lanes)]
-        for r0 in range(b * row_lanes, rows, blocks * row_lanes):
-            for lane in range(min(row_lanes, rows - r0)):
-                acc[lane] = acc[lane] + g[r0 + lane]
-                met[seen[lane]] += 1
-                seen[lane].append(r0 + lane)
-                met[r0 + lane] += 1
-        part, done = np.zeros(lanes, np.float32), []
-        for lane in range(row_lanes):
-            part = part + acc[lane]
-            done += seen[lane]
-            met[done] += 1
-        out = out + part
-        finish[done] = b + 1
-    met += blocks - finish + 1                 # the later blocks' adds
-    return out, int(met.max())
+        acc = np.zeros((THREADS, v), np.float32)
+        met = np.zeros(THREADS, np.int64)
+        for t in range(THREADS):
+            for j in seqs[b][t]:
+                acc[t] = acc[t] + vec[j]
+                met[t] += 1
+        off = 16
+        while off >= ngr:                   # the warp's row lanes
+            p = np.arange(THREADS) ^ off
+            acc, met = acc + acc[p], np.maximum(met, met[p]) + 1
+            off //= 2
+        row, mrow = np.zeros(lanes, np.float32), np.zeros(lanes, np.int64)
+        for col in range(lanes):
+            cg, e = divmod(col, v)
+            for w in range(THREADS // 32):  # one lane of each warp that has cg
+                ts = [t for t in range(32 * w, 32 * w + 32) if t % ngr == cg]
+                if ts:
+                    row[col] = row[col] + acc[ts[0], e]
+                    mrow[col] = max(mrow[col], met[ts[0]]) + 1
+        part.append(row)
+        mpart.append(mrow)
+
+    def in_order(rs, ms):
+        s, m = np.zeros(lanes, np.float32), np.zeros(lanes, np.int64)
+        for r, mr in zip(rs, ms):
+            s, m = s + r, np.maximum(m, mr) + 1
+        return s, m
+    grp = [in_order(part[q:q + GROUP], mpart[q:q + GROUP])
+           for q in range(0, blocks, GROUP)]
+    sums, msum = in_order([x for x, _ in grp], [m for _, m in grp])
+    lane_s, lane_m = np.zeros(32, np.float32), np.zeros(32, np.int64)
+    for col in range(lanes):
+        lane_s[col % 32] = lane_s[col % 32] + sums[col]
+        lane_m[col % 32] = max(lane_m[col % 32], msum[col]) + 1
+    off = 16
+    while off >= 1:
+        p = np.arange(32) ^ off
+        lane_s, lane_m = lane_s + lane_s[p], np.maximum(lane_m, lane_m[p]) + 1
+        off //= 2
+    return sums, lane_s[0], int(msum.max()), int(lane_m[0])
+
+
+def _check_order(g, elem, blocks, chunk=None):
+    """The written-out order against kernels/stream.py's vectorised
+    `replay` (bit for bit) and `depth`; the bound at that depth covers the
+    sums and the total."""
+    sums, total, met, met_total = _kernel_order(g, elem, blocks, chunk)
+    got = replay(g, elem, blocks, chunk)
+    assert np.array_equal(got[0], sums) and got[1] == total
+    assert got[2:] == (met, met_total)
+    rows, lanes = g.shape
+    n = depth(rows, lanes, elem, blocks, chunk)
+    n_total = depth(rows, lanes, elem, blocks, chunk, total=True)
+    assert met <= n and met_total <= n_total
+    exact = g.astype(np.float64).sum(0)
+    assert (np.abs(sums - exact) <= sum_bound(torch.from_numpy(g), n).numpy()
+            ).all()
+    gamma = n_total * 2.0 ** -24 / (1 - n_total * 2.0 ** -24)
+    assert abs(float(total) - exact.sum()) <= gamma * np.abs(g).sum()
 
 
 @pytest.mark.parametrize("rows,lanes,blocks", [(300, 8, 3), (1000, 64, 4),
                                                (5, 16, 2)])
 def test_depth_counts_stream_sums_additions(rows, lanes, blocks):
-    """`depth` is never below the additions a value meets in the kernel's
-    order (replayed in numpy), and that order's sums are within
+    """`depth` is never below the additions a value meets in stream_sum's
+    order (float32, written out in numpy), and that order's sums are within
     `sum_bound` at that depth."""
     g = np.random.default_rng(rows).normal(size=(rows, lanes)).astype(
         np.float32)
-    sums, met = _stream_sum_order(g, blocks)
-    n = depth(rows, lanes, 4, blocks)
-    assert met <= n
-    exact = g.astype(np.float64).sum(0)
-    assert (np.abs(sums - exact) <= sum_bound(torch.from_numpy(g), n).numpy()
-            ).all()
+    _check_order(g, 4, blocks)
+
+
+@pytest.mark.parametrize("rows,lanes,elem,blocks,chunk", [
+    (600, 128, 2, 37, None),       # two levels of groups, bfloat16
+    (1001, 8, 2, 1, None),         # vectors past the last whole unit
+    (7, 4, 4, 1, None),            # fewer vectors than a unit
+    (70, 1024, 4, 5, None),        # L past the 256 threads
+    (1000, 64, 4, 5, 16),          # the ring: rows off the tile
+    (333, 128, 2, 21, 32),         # the ring, bfloat16, two levels
+    (50, 512, 4, 3, 7)])           # the ring: tiles of 7 rows at L = 512
+def test_depth_counts_both_kernels_orders(rows, lanes, elem, blocks, chunk):
+    """The same for bfloat16 values, both kernels and the finish's two
+    levels of groups: the written-out order equals `replay`, `depth` covers
+    it, and the bound covers its sums and its total."""
+    g = np.random.default_rng(rows + lanes).normal(size=(rows, lanes))
+    if elem == 2:                              # bfloat16 values, widened
+        g = torch.from_numpy(g).to(torch.bfloat16).float().numpy()
+    _check_order(g.astype(np.float32), elem, blocks, chunk)
+
+
+def test_stream_sums_total_on_the_cpu():
+    """With `total=True` both wrappers also return the total; on the CPU
+    each is the plain version's, the exact sums rounded once."""
+    g = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(300, 16)).astype(np.float32)).to(torch.bfloat16)
+    for sums, total in (stream_sum(g, total=True),
+                        stream_sum_async(g, 32, 2, total=True)):
+        assert torch.equal(sums, stream_sum_plain(g))
+        assert total.shape == () and total.dtype == torch.float32
+        assert torch.equal(total, stream_total_plain(g))
+        assert float(total) == np.float32(g.double().sum().item())
 
 
 def test_exact_payload_sums_exactly():
