@@ -2245,19 +2245,29 @@ def phase_gather_reduce(knn_cuda):
     """The gather-reduce against its plain version: every output equal
     (torch.equal), for every want and dtype, at the path's shapes (the train
     step's on K1's graph; the serving ensemble's, whose 5 clouds x 4 slices
-    take the unstaged kernel), a lattice full of k-ties, indices out of range
-    (rows in other clouds), C off the staged slice (33, 36, 40, 200, 256),
-    more than 32 slots, points split among blocks, and N where the slice
-    just fits in shared memory and just does not (the kernel that reads
-    device memory); timings at the path's shapes. Returns
-    (max |kernel - plain| over every output and case, {call: timings}),
-    keyed by `gather_reduce.call_key`."""
+    take the cluster route: clusters of blocks that share each staged
+    slice), a lattice full of k-ties, indices out of range (rows in other
+    clouds), C off the staged slice (33, 36, 40, 200, 256), more than 32
+    slots, points split among blocks, and N where the slice just fits in
+    shared memory and just does not (the kernel that reads device memory);
+    then the few-cloud set at 5 and 1 clouds (k-ties, NaNs, signed zeros,
+    one NaN and one -0.0 row in the rows of one block of a cluster alone,
+    out-of-range indices, C = 33, 36, 200, 256, K = 70, N = 3200), each
+    output equal to plain in every bit, NaNs aside (`_gr_same`), each
+    case's route printed. Timings at the path's shapes: back to back
+    through the wrapper (`median_ms`) and on the card alone (`graph_ms`,
+    "card_ms"), beside the bound and an empty launch's time on the card.
+    Returns (max |kernel - plain| over every output and case, NaNs aside,
+    {call: timings}), keyed by `gather_reduce.call_key`."""
     import torch.nn.functional as F
     from fissure_segmentation_tpu_torch.kernels.gather_reduce import (
         STAGED_MAX_N, call_key, flat_rows, gather_reduce,
-        gather_reduce_plain, staged_parts)
+        gather_reduce_plain, route)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(16)
+    empty_ms = graph_ms(lambda: torch.cuda._sleep(0))
+    print(f"gather_reduce: an empty launch on the card alone {empty_ms:.4f} "
+          f"ms (graph_ms)", flush=True)
     graphs = {}
     for b in (32, 5):
         pts = torch.rand((b, 2048, 3), generator=g, device=dev) * 2 - 1
@@ -2300,9 +2310,8 @@ def phase_gather_reduce(knn_cuda):
                 got = gather_reduce(a, idx, want)
                 torch.cuda.synchronize()
                 ref = gather_reduce_plain(a, idx, want)
-                max_err = max([max_err] + [
-                    (x.double() - y.double()).abs().max().item()
-                    for x, y in zip(got, ref)])
+                max_err = max([max_err] + [_gr_err(x, y)
+                                           for x, y in zip(got, ref)])
                 if not all(torch.equal(x, y) for x, y in zip(got, ref)):
                     raise AssertionError(
                         f"gather_reduce {name} {b}x{n}x{k}x{c} {dtype} "
@@ -2312,6 +2321,7 @@ def phase_gather_reduce(knn_cuda):
                     continue
                 key = call_key(a, idx, want)
                 t_k = median_ms(lambda: gather_reduce(a, idx, want))
+                t_c = graph_ms(lambda: gather_reduce(a, idx, want))
                 t_p = median_ms(lambda: gather_reduce_plain(a, idx, want),
                                 reps=3, inner=1, warm=1)
                 t_o = median_ms(lambda: _old_gather_reduce(a, idx, want),
@@ -2327,20 +2337,132 @@ def phase_gather_reduce(knn_cuda):
                 ops = idx.numel() * c * (5 if want == "all" else
                                          2 if want == "extrema" else 1)
                 bound, by = bound_ms(_gr_bytes(a, idx, want), ops)
-                timings[key] = {"ms": t_k, "plain_ms": t_p, "old_ms": t_o,
-                                "library_ms": t_l, "bound_ms": bound,
-                                "bound_by": by}
+                timings[key] = {"ms": t_k, "card_ms": t_c, "plain_ms": t_p,
+                                "old_ms": t_o, "library_ms": t_l,
+                                "bound_ms": bound, "bound_by": by,
+                                "empty_launch_ms": empty_ms,
+                                "route": route(b, n, k, c, dtype,
+                                               want).kind}
                 print(f"gather_reduce {key}: kernel == plain (every "
-                      f"output); kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+                      f"output); kernel {t_k:.4f} ms ({t_c:.4f} on the "
+                      f"card alone), plain {t_p:.4f} ms, "
                       f"old gather + reductions {t_o:.4f} ms, library "
                       f"{'none' if t_l is None else f'{t_l:.4f} ms'} "
                       f"(median), bound {bound:.4f} ms ({by})", flush=True)
-        paths = [staged_parts(b, n, c, t) for t in (torch.float32,
-                                                    torch.bfloat16)]
         print(f"gather_reduce {name} {b}x{n}x{k}x{c}: kernel == plain "
-              f"(every output, every want, f32 and bf16); staged blocks a "
-              f"slice f32 / bf16 {paths} (0: the unstaged kernel)", flush=True)
+              f"(every output, every want, f32 and bf16); routes f32 / bf16 "
+              f"{_gr_routes(route, b, n, k, c)}", flush=True)
+    # the few-cloud set: 5 and 1 clouds, the cluster route's hard cases
+    for b in (5, 1):
+        for name in GR_FEW_CLOUD:
+            base, idx = _gr_few_cloud(name, b, g)
+            n, c = base.shape[1], base.shape[2]
+            for dtype in (torch.float32, torch.bfloat16):
+                a = base.to(dtype)
+                for want in ("max", "extrema", "all"):
+                    got = gather_reduce(a, idx, want)
+                    torch.cuda.synchronize()
+                    ref = gather_reduce_plain(a, idx, want)
+                    max_err = max([max_err] + [_gr_err(x, y)
+                                               for x, y in zip(got, ref)])
+                    if not all(_gr_same(x, y) for x, y in zip(got, ref)):
+                        raise AssertionError(
+                            f"gather_reduce few clouds {name} "
+                            f"{tuple(idx.shape)}x{c} {dtype} {want}: kernel "
+                            f"differs from plain on "
+                            f"{route(b, n, idx.shape[-1], c, dtype, want)}")
+            print(f"gather_reduce few clouds {name} {tuple(idx.shape)}x{c}: "
+                  f"kernel == plain in every bit, NaNs aside (every want, "
+                  f"f32 and bf16); routes f32 / bf16 "
+                  f"{_gr_routes(route, b, n, idx.shape[-1], c)}",
+                  flush=True)
     return max_err, timings
+
+
+# the few-cloud cases of phase 16 (`_gr_few_cloud`)
+GR_FEW_CLOUD = ("lattice_ties", "nans", "signed_zeros", "nan_one_rank",
+                "zero_one_rank", "out_of_range", "c33", "c36", "c200",
+                "c256", "k70", "n3200")
+
+
+def _gr_few_cloud(name: str, b: int, g) -> tuple:
+    """(a float32, idx) of a few-cloud case on the card: N = 2048, K = 40,
+    C = 64 unless the case names another; k-ties, NaNs (1 % and a whole
+    row), zeros of both signs tied among themselves, or out-of-range
+    indices where the case says. "nan_one_rank" and "zero_one_rank" keep
+    the table clean but for one NaN, or one row of -0.0 tied with a row of
+    +0.0, in the last rows of cloud 0 (which only the last block of a
+    cluster copies and scans), read by points all over the cloud."""
+    from fissure_segmentation_tpu_torch.kernels.gather_reduce import \
+        STAGED_MAX_N
+    n, k, c = 2048, 40, 64
+    if name[0] == "c":
+        c = int(name[1:])
+    elif name == "k70":
+        k = 70
+    elif name == "n3200":
+        n = STAGED_MAX_N
+    dev = torch.device("cuda")
+    if name == "lattice_ties":
+        a = torch.randint(0, 3, (b, n, c), generator=g, device=dev).float()
+    elif name == "signed_zeros":
+        a = torch.randint(-1, 2, (b, n, c), generator=g,
+                          device=dev).float() * 0.0
+        a[:, ::3] = torch.randint(-2, 3, (b, (n + 2) // 3, c), generator=g,
+                                  device=dev).float()
+    else:
+        a = torch.randn((b, n, c), generator=g, device=dev)
+    if name == "zero_one_rank":   # the zeros: channel 0's max, 1's min
+        a[..., 0] = -(a[..., 0].abs() + 0.1)
+        a[..., 1] = a[..., 1].abs() + 0.1
+        a[0, n - 1, :2] = -0.0
+        a[0, n - 2, :2] = 0.0
+    if name == "nan_one_rank":
+        a[0, n - 1, 0] = float("nan")
+    if name == "nans":
+        a[torch.rand((b, n, c), generator=g, device=dev) < 0.01] = \
+            float("nan")
+        a[0, 7] = float("nan")
+    idx = torch.randint(0, n, (b, n, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    if name == "out_of_range":
+        idx[:, ::7, 0] = -1
+        idx[:, 3::11, 5] = n + 17
+        idx[-1, :, 9] = -5000 * n
+    if name == "nan_one_rank":
+        idx[0, ::3, 3] = n - 1
+    if name == "zero_one_rank":   # either zero seen first
+        idx[0, ::3, 2], idx[0, ::3, 5] = n - 1, n - 2
+        idx[0, 1::3, 2], idx[0, 1::3, 5] = n - 2, n - 1
+    return a, idx
+
+
+def _gr_same(x, y) -> bool:
+    """Equal in every bit, -0.0 and +0.0 told apart; a NaN matches a NaN
+    (torch.equal holds no NaN equal, and the card's float -> bfloat16 cast
+    and the CPU's give NaNs other payloads)."""
+    if x.dtype != y.dtype or x.shape != y.shape:
+        return False
+    if not x.is_floating_point():
+        return torch.equal(x, y)
+    nx, ny = x.isnan(), y.isnan()
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[x.dtype]
+    return torch.equal(nx, ny) and torch.equal(x.view(bits)[~nx],
+                                               y.view(bits)[~ny])
+
+
+def _gr_err(x, y) -> float:
+    """max |x - y| where neither is NaN (0 where nothing is left)."""
+    d = (x.double() - y.double()).abs()
+    d = d[~d.isnan()]
+    return d.max().item() if d.numel() else 0.0
+
+
+def _gr_routes(route, b: int, n: int, k: int, c: int) -> list:
+    """The routes of a (b, n, k, c) "extrema" call in f32 and bf16, as
+    "kind/parts/cluster"."""
+    return ["/".join(str(v) for v in route(b, n, k, c, t))
+            for t in (torch.float32, torch.bfloat16)]
 
 
 def _time_gr_call(key: str) -> dict:
@@ -2348,7 +2470,7 @@ def _time_gr_call(key: str) -> dict:
     evaluation of a few clouds), timed on a random graph of its shape:
     kernel equal to plain first."""
     from fissure_segmentation_tpu_torch.kernels.gather_reduce import (
-        gather_reduce, gather_reduce_plain)
+        gather_reduce, gather_reduce_plain, route)
     want, dt, shape = key.split("_")
     b, n, k, c = (int(v) for v in shape.split("x"))
     g = torch.Generator(device="cuda").manual_seed(b * n + k + c)
@@ -2364,13 +2486,15 @@ def _time_gr_call(key: str) -> dict:
                              2 if want == "extrema" else 1)
     bound, by = bound_ms(_gr_bytes(a, idx, want), ops)
     t = {"ms": median_ms(lambda: gather_reduce(a, idx, want)),
+         "card_ms": graph_ms(lambda: gather_reduce(a, idx, want)),
          "plain_ms": median_ms(lambda: gather_reduce_plain(a, idx, want),
                                reps=3, inner=1, warm=1),
          "library_ms": None, "bound_ms": bound, "bound_by": by,
-         "graph": "random"}
+         "graph": "random", "route": route(b, n, k, c, a.dtype, want).kind}
     print(f"gather_reduce {key} (random graph): kernel == plain; kernel "
-          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
-          f"{bound:.4f} ms ({by})", flush=True)
+          f"{t['ms']:.4f} ms ({t['card_ms']:.4f} on the card alone), plain "
+          f"{t['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}); "
+          f"{t['route']} route", flush=True)
     return t
 
 
@@ -2384,8 +2508,9 @@ def gr_by_call(calls: dict, timings: dict) -> dict:
         if key not in timings:
             timings[key] = _time_gr_call(key)
         t = timings[key]
-        out[key] = {"launches": n, "ms": t["ms"], "plain_ms": t["plain_ms"],
-                    "bound_ms": t["bound_ms"], "library_ms": t["library_ms"],
+        out[key] = {"launches": n, "ms": t["ms"], "card_ms": t["card_ms"],
+                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "library_ms": t["library_ms"], "route": t["route"],
                     "gap_ms": n * (t["ms"] - t["bound_ms"])}
     return out
 

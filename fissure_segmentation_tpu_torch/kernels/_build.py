@@ -132,8 +132,10 @@ def load() -> ctypes.CDLL:
                 "fseg_depthwise_wgrad_plan": [i32, i32, i32, i32, i32, i32,
                                               i32, ctypes.POINTER(i64)],
                 "fseg_gather_reduce": [vp, vp, vp, vp, vp, vp, vp, vp, i32,
-                                       i32, i32, i32, i32, i32, vp],
-                "fseg_gather_reduce_parts": [i32, i32, i32, i32],
+                                       i32, i32, i32, i32, i32, i32, i32,
+                                       i32, vp],
+                "fseg_gather_reduce_route": [i32, i32, i32, i32, i32, i32,
+                                             ctypes.POINTER(i32)],
                 "fseg_stream_sum": [vp, vp, vp, vp, vp, i64, i32, i32, i32,
                                     vp],
                 "fseg_stream_occupancy": [i32, i32, i32, i32],

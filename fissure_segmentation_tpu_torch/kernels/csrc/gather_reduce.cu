@@ -45,26 +45,42 @@
 // memory. A warp then takes 8 points at a time, 4 lanes a point, each lane
 // one 16-byte vector of the slice row, and walks the point's slots in k
 // order, so the sums keep their order. Its steps are 16 slots of 8 points:
-// the next step's index rows are loaded (branch-free, clamped) while the
-// current one is reduced, the first while the slice arrives; a step's rows
-// are read from shared memory GS_UNROLL at a time before any is reduced (a
-// compiler barrier keeps them ahead). Where the slice holds no NaN, the
-// comparisons are plain x > e and x < e. Warps a block: as many as each
-// (dtype, want)'s registers allow (16-32). A neighbour row that the flat-row
-// clamp sends into another cloud is read from device memory (a warp-uniform
-// slow path). Where clouds x slices are fewer than the SMs, each block also
-// takes a share of the points and stages the slice for itself; the split
-// comes from a measured model (staged_parts), and where it would exceed 4
-// blocks a slice (the serving ensemble's 5 clouds x 4 slices) the unstaged
-// kernel below, faster there, runs instead. So does a cloud of more than
-// GS_MAX_N points, whose slice does not fit. The unstaged kernel
-// (gather_reduce_kernel): one warp per point, the lanes reading the
-// point's indices 32 at a time and each row's channels from device memory
-// (L2), GR_UNROLL rows in flight.
+// the next step's index rows are loaded (branch-free, clamped; a half-warp
+// a point) while the current one is reduced, the first while the slice
+// arrives; a step's rows are read from shared memory GS_UNROLL at a time
+// before any is reduced (a compiler barrier keeps them ahead; for max
+// and min alone no branch falls between them: a slot past the step's end
+// repeats the group's first row, which changes no extremum). Where the
+// slice holds no NaN, the comparisons are plain x > e and x < e, and max
+// and min alone ("max", "extrema") are one FMNMX a value where it holds no
+// -0.0 either (fmaxf keeps either of two equal zeros). Warps a block: as
+// many as each (dtype, want)'s registers allow (16-32). A neighbour row
+// that the flat-row clamp sends into another cloud is read from device
+// memory (a warp-uniform slow path). Where clouds x slices are fewer than
+// the SMs, each block also takes a share of the points: the staged route
+// (each block stages the whole slice for itself) up to GS_MAX_PARTS blocks
+// a slice (staged_parts, a measured model); past it (the serving
+// ensemble's 5 clouds x 4 slices) the staged route at more blocks a slice
+// or the cluster route, whichever a model in microseconds finds faster
+// (fseg_gather_reduce_route). In the cluster route the blocks of a slice
+// form thread-block clusters of up to GC_MAX_P; each block copies 1/P of
+// the slice from device memory into every block of its cluster, boxes of
+// GC_BOX rows of a tensor map multicast by the Tensor Memory Accelerator
+// (cp.async.bulk.tensor .multicast::cluster, completing on each block's
+// mbarrier), so the slice leaves L2 once a cluster; its rows must be
+// 16-byte multiples. The cluster size and the clusters a slice come from
+// the same model, over the clusters that fit at once. A cloud of more
+// than GS_MAX_N points, whose
+// slice does not fit, takes the unstaged kernel (gather_reduce_kernel):
+// one warp per point, the lanes reading the point's indices 32 at a time
+// and each row's channels from device memory (L2), GR_UNROLL rows in
+// flight.
+#include <cuda.h>   // CUtensorMap (its encoder is looked up at run time)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #define GR_WARPS 8      // points per block: one warp each
 #define GR_MAX_C 256    // 32 lanes x 8 channels
@@ -226,25 +242,35 @@ gather_reduce_kernel(const T* __restrict__ a, const int32_t* __restrict__ idx,
     }
 }
 
-// ---- the staged kernel ------------------------------------------------------
+// ---- the staged kernel and its cluster route --------------------------------
 
-// One block: cloud b, the channel slice [c0, c0 + GS_SC) (GS_SC = 16 float32
-// or 32 bfloat16 channels: a 64-byte row a point), points [n0, n1) of the
-// cloud. The slice of all N points is copied into shared memory once; a
-// warp then takes GS_PPW points at a time, GS_LPP lanes a point, each lane
-// one 16-byte vector (GS_VEC channels) of the slice row, and walks the
-// point's slots in k order. A neighbour row outside cloud b (an index that
-// the flat-row clamp sends into another cloud) is read from device memory.
-#define GS_ROW 64                  // bytes of a staged row
-#define GS_LPP 4                   // lanes a point: 4 x 16 bytes = GS_ROW
-#define GS_PPW 8                   // points a warp takes at a time
+// One block: cloud b, a channel slice [c0, c0 + SC) of ROW = GS_ROW bytes
+// a point (SC = ROW / sizeof(T) channels), points [n0, n1) of the cloud. The
+// slice of all N points is brought into shared memory once; a warp then
+// takes PPW = GS_PPW points at a time, LPP = GS_LPP lanes a point, each lane
+// one 16-byte vector (VEC channels) of the slice row, and walks the point's
+// slots in k order. A neighbour row outside cloud b (an index that the
+// flat-row clamp sends into another cloud) is read from device memory.
+#define GS_ROW 64                  // bytes of a staged row, at most
+#define GS_LPP 4                   // lanes a point at GS_ROW: 4 x 16 bytes
+#define GS_PPW 8                   // points a warp takes at GS_ROW
 #define GS_MAX_WARPS 32            // warps a block, at most (staged_warps)
 #define GS_SLOTS 16                // slots whose rows a warp stages at once
 #define GS_IDX_PITCH 20            // staged slots a point: 16-byte rows
-#define GS_IDX_BYTES(nw) ((nw) * GS_PPW * GS_IDX_PITCH * 4)
+#define GS_IDX_BYTES(nw, ppw) ((nw) * (ppw) * GS_IDX_PITCH * 4)
 #define GS_MAX_N 3200              // 200 KB of slice: N * GS_ROW
-#define GS_MAX_PARTS 4             // blocks a cloud slice, at most
+#define GS_MAX_PARTS 4             // blocks a slice of the staged route
 #define GS_UNROLL 4                // rows read before they are reduced
+#define GC_MAX_P 16                // blocks a cluster, at most (> 8: non-portable)
+#define GC_BAR_BYTES 80            // the cluster route's mbarriers and flags
+#define GC_BOX 64                  // rows a tensor-map box (multicast copy)
+#define GC_SPIN_LIMIT (1u << 26)   // mbarrier tries before a trap
+// the few-cloud route model's (fseg_gather_reduce_route), microseconds,
+// fitted to prof/design_sweep.py --parts grc on an H100 (PERF.md)
+#define GC_SLOT_US 6.1e-4          // a point's slot on a slice, one block
+#define GC_FIXED_US 7.5            // a cluster block's fixed part
+#define GS_FIXED_US 4.0            // a staged block's fixed part
+#define GS_ROW_US 3.0e-3           // a staged row, copied by every block
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            int src_bytes) {
@@ -253,12 +279,50 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                  :: "r"(dst), "l"(gmem), "r"(src_bytes) : "memory");
 }
 
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
 // 16 bytes of shared memory at a 32-bit shared-window address
 __device__ __forceinline__ uint4 lds16(unsigned addr) {
     uint4 v;
     asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
                  : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr));
     return v;
+}
+
+// the same shared-window address in the block of cluster rank `rank`
+__device__ __forceinline__ unsigned mapa(unsigned addr, unsigned rank) {
+    unsigned out;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(out) : "r"(addr), "r"(rank));
+    return out;
+}
+
+// relaxed: what a peer must see first (an mbarrier's init) is released by
+// fence.mbarrier_init, and the data by the mbarriers; a release here would
+// wait for every load in flight (the index prefetch)
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// wait for phase `parity` of the mbarrier at `bar` (acquiring what the
+// cluster's arrivals released); one that never completes traps instead of
+// hanging the card
+__device__ __forceinline__ void wait_parity(unsigned bar, unsigned parity) {
+    unsigned done = 0, tries = 0;
+    while (!done) {
+        asm volatile(
+            "{\n .reg .pred p;\n"
+            " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, "
+            "[%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+        if (++tries == GC_SPIN_LIMIT) __trap();
+    }
 }
 
 // the VEC = 16 / sizeof(T) channels of a 16-byte vector as float32
@@ -278,25 +342,53 @@ __device__ __forceinline__ void unpack16(const uint4 q, float* w,
     }
 }
 
-// The index rows of points pg .. pg + GS_PPW - 1 (clamped to n1 - 1),
-// slots k0 + lane (clamped to kk - 1): one coalesced row a point, no branch.
+// A NaN, or for max and min alone a -0.0, among the 16 bytes of q? (there
+// fmaxf and fminf, which keep either of two equal zeros, would not keep the
+// first one seen as x > e and x < e do; a bfloat16 NaN: exponent all ones,
+// mantissa not zero)
+template <typename T, int WANT>
+__device__ __forceinline__ bool special16(const uint4 q) {
+    const uint32_t u[4] = {q.x, q.y, q.z, q.w};
+    bool s = false;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        if (sizeof(T) == 4) {
+            s |= (u[i] & 0x7fffffffu) > 0x7f800000u;
+            if (WANT < 2) s |= u[i] == 0x80000000u;
+        } else {
+            s |= (u[i] & 0x7fffu) > 0x7f80u ||
+                 (u[i] & 0x7fff0000u) > 0x7f800000u;
+            if (WANT < 2)
+                s |= (u[i] & 0xffffu) == 0x8000u || (u[i] >> 16) == 0x8000u;
+        }
+    }
+    return s;
+}
+
+// The index rows of a warp's step: points pg + lane / GS_SLOTS + 2 i (i <
+// PPW / 2; clamped to n1 - 1), slot k0 + lane % GS_SLOTS (clamped to kk -
+// 1): each half-warp reads one point's slots, coalesced, no branch.
+template <int PPW>
 __device__ __forceinline__ void fetch_rows(const int32_t* __restrict__ idx,
                                            long long cloud, int kk, int lane,
                                            int n1, int pg, int k0, int* v) {
-    const int s = k0 + min(lane, kk - k0 - 1);
+    const int s = k0 + min(lane % GS_SLOTS, kk - k0 - 1);
+    const int p0 = pg + lane / GS_SLOTS;
 #pragma unroll
-    for (int jj = 0; jj < GS_PPW; ++jj) {
-        const int p2 = min(pg + jj, n1 - 1);
-        v[jj] = __ldg(idx + (cloud + p2) * (long long)kk + s);
+    for (int i = 0; i < PPW / 2; ++i) {
+        const int p2 = min(p0 + 2 * i, n1 - 1);
+        v[i] = __ldg(idx + (cloud + p2) * (long long)kk + s);
     }
 }
 
 // Reduce a step's cnt staged slots (`mine`: the point's rows, GS_UNROLL at
 // a time read as 16-byte index vectors) into the lane's VEC channels, in k
 // order from slot k0. FAR: some row may lie outside the cloud (a negative
-// entry) and is read from device memory. NANS: a value may be NaN (else
-// x > e and x < e decide as beats_max and beats_min would).
-template <typename T, int WANT, bool FAR, bool NANS>
+// entry) and is read from device memory. SPECIAL: the slice may hold a NaN,
+// or a -0.0 where max and min are reduced alone (else max and min alone are
+// fmaxf and fminf, and with the slots x > e and x < e, which decide as
+// beats_max and beats_min would).
+template <typename T, int WANT, int ROW, bool FAR, bool SPECIAL>
 __device__ __forceinline__ void reduce_step(
         const T* __restrict__ a, const int32_t* mine, unsigned lane_s, int c,
         int c1, int cnt, int k0, float* mx, float* mn, int* am, int* amn,
@@ -317,7 +409,7 @@ __device__ __forceinline__ void reduce_step(
         for (int u = 0; u < GS_UNROLL; ++u) {
             const int r = rs[u];
             if (!FAR || r >= 0) {
-                unpack16(lds16(lane_s + r * GS_ROW), w[u], T());
+                unpack16(lds16(lane_s + r * ROW), w[u], T());
             } else {
                 const T* row = a + (long long)(-(r + 1)) * c;
 #pragma unroll
@@ -326,20 +418,29 @@ __device__ __forceinline__ void reduce_step(
             }
         }
         asm volatile("" ::: "memory");   // the reads stay ahead
+        // max and min alone reduce every row of the group, with no branch
+        // between the reads: a slot past the step's end repeats the
+        // group's first row, which moves no extremum (it was seen); the
+        // sums stop at the step's end
         const int lim = cnt - t;           // slots of this group in range
 #pragma unroll
         for (int u = 0; u < GS_UNROLL; ++u) {
-            if (u >= lim) break;
+            if (WANT == 2 && u >= lim) break;
             const int k = k0 + t + u;
 #pragma unroll
             for (int i = 0; i < VEC; ++i) {
                 const float x = w[u][i];
+                if (!SPECIAL && WANT < 2) {   // one FMNMX a value
+                    mx[i] = fmaxf(mx[i], x);
+                    if (WANT == 1) mn[i] = fminf(mn[i], x);
+                    continue;
+                }
                 // without a NaN in sight the comparisons are plain ones
-                if (NANS ? beats_max(x, mx[i]) : x > mx[i]) {
+                if (SPECIAL ? beats_max(x, mx[i]) : x > mx[i]) {
                     mx[i] = x;
                     am[i] = k;
                 }
-                if (WANT >= 1 && (NANS ? beats_min(x, mn[i]) : x < mn[i])) {
+                if (WANT >= 1 && (SPECIAL ? beats_min(x, mn[i]) : x < mn[i])) {
                     mn[i] = x;
                     amn[i] = k;
                 }
@@ -352,7 +453,21 @@ __device__ __forceinline__ void reduce_step(
     }
 }
 
-template <typename T, int WANT, int NW>
+// CL: the `parts` blocks of a cloud slice form parts / csize thread-block
+// clusters of csize (rank = part % csize), and the slice leaves L2 once a
+// cluster instead of once a block: each block copies its rows [rr0, rr1)
+// (its rank's 1 / csize of them, in whole boxes; its points are its
+// part's) as boxes of GC_BOX rows of a 3-D tensor map over a, multicast
+// into every block of the cluster (cp.async.bulk.tensor .multicast::
+// cluster, completing on each block's mbarrier); rows must be 16-byte
+// multiples and `a` 16-byte aligned (the tensor map's), else the call takes
+// the staged kernel (launch_routed). Each block scans its own rows for a
+// NaN (or -0.0) and stores its flag into every block with an asynchronous
+// store (st.async) that completes on that block's second mbarrier, so no
+// block scans the whole slice and no cluster barrier waits for the flags.
+// Otherwise (the staged route) each of the `parts` blocks copies and scans
+// the whole slice for itself.
+template <typename T, int WANT, int NW, bool CL>
 __global__ void __launch_bounds__(NW * 32)
 gather_reduce_staged(const T* __restrict__ a, const int32_t* __restrict__ idx,
                      T* __restrict__ mx_out, T* __restrict__ mn_out,
@@ -360,12 +475,26 @@ gather_reduce_staged(const T* __restrict__ a, const int32_t* __restrict__ idx,
                      int32_t* __restrict__ amn_out,
                      float* __restrict__ s1_out, float* __restrict__ s2_out,
                      int bsz, int n, int kk, int c, int nslice, int parts,
-                     bool vec) {
+                     int csize, bool vec,
+                     const __grid_constant__ CUtensorMap tmap) {
     constexpr int VEC = 16 / sizeof(T);      // channels a lane
-    constexpr int SC = GS_ROW / sizeof(T);   // channels a slice
-    extern __shared__ __align__(16) unsigned char gs_smem[];
+    constexpr int LPP = GS_LPP;              // lanes a point
+    constexpr int ROW = GS_ROW;              // bytes of a staged row
+    constexpr int PPW = GS_PPW;              // points a warp takes at a time
+    constexpr int SC = ROW / sizeof(T);      // channels a slice
+    static_assert(ROW == 16 * LPP && PPW * LPP == 32, "GS_ROW, GS_LPP");
+    static_assert(GS_SLOTS == 16, "a half-warp stages one point's slots");
+    // the slice's rows in shared memory: n, or under CL n rounded up to
+    // whole boxes (the rows past n are zero)
+    const int nrow = CL ? (n + GC_BOX - 1) / GC_BOX * GC_BOX : n;
+    extern __shared__ __align__(128) unsigned char gs_smem[];
     T* slice = reinterpret_cast<T*>(gs_smem);
-    int32_t* sidx = reinterpret_cast<int32_t*>(gs_smem + (size_t)n * GS_ROW);
+    int32_t* sidx = reinterpret_cast<int32_t*>(gs_smem + (size_t)nrow * ROW);
+    // CL: the mbarriers of the slice's rows (`bar`) and of the blocks'
+    // flags (`fbar`: a NaN or -0.0 among each block's rows, `spec` below)
+    unsigned char* tail = gs_smem + (size_t)nrow * ROW + GS_IDX_BYTES(NW, PPW);
+    const unsigned bar = smem_u32(tail), fbar = bar + 8;
+    int* flags = reinterpret_cast<int*>(tail + 16);
     const int part = blockIdx.x % parts;
     const int cs = (blockIdx.x / parts) % nslice;
     const int b = blockIdx.x / (parts * nslice);
@@ -374,68 +503,120 @@ gather_reduce_staged(const T* __restrict__ a, const int32_t* __restrict__ idx,
     const long long points = (long long)bsz * n;
     const int wib = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int per = (n + parts - 1) / parts;
-    const int n0 = part * per, n1 = min(n, n0 + per);
-    // The warp's steps: point groups of GS_PPW points, each in chunks of
+    const int n0 = min(n, part * per), n1 = min(n, n0 + per);
+    // CL: the rank in the cluster, and the rows [rr0, rr1) this block
+    // copies into every block of the cluster, in whole boxes
+    const int crank = part % csize;
+    const int rper = (nrow / GC_BOX + csize - 1) / csize * GC_BOX;
+    const int rr0 = min(nrow, crank * rper), rr1 = min(nrow, rr0 + rper);
+    if (CL && threadIdx.x == 0) {   // armed before any peer may send
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                     :: "r"(bar) : "memory");
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                     :: "r"(fbar) : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        // every block's (its own too) 4-byte flag
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                     :: "r"(fbar), "r"(4 * csize) : "memory");
+        // the whole slice, every block's boxes
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                     :: "r"(bar), "r"((unsigned)(nrow * ROW)) : "memory");
+    }
+    // The warp's steps: point groups of PPW points, each in chunks of
     // GS_SLOTS slots; the next step's index rows are loaded while the
     // current step is reduced (the first step's while the slice arrives),
     // so their latency is hidden.
-    int pg = n0 + wib * GS_PPW, k0 = 0;
-    int nxt[GS_PPW];
-    if (pg < n1) fetch_rows(idx, cloud, kk, lane, n1, pg, 0, nxt);
+    int pg = n0 + wib * PPW, k0 = 0;
+    int nxt[PPW / 2];
+    if (pg < n1) fetch_rows<PPW>(idx, cloud, kk, lane, n1, pg, 0, nxt);
 
-    // the slice of the cloud's N rows: 16-byte asynchronous copies (zero
-    // fill past C), or one element at a time where rows are not 16-byte
-    // multiples
-    for (int q = threadIdx.x; q < n * GS_LPP; q += NW * 32) {
-        const int pt = q / GS_LPP, ch = c0 + (q % GS_LPP) * VEC;
-        T* dst = slice + pt * SC + (q % GS_LPP) * VEC;
-        const T* src = a + (cloud + pt) * c + ch;
-        if (vec) {
-            cp_async16(dst, ch < c ? src : a, ch < c ? 16 : 0);
-        } else {
+    bool spec = false;   // a NaN, or for max and min alone a -0.0
+    if (!CL) {
+        // the whole slice copied by this block: 16-byte asynchronous
+        // copies (zero fill past C), or one element at a time where rows
+        // are not 16-byte multiples
+        for (int q = threadIdx.x; q < n * LPP; q += NW * 32) {
+            const int pt = q / LPP, ch = c0 + (q % LPP) * VEC;
+            T* dst = slice + pt * SC + (q % LPP) * VEC;
+            const T* src = a + (cloud + pt) * c + ch;
+            if (vec) {
+                cp_async16(dst, ch < c ? src : a, ch < c ? 16 : 0);
+            } else {
 #pragma unroll
-            for (int i = 0; i < VEC; ++i)
-                dst[i] = ch + i < c ? src[i] : from_f32<T>(0.0f);
+                for (int i = 0; i < VEC; ++i)
+                    dst[i] = ch + i < c ? src[i] : from_f32<T>(0.0f);
+            }
         }
+    } else {
+        // once every peer's mbarrier is armed, boxes of rows [rr0, rr1)
+        // into every block of the cluster (zero past C and past n)
+        cluster_arrive();
+        cluster_wait();
+        const unsigned short all = (unsigned short)((1u << csize) - 1);
+        for (int r = rr0 + GC_BOX * (int)threadIdx.x; r < rr1;
+             r += GC_BOX * NW * 32)
+            asm volatile(
+                "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+                "complete_tx::bytes.multicast::cluster [%0], [%1, {%2, %3, "
+                "%4}], [%5], %6;\n"
+                :: "r"(smem_u32(slice) + r * ROW),
+                   "l"(reinterpret_cast<uint64_t>(&tmap)), "r"(c0), "r"(r),
+                   "r"(b), "r"(bar), "h"(all)
+                : "memory");
+        wait_parity(bar, 0);   // the slice, own rows too, is in
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
-    // any NaN in the slice? (a bfloat16 NaN: exponent all ones, mantissa
-    // not zero)
-    bool nan = false;
-    for (int q = threadIdx.x; q < n * GS_LPP; q += NW * 32) {
-        const uint4 v = *reinterpret_cast<const uint4*>(slice + q * VEC);
-        const uint32_t u[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            if (sizeof(T) == 4)
-                nan |= (u[i] & 0x7fffffffu) > 0x7f800000u;
-            else
-                nan |= (u[i] & 0x7fffu) > 0x7f80u ||
-                       (u[i] & 0x7fff0000u) > 0x7f800000u;
+    if (CL) {
+        // this block's rows [rr0, min(rr1, n)) scanned, its flag stored
+        // into every block's flags[crank] by an asynchronous store that
+        // completes on that block's fbar (no fence waits for the loads in
+        // flight); every flag is in once its phase completes
+        for (int q = rr0 * LPP + threadIdx.x; q < min(rr1, n) * LPP;
+             q += NW * 32)
+            spec |= special16<T, WANT>(
+                *reinterpret_cast<const uint4*>(slice + q * VEC));
+        const int own = __syncthreads_or(spec);
+        if ((int)threadIdx.x < csize) {
+            asm volatile(
+                "st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 "
+                "[%0], %1, [%2];\n"
+                :: "r"(mapa(smem_u32(flags + crank), threadIdx.x)),
+                   "r"(own), "r"(mapa(fbar, threadIdx.x))
+                : "memory");
         }
+        wait_parity(fbar, 0);
+        spec = false;
+        for (int i = 0; i < csize; ++i) spec |= flags[i] != 0;
+        // every copy into this block is done; the wait at the end keeps
+        // each block until every block is here, so no copy from it is left
+        cluster_arrive();
+    } else {   // the whole slice scanned
+        for (int q = threadIdx.x; q < n * LPP; q += NW * 32)
+            spec |= special16<T, WANT>(
+                *reinterpret_cast<const uint4*>(slice + q * VEC));
+        spec = __syncthreads_or(spec);
     }
-    nan = __syncthreads_or(nan);
 
-    const int j = lane / GS_LPP, q = lane % GS_LPP;   // point, vector
+    const int j = lane / LPP, q = lane % LPP;         // point, vector
     const int c1 = c0 + q * VEC;                      // the lane's channels
-    int32_t* wsidx = sidx + wib * GS_PPW * GS_IDX_PITCH;
+    const int sl = lane % GS_SLOTS;                   // the slot it stages
+    int32_t* wsidx = sidx + wib * PPW * GS_IDX_PITCH;
     const int32_t* mine = wsidx + j * GS_IDX_PITCH;
-    const unsigned lane_s =   // the lane's vector of row 0, shared window
-        (unsigned)__cvta_generic_to_shared(slice) + q * 16;
+    const unsigned lane_s = smem_u32(slice) + q * 16;  // row 0's vector
     float mx[VEC], mn[VEC], s1[VEC], s2[VEC];
     int am[VEC], amn[VEC];
     while (pg < n1) {
         const int cpg = pg, ck0 = k0, cnt = min(GS_SLOTS, kk - k0);
-        int cur[GS_PPW];
+        int cur[PPW / 2];
 #pragma unroll
-        for (int jj = 0; jj < GS_PPW; ++jj) cur[jj] = nxt[jj];
+        for (int i = 0; i < PPW / 2; ++i) cur[i] = nxt[i];
         k0 += GS_SLOTS;
         if (k0 >= kk) {
             k0 = 0;
-            pg += NW * GS_PPW;
+            pg += NW * PPW;
         }
-        if (pg < n1) fetch_rows(idx, cloud, kk, lane, n1, pg, k0, nxt);
+        if (pg < n1) fetch_rows<PPW>(idx, cloud, kk, lane, n1, pg, k0, nxt);
         const int pn = cpg + j;
         const bool act = pn < n1;
         if (ck0 == 0) {
@@ -452,25 +633,27 @@ gather_reduce_staged(const T* __restrict__ a, const int32_t* __restrict__ idx,
         __syncwarp();
         bool out = false;
 #pragma unroll
-        for (int jj = 0; jj < GS_PPW; ++jj) {
-            long long f = cloud + cur[jj];
-            if (f < 0) f += points;
-            f = f < 0 ? 0 : (f >= points ? points - 1 : f);
-            const long long loc = f - cloud;
-            const bool in = loc >= 0 && loc < n;
-            out |= !in && lane < cnt && cpg + jj < n1;
-            if (lane < cnt)
-                wsidx[jj * GS_IDX_PITCH + lane] =
-                    in ? (int32_t)loc : (int32_t)(-f - 1);
+        for (int i = 0; i < PPW / 2; ++i) {
+            const int jj = lane / GS_SLOTS + 2 * i;
+            int loc = cur[i];
+            if ((unsigned)loc >= (unsigned)n) {   // not a row of b as it is
+                long long f = cloud + loc;
+                if (f < 0) f += points;
+                f = f < 0 ? 0 : (f >= points ? points - 1 : f);
+                const long long l = f - cloud;
+                loc = l >= 0 && l < n ? (int)l : (int)(-f - 1);
+            }
+            out |= loc < 0 && sl < cnt && cpg + jj < n1;
+            if (sl < cnt) wsidx[jj * GS_IDX_PITCH + sl] = loc;
         }
         const bool far = __any_sync(0xffffffffu, out);
         __syncwarp();
-        if (act && !far && !nan)
-            reduce_step<T, WANT, false, false>(a, mine, lane_s, c, c1, cnt,
-                                               ck0, mx, mn, am, amn, s1, s2);
+        if (act && !far && !spec)
+            reduce_step<T, WANT, ROW, false, false>(
+                a, mine, lane_s, c, c1, cnt, ck0, mx, mn, am, amn, s1, s2);
         else if (act)
-            reduce_step<T, WANT, true, true>(a, mine, lane_s, c, c1, cnt,
-                                             ck0, mx, mn, am, amn, s1, s2);
+            reduce_step<T, WANT, ROW, true, true>(
+                a, mine, lane_s, c, c1, cnt, ck0, mx, mn, am, amn, s1, s2);
         if (!act || c1 >= c || ck0 + GS_SLOTS < kk) continue;
         const long long o = (cloud + pn) * (long long)c;
         const bool ovec = vec && c1 + VEC <= c;
@@ -490,58 +673,7 @@ gather_reduce_staged(const T* __restrict__ a, const int32_t* __restrict__ idx,
             store_row<float, VEC>(s2_out + o, c1, c, ovec, s2);
         }
     }
-}
-
-template <typename T, int WANT, int NW>
-static int launch_staged(const void* a, const int32_t* idx, void* mx,
-                         void* mn, int32_t* am, int32_t* amn, float* s1,
-                         float* s2, int b, int n, int kk, int c, int parts,
-                         cudaStream_t st) {
-    static_assert(NW <= GS_MAX_WARPS, "GS_MAX_WARPS bounds the shared memory");
-    constexpr int SC = GS_ROW / sizeof(T);
-    auto kern = gather_reduce_staged<T, WANT, NW>;
-    const int smem = n * GS_ROW + GS_IDX_BYTES(NW);
-    // the most this kernel takes, allowed once a device
-    static unsigned long long allowed = 0;   // a bit a device
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return (int)err;
-    if (dev >= 64 || !(allowed >> dev & 1ull)) {
-        err = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            GS_MAX_N * GS_ROW + GS_IDX_BYTES(NW));
-        if (err != cudaSuccess) return (int)err;
-        if (dev < 64) allowed |= 1ull << dev;
-    }
-    const int nslice = (c + SC - 1) / SC;
-    const bool vec = c % (16 / (int)sizeof(T)) == 0 &&
-                     (uintptr_t)a % 16 == 0;
-    kern<<<(unsigned)((long long)b * nslice * parts), NW * 32, smem, st>>>(
-        (const T*)a, idx, (T*)mx, (T*)mn, am, amn, s1, s2, b, n, kk, c,
-        nslice, parts, vec);
-    return (int)cudaGetLastError();
-}
-
-// Blocks a cloud slice is split into (each stages the whole slice and
-// takes a share of its points): the count that minimises waves x (stage +
-// the share of the work), the staging taken as 1/40 of a whole slice's
-// work (PERF.md, the batch sweep: about 3 of 124 us at (32, 2048, 40, 64)
-// f32 "extrema"). 0 where the best
-// split exceeds GS_MAX_PARTS: there the unstaged kernel was faster (the
-// serving ensemble's 5 clouds x 4 slices: 6 parts).
-static int staged_parts(long long groups, int sms, int n) {
-    const long long most = (n + 127) / 128;   // 128 points a block at least
-    long long best = 1;
-    double cost = 1e300;
-    for (long long p = 1; p <= most && p <= 64; ++p) {
-        const long long waves = (groups * p + sms - 1) / sms;
-        const double t = (double)waves * (1.0 + 40.0 / (double)p);
-        if (t < cost - 1e-9) {
-            cost = t;
-            best = p;
-        }
-    }
-    return best <= GS_MAX_PARTS ? (int)best : 0;
+    if (CL) cluster_wait();
 }
 
 // Warps a block: as many as the registers of each (dtype, want) allow with
@@ -553,19 +685,291 @@ constexpr int staged_warps() {
                                                       : 16;
 }
 
+// rows of 16-byte multiples from a 16-byte aligned table: the staged
+// copies' vectors and the cluster route's tensor map
 template <typename T>
-static int launch_staged_want(const void* a, const int32_t* idx, void* mx,
-                              void* mn, int32_t* am, int32_t* amn, float* s1,
-                              float* s2, int b, int n, int kk, int c,
-                              int want, int parts, cudaStream_t st) {
+static bool vec16(const void* a, int c) {
+    return c % (16 / (int)sizeof(T)) == 0 && (uintptr_t)a % 16 == 0;
+}
+
+// cuTensorMapEncodeTiled, looked up once through the runtime (the library
+// links no -lcuda)
+typedef CUresult (*TensorMapEncode)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+static cudaError_t tensor_map_encoder(TensorMapEncode* out) {
+    static TensorMapEncode fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        const cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+        const cudaError_t err = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+        if (err != cudaSuccess) return err;
+        if (found != cudaDriverEntryPointSuccess || p == nullptr)
+            return cudaErrorNotSupported;
+        fn = reinterpret_cast<TensorMapEncode>(p);
+    }
+    *out = fn;
+    return cudaSuccess;
+}
+
+// The cluster route's tensor map over a, seen as (c, n, b) (channels
+// innermost): boxes of sc channels x GC_BOX rows of one cloud, zero outside
+// the tensor (past C, past n).
+template <typename T>
+static cudaError_t slice_map(const void* a, int b, int n, int c, int sc,
+                             CUtensorMap* m) {
+    TensorMapEncode encode;
+    const cudaError_t err = tensor_map_encoder(&encode);
+    if (err != cudaSuccess) return err;
+    const cuuint64_t dims[3] = {(cuuint64_t)c, (cuuint64_t)n, (cuuint64_t)b};
+    const cuuint64_t strides[2] = {(cuuint64_t)c * sizeof(T),
+                                   (cuuint64_t)n * c * sizeof(T)};
+    const cuuint32_t box[3] = {(cuuint32_t)sc, GC_BOX, 1};
+    const cuuint32_t step[3] = {1, 1, 1};
+    const CUresult r = encode(
+        m, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+        3, const_cast<void*>(a), dims, strides, box, step,
+        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+        CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A staged kernel's launch: its function, the shared memory it takes at n
+// points, and the configuration of a call (the cluster dimension under CL).
+// The first use on a device allows the shared memory of GS_MAX_N points and,
+// under CL, clusters above 8 blocks.
+template <typename T, int WANT, bool CL>
+struct Staged {
+    static constexpr int NW = staged_warps<T, WANT>();
+    static constexpr int SC = GS_ROW / (int)sizeof(T);
+    static_assert(NW <= GS_MAX_WARPS, "GS_MAX_WARPS bounds the shared memory");
+
+    static auto kernel() { return &gather_reduce_staged<T, WANT, NW, CL>; }
+
+    static int smem(int n) {
+        const int rows = CL ? (n + GC_BOX - 1) / GC_BOX * GC_BOX : n;
+        return rows * GS_ROW + GS_IDX_BYTES(NW, GS_PPW) +
+               (CL ? GC_BAR_BYTES : 0);
+    }
+
+    static cudaError_t config(int b, int n, int c, int parts, int csize,
+                              cudaStream_t st, cudaLaunchConfig_t* cfg,
+                              cudaLaunchAttribute* attr) {
+        static unsigned long long allowed = 0;   // a bit a device
+        int dev = 0;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err != cudaSuccess) return err;
+        if (dev >= 64 || !(allowed >> dev & 1ull)) {
+            err = cudaFuncSetAttribute(
+                kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                smem(GS_MAX_N));
+            if (err == cudaSuccess && CL)
+                err = cudaFuncSetAttribute(
+                    kernel(), cudaFuncAttributeNonPortableClusterSizeAllowed,
+                    1);
+            if (err != cudaSuccess) return err;
+            if (dev < 64) allowed |= 1ull << dev;
+        }
+        const long long blocks = (long long)b * ((c + SC - 1) / SC) * parts;
+        if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+        *cfg = {};
+        cfg->gridDim = dim3((unsigned)blocks);
+        cfg->blockDim = dim3(NW * 32);
+        cfg->dynamicSmemBytes = smem(n);
+        cfg->stream = st;
+        if (CL) {
+            attr[0].id = cudaLaunchAttributeClusterDimension;
+            attr[0].val.clusterDim.x = csize;
+            attr[0].val.clusterDim.y = 1;
+            attr[0].val.clusterDim.z = 1;
+            cfg->attrs = attr;
+            cfg->numAttrs = 1;
+        }
+        return cudaSuccess;
+    }
+
+    static int launch(const void* a, const int32_t* idx, void* mx, void* mn,
+                      int32_t* am, int32_t* amn, float* s1, float* s2, int b,
+                      int n, int kk, int c, int parts, int csize,
+                      cudaStream_t st) {
+        cudaLaunchConfig_t cfg;
+        cudaLaunchAttribute attr[1];
+        cudaError_t err = config(b, n, c, parts, csize, st, &cfg, attr);
+        if (err != cudaSuccess) {
+            cudaGetLastError();
+            return (int)err;
+        }
+        const bool vec = vec16<T>(a, c);
+        CUtensorMap tmap;   // the cluster route's boxes (unused elsewhere)
+        memset(&tmap, 0, sizeof(tmap));
+        if (CL) err = slice_map<T>(a, b, n, c, SC, &tmap);
+        if (err != cudaSuccess) {
+            cudaGetLastError();
+            return (int)err;
+        }
+        err = cudaLaunchKernelEx(&cfg, kernel(), (const T*)a, idx, (T*)mx,
+                                 (T*)mn, am, amn, s1, s2, b, n, kk, c,
+                                 (c + SC - 1) / SC, parts, csize, vec, tmap);
+        const cudaError_t last = cudaGetLastError();   // read and cleared
+        return (int)(err != cudaSuccess ? err : last);
+    }
+
+    // clusters of csize blocks that fit on the device at once (0: none)
+    static cudaError_t clusters(int b, int n, int c, int csize, int* out) {
+        cudaLaunchConfig_t cfg;
+        cudaLaunchAttribute attr[1];
+        cudaError_t err = config(b, n, c, csize, csize, 0, &cfg, attr);
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveClusters(out, (const void*)kernel(),
+                                                 &cfg);
+        if (err != cudaSuccess) cudaGetLastError();   // not left behind
+        return err;
+    }
+};
+
+// the staged kernels by (dtype, want): the staged route, and the cluster
+// route where rows are 16-byte multiples and `a` is 16-byte aligned (the
+// tensor map's boxes); else its call takes the staged kernel at its parts
+template <typename T, int WANT>
+static int launch_routed(int route, const void* a, const int32_t* idx,
+                         void* mx, void* mn, int32_t* am, int32_t* amn,
+                         float* s1, float* s2, int b, int n, int kk, int c,
+                         int parts, int csize, cudaStream_t st) {
+    if (route == 1 || !vec16<T>(a, c))
+        return Staged<T, WANT, false>::launch(
+            a, idx, mx, mn, am, amn, s1, s2, b, n, kk, c, parts, 1, st);
+    return Staged<T, WANT, true>::launch(
+        a, idx, mx, mn, am, amn, s1, s2, b, n, kk, c, parts, csize, st);
+}
+
+template <typename T>
+static cudaError_t clusters_want(int want, int b, int n, int c, int csize,
+                                 int* out) {
     if (want == 0)
-        return launch_staged<T, 0, staged_warps<T, 0>()>(
-            a, idx, mx, mn, am, amn, s1, s2, b, n, kk, c, parts, st);
+        return Staged<T, 0, true>::clusters(b, n, c, csize, out);
     if (want == 1)
-        return launch_staged<T, 1, staged_warps<T, 1>()>(
-            a, idx, mx, mn, am, amn, s1, s2, b, n, kk, c, parts, st);
-    return launch_staged<T, 2, staged_warps<T, 2>()>(
-        a, idx, mx, mn, am, amn, s1, s2, b, n, kk, c, parts, st);
+        return Staged<T, 1, true>::clusters(b, n, c, csize, out);
+    return Staged<T, 2, true>::clusters(b, n, c, csize, out);
+}
+
+// Blocks a cloud slice is split into by the staged route (each stages the
+// whole slice and takes a share of its points): the count that minimises
+// waves x (stage + the share of the work), the staging taken as 1/40 of a
+// whole slice's work (PERF.md, the batch sweep: about 3 of 124 us at (32,
+// 2048, 40, 64) f32 "extrema"); at least 128 points a block.
+static int staged_parts(long long groups, int sms, int n) {
+    const long long most = (n + 127) / 128;
+    long long best = 1;
+    double cost = 1e300;
+    for (long long p = 1; p <= most && p <= 64; ++p) {
+        const long long waves = (groups * p + sms - 1) / sms;
+        const double t = (double)waves * (1.0 + 40.0 / (double)p);
+        if (t < cost - 1e-9) {
+            cost = t;
+            best = p;
+        }
+    }
+    return (int)best;
+}
+
+static cudaError_t sm_count(int* sms) {
+    static int counts[64] = {0};   // the SMs of each device, once
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 64 && counts[dev] > 0) {
+        *sms = counts[dev];
+        return cudaSuccess;
+    }
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess && dev < 64) counts[dev] = *sms;
+    return err;
+}
+
+// Waves of `blocks` blocks where `fit` fit on the device at once.
+static long long waves(long long blocks, long long fit) {
+    return (blocks + fit - 1) / fit;
+}
+
+// The route of a (b, n, kk, c) call on the current device, as {route,
+// parts, csize}: route 0, the unstaged kernel (n > GS_MAX_N: the slice does
+// not fit); route 1, the staged kernel, `parts` blocks a 64-byte slice;
+// route 2, the cluster route, `parts` blocks a slice in parts / csize
+// clusters of csize blocks, each cluster copying the slice once. Many
+// clouds take the staged route at staged_parts' split where it is at most
+// GS_MAX_PARTS. Fewer clouds (the serving ensemble's 5) take the faster, by
+// a model in microseconds, of the staged kernel at 1 .. `most` blocks a
+// slice, waves x (GS_FIXED_US + n GS_ROW_US + n kk GC_SLOT_US / parts), and
+// the cluster route at every (csize, clusters a slice), waves x
+// (GC_FIXED_US + n kk GC_SLOT_US / parts): waves from the SMs (one staged
+// block an SM) or from the clusters of that size that fit at once
+// (cudaOccupancyMaxActiveClusters: a cluster stays inside one GPC, so 5
+// clusters of 3 fill a GPC of 16 SMs that holds 2 of 6); the fixed parts
+// (launch, the slice's arrival, the scan, the cluster's barriers and
+// flags) are absolute, so a short call (DPSR-Net's single cloud of 1024
+// points and 20 slots) weighs them against little work; the staged kernel
+// on a tie; clusters of 2 or more, the larger on a tie (less copying); at
+// least 128 points a block. Rows that are not 16-byte multiples take the
+// staged kernel (no tensor map). Fitted to the sweep's staged and cluster
+// times at 1-14 clouds of 2048 points and DPSR-Net's 1 and 5 of 1024: the
+// clouds of 2048 take the cluster route, DPSR-Net's calls the staged
+// kernel at 8 and 6 blocks a slice, each the fastest measured but for (1,
+// 1024) (5.6 us at 16 blocks a slice, below 128 points a block). Returns
+// the cudaError_t of the device queries.
+extern "C" int fseg_gather_reduce_route(int b, int n, int kk, int c,
+                                        int want, int bf16, int* out) {
+    out[0] = out[1] = out[2] = 0;
+    if (b < 1 || n < 1 || kk < 1 || c < 1 || c > GR_MAX_C || want < 0 ||
+        want > 2)
+        return (int)cudaErrorInvalidValue;
+    if (n > GS_MAX_N) return 0;
+    int sms = 0;
+    cudaError_t err = sm_count(&sms);
+    if (err != cudaSuccess) return (int)err;
+    const int sc = GS_ROW / (bf16 ? 2 : 4);
+    const long long groups = (long long)b * ((c + sc - 1) / sc);
+    const int most = (n + 127) / 128;   // blocks a slice, at most
+    out[0] = out[2] = 1;
+    out[1] = staged_parts(groups, sms, n);
+    if (out[1] <= GS_MAX_PARTS) return 0;
+    const double work = (double)n * kk * GC_SLOT_US;   // a slice, one block
+    double cost = 1e300;
+    for (int p = 1; p <= most; ++p) {
+        const double t = (double)waves(groups * p, sms) *
+                         (GS_FIXED_US + n * GS_ROW_US + work / p);
+        if (t < cost - 1e-9) {
+            cost = t;
+            out[1] = p;
+        }
+    }
+    if (c % (16 / (bf16 ? 2 : 4)) != 0) return 0;   // no tensor map
+    for (int p = GC_MAX_P < most ? GC_MAX_P : most; p >= 2; --p) {
+        int fit = 0;
+        err = bf16 ? clusters_want<__nv_bfloat16>(want, b, n, c, p, &fit)
+                   : clusters_want<float>(want, b, n, c, p, &fit);
+        if (err != cudaSuccess) return (int)err;
+        for (int q = 1; fit > 0 && q * p <= most; ++q) {
+            const double t = (double)waves(groups * q, fit) *
+                             (GC_FIXED_US + work / (q * p));
+            if (t < cost - 1e-9) {
+                cost = t;
+                out[0] = 2;
+                out[1] = q * p;
+                out[2] = p;
+            }
+        }
+    }
+    return 0;
 }
 
 template <typename T, int CPL>
@@ -606,57 +1010,53 @@ static void launch_c(const void* a, const int32_t* idx, void* mx, void* mn,
         launch<T, 8>(a, idx, mx, mn, am, amn, s1, s2, points, n, kk, c, want, st);
 }
 
-// Blocks each cloud slice of a (b, n, c) table is split into by the staged
-// kernel, 0 where the unstaged kernel runs instead (the slice does not fit, or
-// clouds x slices are too few for the SMs: staged_parts), or minus the
-// cudaError_t of the device query.
-extern "C" int fseg_gather_reduce_parts(int b, int n, int c, int bf16) {
-    if (n > GS_MAX_N) return 0;
-    static int sm_counts[64] = {0};   // the SMs of each device, once
-    int dev = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess && dev < 64 && sm_counts[dev] > 0) {
-        sms = sm_counts[dev];
-    } else if (err == cudaSuccess) {
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                     dev);
-        if (err == cudaSuccess && dev < 64) sm_counts[dev] = sms;
-    }
-    if (err != cudaSuccess) return -(int)err;
-    const int sc = GS_ROW / (bf16 ? 2 : 4);
-    return staged_parts((long long)b * ((c + sc - 1) / sc), sms, n);
+template <typename T>
+static int launch_want(int route, const void* a, const int32_t* idx,
+                       void* mx, void* mn, int32_t* am, int32_t* amn,
+                       float* s1, float* s2, int b, int n, int kk, int c,
+                       int want, int parts, int csize, cudaStream_t st) {
+    if (want == 0)
+        return launch_routed<T, 0>(route, a, idx, mx, mn, am, amn, s1, s2, b,
+                                   n, kk, c, parts, csize, st);
+    if (want == 1)
+        return launch_routed<T, 1>(route, a, idx, mx, mn, am, amn, s1, s2, b,
+                                   n, kk, c, parts, csize, st);
+    return launch_routed<T, 2>(route, a, idx, mx, mn, am, amn, s1, s2, b, n,
+                               kk, c, parts, csize, st);
 }
 
 // a: (b * n, c) float32 (bf16 == 0) or bfloat16 (bf16 == 1); idx: (b * n,
 // kk) int32; mx (and mn for want >= 1): (b * n, c) in a's dtype; am, amn
 // int32 and s1, s2 float32, (b * n, c), for want == 2 (else may be null).
 // All contiguous device memory; launches on `stream`, does not synchronise.
-// Returns the cudaError_t.
+// (route, parts, csize): fseg_gather_reduce_route's answer for (b, n, c,
+// want, bf16) on this device. Returns the cudaError_t: a cluster launch
+// that is refused returns its error, it never runs another kernel instead.
 extern "C" int fseg_gather_reduce(const void* a, const void* idx, void* mx,
                                   void* mn, void* am, void* amn, void* s1,
                                   void* s2, int b, int n, int kk, int c,
-                                  int want, int bf16, void* stream) {
+                                  int want, int bf16, int route, int parts,
+                                  int csize, void* stream) {
     if (b < 1 || n < 1 || kk < 1 || c < 1 || c > GR_MAX_C || want < 0 ||
-        want > 2)
+        want > 2 || route < 0 || route > 2)
+        return (int)cudaErrorInvalidValue;
+    if (route > 0 && (n > GS_MAX_N || parts < 1 || parts > 64 ||
+                      csize < 1 || parts % csize != 0 ||
+                      (route == 1 && csize != 1) || csize > GC_MAX_P))
         return (int)cudaErrorInvalidValue;
     const long long points = (long long)b * n;
     if ((points + GR_WARPS - 1) / GR_WARPS > 0x7fffffffLL)
         return (int)cudaErrorInvalidValue;
     const int32_t* ip = (const int32_t*)idx;
     cudaStream_t st = (cudaStream_t)stream;
-    // the staged kernel where the cloud's slice fits in shared memory and
-    // clouds x slices keep enough of the SMs busy
-    const int parts = fseg_gather_reduce_parts(b, n, c, bf16);
-    if (parts < 0) return -parts;
-    if (parts > 0 && bf16)
-        return launch_staged_want<__nv_bfloat16>(
-            a, ip, mx, mn, (int32_t*)am, (int32_t*)amn, (float*)s1,
-            (float*)s2, b, n, kk, c, want, parts, st);
-    if (parts > 0)
-        return launch_staged_want<float>(a, ip, mx, mn, (int32_t*)am,
-                                         (int32_t*)amn, (float*)s1,
-                                         (float*)s2, b, n, kk, c, want, parts,
-                                         st);
+    if (route > 0 && bf16)
+        return launch_want<__nv_bfloat16>(
+            route, a, ip, mx, mn, (int32_t*)am, (int32_t*)amn, (float*)s1,
+            (float*)s2, b, n, kk, c, want, parts, csize, st);
+    if (route > 0)
+        return launch_want<float>(route, a, ip, mx, mn, (int32_t*)am,
+                                  (int32_t*)amn, (float*)s1, (float*)s2, b,
+                                  n, kk, c, want, parts, csize, st);
     if (bf16)
         launch_c<__nv_bfloat16>(a, ip, mx, mn, (int32_t*)am, (int32_t*)amn,
                                 (float*)s1, (float*)s2, points, n, kk, c,

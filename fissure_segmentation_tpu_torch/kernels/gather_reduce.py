@@ -27,26 +27,31 @@ does (`flat_rows`). ops/edge.py's gather uses the same rows.
 `gather_reduce` launches the kernel for a CUDA tensor and runs
 `gather_reduce_plain` for a CPU tensor; there is no fallback from one to
 the other. Both compare and round identically (no FMA contraction on
-either side), so they agree bit for bit in every output. Clouds of up to
-`STAGED_MAX_N` points whose clouds x channel slices keep the SMs busy
-take the kernel that stages a channel slice of the cloud in shared
-memory (`staged_parts`), the others the kernel that reads device memory;
-both add in k order. There is no
+either side), so they agree bit for bit in every output. `route` names
+the kernel a call takes on the card: clouds of up to `STAGED_MAX_N` points
+stage a channel slice of the cloud in shared memory, "staged" (each block
+stages the slice for itself) where clouds x slices keep the SMs busy, and
+where they are too few (the serving ensemble's 5 clouds) "staged" at more
+blocks a slice or "cluster" (a thread-block cluster of up to 16 blocks
+shares each staged slice), whichever the kernel's model finds faster;
+larger clouds take the "unstaged" kernel, which reads device memory.
+Every route adds in k order. There is no
 gradient: the fused EdgeConv's backward is K3 + K4 (ops/fused_edge.py), and
 the wrapper raises when autograd would record through it. Why the kernel is
 shaped as it is, and what bounds it: see the head of csrc/gather_reduce.cu.
 """
 from __future__ import annotations
 
-import ctypes
+from typing import NamedTuple
 
 import torch
 
 MAX_C = 256   # csrc/gather_reduce.cu GR_MAX_C
-# csrc/gather_reduce.cu GS_MAX_N: clouds of up to this many points take the
+# csrc/gather_reduce.cu GS_MAX_N: clouds of up to this many points take a
 # kernel that stages a channel slice of the cloud in shared memory; larger
 # ones the kernel that reads every neighbour row from device memory
 STAGED_MAX_N = 3200
+ROUTES = ("unstaged", "staged", "cluster")
 WANTS = ("max", "extrema", "all")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -129,6 +134,52 @@ def _check(a: torch.Tensor, idx: torch.Tensor, want: str) -> None:
                            "torch.no_grad() or inside a custom backward")
 
 
+class Route(NamedTuple):
+    """The kernel a call takes: `kind` one of ROUTES; `parts` the blocks a
+    64-byte channel slice (0 unstaged); `cluster` the blocks a thread-block
+    cluster (1 staged, 0 unstaged)."""
+    kind: str
+    parts: int
+    cluster: int
+
+
+_lib = None
+# (device index, B, N, K, C, dtype, want) -> (call_key, (route, parts,
+# cluster)): a shape's name and route, found at its first call
+_shapes: dict = {}
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from ._build import load
+        _lib = load()
+    return _lib
+
+
+def _route_args(b: int, n: int, k: int, c: int, dtype: torch.dtype,
+                want: str) -> tuple:
+    """csrc/gather_reduce.cu fseg_gather_reduce_route on the current
+    device: (route, parts, cluster)."""
+    import ctypes
+    out = (ctypes.c_int * 3)()
+    err = _library().fseg_gather_reduce_route(b, n, k, c, WANTS.index(want),
+                                              _DTYPES[dtype], out)
+    if err != 0:
+        raise RuntimeError(f"gather_reduce: route query failed: "
+                           f"cudaError_t {err}")
+    return tuple(out)
+
+
+def route(b: int, n: int, k: int, c: int, dtype: torch.dtype,
+          want: str = "extrema") -> Route:
+    """On the card (the current device): the kernel a (b, n, k, c) call of
+    `want` takes, from the model in csrc/gather_reduce.cu
+    (fseg_gather_reduce_route). Raises without a card."""
+    r, parts, cluster = _route_args(b, n, k, c, dtype, want)
+    return Route(ROUTES[r], parts, cluster)
+
+
 def gather_reduce(a: torch.Tensor, idx: torch.Tensor,
                   want: str = "all") -> tuple:
     """The gather-reduce on the inputs' device: the CUDA kernel for CUDA
@@ -149,9 +200,24 @@ def gather_reduce(a: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"gather_reduce: unsupported device {a.device}")
     if not (a.is_contiguous() and idx.is_contiguous()):
         raise ValueError("gather_reduce: a and idx must be contiguous")
-    from ._build import load
     b, n, c = a.shape
+    kk = idx.shape[-1]
     mode = WANTS.index(want)
+    dev = a.device.index
+    if dev != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _launch(a, idx, want, b, n, kk, c, mode, dev)
+    return _launch(a, idx, want, b, n, kk, c, mode, dev)
+
+
+def _launch(a, idx, want, b, n, kk, c, mode, dev) -> tuple:
+    """The launch on the current device, `dev`."""
+    shape = (dev, b, n, kk, c, a.dtype, want)
+    known = _shapes.get(shape)
+    if known is None:
+        known = _shapes[shape] = (call_key(a, idx, want),
+                                  _route_args(b, n, kk, c, a.dtype, want))
+    key, args = known
     mx = torch.empty_like(a)
     mn = torch.empty_like(a) if mode >= 1 else None
     if mode == 2:
@@ -159,37 +225,25 @@ def gather_reduce(a: torch.Tensor, idx: torch.Tensor,
         amn = torch.empty_like(am)
         s1 = torch.empty((b, n, c), dtype=torch.float32, device=a.device)
         s2 = torch.empty_like(s1)
+        ptrs = (mn.data_ptr(), am.data_ptr(), amn.data_ptr(), s1.data_ptr(),
+                s2.data_ptr())
     else:
-        am = amn = s1 = s2 = None
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = load().fseg_gather_reduce(
-            a.data_ptr(), idx.data_ptr(), mx.data_ptr(), ptr(mn), ptr(am),
-            ptr(amn), ptr(s1), ptr(s2), b, n, idx.shape[-1], c, mode,
-            _DTYPES[a.dtype], ctypes.c_void_p(stream))
+        ptrs = (None if mn is None else mn.data_ptr(), None, None, None,
+                None)
+    err = _library().fseg_gather_reduce(
+        a.data_ptr(), idx.data_ptr(), mx.data_ptr(), *ptrs, b, n, kk, c,
+        mode, _DTYPES[a.dtype], *args,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gather_reduce kernel launch failed: "
                            f"cudaError_t {err}")
     gather_reduce.launches += 1
-    key = call_key(a, idx, want)
     gather_reduce.calls[key] = gather_reduce.calls.get(key, 0) + 1
-    return {0: (mx,), 1: (mx, mn), 2: (mx, mn, am, amn, s1, s2)}[mode]
-
-
-def staged_parts(b: int, n: int, c: int, dtype: torch.dtype) -> int:
-    """On the card: the blocks each cloud slice of a (b, n, c) table is
-    split into by the kernel that stages the slice in shared memory, 0
-    where the kernel that reads device memory runs instead (csrc/
-    gather_reduce.cu fseg_gather_reduce_parts). Raises without a card."""
-    from ._build import load
-    parts = load().fseg_gather_reduce_parts(b, n, c, _DTYPES[dtype])
-    if parts < 0:
-        raise RuntimeError(f"gather_reduce: device query failed: "
-                           f"cudaError_t {-parts}")
-    return parts
+    if mode == 0:
+        return (mx,)
+    if mode == 1:
+        return mx, mn
+    return mx, mn, am, amn, s1, s2
 
 
 def call_key(a: torch.Tensor, idx: torch.Tensor, want: str) -> str:

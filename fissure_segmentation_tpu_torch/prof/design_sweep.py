@@ -5,7 +5,8 @@ sums on the card, from scratch builds of edited sources. Run from the
 repository root:
 
     python fissure_segmentation_tpu_torch/prof/design_sweep.py \
-        [--parts split,dw,tr,gr,grb,k3,k4,sel,bins,st] [--build DIR]
+        [--parts split,dw,tr,gr,grb,grc,k3,k4,sel,bins,st] [--build DIR]
+        [--no_grid] [--only NAME,...]
 
 Each variant is a copy of kernels/csrc/depthwise.cu, scatter.cu,
 gather_reduce.cu, approx_topk.cu or stream.cu with one constant, launch
@@ -22,8 +23,9 @@ sums equal to plain on integers). Parts:
          adds but no products, and a plain copy of x to y; K2's wrapper at
          (32, 81 920, 64) by its parts (the plain transpose's flat targets,
          stable sort and searchsorted, the transpose kernel, the row sums);
-         the gather-reduce, staged and the unstaged kernel forced, as it is and
-         with its loads alone, and a copy of its bytes through L2; K3,
+         the gather-reduce on its route and the unstaged kernel forced, as
+         it is and with its loads alone, and a copy of its bytes through
+         L2; K3,
          staged and the unstaged kernel forced, as it is, its dense half alone
          and its routing half alone;
   dw     the tiled K6 kernel's launch shape (slice, tile, run, stages, the
@@ -33,8 +35,36 @@ sums equal to plain on integers). Parts:
          ballots instead of __match_any_sync), each stage timed;
   gr     the staged gather-reduce's warps a block, unroll, NaN-free
          comparisons, and every slot reading one row (no bank conflicts);
-  grb    the staged and the unstaged gather-reduce by batch size, f32 at (B,
-         2048, 40, 64), B = 5 ... 32 (the source of `staged_parts`' model);
+  grb    the gather-reduce by batch size, f32 at (B, 2048, 40, 64), B = 5
+         ... 32: the staged kernel at the uncapped split of `staged_parts`'
+         model, the unstaged kernel and the model's route (the source of
+         `staged_parts`' model; the routes forced through the library
+         entry's (route, parts, cluster));
+  grc    the few-cloud routes (the staged kernel split into more blocks
+         a slice, and the thread-block clusters that share a staged
+         slice) at (B, 2048, 40, 64) "extrema", f32 and bf16, B = 1, 2, 3,
+         5, 7, 9, 13, 14, and DPSR-Net's (5 and 1, 1024, 20, 64) f32, on
+         the card alone (`graph_ms`): the model's route (and its issue
+         slots a lane-value), the unstaged kernel, the staged kernel at
+         1 ... 16 blocks a slice, the clusters of each size that fit on the
+         card (the model's waves), and where the grid is on (the builds
+         "multicast", the shipped one, and "lanes_2", "lanes_1": 32- and
+         16-byte slices, 2 and 1 lanes a point) every forced (cluster size
+         2 ... 16; clusters a slice 1 ... 4) whose clusters fit. The
+         sharing schemes: the shipped one ("multicast": each block copies
+         its rows from device memory into every block of the cluster as
+         boxes of 64 rows of a tensor map, multicast by the TMA), "push"
+         (each block copies its rows and pushes them to its peers),
+         "peers" (rows read in place through distributed shared memory);
+         the inner loop with 8 rows read ahead ("unroll_8"), without FMNMX
+         ("no_fmnmx"), without its index loads ("abl_no_fetch"), without
+         its row reads ("abl_no_rows"), its loads alone
+         ("abl_loads_only"); every route's outputs equal to plain (the
+         abl_ variants aside); a timeline of each block's phases on the
+         model's route ("abl_timeline": %globaltimer at its entry, its
+         own rows copied, the slice in, the NaN flags, its points done, its
+         end). Each gather-reduce build is timed in a process of its own
+         (--one); --no_grid skips the grid, --only picks variants;
   k3     the staged K3's warps a block, edge ids a lane, and every edge
          reading one node;
   k4     K4's histogram (`count_hist`): an empty launch (the floor of a
@@ -139,13 +169,165 @@ _COPY = {_SIMPLE_S1:
 # the path of clouds whose slice does not fit in shared memory) forced onto
 # the path shapes, each as it is and with its loads alone (each value
 # folded into the max by one XOR instead of the reductions); and a copy
-# that reads the table K times through L2 and writes the outputs' bytes
-_GR_SIMPLE = {"    const int parts = fseg_gather_reduce_parts(b, n, c, bf16);":
-              "    const int parts = 0 * fseg_gather_reduce_parts(b, n, c, "
-              "bf16);"}
-# the staged kernel wherever the slice fits, whatever the split
-_GR_STAGED = {"    return best <= GS_MAX_PARTS ? (int)best : 0;":
-              "    return (int)best;"}
+# that reads the table K times through L2 and writes the outputs' bytes.
+# The gather-reduce's routes are forced by the (route, parts, cluster)
+# its library entry takes: ROUTE_UNSTAGED, or the staged
+# kernel at the split `_staged_parts` finds uncapped (ROUTE_STAGED).
+ROUTE_UNSTAGED, ROUTE_STAGED = "unstaged", "staged"
+
+# The few-cloud part's sharing schemes, each an edit of the cluster route
+# (whose blocks copy their own rows as boxes of a tensor map from device
+# memory into every block of the cluster, multicast by the TMA, completing
+# on each block's mbarrier): (b) "push", each block copies its rows into
+# its own shared memory (16-byte cp.async) and pushes them to each peer with
+# one bulk copy (shared::cta -> shared::cluster, onto the peer's mbarrier);
+# (c) "peers", no copies between blocks: every slice row read in place
+# through distributed shared memory from the block that copied it (`mapa`,
+# ld.shared::cluster), a cluster barrier at the end.
+_GRC_PUSH = {
+    # the peers' rows alone arrive on the mbarrier
+    "                     :: \"r\"(bar), \"r\"((unsigned)(nrow * ROW)) : "
+    "\"memory\");":
+    "                     :: \"r\"(bar), \"r\"((unsigned)((nrow - (rr1 - rr0))"
+    " * ROW))\n                     : \"memory\");",
+    # each block copies its own rows (the cluster) or the slice (staged)
+    "    if (!CL) {\n        // the whole slice copied by this block: 16-byte "
+    "asynchronous\n":
+    "    if (true) {\n        // the whole slice copied by this block: 16-byte "
+    "asynchronous\n",
+    "        for (int q = threadIdx.x; q < n * LPP; q += NW * 32) {\n":
+    "        for (int q = (CL ? rr0 : 0) * LPP + threadIdx.x;\n"
+    "             q < (CL ? min(rr1, n) : n) * LPP; q += NW * 32) {\n",
+    "    } else {\n        // once every peer's mbarrier is armed, boxes of "
+    "rows [rr0, rr1)\n":
+    "    }\n    if (CL) {\n        // once every peer's mbarrier is armed, "
+    "boxes of rows [rr0, rr1)\n",
+    "        for (int r = rr0 + GC_BOX * (int)threadIdx.x; r < rr1;\n":
+    "        for (int r = rr0 + GC_BOX * (int)threadIdx.x; false && r < rr1;\n",
+    "        wait_parity(bar, 0);   // the slice, own rows too, is in\n":
+    "",
+    # the rows, written by this block's threads, read by bulk copies: pushed
+    # to each peer once the block has them
+    "    asm volatile(\"cp.async.wait_all;\\n\" ::: \"memory\");\n"
+    "    __syncthreads();\n":
+    """    asm volatile("cp.async.wait_all;\\n" ::: "memory");
+    if (CL) asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");
+    __syncthreads();
+    if (CL && (int)threadIdx.x < csize && (int)threadIdx.x != crank &&
+        rr1 > rr0) {
+        const unsigned src = smem_u32(slice) + rr0 * ROW;
+        asm volatile(
+            "cp.async.bulk.shared::cluster.shared::cta.mbarrier::"
+            "complete_tx::bytes [%0], [%1], %2, [%3];\\n"
+            :: "r"(mapa(src, threadIdx.x)), "r"(src),
+               "r"((unsigned)((rr1 - rr0) * ROW)), "r"(mapa(bar, threadIdx.x))
+            : "memory");
+    }
+""",
+    "        wait_parity(fbar, 0);\n":
+    "        wait_parity(bar, 0);   // the peers' rows are in\n"
+    "        wait_parity(fbar, 0);\n",
+}
+_GRC_PEERS = {
+    **_GRC_PUSH,
+    "__device__ __forceinline__ void cluster_arrive() {":
+    """__shared__ int gc_per;   // rows a block copies (1 << 30 without CL)
+
+__device__ __forceinline__ uint4 ldc16(unsigned addr) {
+    uint4 v;
+    asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\\n"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr));
+    return v;
+}
+
+__device__ __forceinline__ void cluster_arrive() {""",
+    # nothing arrives on the rows' mbarrier: nothing is pushed
+    "                     :: \"r\"(bar), \"r\"((unsigned)((nrow - (rr1 - rr0))"
+    " * ROW))":
+    "                     :: \"r\"(bar), \"r\"(0u)",
+    "    if (CL && (int)threadIdx.x < csize && (int)threadIdx.x != crank &&\n"
+    "        rr1 > rr0) {\n":
+    "    if (false) {\n",
+    "        cluster_arrive();\n    } else {   // the whole slice scanned":
+    "    } else {   // the whole slice scanned",
+    "    if (CL) cluster_wait();\n}":
+    "    if (CL) {\n        cluster_arrive();\n        cluster_wait();\n"
+    "    }\n}",
+    "    const int rr0 = min(nrow, crank * rper), rr1 = min(nrow, rr0 + rper);\n":
+    "    const int rr0 = min(nrow, crank * rper), rr1 = min(nrow, rr0 + rper);\n"
+    "    if (threadIdx.x == 0) gc_per = CL ? rper : 1 << 30;\n",
+    "                unpack16(lds16(lane_s + r * ROW), w[u], T());":
+    "                unpack16(ldc16(mapa(lane_s + r * ROW, (unsigned)r / "
+    "gc_per)), w[u], T());",
+}
+# 32- and 16-byte slices (2 and 1 lanes a point) instead of 64-byte ones:
+# the staged and cluster routes' rows, points a warp and the route's slices
+_GRC_LANES = {
+    lanes: {"#define GS_ROW 64 ": f"#define GS_ROW {16 * lanes} ",
+            "#define GS_LPP 4 ": f"#define GS_LPP {lanes} ",
+            "#define GS_PPW 8 ": f"#define GS_PPW {32 // lanes} "}
+    for lanes in (2, 1)}
+# a timeline of each block (%globaltimer, ns, by thread 0): entry; its own
+# rows copied or their copies issued (after the block barrier); the whole
+# slice in (cluster: after its mbarrier); the NaN flags in; every warp's
+# points done (a block barrier added); the end (cluster: after the last
+# cluster barrier)
+_GRC_TIMELINE = {
+    "__device__ __forceinline__ void cluster_arrive() {":
+    """__device__ long long gc_tl[8192 * 8];
+__device__ __forceinline__ void gc_mark(int i) {
+    if (threadIdx.x == 0 && blockIdx.x < 8192) {
+        long long t;
+        asm volatile("mov.u64 %0, %%globaltimer;\\n" : "=l"(t) :: "memory");
+        gc_tl[blockIdx.x * 8 + i] = t;
+    }
+}
+extern "C" int gc_timeline(long long* out, int blocks) {
+    return (int)cudaMemcpyFromSymbol(out, gc_tl,
+                                     (size_t)blocks * 8 * sizeof(long long));
+}
+
+__device__ __forceinline__ void cluster_arrive() {""",
+    "    const int n0 = min(n, part * per), n1 = min(n, n0 + per);\n":
+    "    const int n0 = min(n, part * per), n1 = min(n, n0 + per);\n"
+    "    gc_mark(0);\n",
+    "    asm volatile(\"cp.async.wait_all;\\n\" ::: \"memory\");\n"
+    "    __syncthreads();\n":
+    "    asm volatile(\"cp.async.wait_all;\\n\" ::: \"memory\");\n"
+    "    __syncthreads();\n    gc_mark(1);\n",
+    "        wait_parity(bar, 0);   // the slice, own rows too, is in\n":
+    "        wait_parity(bar, 0);   // the slice, own rows too, is in\n"
+    "        gc_mark(2);\n",
+    "    spec = __syncthreads_or(spec);\n":
+    "    spec = __syncthreads_or(spec);\n    gc_mark(3);\n",
+    "        for (int i = 0; i < csize; ++i) spec |= flags[i] != 0;\n":
+    "        for (int i = 0; i < csize; ++i) spec |= flags[i] != 0;\n"
+    "        gc_mark(3);\n",
+    "    if (CL) cluster_wait();\n}":
+    "    __syncthreads();\n    gc_mark(4);\n    if (CL) cluster_wait();\n"
+    "    gc_mark(5);\n}",
+}
+GRC_PHASES = ("own_rows", "slice", "scan", "points", "end")
+# the inner loop's parts: the index rows made up (no loads from device
+# memory); the slice rows made up from the indices (no shared-memory reads
+# of the rows); the loads alone (each value folded in by one XOR)
+_GRC_ABLATIONS = {
+    "abl_no_fetch": {
+        "        v[i] = __ldg(idx + (cloud + p2) * (long long)kk + s);":
+        "        v[i] = (p2 * 131 + s * 17) & 1023;"},
+    "abl_no_rows": {
+        "                unpack16(lds16(lane_s + r * ROW), w[u], T());":
+        "                unpack16(make_uint4(r, r + 1, r + 2, r + 3), w[u], "
+        "T());"},
+}
+
+# the inner loop: 8 rows read before they are reduced; max and min by
+# compare and select on every slice (no FMNMX)
+_GRC_LOOP = {
+    "unroll_8": {"#define GS_UNROLL 4 ": "#define GS_UNROLL 8 "},
+    "no_fmnmx": {"                if (!SPECIAL && WANT < 2) {":
+                 "                if (false) {"},
+}
 
 
 def _gr_loads_only(var: str, indent: int) -> dict:
@@ -301,12 +483,11 @@ VARIANTS = {
         "simple_loads_adds_only": ("depthwise.cu",
                                    {**_SIMPLE_ONLY, **_NO_PRODUCTS}),
         "copy_x_to_y": ("depthwise.cu", {**_SIMPLE_ONLY, **_COPY}),
-        "gr": ("gather_reduce.cu", _GR_STAGED),
-        "gr_loads_only": ("gather_reduce.cu",
-                          {**_GR_STAGED, **_gr_loads_only("w", 16)}),
-        "gr_simple": ("gather_reduce.cu", _GR_SIMPLE),
+        "gr": ("gather_reduce.cu", {}),
+        "gr_loads_only": ("gather_reduce.cu", _gr_loads_only("w", 16)),
+        "gr_simple": ("gather_reduce.cu", {}),
         "gr_simple_loads_only": ("gather_reduce.cu",
-                                 {**_GR_SIMPLE, **_gr_loads_only("v", 20)}),
+                                 _gr_loads_only("v", 20)),
         "k3": ("scatter.cu", {}),
         "k3_dense_only": ("scatter.cu", _K3_DENSE_ONLY),
         "k3_routing_only": ("scatter.cu", _K3_ROUTING_ONLY),
@@ -329,24 +510,36 @@ VARIANTS = {
         "d_split_528": {SPLIT_TARGET: "#define DW_TARGET_BLOCKS 528"},
         "d_split_2112": {SPLIT_TARGET: "#define DW_TARGET_BLOCKS 2112"},
     }.items()},
-    "gr": {name: ("gather_reduce.cu", {**_GR_STAGED, **edits})
+    "gr": {name: ("gather_reduce.cu", edits)
            for name, edits in {
         "default": {},
         "warps_16": {"    return WANT == 0 || (WANT == 1 && sizeof(T) == 4) ? 32":
                      "    return 16;\n    return WANT == 0 || (WANT == 1 && "
                      "sizeof(T) == 4) ? 32"},
         # the comparisons that propagate NaN on every step
-        "nan_checks": {"        if (act && !far && !nan)\n":
-                       "        if (act && !far && !nan && false)\n"},
+        "nan_checks": {"        if (act && !far && !spec)\n":
+                       "        if (act && !far && !spec && false)\n"},
         "unroll_8": {"#define GS_UNROLL 4 ": "#define GS_UNROLL 8 "},
         # every slot reads row 0: shared-memory reads without conflicts
         "abl_one_row": {"            const int r = rs[u];\n":
                         "            const int r = 0 * rs[u];\n"},
     }.items()},
-    # the staged and the unstaged gather-reduce by batch size (clouds x slices
-    # against the SMs), f32 "extrema" and "all" at (B, 2048, 40, 64)
-    "grb": {"staged": ("gather_reduce.cu", _GR_STAGED),
-            "simple": ("gather_reduce.cu", _GR_SIMPLE)},
+    # the staged, the unstaged and the routed gather-reduce by batch size
+    # (clouds x slices against the SMs), f32 "extrema" and "all" at (B,
+    # 2048, 40, 64): one build, the routes forced
+    "grb": {"default": ("gather_reduce.cu", {})},
+    # the few-cloud route: the sharing schemes and the inner loop's steps
+    "grc": {"multicast": ("gather_reduce.cu", {}),
+            **{f"lanes_{lanes}": ("gather_reduce.cu", edits)
+               for lanes, edits in _GRC_LANES.items()},
+            "push": ("gather_reduce.cu", _GRC_PUSH),
+            "peers": ("gather_reduce.cu", _GRC_PEERS),
+            **{name: ("gather_reduce.cu", edits)
+               for name, edits in _GRC_LOOP.items()},
+            "abl_timeline": ("gather_reduce.cu", _GRC_TIMELINE),
+            "abl_loads_only": ("gather_reduce.cu", _gr_loads_only("w", 16)),
+            **{name: ("gather_reduce.cu", edits)
+               for name, edits in _GRC_ABLATIONS.items()}},
     "k3": {name: ("scatter.cu", edits) for name, edits in {
         "default": {},
         "warps_16": {"#define RS_WARPS(T) (sizeof(T) == 4 ? 24 : 20)":
@@ -466,6 +659,13 @@ extern "C" int gr_copy(const void* a, void* o, long long n16, int reps,
         (const uint4*)a, (uint4*)o, n16, reps, out16);
     return (int)cudaGetLastError();
 }
+
+extern "C" int gr_clusters(int b, int n, int c, int want, int bf16,
+                           int csize, int* fit) {
+    return (int)(bf16 ? clusters_want<__nv_bfloat16>(want, b, n, c, csize,
+                                                     fit)
+                      : clusters_want<float>(want, b, n, c, csize, fit));
+}
 """
 
 # the transpose once more, with an event between its launches
@@ -528,9 +728,9 @@ def _stream() -> ctypes.c_void_p:
 
 
 def build(variants: dict, out_dir: str) -> dict:
-    """{name: (source, edits)} -> {name: loaded library}; all nvcc runs
-    start together, after every edit has been applied. An edit whose text
-    is not in the source raises (before any nvcc starts)."""
+    """{name: (source, edits)} -> {name: built library's path}; all nvcc
+    runs start together, after every edit has been applied. An edit whose
+    text is not in the source raises (before any nvcc starts)."""
     nvcc = _build._nvcc()
     paths = {}
     for name, (source, edits) in variants.items():
@@ -551,13 +751,11 @@ def build(variants: dict, out_dir: str) -> dict:
             [nvcc, *_build.NVCC_FLAGS, "-I", CSRC, "-shared", "-o",
              os.path.join(out_dir, f"{name}.so"), path],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    libs = {}
     for name, proc in procs.items():
         _, err = proc.communicate(timeout=600)
         if proc.returncode != 0:
             raise _build.KernelBuildError(f"{name}: {err[-3000:]}")
-        libs[name] = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
-    return libs
+    return {name: os.path.join(out_dir, f"{name}.so") for name in procs}
 
 
 def time_depthwise(lib, inputs) -> dict:
@@ -676,47 +874,249 @@ def gr_batch_cases() -> list:
     return out
 
 
-def time_gr(lib, cases, check: bool, copy: bool = False) -> dict:
-    """Each case through the library's fseg_gather_reduce (checked equal to
-    the plain version where `check`), and, where `copy`, the copy of the
-    same bytes."""
-    from fissure_segmentation_tpu_torch.kernels.gather_reduce import (
-        WANTS, gather_reduce_plain)
-    lib.fseg_gather_reduce.argtypes = [VP] * 8 + [I32] * 6 + [VP]
+# the few-cloud part: (B, 2048, 40, 64) "extrema" in f32 and bf16, random
+# graphs; forced on the cluster route: one cluster a slice at each (lanes a
+# point, cluster size) of GRC_LPP x GRC_PARTS, and at 64-byte slices
+# GRC_CLUSTERS clusters a slice of GRC_PARTS_Q blocks each (16 at most)
+GRC_BATCHES = (1, 2, 3, 5, 7, 9, 13, 14)
+GRC_GRID = ("multicast", "lanes_2", "lanes_1")   # the builds with a grid
+GRC_STAGED_PARTS = (1, 2, 3, 4, 5, 6, 8, 12, 16)
+GRC_PARTS = (2, 3, 4, 5, 6, 7, 8, 10, 12, 14, 16)
+GRC_CLUSTERS = (2, 3, 4)
+GRC_PARTS_Q = (2, 3, 4, 5, 6, 8)
+
+
+def grc_cases() -> list:
+    """(tag, a, idx, "extrema") at (B, 2048, 40, 64) for GRC_BATCHES, f32 and
+    bf16, and DPSR-Net's test ensembles (5 and 1 clouds of 1024, K = 20,
+    f32)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = []
+    shapes = [(b, *STEP[1:], dt) for b in GRC_BATCHES
+              for dt in ("float32", "bfloat16")]
+    shapes += [(5, 1024, 20, 64, "float32"), (1, 1024, 20, 64, "float32")]
+    for b, n, k, c, dt in shapes:
+        idx = torch.randint(0, n, (b, n, k), generator=gen, device=dev,
+                            dtype=torch.int32)
+        a = torch.randn((b, n, c), generator=gen, device=dev)
+        out.append((f"{b}x{n}x{k}x{c}_{dt}_extrema", a.to(getattr(torch, dt)),
+                    idx, "extrema"))
+    return out
+
+
+def _staged_parts(groups: int, sms: int, n: int) -> int:
+    """csrc/gather_reduce.cu staged_parts: the staged route's split."""
+    best, cost = 1, float("inf")
+    for p in range(1, min((n + 127) // 128, 64) + 1):
+        t = -(-groups * p // sms) * (1.0 + 40.0 / p)
+        if t < cost - 1e-9:
+            best, cost = p, t
+    return best
+
+
+def _route(lib, a, k, want, force):
+    """(route, parts, cluster) of a call: the library's model, or `force`
+    (ROUTE_UNSTAGED, ROUTE_STAGED or a tuple)."""
+    from fissure_segmentation_tpu_torch.kernels.gather_reduce import WANTS
+    b, n, c = a.shape
+    bf16 = int(a.dtype == torch.bfloat16)
+    if force == ROUTE_UNSTAGED:
+        return 0, 0, 0
+    if force == ROUTE_STAGED:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        return 1, _staged_parts(b * -(-c // (64 // a.element_size())), sms,
+                                n), 1
+    if force is not None:
+        return force
+    out = (ctypes.c_int * 3)()
+    err = lib.fseg_gather_reduce_route(b, n, k, c, WANTS.index(want), bf16,
+                                       out)
+    if err != 0:
+        raise RuntimeError(f"route query failed: cudaError_t {err}")
+    return tuple(out)
+
+
+def _gr_call(lib, a, idx, want, force=None):
+    """(fn, outputs, route) of one gather-reduce call through the library."""
+    from fissure_segmentation_tpu_torch.kernels.gather_reduce import WANTS
+    lib.fseg_gather_reduce.argtypes = [VP] * 8 + [I32] * 9 + [VP]
+    lib.fseg_gather_reduce_route.argtypes = [I32] * 6 + [
+        ctypes.POINTER(I32)]
+    b, n, c = a.shape
+    k = idx.shape[-1]
+    mode = WANTS.index(want)
+    outs = [torch.empty_like(a)] + [torch.empty_like(a)] * (mode >= 1)
+    if mode == 2:
+        outs += [torch.empty((b, n, c), dtype=torch.int32,
+                             device=a.device) for _ in range(2)]
+        outs += [torch.empty((b, n, c), device=a.device) for _ in range(2)]
+    ptrs = [t.data_ptr() for t in outs] + [None] * (6 - len(outs))
+    r = _route(lib, a, k, want, force)
+    bf16 = int(a.dtype == torch.bfloat16)
+
+    def fn():
+        return lib.fseg_gather_reduce(a.data_ptr(), idx.data_ptr(), *ptrs, b,
+                                      n, k, c, mode, bf16, *r, _stream())
+    return fn, outs, r
+
+
+def _equal_plain(outs, a, idx, want, plain=None) -> bool:
+    from fissure_segmentation_tpu_torch.kernels.gather_reduce import \
+        gather_reduce_plain
+    torch.cuda.synchronize()
+    ref = plain if plain is not None else gather_reduce_plain(a, idx, want)
+    return all(torch.equal(x, y) for x, y in zip(outs, ref))
+
+
+def time_gr(lib, cases, check: bool, copy: bool = False,
+            force=None) -> dict:
+    """Each case through the library's fseg_gather_reduce on the model's
+    route or `force`d onto one (checked equal to the plain version where
+    `check`), and, where `copy`, the copy of the same bytes."""
     lib.gr_copy.argtypes = [VP, VP, I64, I32, I64, VP]
     row = {}
     for tag, a, idx, want in cases:
-        b, n, c = a.shape
-        k = idx.shape[-1]
-        mode = WANTS.index(want)
-        outs = [torch.empty_like(a)] + [torch.empty_like(a)] * (mode >= 1)
-        if mode == 2:
-            outs += [torch.empty((b, n, c), dtype=torch.int32,
-                                 device=a.device) for _ in range(2)]
-            outs += [torch.empty((b, n, c), device=a.device)
-                     for _ in range(2)]
-        ptrs = [t.data_ptr() for t in outs] + [None] * (6 - len(outs))
-
-        def fn():
-            return lib.fseg_gather_reduce(
-                a.data_ptr(), idx.data_ptr(), *ptrs, b, n, k, c, mode,
-                int(a.dtype == torch.bfloat16), _stream())
-
+        fn, outs, _ = _gr_call(lib, a, idx, want, force)
         if fn() != 0:
             raise RuntimeError(f"{tag}: launch failed")
-        torch.cuda.synchronize()
-        if check and not all(torch.equal(x, y) for x, y in zip(
-                outs, gather_reduce_plain(a, idx, want))):
+        if check and not _equal_plain(outs, a, idx, want):
             raise AssertionError(f"gather_reduce {tag}: differs from plain")
         row[tag] = median_ms(fn)
         if not copy:
             continue
+        k = idx.shape[-1]
         out_bytes = sum(t.numel() * t.element_size() for t in outs)
         sink = torch.empty(out_bytes // 16 * 16, dtype=torch.uint8,
                            device=a.device)
         row[f"{tag}_copy"] = median_ms(lambda: lib.gr_copy(
             a.data_ptr(), sink.data_ptr(), a.numel() * a.element_size() // 16,
             k, out_bytes // 16, _stream()))
+    return row
+
+
+def time_grb(lib) -> dict:
+    """The batch sweep: each case on the staged route (the uncapped split),
+    the unstaged kernel and the model's route, each equal to plain."""
+    cases = gr_batch_cases()
+    return {name: time_gr(lib, cases, True, force=force)
+            for name, force in (("staged", ROUTE_STAGED),
+                                ("unstaged", ROUTE_UNSTAGED),
+                                ("routed", None))}
+
+
+def _sm_clock_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def _timeline(lib, fn, blocks: int) -> dict:
+    """One call of the abl_timeline build: each phase's end (GRC_PHASES)
+    after the kernel's first block entered, us: the median and the last
+    block; and the last block's entry."""
+    lib.gc_timeline.argtypes = [VP, I32]
+    fn()
+    torch.cuda.synchronize()
+    t = torch.empty((blocks, 8), dtype=torch.int64)
+    if lib.gc_timeline(t.data_ptr(), blocks) != 0:
+        raise RuntimeError("timeline copy failed")
+    t = (t - t[:, 0].min()).double() / 1e3
+    out = {"entry_last": t[:, 0].max().item()}
+    for i, name in enumerate(GRC_PHASES, 1):
+        if name == "slice" and not bool((t[:, 2] > 0).any()):
+            continue   # no cluster: no exchange
+        out[f"{name}_median"] = t[:, i].median().item()
+        out[f"{name}_last"] = t[:, i].max().item()
+    return out
+
+
+def _grid_key(tag: str, r) -> str:
+    if r[0] == 1:
+        return f"{tag}_staged_p{r[1]}"
+    return f"{tag}_p{r[2]}_q{r[1] // r[2]}"
+
+
+def _clusters(lib, a, want) -> dict:
+    """{cluster size: clusters of it that fit on the card at once} for the
+    cluster route's kernel at a's shape (the model's waves)."""
+    from fissure_segmentation_tpu_torch.kernels.gather_reduce import WANTS
+    lib.gr_clusters.argtypes = [I32] * 6 + [ctypes.POINTER(I32)]
+    b, n, c = a.shape
+    out, fit = {}, I32()
+    for p in range(2, 17):
+        err = lib.gr_clusters(b, n, c, WANTS.index(want),
+                              int(a.dtype == torch.bfloat16), p,
+                              ctypes.byref(fit))
+        out[p] = fit.value if err == 0 else f"cudaError_t {err}"
+    return out
+
+
+def time_grc(lib, cases, grid: bool, check: bool = True,
+             timeline: bool = False) -> dict:
+    """The few-cloud calls on the card alone (`graph_ms`): on the model's
+    route (its (route, parts, cluster) recorded, and its issue slots a
+    lane-value: ms x the SM clock x 4 schedulers x 32 lanes x the SMs /
+    B N K C, at the card's top SM clock), on the unstaged kernel and on the
+    staged kernel forced to each of GRC_STAGED_PARTS blocks a slice (keyed
+    "_staged_p{parts}"), with the clusters of each size that fit on the card
+    ("_fit"); where `grid`, at every forced cluster shape of GRC_PARTS (one
+    cluster a slice) and of GRC_CLUSTERS x GRC_PARTS_Q whose clusters fit
+    on the card, each keyed "_p{cluster}_q{clusters a slice}"; every
+    route's outputs equal to plain where `check`; where `timeline`, the
+    model's route's block timeline instead (`_timeline`). A build whose
+    route query fails records the error."""
+    from fissure_segmentation_tpu_torch.kernels.gather_reduce import \
+        gather_reduce_plain
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = _sm_clock_mhz()
+    row = {"sm_clock_mhz": mhz}
+    for tag, a, idx, want in cases:
+        plain = gather_reduce_plain(a, idx, want) if check else None
+        forces = [None]
+        if not timeline:
+            row[f"{tag}_fit"] = _clusters(lib, a, want)
+            forces += [ROUTE_UNSTAGED] + [(1, p, 1)
+                                          for p in GRC_STAGED_PARTS]
+        if grid:
+            forces += [(2, p, p) for p in GRC_PARTS]
+            forces += [(2, q * p, p) for q in GRC_CLUSTERS
+                       for p in GRC_PARTS_Q if q * p <= 16]
+        for force in forces:
+            try:
+                fn, outs, r = _gr_call(lib, a, idx, want, force)
+            except RuntimeError as exc:
+                row[f"{tag}_route"] = str(exc)
+                break
+            err = fn()
+            if err != 0 and force not in (None, ROUTE_UNSTAGED):
+                row[_grid_key(tag, r)] = f"cudaError_t {err}"
+                continue
+            if err != 0:
+                raise RuntimeError(f"{tag} {r}: launch failed: {err}")
+            if check and not _equal_plain(outs, a, idx, want, plain):
+                raise AssertionError(f"gather_reduce {tag} {r}: differs "
+                                     "from plain")
+            b, n, c = a.shape
+            if timeline:
+                row[f"{tag}_route"] = list(r)
+                row[f"{tag}_timeline"] = _timeline(
+                    lib, fn, b * -(-c // (64 // a.element_size()))
+                    * max(r[1], 1))
+                continue
+            ms = graph_ms(fn)
+            if force is None:
+                row[f"{tag}_route"] = list(r)
+                row[tag] = ms
+                row[f"{tag}_slots_a_lane_value"] = (
+                    ms * 1e-3 * mhz * 1e6 * 4 * 32 * sms
+                    / (b * n * idx.shape[-1] * c))
+            elif force == ROUTE_UNSTAGED:
+                row[f"{tag}_unstaged"] = ms
+            else:
+                row[_grid_key(tag, r)] = ms
     return row
 
 
@@ -978,24 +1378,48 @@ def time_st(lib, cases, check: bool) -> dict:
     return row
 
 
+def _one(full: str, out_dir: str, grid: bool) -> dict:
+    """Time one built variant (`full`: part_name) in a child process of
+    this script (--one); its result line."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--one", full,
+           "--build", out_dir] + ([] if grid else ["--no_grid"])
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=1800)
+    for line in res.stdout.splitlines():
+        if line.startswith(full + " "):
+            return json.loads(line.split(" ", 1)[1])
+    raise RuntimeError(f"{full}: rc {res.returncode}\n{res.stderr[-3000:]}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parts",
-                    default="split,dw,tr,gr,grb,k3,k4,sel,bins,st")
+                    default="split,dw,tr,gr,grb,grc,k3,k4,sel,bins,st")
     ap.add_argument("--build", default=None)
+    ap.add_argument("--no_grid", action="store_true",
+                    help="grc: the model's route alone, no forced grid")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated variant names to build and time")
+    ap.add_argument("--one", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("design_sweep runs only on an NVIDIA card")
     parts = args.parts.split(",")
+    grid_grc = not args.no_grid
     out_dir = args.build or tempfile.mkdtemp()
     os.makedirs(out_dir, exist_ok=True)
+    only = args.only.split(",") if args.only else None
     todo = {f"{part}_{name}": variant for part in parts
-            for name, variant in VARIANTS[part].items()}
-    libs = build(todo, out_dir)
+            for name, variant in VARIANTS[part].items()
+            if only is None or name in only}
+    if args.one:   # a gather-reduce build of the parent's, alone
+        parts = [args.one.split("_", 1)[0]]
+        paths = {args.one: os.path.join(out_dir, f"{args.one}.so")}
+    else:
+        paths = build(todo, out_dir)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     inputs = []
-    if {"split", "dw"} & set(parts):
+    if {"split", "dw"} & set(parts) and not args.one:
         for tag, shape, dt in DW_SHAPES:
             x = torch.randn(shape, generator=gen, device=dev).to(dt)
             w = torch.randn((3, 3, 3, shape[-1]), generator=gen,
@@ -1006,13 +1430,22 @@ def main() -> None:
                         dtype=torch.int32)
     grs = gr_cases(knn_cuda) if {"split", "gr"} & set(parts) else []
     k4s = k4_cases() if "k4" in parts else []
+    grcs = grc_cases() if "grc" in parts else []
     sels = sel_cases() if "sel" in parts else []
     bins = bins_cases() if "bins" in parts else []
     sts = st_cases() if "st" in parts else []
     res = {part: {} for part in parts}
-    for full, lib in libs.items():
+    for full, path in paths.items():
         part, name = full.split("_", 1)
         source = VARIANTS[part][name][0]
+        if source == "gather_reduce.cu" and not args.one:
+            # each build of the gather-reduce in a process of its own: in
+            # one process a second such library's cluster queries fail
+            # (cudaErrorInvalidClusterSize, 912)
+            res[part][name] = _one(full, out_dir, grid_grc)
+            print(full, json.dumps(res[part][name]), flush=True)
+            continue
+        lib = ctypes.CDLL(path)
         # the split's ablations and the abl_ variants compute something
         # else: not checked
         whole = (part != "split" or name in ("gr", "gr_simple", "k3",
@@ -1029,10 +1462,16 @@ def main() -> None:
         elif part == "k4":
             res[part][name] = time_k4(lib, k4s, whole)
         elif part == "grb":
-            res[part][name] = time_gr(lib, gr_batch_cases(), True)
+            res[part][name] = time_grb(lib)
+        elif part == "grc":
+            res[part][name] = time_grc(
+                lib, grcs, name in GRC_GRID and grid_grc,
+                check=not name.startswith("abl_"),
+                timeline=name == "abl_timeline")
         elif source == "gather_reduce.cu":
-            res[part][name] = time_gr(lib, grs, whole,
-                                      copy=part == "split" and name == "gr")
+            res[part][name] = time_gr(
+                lib, grs, whole, copy=part == "split" and name == "gr",
+                force=ROUTE_UNSTAGED if name.startswith("gr_simple") else None)
         elif source == "scatter.cu":
             res[part][name] = time_k3(lib, idx, whole)
         else:   # the ablations compute something else: not checked
@@ -1040,7 +1479,7 @@ def main() -> None:
             res[part][name] = time_depthwise(
                 lib, [(*inp, check) for inp in inputs])
         print(full, json.dumps(res[part][name]), flush=True)
-    if "split" in parts:
+    if "split" in parts and not args.one:
         res["split"]["K2"] = split_k2(idx, n, c)
     print(json.dumps(res), flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -7,7 +7,7 @@ so that two commits can be compared in one call on one card. Run it with
 the checkout's root:
 
     python fissure_segmentation_tpu_torch/prof/kernel_ab.py ROOT [--tag NAME]
-        [--stream_only]
+        [--stream_only | --gr_only]
 
 The script imports the kernels from ROOT, not from its own location, and
 times both roots with its own copy's prof/timing.py, so one copy times any
@@ -23,11 +23,18 @@ K6 and the gather-reduce are checked bit-equal to their plain versions
 first, K2 and K3 within their rounding bound of plain. K2 and K3 are timed
 as the wrapper runs them, building their own transpose, and K3 also given
 the train step's shared transpose (f32 and bf16 payloads), and the
-transpose alone. The gather-reduce is timed at its path calls: the train
-step's "all" in f32 and bf16 and P5's bf16 "max" at (32, 2048, 40, 64),
-the served ensemble group's f32 "extrema" at (5, 2048, 40, 64), each on
-K1's graph. K4 is timed as its histogram at the train step's (32, 81 920)
-to 2048 rows and at P1's 512 rows (idx mod 512), and as the fused
+transpose alone. The gather-reduce is timed at its path calls, each on
+K1's graph: the train step's "all" in f32 and bf16 and P5's bf16 "max" at
+(32, 2048, 40, 64); the few-cloud "extrema" calls: the served ensemble
+group's f32 and the default run's test ensemble's bf16 at (5, 2048, 40,
+64), the sharded ensemble's 3 clouds, DPSR-Net's test ensemble at (5,
+1024, 20, 64) and (1, 1024, 20, 64) f32; each by `graph_ms` (the card
+alone), by `median_ms` ("_host_included"), by the host's ms a call
+back to back ("_host_ms") and by the same with the library's entry
+launching nothing ("_host_ms_no_launch": the wrapper's own host time);
+`--gr_only` times these alone. K4 is timed as its histogram at the
+train step's (32, 81 920) to 2048 rows and at P1's 512 rows (idx mod
+512), and as the fused
 backward calls it: given the step's transpose where the checkout's
 `scatter_count` takes one (`transposed`), else the histogram; each result
 equal to plain, each timed by `graph_ms` (its work on the card: K4's
@@ -97,11 +104,20 @@ DW_SHAPES = (("b0_1x128x128x128x32", (1, 128, 128, 128, 32), "float32"),
              ("bf16_1x128x128x128x192", (1, 128, 128, 128, 192), "bfloat16"))
 # the DGCNN train step's scatters: B, N, k, C
 STEP = (32, 2048, 40, 64)
-# the gather-reduce's path calls: (name, B, dtype, want), N, k, C of STEP
-GR_CALLS = (("all_32x2048x40x64_float32", 32, "float32", "all"),
-            ("all_32x2048x40x64_bfloat16", 32, "bfloat16", "all"),
-            ("max_32x2048x40x64_bfloat16", 32, "bfloat16", "max"),
-            ("extrema_5x2048x40x64_float32", 5, "float32", "extrema"))
+# the gather-reduce's path calls: (name, (B, N, k, C), dtype, want)
+GR_CALLS = (("all_32x2048x40x64_float32", STEP, "float32", "all"),
+            ("all_32x2048x40x64_bfloat16", STEP, "bfloat16", "all"),
+            ("max_32x2048x40x64_bfloat16", STEP, "bfloat16", "max"),
+            ("extrema_5x2048x40x64_float32", (5, 2048, 40, 64), "float32",
+             "extrema"),
+            ("extrema_5x2048x40x64_bfloat16", (5, 2048, 40, 64), "bfloat16",
+             "extrema"),
+            ("extrema_3x2048x40x64_float32", (3, 2048, 40, 64), "float32",
+             "extrema"),
+            ("extrema_5x1024x20x64_float32", (5, 1024, 20, 64), "float32",
+             "extrema"),
+            ("extrema_1x1024x20x64_float32", (1, 1024, 20, 64), "float32",
+             "extrema"))
 
 
 def _timing():
@@ -231,6 +247,67 @@ def _host_ms(fn, calls: int = 50) -> float:
     return (t1 - t0) / calls * 1e3
 
 
+def _gather_reduce(gather_reduce, knn, gen, graph_ms, median_ms) -> dict:
+    """The checkout's gather-reduce at GR_CALLS on K1's graphs, each equal
+    to its plain version first; the card alone (`graph_ms`), the wrapper
+    back to back ("_host_included"), the host's ms a call ("_host_ms") and
+    the same with no launch ("_host_ms_no_launch", `_no_launch`)."""
+    out, graphs = {}, {}
+    for name, (bb, n, k, c), dt, want in GR_CALLS:
+        if (bb, n, k) not in graphs:
+            graphs[bb, n, k] = knn.knn_cuda(
+                (torch.rand((bb, n, 3), generator=gen) * 2 - 1).cuda(),
+                k)[0].contiguous()
+        a = torch.randn((bb, n, c), generator=gen).to("cuda",
+                                                      getattr(torch, dt))
+        gi = graphs[bb, n, k]
+        got = gather_reduce.gather_reduce(a, gi, want)
+        ref = gather_reduce.gather_reduce_plain(a, gi, want)
+        if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+            raise AssertionError(f"gather_reduce {name}: kernel differs "
+                                 "from plain")
+
+        def fn(a=a, gi=gi, want=want):
+            return gather_reduce.gather_reduce(a, gi, want)
+        out[name] = graph_ms(fn)
+        out[f"{name}_host_included"] = median_ms(fn)
+        out[f"{name}_host_ms"] = _host_ms(fn)
+        with _no_launch(gather_reduce):
+            out[f"{name}_host_ms_no_launch"] = _host_ms(fn)
+    return out
+
+
+class _Stub:
+    """A kernel library whose gather-reduce entry launches nothing."""
+
+    @staticmethod
+    def fseg_gather_reduce(*args):
+        return 0
+
+
+class _no_launch:
+    """Within: the checkout's gather-reduce wrapper calls `_Stub` instead of
+    its library (its checks, allocations and bookkeeping alone: the host's
+    share of a call without the card's work)."""
+
+    def __init__(self, mod):
+        import importlib
+        self.mod = mod
+        self.build = importlib.import_module(
+            mod.__name__.rsplit(".", 1)[0] + "._build")
+
+    def __enter__(self):
+        self.load, self.lib = self.build.load, getattr(self.mod, "_lib", None)
+        self.build.load = lambda: _Stub
+        if hasattr(self.mod, "_lib"):
+            self.mod._lib = _Stub
+
+    def __exit__(self, *exc):
+        self.build.load = self.load
+        if hasattr(self.mod, "_lib"):
+            self.mod._lib = self.lib
+
+
 def _stream_sums(stream, probes, g, median_ms, graph_ms) -> dict:
     """The checkout's stream_sum at P1's (2 621 440, 64) bf16 view and on
     its float32 copy, stream_sum_async at P3's (1 310 720, 128) view over
@@ -299,6 +376,8 @@ def main() -> None:
     ap.add_argument("--tag", default="")
     ap.add_argument("--stream_only", action="store_true",
                     help="time the streaming column sums alone")
+    ap.add_argument("--gr_only", action="store_true",
+                    help="time the gather-reduce's path calls alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_ab runs only on an NVIDIA card")
@@ -321,8 +400,15 @@ def main() -> None:
         print(_card(), flush=True)
         return
     gen = torch.Generator().manual_seed(0)
+    if args.gr_only:
+        out = {"root": root, "tag": args.tag,
+               "gather_reduce": _gather_reduce(gather_reduce, knn, gen,
+                                               graph_ms, median_ms)}
+        print(json.dumps(out), flush=True)
+        print(_card(), flush=True)
+        return
     out = {"root": root, "tag": args.tag, "knn": {}, "fps": {},
-           "depthwise": {}, "scatter": {}, "gather_reduce": {}}
+           "depthwise": {}, "scatter": {}}
     for name, shape, k, self_loop in KNN_SHAPES:
         x = (torch.rand(shape, generator=gen) * 2 - 1).cuda()
         i_k, d_k = knn.knn_cuda(x, k, self_loop)
@@ -408,23 +494,8 @@ def main() -> None:
     out["scatter"]["K4_fused_backward_from"] = ("transpose" if from_ptr
                                                 else "histogram")
     del tr
-    graphs = {}
-    for name, bb, dt, want in GR_CALLS:
-        if bb not in graphs:
-            graphs[bb] = knn.knn_cuda(
-                (torch.rand((bb, n, 3), generator=gen) * 2 - 1).cuda(),
-                k)[0].contiguous()
-        a = torch.randn((bb, n, c), generator=gen).to("cuda",
-                                                      getattr(torch, dt))
-        gi = graphs[bb]
-        got = gather_reduce.gather_reduce(a, gi, want)
-        ref = gather_reduce.gather_reduce_plain(a, gi, want)
-        if not all(torch.equal(x, y) for x, y in zip(got, ref)):
-            raise AssertionError(f"gather_reduce {name}: kernel differs "
-                                 "from plain")
-        out["gather_reduce"][name] = median_ms(
-            lambda: gather_reduce.gather_reduce(a, gi, want))
-    del a, gi, graphs
+    out["gather_reduce"] = _gather_reduce(gather_reduce, knn, gen, graph_ms,
+                                          median_ms)
     torch.cuda.empty_cache()
     out["depthwise_backward"] = _depthwise_backward(depthwise, gen,
                                                     median_ms)

@@ -80,7 +80,7 @@ def staged_case(vol, mask, apply, seed, kp_mode="foerstner", cnn=None):
         kpts, valid, _ = _keypoints(kp_vol, mask, gen, kp_mode=kp_mode,
                                     max_kpts=20000, cnn_model=None,
                                     cnn_dtype=None, kp_scores=None,
-                                    **ENHANCEMENT)
+                                    approx_top_k=False, **ENHANCEMENT)
         coords = torch.where(valid[:, None],
                              kpts_to_grid(kpts.flip(-1).float(), vol.shape),
                              -1.0)

@@ -32,8 +32,9 @@ from fissure_segmentation_tpu_torch.kernels import scatter as ks
 from fissure_segmentation_tpu_torch.kernels.depthwise import (
     depthwise_conv3_cuda, depthwise_conv3_plain)
 from fissure_segmentation_tpu_torch.kernels.fps import fps_cuda, fps_plain
+from fissure_segmentation_tpu_torch.kernels import gather_reduce as gr_mod
 from fissure_segmentation_tpu_torch.kernels.gather_reduce import (
-    STAGED_MAX_N, call_key, gather_reduce, gather_reduce_plain, staged_parts)
+    STAGED_MAX_N, call_key, gather_reduce, gather_reduce_plain, route)
 from fissure_segmentation_tpu_torch.kernels.knn import knn_cuda, knn_plain
 from fissure_segmentation_tpu_torch.kernels.stream import (
     MAX_RING, depth, exact_payload, grid_blocks, replay, rounding_bound,
@@ -813,22 +814,100 @@ GR_CASES = [
 ]
 
 GR_PATH_CASES = [
-    # (B, N, K, C, staged in f32, staged in bf16) on an H100 (132 SMs): the
+    # (B, N, K, C, route in f32, route in bf16) on an H100 (132 SMs): the
     # train step; the served ensemble group (5 clouds x 4 slices, too few
-    # for the SMs: the unstaged kernel); C off the staged slice (16 float32 or
-    # 32 bfloat16 channels) and off 16-byte vectors; points split among
+    # for the SMs: the cluster route); C off the staged slice (16 float32
+    # or 32 bfloat16 channels) and off 16-byte vectors; points split among
     # blocks; N where the slice just fits in shared memory and just does
-    # not (the unstaged kernel)
-    (32, 2048, 40, 64, True, True),
-    (5, 2048, 40, 64, False, False),
-    (17, 500, 40, 33, True, True),
-    (17, 500, 40, 36, True, True),
-    (17, 500, 40, 40, True, True),
-    (12, 500, 40, 200, True, True),
-    (11, 2048, 40, 64, True, False),
-    (16, STAGED_MAX_N, 24, 64, True, True),
-    (16, STAGED_MAX_N + 1, 24, 64, False, False),
+    # not (the unstaged kernel); the few-cloud calls: DPSR-Net's test
+    # ensemble (1 and 5 clouds of 1024 and 20 slots, short enough that the
+    # staged kernel split past 4 blocks a slice beats the cluster route's
+    # fixed cost), the sharded ensemble's 3 clouds, and 7, 9, 13 clouds
+    # (the staged split's model is not monotone in B)
+    (32, 2048, 40, 64, "staged", "staged"),
+    (5, 2048, 40, 64, "cluster", "cluster"),
+    (17, 500, 40, 33, "staged", "staged"),
+    (17, 500, 40, 36, "staged", "staged"),
+    (17, 500, 40, 40, "staged", "staged"),
+    (12, 500, 40, 200, "staged", "staged"),
+    (11, 2048, 40, 64, "staged", "cluster"),
+    (16, STAGED_MAX_N, 24, 64, "staged", "staged"),
+    (16, STAGED_MAX_N + 1, 24, 64, "unstaged", "unstaged"),
+    (1, 1024, 20, 64, "staged", "staged"),
+    (3, 2048, 40, 64, "cluster", "cluster"),
+    (5, 1024, 20, 64, "staged", "staged"),
+    (7, 2048, 40, 64, "cluster", "cluster"),
+    (9, 2048, 40, 64, "cluster", "cluster"),
+    (13, 2048, 40, 64, "cluster", "cluster"),
 ]
+
+
+def _few_cloud_case(name, b, seed):
+    """(a, idx) of a few-cloud case, f32: N = 2048, K = 40, C = 64 unless
+    the case names another; NaNs, signed zeros, out-of-range indices and
+    k-ties where the case says. "nan_one_rank" and "zero_one_rank" keep the
+    table clean but for one NaN, or one row of -0.0 tied with a row of
+    +0.0, in the last rows of cloud 0, which only the last block of a
+    cluster copies and scans, and which points all over the cloud read (so
+    every block must take its peers' flags)."""
+    n, k, c = 2048, 40, 64
+    if name.startswith("c"):
+        c = int(name[1:])
+    elif name == "k70":
+        k = 70
+    elif name == "n3200":
+        n = STAGED_MAX_N
+    g = torch.Generator().manual_seed(seed)
+    if name == "lattice_ties":
+        a = torch.randint(0, 3, (b, n, c), generator=g).float()
+    elif name == "signed_zeros":   # zeros of both signs, ties among them
+        a = torch.randint(-1, 2, (b, n, c), generator=g).float() * 0.0
+        a[:, ::3] = torch.randint(-2, 3, (b, (n + 2) // 3, c),
+                                  generator=g).float()
+    else:
+        a = torch.randn((b, n, c), generator=g)
+    if name == "zero_one_rank":
+        # channel 0 below zero, channel 1 above it: the zeros are the
+        # max of channel 0 and the min of channel 1
+        a[..., 0] = -(a[..., 0].abs() + 0.1)
+        a[..., 1] = a[..., 1].abs() + 0.1
+        a[0, n - 1, :2] = -0.0
+        a[0, n - 2, :2] = 0.0
+    if name == "nan_one_rank":
+        a[0, n - 1, 0] = float("nan")
+    if name == "nans":
+        a[torch.rand((b, n, c), generator=g) < 0.01] = float("nan")
+        a[0, 7] = float("nan")                 # a whole row
+    idx = torch.randint(0, n, (b, n, k), generator=g, dtype=torch.int32)
+    if name == "out_of_range":
+        idx[:, ::7, 0] = -1                    # wraps to the last row
+        idx[:, 3::11, 5] = n + 17              # clamps
+        idx[-1, :, 9] = -5000 * n              # clamps to row 0
+    if name == "nan_one_rank":
+        idx[0, ::3, 3] = n - 1
+    if name == "zero_one_rank":                # either zero seen first
+        idx[0, ::3, 2], idx[0, ::3, 5] = n - 1, n - 2
+        idx[0, 1::3, 2], idx[0, 1::3, 5] = n - 2, n - 1
+    return a, idx
+
+
+def _bits_equal(x, y) -> bool:
+    """Equal in every bit, -0.0 and +0.0 told apart; a NaN matches a NaN
+    (torch.equal holds no NaN equal, and the card's float -> bfloat16 cast
+    and the CPU's give NaNs other payloads)."""
+    if x.dtype != y.dtype or x.shape != y.shape:
+        return False
+    if not x.is_floating_point():
+        return torch.equal(x, y)
+    nx, ny = x.isnan(), y.isnan()
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[x.dtype]
+    return torch.equal(nx, ny) and torch.equal(x.view(bits)[~nx],
+                                               y.view(bits)[~ny])
+
+
+GR_FEW_CLOUD_CASES = ["lattice_ties", "nans", "signed_zeros",
+                      "nan_one_rank", "zero_one_rank", "out_of_range", "c33",
+                      "c36", "c200", "c256", "k70", "n3200"]
 
 
 @pytest.mark.parametrize("b,n,k,c", GR_CASES)
@@ -855,26 +934,65 @@ def test_gather_reduce_kernel_equals_plain(cuda, b, n, k, c, dtype, want):
         assert x.dtype == y.dtype and torch.equal(x, y)
 
 
-@pytest.mark.parametrize("b,n,k,c,f32_staged,bf16_staged", GR_PATH_CASES)
+@pytest.mark.parametrize("b,n,k,c,f32_route,bf16_route", GR_PATH_CASES)
 @pytest.mark.parametrize("want", ["max", "extrema", "all"])
-def test_gather_reduce_kernel_paths(cuda, b, n, k, c, f32_staged,
-                                    bf16_staged, want):
-    """Both kernels bit-equal to plain where the shape sends the call, and
-    on an H100 the shape sends it where the batch sweep found it faster."""
+def test_gather_reduce_kernel_paths(cuda, b, n, k, c, f32_route,
+                                    bf16_route, want):
+    """Every route bit-equal to plain where the shape sends the call, and
+    on an H100 the shape sends it where the batch sweeps found it faster."""
     g = torch.Generator().manual_seed(b * n + k + c)
     base = torch.randn((b, n, c), generator=g)
     idx = torch.randint(0, n, (b, n, k), generator=g, dtype=torch.int32)
     idx[0, 0, 0], idx[-1, -1, -1] = -1, n + 5
     idx = idx.to(cuda)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    for dtype, staged in ((torch.float32, f32_staged),
-                          (torch.bfloat16, bf16_staged)):
+    for dtype, kind in ((torch.float32, f32_route),
+                        (torch.bfloat16, bf16_route)):
         if sms == 132:
-            assert (staged_parts(b, n, c, dtype) > 0) == staged
+            assert route(b, n, k, c, dtype, want).kind == kind
         a = base.to(cuda, dtype)
         got = gather_reduce(a, idx, want)
         for x, y in zip(got, gather_reduce_plain(a, idx, want)):
             assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.mark.parametrize("name", GR_FEW_CLOUD_CASES)
+@pytest.mark.parametrize("b", [5, 1])
+def test_gather_reduce_few_clouds_equal_plain(cuda, name, b):
+    """The few-cloud route's hard cases, every want and dtype: every output
+    equal to plain in every bit, NaNs aside (`_bits_equal`): the first NaN
+    wins, the first slot of a tied extremum, the first zero seen of two
+    signs, rows the flat-row clamp sends into another cloud, C off the
+    slice and off 16-byte rows, K above 16 slots, N = GS_MAX_N."""
+    a, idx = _few_cloud_case(name, b, seed=b * 100 + len(name))
+    idx = idx.to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = a.to(cuda, dtype)
+        for want in ("max", "extrema", "all"):
+            got = gather_reduce(x, idx, want)
+            ref = gather_reduce_plain(x, idx, want)
+            assert len(got) == len(ref)
+            for u, v in zip(got, ref):
+                assert _bits_equal(u, v), (
+                    name, dtype, want,
+                    route(*x.shape[:2], idx.shape[-1], x.shape[2], dtype,
+                          want))
+
+
+def test_gather_reduce_refused_cluster_launch_raises(cuda, monkeypatch):
+    """A cluster launch the card refuses (here 17 blocks, above the 16 the
+    source allows) raises through the wrapper's cudaError_t check and
+    counts nothing: no other kernel runs instead."""
+    a = torch.randn((5, 2048, 64), device=cuda)
+    idx = torch.randint(0, 2048, (5, 2048, 40), device=cuda,
+                        dtype=torch.int32)
+    shape = (a.device.index, 5, 2048, 40, 64, torch.float32, "extrema")
+    monkeypatch.setitem(gr_mod._shapes, shape,
+                        (call_key(a, idx, "extrema"), (2, 17, 17)))
+    before, calls = gather_reduce.launches, dict(gather_reduce.calls)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        gather_reduce(a, idx, "extrema")
+    assert gather_reduce.launches == before and gather_reduce.calls == calls
 
 
 def test_gather_reduce_kernel_on_ties(cuda):

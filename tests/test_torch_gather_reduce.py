@@ -239,6 +239,43 @@ def test_staged_threshold_matches_the_kernel_source():
     assert STAGED_MAX_N * row + slots <= 232448
 
 
+def test_cluster_route_fits_the_kernel_source():
+    """The cluster route's shared memory at GS_MAX_N fits the 232 448 bytes
+    a Hopper block may take, at the 64-byte slices of the source (GS_LPP
+    lanes a point) and at the 32- and 16-byte ones the few-cloud sweep
+    builds: the slice's rows (rounded up to whole tensor-map boxes), the
+    staged slots of the most warps a block takes (32 / lanes points a
+    warp), its two mbarriers and a flag for each block of the cluster. Its
+    clusters have at most 16 blocks, and where they may have more than 8
+    the source allows non-portable cluster sizes; the route numbers are the
+    wrapper's ROUTES."""
+    import os
+    import fissure_segmentation_tpu_torch.kernels as kernels
+    from fissure_segmentation_tpu_torch.kernels.gather_reduce import (
+        ROUTES, STAGED_MAX_N)
+    with open(os.path.join(os.path.dirname(kernels.__file__), "csrc",
+                           "gather_reduce.cu")) as f:
+        src = f.read()
+    lanes = _define("gather_reduce.cu", "GS_LPP")
+    assert _define("gather_reduce.cu", "GS_ROW") == 16 * lanes
+    assert _define("gather_reduce.cu", "GS_PPW") == 32 // lanes
+    warps = _define("gather_reduce.cu", "GS_MAX_WARPS")
+    pitch = _define("gather_reduce.cu", "GS_IDX_PITCH")
+    bar = _define("gather_reduce.cu", "GC_BAR_BYTES")
+    most = _define("gather_reduce.cu", "GC_MAX_P")
+    assert bar >= 16 + 4 * most    # two mbarriers, a flag a block
+    box = _define("gather_reduce.cu", "GC_BOX")
+    rows = -(-STAGED_MAX_N // box) * box   # whole boxes
+    for lpp in (4, 2, 1):
+        slots = warps * (32 // lpp) * pitch * 4
+        assert rows * 16 * lpp + slots + bar <= 232448
+    assert 2 <= most <= 16
+    if most > 8:
+        assert "cudaFuncAttributeNonPortableClusterSizeAllowed" in src
+    for i, kind in enumerate(ROUTES):
+        assert f"route {i}, the {kind}" in src
+
+
 def test_cpu_calls_are_not_counted_as_launches():
     """On the CPU the wrapper runs the plain version: no launch and no call
     is counted; call_key names a call by want, dtype and shape."""
