@@ -489,6 +489,7 @@ from torch.overrides import TorchFunctionMode
 
 from fissure_segmentation_tpu_torch.prof.timing import graph_ms, median_ms
 from fissure_segmentation_tpu_torch.train.profile_step import card_line
+from fissure_segmentation_tpu_torch.utils.profiling import device_rows
 
 KNN_SOURCE = "fissure_segmentation_tpu_torch/kernels/csrc/knn.cu"
 FPS_SOURCE = "fissure_segmentation_tpu_torch/kernels/csrc/fps.cu"
@@ -3796,7 +3797,6 @@ def phase_cnn_train(ks, knn_cuda, card: str, out_dir: str):
                                                        load_fold_model)
     from fissure_segmentation_tpu_torch.train.profile_step import (
         STEPS, WARM, cnn_device_time, time_steps)
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     paths, timing = {}, {}
     runs = (("v1", 2, MobileNetASPP, []), ("v1_test_only", 0, MobileNetASPP,
@@ -3865,9 +3865,9 @@ def phase_cnn_train(ks, knn_cuda, card: str, out_dir: str):
             torch.cuda.synchronize()
         avg = prof.key_averages()
         kinds = cnn_device_time(avg, 3)
-        top = sorted(((e.self_device_time_total / 3e3, e.key) for e in avg
-                      if e.device_type == DeviceType.CUDA
-                      and e.self_device_time_total > 0), reverse=True)[:12]
+        top = sorted(((e.self_device_time_total / 3e3, e.key)
+                      for e in device_rows(avg)
+                      if e.self_device_time_total > 0), reverse=True)[:12]
         # the convolutions left to cuDNN, by (groups, kernel): one step's
         # F.conv3d calls; the depthwise 3x3x3 layers must all be K6's
         with Conv3dRecorder() as rec:
@@ -3883,8 +3883,8 @@ def phase_cnn_train(ks, knn_cuda, card: str, out_dir: str):
                              for (g, k), n in sorted(rec.calls.items())},
             # cuDNN's names: a groups = 1 layer may run a "grouped" kernel
             "grouped_named_kernels": sorted(
-                {e.key[:90] for e in avg if e.device_type == DeviceType.CUDA
-                 and "grouped" in e.key.lower()}),
+                {e.key[:90] for e in device_rows(avg)
+                 if "grouped" in e.key.lower()}),
             "ms_per_step": ms, "patches_per_s": args.batch * 1e3 / ms,
             "peak_bytes": peak, "device_ms_by_kind": kinds,
             "busy_share": kinds["total"] / ms,
@@ -4052,7 +4052,6 @@ def _dpsr_step_split(step, steps: int = 3) -> dict:
     over `steps` warm steps: the forward's four ranges (models/
     dpsr_net.py), and the rest of the step's kernels (the loss, the
     backward and Adam) as "backward"; "total" is every kernel's time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -4060,10 +4059,8 @@ def _dpsr_step_split(step, steps: int = 3) -> dict:
             step()
         torch.cuda.synchronize()
     avg = prof.key_averages()
-    ranges = set(DPSR_STAGES) | {"feature_graph"}
-    total = sum(e.self_device_time_total for e in avg
-                if e.device_type == DeviceType.CUDA
-                and e.key not in ranges) / steps / 1e3
+    total = sum(e.self_device_time_total
+                for e in device_rows(avg)) / steps / 1e3
     out = {name.split(":")[1]: sum(e.self_device_time_total for e in avg
                                    if e.key == name) / steps / 1e3
            for name in DPSR_STAGES}
@@ -4552,7 +4549,6 @@ def _random_walk_profile(lobes_sparse, mask, iters: int = 20) -> dict:
     """The random walk of find_lobes at the case's size: ms an iteration
     (CUDA events over `iters` iterations less those over 1), its peak
     memory, and its device busy share from the profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from fissure_segmentation_tpu_torch.postprocess.random_walk import \
@@ -4582,8 +4578,8 @@ def _random_walk_profile(lobes_sparse, mask, iters: int = 20) -> dict:
         run(iters)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3
+    busy = sum(e.self_device_time_total
+               for e in device_rows(prof.key_averages())) / 1e3
     # a CG iteration reads p, r, x, the weights and writes x, r, p, Ap:
     # at least 9 fields of (4, D, H, W) float32 and 4 of (D, H, W)
     n_vox = int(np.prod(mask.shape))
@@ -5027,7 +5023,6 @@ AFFINE_TOL = {"outputs": 1e-4, "loss": 1e-4, "grad_rel_l2": 1e-2}
 def _profiled_busy(step, steps: int = 3) -> float:
     """The device's busy share over `steps` warm steps: summed device time
     of the profiler's kernels over the host clock."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -5037,8 +5032,8 @@ def _profiled_busy(step, steps: int = 3) -> float:
             step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3
+    busy = sum(e.self_device_time_total
+               for e in device_rows(prof.key_averages())) / 1e3
     return busy / wall
 
 
@@ -7704,7 +7699,6 @@ def phase_tail_ab(ks, knn_cuda, card: str) -> dict:
 def _device_ms(fn, calls: int = 3) -> float:
     """The summed device time of the profiler's kernels a call of `fn`,
     over `calls` warm calls."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -7713,8 +7707,8 @@ def _device_ms(fn, calls: int = 3) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / calls
+    return sum(e.self_device_time_total
+               for e in device_rows(prof.key_averages())) / 1e3 / calls
 
 
 def phase_tail_reference(card: str) -> dict:

@@ -69,6 +69,7 @@ from torch import nn
 from ..kernels.scatter import transpose
 from ..ops.knn import knn
 from ..ops.fused_edge import fused_edge_enabled, fused_tail_enabled
+from ..utils.profiling import span
 from .blocks import (BatchNorm, EdgeMLP, FusedEdgeMLPMax, FusedEdgeTail,
                      MLPStack, SharedMLP, _dense, leaky_relu)
 from .pointnet import _check_dtype, apply_transform, identity_head
@@ -200,9 +201,10 @@ class DGCNNBase(nn.Module):
                          .contiguous(), n)
 
     def _graph(self, x: torch.Tensor, self_loop: bool, exact: bool = False):
-        graph = knn(x, self.k, self_loop=self_loop,
-                    recall_target=None if exact else self.knn_recall)
-        return graph, self._transpose(graph)
+        with span("edgeconv.kernels"):
+            graph = knn(x, self.k, self_loop=self_loop,
+                        recall_target=None if exact else self.knn_recall)
+            return graph, self._transpose(graph)
 
     def _features(self, x: torch.Tensor) -> list:
         """The stem, then every EdgeConv; returns their outputs."""

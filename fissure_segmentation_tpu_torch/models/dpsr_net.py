@@ -29,9 +29,10 @@ PERF.md, PR 14). Random draws: `generator` (on the logits' device), or
 per-field uniforms of `sample_points_on_triangles` (tests pass them). A
 forward given neither uses a generator seeded 0 on every call, as the JAX
 module falls back to PRNGKey(0) when no "surface" rng is given, which its
-trainer never gives. The forward's stages run under the profiler ranges
-"dpsr:seg_net", "dpsr:splat_normals", "dpsr:psr" and
-"dpsr:marching_sampling" (the card's step breakdown reads them).
+trainer never gives. The forward's stages run in the spans (utils/
+profiling.py) "dpsr:seg_net", "dpsr:splat_normals", "dpsr:psr" and
+"dpsr:marching_sampling", profiler ranges of the same names under a
+profiler (the card's step breakdown reads them).
 
 Output: (seg_logits (B, N, C), surface samples (B, C', S, 3) xyz grid
 coords, valid (B, C', S)[, psr (B, C', *res)]).
@@ -42,7 +43,6 @@ from typing import Sequence
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ..ops.dpsr import spectral_psr
 from ..ops.marching import (marching_tetrahedra_batched,
@@ -50,6 +50,7 @@ from ..ops.marching import (marching_tetrahedra_batched,
 from ..ops.normals import estimate_pointcloud_normals
 from ..ops.splat import point_rasterize, splat_grid_sample
 from ..utils.filters import gaussian_differentiation
+from ..utils.profiling import span
 from .access_models import get_point_seg_model_class
 
 
@@ -69,7 +70,7 @@ def _surface_draws(n_fields: int, n_samples: int, generator, draws,
 def _extract(psr: torch.Tensor, max_tris: int, n_samples: int, draws):
     """Marching tetrahedra and surface samples of each (B', D, H, W)
     field: (samples (B', S, 3) zyx voxel coords, surface found (B',))."""
-    with record_function("dpsr:marching_sampling"):
+    with span("dpsr:marching_sampling"):
         tris, tvalid, _ = marching_tetrahedra_batched(psr, max_tris)
         return (sample_points_on_triangles(tris, tvalid, n_samples,
                                            draws=draws), tvalid.any(-1))
@@ -101,7 +102,7 @@ def soft_mesh_surface_samples(seg_logits: torch.Tensor, coords: torch.Tensor,
     """
     res = tuple(res)
     b, n, c = seg_logits.shape
-    with record_function("dpsr:splat_normals"):
+    with span("dpsr:splat_normals"):
         probs = torch.softmax(seg_logits, dim=-1)
         if exclude_background:
             probs = probs[..., 1:]
@@ -116,7 +117,7 @@ def soft_mesh_surface_samples(seg_logits: torch.Tensor, coords: torch.Tensor,
                                      truncate=1.5)
             for d in range(3)], dim=2).reshape(b * c, 3, *res)
     v_rep = ((coords.flip(-1) + 1.0) / 2.0).repeat_interleave(c, dim=0)
-    with record_function("dpsr:psr"):
+    with span("dpsr:psr"):
         psr = spectral_psr(v_rep, normals, res, dpsr_sigma, scale=dpsr_scale,
                            shift=dpsr_shift)                  # (B*C', *res)
     pts, found = _extract(psr, max_tris, n_surface_samples,
@@ -148,7 +149,7 @@ def per_class_surface_samples(seg_logits: torch.Tensor, coords: torch.Tensor,
     res = tuple(res)
     b, n, cc = seg_logits.shape
     c = cc - 1
-    with record_function("dpsr:splat_normals"):
+    with span("dpsr:splat_normals"):
         pred = seg_logits.argmax(-1)                          # (B, N)
         coords = coords.clamp(-1.0, 1.0)
         v_zyx = (coords.flip(-1) + 1.0) / 2.0
@@ -160,7 +161,7 @@ def per_class_surface_samples(seg_logits: torch.Tensor, coords: torch.Tensor,
                                               mask=masks)
         normals = torch.where(masks[..., None], normals, 0.0)
         ras = point_rasterize(v_rep, normals, res)            # (B*C', 3, *res)
-    with record_function("dpsr:psr"):
+    with span("dpsr:psr"):
         psr = spectral_psr(v_rep, ras, res, dpsr_sigma, scale=dpsr_scale,
                            shift=dpsr_shift, point_weights=masks.float())
     class_ok = masks.sum(-1) >= min_points
@@ -210,7 +211,7 @@ class _DPSRBase(nn.Module):
 
     def forward(self, x: torch.Tensor, generator=None, draws=None,
                 return_psr: bool = False):
-        with record_function("dpsr:seg_net"):
+        with span("dpsr:seg_net"):
             seg_logits = self.seg_net(x)
         samples, valid, psr = self.surface_samples(
             seg_logits, x[..., :3], generator=generator, draws=draws)

@@ -48,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.depthwise import depthwise_conv3_cuda
 from ..utils.filters import _pad_axis
+from ..utils.profiling import span
 from .blocks import BatchNorm
 
 
@@ -134,7 +135,8 @@ class DepthwiseConv3(nn.Module):
         self.kernel = nn.Parameter(w[:, 0].permute(1, 2, 3, 0).contiguous())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return depthwise_conv3_cuda(x.contiguous(), self.kernel)
+        with span("cnn.depthwise"):
+            return depthwise_conv3_cuda(x.contiguous(), self.kernel)
 
 
 class DepthwiseConv3Stride2(Conv):
@@ -149,8 +151,9 @@ class DepthwiseConv3Stride2(Conv):
                          groups=channels, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight[:, 0].permute(1, 2, 3, 0).contiguous()
-        return depthwise_conv3_cuda(x.contiguous(), w, stride=2)
+        with span("cnn.depthwise"):
+            w = self.weight[:, 0].permute(1, 2, 3, 0).contiguous()
+            return depthwise_conv3_cuda(x.contiguous(), w, stride=2)
 
 
 class _InvertedResidual(nn.Module):

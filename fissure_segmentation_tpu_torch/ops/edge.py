@@ -22,6 +22,7 @@ import torch
 
 from ..kernels.gather_reduce import flat_rows
 from ..kernels.scatter import scatter_rows
+from ..utils.profiling import span
 
 
 def _flat_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -47,9 +48,10 @@ class _GatherRows(torch.autograd.Function):
     def backward(ctx, ct):
         (idx,) = ctx.saved_tensors
         b, n, k, c = ct.shape
-        dx = scatter_rows(idx.reshape(b, n * k).to(torch.int32).contiguous(),
-                          ct.reshape(b, n * k, c).contiguous(), n,
-                          ctx.transposed)
+        with span("edgeconv.kernels"):
+            dx = scatter_rows(
+                idx.reshape(b, n * k).to(torch.int32).contiguous(),
+                ct.reshape(b, n * k, c).contiguous(), n, ctx.transposed)
         return dx.to(ct.dtype), None, None
 
 

@@ -56,6 +56,7 @@ import torch
 
 from ..kernels.gather_reduce import gather_reduce
 from ..kernels.scatter import scatter_count, scatter_routed, transpose
+from ..utils.profiling import span
 from .collectives import all_reduce_, group_size
 from .edge import _flat_gather
 
@@ -86,8 +87,9 @@ def fused_tail_enabled(device) -> bool:
 def _gather_reduce(a: torch.Tensor, idx: torch.Tensor):
     """One pass over the gathered features -> per-(n, c) max, min, argmax,
     argmin (first occurrence, int32), and the f32 sum and sum of squares."""
-    return gather_reduce(a.contiguous(), idx.to(torch.int32).contiguous(),
-                         "all")
+    with span("edgeconv.kernels"):
+        return gather_reduce(a.contiguous(),
+                             idx.to(torch.int32).contiguous(), "all")
 
 
 def _stats(s1, s2, cen, kk: int, group=None):
@@ -158,14 +160,16 @@ class _FusedEdgeTrain(torch.autograd.Function):
         s_payload = (gamma * du / sigma).to(a.dtype)
         p_payload = (-mean_dxh / sigma - (mean_dxh_xh / (sigma * sigma))
                      * (cenf - mean)).to(a.dtype)
-        idx2 = idx.to(torch.int32).reshape(b, n * kk).contiguous()
-        tr = ctx.transposed
-        if tr is None:
-            tr = transpose(idx2, n)
-        routed = scatter_routed(idx2.reshape(b, n, kk), kstar.contiguous(),
-                                s_payload.contiguous(),
-                                p_payload.contiguous(), n, tr)
-        deg = scatter_count(idx2, n, tr)
+        with span("edgeconv.kernels"):
+            idx2 = idx.to(torch.int32).reshape(b, n * kk).contiguous()
+            tr = ctx.transposed
+            if tr is None:
+                tr = transpose(idx2, n)
+            routed = scatter_routed(idx2.reshape(b, n, kk),
+                                    kstar.contiguous(),
+                                    s_payload.contiguous(),
+                                    p_payload.contiguous(), n, tr)
+            deg = scatter_count(idx2, n, tr)
         da = (routed[..., :c] + routed[..., c:]
               - (mean_dxh_xh / (sigma * sigma)) * deg[..., None]
               * a.to(torch.float32))
@@ -212,8 +216,10 @@ def fused_edge_eval(a, cen, gamma, beta, ra_mean, ra_var, idx,
         ga = _flat_gather(a, idx)
         mx, mn = ga.amax(2), ga.amin(2)
     else:
-        mx, mn = gather_reduce(a.contiguous(),
-                               idx.to(torch.int32).contiguous(), "extrema")
+        with span("edgeconv.kernels"):
+            mx, mn = gather_reduce(a.contiguous(),
+                                   idx.to(torch.int32).contiguous(),
+                                   "extrema")
     sel = torch.where(gamma >= 0, mx, mn)
     sigma = torch.sqrt(ra_var + eps)
     u = gamma * (((sel + cen).to(torch.float32) - ra_mean) / sigma) + beta

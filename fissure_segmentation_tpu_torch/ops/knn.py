@@ -48,6 +48,7 @@ import torch
 
 from ..kernels.approx_topk import DTYPES, MAX_K, select_rows
 from ..kernels.knn import MAX_C, MAX_KK, knn_cuda
+from ..utils.profiling import span
 from .approx_topk import approx_top_k
 
 
@@ -112,8 +113,8 @@ def feature_knn(x: torch.Tensor, kk: int, query_chunk: int | None = None):
     n = x.shape[-2]
     if kk > n:
         raise ValueError(f"knn: kk={kk} exceeds N={n}")
-    # the profiler's "feature_graph" range (train/profile_step.py)
-    with torch.no_grad(), torch.profiler.record_function("feature_graph"):
+    # the span "feature_graph" (a range in train/profile_step.py's profile)
+    with torch.no_grad(), span("feature_graph"):
         x = x.detach()
         if query_chunk is None or query_chunk >= n:
             return _select(pairwise_sqdist(x), kk)
@@ -135,7 +136,7 @@ def approx_knn(x: torch.Tensor, k: int, self_loop: bool,
     :param x: (B, N, C) float32 or bfloat16
     :return: (idx (B, N, k) int32, dist (B, N, k) in x's dtype)
     """
-    with torch.no_grad(), torch.profiler.record_function("approx_graph"):
+    with torch.no_grad(), span("approx_graph"):
         x = x.detach()
         d = pairwise_sqdist(x, x)
         d.diagonal(dim1=-2, dim2=-1).fill_(-1.0 if self_loop else torch.inf)

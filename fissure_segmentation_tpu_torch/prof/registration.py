@@ -26,6 +26,7 @@ from ..shape_model import adam_registration as ar
 from ..shape_model.registration import (register_cpd_deformable,
                                         register_cpd_rigid)
 from ..train.profile_step import card_line
+from ..utils.profiling import device_rows
 
 
 def _loops(g: torch.Generator) -> dict:
@@ -81,11 +82,10 @@ def main(argv=None) -> dict:
         with torch.profiler.profile(activities=acts) as prof:
             fn(args.steps)
             torch.cuda.synchronize()
-        avg = prof.key_averages()
-        busy = sum(e.self_device_time_total for e in avg
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        rows = device_rows(prof.key_averages())
+        busy = sum(e.self_device_time_total for e in rows)
         busy = busy / 1e3 / args.steps
-        top = sorted((e for e in avg if e.self_device_time_total > 0),
+        top = sorted((e for e in rows if e.self_device_time_total > 0),
                      key=lambda e: -e.self_device_time_total)[:8]
         syncs = _syncs(lambda: fn(args.steps)) / args.steps
         out[name] = {"wall_ms": wall, "device_ms": busy,

@@ -16,12 +16,19 @@ copies). Fetch (`_fetch_case`): wait for that event. Host half
 labelmap. `segment_case` is the three in a row; `segment_cases` pipelines
 them over many cases.
 
-The device half enqueues its work without a host synchronisation: host
-data reaches the card by non-blocking copies (utils/device.py:host_to),
-and nothing reads a device value back. Its results are the same on every
-run: the ensemble adds one subset at a time (models/ensemble.py) and the
-PSR splat goes through K2 (ops/splat.py), so no float atomics decide an
-order.
+The device half reads no device value back. Host data reaches the card
+by `utils/device.py:host_to` from pageable memory: the CT and its mask,
+and the marching tables in the surface fit (ops/marching.py); the CT's
+copy holds the host while it goes through CUDA's staging buffers (PERF.md
+§5). Its results are the same on every run: the ensemble adds one subset
+at a time (models/ensemble.py) and the PSR splat goes through K2
+(ops/splat.py), so no float atomics decide an order.
+
+Its stages run in spans (utils/profiling.py: "serving.dispatch" around
+"serving.upload", "serving.keypoints", "serving.ensemble",
+"serving.surface", "serving.copy_out"; "serving.fetch";
+"serving.host_half" around "serving.components", "serving.labelmap"):
+`segment_cases(timings=)` reports their seconds.
 
 Not to port: the JAX package's packed transfer encodings (uint16
 coordinates, bit-packed grids, dedup-indexed meshes; its serving.py:1-25).
@@ -32,7 +39,6 @@ under 0.1 % of the case's 0.1 s, and the fetch stage waits a median 0.15 ms
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Callable, Sequence
 
@@ -48,10 +54,18 @@ from .postprocess.surface_fitting import (_class_meshes, batched_psr_mc,
                                           mesh_to_labelmap)
 from .utils.coords import kpts_to_grid
 from .utils.device import host_to
+from .utils.profiling import span
 
 # segment_case's keywords that only the host half reads
 HOST_KEYS = ("rights", "center_x", "lung_mask_filter", "mask_dilate_radius",
              "crop_to_bbox", "make_labelmap")
+# segment_cases' `timings` keys: the seconds of these spans
+TIMING_KEYS = {"serving.dispatch": "dispatch_s", "serving.upload": "upload_s",
+               "serving.keypoints": "keypoints_s",
+               "serving.ensemble": "ensemble_s",
+               "serving.surface": "surface_s",
+               "serving.copy_out": "copy_out_s", "serving.fetch": "fetch_s",
+               "serving.host_half": "host_s"}
 
 
 @dataclass
@@ -104,8 +118,10 @@ def _keypoints(vol, mask, generator, *, kp_mode, max_kpts, fissure_mu,
         kpts, valid = get_enhancement_keypoints(enh, max_kpts=max_kpts)
         return kpts, valid, tuple(vol.shape)
     if kp_mode == "cnn":
-        soft = (vol if cnn_model is None else
-                predict_full_volume(cnn_model, vol, dtype=cnn_dtype))
+        soft = vol
+        if cnn_model is not None:
+            with span("serving.cnn"):
+                soft = predict_full_volume(cnn_model, vol, dtype=cnn_dtype)
         kpts, valid, _ = get_cnn_keypoints(soft, mask, max_kpts=max_kpts,
                                            generator=generator,
                                            scores=kp_scores,
@@ -117,20 +133,26 @@ def _keypoints(vol, mask, generator, *, kp_mode, max_kpts, fissure_mu,
 @torch.no_grad()
 def _device_case(vol, mask, model, generator, subsets, *, max_kpts,
                  sample_points, n_runs_min, subset_batch, grid_res, sig,
-                 k_normals, max_tris, num_fg_classes, class_cap, **kp_kw):
-    kpts, valid, shape = _keypoints(vol, mask, generator, max_kpts=max_kpts,
-                                    **kp_kw)
-    world = kpts.flip(-1).to(torch.float32)           # zyx -> xyz voxel
-    coords = torch.where(valid[:, None], kpts_to_grid(world, shape), -1.0)
-    probs = ensemble_predict(model, coords, sample_points=sample_points,
-                             n_runs_min=n_runs_min, subset_batch=subset_batch,
-                             generator=generator, subsets=subsets)
-    pred = probs.argmax(-1)
-    class_valid = torch.stack([valid & (pred == c)
-                               for c in range(1, num_fg_classes + 1)])
-    inside, tris, n_tris = batched_psr_mc(
-        coords.flip(-1), class_valid, grid_res, sig, k_normals, max_tris,
-        class_cap)
+                 k_normals, max_tris, num_fg_classes, class_cap, into=None,
+                 **kp_kw):
+    with span("serving.keypoints", into):
+        kpts, valid, shape = _keypoints(vol, mask, generator,
+                                        max_kpts=max_kpts, **kp_kw)
+        world = kpts.flip(-1).to(torch.float32)       # zyx -> xyz voxel
+        coords = torch.where(valid[:, None], kpts_to_grid(world, shape),
+                             -1.0)
+    with span("serving.ensemble", into):
+        probs = ensemble_predict(model, coords, sample_points=sample_points,
+                                 n_runs_min=n_runs_min,
+                                 subset_batch=subset_batch,
+                                 generator=generator, subsets=subsets)
+        pred = probs.argmax(-1)
+    with span("serving.surface", into):
+        class_valid = torch.stack([valid & (pred == c)
+                                   for c in range(1, num_fg_classes + 1)])
+        inside, tris, n_tris = batched_psr_mc(
+            coords.flip(-1), class_valid, grid_res, sig, k_normals, max_tris,
+            class_cap)
     return (kpts, valid, pred, inside, tris, n_tris), shape
 
 
@@ -143,42 +165,51 @@ def _dispatch_case(vol, mask, model, generator=None, subsets=None, *,
                    num_fg_classes: int = 3, approx_top_k: bool = False,
                    class_cap: int = 8192, fissure_mu: float = -313.5,
                    fissure_sigma: float = 62.6, cnn_model=None,
-                   cnn_dtype=None, kp_scores=None) -> _Dispatched:
+                   cnn_dtype=None, kp_scores=None,
+                   into: dict | None = None) -> _Dispatched:
     """Enqueue one case's device half and the copies of its outputs to the
-    host; returns without waiting for the card."""
-    device = case_device(vol, device)
-    vol_t = host_to(vol, device, torch.float32)
-    mask_t = host_to(mask, device, torch.bool)
-    if kp_scores is not None:
-        kp_scores = host_to(kp_scores, device)
-    grid_res = tuple(grid_res)
-    out, shape = _device_case(
-        vol_t, mask_t, model, generator, subsets, max_kpts=max_kpts,
-        sample_points=sample_points, n_runs_min=n_runs_min,
-        subset_batch=subset_batch, grid_res=grid_res, sig=sig,
-        k_normals=k_normals, max_tris=max_tris,
-        num_fg_classes=num_fg_classes, class_cap=class_cap, kp_mode=kp_mode,
-        fissure_mu=fissure_mu, fissure_sigma=fissure_sigma,
-        cnn_model=cnn_model, cnn_dtype=cnn_dtype, kp_scores=kp_scores,
-        approx_top_k=approx_top_k)
-    event = None
-    if device.type == "cuda":
-        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                     for t in out)
-        for h, t in zip(host, out):
-            h.copy_(t, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        out = host
+    host; returns without waiting for the card. `into`: a dict that gets
+    the seconds of the spans "serving.dispatch" and its stages."""
+    with span("serving.dispatch", into):
+        device = case_device(vol, device)
+        with span("serving.upload", into):
+            vol_t = host_to(vol, device, torch.float32)
+            mask_t = host_to(mask, device, torch.bool)
+            if kp_scores is not None:
+                kp_scores = host_to(kp_scores, device)
+        grid_res = tuple(grid_res)
+        out, shape = _device_case(
+            vol_t, mask_t, model, generator, subsets, max_kpts=max_kpts,
+            sample_points=sample_points, n_runs_min=n_runs_min,
+            subset_batch=subset_batch, grid_res=grid_res, sig=sig,
+            k_normals=k_normals, max_tris=max_tris,
+            num_fg_classes=num_fg_classes, class_cap=class_cap,
+            kp_mode=kp_mode, fissure_mu=fissure_mu,
+            fissure_sigma=fissure_sigma, cnn_model=cnn_model,
+            cnn_dtype=cnn_dtype, kp_scores=kp_scores,
+            approx_top_k=approx_top_k, into=into)
+        event = None
+        with span("serving.copy_out", into):
+            if device.type == "cuda":
+                host = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                         pin_memory=True) for t in out)
+                for h, t in zip(host, out):
+                    h.copy_(t, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+                out = host
     return _Dispatched(out, event, shape, grid_res, num_fg_classes)
 
 
-def _fetch_case(dispatched: _Dispatched) -> _Dispatched:
+def _fetch_case(dispatched: _Dispatched,
+                into: dict | None = None) -> _Dispatched:
     """Wait until the case's outputs are on the host (the event's wait
-    releases the GIL); returns them as numpy arrays."""
-    if dispatched.event is not None:
-        dispatched.event.synchronize()
-    out = tuple(t.numpy() for t in dispatched.out)
+    releases the GIL); returns them as numpy arrays. `into`: a dict that
+    gets the seconds of the span "serving.fetch"."""
+    with span("serving.fetch", into):
+        if dispatched.event is not None:
+            dispatched.event.synchronize()
+        out = tuple(t.numpy() for t in dispatched.out)
     return _Dispatched(out, None, dispatched.shape, dispatched.grid_res,
                        dispatched.num_fg_classes)
 
@@ -187,26 +218,33 @@ def _finish_case(fetched: _Dispatched, *, rights=None,
                  center_x: float | None = None,
                  lung_mask_filter: np.ndarray | None = None,
                  mask_dilate_radius: int = 1, crop_to_bbox: bool = True,
-                 make_labelmap: bool = True) -> CaseResult:
+                 make_labelmap: bool = True,
+                 into: dict | None = None) -> CaseResult:
     """The host half of a fetched case: per-class component filter (native
-    C++, which releases the GIL) and the labelmap."""
-    kpts, valid, pred, inside, tris, n_tris = fetched.out
-    shape, grid_res = fetched.shape, fetched.grid_res
-    num_fg_classes = fetched.num_fg_classes
-    if rights is None:
-        rights = ([False, True, True]
-                  + [None] * num_fg_classes)[:num_fg_classes]
-    world = kpts[:, ::-1].astype(np.float32)
-    meshes = _class_meshes(
-        inside, tris, n_tris,
-        [world[valid & (pred == i + 1)] for i in range(num_fg_classes)],
-        shape, grid_res, lung_mask_filter, mask_dilate_radius, rights,
-        center_x, crop_to_bbox)
-
-    labelmap = mesh_to_labelmap(meshes, shape) if make_labelmap else None
-    return CaseResult(kpts=kpts[valid].astype(np.int32),
-                      labels=pred[valid].astype(np.int32),
-                      meshes=meshes, labelmap=labelmap)
+    C++, which releases the GIL) and the labelmap. `into`: a dict that
+    gets the seconds of the span "serving.host_half"."""
+    with span("serving.host_half", into):
+        kpts, valid, pred, inside, tris, n_tris = fetched.out
+        shape, grid_res = fetched.shape, fetched.grid_res
+        num_fg_classes = fetched.num_fg_classes
+        if rights is None:
+            rights = ([False, True, True]
+                      + [None] * num_fg_classes)[:num_fg_classes]
+        world = kpts[:, ::-1].astype(np.float32)
+        with span("serving.components"):
+            meshes = _class_meshes(
+                inside, tris, n_tris,
+                [world[valid & (pred == i + 1)]
+                 for i in range(num_fg_classes)],
+                shape, grid_res, lung_mask_filter, mask_dilate_radius,
+                rights, center_x, crop_to_bbox)
+        labelmap = None
+        if make_labelmap:
+            with span("serving.labelmap"):
+                labelmap = mesh_to_labelmap(meshes, shape)
+        return CaseResult(kpts=kpts[valid].astype(np.int32),
+                          labels=pred[valid].astype(np.int32),
+                          meshes=meshes, labelmap=labelmap)
 
 
 def segment_case(vol, mask, model: Callable[[torch.Tensor], torch.Tensor],
@@ -330,9 +368,11 @@ def segment_cases(volumes: Sequence, masks: Sequence, model, *,
     :param masks: matching lung masks
     :param window: cases in flight across the three stages at most (3
         keeps every stage busy; each holds its inputs and outputs)
-    :param timings: optional list; gets one dict a case: "dispatch_s"
-        always, "fetch_s" and "host_s" threaded, "finish_s" (fetch and host
-        half) when not
+    :param timings: optional list; gets one dict a case, the seconds of
+        its spans (`TIMING_KEYS`): "dispatch_s" and its stages
+        ("upload_s", "keypoints_s", "ensemble_s", "surface_s",
+        "copy_out_s") always, "fetch_s" and "host_s" threaded, "finish_s"
+        (fetch and host half) when not
     :param pipeline_threads: run the fetch and host stages on two worker
         threads (default); False keeps the main thread's dispatch-ahead
         window only
@@ -351,38 +391,25 @@ def segment_cases(volumes: Sequence, masks: Sequence, model, *,
     subs = _per_case(subsets, n, "subsets")
     host_kw = {k: kwargs.pop(k) for k in HOST_KEYS if k in kwargs}
     results: list = [None] * n
-    tms = [{} for _ in range(n)]
+    spans = [{} for _ in range(n)]      # each case's span seconds
 
     def dispatch(i):
-        t0 = time.perf_counter()
-        d = _dispatch_case(volumes[i], masks[i], model, gens[i], subs[i],
-                           **kwargs)
-        tms[i]["dispatch_s"] = time.perf_counter() - t0
-        return d
+        return _dispatch_case(volumes[i], masks[i], model, gens[i], subs[i],
+                              into=spans[i], **kwargs)
 
     if pipeline_threads and n > 1:
         from concurrent.futures import ThreadPoolExecutor
 
-        def fetch_job(i, d):
-            t0 = time.perf_counter()
-            fetched = _fetch_case(d)
-            tms[i]["fetch_s"] = time.perf_counter() - t0
-            return fetched
-
         def host_job(i, fetch_fut):
-            fetched = fetch_fut.result()
-            t0 = time.perf_counter()
-            res = _finish_case(fetched, **host_kw)
-            tms[i]["host_s"] = time.perf_counter() - t0
-            return res
+            return _finish_case(fetch_fut.result(), into=spans[i], **host_kw)
 
         with ThreadPoolExecutor(1) as fetch_pool, \
                 ThreadPoolExecutor(1) as host_pool:
             futs = [None] * n
             for i in range(n):
                 d = dispatch(i)
-                futs[i] = host_pool.submit(host_job, i,
-                                           fetch_pool.submit(fetch_job, i, d))
+                futs[i] = host_pool.submit(
+                    host_job, i, fetch_pool.submit(_fetch_case, d, spans[i]))
                 if i + 1 >= window:
                     results[i + 1 - window] = futs[i + 1 - window].result()
             for i in range(max(0, n - window + 1), n):
@@ -391,9 +418,8 @@ def segment_cases(volumes: Sequence, masks: Sequence, model, *,
         pending: list = []
 
         def finish(i, d):
-            t0 = time.perf_counter()
-            results[i] = _finish_case(_fetch_case(d), **host_kw)
-            tms[i]["finish_s"] = time.perf_counter() - t0
+            results[i] = _finish_case(_fetch_case(d, spans[i]),
+                                      into=spans[i], **host_kw)
 
         for i in range(n):
             pending.append((i, dispatch(i)))
@@ -401,6 +427,11 @@ def segment_cases(volumes: Sequence, masks: Sequence, model, *,
                 finish(*pending.pop(0))
         for i, d in pending:
             finish(i, d)
+    tms = [{key: sec[name] for name, key in TIMING_KEYS.items()
+            if name in sec} for sec in spans]
+    if not (pipeline_threads and n > 1):
+        for t in tms:
+            t["finish_s"] = t.pop("fetch_s") + t.pop("host_s")
     if timings is not None:
         timings.extend(tms)
     return results

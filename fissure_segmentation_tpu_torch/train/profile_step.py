@@ -54,6 +54,7 @@ from ..data.dataset import PointDataset
 from ..data.synthetic import make_synthetic_dataset
 from ..losses import get_loss_fn
 from ..models import DGCNNSeg, PointNetSeg, PointTransformerSeg
+from ..utils.profiling import device_rows
 from .trainer import ModelTrainer, TrainConfig
 
 KERNELS = {
@@ -86,12 +87,9 @@ def cnn_device_time(avg, steps: int) -> dict:
     products (the 1x1x1 convolutions), and every other kernel (BatchNorm,
     activations, resizes, the stride-2 dgrad's stuffing, the loss, Adam);
     "total" is their sum."""
-    from torch.autograd import DeviceType
     kinds = {"k6": 0.0, "k6_wgrad": 0.0, "cudnn_conv": 0.0, "matmul": 0.0,
              "other": 0.0}
-    for e in avg:
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for e in device_rows(avg):
         key = e.key.lower()
         if "depthwise_tiled" in key or "depthwise_simple" in key:
             kind = "k6"
@@ -255,12 +253,10 @@ def main(argv=None) -> int:
                 step()
             torch.cuda.synchronize()
         avg = prof.key_averages()
-        # the profiler ranges ("feature_graph", "approx_graph", DPSR-Net's
-        # "dpsr:*") carry their kernels' time again
-        busy = sum(e.self_device_time_total for e in avg
-                   if e.device_type == DeviceType.CUDA
-                   and e.key not in ("feature_graph", "approx_graph")
-                   and not e.key.startswith("dpsr:")) / 3 / 1e3
+        # the spans' ranges ("feature_graph", "approx_graph", DPSR-Net's
+        # "dpsr:*", the train step's) carry their kernels' time again
+        busy = sum(e.self_device_time_total
+                   for e in device_rows(avg)) / 3 / 1e3
         unit = "patches" if args.model.startswith("CNN") else "clouds"
         print(f"{name}: {ms:.2f} ms/step ({BATCH * 1e3 / ms:.1f} "
               f"{unit}/s); kernels {busy:.2f} ms/step, busy share "
@@ -275,12 +271,11 @@ def main(argv=None) -> int:
                       " ms/step (device time under the forward's range)",
                       flush=True)
         for label, key in KERNELS[args.model].items():
-            t = sum(e.self_device_time_total for e in avg
-                    if e.device_type == DeviceType.CUDA and key in e.key)
+            t = sum(e.self_device_time_total for e in device_rows(avg)
+                    if key in e.key)
             print(f"  {label:18s} {t / 3 / 1e3:.3f} ms/step", flush=True)
-        sort = sum(e.self_device_time_total for e in avg
-                   if e.device_type == DeviceType.CUDA
-                   and "sort" in e.key.lower())
+        sort = sum(e.self_device_time_total for e in device_rows(avg)
+                   if "sort" in e.key.lower())
         print(f"  {'sorts':18s} {sort / 3 / 1e3:.3f} ms/step (every kernel "
               "named *sort*, searchsorted included)", flush=True)
         if args.dynamic or args.model in ("PCAE", "DPSR", "DPSRv1",

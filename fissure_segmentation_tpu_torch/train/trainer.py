@@ -83,6 +83,7 @@ from ..data.store import sample_batch
 from ..models.blocks import convert_sync_batchnorm
 from ..models.weights import save_model
 from ..ops.collectives import all_reduce_, global_rank, group_rank, group_size
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -208,10 +209,11 @@ class ModelTrainer:
             store = ds.to_store(device=self.device)
 
             def batch_fn(generator, case_idx, train, rows=None):
-                return sample_batch(store, case_idx, ds.sample_points,
-                                    generator,
-                                    augment=train and ds.do_augmentation,
-                                    binary=ds.binary, rows=rows)
+                with span("train.sample"):
+                    return sample_batch(store, case_idx, ds.sample_points,
+                                        generator,
+                                        augment=train and ds.do_augmentation,
+                                        binary=ds.binary, rows=rows)
         self.batch_fn = batch_fn
 
         n_train = len(self.train_indices)
@@ -273,14 +275,18 @@ class ModelTrainer:
         detached. Under a group x and y are this rank's rows, and the
         loss is the global batch's."""
         self.model.train()
-        loss, comps = self._loss(self._forward(x, True), y,
-                                 self.current_epoch if epoch is None
-                                 else epoch, self.group)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if self.group is not None:
-            self._sum_gradients()
-        self.optimizer.step()
+        with span("train.forward"):
+            out = self._forward(x, True)
+        with span("train.loss"):
+            loss, comps = self._loss(out, y, self.current_epoch
+                                     if epoch is None else epoch, self.group)
+        with span("train.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if self.group is not None:
+                self._sum_gradients()
+        with span("train.optimizer"):
+            self.optimizer.step()
         return loss.detach(), {k: v.detach() for k, v in comps.items()}
 
     def _sum_gradients(self) -> None:

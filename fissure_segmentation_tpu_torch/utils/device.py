@@ -1,6 +1,6 @@
 """The port's device default: a CUDA card unless the caller asks for
 another device; without a card and without a device, raise. `host_to`
-moves host data to a device without a host synchronisation."""
+moves host data to a device."""
 from __future__ import annotations
 
 import numpy as np
@@ -28,8 +28,9 @@ def as_device_tensor(x, device, what: str) -> torch.Tensor:
 
 def host_to(x, device, dtype=None) -> torch.Tensor:
     """Host data (an array, a list or a CPU tensor) as a tensor on `device`
-    without waiting for the device: the copy is enqueued (`non_blocking`).
-    From pageable memory CUDA stages the bytes before the call returns, so
-    `x` may change or go at once; a blocking copy would instead wait for
-    all the work queued on the stream (a host synchronisation)."""
+    (`non_blocking`). From pageable memory CUDA stages the bytes through
+    its own pinned buffers before the call returns, so `x` may change or
+    go at once; a copy larger than those buffers holds the host until its
+    chunks have gone through the stream. From pinned memory the call
+    returns at once."""
     return torch.as_tensor(x, dtype=dtype).to(device, non_blocking=True)

@@ -1,6 +1,6 @@
 """Parameter and operation counts, a timing helper, a trace (counterpart
-of utils/profiling.py) and `stage`, the synced stage clock of
-preprocessing.
+of utils/profiling.py), `stage`, the synced stage clock of
+preprocessing, and the span recorder.
 
 `param_and_op_count` writes `op_count.csv` with the JAX package's columns
 (flops, bytes_accessed, params). The JAX package takes the first two from
@@ -25,17 +25,28 @@ trigonometric, tanh, sigmoid, erf, sqrt, rsqrt and pow operators and of
 softmax. `trace(out_dir)` is the counterpart of `jax.profiler.trace`: a
 torch.profiler trace of the block (the CPU, and the card where there is
 one) written as a Chrome trace, `out_dir`/trace.json.
+
+The span recorder: `span(name)` marks a block of the program (serving's
+stages, the train step's parts, the EdgeConv kernels; PERF.md lists the
+names and what reads them); `recording()` turns the recorder on for a
+block and yields the spans' `Record`s, stamped on the clock of
+torch.profiler's host events so they lay over a device trace. Off, a span
+costs one flag check.
 """
 from __future__ import annotations
 
 import contextlib
 import csv
+import functools
+import itertools
 import os
+import threading
 import time
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
@@ -170,17 +181,158 @@ def time_fn(fn: Callable, *args, repeats: int = 10, warmup: int = 1,
 
 @contextlib.contextmanager
 def stage(stages: dict | None, name: str, device):
-    """Time the block as stage `name`: with a dict, the card is
-    synchronized before and after it and the seconds are added to
-    ``stages[name]``; with None, nothing happens (no sync)."""
-    if stages is None:
+    """Time the block as stage `name`, inside `span(name)`: with a dict,
+    the card is synchronized before and after it and the seconds are added
+    to ``stages[name]``; with None, only the span (no sync)."""
+    with span(name):
+        if stages is None:
+            yield
+            return
+        device = torch.device(device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
         yield
-        return
-    device = torch.device(device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    yield
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+
+
+# ---- the span recorder ----
+
+class Record(NamedTuple):
+    """One span: its name, the native id of the thread that opened it, its
+    start and end on the Unix-epoch clock in ns (`time.time_ns()`, the
+    clock of torch.profiler's host events), its own id, its parent's (the
+    span open on the same thread around it; -1 for none), and the thread's
+    `threading.get_ident()` (pthread_self: the CUDA runtime's records under
+    torch.profiler carry it, cut to 32 bits, as their thread)."""
+    name: str
+    tid: int
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: int
+    ident: int
+
+
+_records: list | None = None      # the recording's list; None: off
+_ids = itertools.count()
+_open = threading.local()         # .stack: the ids of this thread's open
+                                  # spans; .ids: (native id, ident)
+_range_keys: set = set()          # the names spans opened ranges under
+
+
+class _Span:
+    """A span that stamps: on exit its record goes to the recording that
+    was on at its entry, and its seconds to `into[name]` where given."""
+    __slots__ = ("name", "into", "records", "range", "id", "parent", "t0",
+                 "seconds")
+
+    def __init__(self, name: str, into: dict | None):
+        self.name, self.into = name, into
+        self.records = _records
+        self.range = None
+
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            _range_keys.add(self.name)
+            self.range = _autograd_profiler.record_function(self.name)
+            self.range.__enter__()
+        if self.records is not None:
+            try:
+                stack = _open.stack
+            except AttributeError:
+                stack = _open.stack = []
+                _open.ids = (threading.get_native_id(), threading.get_ident())
+            self.parent = stack[-1] if stack else -1
+            self.id = next(_ids)
+            stack.append(self.id)
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.time_ns()
+        self.seconds = (t1 - self.t0) * 1e-9
+        if self.records is not None:
+            _open.stack.pop()
+            tid, ident = _open.ids
+            self.records.append((self.name, tid, self.t0, t1, self.id,
+                                 self.parent, ident))
+        if self.into is not None:
+            self.into[self.name] = self.into.get(self.name, 0.0) + \
+                self.seconds
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+class _NoSpan:
+    """The span of a block while nothing records: does nothing."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str, into: dict | None = None):
+    """Context manager: the block as span `name`.
+
+    Off (no `recording()` block open, no torch profiler running, no
+    `into`) it is one flag check and the shared no-op object: no stamp,
+    no allocation, no dispatcher call, no sync. While a `recording()` is
+    on, the block's `Record` goes to its list; under a torch profiler the
+    block is also a `record_function` range of the same name (in the
+    profiler's tables and trace); with a dict `into`, the block's seconds
+    are added to ``into[name]`` whether or not anything records (the
+    stage timings of `segment_cases`). A span never synchronizes: its
+    times are the host's, around the enqueue of the block's device work.
+    `spanned(name)` is the decorator form."""
+    if _records is None and into is None and \
+            not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Span(name, into)
+
+
+def spanned(name: str):
+    """Decorator: every call of the function runs in `span(name)`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+@contextlib.contextmanager
+def recording():
+    """Turn the span recorder on for the block; yields the list that gets
+    the record of every span opened inside it and closed, on any thread
+    (spans opened before it record nowhere; a nested recording takes the
+    spans opened inside it). Inside the block the records are plain
+    tuples in `Record`'s order; at its end they become `Record`s."""
+    global _records
+    prev, recs = _records, []
+    _records = recs
+    try:
+        yield recs
+    finally:
+        _records = prev
+        recs[:] = map(Record._make, recs)
+
+
+def device_rows(avg) -> list:
+    """The device operations' rows of a profiler's `key_averages()`: its
+    CUDA rows less those of the spans' ranges, which where the profiler
+    traces the card repeat the time of the operations launched inside
+    them."""
+    from torch.autograd import DeviceType
+    return [e for e in avg if e.device_type == DeviceType.CUDA
+            and e.key not in _range_keys]

@@ -10,12 +10,13 @@ k=40 with seeded weights and the bench-style class bias, segment_case
 defaults; in kp_mode "cnn" chip_smoke's seeded MobileNetASPP runs on the
 CT, in kp_mode "enhancement" the intensity weighting is chip_smoke's for
 the synthetic intensities):
-  * per-stage wall time with a device sync between stages (keypoints —
-    in cnn mode the CNN forward and the keypoint selection apart —
-    ensemble, device surface fit, device->host copy, host mesh filter +
-    labelmap), median over --cases warm cases;
-  * the median wall time of --cases unstaged warm cases (segment_case as
-    a user calls it);
+  * the program's spans (utils/profiling.py: serving's stages, the CNN's
+    depthwise layers, the EdgeConv kernels) of --cases unstaged warm cases
+    (segment_case as a user calls it, the recorder on): each span's host ms
+    a case and its count a case, median over the cases; the spans time the
+    host's enqueue of the device half, which never waits for the card, and
+    the host half, which waits for its outputs first ("serving.fetch");
+  * the median wall time of those cases;
   * a torch.profiler table of one warm case: device time per kernel, and
     the summed kernel time against the unstaged median (the device's busy
     share);
@@ -35,9 +36,7 @@ import statistics
 import sys
 import time
 
-import numpy as np
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
@@ -51,70 +50,24 @@ from fissure_segmentation_tpu_torch.kernels.knn import knn_cuda  # noqa: E402
 from fissure_segmentation_tpu_torch.keypoints.foerstner import \
     foerstner_keypoints  # noqa: E402
 from fissure_segmentation_tpu_torch.models import (DGCNNSeg,  # noqa: E402
-                                                   ensemble_predict,
-                                                   predict_full_volume)
-from fissure_segmentation_tpu_torch.postprocess.surface_fitting import (  # noqa: E402
-    _host_mesh_filter, batched_psr_mc, mesh_to_labelmap)
-from fissure_segmentation_tpu_torch.serving import (_keypoints,  # noqa: E402
-                                                    kpts_to_grid,
+                                                   ensemble_predict)
+from fissure_segmentation_tpu_torch.serving import (kpts_to_grid,  # noqa: E402
                                                     segment_case)
+from fissure_segmentation_tpu_torch.utils.profiling import (  # noqa: E402
+    device_rows, recording)
 
 # chip_smoke phase 14's weighting for the synthetic CT's intensities
 ENHANCEMENT = dict(fissure_mu=-0.25, fissure_sigma=0.1)
 
 
-def staged_case(vol, mask, apply, seed, kp_mode="foerstner", cnn=None):
-    """segment_case's steps with a sync after each; returns stage seconds."""
-    t = {}
-    sync = torch.cuda.synchronize
-    gen = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        sync()
-        t0 = time.perf_counter()
-        kp_vol = vol
-        if kp_mode == "cnn":
-            kp_vol = predict_full_volume(cnn, vol)
-            sync()
-            t["cnn_forward"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-        kpts, valid, _ = _keypoints(kp_vol, mask, gen, kp_mode=kp_mode,
-                                    max_kpts=20000, cnn_model=None,
-                                    cnn_dtype=None, kp_scores=None,
-                                    approx_top_k=False, **ENHANCEMENT)
-        coords = torch.where(valid[:, None],
-                             kpts_to_grid(kpts.flip(-1).float(), vol.shape),
-                             -1.0)
-        sync()
-        t["keypoints"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        pred = ensemble_predict(apply, coords, generator=gen).argmax(-1)
-        sync()
-        t["ensemble"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        cv = torch.stack([valid & (pred == c) for c in (1, 2, 3)])
-        inside, tris, n_tris = batched_psr_mc(coords.flip(-1), cv,
-                                              (64, 64, 64), 4.0, 30, 24000)
-        sync()
-        t["surface_fit_device"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        kpts, valid, pred, inside, tris, n_tris = (
-            a.cpu().numpy() for a in (kpts, valid, pred, inside, tris, n_tris))
-        t["device_to_host"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    world = kpts[:, ::-1].astype(np.float32)
-    meshes = []
-    for i in range(3):
-        pts_c = world[valid & (pred == i + 1)]
-        n = int(n_tris[i])
-        meshes.append(_host_mesh_filter(
-            inside[i], tris[i, :n], np.ones(n, bool), pts_c, SHAPE,
-            (64, 64, 64), None, 1, [False, True, True][i], SHAPE[2] / 2,
-            True))
-    t["host_filter"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    mesh_to_labelmap(meshes, SHAPE)
-    t["host_labelmap"] = time.perf_counter() - t0
-    return t
+def span_ms(records) -> dict:
+    """{span name: (host ms summed over its spans, count)}, in the order
+    the names first opened."""
+    out: dict = {}
+    for r in sorted(records, key=lambda r: r.start_ns):
+        ms, n = out.get(r.name, (0.0, 0))
+        out[r.name] = (ms + (r.end_ns - r.start_ns) * 1e-6, n + 1)
+    return out
 
 
 def routing_ab(vol, mask, apply, full, pairs: int, card: str) -> None:
@@ -155,8 +108,8 @@ def routing_ab(vol, mask, apply, full, pairs: int, card: str) -> None:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             stage(1)
             torch.cuda.synchronize()
-        busy = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA) / 1e3
+        busy = sum(e.self_device_time_total
+                   for e in device_rows(prof.key_averages())) / 1e3
         print(f"routing {name}: ensemble stage {statistics.median(ev[r]):.3f}"
               f" ms (CUDA events, median of {pairs}: "
               f"{[round(t, 3) for t in ev[r]]}), summed kernel time "
@@ -199,21 +152,21 @@ def main() -> int:
                             center_x=SHAPE[2] / 2, **kw)
 
     full(1)  # warm-up (builds the kernels, fills the caching allocator)
-    stages = [staged_case(vol, mask, apply, 2 + i, args.kp_mode, cnn)
-              for i in range(args.cases)]
-    print(f"kp_mode {args.kp_mode}: stages, median of {args.cases} warm "
-          f"cases, on {card}:")
-    for k in stages[0]:
-        print(f"  {k:20s} {statistics.median(s[k] for s in stages):.4f} s")
-    print(f"  {'sum':20s} "
-          f"{statistics.median(sum(s.values()) for s in stages):.4f} s")
-
-    walls = []
+    walls, cases = [], []
     for i in range(args.cases):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        full(20 + i)
-        walls.append(time.perf_counter() - t0)
+        with recording() as records:
+            t0 = time.perf_counter()
+            full(20 + i)
+            walls.append(time.perf_counter() - t0)
+        cases.append(span_ms(records))
+    print(f"kp_mode {args.kp_mode}: the program's spans, host ms a case "
+          f"(median of {args.cases} unstaged warm cases) and spans a case, "
+          f"on {card}:")
+    for name in cases[0]:
+        ms = statistics.median(c.get(name, (0.0, 0))[0] for c in cases)
+        n = statistics.median(c.get(name, (0.0, 0))[1] for c in cases)
+        print(f"  {name:20s} {ms:9.3f} ms  x{n:g}")
     wall = statistics.median(walls)
     print(f"unstaged: {wall:.4f} s/case median of "
           f"{[round(w, 4) for w in walls]} on {card}")
@@ -223,8 +176,8 @@ def main() -> int:
         full(9)
         torch.cuda.synchronize()
     # kernels only: CPU-side op rows repeat their kernels' device time
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e6
+    busy = sum(e.self_device_time_total
+               for e in device_rows(prof.key_averages())) / 1e6
     print(f"profiled case: summed device kernel time {busy:.4f} s, busy "
           f"share of the unstaged median {busy / wall:.3f} on {card}")
     print(prof.key_averages().table(sort_by="self_device_time_total",

@@ -110,7 +110,8 @@ def _assert_equal_results(got, want):
 @pytest.mark.parametrize("window", [1, 2, 3])
 def test_segment_cases_equals_a_loop(served, threads, window):
     """Bit for bit: keypoints, labels, every triangle and its validity,
-    the labelmap; with the stage timings a case."""
+    the labelmap; with the stage timings a case (the dispatch's stages
+    within it)."""
     apply, vols, loop = served
     assert {1, 2, 3} <= set(np.unique(loop[0].labels))
     assert all(int(v.sum()) > 0 for _, v in loop[0].meshes)
@@ -119,10 +120,13 @@ def test_segment_cases_equals_a_loop(served, threads, window):
                         seed=5, window=window, timings=timings,
                         pipeline_threads=threads, **CFG)
     _assert_equal_results(got, loop)
+    stages = {"upload_s", "keypoints_s", "ensemble_s", "surface_s",
+              "copy_out_s"}
     keys = {"dispatch_s", "fetch_s", "host_s"} if threads else \
         {"dispatch_s", "finish_s"}
-    assert [set(t) for t in timings] == [keys] * 3
+    assert [set(t) for t in timings] == [keys | stages] * 3
     assert all(v >= 0 for t in timings for v in t.values())
+    assert all(sum(t[k] for k in stages) <= t["dispatch_s"] for t in timings)
 
 
 def test_segment_cases_per_case_draws(served):
